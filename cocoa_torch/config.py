@@ -1,0 +1,101 @@
+"""Algorithm and run configuration (counterpart of cocoa_tpu/config.py).
+
+``Params`` and ``DebugParams`` mirror the reference's core datatypes
+(OptClasses.scala:21-42); ``RunConfig`` holds the CLI flag set this port
+accepts, and ``REFERENCE_FLAGS`` maps the reference flag names onto it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class Params:
+    """Algorithmic parameters: K shards, H = ``local_iters`` local steps per
+    round, T = ``num_rounds``."""
+
+    n: int                      # global number of training examples
+    num_rounds: int = 200       # T
+    local_iters: int = 1        # H
+    lam: float = 0.01           # lambda, L2 regularisation
+    beta: float = 1.0           # CoCoA averaging scale (beta/K)
+    gamma: float = 1.0          # CoCoA+ aggregation scale
+    loss: str = "hinge"         # "hinge" | "smooth_hinge" | "logistic"
+    smoothing: float = 1.0      # smooth_hinge parameter s
+    sigma: Optional[float] = None  # sigma' override; None = the safe K*gamma
+
+
+@dataclasses.dataclass
+class DebugParams:
+    debug_iter: int = 10        # evaluate every this many rounds; <=0 disables
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class RunConfig:
+    """The CLI flag set of this port: the reference flags plus the
+    numeric/layout knobs of the JAX CLI that the port supports, and
+    ``device``."""
+
+    train_file: str = ""
+    test_file: str = ""
+    num_features: int = 0
+    num_splits: int = 1          # K
+    chkpt_dir: str = ""
+    chkpt_iter: int = 100
+    just_cocoa: bool = True
+    lam: float = 0.01            # --lambda
+    num_rounds: int = 200
+    local_iter_frac: float = 1.0
+    beta: float = 1.0
+    gamma: float = 1.0
+    debug_iter: int = 10
+    seed: int = 0
+
+    dtype: str = "float32"       # float32 | float64 | bfloat16
+    layout: str = "auto"         # dense | sparse (padded CSR) | auto
+    rng: str = "reference"       # reference | jax | permuted
+    math: str = "exact"          # exact | fast
+    loss: str = "hinge"
+    smoothing: float = 1.0
+    sigma: float = 0.0           # 0 = the safe K*gamma
+    device: str = "cuda"         # cuda | cpu
+
+    def to_params(self, n: int, k: int) -> Params:
+        """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""
+        h = max(1, int(self.local_iter_frac * n / k))
+        return Params(
+            n=n,
+            num_rounds=self.num_rounds,
+            local_iters=h,
+            lam=self.lam,
+            beta=self.beta,
+            gamma=self.gamma,
+            loss=self.loss,
+            smoothing=self.smoothing,
+            sigma=self.sigma if self.sigma > 0 else None,
+        )
+
+    def to_debug(self) -> DebugParams:
+        return DebugParams(debug_iter=self.debug_iter, seed=self.seed)
+
+
+# reference CLI flag name -> RunConfig field (hingeDriver.scala:22-38)
+REFERENCE_FLAGS = {
+    "trainFile": "train_file",
+    "testFile": "test_file",
+    "numFeatures": "num_features",
+    "numSplits": "num_splits",
+    "chkptDir": "chkpt_dir",
+    "chkptIter": "chkpt_iter",
+    "justCoCoA": "just_cocoa",
+    "lambda": "lam",
+    "numRounds": "num_rounds",
+    "localIterFrac": "local_iter_frac",
+    "beta": "beta",
+    "gamma": "gamma",
+    "debugIter": "debug_iter",
+    "seed": "seed",
+}
