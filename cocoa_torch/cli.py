@@ -7,12 +7,14 @@
         [--dtype=float32|float64] [--layout=auto|dense|sparse] \\
         [--rng=reference|jax|permuted] [--debugIter=.. --seed=.. --beta=..
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
-        --smoothing=..] [--device=cuda|cpu]
+        --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
 prints the reference's round and summary lines.  It runs on CUDA unless
 ``--device=cpu`` is given, and exits 2 with ``error: ...`` when CUDA is
-absent.  Flags of the JAX CLI that this port does not support yet exit 2
+absent.  ``--blockSize`` (with ``--math=fast``) runs each round as the
+block-coordinate round; ``auto`` picks the block size for the layout.
+Flags of the JAX CLI that this port does not support yet exit 2
 with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue A)``.
 """
 
@@ -30,15 +32,17 @@ from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
 from cocoa_torch.solvers import run_cocoa
+from cocoa_torch.solvers.cocoa import auto_block_size
 from cocoa_torch.utils.logging import Trajectory
 
-_PORT_FLAGS = ("dtype", "layout", "rng", "math", "loss", "smoothing",
-               "sigma", "device")  # same-named RunConfig fields
+_PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
+                               "smoothing", "sigma", "device")}
+_PORT_FLAGS["blockSize"] = "block_size"
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "chkptDir", "sampling", "mesh", "fp", "trajOut", "gapTarget", "resume",
     "scanChunk", "deviceLoop", "master", "processId", "numProcesses",
-    "profile", "objective", "l2", "blockSize", "blockPipeline",
+    "profile", "objective", "l2", "blockPipeline",
     "divergenceGuard", "sigmaSchedule", "warmStart", "accel", "theta",
     "elastic", "stallTimeout", "evalDense", "hotCols", "ingest",
     "ingestCache", "metrics", "events", "quiet", "trace", "flightRecorder",
@@ -78,7 +82,7 @@ def parse_args(argv: list[str]):
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
         elif key in _PORT_FLAGS:
-            field = key
+            field = _PORT_FLAGS[key]
         else:
             raise SystemExit(f"Invalid argument: --{key}")
         if field in _BOOL_FIELDS:
@@ -118,6 +122,26 @@ def _check_choices(cfg: RunConfig):
     losses.validate(cfg.loss, cfg.smoothing)
 
 
+def _block_size(cfg: RunConfig) -> int:
+    """``--blockSize`` as an int (0 for off or auto), with the JAX CLI's
+    checks and messages (cocoa_tpu/cli.py:1611-1627)."""
+    auto = cfg.block_size.lower() == "auto"
+    if auto or not cfg.block_size:
+        size = 0
+    else:
+        try:
+            size = int(cfg.block_size)
+        except ValueError:
+            raise ValueError(f"--blockSize must be an integer or 'auto', got "
+                             f"{cfg.block_size!r}") from None
+    if size < 0:
+        raise ValueError(f"--blockSize must be >= 0, got {size}")
+    if (size or auto) and cfg.math != "fast":
+        raise ValueError("--blockSize requires --math=fast (the block kernel "
+                         "is a margins-decomposition variant)")
+    return size
+
+
 def run(argv: list[str]) -> tuple[int, list[RunResult]]:
     """The CLI's work: (exit code, one RunResult per algorithm run)."""
     cfg, unported = parse_args(argv)
@@ -128,6 +152,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
     try:
         device = resolve_device(cfg.device)
         _check_choices(cfg)
+        block_size = _block_size(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -151,6 +176,10 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
 
+    if cfg.block_size.lower() == "auto":
+        block_size = auto_block_size(ds, dtype)
+        print(f"blockSize=auto: using {block_size or 'the sequential path'} "
+              f"for the {ds.layout} layout")
     params = cfg.to_params(data.n, k)
     debug = cfg.to_debug()
     results = []
@@ -158,7 +187,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         try:
             w, alpha, traj = run_cocoa(ds, params, debug, plus=plus,
                                        test_ds=test_ds, rng=cfg.rng,
-                                       math=cfg.math)
+                                       math=cfg.math, block_size=block_size)
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2, results

@@ -62,6 +62,7 @@ class RunConfig:
     smoothing: float = 1.0
     sigma: float = 0.0           # 0 = the safe K*gamma
     device: str = "cuda"         # cuda | cpu
+    block_size: str = ""         # --blockSize: "" (off), an int, or auto
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""

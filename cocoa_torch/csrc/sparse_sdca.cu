@@ -43,47 +43,11 @@
 
 #include <cuda_runtime.h>
 
+#include "sdca_common.cuh"
+
 namespace {
 
-enum { kHinge = 0, kSmoothHinge = 1, kLogistic = 2 };
-
-template <typename T>
-__device__ __forceinline__ T clip(T x, T lo, T hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-__device__ __forceinline__ float log_t(float x) { return logf(x); }
-__device__ __forceinline__ double log_t(double x) { return log(x); }
-__device__ __forceinline__ float exp_t(float x) { return expf(x); }
-__device__ __forceinline__ double exp_t(double x) { return exp(x); }
-
-// cocoa_tpu/ops/losses.py alpha_step, same constants (_EPS 1e-12,
-// _U_MAX 35, 10 Newton iterations).
-template <typename T>
-__device__ T alpha_step(int loss, T a, T z, T qii, T lam_n, T s) {
-  const T zero = T(0), one = T(1);
-  if (loss == kHinge) {
-    const T grad = (z - one) * lam_n;
-    const T proj = a <= zero ? (grad < zero ? grad : zero)
-                 : (a >= one ? (grad > zero ? grad : zero) : grad);
-    const T new_a = qii != zero ? clip(a - grad / qii, zero, one) : one;
-    return proj != zero ? new_a : a;
-  }
-  if (loss == kSmoothHinge) {
-    const T grad = (z - one + s * a) * lam_n;
-    return clip(a - grad / (qii + s * lam_n), zero, one);
-  }
-  const T ac = clip(a, T(1e-12), T(1.0 - 1e-12));
-  const T q = qii / lam_n;
-  T u = clip(log_t(ac / (one - ac)), T(-35), T(35));
-  for (int it = 0; it < 10; ++it) {
-    const T sig = one / (one + exp_t(-u));
-    const T g = u + z + q * (sig - ac);
-    const T gp = one + q * sig * (one - sig);
-    u = clip(u - g / gp, T(-35), T(35));
-  }
-  return one / (one + exp_t(-u));
-}
+using sdca::alpha_step;
 
 template <typename T, bool kSmem>
 __device__ __forceinline__ T load_dw(const T* dw, int f) {

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 
 LOSSES = ("hinge", "smooth_hinge", "logistic")
+# the loss codes of the CUDA kernels (csrc/sdca_common.cuh)
+LOSS_CODES = {"hinge": 0, "smooth_hinge": 1, "logistic": 2}
 
 # logistic: the entropy dual needs a in (0, 1) strictly
 _EPS = 1e-12

@@ -46,6 +46,14 @@ def row_axpy(row: Row, coef: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return vec.scatter_add_(1, row.idx, coef[:, None] * row.val)
 
 
+def row_lengths(sp_values: torch.Tensor) -> torch.Tensor:
+    """(K, n_shard) int32: 1 + the last slot holding a nonzero value
+    (interior explicit zeros count, trailing padding does not)."""
+    w = sp_values.shape[-1]
+    iota = torch.arange(1, w + 1, dtype=torch.int32, device=sp_values.device)
+    return torch.where(sp_values != 0, iota, 0).amax(-1).to(torch.int32)
+
+
 def shard_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
     """x_i . w for every row of every shard: (K, n_shard)."""
     if "X" in shards:

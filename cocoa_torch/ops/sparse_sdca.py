@@ -18,31 +18,19 @@ import functools
 
 import torch
 
+from cocoa_torch import kernels
 from cocoa_torch.ops import losses
+from cocoa_torch.ops.losses import LOSS_CODES
 from cocoa_torch.ops.local_sdca import coef_divisor, local_sdca_fast, \
     mode_factors
-from cocoa_torch.ops.rows import shard_margins
+from cocoa_torch.ops.rows import row_lengths, shard_margins
 
-_LOSS_CODES = {"hinge": 0, "smooth_hinge": 1, "logistic": 2}
 _FN = {torch.float32: "sparse_sdca_round_f32",
        torch.float64: "sparse_sdca_round_f64"}
 
 
 def check_dtype(dtype: torch.dtype) -> None:
-    """2-byte dtypes are refused, as cocoa_tpu/ops/pallas_sdca.py
-    ``check_dtype`` refuses them: a bf16 round cannot certify a small
-    duality gap, and the kernel is built for float32 and float64."""
-    if dtype not in _FN:
-        raise ValueError(f"the sparse SDCA kernel takes float32 or float64, "
-                         f"got {dtype}")
-
-
-def row_lengths(sp_values: torch.Tensor) -> torch.Tensor:
-    """(K, n_shard) int32: 1 + the last slot holding a nonzero value
-    (interior explicit zeros count, trailing padding does not)."""
-    w = sp_values.shape[-1]
-    iota = torch.arange(1, w + 1, dtype=torch.int32, device=sp_values.device)
-    return torch.where(sp_values != 0, iota, 0).amax(-1).to(torch.int32)
+    kernels.check_dtype(dtype, "the sparse SDCA kernel")
 
 
 def sparse_sdca_round_plain(w, alpha, sp_indices, sp_values, labels,
@@ -77,9 +65,7 @@ def sparse_sdca_round(w, alpha, sp_indices, sp_values, labels, sq_norms,
         return sparse_sdca_round_plain(
             w, alpha, sp_indices, sp_values, labels, sq_norms, idxs, lam, n,
             mode=mode, sigma=sigma, loss=loss, smoothing=smoothing)
-    if w.device.type != "cuda":
-        raise ValueError(f"sparse_sdca_round runs on cuda or cpu tensors, "
-                         f"got {w.device}")
+    kernels.require_cuda(w, "sparse_sdca_round")
     if row_len is None:
         row_len = row_lengths(sp_values)
     return _launch(w, alpha, sp_indices, sp_values, labels, sq_norms, idxs,
@@ -91,32 +77,11 @@ sparse_sdca_round.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The kernel library with its C signatures declared (pointers and
-    the stream as c_void_p, so ctypes does not cut them to 32 bits)."""
-    from cocoa_torch import kernels
-
     lib = kernels.load("sparse_sdca")
-    for name in _FN.values():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_double] * 5
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    kernels.declare(lib, _FN.values(), 9,
+                    [ctypes.c_int] * 6 + [ctypes.c_double] * 5
+                    + [ctypes.c_int, ctypes.c_int])
     return lib
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, w on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _launch(w, alpha, sp_indices, sp_values, labels, sq_norms, idxs, row_len,
@@ -124,30 +89,28 @@ def _launch(w, alpha, sp_indices, sp_values, labels, sq_norms, idxs, row_len,
     k, n_shard, width = sp_indices.shape
     d, h = w.shape[0], idxs.shape[1]
     dt, dev = w.dtype, w.device
-    _check("w", w, dt, (d,), dev)
-    _check("alpha", alpha, dt, (k, n_shard), dev)
-    _check("sp_indices", sp_indices, torch.int32, (k, n_shard, width), dev)
-    _check("sp_values", sp_values, dt, (k, n_shard, width), dev)
-    _check("labels", labels, dt, (k, n_shard), dev)
-    _check("sq_norms", sq_norms, dt, (k, n_shard), dev)
-    _check("idxs", idxs, torch.int32, (k, h), dev)
-    _check("row_len", row_len, torch.int32, (k, n_shard), dev)
+    check = kernels.check_tensor
+    check("w", w, dt, (d,), dev)
+    check("alpha", alpha, dt, (k, n_shard), dev)
+    check("sp_indices", sp_indices, torch.int32, (k, n_shard, width), dev)
+    check("sp_values", sp_values, dt, (k, n_shard, width), dev)
+    check("labels", labels, dt, (k, n_shard), dev)
+    check("sq_norms", sq_norms, dt, (k, n_shard), dev)
+    check("idxs", idxs, torch.int32, (k, h), dev)
+    check("row_len", row_len, torch.int32, (k, n_shard), dev)
     sig_eff, qii_factor = mode_factors(mode, sigma)
     lib = _library()
-    fn = getattr(lib, _FN[dt])
     alpha_out = alpha.clone()
     dw = torch.empty(k, d, dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(w.data_ptr(), alpha_out.data_ptr(), sp_indices.data_ptr(),
-                sp_values.data_ptr(), labels.data_ptr(), sq_norms.data_ptr(),
-                idxs.data_ptr(), row_len.data_ptr(), dw.data_ptr(),
-                k, n_shard, width, d, h, _LOSS_CODES[loss],
-                float(lam * n), float(coef_divisor(mode, lam * n)),
-                float(sig_eff), float(qii_factor), float(smoothing),
-                int(mode == "frozen"), int(dw_in_smem), stream)
-    if rc != 0:
-        raise RuntimeError(f"sparse_sdca kernel launch failed: CUDA error "
-                           f"{rc} ({lib.cuda_error_string(rc).decode()})")
+        rc = getattr(lib, _FN[dt])(
+            w.data_ptr(), alpha_out.data_ptr(), sp_indices.data_ptr(),
+            sp_values.data_ptr(), labels.data_ptr(), sq_norms.data_ptr(),
+            idxs.data_ptr(), row_len.data_ptr(), dw.data_ptr(),
+            k, n_shard, width, d, h, LOSS_CODES[loss],
+            float(lam * n), float(coef_divisor(mode, lam * n)),
+            float(sig_eff), float(qii_factor), float(smoothing),
+            int(mode == "frozen"), int(dw_in_smem), kernels.stream_ptr(dev))
+    kernels.raise_on_error(lib, rc, "sparse_sdca")
     sparse_sdca_round.launches += 1
     return dw, alpha_out

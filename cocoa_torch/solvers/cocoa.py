@@ -15,11 +15,18 @@ import torch
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
-from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_fast
-from cocoa_torch.ops.rows import shard_margins
-from cocoa_torch.ops.sparse_sdca import check_dtype, row_lengths, \
-    sparse_sdca_round
+from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
+from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched, \
+    local_sdca_fast
+from cocoa_torch.ops.rows import row_lengths, shard_margins
+from cocoa_torch.ops.sparse_sdca import check_dtype, sparse_sdca_round
 from cocoa_torch.solvers import base
+
+# ``--blockSize=auto`` at float32: the block size the JAX package ranks
+# first on a TPU v5e (cocoa_tpu/ops/pallas_chain.py BLOCK_SIZE_PREFERENCE).
+# Not yet measured on the card; ranking block sizes there is an open
+# measurement (ROADMAP).
+AUTO_BLOCK = 128
 
 
 def _alg_config(params: Params, k: int, plus: bool):
@@ -53,12 +60,54 @@ def fast_round_route(layout: str, device, dtype: torch.dtype) -> str:
         "CUDA yet; use --layout=sparse or --math=exact")
 
 
+def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
+    """Which branch runs a ``--blockSize=b`` round (the card's rule, in
+    place of the TPU's VMEM fit gates at cocoa_tpu/ops/local_sdca.py:510-521
+    and pallas_chain.py ``fused_fits``):
+
+    - sparse layout: ``"sparse_gram"``, the Gram and margins from the rows'
+      slots and a sparse apply (no (K, B, d) densify);
+    - dense layout: ``"fused"`` when the fused kernel's per-shard
+      shared-memory working set (the (B, B) Gram: 64 KB at B=128 in
+      float32) fits the 227 KB a block may use, else ``"split"``.
+
+    The route depends on shapes only: a CPU tensor takes the same branch
+    with the kernels' plain versions.  2-byte dtypes raise."""
+    check_dtype(dtype)
+    if b < 1 or b > CHAIN_MAX_B:
+        raise ValueError(f"--blockSize must be in 1..{CHAIN_MAX_B} on this "
+                         f"port, got {b}")
+    if layout == "sparse":
+        return "sparse_gram"
+    return "fused" if fused_fits(b, dtype.itemsize) else "split"
+
+
+def auto_block_size(ds: ShardedDataset, dtype: torch.dtype) -> int:
+    """``--blockSize=auto`` (counterpart of cocoa_tpu/solvers/cocoa.py
+    ``auto_block_size``): float32 takes :data:`AUTO_BLOCK` on every
+    layout, and any other dtype gives 0, the sequential path, as the JAX
+    package gives for itemsize != 4.  Every branch of the port serves
+    B=128 at any K and row width; the JAX package's dependence on them
+    came from the TPU's VMEM and SMEM budgets."""
+    if dtype != torch.float32:
+        return 0
+    block_route(ds.layout, AUTO_BLOCK, dtype)
+    return AUTO_BLOCK
+
+
 def _sdca_round_parts(params: Params, mode: str, scaling: float,
-                      sigma: float, math: str, ds: ShardedDataset):
+                      sigma: float, math: str, ds: ShardedDataset,
+                      block_size: int = 0):
     """The round function ``(state, idxs_kh) -> state`` over
-    ``state = (w, alpha)`` for one algorithm and math mode."""
+    ``state = (w, alpha)`` for one algorithm and math mode; ``block_size``
+    > 0 runs the fast round as the block-coordinate round."""
     if math not in ("exact", "fast"):
         raise ValueError(f"math must be 'exact' or 'fast', got {math!r}")
+    if block_size < 0:
+        raise ValueError(f"block_size must be >= 0, got {block_size}")
+    if block_size and math == "exact":
+        raise ValueError("block > 0 requires math='fast' (the block kernel "
+                         "is a margins-decomposition variant)")
     shards = ds.shard_arrays()
     common = dict(mode=mode, sigma=sigma, loss=params.loss,
                   smoothing=params.smoothing)
@@ -69,6 +118,20 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             da, dw = local_sdca(w, alpha, shards, idxs_kh, params.lam,
                                 params.n, **common)
             # CoCoA.scala:47-48,101
+            return w + scaling * dw.sum(0), alpha + scaling * da
+        return round_fn
+
+    if block_size:
+        route = block_route(ds.layout, block_size, ds.dtype)
+        if route == "sparse_gram":
+            # per-row nnz bounds the kernels' loops; once per run
+            shards = {**shards, "sp_row_len": row_lengths(ds.sp_values)}
+
+        def round_fn(state, idxs_kh):
+            w, alpha = state
+            da, dw = local_sdca_block_batched(
+                w, alpha, shards, idxs_kh, params.lam, params.n,
+                block=block_size, route=route, **common)
             return w + scaling * dw.sum(0), alpha + scaling * da
         return round_fn
 
@@ -102,11 +165,14 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
 def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     alg_name: str, alg, test_ds: Optional[ShardedDataset] = None,
                     rng: str = "reference", math: str = "exact",
-                    quiet: bool = False):
-    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory)."""
+                    quiet: bool = False, block_size: int = 0):
+    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory).
+    ``block_size`` > 0 (``--blockSize``, needs ``math="fast"``) runs each
+    round as the block-coordinate round (see :func:`block_route`)."""
     base.check_shards(ds)
     k = ds.k
-    round_fn = _sdca_round_parts(params, *alg, math=math, ds=ds)
+    round_fn = _sdca_round_parts(params, *alg, math=math, ds=ds,
+                                 block_size=block_size)
     if not quiet:
         print(f"\nRunning {alg_name} on {ds.n} data examples, "
               f"distributed over {k} workers")
