@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
-Phases, each printed as it runs; any failed check exits non-zero:
+Phases, each printed as it runs (one line per kernel-vs-plain case on
+stderr); any failed check exits non-zero:
 
-1. the card's name and power limit (nvidia-smi); build the three kernel
+1. the card's name and power limit (nvidia-smi); build the four kernel
    libraries (one nvcc each, all started together) and time the build;
 2. each kernel against its plain PyTorch version on the same CUDA tensors:
    the sparse SDCA round on the demo shards and on rcv1-like shards, for
    modes cocoa/plus/frozen x losses hinge/smooth_hinge/logistic x
    float32/float64 x dw in shared or global memory, with repeated draws
    and a real column 0 followed by padding; then the kernel's (both dw
-   placements) and the plain version's time at the main path's shape;
+   placements) and the plain version's time at the main path's shape, on
+   its own draws;
 3. the bundled demo through the CLI entry point (CoCoA+ and CoCoA,
    --math=fast, float32): the gap falls and stays >= 0, CoCoA+ ends below
    1e-2, alpha stays in [0, 1], one launch per round, and every debugIter
@@ -34,10 +36,34 @@ Phases, each printed as it runs; any failed check exits non-zero:
    epsilon-like data (400 000 x 2000, made on the card) through
    run_cocoa at B=128 (the fused branch, B4) and B=256 (the split branch,
    B3), with the launches of every kernel counted per round, and the two
-   runs' gaps within relative 1e-3 of each other.
+   runs' gaps within relative 1e-3 of each other;
+7. the dense SDCA round (B2) against its plain version on the same CUDA
+   tensors, with repeated draws: modes cocoa/plus/frozen x the three
+   losses x float32/float64 on the demo's dense shards (w and dw in
+   shared and in global memory) and on the epsilon-like shards (K=8,
+   H=5000), and mode prox with the lasso rule at l2 0 and 0.1 on the
+   lasso design (8192 x 32768 made on the card, K=8, H=409) and the
+   demo's dense column shards; the sparse round (B1) in mode prox on the
+   demo's padded-CSC column shards; then B2's and its plain version's
+   time at the epsilon-like, lasso and demo shapes on the main path's own
+   draws, two launches held bit for bit against each other;
+8. the dense sequential path: epsilon-like data through run_cocoa on
+   --math=fast with no block size, CoCoA+ and CoCoA for 30 rounds, one
+   B2 launch per round, CoCoA+'s gaps within relative 1e-3 of phase 6's
+   fused block run;
+9. the new entry points: the demo through the CLI with --justCoCoA=false
+   on the sparse layout (B1, mode frozen for mini-batch CD) and the dense
+   one (B2), six algorithms, and with --objective=lasso on the sparse and
+   dense column shards (B1 and B2 in mode prox), each against the same
+   run through the plain versions (gaps within relative 1e-3) with its
+   launches counted; then the lasso design at full width through
+   run_prox_cocoa, lasso and elastic net (l2 = 0.1) at lambda =
+   0.3*lambda_max: one B2 launch per round, a certified gap >= 0 that
+   falls, ms per round and the round at which the gap first reaches
+   1e-3 * |b|^2 / 2.
 
 The line before the last lists every kernel with its launches on the main
-path, its error against the plain version and its times; the last line is
+paths, its error against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
 """
@@ -46,6 +72,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -62,20 +89,32 @@ import torch
 from cocoa_torch import cli, kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data import load_libsvm, shard_dataset
-from cocoa_torch.data.synth import synth_dense_sharded, synth_sparse, \
-    write_libsvm
+from cocoa_torch.data.columns import shard_columns
+from cocoa_torch.data.synth import synth_dense_sharded, \
+    synth_lasso_columns, synth_sparse, write_libsvm
 from cocoa_torch.ops import block_chain as bc
+from cocoa_torch.ops import dense_sdca as dn
 from cocoa_torch.ops import sparse_block as sb
 from cocoa_torch.ops import sparse_sdca as sp
 from cocoa_torch.ops.local_sdca import dense_rows, mode_factors
 from cocoa_torch.ops.rows import row_lengths
 from cocoa_torch.solvers import base
 from cocoa_torch.solvers import cocoa as cocoa_mod
+from cocoa_torch.solvers.prox_cocoa import run_prox_cocoa
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 DEMO_TRAIN = ROOT / "data" / "small_train.dat"
 DEMO_TEST = ROOT / "data" / "small_test.dat"
+
+# full-width shapes: rcv1-like (n, d); epsilon-like (n, d, K) as at
+# benchmarks/run.py:407; the lasso design (n, d, K) of benchmarks/run.py
+# bench_lasso, run to a relative gap of 1e-3 within LASSO_ROUNDS rounds
+RCV1_SHAPE = (20242, 47236)
+EPS_SHAPE = (400_000, 2000, 8)
+LASSO_SHAPE = (8192, 32768, 8)
+LASSO_ROUNDS = 1000
+PROX_L2 = (0.0, 0.1)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s; FP32 and
 # FP64 outside the tensor cores 67 and 34 TFLOP/s
@@ -87,6 +126,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # version takes the round's margins X.w up front; the rounding difference
 # passes through H dependent steps.  Relative to max(1, max |plain|).
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# a round kernel's (dw, alpha): each against max(1, its own max |plain|)
+ROUND_FLOORS = (1.0, 1.0)
 MODES = (("cocoa", 1.0), ("plus", None), ("frozen", 1.0))
 LOSSES = ("hinge", "smooth_hinge", "logistic")
 
@@ -117,18 +158,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def round_inputs(ds, h: int, seed: int):
-    """Random w and alpha, and reference-mode draws with forced repeats
-    (every fourth step redraws the row of the step before it)."""
+def round_inputs(ds, h: int, seed: int, prox: bool = False,
+                 repeats: bool = True):
+    """Random w and alpha (unbounded coordinates for ``prox``), and
+    reference-mode draws: the main path's own, or with ``repeats`` forced
+    repeats on top (every fourth step redraws the row of the step before
+    it), for the correctness cases."""
     rng = np.random.default_rng(seed)
     dev, dt = ds.device, ds.dtype
     w = torch.as_tensor(rng.normal(size=ds.num_features) * 0.1).to(dev, dt)
-    alpha = np.clip(rng.normal(size=(ds.k, ds.n_shard)) * 0.3 + 0.3, 0, 1)
+    alpha = rng.normal(size=(ds.k, ds.n_shard)) * 0.3
+    if not prox:
+        alpha = np.clip(alpha + 0.3, 0, 1)
     alpha = torch.as_tensor(alpha * ds.mask.cpu().numpy()).to(dev, dt)
     idxs = base.IndexSampler("reference", seed, h, ds.counts) \
         .round_indices(1).clone()
-    idxs[:, 1::4] = idxs[:, 0::4][:, :idxs[:, 1::4].shape[1]]
+    if repeats:
+        idxs[:, 1::4] = idxs[:, 0::4][:, :idxs[:, 1::4].shape[1]]
     return w, alpha, idxs.to(dev).contiguous()
+
+
+def distinct_rows(idxs):
+    """Per shard, the rows that a round's draws read at least once: a row
+    drawn again is read once from memory, so a bound counts it once."""
+    return [torch.unique(r.long()) for r in idxs]
 
 
 def column0_rows(ds, idxs):
@@ -153,26 +206,11 @@ def column0_rows(ds, idxs):
     return spi, spv, sq, idxs
 
 
-def compare_case(ds, w, alpha, idxs, lam, mode, sigma, loss, smem,
-                 arrays=None):
-    spi, spv, sq = arrays or (ds.sp_indices, ds.sp_values, ds.sq_norms)
-    args = (w, alpha, spi, spv, ds.labels, sq, idxs, lam, ds.n)
-    kw = dict(mode=mode, sigma=sigma, loss=loss, smoothing=1.0)
-    dw_k, a_k = sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw)
-    dw_p, a_p = sp.sparse_sdca_round_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err = max(float((dw_k - dw_p).abs().max()),
-              float((a_k - a_p).abs().max()))
-    scale = max(1.0, float(dw_p.abs().max()), float(a_p.abs().max()))
-    ok = bool(torch.isfinite(dw_k).all() and torch.isfinite(a_k).all())
-    return err, ok and err <= TOL[ds.dtype] * scale
-
-
 def phase_kernel_vs_plain(shapes):
     """Every mode x loss x dtype x dw placement case at both shapes, plus
     the crafted column-0 rows.  ``dw_in_smem=True`` is shared memory only
     where dw fits (not rcv1-like float64).  Returns the largest error."""
-    worst = 0.0
+    worst = {}
     for name, (data, k, h, lam) in shapes.items():
         for dt, smem in [(dt, smem) for dt in (torch.float32, torch.float64)
                          for smem in (True, False)]:
@@ -180,32 +218,32 @@ def phase_kernel_vs_plain(shapes):
                                device="cuda")
             w, alpha, idxs = round_inputs(ds, h, seed=3)
             tag = f"{name} {str(dt)[6:]} dw_in_smem={smem}"
-            for mode, sigma in MODES:
-                for loss in LOSSES:
-                    err, ok = compare_case(ds, w, alpha, idxs, lam, mode,
-                                           sigma or float(k), loss, smem)
-                    print(f"  {tag} {mode}/{loss}: max_abs_err {err:.3e}")
-                    check(ok, f"{tag} {mode}/{loss} kernel != plain "
-                              f"(err {err:.3e})")
-                    worst = max(worst, err)
+            cases = [(ds.sp_indices, ds.sp_values, ds.sq_norms, idxs, mode,
+                      sigma, loss, f"{mode}/{loss}")
+                     for mode, sigma in MODES for loss in LOSSES]
             spi, spv, sq, idxs0 = column0_rows(ds, idxs)
-            for mode, loss in (("plus", "hinge"), ("cocoa", "logistic")):
-                err, ok = compare_case(ds, w, alpha, idxs0, lam, mode,
-                                       float(k), loss, smem, (spi, spv, sq))
-                print(f"  {tag} column-0 rows {mode}/{loss}: "
-                      f"max_abs_err {err:.3e}")
-                check(ok, f"{tag} column-0 rows {mode}/{loss}")
-                worst = max(worst, err)
-    return worst
+            cases += [(spi, spv, sq, idxs0, mode, float(k), loss,
+                       f"column-0 rows {mode}/{loss}")
+                      for mode, loss in (("plus", "hinge"),
+                                         ("cocoa", "logistic"))]
+            for spi, spv, sq, ix, mode, sigma, loss, case in cases:
+                args = (w, alpha, spi, spv, ds.labels, sq, ix, lam, ds.n)
+                kw = dict(mode=mode, sigma=sigma or float(k), loss=loss,
+                          smoothing=1.0)
+                agree(f"{tag} {case}",
+                      sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
+                      sp.sparse_sdca_round_plain(*args, **kw), dt, worst,
+                      "B1", ROUND_FLOORS)
+    return worst["B1"]
 
 
 def phase_timing(data, k, h, lam):
     """Kernel (dw in shared memory, then in global memory) and plain ms
-    per round at the main path's shape (float32, CoCoA+, hinge), and the
-    bound for the same work."""
+    per round at the main path's shape (float32, CoCoA+, hinge) on its
+    own draws, and the bound for the same work."""
     ds = shard_dataset(data, k, layout="sparse", dtype=torch.float32,
                        device="cuda")
-    w, alpha, idxs = round_inputs(ds, h, seed=5)
+    w, alpha, idxs = round_inputs(ds, h, seed=5, repeats=False)
     row_len = sp.row_lengths(ds.sp_values)
     args = (w, alpha, ds.sp_indices, ds.sp_values, ds.labels, ds.sq_norms,
             idxs, lam, ds.n)
@@ -215,15 +253,18 @@ def phase_timing(data, k, h, lam):
     global_ms = cuda_ms(lambda: sp.sparse_sdca_round(
         *args, row_len=row_len, dw_in_smem=False, **kw), 50)
     plain_ms = cuda_ms(lambda: sp.sparse_sdca_round_plain(*args, **kw), 3)
-    # each input read once, each output written once: the sampled rows'
-    # slots (int32 column + value), w, the (K, d) dw written, alpha read
-    # and written, and per step the draw, y, |x|^2 and row length
+    # each input read once, each output written once: the distinct sampled
+    # rows' slots (int32 column + value) with their y, |x|^2 and row
+    # length, w, the (K, d) dw written, alpha read and written, and each
+    # step's draw
     isz = 4
-    nnz = int(row_len.gather(1, idxs.long()).sum())
-    n_bytes = (nnz * (4 + isz) + ds.num_features * isz
-               + k * ds.num_features * isz + 2 * k * ds.n_shard * isz
-               + k * h * (4 + 2 * isz + 4))
-    flops = 6 * nnz  # margin: w + s*dw and the product-sum; scatter: 2
+    rows = distinct_rows(idxs)
+    nnz = sum(int(row_len[s, r].sum()) for s, r in enumerate(rows))
+    n_bytes = (nnz * (4 + isz) + sum(r.numel() for r in rows) * (2 * isz + 4)
+               + ds.num_features * isz + k * ds.num_features * isz
+               + 2 * k * ds.n_shard * isz + k * h * 4)
+    # per step's nonzero, margin: w + s*dw and the product-sum; scatter: 2
+    flops = 6 * int(row_len.gather(1, idxs.long()).sum())
     bound_ms = max(n_bytes / HBM_BYTES_PER_S,
                    flops / PEAK_FLOPS[torch.float32]) * 1e3
     bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
@@ -258,9 +299,9 @@ def check_run(results, label: str):
 
 
 BLOCK = 128
-KERNELS = {"B1": sp.sparse_sdca_round, "B3": bc.chain_block_batched,
-           "B4": bc.fused_block, "B5": sb.sparse_block_gram,
-           "B6": sb.sparse_block_apply}
+KERNELS = {"B1": sp.sparse_sdca_round, "B2": dn.dense_sdca_round,
+           "B3": bc.chain_block_batched, "B4": bc.fused_block,
+           "B5": sb.sparse_block_gram, "B6": sb.sparse_block_apply}
 
 
 def counts() -> dict:
@@ -291,7 +332,8 @@ def agree(tag, got, want, dtype, worst, name, floors=None):
         check(bool(torch.isfinite(g).all()) and e <= TOL[dtype] * scale,
               f"{tag} kernel != plain (err {e:.3e}, scale {scale:.3e})")
         err = max(err, e)
-    print(f"  {tag}: max_abs_err {err:.3e}")
+    # one line per case, on stderr: stdout keeps the phase summaries
+    print(f"  {tag}: max_abs_err {err:.3e}", file=sys.stderr)
     worst[name] = max(worst.get(name, 0.0), err)
 
 
@@ -556,7 +598,7 @@ def phase_block_path(sparse_runs, eps):
         (OUT / f"chip_smoke_{label}_block.log").write_text(out)
         check("blockSize=auto: using 128 for the sparse layout" in out,
               f"{label}: --blockSize=auto did not pick 128 sparse-Gram")
-        want = {"B1": 0, "B3": rounds * blocks, "B4": 0,
+        want = {"B1": 0, "B2": 0, "B3": rounds * blocks, "B4": 0,
                 "B5": rounds * blocks, "B6": rounds * blocks}
         check(launched[label] == want,
               f"{label} block run launches {launched[label]}, want {want}")
@@ -602,7 +644,252 @@ def phase_block_path(sparse_runs, eps):
               f"{a.round}:{a.gap:.6g}/{b.gap:.6g}"
               for a, b in zip(fused[0].trajectory.records,
                               split[0].trajectory.records)))
+    return launched, per_round, fused
+
+MENU = ("CoCoA+", "CoCoA", "Mini-batch CD", "Mini-batch SGD", "Local SGD",
+        "Dist SGD")
+
+
+def as_dtype(ds, dt):
+    """A copy of the dataset ``ds`` with its float tensors in ``dt``."""
+    return dataclasses.replace(ds, **{
+        f: getattr(ds, f).to(dt) for f in ("labels", "mask", "sq_norms", "X")
+        if getattr(ds, f) is not None})
+
+
+def dense_args(ds, h, seed, prox=False, repeats=True):
+    w, alpha, idxs = round_inputs(ds, h, seed, prox=prox, repeats=repeats)
+    return (w, alpha, ds.X, ds.labels, ds.sq_norms, idxs)
+
+
+def phase_dense_kernel(shapes, worst):
+    """B2 against its plain version on the same CUDA tensors.  ``shapes``:
+    {name: ({dtype: dataset}, H, lam, n, state placements, cases)}, a case
+    (mode, sigma or None for K, loss, smoothing); draws with repeats."""
+    for name, (sets, h, lam, n, smems, cases) in shapes.items():
+        for dt, ds in sets.items():
+            args = dense_args(ds, h, 3, prox=cases[0][0] == "prox")
+            for smem in smems:
+                for mode, sigma, loss, s in cases:
+                    kw = dict(mode=mode, sigma=sigma or float(ds.k), loss=loss,
+                              smoothing=s)
+                    agree(f"{name} {str(dt)[6:]} state_in_smem={smem} "
+                          f"{mode}/{loss} s={s}",
+                          dn.dense_sdca_round(*args, lam, n,
+                                              state_in_smem=smem, **kw),
+                          dn.dense_sdca_round_plain(*args, lam, n, **kw),
+                          dt, worst, "B2", ROUND_FLOORS)
+
+
+def phase_sparse_prox(sets, h, lam, worst):
+    """B1 in mode prox with the lasso rule against its plain version, on
+    the demo's padded-CSC column shards (n = 1: lam is the L1 weight)."""
+    for dt, ds in sets.items():
+        w, alpha, idxs = round_inputs(ds, h, 4, prox=True)
+        args = (w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
+                ds.sq_norms, idxs, lam, 1)
+        for smem in (True, False):
+            for l2 in PROX_L2:
+                kw = dict(mode="prox", sigma=float(ds.k), loss="lasso",
+                          smoothing=l2)
+                agree(f"demo columns {str(dt)[6:]} dw_in_smem={smem} "
+                      f"prox/lasso l2={l2}",
+                      sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
+                      sp.sparse_sdca_round_plain(*args, **kw), dt, worst,
+                      "B1", ROUND_FLOORS)
+
+
+def dense_timing(ds, h, lam, n, mode, loss, smoothing, reps):
+    """B2's and its plain version's ms per launch (float32) at a main
+    path's shape, on the main path's own draws, the bound of the same
+    work, and two launches held bit for bit against each other (the
+    reduction tree is fixed)."""
+    args = dense_args(ds, h, 5, prox=mode == "prox", repeats=False)
+    kw = dict(mode=mode, sigma=float(ds.k), loss=loss, smoothing=smoothing)
+    first = dn.dense_sdca_round(*args, lam, n, **kw)
+    again = dn.dense_sdca_round(*args, lam, n, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"dense_sdca_round {mode}/{loss}: two launches differ")
+    ms = cuda_ms(lambda: dn.dense_sdca_round(*args, lam, n, **kw), reps)
+    plain_ms = cuda_ms(lambda: dn.dense_sdca_round_plain(*args, lam, n, **kw),
+                       1)
+    # each input read once, each output written once: the distinct
+    # sampled rows with their y and |x|^2, w, the (K, d) dw written, alpha
+    # read and written, and each step's draw; per step two d-dots and the
+    # axpy
+    isz, k, d = ds.X.element_size(), ds.k, ds.num_features
+    rows = sum(r.numel() for r in distinct_rows(args[5]))
+    n_bytes = (rows * (d + 2) * isz + d * isz + k * d * isz
+               + 2 * k * ds.n_shard * isz + k * h * 4)
+    return dict(ms=ms, plain_ms=plain_ms, n_bytes=n_bytes, rows=rows,
+                bound=bound(n_bytes, 6 * k * h * d))
+
+
+def reset_and_run(fn, *args, **kw):
+    """``fn`` with every kernel's count set to 0 just before and read just
+    after: (its result, the counts)."""
+    reset_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, counts()
+
+
+def only(name, n):
+    want = {k: 0 for k in KERNELS}
+    want[name] = n
+    return want
+
+
+def phase_dense_path(eps, fused):
+    """Epsilon-like data through run_cocoa on --math=fast with no block
+    size: CoCoA+ and CoCoA, one B2 launch per round and nothing else;
+    CoCoA+'s gaps within relative 1e-3 of phase 6's fused block run (the
+    same params, seed and draws).  Returns ({run: counts}, {run: ms per
+    round})."""
+    n, d, k = EPS_SHAPE
+    rounds, h = 30, n // k // 10
+    params = Params(n=n, num_rounds=rounds, local_iters=h, lam=1e-3)
+    launched, per_round, seq = {}, {}, {}
+    for plus in (True, False):
+        (w, alpha, traj), got = reset_and_run(
+            cocoa_mod.run_cocoa, eps, params,
+            DebugParams(debug_iter=10, seed=0), plus=plus, math="fast",
+            quiet=True)
+        label = f"epsilon-like sequential {traj.algorithm}"
+        check(got == only("B2", rounds),
+              f"{label} launches {got}, want {only('B2', rounds)}")
+        seq[plus] = [cli.RunResult(traj.algorithm, w, alpha, traj)]
+        check_run(seq[plus], "epsilon-like sequential")
+        launched[label] = got
+        per_round[label] = traj.records[-1].wall_time / rounds * 1e3
+        print(f"phase 8: {label} ok: 1 B2 launch per round, "
+              f"{per_round[label]:.3f} ms per round (evals included)")
+    check_same_gaps("epsilon-like sequential vs fused block", seq[True],
+                    fused)
+    print("phase 8: epsilon-like sequential vs fused B=128 gaps within rel "
+          "1e-3: " + " ".join(
+              f"{a.round}:{a.gap:.6g}/{b.gap:.6g}"
+              for a, b in zip(seq[True][0].trajectory.records,
+                              fused[0].trajectory.records)))
     return launched, per_round
+
+
+def plain_kernels():
+    """The round kernels' wrappers replaced by their plain versions inside
+    the solvers, for a run to compare against."""
+    def plain_sparse(*args, row_len=None, **kw):
+        return sp.sparse_sdca_round_plain(*args, **kw)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(cocoa_mod, "sparse_sdca_round",
+                                          plain_sparse))
+    stack.enter_context(mock.patch.object(cocoa_mod, "dense_sdca_round",
+                                          dn.dense_sdca_round_plain))
+    return stack
+
+
+def check_primal_only(results, label):
+    for r in results:
+        primals = [rec.primal for rec in r.trajectory.records]
+        check(all(np.isfinite(p) for p in primals) and primals[-1] < primals[0],
+              f"{label} {r.algorithm}: primal objective did not fall: "
+              f"{primals}")
+        check(all(rec.gap is None for rec in r.trajectory.records),
+              f"{label} {r.algorithm}: a primal-only run reported a gap")
+        print(f"  {label} {r.algorithm}: round:primal "
+              + " ".join(f"{rec.round}:{rec.primal:.6g}"
+                         for rec in r.trajectory.records))
+
+
+def phase_entry_points(demo_train, demo_test):
+    """The demo through the CLI: --justCoCoA=false on the sparse layout
+    (B1 in mode frozen for mini-batch CD) and the dense one (B2), then
+    --objective=lasso on the sparse (B1 prox) and dense (B2 prox) column
+    shards; every run against the same run through the plain versions.
+    Returns ({run: counts}, {run: ms per round})."""
+    rounds = 50
+    base_argv = [f"--trainFile={demo_train}", "--numFeatures=9947",
+                 "--numSplits=4", f"--numRounds={rounds}",
+                 "--localIterFrac=0.1", "--math=fast", "--dtype=float32"]
+    menu = base_argv + [f"--testFile={demo_test}", "--lambda=.001",
+                        "--justCoCoA=false"]
+    lasso = base_argv + ["--lambda=.1", "--objective=lasso"]
+    launched, per_round = {}, {}
+    for label, argv, kern, n_sdca in (
+            ("demo menu sparse", menu + ["--layout=sparse"], "B1", 3),
+            ("demo menu dense", menu + ["--layout=dense"], "B2", 3),
+            ("demo lasso sparse", lasso + ["--layout=sparse"], "B1", 1),
+            ("demo lasso dense", lasso + ["--layout=dense"], "B2", 1)):
+        (out, res), got = reset_and_run(run_cli, argv)
+        (OUT / f"chip_smoke_{label.replace(' ', '_')}.log").write_text(out)
+        want = only(kern, n_sdca * rounds)
+        check(got == want, f"{label}: launches {got}, want {want}")
+        names = tuple(r.algorithm for r in res)
+        check(names == (MENU if n_sdca == 3 else ("ProxCoCoA+",)),
+              f"{label}: ran {names}")
+        if n_sdca == 3:
+            check_run(res[:3], label)
+            check_primal_only(res[3:], label)
+        else:
+            gaps = [rec.gap for rec in res[0].trajectory.records]
+            check(all(np.isfinite(g) and g >= 0 for g in gaps)
+                  and gaps[-1] < gaps[0], f"{label}: gaps {gaps}")
+            print(f"  {label} ProxCoCoA+: round:gap "
+                  + " ".join(f"{rec.round}:{rec.gap:.6g}"
+                             for rec in res[0].trajectory.records))
+        with plain_kernels():
+            _, plain = run_cli(argv)
+        check_same_gaps(f"{label} kernel vs plain", res[:n_sdca],
+                        plain[:n_sdca])
+        launched[label] = got
+        per_round[label] = [r.trajectory.records[-1].wall_time / rounds * 1e3
+                            for r in res]
+        print(f"phase 9: {label} ok: {n_sdca} x {rounds} {kern} launches, "
+              f"gaps within rel 1e-3 of the plain run; ms per round "
+              f"(evals included) " + ", ".join(
+                  f"{r.algorithm} {t:.3f}" for r, t in zip(res,
+                                                           per_round[label])))
+    return launched, per_round
+
+
+def phase_lasso_design(ds, b, lam_max):
+    """The lasso design at full width (made on the card) through
+    run_prox_cocoa: lasso and elastic net (l2 = 0.1) at lam = 0.3*lam_max,
+    one B2 launch per round, a certified gap >= 0 that falls, and the
+    first eval at which the gap reaches 1e-3 * |b|^2 / 2.  Returns
+    ({run: counts}, {run: (ms per round, round reached or None, last
+    gap, target)})."""
+    d, k = ds.n, ds.k
+    h = d // k // 10
+    target = 1e-3 * 0.5 * float(b @ b)
+    launched, result = {}, {}
+    for tag, l2 in (("lasso", 0.0), ("elastic net", 0.1)):
+        params = Params(n=d, num_rounds=LASSO_ROUNDS, local_iters=h,
+                        lam=0.3 * lam_max, loss="lasso", smoothing=l2)
+        (x, r, traj), got = reset_and_run(
+            run_prox_cocoa, ds, b, params, DebugParams(debug_iter=50, seed=0),
+            quiet=True, math="fast")
+        label = f"lasso design {tag}"
+        check(got == only("B2", LASSO_ROUNDS),
+              f"{label}: launches {got}, want {only('B2', LASSO_ROUNDS)}")
+        gaps = [rec.gap for rec in traj.records]
+        check(all(np.isfinite(g) and g >= 0 for g in gaps)
+              and gaps[-1] < gaps[0], f"{label}: gaps {gaps}")
+        check(bool(torch.isfinite(x).all() and torch.isfinite(r).all()),
+              f"{label}: x or r not finite")
+        reached = next((rec.round for rec in traj.records
+                        if rec.gap <= target), None)
+        ms = traj.records[-1].wall_time / LASSO_ROUNDS * 1e3
+        launched[label] = got
+        result[label] = (ms, reached, gaps[-1], target)
+        print(f"phase 9: {label} ok: 1 B2 launch per round, {ms:.3f} ms per "
+              f"round (evals included); gap {gaps[0]:.6g} at round "
+              f"{traj.records[0].round} to {gaps[-1]:.6g} at "
+              f"{traj.records[-1].round}; 1e-3 relative target {target:.6g} "
+              + (f"reached at round {reached}" if reached else
+                 "not reached"))
+    return launched, result
 
 
 def main() -> int:
@@ -614,13 +901,14 @@ def main() -> int:
 
     # --- phase 1: the card, the build
     print("phase 1: the card (nvidia-smi name, power.limit):")
-    print(nvidia_smi())
-    t0 = time.perf_counter()
+    card = nvidia_smi()
+    print(card)
+    start = t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels.SOURCES)) as pool:
         logs = dict(zip(kernels.SOURCES,
                         pool.map(kernels.build, kernels.SOURCES)))
-    print(f"phase 1: built {', '.join(logs)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    print(f"phase 1: built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
         print(f"  nvcc {name}: " + " | ".join(
             ln.strip() for ln in log.splitlines() if "registers" in ln))
@@ -628,7 +916,7 @@ def main() -> int:
     # --- phase 2: kernel vs plain on the card
     demo = load_libsvm(str(DEMO_TRAIN), 9947)
     t0 = time.perf_counter()
-    rcv1 = synth_sparse(20242, 47236, nnz_mean=75, seed=0)
+    rcv1 = synth_sparse(*RCV1_SHAPE, nnz_mean=75, seed=0)
     print(f"phase 2: rcv1-like data {rcv1.n} x {rcv1.num_features}, "
           f"{int(rcv1.indptr[-1])} nonzeros, max row {rcv1.max_nnz}, made in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -644,8 +932,8 @@ def main() -> int:
     print(f"phase 2: all cases agree (max_abs_err {worst_b1:.3e}); rcv1-like "
           f"f32 plus/hinge round: kernel {ms:.4f} ms (dw in global memory "
           f"{global_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {nnz} sampled "
-          f"nonzeros); demo round: kernel {demo_ms[0]:.4f} ms (dw in "
+          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {nnz} nonzeros in "
+          f"the distinct sampled rows); demo round: kernel {demo_ms[0]:.4f} ms (dw in "
           f"global memory {demo_ms[1]:.4f} ms), plain {demo_ms[2]:.2f} ms, "
           f"bound {demo_ms[3]:.5f} ms")
 
@@ -680,7 +968,7 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "rcv1_like.svm")
     write_libsvm(rcv1, path)
-    rcv1_argv = [f"--trainFile={path}", "--numFeatures=47236",
+    rcv1_argv = [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
                  "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
                  "--math=fast", "--dtype=float32", "--numRounds=200",
                  "--debugIter=25"]
@@ -720,7 +1008,7 @@ def main() -> int:
 
     # --- phase 5: the block kernels against their plain versions
     t0 = time.perf_counter()
-    eps = synth_dense_sharded(400_000, 2000, 8, seed=0, device="cuda")
+    eps = synth_dense_sharded(*EPS_SHAPE, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"phase 5: epsilon-like data {eps.n} x {eps.num_features} made on "
           f"the card in {time.perf_counter() - t0:.1f} s")
@@ -743,7 +1031,7 @@ def main() -> int:
           f"float64 {timing['B5']['f64_ms']:.4f} ms")
 
     # --- phase 6: the block path through its entry points
-    launched, per_round = phase_block_path(
+    launched, per_round, eps_fused = phase_block_path(
         [("demo", demo_argv, demo_seq, demo_h),
          ("rcv1-like", rcv1_argv, rcv1_seq, rcv1_h)], eps)
     tmp.cleanup()
@@ -754,10 +1042,71 @@ def main() -> int:
           f"{seq_ms[0]:.3f}, CoCoA {per_round['rcv1-like'][1]:.3f} vs "
           f"{seq_ms[1]:.3f}")
 
+    # --- phase 7: B2 and B1's prox mode against their plain versions
+    t0 = time.perf_counter()
+    ln, ld, lk = LASSO_SHAPE
+    lasso_ds, lasso_b, lam_max = synth_lasso_columns(ln, ld, lk, seed=0,
+                                                     device="cuda")
+    eps_h = EPS_SHAPE[0] // EPS_SHAPE[2] // 10
+    lasso_h = ld // lk // 10
+    f32, f64 = torch.float32, torch.float64
+    demo_dense = {dt: shard_dataset(demo, 4, layout="dense", dtype=dt,
+                                    device="cuda") for dt in (f32, f64)}
+    demo_cols = {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
+                                   layout="sparse")[0] for dt in (f32, f64)}
+    torch.cuda.synchronize()
+    print(f"phase 7: lasso design {ln} x {ld} and the demo's dense and "
+          f"column shards made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dual = [(mode, sigma, loss, 1.0) for mode, sigma in MODES
+            for loss in LOSSES]
+    prox = [("prox", None, "lasso", l2) for l2 in PROX_L2]
+    worst7 = {}
+    phase_dense_kernel({
+        "demo dense": (demo_dense, demo_h, 1e-3, demo.n, (True, False), dual),
+        "epsilon-like": ({f32: eps, f64: as_dtype(eps, f64)}, eps_h, 1e-3,
+                         eps.n, (True,), dual),
+        "lasso design": ({f32: lasso_ds, f64: as_dtype(lasso_ds, f64)},
+                         lasso_h, 0.3 * lam_max, 1, (True, False), prox),
+        "demo dense columns": (
+            {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
+                               layout="dense")[0] for dt in (f32, f64)},
+            max(1, int(0.1 * demo.num_features / 4)), 0.1, 1, (True,), prox),
+    }, worst7)
+    phase_sparse_prox(demo_cols, max(1, int(0.1 * demo.num_features / 4)),
+                      0.1, worst7)
+    b2 = {"epsilon-like": dense_timing(eps, eps_h, 1e-3, eps.n, "plus",
+                                       "hinge", 1.0, 20),
+          "lasso design": dense_timing(lasso_ds, lasso_h, 0.3 * lam_max, 1,
+                                       "prox", "lasso", 0.0, 50),
+          "demo dense": dense_timing(demo_dense[f32], demo_h, 1e-3, demo.n,
+                                     "plus", "hinge", 1.0, 50)}
+    print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
+          f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
+          f"launches agree bit for bit")
+    for name, t in b2.items():
+        print(f"  B2 {name} f32: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.2f} ms, bound {t['bound'][0]:.5f} ms "
+              f"({t['bound'][1]}: {t['n_bytes']} B, {t['rows']} distinct "
+              f"sampled rows)")
+
+    # --- phase 8: the dense sequential path, epsilon-like at full width
+    launched8, per_round8 = phase_dense_path(eps, eps_fused)
+    del eps
+
+    # --- phase 9: the new entry points: the menu and the lasso objective
+    launched9, _ = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
+    launched_lasso, _ = phase_lasso_design(lasso_ds, lasso_b, lam_max)
+    launched9.update(launched_lasso)
+
     block_launches = {name: sum(c[name] for c in launched.values())
                       for name in ("B3", "B4", "B5", "B6")}
     for name, n in block_launches.items():
         check(n > 0, f"{name} never launched on the block path")
+    seq_launches = {name: sum(c[name] for c in (*launched8.values(),
+                                                *launched9.values()))
+                    for name in ("B1", "B2")}
+    check(seq_launches["B2"] > 0, "B2 never launched on the main paths")
     sources = {"B3": ("chain_block_batched", "block_chain",
                       "cocoa_tpu/ops/pallas_chain.py:190"),
                "B4": ("fused_block", "block_chain",
@@ -766,13 +1115,22 @@ def main() -> int:
                       "cocoa_tpu/ops/pallas_sparse.py:773"),
                "B6": ("sparse_block_apply", "sparse_block",
                       "cocoa_tpu/ops/pallas_sparse.py:909")}
+    eps_b2 = b2["epsilon-like"]
     rows = [{
         "name": "sparse_sdca_round", "route": "cuda",
         "source": "cocoa_torch/csrc/sparse_sdca.cu",
         "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
-        "launches": main_launches, "max_abs_err": worst_b1,
+        "launches": main_launches + seq_launches["B1"],
+        "max_abs_err": max(worst_b1, worst7["B1"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "dense_sdca_round", "route": "cuda",
+        "source": "cocoa_torch/csrc/dense_sdca.cu",
+        "replaces": "cocoa_tpu/ops/pallas_sdca.py:328",
+        "launches": seq_launches["B2"], "max_abs_err": worst7["B2"],
+        "ms": eps_b2["ms"], "plain_ms": eps_b2["plain_ms"],
+        "bound_ms": eps_b2["bound"][0], "bound_by": eps_b2["bound"][1],
+        "library_ms": None}]
     for name, (fn, src, tpu) in sources.items():
         t = timing[name]
         rows.append({
@@ -781,6 +1139,12 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
+          f"{main_launches}, phase 9 {seq_launches['B1']}), B2 "
+          f"{seq_launches['B2']} (phases 8 and 9)")
+    # the card once more, near the end of the output
+    print(f"card (nvidia-smi name, power.limit): {card}; kernels built in "
+          f"{build_s:.1f} s; all phases in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

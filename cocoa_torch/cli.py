@@ -8,41 +8,53 @@
         [--rng=reference|jax|permuted] [--debugIter=.. --seed=.. --beta=..
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
         --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
+        [--objective=svm|lasso --l2=<float>]
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
-prints the reference's round and summary lines.  It runs on CUDA unless
-``--device=cpu`` is given, and exits 2 with ``error: ...`` when CUDA is
-absent.  ``--blockSize`` (with ``--math=fast``) runs each round as the
-block-coordinate round; ``auto`` picks the block size for the layout.
-Flags of the JAX CLI that this port does not support yet exit 2
-with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue A)``.
+prints the reference's round and summary lines; ``--justCoCoA=false``
+then runs the rest of the reference's comparison (hingeDriver.scala:
+84-110): mini-batch CD, mini-batch SGD, local SGD and DistGD.
+``--objective=lasso`` runs ProxCoCoA+ instead, on the labels as the
+regression target with the L1 weight ``--lambda`` and the elastic-net
+weight ``--l2``.  It runs on CUDA unless ``--device=cpu`` is given, and
+exits 2 with ``error: ...`` when CUDA is absent.  ``--blockSize`` (with
+``--math=fast``) runs each SDCA round as the block-coordinate round;
+``auto`` picks the block size for the layout.  Flags of the JAX CLI that
+this port does not support yet exit 2 with ``error: --X is not yet ported
+to cocoa_torch (ROADMAP Queue A)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import load_libsvm, shard_dataset
+from cocoa_torch.data.columns import shard_columns
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
 from cocoa_torch.solvers import run_cocoa
 from cocoa_torch.solvers.cocoa import auto_block_size
+from cocoa_torch.solvers.dist_gd import run_dist_gd
+from cocoa_torch.solvers.minibatch_cd import run_minibatch_cd
+from cocoa_torch.solvers.prox_cocoa import lasso_metrics, run_prox_cocoa
+from cocoa_torch.solvers.sgd import run_sgd
 from cocoa_torch.utils.logging import Trajectory
 
 _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
-                               "smoothing", "sigma", "device")}
+                               "smoothing", "sigma", "device", "objective",
+                               "l2")}
 _PORT_FLAGS["blockSize"] = "block_size"
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "chkptDir", "sampling", "mesh", "fp", "trajOut", "gapTarget", "resume",
     "scanChunk", "deviceLoop", "master", "processId", "numProcesses",
-    "profile", "objective", "l2", "blockPipeline",
+    "profile", "blockPipeline",
     "divergenceGuard", "sigmaSchedule", "warmStart", "accel", "theta",
     "elastic", "stallTimeout", "evalDense", "hotCols", "ingest",
     "ingestCache", "metrics", "events", "quiet", "trace", "flightRecorder",
@@ -61,9 +73,13 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 
 
 class RunResult(NamedTuple):
+    """One algorithm's result.  ProxCoCoA+ returns its residual r = Ax - b
+    as ``w`` and its coordinates x as ``alpha``; the SGD and DistGD
+    baselines have no ``alpha`` (None)."""
+
     algorithm: str
     w: torch.Tensor
-    alpha: torch.Tensor
+    alpha: Optional[torch.Tensor]
     trajectory: Trajectory
 
 
@@ -99,8 +115,8 @@ def parse_args(argv: list[str]):
             setattr(cfg, field, float(val))
         else:
             setattr(cfg, field, val)
-    if not cfg.just_cocoa:
-        unported.append("justCoCoA=false")
+    if cfg.objective.lower() == "lasso" and cfg.block_size not in ("", "0"):
+        unported.append("objective=lasso with --blockSize")
     return cfg, unported
 
 
@@ -142,6 +158,49 @@ def _block_size(cfg: RunConfig) -> int:
     return size
 
 
+def _objective(cfg: RunConfig):
+    """(objective, l2) with the JAX CLI's checks and messages
+    (cocoa_tpu/cli.py:1101-1105,1664-1681)."""
+    objective = (cfg.objective or "svm").lower()
+    if objective not in ("svm", "lasso"):
+        raise ValueError(f"--objective must be svm|lasso, got {objective!r}")
+    if objective == "svm":
+        return objective, 0.0
+    if cfg.test_file:
+        raise ValueError("--testFile does not apply to --objective=lasso "
+                         "(no classification error to report)")
+    try:
+        l2 = float(cfg.l2) if cfg.l2 else 0.0
+    except ValueError:
+        raise ValueError(f"--l2 must be a float, got {cfg.l2!r}") from None
+    if l2 < 0.0:
+        raise ValueError(f"--l2 is the elastic-net weight, needs >= 0, "
+                         f"got {l2}")
+    return objective, l2
+
+
+def _run_lasso(cfg: RunConfig, l2: float, dtype, device):
+    """``--objective=lasso``: ProxCoCoA+ on A's column shards, then the
+    JAX CLI's summary line from one more certificate."""
+    k = cfg.num_splits
+    try:
+        data = load_libsvm(cfg.train_file, cfg.num_features)
+        ds, b = shard_columns(data, k, dtype=dtype, device=device,
+                              layout=cfg.layout)
+        # the same H = max(1, localIterFrac*d/K) law, over coordinates
+        params = dataclasses.replace(cfg.to_params(data.num_features, k),
+                                     loss="lasso", smoothing=l2)
+        x, r, traj = run_prox_cocoa(ds, b, params, cfg.to_debug(),
+                                    rng=cfg.rng, math=cfg.math)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2, []
+    primal, gap, _ = lasso_metrics(r, x, ds.shard_arrays(), b, cfg.lam,
+                                   l2).cpu().tolist()
+    traj.summary(primal, gap=gap)
+    return 0, [RunResult(traj.algorithm, r, x, traj)]
+
+
 def run(argv: list[str]) -> tuple[int, list[RunResult]]:
     """The CLI's work: (exit code, one RunResult per algorithm run)."""
     cfg, unported = parse_args(argv)
@@ -153,6 +212,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         device = resolve_device(cfg.device)
         _check_choices(cfg)
         block_size = _block_size(cfg)
+        objective, l2 = _objective(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -162,6 +222,8 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         print(f"{f.name}: {getattr(cfg, f.name)}")
 
     dtype = _DTYPES[cfg.dtype]
+    if objective == "lasso":
+        return _run_lasso(cfg, l2, dtype, device)
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
@@ -182,15 +244,28 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
               f"for the {ds.layout} layout")
     params = cfg.to_params(data.n, k)
     debug = cfg.to_debug()
+    sdca = dict(test_ds=test_ds, rng=cfg.rng, math=cfg.math,
+                block_size=block_size)
+    # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836)
+    runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca),
+            lambda: run_cocoa(ds, params, debug, plus=False, **sdca)]
+    if not cfg.just_cocoa:
+        runs += [
+            lambda: run_minibatch_cd(ds, params, debug, **sdca),
+            lambda: run_sgd(ds, params, debug, local=False,
+                            test_ds=test_ds, rng=cfg.rng),
+            lambda: run_sgd(ds, params, debug, local=True, test_ds=test_ds,
+                            rng=cfg.rng),
+            lambda: run_dist_gd(ds, params, debug, test_ds=test_ds)]
     results = []
-    for plus in (True, False):   # hingeDriver.scala:84-89
+    for run_alg in runs:
         try:
-            w, alpha, traj = run_cocoa(ds, params, debug, plus=plus,
-                                       test_ds=test_ds, rng=cfg.rng,
-                                       math=cfg.math, block_size=block_size)
-        except (ValueError, NotImplementedError) as e:
+            out = run_alg()
+        except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2, results
+        w, traj = out[0], out[-1]
+        alpha = out[1] if len(out) == 3 else None
         traj.summary(*objectives.evaluate(
             ds, w, alpha, params.lam, test_ds=test_ds, loss=params.loss,
             smoothing=params.smoothing))

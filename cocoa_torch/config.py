@@ -63,6 +63,8 @@ class RunConfig:
     sigma: float = 0.0           # 0 = the safe K*gamma
     device: str = "cuda"         # cuda | cpu
     block_size: str = ""         # --blockSize: "" (off), an int, or auto
+    objective: str = "svm"       # svm | lasso (ProxCoCoA+)
+    l2: str = ""                 # --l2: the elastic-net weight ("" = 0)
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""

@@ -1,8 +1,8 @@
 // Device code shared by every SDCA kernel of the port: the loss codes and
 // the single-coordinate alpha step (cocoa_tpu/ops/losses.py alpha_step,
-// same constants: _EPS 1e-12, _U_MAX 35, 10 Newton iterations).  One copy
-// of the loss rules, included by sparse_sdca.cu, block_chain.cu and
-// sparse_block.cu.
+// same constants: _EPS 1e-12, _U_MAX 35, 10 Newton iterations), with the
+// lasso prox rule of ProxCoCoA+.  One copy of the loss rules, included by
+// sparse_sdca.cu, dense_sdca.cu, block_chain.cu and sparse_block.cu.
 
 #pragma once
 
@@ -10,7 +10,7 @@
 
 namespace sdca {
 
-enum { kHinge = 0, kSmoothHinge = 1, kLogistic = 2 };
+enum { kHinge = 0, kSmoothHinge = 1, kLogistic = 2, kLasso = 3 };
 
 template <typename T>
 __device__ __forceinline__ T clip(T x, T lo, T hi) {
@@ -25,9 +25,22 @@ __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 // New alpha in [0, 1] for margin z = y * (x . w), qii already scaled by
 // the caller.  hinge: projected gradient on the box, qii == 0 gives 1;
 // smooth_hinge: clipped closed form; logistic: Newton in logit space.
+// lasso (mode prox): the new, unbounded coordinate, the soft-threshold
+// step t = S_{lam/(qii+s)}((qii*a - z)/(qii+s)) with lam_n the L1 weight
+// and s the elastic-net l2 weight; qii + s == 0 (a zero column, s = 0)
+// leaves the coordinate as it is.
 template <typename T>
 __device__ T alpha_step(int loss, T a, T z, T qii, T lam_n, T s) {
   const T zero = T(0), one = T(1);
+  if (loss == kLasso) {
+    const T denom = qii + s;
+    if (!(denom > zero)) return a;
+    const T u = (qii * a - z) / denom;
+    const T thr = lam_n / denom;
+    const T mag = (u < zero ? -u : u) - thr;
+    const T sgn = u > zero ? one : (u < zero ? -one : zero);
+    return sgn * (mag > zero ? mag : zero);
+  }
   if (loss == kHinge) {
     const T grad = (z - one) * lam_n;
     const T proj = a <= zero ? (grad < zero ? grad : zero)

@@ -1,10 +1,13 @@
 """Synthetic epsilon-like dense and rcv1-like sparse data from a seed
-(counterpart of cocoa_tpu/data/synth.py).
+(counterpart of cocoa_tpu/data/synth.py), and the lasso design of
+``benchmarks/run.py`` ``bench_lasso``.
 
 ``synth_dense`` (epsilon-like: unit rows, planted labels) and
 ``synth_sparse`` are numpy and give the JAX package's arrays for the same
 seed; ``synth_dense_sharded`` builds the (K, n_shard, d) shards on the
-device at epsilon's full size (400 000 x 2000) with its own draws.
+device at epsilon's full size (400 000 x 2000) with its own draws, and
+``synth_lasso_columns`` the column shards of the 8192 x 32768 lasso
+design the same way.
 
 rcv1.binary itself (20 242 x 47 236, about 75 nonzeros a row) is not in the
 repository; ``synth_sparse`` makes a stand-in with its shape and
@@ -89,6 +92,50 @@ def synth_dense_sharded(n: int, d: int, k: int, *, seed: int = 0,
     return ShardedDataset(
         layout="dense", n=n, num_features=d, counts=sizes.astype(np.int64),
         labels=labels, mask=mask, sq_norms=sq, X=X)
+
+
+def synth_lasso_columns(n: int, d: int, k: int, *, seed: int = 0,
+                        dtype=torch.float32, device=None):
+    """The lasso design of benchmarks/run.py ``bench_lasso`` made on
+    ``device`` (``cuda`` unless ``"cpu"`` is asked for) as the column
+    shards of ``data/columns.py shard_columns(layout="dense")``: A (n x d)
+    Gaussian / sqrt(n), a planted 64-sparse x* with N(0, 9) entries,
+    b = A x* + 0.01 * N(0, 1).  A passes through no host
+    array and no CSR (the benchmark's host CSR of it is about 2 GB): shard
+    s draws its columns straight into its (d_shard, n) block.  The draws
+    are this port's own (``torch.Generator`` streams seeded from ``seed``
+    and the shard number), so the arrays differ from the benchmark's.
+    Returns (ds, b (n,), lam_max = |A^T b|_inf), with lam_max the
+    smallest L1 weight whose solution is 0."""
+    device = resolve_device(device)
+    sizes = split_sizes(d, k)
+    d_shard = int(sizes.max())
+
+    def gen(stream: int) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(
+            seed * 1_000_003 + stream)
+
+    g0 = gen(0)
+    support = torch.randperm(d, generator=g0, device=device)[:64]
+    x_star = torch.zeros(d, dtype=dtype, device=device)
+    x_star[support] = 3.0 * torch.randn(64, generator=g0, device=device,
+                                        dtype=dtype)
+    X = torch.zeros(k, d_shard, n, dtype=dtype, device=device)
+    b = 0.01 * torch.randn(n, generator=g0, device=device, dtype=dtype)
+    lo = 0
+    for s, m in enumerate(sizes.tolist()):
+        X[s, :m] = torch.randn(m, n, generator=gen(1 + s), device=device,
+                               dtype=dtype) / np.sqrt(n)
+        b += x_star[lo:lo + m] @ X[s, :m]
+        lo += m
+    labels = torch.zeros(k, d_shard, dtype=dtype, device=device)
+    for s, m in enumerate(sizes.tolist()):
+        labels[s, :m] = 1.0
+    ds = ShardedDataset(
+        layout="dense", n=d, num_features=n, counts=sizes.astype(np.int64),
+        labels=labels, mask=labels.clone(), sq_norms=(X * X).sum(-1), X=X)
+    lam_max = float(torch.matmul(X, b).abs().max())
+    return ds, b, lam_max
 
 
 def synth_sparse(n: int, d: int, *, nnz_mean: int = 75, seed: int = 0,

@@ -25,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("sparse_sdca", "block_chain", "sparse_block")}
+           for name in ("sparse_sdca", "dense_sdca", "block_chain",
+                        "sparse_block")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,6 +112,13 @@ def check_tensor(name, t, dtype, shape, device) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def runs_plain(device) -> bool:
+    """The port's device rule, for every kernel wrapper and the solvers'
+    routes: on the CPU a wrapper runs its kernel's plain version; on any
+    other device it launches the kernel or raises."""
+    return torch.device(device).type == "cpu"
 
 
 def require_cuda(t, name: str) -> None:

@@ -99,7 +99,7 @@ def chain_block_batched(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
     if not frozen and gram is None:
         raise ValueError("chain_block_batched needs the Gram unless frozen")
     gram = None if frozen else gram
-    if scal.device.type == "cpu":
+    if kernels.runs_plain(scal.device):
         return chain_block_batched_plain(scal, gram, idx, lam_n, coef_div,
                                          sig_eff, frozen, loss, smoothing)
     kernels.require_cuda(scal, "chain_block_batched")
@@ -153,7 +153,7 @@ def fused_block(xb, idx, yb, qb, a0, live, v, lam_n, coef_div, sig_eff,
     dwu (K, d) = sum_j coef_j x_j)."""
     kernels.check_dtype(xb.dtype, "the fused block kernel")
     losses.validate(loss, smoothing)
-    if xb.device.type == "cpu":
+    if kernels.runs_plain(xb.device):
         return fused_block_plain(xb, idx, yb, qb, a0, live, v, lam_n,
                                  coef_div, sig_eff, frozen, loss, smoothing)
     kernels.require_cuda(xb, "fused_block")

@@ -12,7 +12,11 @@ Modes:
 
 - ``cocoa``: CoCoA; the margin reads the locally advancing w, qii = |x|^2;
 - ``plus``: CoCoA+; w frozen, margin x.(w + sigma'*dw), qii = |x|^2*sigma';
-- ``frozen``: mini-batch CD; w frozen, plain margin, qii = |x|^2.
+- ``frozen``: mini-batch CD; w frozen, plain margin, qii = |x|^2;
+- ``prox``: ProxCoCoA+ coordinate descent; the shard's "rows" are columns
+  a_j of the design, w is the residual r0 = Ax - b, alpha the shard's
+  block of x; margins read like ``plus`` and feed a prox rule (``lasso``),
+  and the dw coefficient is the raw coordinate delta (divisor 1).
 
 Sampled indices arrive precomputed as ``idxs`` (K, H).
 """
@@ -28,14 +32,15 @@ from cocoa_torch.ops.rows import get_row, row_axpy, row_dot, row_lengths
 from cocoa_torch.ops.sparse_block import sparse_block_apply, \
     sparse_block_gram
 
-MODES = ("cocoa", "plus", "frozen")
+MODES = ("cocoa", "plus", "frozen", "prox")
 
 
 def coef_divisor(mode: str, lam_n: float) -> float:
-    """The dw axpy coefficient is y*(a_new - a)/(lam*n) (CoCoA.scala:181)."""
+    """The dw axpy coefficient is y*(a_new - a)/(lam*n) for the dual-ascent
+    modes (CoCoA.scala:181) and the raw coordinate delta for ``prox``."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    return lam_n
+    return 1.0 if mode == "prox" else lam_n
 
 
 def _coef_staging(mode: str, lam: float, n: int, dtype, device):
@@ -82,7 +87,7 @@ def local_sdca(w_init: torch.Tensor, alpha: torch.Tensor, shards: dict,
         a = _gather(a_vec, idx)
         margin = row_dot(row, w)
         qii = _gather(sq_norms, idx)
-        if mode == "plus":
+        if mode in ("plus", "prox"):
             margin = margin + sigma_c * row_dot(row, dw)
             qii = qii * sigma_c
         new_a = losses.alpha_step(loss, a, y * margin, qii, lam_n,
@@ -101,11 +106,12 @@ def mode_factors(mode: str, sigma: float):
 
     - cocoa: w_step = w0 + dw exactly, so (1, 1);
     - plus: the subproblem reads sigma'*dw, so (sigma', sigma');
-    - frozen: no dw term, so (0, 1).
+    - frozen: no dw term, so (0, 1);
+    - prox: the read structure of plus, so (sigma', sigma').
     """
     if mode == "cocoa":
         return 1.0, 1.0
-    if mode == "plus":
+    if mode in ("plus", "prox"):
         return sigma, sigma
     if mode == "frozen":
         return 0.0, 1.0

@@ -1,12 +1,18 @@
 """Loss objectives for the primal-dual solvers (counterpart of
-cocoa_tpu/ops/losses.py: hinge, smooth_hinge, logistic).
+cocoa_tpu/ops/losses.py: hinge, smooth_hinge, logistic, and the ``lasso``
+prox rule of ProxCoCoA+).
 
 Each loss acts on the margin z = y*(x.w):
 
 - ``primal(z)``: the loss value;
 - ``dual_term(a)``: -l*(-a), so the dual is -(lam/2)|w|^2 + sum/n;
+- ``grad_factor(z)``: g(z) = -l'(z) in [0, 1], the factor the SGD and
+  subgradient baselines accumulate as y*g*x;
 - ``alpha_step(a, z, qii, lam_n)``: the SDCA single-coordinate update,
   with qii already sigma'-scaled by the caller.
+
+``lasso`` is a prox rule, not a classification loss: it has an
+``alpha_step`` only (no primal, dual term or gradient factor).
 
 All functions are elementwise on tensors; scalars arrive as Python floats
 or 0-d tensors of the working dtype.
@@ -17,8 +23,10 @@ from __future__ import annotations
 import torch
 
 LOSSES = ("hinge", "smooth_hinge", "logistic")
+# scalar prox rules of the primal (ProxCoCoA+) solver: alpha_step only
+PROX_RULES = ("lasso",)
 # the loss codes of the CUDA kernels (csrc/sdca_common.cuh)
-LOSS_CODES = {"hinge": 0, "smooth_hinge": 1, "logistic": 2}
+LOSS_CODES = {"hinge": 0, "smooth_hinge": 1, "logistic": 2, "lasso": 3}
 
 # logistic: the entropy dual needs a in (0, 1) strictly
 _EPS = 1e-12
@@ -27,10 +35,14 @@ _NEWTON_ITERS = 10
 
 
 def validate(loss: str, smoothing=None) -> str:
-    if loss not in LOSSES:
-        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+    if loss not in LOSSES + PROX_RULES:
+        raise ValueError(
+            f"loss must be one of {LOSSES + PROX_RULES}, got {loss!r}")
     if loss == "smooth_hinge" and smoothing is not None and smoothing <= 0.0:
         raise ValueError(f"smooth_hinge needs smoothing > 0, got {smoothing}")
+    if loss == "lasso" and smoothing is not None and smoothing < 0.0:
+        raise ValueError(f"lasso's smoothing is the elastic-net l2 weight, "
+                         f"needs >= 0, got {smoothing}")
     return loss
 
 
@@ -61,14 +73,36 @@ def dual_term(loss: str, a, smoothing: float = 1.0):
     raise ValueError(f"unknown loss {loss!r}")
 
 
+def grad_factor(loss: str, z, smoothing: float = 1.0):
+    """g(z) = -l'(z) in [0, 1]; hinge is active iff 1 - z > 0, as the
+    reference's subgradient (SGD.scala:115,124: 0 at z = 1)."""
+    if loss == "hinge":
+        return torch.where(1.0 - z > 0.0, torch.ones_like(z),
+                           torch.zeros_like(z))
+    if loss == "smooth_hinge":
+        return torch.clamp((1.0 - z) / smoothing, 0.0, 1.0)
+    if loss == "logistic":
+        # sigmoid(-z), stable in both tails
+        return torch.where(z >= 0.0, torch.exp(-z) / (1.0 + torch.exp(-z)),
+                           1.0 / (1.0 + torch.exp(z)))
+    raise ValueError(f"unknown loss {loss!r}")
+
+
 def alpha_step(loss: str, a, z, qii, lam_n, smoothing: float = 1.0):
-    """New a in [0, 1] (CoCoA.scala:166-178 generalised).
+    """New a in [0, 1] (CoCoA.scala:166-178 generalised), or for the
+    ``lasso`` prox rule the new, unbounded coordinate value.
 
     - hinge: projected gradient against the box's active face; a
       vanishing projected gradient is a no-op; qii == 0 gives 1.
     - smooth_hinge: a <- clip(a - (z - 1 + s*a)*lam_n / (qii + s*lam_n)).
     - logistic: Newton on g(u) = u + z + q*(sigmoid(u) - a) = 0 in logit
       space u, q = qii/lam_n; g' >= 1, and the sigmoid keeps the box.
+    - lasso (mode ``prox``): ``a`` is the coordinate x_j + dx_j, ``z`` the
+      sigma'-corrected gradient a_j.(r0 + sigma'*dv), ``qii`` =
+      sigma'*|a_j|^2, ``lam_n`` the L1 weight and ``smoothing`` the
+      elastic-net l2 weight s; the soft-threshold step
+      t* = S_{lam/(qii+s)}((qii*a - z)/(qii+s)), no box, and a zero column
+      with s = 0 is a no-op.
     """
     if loss == "hinge":
         grad = (z - 1.0) * lam_n
@@ -95,4 +129,11 @@ def alpha_step(loss: str, a, z, qii, lam_n, smoothing: float = 1.0):
             gp = 1.0 + q * sig * (1.0 - sig)
             u = torch.clamp(u - g / gp, -_U_MAX, _U_MAX)
         return 1.0 / (1.0 + torch.exp(-u))
+    if loss == "lasso":
+        denom = qii + smoothing
+        live = denom > 0.0
+        safe = torch.where(live, denom, torch.ones_like(denom))
+        u = (qii * a - z) / safe
+        t = torch.sign(u) * torch.clamp(u.abs() - lam_n / safe, min=0.0)
+        return torch.where(live, t, a)
     raise ValueError(f"unknown loss {loss!r}")

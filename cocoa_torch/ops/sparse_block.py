@@ -67,7 +67,7 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
     mode).  The kernel expands a row in shared memory where d fits,
     unless ``row_in_smem`` is False."""
     kernels.check_dtype(w.dtype, "the sparse block Gram kernel")
-    if w.device.type == "cpu":
+    if kernels.runs_plain(w.device):
         return sparse_block_gram_plain(w, dw, gidx, gvals, cnts, sig_eff,
                                        frozen)
     kernels.require_cuda(w, "sparse_block_gram")
@@ -121,7 +121,7 @@ def sparse_block_apply(dw, gidx, gvals, cnts, coefs):
     receives its adds in one fixed order and the result repeats bit for
     bit; the plain version's ``scatter_add_`` is ordered on the CPU only."""
     kernels.check_dtype(dw.dtype, "the sparse block apply kernel")
-    if dw.device.type == "cpu":
+    if kernels.runs_plain(dw.device):
         return sparse_block_apply_plain(dw, gidx, gvals, cnts, coefs)
     kernels.require_cuda(dw, "sparse_block_apply")
     k, b, width = gidx.shape

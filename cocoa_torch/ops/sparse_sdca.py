@@ -8,7 +8,9 @@ tensor it runs :func:`sparse_sdca_round_plain`; on a CUDA tensor it
 launches the kernel or raises.  The kernel reads each margin in-kernel
 from w and dw_k; the plain version is the fast-math loop of
 ops/local_sdca.py with the round's margins X.w computed up front.  The
-two are equal in real arithmetic and sum in different orders.
+two are equal in real arithmetic and sum in different orders.  Every
+mode of ops/local_sdca.py runs through both, ``prox`` (ProxCoCoA+ on
+padded-CSC column shards) with the ``lasso`` rule.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def sparse_sdca_round(w, alpha, sp_indices, sp_values, labels, sq_norms,
     (K, n_shard) the locally advanced alpha)."""
     check_dtype(w.dtype)
     losses.validate(loss, smoothing)
-    if w.device.type == "cpu":
+    if kernels.runs_plain(w.device):
         return sparse_sdca_round_plain(
             w, alpha, sp_indices, sp_values, labels, sq_norms, idxs, lam, n,
             mode=mode, sigma=sigma, loss=loss, smoothing=smoothing)

@@ -1,6 +1,6 @@
 """Shared solver machinery (counterpart of parts of
 cocoa_tpu/solvers/base.py): the shard check, the index sampler (host
-tables) and the chunked round loop."""
+tables), the chunk size and the chunked round loop."""
 
 from __future__ import annotations
 
@@ -59,17 +59,25 @@ class IndexSampler:
         return self.chunk_indices(t, 1)[0]
 
 
+def chunk_rounds(debug: DebugParams, k: int, h: int) -> int:
+    """Rounds per chunk: a chunk ends at each eval, and is capped so one
+    chunk's (C, K, H) table stays modest when debugIter is large."""
+    cap = max(1, 32_000_000 // max(1, k * h))
+    return min(debug.debug_iter if debug.debug_iter > 0 else 50, cap)
+
+
 def drive(name: str, params: Params, debug: DebugParams, state: tuple,
-          round_fn: Callable[[tuple, torch.Tensor], tuple],
-          eval_fn: Callable[[tuple], tuple], sampler: IndexSampler,
-          device, chunk: int, quiet: bool = False, start_round: int = 1):
+          round_fn: Callable[[tuple, torch.Tensor, int], tuple],
+          eval_fn: Callable[[tuple], tuple], sampler, device, chunk: int,
+          quiet: bool = False, start_round: int = 1):
     """The outer loop (CoCoA.scala:39-63 skeleton).  Rounds run in chunks
     that end at each ``debugIter`` boundary: a chunk's (C, K, H) index
     table is built on the host and copied to ``device`` once, the rounds
     run as a Python loop of device work, and the host reads the device
-    only at the evaluations.  ``round_fn(state, idxs_kh) -> state``;
-    ``eval_fn(state) -> (primal, gap, test_error)``.  Returns
-    (state, Trajectory)."""
+    only at the evaluations.  ``round_fn(state, idxs_kh, t) -> state``
+    for round t (1-based); ``sampler`` None gives ``idxs_kh`` None (a
+    solver without draws, DistGD).  ``eval_fn(state) -> (primal, gap,
+    test_error)``.  Returns (state, Trajectory)."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     traj = Trajectory(name, quiet=quiet)
@@ -80,9 +88,10 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
         end = min(total, t + chunk - 1)
         if di > 0:
             end = min(end, ((t - 1) // di + 1) * di)
-        tables = sampler.chunk_indices(t, end - t + 1).to(device)
-        for idxs_kh in tables:
-            state = round_fn(state, idxs_kh)
+        tables = ([None] * (end - t + 1) if sampler is None
+                  else sampler.chunk_indices(t, end - t + 1).to(device))
+        for r, idxs_kh in enumerate(tables, start=t):
+            state = round_fn(state, idxs_kh, r)
         t = end + 1
         if di > 0 and end % di == 0:
             primal, gap, test_err = eval_fn(state)

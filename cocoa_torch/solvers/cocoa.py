@@ -1,9 +1,11 @@
-"""CoCoA / CoCoA+ outer driver (counterpart of cocoa_tpu/solvers/cocoa.py;
-reference CoCoA.scala:22-66).
+"""CoCoA / CoCoA+ outer driver and the SDCA family's shared driver
+(counterpart of cocoa_tpu/solvers/cocoa.py; reference CoCoA.scala:22-66).
 
 One outer round: H local SDCA steps on each of the K shards (batched on
 one device), the K dw summed, and the scaling law applied -- gamma for
-CoCoA+ (adding) or beta/K for CoCoA (averaging), with sigma' = K*gamma.
+CoCoA+ (adding) or beta/K for CoCoA (averaging), with sigma' = K*gamma;
+beta/(K*H) for mini-batch CD (solvers/minibatch_cd.py).  ProxCoCoA+
+(solvers/prox_cocoa.py) runs through the same driver in mode ``prox``.
 """
 
 from __future__ import annotations
@@ -12,13 +14,14 @@ from typing import Optional
 
 import torch
 
+from cocoa_torch import kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
-from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched, \
-    local_sdca_fast
-from cocoa_torch.ops.rows import row_lengths, shard_margins
+from cocoa_torch.ops.dense_sdca import dense_sdca_round
+from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
+from cocoa_torch.ops.rows import row_lengths
 from cocoa_torch.ops.sparse_sdca import check_dtype, sparse_sdca_round
 from cocoa_torch.solvers import base
 
@@ -29,10 +32,14 @@ from cocoa_torch.solvers import base
 AUTO_BLOCK = 128
 
 
-def _alg_config(params: Params, k: int, plus: bool):
+def _alg_config(params: Params, k: int, plus: Optional[bool], mode=None):
     """(mode, scaling, sigma'): CoCoA+ is ("plus", gamma, K*gamma), CoCoA
     ("cocoa", beta/K, K*gamma) (CoCoA.scala:37,45); ``params.sigma``
-    overrides sigma'."""
+    overrides sigma'.  ``mode="frozen"`` is mini-batch CD: scaling
+    beta/(K*H) (MinibatchCD.scala:32), and sigma' unused, since the
+    frozen subproblem reads only the frozen w."""
+    if mode == "frozen":
+        return "frozen", params.beta / (k * params.local_iters), 1.0
     sig = k * params.gamma if params.sigma is None else float(params.sigma)
     if plus:
         return "plus", params.gamma, sig
@@ -42,22 +49,19 @@ def _alg_config(params: Params, k: int, plus: bool):
 def fast_round_route(layout: str, device, dtype: torch.dtype) -> str:
     """Which inner loop runs a ``--math=fast`` round (the rule that stands
     in for the TPU auto-select at cocoa_tpu/solvers/cocoa.py:540-589):
+    the wrappers' own device rule, :func:`cocoa_torch.kernels.runs_plain`,
+    on a layout and dtype that a round kernel takes.
 
     - a CPU tensor: ``"plain"``, the vectorised PyTorch loop;
-    - sparse layout on CUDA: ``"kernel"``, the CUDA sparse SDCA kernel;
-    - dense layout on CUDA: not ported yet (ROADMAP Queue B2), raises.
+    - a CUDA tensor: ``"kernel"``, the CUDA sparse SDCA kernel on the
+      sparse layout and the CUDA dense SDCA kernel on the dense one.
 
     2-byte dtypes raise on every device, as the TPU kernels refuse them.
     """
     check_dtype(dtype)
-    if torch.device(device).type == "cpu":
-        return "plain"
-    if layout == "sparse":
-        return "kernel"
-    raise NotImplementedError(
-        "--math=fast on the dense layout needs the dense SDCA kernel "
-        "(pallas_sdca_round, ROADMAP Queue B2), which is not ported to "
-        "CUDA yet; use --layout=sparse or --math=exact")
+    if layout not in ("dense", "sparse"):
+        raise ValueError(f"layout must be dense or sparse, got {layout!r}")
+    return "plain" if kernels.runs_plain(device) else "kernel"
 
 
 def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
@@ -98,7 +102,7 @@ def auto_block_size(ds: ShardedDataset, dtype: torch.dtype) -> int:
 def _sdca_round_parts(params: Params, mode: str, scaling: float,
                       sigma: float, math: str, ds: ShardedDataset,
                       block_size: int = 0):
-    """The round function ``(state, idxs_kh) -> state`` over
+    """The round function ``(state, idxs_kh, t) -> state`` over
     ``state = (w, alpha)`` for one algorithm and math mode; ``block_size``
     > 0 runs the fast round as the block-coordinate round."""
     if math not in ("exact", "fast"):
@@ -113,7 +117,7 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
                   smoothing=params.smoothing)
 
     if math == "exact":
-        def round_fn(state, idxs_kh):
+        def round_fn(state, idxs_kh, t):
             w, alpha = state
             da, dw = local_sdca(w, alpha, shards, idxs_kh, params.lam,
                                 params.n, **common)
@@ -127,7 +131,7 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             # per-row nnz bounds the kernels' loops; once per run
             shards = {**shards, "sp_row_len": row_lengths(ds.sp_values)}
 
-        def round_fn(state, idxs_kh):
+        def round_fn(state, idxs_kh, t):
             w, alpha = state
             da, dw = local_sdca_block_batched(
                 w, alpha, shards, idxs_kh, params.lam, params.n,
@@ -147,14 +151,10 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
                 **common)
     else:
         def inner(w, alpha, idxs_kh):
-            dw0 = torch.zeros(ds.k, w.shape[0], dtype=w.dtype,
-                              device=w.device)
-            da, dw = local_sdca_fast(shard_margins(w, shards), alpha, shards,
-                                     idxs_kh, params.lam, params.n, dw0,
-                                     **common)
-            return dw, alpha + da
+            return dense_sdca_round(w, alpha, ds.X, ds.labels, ds.sq_norms,
+                                    idxs_kh, params.lam, params.n, **common)
 
-    def round_fn(state, idxs_kh):
+    def round_fn(state, idxs_kh, t):
         w, alpha = state
         dw, a_inner = inner(w, alpha, idxs_kh)
         return (w + scaling * dw.sum(0),
@@ -165,34 +165,48 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
 def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     alg_name: str, alg, test_ds: Optional[ShardedDataset] = None,
                     rng: str = "reference", math: str = "exact",
-                    quiet: bool = False, block_size: int = 0):
-    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory).
-    ``block_size`` > 0 (``--blockSize``, needs ``math="fast"``) runs each
-    round as the block-coordinate round (see :func:`block_route`)."""
+                    quiet: bool = False, block_size: int = 0,
+                    w_init: Optional[torch.Tensor] = None,
+                    alpha_init: Optional[torch.Tensor] = None,
+                    eval_fn=None):
+    """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
+    the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
+    from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
+    (zeros when None); returns (w, alpha, Trajectory).  ``block_size`` > 0
+    (``--blockSize``, needs ``math="fast"``) runs each round as the
+    block-coordinate round (see :func:`block_route`).  ``eval_fn(state) ->
+    (primal, gap or None, test_error or None)`` replaces the
+    classification objectives, for a state of other meaning (ProxCoCoA+'s
+    residual and coordinates)."""
     base.check_shards(ds)
     k = ds.k
     round_fn = _sdca_round_parts(params, *alg, math=math, ds=ds,
                                  block_size=block_size)
     if not quiet:
+        # ds.n, not params.n: the prox family runs with n = 1
         print(f"\nRunning {alg_name} on {ds.n} data examples, "
               f"distributed over {k} workers")
-    w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
-    alpha = torch.zeros(k, ds.n_shard, dtype=ds.dtype, device=ds.device)
+
+    def start(init, shape):
+        if init is None:
+            return torch.zeros(shape, dtype=ds.dtype, device=ds.device)
+        return init.to(device=ds.device, dtype=ds.dtype).clone()
+
+    w = start(w_init, (ds.num_features,))
+    alpha = start(alpha_init, (k, ds.n_shard))
     sampler = base.IndexSampler(rng, debug.seed, params.local_iters,
                                 ds.counts)
 
-    def eval_fn(state):
-        return objectives.evaluate(ds, state[0], state[1], params.lam,
-                                   test_ds=test_ds, loss=params.loss,
-                                   smoothing=params.smoothing)
+    if eval_fn is None:
+        def eval_fn(state):
+            return objectives.evaluate(ds, state[0], state[1], params.lam,
+                                       test_ds=test_ds, loss=params.loss,
+                                       smoothing=params.smoothing)
 
-    # a chunk ends at each eval; capped so one chunk's (C, K, H) table
-    # stays modest when debugIter is large
-    cap = max(1, 32_000_000 // max(1, k * params.local_iters))
-    chunk = min(debug.debug_iter if debug.debug_iter > 0 else 50, cap)
-    (w, alpha), traj = base.drive(alg_name, params, debug, (w, alpha),
-                                  round_fn, eval_fn, sampler, ds.device,
-                                  chunk, quiet=quiet)
+    (w, alpha), traj = base.drive(
+        alg_name, params, debug, (w, alpha), round_fn, eval_fn, sampler,
+        ds.device, base.chunk_rounds(debug, k, params.local_iters),
+        quiet=quiet)
     return w, alpha, traj
 
 

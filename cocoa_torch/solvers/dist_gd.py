@@ -1,0 +1,52 @@
+"""Distributed (sub)gradient descent (counterpart of
+cocoa_tpu/solvers/dist_gd.py; reference DistGD.scala).
+
+Per round every worker takes one full pass over its shard
+(ops/subgradient.py), and the driver takes the direction-normalised step
+w += dw*(eta/|dw|) with eta = 1/(beta*t) (DistGD.scala:35,40-41).  No
+draws and no dual state: the trajectory has the primal objective and
+test error only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cocoa_torch.config import DebugParams, Params
+from cocoa_torch.data.sharding import ShardedDataset
+from cocoa_torch.evals import objectives
+from cocoa_torch.ops.subgradient import subgradient_pass
+from cocoa_torch.solvers import base
+
+
+def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
+                test_ds: Optional[ShardedDataset] = None,
+                quiet: bool = False):
+    """Train from w = 0; returns (w, Trajectory)."""
+    base.check_shards(ds)
+    k = ds.k
+    shards = ds.shard_arrays()
+    if not quiet:
+        print(f"\nRunning DistGD on {params.n} data examples, "
+              f"distributed over {k} workers")
+
+    def round_fn(state, idxs_kh, t):
+        (w,) = state
+        dw_sum = subgradient_pass(w, shards, params.lam, loss=params.loss,
+                                  smoothing=params.smoothing).sum(0)
+        t_c = torch.tensor(float(t), dtype=w.dtype, device=w.device)
+        eta = 1.0 / (params.beta * t_c)
+        return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)
+
+    def eval_fn(state):
+        return objectives.evaluate(ds, state[0], None, params.lam,
+                                   test_ds=test_ds, loss=params.loss,
+                                   smoothing=params.smoothing)
+
+    w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    (w,), traj = base.drive("Dist SGD", params, debug, (w,), round_fn,
+                            eval_fn, None, ds.device,
+                            base.chunk_rounds(debug, k, 1), quiet=quiet)
+    return w, traj

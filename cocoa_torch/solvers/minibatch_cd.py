@@ -1,0 +1,28 @@
+"""Mini-batch SDCA / dual coordinate descent (counterpart of
+cocoa_tpu/solvers/minibatch_cd.py; reference MinibatchCD.scala).
+
+The skeleton of CoCoA with the local solver against a frozen w (mode
+``frozen``, MinibatchCD.scala:104) and both updates scaled by beta/(K*H)
+(MinibatchCD.scala:32,43,128): the ``frozen`` member of the SDCA family's
+driver, so it runs every path CoCoA runs -- both math modes, the dense
+and sparse SDCA kernels and the block round (``block_size``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from cocoa_torch.config import DebugParams, Params
+from cocoa_torch.data.sharding import ShardedDataset
+from cocoa_torch.solvers.cocoa import _alg_config, run_sdca_family
+
+
+def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
+                     test_ds: Optional[ShardedDataset] = None,
+                     rng: str = "reference", math: str = "exact",
+                     quiet: bool = False, block_size: int = 0):
+    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory)."""
+    return run_sdca_family(
+        ds, params, debug, "Mini-batch CD",
+        _alg_config(params, ds.k, None, mode="frozen"), test_ds=test_ds,
+        rng=rng, math=math, quiet=quiet, block_size=block_size)

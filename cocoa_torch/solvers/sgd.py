@@ -1,0 +1,62 @@
+"""Distributed SGD, local and mini-batch (counterpart of
+cocoa_tpu/solvers/sgd.py; reference SGD.scala).
+
+- local (Local SGD): each worker runs H Pegasos steps on a private w; the
+  driver adds the mean dw, scaled by beta/K (SGD.scala:34-37,55-56).
+- mini-batch (Mini-batch SGD): the driver pre-scales w by (1 - eta*lam)
+  with eta = 1/(lam*t) (SGD.scala:44-50), the workers sum raw
+  subgradients at the pre-scaled w, and the driver adds the sum times
+  eta*beta/(K*H) (SGD.scala:38,57-59).
+
+No dual state, so the trajectory has the primal objective and test error
+only, no gap (SGD.scala:62-66).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cocoa_torch.config import DebugParams, Params
+from cocoa_torch.data.sharding import ShardedDataset
+from cocoa_torch.evals import objectives
+from cocoa_torch.ops.local_sgd import local_sgd
+from cocoa_torch.solvers import base
+
+
+def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
+            local: bool, test_ds: Optional[ShardedDataset] = None,
+            rng: str = "reference", quiet: bool = False):
+    """Train from w = 0; returns (w, Trajectory)."""
+    base.check_shards(ds)
+    k, h, lam = ds.k, params.local_iters, params.lam
+    scaling = params.beta / k if local else params.beta / (k * h)
+    shards = ds.shard_arrays()
+    if not quiet:
+        print(f"\nRunning SGD (with local updates = {local}) on {params.n} "
+              f"data examples, distributed over {k} workers")
+
+    def round_fn(state, idxs_kh, t):
+        (w,) = state
+        t_c = torch.tensor(float(t), dtype=w.dtype, device=w.device)
+        eta = 1.0 / (lam * t_c)
+        if not local:
+            w = w * (1.0 - eta * lam)
+        dw = local_sgd(w, shards, idxs_kh, lam, (t_c - 1.0) * h * k, local,
+                       loss=params.loss, smoothing=params.smoothing)
+        step = scaling if local else eta * scaling
+        return (w + dw.sum(0) * step,)
+
+    def eval_fn(state):
+        return objectives.evaluate(ds, state[0], None, lam, test_ds=test_ds,
+                                   loss=params.loss,
+                                   smoothing=params.smoothing)
+
+    w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    sampler = base.IndexSampler(rng, debug.seed, h, ds.counts)
+    (w,), traj = base.drive(
+        "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
+        round_fn, eval_fn, sampler, ds.device, base.chunk_rounds(debug, k, h),
+        quiet=quiet)
+    return w, traj

@@ -202,15 +202,16 @@ def test_wrapper_refuses_bf16_and_other_devices(tiny_data):
 
 
 def test_fast_route():
-    """The --math=fast dispatch: the kernel for sparse CUDA tensors, the
-    plain version for CPU tensors, and a refusal -- never a quiet
-    fallback -- for the unported dense kernel and for bf16."""
+    """The --math=fast dispatch: the kernel for CUDA tensors on either
+    layout, the plain version for CPU tensors, and a refusal -- never a
+    quiet fallback -- for bf16 and for an unknown layout."""
     assert fast_round_route("sparse", "cuda", torch.float32) == "kernel"
     assert fast_round_route("sparse", "cuda:0", torch.float64) == "kernel"
     assert fast_round_route("sparse", "cpu", torch.float32) == "plain"
     assert fast_round_route("dense", "cpu", torch.float64) == "plain"
-    with pytest.raises(NotImplementedError, match="Queue B2"):
-        fast_round_route("dense", "cuda", torch.float32)
+    assert fast_round_route("dense", "cuda", torch.float32) == "kernel"
+    with pytest.raises(ValueError, match="layout"):
+        fast_round_route("hybrid", "cuda", torch.float32)
     for layout, dev in (("sparse", "cuda"), ("dense", "cpu")):
         with pytest.raises(ValueError, match="float32 or float64"):
             fast_round_route(layout, dev, torch.bfloat16)
