@@ -60,7 +60,19 @@ stderr); any failed check exits non-zero:
    run_prox_cocoa, lasso and elastic net (l2 = 0.1) at lambda =
    0.3*lambda_max: one B2 launch per round, a certified gap >= 0 that
    falls, ms per round and the round at which the gap first reaches
-   1e-3 * |b|^2 / 2.
+   1e-3 * |b|^2 / 2;
+10. the hybrid hot/cold layout (--hotCols): B1's hot-panel branch (B1h)
+   against its plain version at the rcv1-like and demo shapes with the
+   panel width --hotCols=auto resolves (5248 and 896 columns), modes
+   cocoa/plus/frozen x the three losses x float32/float64, mode prox on
+   the demo, and the demo with every column hot (padding lanes at column
+   0 beside a real column 0), each with dw in shared and in global
+   memory; B5, B3 and B6 on the rcv1-like residual with the panel's
+   terms; B1h's time beside the unsplit B1's on the main path's draws;
+   the rcv1-like data through the CLI with --hotCols=auto for 200 rounds,
+   sequentially (one B1h launch a round) and with --blockSize=auto, the
+   gaps within relative 1e-3 of phase 4's unsplit run; and the demo with
+   --hotCols=auto --justCoCoA=false.
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version and its times; the last line is
@@ -88,7 +100,7 @@ import torch
 
 from cocoa_torch import cli, kernels
 from cocoa_torch.config import DebugParams, Params
-from cocoa_torch.data import load_libsvm, shard_dataset
+from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.columns import shard_columns
 from cocoa_torch.data.synth import synth_dense_sharded, \
     synth_lasso_columns, synth_sparse, write_libsvm
@@ -97,7 +109,7 @@ from cocoa_torch.ops import dense_sdca as dn
 from cocoa_torch.ops import sparse_block as sb
 from cocoa_torch.ops import sparse_sdca as sp
 from cocoa_torch.ops.local_sdca import dense_rows, mode_factors
-from cocoa_torch.ops.rows import row_lengths
+from cocoa_torch.ops.rows import gather_rows, row_lengths
 from cocoa_torch.solvers import base
 from cocoa_torch.solvers import cocoa as cocoa_mod
 from cocoa_torch.solvers.prox_cocoa import run_prox_cocoa
@@ -299,18 +311,24 @@ def check_run(results, label: str):
 
 
 BLOCK = 128
-KERNELS = {"B1": sp.sparse_sdca_round, "B2": dn.dense_sdca_round,
-           "B3": bc.chain_block_batched, "B4": bc.fused_block,
-           "B5": sb.sparse_block_gram, "B6": sb.sparse_block_apply}
+# each kernel's wrapper and the attribute that counts its launches; B1h is
+# B1's hot-panel branch (the hybrid layout), counted apart from B1's
+KERNELS = {"B1": (sp.sparse_sdca_round, "launches"),
+           "B1h": (sp.sparse_sdca_round, "hybrid_launches"),
+           "B2": (dn.dense_sdca_round, "launches"),
+           "B3": (bc.chain_block_batched, "launches"),
+           "B4": (bc.fused_block, "launches"),
+           "B5": (sb.sparse_block_gram, "launches"),
+           "B6": (sb.sparse_block_apply, "launches")}
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 def agree(tag, got, want, dtype, worst, name, floors=None):
@@ -337,10 +355,14 @@ def agree(tag, got, want, dtype, worst, name, floors=None):
     worst[name] = max(worst.get(name, 0.0), err)
 
 
-def sparse_block_inputs(data, k, h, dt, seed=3):
+def sparse_block_inputs(data, k, h, dt, seed=3, hot_cols=0):
     """The first block of a sparse round on the card: B draws with forced
-    repeats and shard 0's crafted column-0 rows, steps past H masked."""
-    ds = shard_dataset(data, k, layout="sparse", dtype=dt, device="cuda")
+    repeats and shard 0's crafted column-0 rows, steps past H masked.
+    ``hot_cols`` > 0 shards the hybrid layout: the rows are then the cold
+    residual, and the block's panel rows, w at the hot columns and a
+    Delta-w_hot come with them."""
+    ds = shard_dataset(data, k, layout="sparse", dtype=dt, device="cuda",
+                       hot_cols=hot_cols)
     w, alpha, idxs = round_inputs(ds, h, seed)
     spi, spv, sq, idxs = column0_rows(ds, idxs)
     n = min(h, BLOCK)
@@ -349,8 +371,14 @@ def sparse_block_inputs(data, k, h, dt, seed=3):
     live_b = torch.arange(BLOCK, device="cuda") < h
     ks = torch.arange(k, device="cuda")[:, None]
     rng = np.random.default_rng(seed)
+    panel = {}
+    if ds.X_hot is not None:
+        panel = dict(xh=gather_rows(ds.X_hot, bidx),
+                     w_hot=w[ds.hot_cols.long()],
+                     dw_hot=torch.as_tensor(rng.normal(
+                         size=(k, ds.n_hot)) * 0.01).to("cuda", dt))
     return dict(
-        ds=ds, w=w, alpha=alpha, sq=sq, bidx=bidx,
+        **panel, ds=ds, w=w, alpha=alpha, sq=sq, bidx=bidx,
         bidx32=bidx.to(torch.int32),
         live=live_b.to(dt).expand(k, BLOCK).contiguous(),
         gidx=spi[ks, bidx].contiguous(), gvals=spv[ks, bidx].contiguous(),
@@ -358,6 +386,18 @@ def sparse_block_inputs(data, k, h, dt, seed=3):
                          -1).to(torch.int32),
         dw=torch.as_tensor(rng.normal(size=(k, ds.num_features)) * 0.01)
         .to("cuda", dt))
+
+
+def with_panel(bi, gram, mb, sig_eff, frozen):
+    """The hybrid block path's panel terms (ops/local_sdca.py, route
+    sparse_gram) added to B5's Gram and margin base: the panel rows
+    against w_hot + sig_eff * Delta-w_hot, and the full panel Gram."""
+    v = bi["w_hot"] if frozen else bi["w_hot"] + sig_eff * bi["dw_hot"]
+    with bc.fp32_matmul():
+        mb = mb + torch.matmul(bi["xh"], v[:, :, None])[..., 0]
+        if not frozen:
+            gram = gram + torch.matmul(bi["xh"], bi["xh"].transpose(1, 2))
+    return gram, mb
 
 
 def chain_scal(bi, mb, qf, dt):
@@ -368,14 +408,15 @@ def chain_scal(bi, mb, qf, dt):
                         bi["live"]], dim=1).to(dt)
 
 
-def phase_block_sparse(name, data, k, h, lam, worst):
+def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
     """B5, B3 and B6 against their plain versions on one block of a
     sparse round, every mode x loss x dtype; B5 with the row expanded in
     shared and in global memory (float64 at rcv1-like width is global
     only: 378 KB); B6 launched twice must agree bit for bit (its adds are
-    ordered)."""
+    ordered).  With ``hot_cols`` the rows are the hybrid layout's cold
+    residual, and B3 reads the Gram and margins with the panel's terms."""
     for dt in (torch.float32, torch.float64):
-        bi = sparse_block_inputs(data, k, h, dt)
+        bi = sparse_block_inputs(data, k, h, dt, hot_cols=hot_cols)
         lam_n = lam * bi["ds"].n
         rows = (bi["gidx"], bi["gvals"], bi["cnts"])
         for mode, sigma in MODES:
@@ -388,6 +429,8 @@ def phase_block_sparse(name, data, k, h, lam, worst):
                 agree(f"{tag} sparse_block_gram row_in_smem={smem}",
                       sb.sparse_block_gram(*args, row_in_smem=smem),
                       (gram, mb), dt, worst, "B5")
+            if hot_cols:
+                gram, mb = with_panel(bi, gram, mb, sig_eff, frozen)
             scal = chain_scal(bi, mb, qf, dt)
             for loss in LOSSES:
                 kw = dict(lam_n=lam_n, coef_div=lam_n, sig_eff=sig_eff,
@@ -598,8 +641,9 @@ def phase_block_path(sparse_runs, eps):
         (OUT / f"chip_smoke_{label}_block.log").write_text(out)
         check("blockSize=auto: using 128 for the sparse layout" in out,
               f"{label}: --blockSize=auto did not pick 128 sparse-Gram")
-        want = {"B1": 0, "B2": 0, "B3": rounds * blocks, "B4": 0,
-                "B5": rounds * blocks, "B6": rounds * blocks}
+        want = {name: 0 for name in KERNELS}
+        want.update(B3=rounds * blocks, B5=rounds * blocks,
+                    B6=rounds * blocks)
         check(launched[label] == want,
               f"{label} block run launches {launched[label]}, want {want}")
         check_run(res, f"{label} block")
@@ -892,6 +936,143 @@ def phase_lasso_design(ds, b, lam_max):
     return launched, result
 
 
+def hybrid_args(ds, w, alpha, idxs, lam, n):
+    """The positional arguments of B1 on a hybrid dataset, and the panel's
+    keyword arguments."""
+    return ((w, alpha, ds.sp_indices, ds.sp_values, ds.labels, ds.sq_norms,
+             idxs, lam, n), dict(hot_cols=ds.hot_cols, hot_panel=ds.X_hot))
+
+
+def column0_panel(ds):
+    """A copy of the all-columns-hot demo shards (d < n_hot, so the last
+    lanes are padding at column 0, value 0) in which the real lane 0,
+    column 0, holds 0.5 in every row: the fold of Delta-w_hot adds the
+    real column 0 and the padding lanes at the same address."""
+    hc = ds.hot_cols
+    check(bool((hc[:, 0] == 0).all() and (hc[:, -1] == 0).all()),
+          "the full-width demo panel has no padding lanes at column 0")
+    X_hot = ds.X_hot.clone()
+    X_hot[:, :, 0] = 0.5 * ds.mask
+    return dataclasses.replace(ds, X_hot=X_hot,
+                               sq_norms=ds.sq_norms + 0.25 * ds.mask)
+
+
+def phase_hybrid_kernel(shapes, worst):
+    """B1's hot-panel branch against its plain version on the same CUDA
+    tensors, with forced repeats: ``shapes`` {name: ({dtype: dataset}, H,
+    lam, n, cases)}, a case (mode, sigma or None for K, loss, smoothing);
+    each case once with dw and Delta-w_hot in shared memory where they
+    fit and once forced into global memory."""
+    for name, (sets, h, lam, n, cases) in shapes.items():
+        for dt, ds in sets.items():
+            for mode, sigma, loss, s in cases:
+                w, alpha, idxs = round_inputs(ds, h, 3, prox=mode == "prox")
+                args, hot = hybrid_args(ds, w, alpha, idxs, lam, n)
+                kw = dict(mode=mode, sigma=sigma or float(ds.k), loss=loss,
+                          smoothing=s, **hot)
+                want = sp.sparse_sdca_round_plain(*args, **kw)
+                for smem in (True, False):
+                    agree(f"{name} {str(dt)[6:]} n_hot={ds.n_hot} "
+                          f"dw_in_smem={smem} {mode}/{loss} s={s}",
+                          sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
+                          want, dt, worst, "B1h", ROUND_FLOORS)
+
+
+def hybrid_timing(rcv1, ds_h, k, h, lam):
+    """B1's hot-panel branch and the unsplit B1 (float32, CoCoA+, hinge)
+    on the same draws of the main path, timed in turns (unsplit, hybrid,
+    hybrid, unsplit), the hybrid kernel with its state forced into global
+    memory and the plain version; and the hybrid round's bound."""
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    w, alpha, idxs = round_inputs(ds_h, h, seed=5, repeats=False)
+    kw = dict(mode="plus", sigma=float(k), loss="hinge")
+    args, hot = hybrid_args(ds_h, w, alpha, idxs, lam, ds_h.n)
+    rl, rl_h = row_lengths(ds.sp_values), row_lengths(ds_h.sp_values)
+    unsplit_args = (w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
+                    ds.sq_norms, idxs, lam, ds.n)
+
+    def unsplit():
+        return cuda_ms(lambda: sp.sparse_sdca_round(
+            *unsplit_args, row_len=rl, **kw), 25)
+
+    def hybrid_ms(smem=True, reps=25):
+        return cuda_ms(lambda: sp.sparse_sdca_round(
+            *args, row_len=rl_h, dw_in_smem=smem, **kw, **hot), reps)
+
+    t = [unsplit(), hybrid_ms(), hybrid_ms(), unsplit()]
+    out = dict(ms=(t[1] + t[2]) / 2, unsplit_ms=(t[0] + t[3]) / 2,
+               global_ms=hybrid_ms(False),
+               plain_ms=cuda_ms(lambda: sp.sparse_sdca_round_plain(
+                   *args, **kw, **hot), 3))
+    # each input read once, each output written once: the distinct
+    # sampled rows' panel rows and residual slots with their y, |x|^2 and
+    # row length, w, hot_cols, the (K, d) dw written, alpha read and
+    # written, and each step's draw; per step 6 operations a panel lane
+    # and a residual nonzero (margin and axpy)
+    isz, d, n_hot = 4, ds_h.num_features, ds_h.n_hot
+    rows = distinct_rows(idxs)
+    nnz = sum(int(rl_h[s, r].sum()) for s, r in enumerate(rows))
+    n_rows = sum(r.numel() for r in rows)
+    n_bytes = (n_rows * (n_hot * isz + 2 * isz + 4) + nnz * (4 + isz)
+               + d * isz + k * n_hot * 4 + k * d * isz
+               + 2 * k * ds_h.n_shard * isz + k * h * 4)
+    flops = 6 * (k * h * n_hot + int(rl_h.gather(1, idxs.long()).sum()))
+    out.update(bound=bound(n_bytes, flops), n_bytes=n_bytes, rows=n_rows)
+    return out
+
+
+def phase_hybrid_path(rcv1_argv, rcv1_seq, width, demo_train, demo_test):
+    """The hybrid layout through the CLI, every kernel's launches counted
+    from 0 just before each run and read just after: rcv1-like data with
+    --hotCols=auto sequentially (one B1h launch per round, nothing else)
+    and with --blockSize=auto (B5, B3 and B6 on the residual, one each a
+    block), the gaps within relative 1e-3 of phase 4's unsplit sequential
+    run (the same draws and math); then the demo with --justCoCoA=false: six algorithms on the
+    hybrid shards.  Returns ({run: counts}, {run: ms per round})."""
+    launched, per_round = {}, {}
+    blocks = -(-max(1, int(0.1 * RCV1_SHAPE[0] / 8)) // BLOCK)
+    block_want = {name: 0 for name in KERNELS}
+    block_want.update(B3=400 * blocks, B5=400 * blocks, B6=400 * blocks)
+    for label, extra, want in (
+            ("rcv1-like hybrid sequential", [], only("B1h", 400)),
+            ("rcv1-like hybrid block", ["--blockSize=auto"], block_want)):
+        (out, res), got = reset_and_run(
+            run_cli, rcv1_argv + ["--hotCols=auto"] + extra)
+        (OUT / f"chip_smoke_{label.replace(' ', '_')}.log").write_text(out)
+        check(f"hotCols=auto: panel {width} columns" in out,
+              f"{label}: the CLI did not resolve a {width}-column panel")
+        check(got == want, f"{label}: launches {got}, want {want}")
+        check_run(res, label)
+        check_same_gaps(f"{label} vs unsplit", res, rcv1_seq)
+        launched[label] = got
+        per_round[label] = [r.trajectory.records[-1].wall_time / 200 * 1e3
+                            for r in res]
+        print(f"phase 10: {label} ok: launches {got}, gaps within rel 1e-3 "
+              f"of the unsplit run; ms per round (evals included) CoCoA+ "
+              f"{per_round[label][0]:.3f}, CoCoA {per_round[label][1]:.3f}")
+    rounds = 50
+    argv = [f"--trainFile={demo_train}", f"--testFile={demo_test}",
+            "--numFeatures=9947", "--numSplits=4", f"--numRounds={rounds}",
+            "--localIterFrac=0.1", "--math=fast", "--dtype=float32",
+            "--lambda=.001", "--justCoCoA=false", "--hotCols=auto"]
+    label = "demo menu hybrid"
+    (out, res), got = reset_and_run(run_cli, argv)
+    (OUT / "chip_smoke_demo_menu_hybrid.log").write_text(out)
+    resolved = [ln for ln in out.splitlines() if ln.startswith("hotCols=")]
+    check(len(resolved) == 1, f"{label}: no resolution line")
+    check(got == only("B1h", 3 * rounds),
+          f"{label}: launches {got}, want {only('B1h', 3 * rounds)}")
+    names = tuple(r.algorithm for r in res)
+    check(names == MENU, f"{label}: ran {names}")
+    check_run(res[:3], label)
+    check_primal_only(res[3:], label)
+    launched[label] = got
+    print(f"phase 10: {label} ok: {resolved[0]}; six algorithms, "
+          f"{3 * rounds} B1h launches")
+    return launched, per_round
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -1034,7 +1215,6 @@ def main() -> int:
     launched, per_round, eps_fused = phase_block_path(
         [("demo", demo_argv, demo_seq, demo_h),
          ("rcv1-like", rcv1_argv, rcv1_seq, rcv1_h)], eps)
-    tmp.cleanup()
     seq_ms = [r.trajectory.records[-1].wall_time / 200 * 1e3
               for r in rcv1_seq]
     print(f"phase 6: rcv1-like ms per round, block path vs sequential "
@@ -1098,8 +1278,61 @@ def main() -> int:
     launched9, _ = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
     launched_lasso, _ = phase_lasso_design(lasso_ds, lasso_b, lam_max)
     launched9.update(launched_lasso)
+    del lasso_ds
 
-    block_launches = {name: sum(c[name] for c in launched.values())
+    # --- phase 10: the hybrid hot/cold layout (--hotCols)
+    t0 = time.perf_counter()
+    rcv1_w, rcv1_split = hybrid.resolve_hot_cols("auto", rcv1, 8, f32)
+    demo_w, _ = hybrid.resolve_hot_cols("auto", demo, 4, f32)
+
+    def hybrid_sets(data, k, width):
+        return {dt: shard_dataset(data, k, layout="sparse", dtype=dt,
+                                  device="cuda", hot_cols=width)
+                for dt in (f32, f64)}
+
+    rcv1_hyb = hybrid_sets(rcv1, 8, rcv1_w)
+    demo_hyb = hybrid_sets(demo, 4, demo_w)
+    demo_full = {dt: column0_panel(ds) for dt, ds in
+                 hybrid_sets(demo, 4, demo.num_features).items()}
+    torch.cuda.synchronize()
+    print(f"phase 10: rcv1-like panel {rcv1_w} columns "
+          f"({rcv1_split['coverage'] * 100:.1f}% of the nonzeros, "
+          f"{rcv1_hyb[f32].X_hot.numel() * 4 / 1e6:.0f} MB in float32), "
+          f"residual width {rcv1_hyb[f32].sp_indices.shape[-1]} (mean nnz "
+          f"{rcv1_split['residual_mean_nnz']:.1f}); demo panel {demo_w} "
+          f"columns, residual width {demo_hyb[f32].sp_indices.shape[-1]}; "
+          f"made on the card in {time.perf_counter() - t0:.1f} s")
+    phase_hybrid_kernel({
+        "rcv1-like hybrid": (rcv1_hyb, rcv1_h, 1e-4, rcv1.n, dual),
+        "demo hybrid": (demo_hyb, demo_h, 1e-3, demo.n, dual + prox),
+        "demo all columns hot, column 0": (
+            demo_full, demo_h, 1e-3, demo.n,
+            [("plus", None, "hinge", 1.0), ("cocoa", None, "logistic", 1.0)]),
+    }, worst)
+    phase_block_sparse("rcv1-like hybrid", rcv1, 8, rcv1_h, 1e-4, worst,
+                       hot_cols=rcv1_w)
+    ht = hybrid_timing(rcv1, rcv1_hyb[f32], 8, rcv1_h, 1e-4)
+    del rcv1_hyb, demo_hyb, demo_full
+    print(f"phase 10: all B1h cases agree (max_abs_err {worst['B1h']:.3e}), "
+          f"B5/B3/B6 on the residual too; rcv1-like f32 plus/hinge round: "
+          f"B1h {ht['ms']:.4f} ms (state in global memory "
+          f"{ht['global_ms']:.4f} ms), unsplit B1 {ht['unsplit_ms']:.4f} ms "
+          f"on the same draws (in turns), plain {ht['plain_ms']:.2f} ms, "
+          f"bound {ht['bound'][0]:.5f} ms ({ht['bound'][1]}: "
+          f"{ht['n_bytes']} B, {ht['rows']} distinct sampled rows)")
+    launched10, per_round10 = phase_hybrid_path(rcv1_argv, rcv1_seq, rcv1_w,
+                                                DEMO_TRAIN, DEMO_TEST)
+    tmp.cleanup()
+    hyb_seq = per_round10["rcv1-like hybrid sequential"]
+    hyb_block = per_round10["rcv1-like hybrid block"]
+    print(f"phase 10: rcv1-like ms per round, hybrid vs unsplit (evals "
+          f"included): sequential CoCoA+ {hyb_seq[0]:.3f} vs {seq_ms[0]:.3f}, "
+          f"CoCoA {hyb_seq[1]:.3f} vs {seq_ms[1]:.3f}; block CoCoA+ "
+          f"{hyb_block[0]:.3f} vs {per_round['rcv1-like'][0]:.3f}, CoCoA "
+          f"{hyb_block[1]:.3f} vs {per_round['rcv1-like'][1]:.3f}")
+
+    block_launches = {name: sum(c[name] for c in (*launched.values(),
+                                                  *launched10.values()))
                       for name in ("B3", "B4", "B5", "B6")}
     for name, n in block_launches.items():
         check(n > 0, f"{name} never launched on the block path")
@@ -1107,6 +1340,8 @@ def main() -> int:
                                                 *launched9.values()))
                     for name in ("B1", "B2")}
     check(seq_launches["B2"] > 0, "B2 never launched on the main paths")
+    hyb_launches = sum(c["B1h"] for c in launched10.values())
+    check(hyb_launches > 0, "B1h never launched on the hybrid main path")
     sources = {"B3": ("chain_block_batched", "block_chain",
                       "cocoa_tpu/ops/pallas_chain.py:190"),
                "B4": ("fused_block", "block_chain",
@@ -1124,6 +1359,13 @@ def main() -> int:
         "max_abs_err": max(worst_b1, worst7["B1"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
+        "name": "sparse_sdca_hybrid", "route": "cuda",
+        "source": "cocoa_torch/csrc/sparse_sdca.cu",
+        "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
+        "launches": hyb_launches, "max_abs_err": worst["B1h"],
+        "ms": ht["ms"], "plain_ms": ht["plain_ms"],
+        "bound_ms": ht["bound"][0], "bound_by": ht["bound"][1],
+        "library_ms": None}, {
         "name": "dense_sdca_round", "route": "cuda",
         "source": "cocoa_torch/csrc/dense_sdca.cu",
         "replaces": "cocoa_tpu/ops/pallas_sdca.py:328",
@@ -1140,8 +1382,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
-          f"{main_launches}, phase 9 {seq_launches['B1']}), B2 "
-          f"{seq_launches['B2']} (phases 8 and 9)")
+          f"{main_launches}, phase 9 {seq_launches['B1']}), B1h "
+          f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8 "
+          f"and 9)")
     # the card once more, near the end of the output
     print(f"card (nvidia-smi name, power.limit): {card}; kernels built in "
           f"{build_s:.1f} s; all phases in {time.perf_counter() - start:.1f} s")

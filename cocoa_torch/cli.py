@@ -8,7 +8,7 @@
         [--rng=reference|jax|permuted] [--debugIter=.. --seed=.. --beta=..
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
         --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
-        [--objective=svm|lasso --l2=<float>]
+        [--objective=svm|lasso --l2=<float>] [--hotCols=auto|off|<n>]
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
 prints the reference's round and summary lines; ``--justCoCoA=false``
@@ -19,7 +19,11 @@ regression target with the L1 weight ``--lambda`` and the elastic-net
 weight ``--l2``.  It runs on CUDA unless ``--device=cpu`` is given, and
 exits 2 with ``error: ...`` when CUDA is absent.  ``--blockSize`` (with
 ``--math=fast``) runs each SDCA round as the block-coordinate round;
-``auto`` picks the block size for the layout.  Flags of the JAX CLI that
+``auto`` picks the block size for the layout.  ``--hotCols`` (sparse
+layout, ``--objective=svm``) builds the hybrid hot/cold column split
+(data/hybrid.py): the hottest columns move into a dense panel and the
+padded CSR keeps the cold residual; ``auto`` takes the panel that covers
+75% of the nonzeros within a 2 GiB budget.  Flags of the JAX CLI that
 this port does not support yet exit 2 with ``error: --X is not yet ported
 to cocoa_torch (ROADMAP Queue A)``.
 """
@@ -33,8 +37,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
-from cocoa_torch.data import load_libsvm, shard_dataset
+from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.columns import shard_columns
+from cocoa_torch.data.sharding import resolve_layout
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
@@ -50,13 +55,14 @@ _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
                                "smoothing", "sigma", "device", "objective",
                                "l2")}
 _PORT_FLAGS["blockSize"] = "block_size"
+_PORT_FLAGS["hotCols"] = "hot_cols"
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "chkptDir", "sampling", "mesh", "fp", "trajOut", "gapTarget", "resume",
     "scanChunk", "deviceLoop", "master", "processId", "numProcesses",
     "profile", "blockPipeline",
     "divergenceGuard", "sigmaSchedule", "warmStart", "accel", "theta",
-    "elastic", "stallTimeout", "evalDense", "hotCols", "ingest",
+    "elastic", "stallTimeout", "evalDense", "ingest",
     "ingestCache", "metrics", "events", "quiet", "trace", "flightRecorder",
     "eventsMaxMB", "metricsInterval", "overlapComm", "staleRounds", "fleet",
     "fleetLanes", "serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
@@ -166,6 +172,10 @@ def _objective(cfg: RunConfig):
         raise ValueError(f"--objective must be svm|lasso, got {objective!r}")
     if objective == "svm":
         return objective, 0.0
+    if cfg.hot_cols is not None:
+        raise ValueError("--hotCols does not apply to --objective=lasso "
+                         "(column shards already partition the feature "
+                         "axis)")
     if cfg.test_file:
         raise ValueError("--testFile does not apply to --objective=lasso "
                          "(no classification error to report)")
@@ -177,6 +187,27 @@ def _objective(cfg: RunConfig):
         raise ValueError(f"--l2 is the elastic-net weight, needs >= 0, "
                          f"got {l2}")
     return objective, l2
+
+
+def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
+    """``--hotCols`` resolved against the training data, with the JAX
+    CLI's rule and messages (cocoa_tpu/cli.py:1452-1471): sparse layout
+    only; prints the panel's accounting when it builds one.  Returns the
+    panel width, 0 for the plain stream layout."""
+    layout = resolve_layout(data, cfg.layout)
+    if cfg.hot_cols is not None and layout != "sparse":
+        raise ValueError("--hotCols (the hot/cold column split) only "
+                         "applies to the sparse layout")
+    if layout != "sparse":
+        return 0
+    hot_n, split = hybrid.resolve_hot_cols(cfg.hot_cols, data, k, dtype)
+    if hot_n:
+        print(f"hotCols={split['spec']}: panel {hot_n} columns, "
+              f"{split['coverage'] * 100:.1f}% nonzero coverage, "
+              f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
+              f"nnz {split['residual_mean_nnz']:.1f} (max "
+              f"{split['residual_max_nnz']})")
+    return hot_n
 
 
 def _run_lasso(cfg: RunConfig, l2: float, dtype, device):
@@ -227,13 +258,17 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
+        hot_n = _hot_cols(cfg, data, k, dtype)
         ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
-                           device=device)
+                           device=device, hot_cols=hot_n)
         test_ds = None
         if cfg.test_file:
+            # the test file gets a panel of the same width over its own
+            # hottest columns, as in the JAX CLI
             test_ds = shard_dataset(
                 load_libsvm(cfg.test_file, cfg.num_features), k=k,
-                layout=cfg.layout, dtype=dtype, device=device)
+                layout=cfg.layout, dtype=dtype, device=device,
+                hot_cols=hot_n)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []

@@ -65,6 +65,7 @@ class RunConfig:
     block_size: str = ""         # --blockSize: "" (off), an int, or auto
     objective: str = "svm"       # svm | lasso (ProxCoCoA+)
     l2: str = ""                 # --l2: the elastic-net weight ("" = 0)
+    hot_cols: Optional[str] = None  # --hotCols: auto | off | <n> (sparse)
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""

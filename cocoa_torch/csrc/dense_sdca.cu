@@ -59,15 +59,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;  // row elements a thread loads at once
 
-// Ask L2 for every 128-byte line of a row.
-template <typename T>
-__device__ __forceinline__ void prefetch_row(const T* row, int d) {
-  constexpr int kPerLine = 128 / sizeof(T);
-  for (int j = threadIdx.x * kPerLine; j < d; j += kThreads * kPerLine)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(
-        __cvta_generic_to_global(row + j)));
-}
-
 template <typename T, bool kSmem>
 __global__ void __launch_bounds__(kThreads) dense_sdca_round_kernel(
     const T* __restrict__ w, T* __restrict__ alpha, const T* __restrict__ X,
@@ -95,12 +86,13 @@ __global__ void __launch_bounds__(kThreads) dense_sdca_round_kernel(
     if (kSmem) smem[d + c] = w[c];
   }
   // no barrier: every later access to column c is made by thread t
-  if (h > 0) prefetch_row(X_k + (size_t)idxs_k[0] * d, d);
+  if (h > 0) sdca::prefetch_l2<kThreads>(X_k + (size_t)idxs_k[0] * d, d);
 
   for (int step = 0; step < h; ++step) {
     const int i = idxs_k[step];
     const T* row = X_k + (size_t)i * d;
-    if (step + 1 < h) prefetch_row(X_k + (size_t)idxs_k[step + 1] * d, d);
+    if (step + 1 < h)
+      sdca::prefetch_l2<kThreads>(X_k + (size_t)idxs_k[step + 1] * d, d);
     T y = T(0), a = T(0), qii = T(0);
     if (t == 0) {  // in flight while the dots run
       y = labels_k[i];

@@ -72,6 +72,16 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// Ask L2 for every 128-byte line of the n values at ``row``, spread over
+// a block of kThreads threads (a row the next step will read).
+template <int kThreads, typename T>
+__device__ __forceinline__ void prefetch_l2(const T* row, int n) {
+  constexpr int kPerLine = 128 / sizeof(T);
+  for (int j = threadIdx.x * kPerLine; j < n; j += kThreads * kPerLine)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        __cvta_generic_to_global(row + j)));
+}
+
 // Opt in to ``bytes`` of dynamic shared memory for ``kernel`` when it is
 // above the 48 KB default; returns the CUDA error code.
 template <typename K>

@@ -5,6 +5,10 @@ cocoa_tpu/data/sharding.py, single process, dense and padded-CSR).
 - **sparse** (padded CSR): ``sp_indices``/``sp_values`` are
   (K, n_shard, W) with W the dataset's max row nnz; a row's slots past its
   nnz carry index 0 / value 0.
+- **hybrid** (sparse with ``hot_cols`` > 0, ``--hotCols``, data/hybrid.py):
+  a dense hot panel ``X_hot`` (K, n_shard, n_hot) over the globally
+  hottest columns, ``hot_cols`` (K, n_hot) its column ids, and the
+  padded CSR holding only the cold residual, at the residual's width.
 
 Shards are padded to the largest shard's row count; padded rows carry
 ``mask=0``, ``y=0``, ``x=0`` and are never sampled.  Unlike the JAX
@@ -70,6 +74,8 @@ class ShardedDataset:
     X: Optional[torch.Tensor] = None           # dense: (K, n_shard, d)
     sp_indices: Optional[torch.Tensor] = None  # sparse: (K, n_shard, W) int32
     sp_values: Optional[torch.Tensor] = None   # sparse: (K, n_shard, W)
+    X_hot: Optional[torch.Tensor] = None       # hybrid: (K, n_shard, n_hot)
+    hot_cols: Optional[torch.Tensor] = None    # hybrid: (K, n_hot) int32
 
     @property
     def k(self) -> int:
@@ -87,6 +93,11 @@ class ShardedDataset:
     def device(self) -> torch.device:
         return self.labels.device
 
+    @property
+    def n_hot(self) -> int:
+        """The hot panel's width; 0 without a panel."""
+        return 0 if self.X_hot is None else self.X_hot.shape[-1]
+
     def shard_arrays(self) -> dict:
         """The per-shard tensors the local solvers read."""
         out = {"labels": self.labels, "mask": self.mask,
@@ -96,16 +107,24 @@ class ShardedDataset:
         else:
             out["sp_indices"] = self.sp_indices
             out["sp_values"] = self.sp_values
+            if self.X_hot is not None:
+                out["X_hot"] = self.X_hot
+                out["hot_cols"] = self.hot_cols
         return out
 
 
 def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
-                  dtype: torch.dtype = torch.float32,
-                  device=None) -> ShardedDataset:
+                  dtype: torch.dtype = torch.float32, device=None,
+                  hot_cols: int = 0) -> ShardedDataset:
     """Partition ``data`` into K balanced contiguous shards on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
     Host arrays are built in float64 and cast once, so ``sq_norms`` is
-    the exact float64 sum of squares rounded to ``dtype``."""
+    the exact float64 sum of squares rounded to ``dtype``.
+
+    ``hot_cols`` > 0 (sparse layout only) builds the hybrid layout with a
+    panel of ``pad_panel(min(hot_cols, d))`` lanes over the data's own
+    hottest columns (data/hybrid.py), the same split as
+    ``resolve_hot_cols`` measured."""
     device = resolve_device(device)
     n, d = data.n, data.num_features
     layout = resolve_layout(data, layout)
@@ -115,6 +134,25 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     row_nnz = np.diff(data.indptr)
     row_sq = segment_sq_norms(data.values, data.indptr)
     width = max(1, int(row_nnz.max(initial=1)))
+    n_hot = 0
+    if hot_cols:
+        from cocoa_torch.data import hybrid
+
+        if layout != "sparse":
+            raise ValueError("hot_cols (the hot/cold column split) only "
+                             "applies to the sparse layout")
+        n_hot = hybrid.pad_panel(min(int(hot_cols), d))
+        hot_ids = hybrid.hottest_columns(hybrid.column_counts(data), n_hot)
+        rank = hybrid.hot_rank(d, hot_ids)
+        # the residual is as wide as the largest row's cold nonzeros
+        cold_rows = np.repeat(np.arange(n, dtype=np.int64),
+                              row_nnz)[rank[data.indices] < 0]
+        width = max(1, int(np.bincount(cold_rows, minlength=max(1, n))
+                           .max(initial=0)))
+        # the panel is built in the working precision where that is
+        # float32 (one rounding either way): 427 MB at rcv1-like size
+        hot_np = np.float32 if dtype == torch.float32 else np.float64
+        X_hot = np.zeros((k, n_shard, n_hot), hot_np)
 
     labels = np.zeros((k, n_shard))
     mask = np.zeros((k, n_shard))
@@ -134,6 +172,9 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         rows = np.repeat(np.arange(m), row_nnz[lo:hi])
         if layout == "dense":
             X[s, rows, data.indices[a:b]] = data.values[a:b]
+        elif n_hot:
+            X_hot[s], spi[s], spv[s] = hybrid.split_slab(
+                data, lo, hi, n_shard, rank, n_hot, width, np.float64)
         else:
             cols = (np.arange(a, b)
                     - np.repeat(data.indptr[lo:hi], row_nnz[lo:hi]))
@@ -143,6 +184,13 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     def put(arr, dt=dtype):
         return torch.from_numpy(arr).to(device=device, dtype=dt)
 
+    hot = {}
+    if n_hot:
+        # lanes past the real hot count carry column 0 and value 0
+        hc = np.zeros(n_hot, dtype=np.int32)
+        hc[:len(hot_ids)] = hot_ids
+        hot = dict(X_hot=put(X_hot),
+                   hot_cols=put(np.tile(hc[None], (k, 1)), torch.int32))
     return ShardedDataset(
         layout=layout, n=n, num_features=d,
         counts=sizes.astype(np.int64),
@@ -150,4 +198,5 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         X=put(X) if layout == "dense" else None,
         sp_indices=put(spi, torch.int32) if layout == "sparse" else None,
         sp_values=put(spv) if layout == "sparse" else None,
+        **hot,
     )

@@ -29,13 +29,19 @@ def dataset_from_numpy(arrays: dict, layout: str, n: int, d: int,
                        device=None) -> ShardedDataset:
     """A :class:`ShardedDataset` from per-shard arrays: ``labels``,
     ``mask``, ``sq_norms`` (K, n_shard) and ``X`` (K, n_shard, d) or
-    ``sp_indices``/``sp_values`` (K, n_shard, W).  The float arrays keep
+    ``sp_indices``/``sp_values`` (K, n_shard, W), with ``X_hot``
+    (K, n_shard, n_hot) and ``hot_cols`` (K, n_hot) for the hybrid
+    layout.  The float arrays keep
     their dtype; the real-row counts come from the mask.  Padded shapes are
     kept as given: padded rows and slots are inert.  ``device`` is
     ``cuda`` unless ``"cpu"`` is asked for."""
     device = resolve_device(device)
     if layout not in ("dense", "sparse"):
         raise ValueError(f"layout must be dense or sparse, got {layout!r}")
+    if ("X_hot" in arrays) != ("hot_cols" in arrays) or (
+            "X_hot" in arrays and layout != "sparse"):
+        raise ValueError("X_hot and hot_cols come together, on the sparse "
+                         "layout")
     t = {name: torch.tensor(np.asarray(a)).to(device)
          for name, a in arrays.items()}
     mask = np.asarray(arrays["mask"])
@@ -47,4 +53,7 @@ def dataset_from_numpy(arrays: dict, layout: str, n: int, d: int,
         sp_indices=(t["sp_indices"].to(torch.int32)
                     if layout == "sparse" else None),
         sp_values=t["sp_values"] if layout == "sparse" else None,
+        X_hot=t.get("X_hot"),
+        hot_cols=(t["hot_cols"].to(torch.int32) if "hot_cols" in t
+                  else None),
     )

@@ -28,7 +28,8 @@ import torch
 from cocoa_torch.ops import losses
 from cocoa_torch.ops.block_chain import chain_block_batched, fp32_matmul, \
     fused_block
-from cocoa_torch.ops.rows import get_row, row_axpy, row_dot, row_lengths
+from cocoa_torch.ops.rows import gather_rows, get_row, row_axpy, row_dot, \
+    row_lengths
 from cocoa_torch.ops.sparse_block import sparse_block_apply, \
     sparse_block_gram
 
@@ -168,14 +169,20 @@ def _pad_blocks(idxs: torch.Tensor, block: int):
 def dense_rows(shards: dict, bidx: torch.Tensor, d: int) -> torch.Tensor:
     """(K, B, d) dense tile of rows ``bidx`` (K, B) of every shard; sparse
     rows are scattered into zeros (padded slots add 0 at column 0, a
-    repeated column sums)."""
+    repeated column sums), and a hybrid row's panel slice is added at the
+    hot column ids, which no residual slot holds."""
     ks = torch.arange(bidx.shape[0], device=bidx.device)[:, None]
     if "X" in shards:
         return shards["X"][ks, bidx]
     vals = shards["sp_values"][ks, bidx]
-    return torch.zeros(*bidx.shape, d, dtype=vals.dtype,
+    tile = torch.zeros(*bidx.shape, d, dtype=vals.dtype,
                        device=vals.device).scatter_add_(
         2, shards["sp_indices"][ks, bidx].long(), vals)
+    if "X_hot" in shards:
+        cols = shards["hot_cols"].long()[:, None, :].expand(
+            *bidx.shape, -1)
+        tile.scatter_add_(2, cols, gather_rows(shards["X_hot"], bidx))
+    return tile
 
 
 def local_sdca_block(margins0: torch.Tensor, alpha: torch.Tensor,
@@ -253,7 +260,14 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
       (no TF32), then the chain kernel, then Delta-w += coef . X_B;
     - ``"sparse_gram"``: padded-CSR rows only; the Gram and margin base
       come from the rows' slots (ops/sparse_block.py), then the chain,
-      then the sparse apply.  No (K, B, d) tile.
+      then the sparse apply.  No (K, B, d) tile.  On the hybrid layout
+      (``X_hot``/``hot_cols`` in ``shards``) the slots are the cold
+      residual, and each block adds the panel's terms as products in
+      full float32: the margin base against w + sig_eff * Delta-w at the
+      hot columns, the panel Gram, and coef . panel into a separate
+      (K, n_hot) Delta-w_hot, added into Delta-w at the hot columns after
+      the round (hot and cold columns are disjoint, so each sum splits
+      exactly).
 
     The row gathers, the alpha gathers and scatter-adds and the (K, d)
     adds are plain tensor ops; every branch scatter-adds its alpha deltas
@@ -276,10 +290,15 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
     padded, live_all = _pad_blocks(idxs_kh, block)
     dw = torch.zeros(k, d, dtype=dtype, device=w.device)
     a_vec = alpha.clone()
+    hybrid = route == "sparse_gram" and "X_hot" in shards
     if route == "sparse_gram":
         row_len = shards.get("sp_row_len")
         if row_len is None:
             row_len = row_lengths(shards["sp_values"])
+    if hybrid:
+        hot_cols = shards["hot_cols"].long()                  # (K, n_hot)
+        w_hot = w[hot_cols]
+        dw_hot = torch.zeros_like(w_hot)
     ks = torch.arange(k, device=w.device)[:, None]
     for start in range(0, padded.shape[1], block):
         bidx = padded[:, start:start + block]
@@ -296,11 +315,22 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                                -1).to(torch.int32)
             gram, mbase = sparse_block_gram(w, dw, gidx, gvals, cnts,
                                             sig_eff, frozen)
+            if hybrid:
+                xh = gather_rows(shards["X_hot"], bidx)      # (K, B, n_hot)
+                v_hot = w_hot if frozen else w_hot + sig_eff * dw_hot
+                with fp32_matmul():
+                    mbase = mbase + torch.matmul(xh, v_hot[:, :, None])[..., 0]
+                    if not frozen:
+                        # the full panel Gram: the chain reads i < j only
+                        gram = gram + torch.matmul(xh, xh.transpose(1, 2))
             scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                                 live], dim=1)
             delta, coefs = chain_block_batched(scal, gram, bidx32, **chain_kw)
             a_vec.scatter_add_(1, bidx, delta)
             sparse_block_apply(dw, gidx, gvals, cnts, coefs)
+            if hybrid:
+                with fp32_matmul():
+                    dw_hot = dw_hot + torch.matmul(coefs[:, None, :], xh)[:, 0]
             continue
         xb = dense_rows(shards, bidx, d)
         if route == "fused":
@@ -323,4 +353,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
         a_vec.scatter_add_(1, bidx, delta)
         with fp32_matmul():
             dw = dw + torch.matmul(coefs[:, None, :], xb)[:, 0]
+    if hybrid:
+        # panel padding lanes carry value 0 at column 0: they add 0
+        dw.scatter_add_(1, hot_cols, dw_hot)
     return a_vec - alpha, dw

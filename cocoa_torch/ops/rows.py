@@ -1,11 +1,17 @@
 """Row access over the shard layouts (counterpart of cocoa_tpu/ops/rows.py,
-dense and padded CSR).
+dense, padded CSR and hybrid).
 
 The JAX package reads one row of one shard per step and vmaps over the K
 shards; here every accessor works on all K shards at once: a step picks
 one row index per shard, ``idx`` of shape (K,), and the d-vectors it
 touches are (K, d).  Padded CSR slots carry index 0 / value 0, so they
 add exactly 0 to every dot and axpy.
+
+On the hybrid layout (``--hotCols``, data/hybrid.py) a row also carries
+its dense hot-panel slice, and the dot and axpy add the panel term at the
+``hot_cols`` column ids.  Hot and cold columns are disjoint, so the
+panel's scatter never meets the residual's; the panel's padding lanes
+(column 0, value 0) add exactly 0.
 """
 
 from __future__ import annotations
@@ -21,6 +27,15 @@ class Row(NamedTuple):
     dense: Optional[torch.Tensor] = None   # (K, d)
     idx: Optional[torch.Tensor] = None     # (K, W) int64
     val: Optional[torch.Tensor] = None     # (K, W)
+    hot: Optional[torch.Tensor] = None     # hybrid: (K, n_hot) panel values
+    hot_cols: Optional[torch.Tensor] = None  # hybrid: (K, n_hot) int64
+
+
+def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (K, B) of each shard of ``t`` (K, n, m): (K, B, m).
+    A gather, where ``t[ks, idx]`` would take PyTorch's general indexing
+    path, which is slow on the CPU for a wide panel."""
+    return t.gather(1, idx[:, :, None].expand(-1, -1, t.shape[-1]))
 
 
 def get_row(shards: dict, idx: torch.Tensor) -> Row:
@@ -28,22 +43,32 @@ def get_row(shards: dict, idx: torch.Tensor) -> Row:
     ks = torch.arange(idx.shape[0], device=idx.device)
     if "X" in shards:
         return Row(dense=shards["X"][ks, idx])
+    hot = hot_cols = None
+    if "X_hot" in shards:
+        hot = gather_rows(shards["X_hot"], idx[:, None])[:, 0]
+        hot_cols = shards["hot_cols"].long()
     return Row(idx=shards["sp_indices"][ks, idx].long(),
-               val=shards["sp_values"][ks, idx])
+               val=shards["sp_values"][ks, idx], hot=hot, hot_cols=hot_cols)
 
 
 def row_dot(row: Row, vec: torch.Tensor) -> torch.Tensor:
     """x_k . vec_k for every shard: (K,)."""
     if row.dense is not None:
         return (row.dense * vec).sum(-1)
-    return (vec.gather(1, row.idx) * row.val).sum(-1)
+    out = (vec.gather(1, row.idx) * row.val).sum(-1)
+    if row.hot is not None:
+        out = out + (vec.gather(1, row.hot_cols) * row.hot).sum(-1)
+    return out
 
 
 def row_axpy(row: Row, coef: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """vec_k += coef_k * x_k, in place (``vec`` is loop-local state)."""
     if row.dense is not None:
         return vec.add_(coef[:, None] * row.dense)
-    return vec.scatter_add_(1, row.idx, coef[:, None] * row.val)
+    vec.scatter_add_(1, row.idx, coef[:, None] * row.val)
+    if row.hot is not None:
+        vec.scatter_add_(1, row.hot_cols, coef[:, None] * row.hot)
+    return vec
 
 
 def row_lengths(sp_values: torch.Tensor) -> torch.Tensor:
@@ -55,10 +80,16 @@ def row_lengths(sp_values: torch.Tensor) -> torch.Tensor:
 
 
 def shard_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
-    """x_i . w for every row of every shard: (K, n_shard)."""
+    """x_i . w for every row of every shard: (K, n_shard); on the hybrid
+    layout the residual's gather-sum plus the panel's product with w at
+    the hot columns."""
     if "X" in shards:
         return shards["X"] @ w
-    return (w[shards["sp_indices"].long()] * shards["sp_values"]).sum(-1)
+    m = (w[shards["sp_indices"].long()] * shards["sp_values"]).sum(-1)
+    if "X_hot" in shards:
+        w_hot = w[shards["hot_cols"].long()]              # (K, n_hot)
+        m = m + torch.matmul(shards["X_hot"], w_hot[:, :, None])[..., 0]
+    return m
 
 
 def eval_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:

@@ -35,4 +35,10 @@ def subgradient_pass(w: torch.Tensor, shards: dict, lam: float,
         dw = torch.zeros(k, w.shape[0], dtype=w.dtype, device=w.device)
         dw.scatter_add_(1, shards["sp_indices"].reshape(k, -1).long(),
                         (shards["sp_values"] * coef[..., None]).reshape(k, -1))
+        if "X_hot" in shards:
+            # the hybrid panel as one product per shard, added at the hot
+            # column ids (disjoint from the residual's)
+            dw.scatter_add_(1, shards["hot_cols"].long(),
+                            torch.matmul(coef[:, None, :],
+                                         shards["X_hot"])[:, 0])
     return dw - lam * w

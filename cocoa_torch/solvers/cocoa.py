@@ -145,10 +145,12 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
         row_len = row_lengths(ds.sp_values) if route == "kernel" else None
 
         def inner(w, alpha, idxs_kh):
+            # a hybrid layout (--hotCols) passes its hot panel through:
+            # the round then runs B1's hot-panel branch
             return sparse_sdca_round(
                 w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
                 ds.sq_norms, idxs_kh, params.lam, params.n, row_len=row_len,
-                **common)
+                hot_cols=ds.hot_cols, hot_panel=ds.X_hot, **common)
     else:
         def inner(w, alpha, idxs_kh):
             return dense_sdca_round(w, alpha, ds.X, ds.labels, ds.sq_norms,

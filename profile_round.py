@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Where the time of an rcv1-like round goes on the card: torch.profiler
+around CoCoA+ rounds of the port, on the unsplit and the hybrid
+(``--hotCols=auto``) layouts, sequential and block (``--blockSize=128``).
+
+    python3 profile_round.py [--rounds=50]      # one GPU
+
+For each configuration it prints the wall clock per round, the device
+time per round summed over CUDA kernels, their share of the wall clock,
+kernel launches per round, and the kernels that take the most device
+time.  The data are the rcv1-like shape of chip_smoke.py (20 242 x 47 236,
+about 75 nonzeros a row, from seed 0), K=8, H=253, lambda=1e-4, float32,
+evaluations every 25 rounds.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from cocoa_torch.config import DebugParams, Params
+from cocoa_torch.data import hybrid, shard_dataset
+from cocoa_torch.data.synth import synth_sparse
+from cocoa_torch.solvers import cocoa as cocoa_mod
+
+SHAPE, K, LAM = (20242, 47236), 8, 1e-4
+
+
+def device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_config(ds, block: int, rounds: int, top: int = 6) -> None:
+    h = max(1, int(0.1 * ds.n / K))
+    params = Params(n=ds.n, num_rounds=rounds, local_iters=h, lam=LAM)
+    debug = DebugParams(debug_iter=25, seed=0)
+
+    def run():
+        cocoa_mod.run_cocoa(ds, params, debug, plus=True, math="fast",
+                            block_size=block, quiet=True)
+        torch.cuda.synchronize()
+
+    run()  # warm-up: kernel loads, allocator
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3 / rounds
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0
+               and str(e.device_type).endswith("CUDA")]
+    dev = sum(device_us(e) for e in kernels) / 1e3 / rounds
+    launches = sum(e.count for e in kernels) / rounds
+    print(f"  wall {wall:.3f} ms per round (profiler on), device {dev:.3f} "
+          f"ms per round ({dev / wall * 100:.1f} % busy), {launches:.1f} "
+          f"kernel launches per round")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"    {device_us(e) / 1e3 / rounds:8.4f} ms/round "
+              f"{e.count / rounds:6.1f}x  {e.key[:90]}")
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("error: profile_round.py needs a CUDA device", file=sys.stderr)
+        return 1
+    rounds = 50
+    for arg in argv:
+        if arg.startswith("--rounds="):
+            rounds = int(arg.split("=", 1)[1])
+    print(torch.cuda.get_device_name(0))
+    data = synth_sparse(*SHAPE, nnz_mean=75, seed=0)
+    width, _ = hybrid.resolve_hot_cols("auto", data, K, torch.float32)
+    for hot in (0, width):
+        ds = shard_dataset(data, K, layout="sparse", dtype=torch.float32,
+                           device="cuda", hot_cols=hot)
+        for block in (0, 128):
+            print(f"{'hybrid, panel ' + str(hot) if hot else 'unsplit'}, "
+                  f"{'block ' + str(block) if block else 'sequential'}, "
+                  f"{rounds} CoCoA+ rounds:")
+            profile_config(ds, block, rounds)
+        del ds
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

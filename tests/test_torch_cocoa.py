@@ -123,7 +123,7 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
 
 
 @pytest.mark.parametrize("flag", [
-    "--ingest=stream", "--blockPipeline=on", "--hotCols=auto",
+    "--ingest=stream", "--blockPipeline=on", "--evalDense=auto",
     "--chkptDir=ckpt", "--deviceLoop", "--gapTarget=1e-3",
     "--sigma=auto", "--accel=on", "--fleet=f.jsonl", "--serve=7000",
     "--mesh=1"])
