@@ -38,15 +38,22 @@ stderr); any failed check exits non-zero:
    B3), with the launches of every kernel counted per round, and the two
    runs' gaps within relative 1e-3 of each other;
 7. the dense SDCA round (B2) against its plain version on the same CUDA
-   tensors, with repeated draws: modes cocoa/plus/frozen x the three
-   losses x float32/float64 on the demo's dense shards (w and dw in
-   shared and in global memory) and on the epsilon-like shards (K=8,
-   H=5000), and mode prox with the lasso rule at l2 0 and 0.1 on the
-   lasso design (8192 x 32768 made on the card, K=8, H=409) and the
-   demo's dense column shards; the sparse round (B1) in mode prox on the
-   demo's padded-CSC column shards; then B2's and its plain version's
-   time at the epsilon-like, lasso and demo shapes on the main path's own
-   draws, two launches held bit for bit against each other;
+   tensors, with repeated draws (adjacent, and 2..7 steps apart: inside
+   and past the ring of staged rows): modes cocoa/plus/frozen x the
+   three losses x float32/float64 on the demo's dense shards and on the
+   epsilon-like shards (K=8, H=5000, and H=2 and 13: fewer steps than
+   ring slots, and a count that is not a multiple of them), and mode prox
+   with the lasso rule at l2 0 and 0.1 on the lasso design (8192 x 32768
+   made on the card, K=8, H=409), on a tall lasso design (100000 x 1024,
+   K=8: rows of 100000 values, wider than a slot, streamed in chunks) and
+   on the demo's dense column shards, each with w and dw asked into
+   shared and into global memory, at the auto ring depth and at one slot;
+   the sparse round (B1) in mode prox on the demo's padded-CSC column
+   shards; then B2's time (the auto plan, each ring depth, the state in
+   global memory) and its plain version's at the epsilon-like, lasso,
+   demo (float32 and float64) and tall shapes on the main path's own
+   draws, with the plan, us per step and the bound, two launches and
+   every plan held bit for bit against each other;
 8. the dense sequential path: epsilon-like data through run_cocoa on
    --math=fast with no block size, CoCoA+ and CoCoA for 30 rounds, one
    B2 launch per round, CoCoA+'s gaps within relative 1e-3 of phase 6's
@@ -121,10 +128,12 @@ DEMO_TEST = ROOT / "data" / "small_test.dat"
 
 # full-width shapes: rcv1-like (n, d); epsilon-like (n, d, K) as at
 # benchmarks/run.py:407; the lasso design (n, d, K) of benchmarks/run.py
-# bench_lasso, run to a relative gap of 1e-3 within LASSO_ROUNDS rounds
+# bench_lasso, run to a relative gap of 1e-3 within LASSO_ROUNDS rounds;
+# a tall lasso design whose columns (B2's rows) are wider than a slot
 RCV1_SHAPE = (20242, 47236)
 EPS_SHAPE = (400_000, 2000, 8)
 LASSO_SHAPE = (8192, 32768, 8)
+TALL_LASSO_SHAPE = (100_000, 1024, 8)
 LASSO_ROUNDS = 1000
 PROX_L2 = (0.0, 0.1)
 
@@ -508,11 +517,11 @@ def phase_block_dense(eps, lam, worst):
                               dt, worst, "B3", (1.0, 1.0 / lam_n))
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, dtype=torch.float32):
     """(ms, "bytes" | "operations"): the larger of the bytes over HBM3's
-    rate and the float32 operations over the FP32 peak."""
+    rate and the operations over the peak of ``dtype``."""
     t_b = n_bytes / HBM_BYTES_PER_S
-    t_f = flops / PEAK_FLOPS[torch.float32]
+    t_f = flops / PEAK_FLOPS[dtype]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
@@ -701,28 +710,58 @@ def as_dtype(ds, dt):
         if getattr(ds, f) is not None})
 
 
+def window_repeats(idxs, span=8):
+    """Forced repeats at every distance inside and past the deepest ring
+    of staged rows: step t = 3 mod 4 redraws the row of step t - g, g
+    cycling over 2..span-1 (round_inputs repeats at distance 1)."""
+    out = idxs.cpu().clone()
+    gaps = range(2, span)
+    for j, t in enumerate(range(3, out.shape[1], 4)):
+        g = gaps[j % len(gaps)]
+        if t >= g:
+            out[:, t] = out[:, t - g]
+    return out.to(idxs.device)
+
+
 def dense_args(ds, h, seed, prox=False, repeats=True):
     w, alpha, idxs = round_inputs(ds, h, seed, prox=prox, repeats=repeats)
+    if repeats:
+        idxs = window_repeats(idxs)
     return (w, alpha, ds.X, ds.labels, ds.sq_norms, idxs)
+
+
+def dense_plan(ds, state_in_smem=True, stages=None):
+    return dn.stage_plan(ds.num_features, ds.X.element_size(),
+                         kernels.smem_optin(ds.X.device), state_in_smem,
+                         stages)
 
 
 def phase_dense_kernel(shapes, worst):
     """B2 against its plain version on the same CUDA tensors.  ``shapes``:
-    {name: ({dtype: dataset}, H, lam, n, state placements, cases)}, a case
-    (mode, sigma or None for K, loss, smoothing); draws with repeats."""
-    for name, (sets, h, lam, n, smems, cases) in shapes.items():
+    {name: ({dtype: dataset}, H, lam, n, cases)}, a case (mode, sigma or
+    None for K, loss, smoothing); draws with repeats.  Each case's plain
+    result is held against the kernel with the state asked into shared
+    and into global memory, each at the auto ring depth and at one slot.
+    Returns {(name, dtype, state asked, stages asked): (plan, H)}."""
+    plans = {}
+    for name, (sets, h, lam, n, cases) in shapes.items():
         for dt, ds in sets.items():
             args = dense_args(ds, h, 3, prox=cases[0][0] == "prox")
-            for smem in smems:
-                for mode, sigma, loss, s in cases:
-                    kw = dict(mode=mode, sigma=sigma or float(ds.k), loss=loss,
-                              smoothing=s)
-                    agree(f"{name} {str(dt)[6:]} state_in_smem={smem} "
-                          f"{mode}/{loss} s={s}",
+            for mode, sigma, loss, s in cases:
+                kw = dict(mode=mode, sigma=sigma or float(ds.k), loss=loss,
+                          smoothing=s)
+                want = dn.dense_sdca_round_plain(*args, lam, n, **kw)
+                for smem, stages in [(smem, stages) for smem in (True, False)
+                                     for stages in (None, 1)]:
+                    plan = dense_plan(ds, smem, stages)
+                    plans[(name, str(dt)[6:], smem, stages)] = (plan, h)
+                    agree(f"{name} {str(dt)[6:]} H={h} state_in_smem={smem} "
+                          f"stages={stages} plan={plan} {mode}/{loss} s={s}",
                           dn.dense_sdca_round(*args, lam, n,
-                                              state_in_smem=smem, **kw),
-                          dn.dense_sdca_round_plain(*args, lam, n, **kw),
-                          dt, worst, "B2", ROUND_FLOORS)
+                                              state_in_smem=smem,
+                                              stages=stages, **kw),
+                          want, dt, worst, "B2", ROUND_FLOORS)
+    return plans
 
 
 def phase_sparse_prox(sets, h, lam, worst):
@@ -743,31 +782,51 @@ def phase_sparse_prox(sets, h, lam, worst):
                       "B1", ROUND_FLOORS)
 
 
+# B2's timed plans beside the auto one: each ring depth with the state
+# placed as auto places it, and the state asked into global memory
+DENSE_PLANS = {"stages=1": dict(stages=1), "stages=2": dict(stages=2),
+               "stages=3": dict(stages=3), "global": dict(state_in_smem=False)}
+
+
 def dense_timing(ds, h, lam, n, mode, loss, smoothing, reps):
-    """B2's and its plain version's ms per launch (float32) at a main
-    path's shape, on the main path's own draws, the bound of the same
-    work, and two launches held bit for bit against each other (the
-    reduction tree is fixed)."""
+    """B2's ms per launch at a main path's shape, on the main path's own
+    draws: the auto plan and each of DENSE_PLANS; its plain version's ms,
+    and the bound of the same work.  Two launches, and every plan, held
+    bit for bit against each other (the reduction tree is fixed, and the
+    plan changes no thread's order of operations)."""
     args = dense_args(ds, h, 5, prox=mode == "prox", repeats=False)
     kw = dict(mode=mode, sigma=float(ds.k), loss=loss, smoothing=smoothing)
+    plans = {"auto": {}, **DENSE_PLANS}
     first = dn.dense_sdca_round(*args, lam, n, **kw)
-    again = dn.dense_sdca_round(*args, lam, n, **kw)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(first, again)),
-          f"dense_sdca_round {mode}/{loss}: two launches differ")
-    ms = cuda_ms(lambda: dn.dense_sdca_round(*args, lam, n, **kw), reps)
+    for name, plan in plans.items():
+        out = dn.dense_sdca_round(*args, lam, n, **plan, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, out)),
+              f"dense_sdca_round {mode}/{loss}: plan {name} differs from "
+              f"the first auto launch")
+    times = {name: cuda_ms(lambda: dn.dense_sdca_round(*args, lam, n, **plan,
+                                                       **kw), reps)
+             for name, plan in plans.items()}
     plain_ms = cuda_ms(lambda: dn.dense_sdca_round_plain(*args, lam, n, **kw),
                        1)
-    # each input read once, each output written once: the distinct
-    # sampled rows with their y and |x|^2, w, the (K, d) dw written, alpha
-    # read and written, and each step's draw; per step two d-dots and the
-    # axpy
+    return dict(ms=times["auto"], times=times, plain_ms=plain_ms, h=h,
+                plans={name: dense_plan(ds, **plan)
+                       for name, plan in plans.items()},
+                **dense_bound(ds, args[5]))
+
+
+def dense_bound(ds, idxs):
+    """B2's bound for one round on ``idxs``: each input read once, each
+    output written once (the distinct sampled rows with their y and
+    |x|^2, w, the (K, d) dw written, alpha read and written, and each
+    step's draw); per step two d-dots and the axpy."""
     isz, k, d = ds.X.element_size(), ds.k, ds.num_features
-    rows = sum(r.numel() for r in distinct_rows(args[5]))
+    h = idxs.shape[1]
+    rows = sum(r.numel() for r in distinct_rows(idxs))
     n_bytes = (rows * (d + 2) * isz + d * isz + k * d * isz
                + 2 * k * ds.n_shard * isz + k * h * 4)
-    return dict(ms=ms, plain_ms=plain_ms, n_bytes=n_bytes, rows=rows,
-                bound=bound(n_bytes, 6 * k * h * d))
+    return dict(n_bytes=n_bytes, rows=rows,
+                bound=bound(n_bytes, 6 * k * h * d, ds.dtype))
 
 
 def reset_and_run(fn, *args, **kw):
@@ -1092,7 +1151,8 @@ def main() -> int:
     print(f"phase 1: built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
         print(f"  nvcc {name}: " + " | ".join(
-            ln.strip() for ln in log.splitlines() if "registers" in ln))
+            ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "stack frame" in ln))
 
     # --- phase 2: kernel vs plain on the card
     demo = load_libsvm(str(DEMO_TRAIN), 9947)
@@ -1227,6 +1287,8 @@ def main() -> int:
     ln, ld, lk = LASSO_SHAPE
     lasso_ds, lasso_b, lam_max = synth_lasso_columns(ln, ld, lk, seed=0,
                                                      device="cuda")
+    tall, _, tall_max = synth_lasso_columns(*TALL_LASSO_SHAPE, seed=1,
+                                            device="cuda")
     eps_h = EPS_SHAPE[0] // EPS_SHAPE[2] // 10
     lasso_h = ld // lk // 10
     f32, f64 = torch.float32, torch.float64
@@ -1235,24 +1297,40 @@ def main() -> int:
     demo_cols = {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
                                    layout="sparse")[0] for dt in (f32, f64)}
     torch.cuda.synchronize()
-    print(f"phase 7: lasso design {ln} x {ld} and the demo's dense and "
-          f"column shards made on the card in "
+    print(f"phase 7: lasso designs {ln} x {ld} and "
+          f"{TALL_LASSO_SHAPE[0]} x {TALL_LASSO_SHAPE[1]} and the demo's "
+          f"dense and column shards made on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     dual = [(mode, sigma, loss, 1.0) for mode, sigma in MODES
             for loss in LOSSES]
     prox = [("prox", None, "lasso", l2) for l2 in PROX_L2]
     worst7 = {}
-    phase_dense_kernel({
-        "demo dense": (demo_dense, demo_h, 1e-3, demo.n, (True, False), dual),
-        "epsilon-like": ({f32: eps, f64: as_dtype(eps, f64)}, eps_h, 1e-3,
-                         eps.n, (True,), dual),
+    eps_sets = {f32: eps, f64: as_dtype(eps, f64)}
+    plans = phase_dense_kernel({
+        "demo dense": (demo_dense, demo_h, 1e-3, demo.n, dual),
+        "epsilon-like": (eps_sets, eps_h, 1e-3, eps.n, dual),
+        "epsilon-like short": (eps_sets, 2, 1e-3, eps.n, dual),
+        "epsilon-like odd": (eps_sets, 13, 1e-3, eps.n, dual),
         "lasso design": ({f32: lasso_ds, f64: as_dtype(lasso_ds, f64)},
-                         lasso_h, 0.3 * lam_max, 1, (True, False), prox),
+                         lasso_h, 0.3 * lam_max, 1, prox),
+        "tall lasso design": ({f32: tall, f64: as_dtype(tall, f64)}, 40,
+                              0.3 * tall_max, 1, prox),
         "demo dense columns": (
             {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
                                layout="dense")[0] for dt in (f32, f64)},
-            max(1, int(0.1 * demo.num_features / 4)), 0.1, 1, (True,), prox),
+            max(1, int(0.1 * demo.num_features / 4)), 0.1, 1, prox),
     }, worst7)
+    del eps_sets
+    check(any(h < s for (_, s, _), h in plans.values()),
+          "no B2 case with fewer steps than ring slots")
+    check(any(s > 1 and h % s for (_, s, _), h in plans.values()),
+          "no B2 case whose steps are not a multiple of the ring's depth")
+    streamed = {key[1] for key, ((_, _, chunk), _) in plans.items()
+                if key[0] == "tall lasso design"
+                and chunk < TALL_LASSO_SHAPE[0]}
+    check(streamed == {"float32", "float64"},
+          f"the tall lasso design's rows were not streamed in chunks in "
+          f"both dtypes ({streamed})")
     phase_sparse_prox(demo_cols, max(1, int(0.1 * demo.num_features / 4)),
                       0.1, worst7)
     b2 = {"epsilon-like": dense_timing(eps, eps_h, 1e-3, eps.n, "plus",
@@ -1260,15 +1338,28 @@ def main() -> int:
           "lasso design": dense_timing(lasso_ds, lasso_h, 0.3 * lam_max, 1,
                                        "prox", "lasso", 0.0, 50),
           "demo dense": dense_timing(demo_dense[f32], demo_h, 1e-3, demo.n,
-                                     "plus", "hinge", 1.0, 50)}
+                                     "plus", "hinge", 1.0, 50),
+          "demo dense f64": dense_timing(demo_dense[f64], demo_h, 1e-3,
+                                         demo.n, "plus", "hinge", 1.0, 50),
+          "tall lasso design": dense_timing(tall, 40, 0.3 * tall_max, 1,
+                                            "prox", "lasso", 0.0, 20)}
+    del tall
     print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
           f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
-          f"launches agree bit for bit")
+          f"launches, and every plan timed, agree bit for bit")
+    print("  B2 plans (state_in_smem, stages, chunk) by shape, dtype, state "
+          "asked into shared memory, stages asked: " + "; ".join(
+              f"{name} {dt} {smem} {asked}: {plan} H={h}"
+              for (name, dt, smem, asked), (plan, h) in plans.items()
+              if asked is None))
     for name, t in b2.items():
-        print(f"  B2 {name} f32: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.2f} ms, bound {t['bound'][0]:.5f} ms "
-              f"({t['bound'][1]}: {t['n_bytes']} B, {t['rows']} distinct "
-              f"sampled rows)")
+        print(f"  B2 {name}: " + "; ".join(
+            f"{plan} {t['plans'][plan]} {ms:.4f} ms "
+            f"({ms * 1e3 / t['h']:.3f} us per step)"
+            for plan, ms in t["times"].items())
+            + f", plain {t['plain_ms']:.2f} ms, bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]}: {t['n_bytes']} B, {t['rows']} distinct "
+            f"sampled rows)")
 
     # --- phase 8: the dense sequential path, epsilon-like at full width
     launched8, per_round8 = phase_dense_path(eps, eps_fused)

@@ -194,8 +194,6 @@ GRAM_ENTRY(sparse_block_gram_f64, double)
 APPLY_ENTRY(sparse_block_apply_f32, float)
 APPLY_ENTRY(sparse_block_apply_f64, double)
 
-extern "C" int smem_optin_bytes() { return sdca::smem_optin(); }
-
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

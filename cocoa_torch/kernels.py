@@ -128,6 +128,13 @@ def require_cuda(t, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
 
 
+def smem_optin(device) -> int:
+    """The opt-in shared memory of a block on CUDA ``device``, in bytes
+    (232 448 on an H100): the budget a kernel's plan is held to."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
 def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as an int."""
     return torch.cuda.current_stream(device).cuda_stream

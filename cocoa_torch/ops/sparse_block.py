@@ -81,7 +81,7 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
     mb = torch.empty(k, b, dtype=dt, device=dev)
     scratch = None
     if not frozen and (not row_in_smem
-                       or d * dt.itemsize > lib.smem_optin_bytes()):
+                       or d * dt.itemsize > kernels.smem_optin(dev)):
         scratch = _row_scratch(k, b, d, dt, dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, _GRAM_FN[dt])(
@@ -155,6 +155,4 @@ def _library() -> ctypes.CDLL:
     kernels.declare(lib, _GRAM_FN.values(), 8,
                     [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_int])
     kernels.declare(lib, _APPLY_FN.values(), 5, [ctypes.c_int] * 4)
-    lib.smem_optin_bytes.restype = ctypes.c_int
-    lib.smem_optin_bytes.argtypes = []
     return lib

@@ -168,3 +168,167 @@ def test_wrapper_refuses_bf16_and_other_devices(tiny_data):
                                     *rest)
     with pytest.raises(ValueError, match="mode"):
         dense_sdca.dense_sdca_round(t["w"], t["alpha"], *rest, mode="dual")
+
+
+OPTIN = 232448  # an H100's opt-in shared memory per block
+THREADS = dense_sdca.THREADS
+# (d, itemsize): the plan with the state asked into shared memory, and
+# with it kept in global memory (epsilon-like, lasso design, demo dense,
+# and a tall lasso design whose columns are 100000 values long)
+PLANS = [(2000, 4, (True, 3, 2000), (False, 3, 2000)),
+         (2000, 8, (True, 3, 2000), (False, 3, 2000)),
+         (8192, 4, (True, 3, 8192), (False, 3, 8192)),
+         (8192, 8, (True, 1, 8192), (False, 3, 8192)),
+         (9947, 4, (True, 3, 9947), (False, 3, 9947)),
+         (9947, 8, (True, 2, 4096), (False, 2, 9947)),
+         (100000, 4, (False, 2, 28672), (False, 2, 28672)),
+         (100000, 8, (False, 2, 14336), (False, 2, 14336))]
+
+
+@pytest.mark.parametrize("d,itemsize,in_smem,in_global", PLANS)
+def test_stage_plan_at_main_shapes(d, itemsize, in_smem, in_global):
+    """Every plan fits the opt-in and keeps at least one slot of the
+    whole row or of a multiple of THREADS columns; the float64 demo state
+    keeps its shared memory beside a ring of chunks; a row wider than a
+    slot is streamed, never refused; state_in_smem=False still stages."""
+    for asked, want in ((True, in_smem), (False, in_global)):
+        plan = dense_sdca.stage_plan(d, itemsize, OPTIN, asked)
+        assert plan == want
+        in_sm, stages, chunk = plan
+        assert stages >= 1
+        assert chunk == d or (chunk % THREADS == 0 and THREADS <= chunk < d)
+        assert dense_sdca.plan_bytes(d, itemsize, *plan) <= OPTIN
+        # the deepest whole-row ring that fits, or the widest chunk
+        if chunk == d:
+            assert stages == dense_sdca.MAX_STAGES or dense_sdca.plan_bytes(
+                d, itemsize, in_sm, stages + 1, d) > OPTIN
+        else:
+            assert dense_sdca.plan_bytes(d, itemsize, in_sm, stages,
+                                         chunk + THREADS) > OPTIN
+
+
+def test_stage_plan_explicit_stages_and_refusals():
+    plan = dense_sdca.stage_plan
+    assert plan(2000, 4, OPTIN, stages=1) == (True, 1, 2000)
+    assert plan(2000, 4, OPTIN, False, stages=3) == (False, 3, 2000)
+    # beside the float64 demo state: one slot of 17 x 512 columns
+    assert plan(9947, 8, OPTIN, stages=1) == (True, 1, 8704)
+    # three slots beside the float64 lasso state are chunks; two whole
+    # rows fit once the state is in global memory
+    assert plan(8192, 8, OPTIN, stages=3) == (True, 3, 4096)
+    assert plan(8192, 8, OPTIN, False, stages=2) == (False, 2, 8192)
+    # epsilon's 400000 samples as the rows of lasso column shards
+    assert plan(400000, 4, OPTIN) == (False, 2, 28672)
+    with pytest.raises(ValueError, match="cannot stage rows"):
+        plan(2000, 4, 4096)
+    for bad in (0, 4, -1, 2.0, True):
+        with pytest.raises(ValueError, match="stages"):
+            plan(2000, 4, OPTIN, stages=bad)
+
+
+def test_plan_bytes_match_the_kernel():
+    """The plan's byte count is the kernel's: the same constants and the
+    same sum, read from the source; one barrier in the kernel."""
+    src = kernels.SOURCES["dense_sdca"].read_text()
+    assert f"kThreads = {THREADS};" in src
+    assert f"kMaxStages = {dense_sdca.MAX_STAGES};" in src
+    assert "kReduce = 2 * 2 * kWarps;" in src
+    assert dense_sdca.REDUCE_SLOTS == 2 * 2 * THREADS // 32
+    assert ("return (kReduce + (state_in_smem ? 2 * (size_t)d : 0) +\n"
+            "          (size_t)stages * chunk) * itemsize;") in src
+    assert dense_sdca.plan_bytes(9947, 4, True, 3, 9947) == (64 + 5 * 9947) * 4
+    assert dense_sdca.plan_bytes(9947, 8, False, 2, 512) == (64 + 1024) * 8
+    assert src.count("__syncthreads()") == 1
+
+
+def _walk(d, h, stages, chunk, land_early):
+    """The kernel's walk of its ring (csrc/dense_sdca.cu), one thread's
+    view: the prologue's fills, then per step the dots' reads and the
+    axpy's, each read after ``wait_group stages-1`` and each slot refilled
+    after its last read.  A copy group lands at its commit
+    (``land_early``) or at the last moment its wait allows.  Returns what
+    each read found, as (step, first column) of the element, beside what
+    it should find."""
+    n_chunks = -(-d // chunk)
+    per_step = 1 if n_chunks == 1 else 2 * n_chunks
+    ahead = stages if n_chunks == 1 else 1
+    slots, groups, landed = [None] * stages, [], [0]
+    cur = {"step": 0, "j": 0}
+
+    def fill(slot, step):
+        f_step, j = cur["step"], cur["j"]
+        # the prologue reads the row of f_step; a refill picks this
+        # step's row or the one ``ahead`` steps on
+        assert step is None or f_step >= h or f_step in (step, step + ahead)
+        base = (j if j < n_chunks else j - n_chunks) * chunk
+        groups.append((slot, (f_step, base) if f_step < h else None))
+        if land_early:
+            land(len(groups))
+        cur["j"] = j + 1
+        if cur["j"] == per_step:
+            cur["step"], cur["j"] = f_step + 1, 0
+
+    def land(upto):
+        for slot, content in groups[landed[0]:upto]:
+            if content is not None:
+                slots[slot] = content
+        landed[0] = max(landed[0], upto)
+
+    def wait():
+        land(len(groups) - (stages - 1))
+
+    found, slot = [], 0
+    for s in range(stages):
+        fill(s, None)
+    for step in range(h):
+        for axpy in (False, True):
+            for base in range(0, d, chunk):
+                if not axpy or n_chunks > 1:
+                    wait()
+                found.append((slots[slot], (step, base)))
+                if axpy or n_chunks > 1:
+                    fill(slot, step)
+                    slot = (slot + 1) % stages
+    return found
+
+
+@pytest.mark.parametrize("d,h,stages,chunk", [
+    (2000, 14, 3, 2000), (2000, 2, 3, 2000), (2000, 13, 2, 2000),
+    (9947, 14, 2, 4096), (9947, 5, 1, 8704), (100000, 7, 3, 18944),
+    (1030, 3, 3, 512)])
+def test_ring_walk_reads_each_element_once_landed(d, h, stages, chunk):
+    """Every read of the ring finds the element it wants, whether a copy
+    lands at once or as late as ``wait_group stages-1`` allows: H < S, H
+    not a multiple of S, whole rows, chunked rows and a short last
+    chunk."""
+    for land_early in (True, False):
+        found = _walk(d, h, stages, chunk, land_early)
+        n_chunks = -(-d // chunk)
+        assert len(found) == h * 2 * n_chunks
+        for got, want in found:
+            assert got == want
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3])
+def test_stages_ignored_by_the_plain_version(tiny_data, stages):
+    """On the CPU the plan does not exist: any valid depth gives the plain
+    version's result, with no launch."""
+    arrays, n = _inputs(tiny_data, "plus")
+    t = [torch.as_tensor(arrays[f])
+         for f in ("w", "alpha", "X", "labels", "sq_norms", "idxs")]
+    launches = dense_sdca.dense_sdca_round.launches
+    want = dense_sdca.dense_sdca_round(*t, LAM, n, sigma=4.0)
+    got = dense_sdca.dense_sdca_round(*t, LAM, n, sigma=4.0, stages=stages,
+                                      state_in_smem=False)
+    assert dense_sdca.dense_sdca_round.launches == launches
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("stages", [0, -2, 4, 1.5, False])
+def test_stages_refused_on_the_cpu_route(tiny_data, stages):
+    arrays, n = _inputs(tiny_data, "plus")
+    t = [torch.as_tensor(arrays[f])
+         for f in ("w", "alpha", "X", "labels", "sq_norms", "idxs")]
+    with pytest.raises(ValueError, match="stages must be an int"):
+        dense_sdca.dense_sdca_round(*t, LAM, n, stages=stages)
