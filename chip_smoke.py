@@ -27,16 +27,21 @@ stderr); any failed check exits non-zero:
    (B3), the sparse Gram (B5) and the sparse apply (B6) on a demo and an
    rcv1-like block (K x 128 draws with repeats, crafted rows, a masked
    tail), the fused block (B4) and the chain at B=256 on an epsilon-like
-   block (8 x 128 x 2000 and 8 x 256), every mode x loss x dtype; then
-   each kernel's, its plain version's and a library call's time (B5 also
-   with its rows expanded in global memory, float32 and float64);
+   block (8 x 128 x 2000 and 8 x 256), every mode x loss x dtype; B4 also
+   at d=1000 and at B=100, each at every cluster size (1, 2, 4, 8, and
+   16 where the card holds K such clusters) and the auto plan, two
+   launches of the auto plan bit for bit; then each kernel's, its plain
+   version's and a library call's time (B5 also with its rows expanded
+   in global memory, float32 and float64; B4 at each cluster size and in
+   frozen mode, beside the Gram alone as one torch.bmm);
 6. the block path (--blockSize): the demo and rcv1-like data through the
    CLI with --blockSize=auto (the sparse-Gram branch: B5, B3, B6), the
    rcv1-like gaps within relative 1e-3 of phase 4's sequential run; then
    epsilon-like data (400 000 x 2000, made on the card) through
-   run_cocoa at B=128 (the fused branch, B4) and B=256 (the split branch,
-   B3), with the launches of every kernel counted per round, and the two
-   runs' gaps within relative 1e-3 of each other;
+   run_cocoa at B=128 (the fused branch, B4), B=256 and B=512 (the split
+   branch, B3), three runs each in turns, with the launches of every
+   kernel counted per round, every run's gaps within relative 1e-3 of the
+   fused run's, and the block sizes ranked by ms per round;
 7. the dense SDCA round (B2) against its plain version on the same CUDA
    tensors, with repeated draws (adjacent, and 2..7 steps apart: inside
    and past the ring of staged rows): modes cocoa/plus/frozen x the
@@ -320,6 +325,11 @@ def check_run(results, label: str):
 
 
 BLOCK = 128
+# the epsilon-like block path's sizes (B, route, its kernel), each run
+# EPS_BLOCK_RUNS times in turns: the host-bound glue moves between runs
+EPS_BLOCKS = ((BLOCK, "fused", "B4"), (2 * BLOCK, "split", "B3"),
+              (4 * BLOCK, "split", "B3"))
+EPS_BLOCK_RUNS = 3
 # each kernel's wrapper and the attribute that counts its launches; B1h is
 # B1's hot-panel branch (the hybrid layout), counted apart from B1's
 KERNELS = {"B1": (sp.sparse_sdca_round, "launches"),
@@ -481,13 +491,42 @@ def dense_block_inputs(eps, b, dt, seed=5):
         w=put(rng.normal(size=d) * 0.1), dw=put(rng.normal(size=(k, d)) * 0.01))
 
 
+# B4's cluster sizes held against its plain version beside the auto plan
+# (16 blocks, non-portable, where the card holds K such clusters at once)
+FUSED_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def fused_clusters_held(b, dt, k):
+    """The cluster sizes of FUSED_CLUSTERS that the card runs K at a time
+    at B = ``b`` and ``dt``, and None for the auto plan."""
+    return [c for c in FUSED_CLUSTERS
+            if c <= 8 or bc.fused_clusters(b, dt, c) >= k] + [None]
+
+
+def fused_shape(bi, d):
+    """A block's fused-kernel inputs cut to the first ``d`` columns, with
+    |x|^2 of the cut rows."""
+    if d == bi["xb"].shape[-1]:
+        return bi
+    xb = bi["xb"][..., :d].contiguous()
+    return dict(bi, xb=xb, sq=(xb * xb).sum(-1), w=bi["w"][:d].contiguous(),
+                dw=bi["dw"][:, :d].contiguous())
+
+
 def phase_block_dense(eps, lam, worst):
-    """B4 at B=128 (the fused branch) and B3 at B=256 on the split
-    branch's inputs (the full symmetric Gram), every mode x loss x dtype."""
+    """B4 (the fused branch) at B=128 with d=2000 and d=1000 (a width no
+    slice divides) and at B=100 (not a multiple of the 64-row tile), each
+    at every cluster size of :func:`fused_clusters_held` and the auto
+    plan, two launches of the auto plan bit for bit; and B3 at B=256 on
+    the split branch's inputs (the full symmetric Gram); every mode x loss
+    x dtype.  Returns the cluster sizes held, by dtype."""
     lam_n = lam * eps.n
+    d = eps.num_features
+    held = {}
     for dt in (torch.float32, torch.float64):
-        for b in (BLOCK, 2 * BLOCK):
-            bi = dense_block_inputs(eps, b, dt)
+        held[dt] = fused_clusters_held(BLOCK, dt, eps.k)
+        for b, dd in ((BLOCK, d), (BLOCK, d // 2), (100, d), (2 * BLOCK, d)):
+            bi = fused_shape(dense_block_inputs(eps, b, dt), dd)
             for mode, sigma in MODES:
                 sig_eff, qf = mode_factors(mode, sigma or float(eps.k))
                 frozen = mode == "frozen"
@@ -501,20 +540,30 @@ def phase_block_dense(eps, lam, worst):
                 for loss in LOSSES:
                     kw = dict(lam_n=lam_n, coef_div=lam_n, sig_eff=sig_eff,
                               frozen=frozen, loss=loss)
-                    tag = f"epsilon-like {str(dt)[6:]} B={b} {mode}/{loss}"
-                    if b == BLOCK:
-                        fargs = (bi["xb"], bi["bidx32"], bi["yb"],
-                                 bi["sq"] * qf, bi["a0"], bi["live"], v)
-                        agree(f"{tag} fused_block", bc.fused_block(*fargs, **kw),
-                              bc.fused_block_plain(*fargs, **kw), dt, worst,
-                              "B4", (1.0, 0.0))
-                    else:
+                    tag = (f"epsilon-like {str(dt)[6:]} B={b} d={dd} "
+                           f"{mode}/{loss}")
+                    if b == 2 * BLOCK:
                         agree(f"{tag} chain_block_batched",
                               bc.chain_block_batched(scal, gram, bi["bidx32"],
                                                      **kw),
                               bc.chain_block_batched_plain(
                                   scal, gram, bi["bidx32"], **kw),
                               dt, worst, "B3", (1.0, 1.0 / lam_n))
+                        continue
+                    fargs = (bi["xb"], bi["bidx32"], bi["yb"], bi["sq"] * qf,
+                             bi["a0"], bi["live"], v)
+                    want = bc.fused_block_plain(*fargs, **kw)
+                    for c in held[dt]:
+                        plan = bc.fused_plan(b, dd, dt.itemsize, c)
+                        got = bc.fused_block(*fargs, cluster=c, **kw)
+                        agree(f"{tag} fused_block cluster={c} plan={plan}",
+                              got, want, dt, worst, "B4", (1.0, 0.0))
+                    again = bc.fused_block(*fargs, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          f"{tag} fused_block differs between two launches "
+                          f"of the auto plan")
+    return held
 
 
 def bound(n_bytes, flops, dtype=torch.float32):
@@ -525,11 +574,14 @@ def bound(n_bytes, flops, dtype=torch.float32):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def phase_block_timing(rcv1, eps, results):
+def phase_block_timing(rcv1, eps, clusters, results):
     """Each block kernel's, its plain version's and a library call's ms
     per launch at the main path's shapes (float32, CoCoA+, hinge): B5, B3
     and B6 on an rcv1-like block, B4 on an epsilon-like block (B=128) and
-    B3 on its split shape (B=256); with each launch's bound."""
+    B3 on its split shape (B=256); with each launch's bound.  B4 also at
+    each of ``clusters`` and in frozen mode (no Gram), beside the Gram
+    alone as one ``torch.bmm`` in full float32, a yardstick of that
+    phase."""
     f32, isz = torch.float32, 4
     bi = sparse_block_inputs(rcv1, 8, 253, f32, seed=7)
     k, d, lam_n = 8, bi["ds"].num_features, 1e-4 * bi["ds"].n
@@ -600,8 +652,23 @@ def phase_block_timing(rcv1, eps, results):
         if b == BLOCK:
             fargs = (di["xb"], di["bidx32"], di["yb"], di["sq"] * kd,
                      di["a0"], di["live"], v)
+            # frozen mode (no Gram): what the margins, chain and apply take
+            zargs = (*fargs[:3], di["sq"], *fargs[4:6],
+                     di["w"].expand(kd, de).contiguous())
+            kwz = dict(kwe, sig_eff=0.0, frozen=True)
+
+            def gram_bmm():
+                with bc.fp32_matmul():
+                    return torch.bmm(di["xb"], di["xb"].transpose(1, 2))
+
             results["B4"] = dict(
                 ms=cuda_ms(lambda: bc.fused_block(*fargs, **kwe), 20),
+                plan=bc.fused_plan(b, de, isz),
+                cluster_ms={c: cuda_ms(lambda: bc.fused_block(
+                    *fargs, cluster=c, **kwe), 20)
+                    for c in clusters if c is not None},
+                frozen_ms=cuda_ms(lambda: bc.fused_block(*zargs, **kwz), 20),
+                bmm_ms=cuda_ms(gram_bmm, 20),
                 plain_ms=cuda_ms(lambda: bc.fused_block_plain(*fargs, **kwe),
                                  3),
                 library_ms=None,
@@ -639,8 +706,11 @@ def phase_block_path(sparse_runs, eps):
     """The block path through its entry points, every kernel's launches
     counted from 0 just before each run and read just after.
     ``sparse_runs``: (label, CLI argv, the sequential run's results, H)
-    for the demo and rcv1-like data.  Returns ({run: counts}, {run: ms
-    per round})."""
+    for the demo and rcv1-like data.  Then the epsilon-like data through
+    run_cocoa at each of EPS_BLOCKS, EPS_BLOCK_RUNS times in turns, every
+    run's gaps within relative 1e-3 of the first fused run's, the block
+    sizes ranked by their median ms per round.  Returns ({run: counts},
+    {run: ms per round}, the first fused run's results)."""
     launched, per_round = {}, {}
     for label, argv, seq, h in sparse_runs:
         rounds, blocks = 400 if label == "rcv1-like" else 200, -(-h // BLOCK)
@@ -666,38 +736,46 @@ def phase_block_path(sparse_runs, eps):
               f"{per_round[label][1]:.3f}")
     rounds, h = 30, eps.n // eps.k // 10
     params = Params(n=eps.n, num_rounds=rounds, local_iters=h, lam=1e-3)
-    runs = {}
-    for b, route, kern in ((BLOCK, "fused", "B4"), (2 * BLOCK, "split", "B3")):
-        check(cocoa_mod.block_route("dense", b, torch.float32) == route,
-              f"epsilon-like B={b} does not route {route}")
-        label = f"epsilon-like B={b} {route}"
-        reset_counts()
-        w, alpha, traj = cocoa_mod.run_cocoa(
-            eps, params, DebugParams(debug_iter=10, seed=0), plus=True,
-            math="fast", block_size=b, quiet=True)
-        torch.cuda.synchronize()
-        launched[label] = counts()
-        nb = -(-h // b)
-        want = {name: 0 for name in KERNELS}
-        want[kern] = rounds * nb
-        check(launched[label] == want,
-              f"{label} launches {launched[label]}, want {want}")
-        runs[b] = [cli.RunResult(traj.algorithm, w, alpha, traj)]
-        check_run(runs[b], label)
-        per_round[label] = traj.records[-1].wall_time / rounds * 1e3
-        print(f"phase 6: {label} ok: {nb} {kern} launches per round, "
-              f"{per_round[label]:.3f} ms per round (evals included)")
-    # the same draws and the same math, in blocks of 128 on the fused kernel
-    # and of 256 through TF32-free matmuls: a Gram or Delta-w rounded to
-    # TF32 or bf16 would part the gaps
-    fused, split = runs[BLOCK], runs[2 * BLOCK]
-    check_same_gaps("epsilon-like fused vs split", fused, split)
-    print("phase 6: epsilon-like fused B=128 vs split B=256 gaps within rel "
-          "1e-3: " + " ".join(
-              f"{a.round}:{a.gap:.6g}/{b.gap:.6g}"
-              for a, b in zip(fused[0].trajectory.records,
-                              split[0].trajectory.records)))
+    runs, ms = {}, {}
+    for rep in range(EPS_BLOCK_RUNS):
+        for b, route, kern in EPS_BLOCKS:
+            check(cocoa_mod.block_route("dense", b, torch.float32) == route,
+                  f"epsilon-like B={b} does not route {route}")
+            label = f"epsilon-like B={b} {route}"
+            reset_counts()
+            w, alpha, traj = cocoa_mod.run_cocoa(
+                eps, params, DebugParams(debug_iter=10, seed=0), plus=True,
+                math="fast", block_size=b, quiet=True)
+            torch.cuda.synchronize()
+            launched[f"{label} run {rep + 1}"] = got = counts()
+            nb = -(-h // b)
+            check(got == only(kern, rounds * nb),
+                  f"{label} launches {got}, want {only(kern, rounds * nb)}")
+            res = [cli.RunResult(traj.algorithm, w, alpha, traj)]
+            check_run(res, label)
+            runs.setdefault(b, res)
+            # the same draws and the same math in blocks of 128 on the
+            # fused kernel and of 256 and 512 through TF32-free matmuls: a
+            # Gram or Delta-w rounded to TF32 or bf16 would part the gaps
+            check_same_gaps(f"{label} vs fused B={BLOCK}", res, runs[BLOCK])
+            ms.setdefault(label, []).append(
+                traj.records[-1].wall_time / rounds * 1e3)
+            print(f"phase 6: {label} run {rep + 1} ok: {nb} {kern} launches "
+                  f"per round, {ms[label][-1]:.3f} ms per round (evals "
+                  f"included), gaps within rel 1e-3 of the fused run")
+    per_round.update(ms)
+    ranked = sorted(ms, key=lambda lb: float(np.median(ms[lb])))
+    print("phase 6: epsilon-like block sizes ranked by median ms per round "
+          f"over {EPS_BLOCK_RUNS} runs in turns: " + "; ".join(
+              f"{lb} {np.median(ms[lb]):.3f} ("
+              + ", ".join(f"{t:.3f}" for t in ms[lb]) + ")" for lb in ranked))
+    fused = runs[BLOCK]
+    print("phase 6: epsilon-like fused B=128 vs split B=256 gaps: " + " ".join(
+        f"{a.round}:{a.gap:.6g}/{b.gap:.6g}"
+        for a, b in zip(fused[0].trajectory.records,
+                        runs[2 * BLOCK][0].trajectory.records)))
     return launched, per_round, fused
+
 
 MENU = ("CoCoA+", "CoCoA", "Mini-batch CD", "Mini-batch SGD", "Local SGD",
         "Dist SGD")
@@ -1256,8 +1334,8 @@ def main() -> int:
     worst = {}
     phase_block_sparse("demo", demo, 4, demo_h, 1e-3, worst)
     phase_block_sparse("rcv1-like", rcv1, 8, rcv1_h, 1e-4, worst)
-    phase_block_dense(eps, 1e-3, worst)
-    timing = phase_block_timing(rcv1, eps, {})
+    held = phase_block_dense(eps, 1e-3, worst)
+    timing = phase_block_timing(rcv1, eps, held[torch.float32], {})
     print("phase 5: all block cases agree (max_abs_err " + ", ".join(
         f"{n} {e:.3e}" for n, e in sorted(worst.items())) + ")")
     for name, t in sorted(timing.items()):
@@ -1270,6 +1348,14 @@ def main() -> int:
           f"block nonzeros {timing['B5']['nnz']:.0f}; B5 with rows in the "
           f"global scratch: float32 {timing['B5']['global_ms']:.4f} ms, "
           f"float64 {timing['B5']['f64_ms']:.4f} ms")
+    b4 = timing["B4"]
+    print(f"  B4 (epsilon-like 8 x 128 x 2000): auto plan (cluster, width) "
+          f"{b4['plan']} {b4['ms']:.4f} ms; by cluster size " + ", ".join(
+              f"{c}: {t:.4f}" for c, t in b4["cluster_ms"].items())
+          + f" ms; frozen mode (no Gram) {b4['frozen_ms']:.4f} ms; the Gram "
+          f"alone as torch.bmm in full float32 {b4['bmm_ms']:.4f} ms; "
+          f"cluster sizes held against the plain version: " + "; ".join(
+              f"{str(dt)[6:]} {cs}" for dt, cs in held.items()))
 
     # --- phase 6: the block path through its entry points
     launched, per_round, eps_fused = phase_block_path(

@@ -19,8 +19,9 @@
 // - the chain: B dependent steps per shard and only K shards, so latency
 //   (each step: two B-wide dots, a shuffle reduction, alpha_step, one
 //   shared-memory write), not bytes or flops;
-// - the fused block: the Gram, K * B^2 * d / 2 multiply-adds on the CUDA
-//   cores of K SMs (one block per shard), then the chain.
+// - the fused block: the same chain, on one warp of each shard.  Its
+//   Gram (K * B^2 * d / 2 multiply-adds), margins and apply are work over
+//   d, spread over a cluster of blocks a shard.
 //
 // What the design does about it:
 // - one warp runs a shard's chain.  Coefficients, deltas, indices and the
@@ -30,20 +31,40 @@
 //   (the loads do not depend on the chain), hiding their latency.
 // - repeated draws compare int32 indices, so there is no (B, K, B)
 //   equality tile and no 2^24 limit on the shard size.
-// - the fused kernel keeps the (B, B) Gram in shared memory (64 KB at
-//   B = 128 in float32); 256 threads compute it in 64 x 64 tiles over
-//   32-wide slices of d, each thread a 4 x 4 register tile, the next slice
-//   loaded into registers while the current one is multiplied.  Plain FP32
-//   fused multiply-adds, no TF32: the gap certificate rests on
+// - the fused kernel runs shard k on a thread-block cluster of C blocks
+//   (grid (C, K)).  Block r owns a contiguous slice of d, a multiple of 32
+//   columns but for the last, and computes in its own shared memory the
+//   partial margins x_j . v and the partial (B, B) Gram over its slice:
+//   256 threads, 64 x 64 tiles of the lower triangle over 32-wide steps of
+//   the slice, each thread a 4 x 4 register tile, the next step loaded
+//   into registers while the current one is multiplied.  Plain FP32 fused
+//   multiply-adds, no TF32: the gap certificate rests on
 //   w = (1 / lam n) sum y alpha x, and tensor-core TF32 keeps three digits.
+// - after a cluster barrier, block r sums a fixed 1/C of the Gram entries
+//   i < j and of the margins, reading the C partials through distributed
+//   shared memory in rank order 0..C-1, into the leader's (rank 0)
+//   arrays.  The order is fixed, not first come first served, so two
+//   launches give the same bits and the chain reads one value an entry.
+// - after a second barrier warp 0 of the leader runs the chain over the
+//   reduced Gram in its own shared memory, and the leader pushes the B
+//   coefficients into every block's shared memory; after a third, each
+//   block writes dwu = sum_j coef_j x_j over its own slice, each column
+//   summed in j order by one thread, so dwu does not depend on C.
+// - C comes from the caller (ops/block_chain.py fused_plan); C = 1 is one
+//   block a shard.  A cluster above 8 blocks is non-portable and asked
+//   for explicitly; a refused launch returns its error, nothing falls
+//   back.
 // - the TPU kernel's lane-blocked (6K, B) scalar tile, j-leading
 //   (B, 2K, B) Gram layout, half-tile grid and f32-cast index compare are
 //   TPU layout workarounds; here the Gram is (K, B, B) with row j of shard
 //   k contiguous.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sdca_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -51,6 +72,7 @@ constexpr int kThreads = 256;  // fused block
 constexpr int kTile = 64;      // Gram output tile (rows and columns)
 constexpr int kDk = 32;        // slice of d per tile step
 constexpr int kLd = kDk + 1;   // padded shared row: no bank conflicts
+constexpr int kMaxCluster = 16;  // the non-portable cluster limit
 
 // One shard's chain on the calling warp.  R = ceil(B / 32) Gram entries
 // per lane (B <= 32 R).  Every pointer but ``gram`` is shared memory;
@@ -133,17 +155,18 @@ __global__ void __launch_bounds__(32) chain_kernel(
   }
 }
 
-// B4: grid K, 256 threads per shard.  xb (K, B, d) the block's rows;
-// yb, qb, a0, live (K, B); idx (K, B) int32; v (K, d).  Writes delta
-// (K, B) and dwu (K, d).
+// B4: grid (C, K), a cluster of C blocks of 256 threads per shard; block
+// r owns columns [r * sw, min(d, (r + 1) * sw)).  xb (K, B, d) the
+// block's rows; yb, qb, a0, live (K, B); idx (K, B) int32; v (K, d).
+// Writes delta (K, B) and dwu (K, d).
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads) fused_kernel(
     const T* __restrict__ xb, const int* __restrict__ idx,
     const T* __restrict__ yb, const T* __restrict__ qb,
     const T* __restrict__ a0, const T* __restrict__ live,
     const T* __restrict__ v, T* __restrict__ delta_out,
-    T* __restrict__ dwu_out, int b, int d, int loss, T lam_n, T coef_div,
-    T sig_eff, T smoothing, int frozen) {
+    T* __restrict__ dwu_out, int b, int d, int sw, int loss, T lam_n,
+    T coef_div, T sig_eff, T smoothing, int frozen) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* gram = reinterpret_cast<T*>(smem_raw);
   T* m0 = gram + (frozen ? 0 : (size_t)b * b);
@@ -156,26 +179,33 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
   T* ta = delta + b;          // kTile x kLd: rows of tile i
   T* tb = ta + kTile * kLd;   // kTile x kLd: rows of tile j
   int* ix = reinterpret_cast<int*>(tb + kTile * kLd);
-  const int k = blockIdx.x, tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nc = (int)cluster.num_blocks();
+  const int k = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int f_lo = rank * sw, f_hi = min(d, f_lo + sw);
   const T* x = xb + (size_t)k * b * d;
   const T* vk = v + (size_t)k * d;
-  for (int t = tid; t < b; t += kThreads) {
-    const size_t o = (size_t)k * b + t;
-    ys[t] = yb[o];
-    qs[t] = qb[o];
-    as0[t] = a0[o];
-    ls[t] = live[o];
-    ix[t] = idx[o];
+  if (rank == 0) {  // the chain's step scalars, on the leader only
+    for (int t = tid; t < b; t += kThreads) {
+      const size_t o = (size_t)k * b + t;
+      ys[t] = yb[o];
+      qs[t] = qb[o];
+      as0[t] = a0[o];
+      ls[t] = live[o];
+      ix[t] = idx[o];
+    }
   }
-  // margins x_j . v, one warp per row
+  // partial margins x_j . v over the slice, one warp per row
   for (int j = warp; j < b; j += kThreads / 32) {
     T acc = T(0);
-    for (int f = lane; f < d; f += 32) acc = acc + x[(size_t)j * d + f] * vk[f];
+    for (int f = f_lo + lane; f < f_hi; f += 32)
+      acc = acc + x[(size_t)j * d + f] * vk[f];
     acc = sdca::warp_sum(acc);
     if (lane == 0) m0[j] = acc;
   }
-  if (!frozen) {
+  if (!frozen) {  // the partial Gram over the slice, lower-triangle tiles
     const int nt = (b + kTile - 1) / kTile;
     const int tx = tid & 15, ty = tid >> 4;  // 16 x 16 threads, 4 x 4 each
     constexpr int kPer = kTile * kDk / kThreads;  // slice loads per thread
@@ -192,13 +222,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
           for (int p = 0; p < kPer; ++p) {
             const int r = tid / kDk + p * (kThreads / kDk), c = tid % kDk;
             const int f = f0 + c, ri = ti * kTile + r, rj = tj * kTile + r;
-            pa[p] = (ri < b && f < d) ? x[(size_t)ri * d + f] : T(0);
-            pb[p] = (rj < b && f < d) ? x[(size_t)rj * d + f] : T(0);
+            pa[p] = (ri < b && f < f_hi) ? x[(size_t)ri * d + f] : T(0);
+            pb[p] = (rj < b && f < f_hi) ? x[(size_t)rj * d + f] : T(0);
           }
         };
-        fetch(0);
-        for (int f0 = 0; f0 < d; f0 += kDk) {
-          __syncthreads();  // the previous slice is no longer read
+        fetch(f_lo);
+        for (int f0 = f_lo; f0 < f_hi; f0 += kDk) {
+          __syncthreads();  // the previous step is no longer read
 #pragma unroll
           for (int p = 0; p < kPer; ++p) {
             const int r = tid / kDk + p * (kThreads / kDk), c = tid % kDk;
@@ -206,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
             tb[r * kLd + c] = pb[p];
           }
           __syncthreads();
-          if (f0 + kDk < d) fetch(f0 + kDk);  // overlaps the products
+          if (f0 + kDk < f_hi) fetch(f0 + kDk);  // overlaps the products
 #pragma unroll 8
           for (int c = 0; c < kDk; ++c) {
             T ra[4], rb[4];
@@ -231,15 +261,41 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
       }
     }
   }
-  __syncthreads();
-  if (warp == 0)
-    chain_warp<T, R>(b, m0, nullptr, ys, qs, as0, ls, ix,
-                     frozen ? nullptr : gram, b, coef, delta, loss, lam_n,
-                     coef_div, sig_eff, smoothing);
-  __syncthreads();
-  for (int t = tid; t < b; t += kThreads)
-    delta_out[(size_t)k * b + t] = delta[t];
-  for (int f = tid; f < d; f += kThreads) {
+  cluster.sync();  // every partial is in its block's shared memory
+  if (nc > 1) {
+    // block r sums its fixed share of the entries over the C partials in
+    // rank order, into the leader's arrays (partial 0 is the leader's own)
+    if (!frozen) {
+      for (int e = tid + kThreads * rank; e < b * b; e += kThreads * nc) {
+        const int j = e / b;
+        if (e - j * b >= j) continue;  // the chain reads i < j only
+        T s = *cluster.map_shared_rank(gram + e, 0);
+        for (int q = 1; q < nc; ++q) s = s + *cluster.map_shared_rank(gram + e, q);
+        *cluster.map_shared_rank(gram + e, 0) = s;
+      }
+    }
+    for (int j = rank + nc * tid; j < b; j += nc * kThreads) {
+      T s = *cluster.map_shared_rank(m0 + j, 0);
+      for (int q = 1; q < nc; ++q) s = s + *cluster.map_shared_rank(m0 + j, q);
+      *cluster.map_shared_rank(m0 + j, 0) = s;
+    }
+    cluster.sync();  // the leader holds the sums
+  }
+  if (rank == 0) {
+    if (warp == 0)
+      chain_warp<T, R>(b, m0, nullptr, ys, qs, as0, ls, ix,
+                       frozen ? nullptr : gram, b, coef, delta, loss, lam_n,
+                       coef_div, sig_eff, smoothing);
+    __syncthreads();
+    for (int t = tid; t < b; t += kThreads)
+      delta_out[(size_t)k * b + t] = delta[t];
+    for (int t = tid; t < (nc - 1) * b; t += kThreads) {
+      const int q = 1 + t / b, j = t - (q - 1) * b;
+      *cluster.map_shared_rank(coef + j, q) = coef[j];
+    }
+  }
+  cluster.sync();  // every block holds the coefficients
+  for (int f = f_lo + tid; f < f_hi; f += kThreads) {
     T acc = T(0);
     for (int j = 0; j < b; ++j) acc = acc + coef[j] * x[(size_t)j * d + f];
     dwu_out[(size_t)k * d + f] = acc;
@@ -273,29 +329,99 @@ int launch_chain(const T* scal, const T* gram, const int* idx, T* delta,
 }
 
 template <typename T>
+using FusedFn = void (*)(const T*, const int*, const T*, const T*, const T*,
+                         const T*, const T*, T*, T*, int, int, int, int, T,
+                         T, T, T, int);
+
+// The fused kernel for B, with its shared memory opted in and, above 8
+// blocks a cluster, the non-portable cluster size allowed.
+template <typename T>
+cudaError_t fused_kernel_for(int b, int cluster, int frozen,
+                             FusedFn<T>* out) {
+  FusedFn<T> kern = b <= 128 ? &fused_kernel<T, 4>
+                   : b <= 256 ? &fused_kernel<T, 8>
+                   : b <= 512 ? &fused_kernel<T, 16> : &fused_kernel<T, 32>;
+  cudaError_t err = sdca::allow_smem(kern, fused_smem(b, sizeof(T), frozen));
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *out = kern;
+  return err;
+}
+
+// A plan is C in 1..kMaxCluster blocks of sw columns covering d, every
+// block's slice non-empty, sw a multiple of kDk when C > 1.
+inline bool fused_plan_ok(int b, int d, int cluster, int sw) {
+  if (b < 1 || b > 1024 || d < 1 || cluster < 1 || cluster > kMaxCluster ||
+      sw < 1)
+    return false;
+  if (cluster > 1 && sw % kDk != 0) return false;
+  return (long long)(cluster - 1) * sw < d && (long long)cluster * sw >= d;
+}
+
+inline cudaLaunchConfig_t fused_config(int k, int cluster, size_t bytes,
+                                       void* stream,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, k, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
 int launch_fused(const T* xb, const int* idx, const T* yb, const T* qb,
                  const T* a0, const T* live, const T* v, T* delta, T* dwu,
-                 int k, int b, int d, int loss, double lam_n, double coef_div,
-                 double sig_eff, double smoothing, int frozen, void* stream) {
-  if (b < 1 || b > 1024) return (int)cudaErrorInvalidValue;
-  auto kern = b <= 128 ? &fused_kernel<T, 4> : b <= 256 ? &fused_kernel<T, 8>
-            : b <= 512 ? &fused_kernel<T, 16> : &fused_kernel<T, 32>;
+                 int k, int b, int d, int cluster, int sw, int loss,
+                 double lam_n, double coef_div, double sig_eff,
+                 double smoothing, int frozen, void* stream) {
+  if (k < 1 || !fused_plan_ok(b, d, cluster, sw))
+    return (int)cudaErrorInvalidValue;
   const size_t bytes = fused_smem(b, sizeof(T), frozen);
   if (bytes > (size_t)sdca::smem_optin()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = sdca::allow_smem(kern, bytes);
+  FusedFn<T> kern;
+  cudaError_t err = fused_kernel_for<T>(b, cluster, frozen, &kern);
   if (err != cudaSuccess) return (int)err;
-  kern<<<k, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      xb, idx, yb, qb, a0, live, v, delta, dwu, b, d, loss, T(lam_n),
-      T(coef_div), T(sig_eff), T(smoothing), frozen);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fused_config(k, cluster, bytes, stream,
+                                              &attr);
+  err = cudaLaunchKernelEx(&cfg, kern, xb, idx, yb, qb, a0, live, v, delta,
+                           dwu, b, d, sw, loss, T(lam_n), T(coef_div),
+                           T(sig_eff), T(smoothing), frozen);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of ``cluster`` fused blocks the card can hold at once
+// (cudaOccupancyMaxActiveClusters), written to *out.
+template <typename T>
+int fused_clusters(int b, int cluster, int frozen, int* out) {
+  *out = 0;
+  if (!fused_plan_ok(b, kDk * cluster, cluster, kDk))
+    return (int)cudaErrorInvalidValue;
+  FusedFn<T> kern;
+  cudaError_t err = fused_kernel_for<T>(b, cluster, frozen, &kern);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fused_config(
+      1, cluster, fused_smem(b, sizeof(T), frozen), nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Every tensor is contiguous; indices
 // are int32; ``gram`` is null in frozen mode.  Outputs are written whole.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a B outside
-// 1..1024 or a fused working set above the shared-memory opt-in).
+// Returns the launch's error or cudaGetLastError() (cudaErrorInvalidValue
+// for a B outside 1..1024, a fused plan that breaks fused_plan_ok's rules
+// or a fused working set above the shared-memory opt-in).
 #define CHAIN_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* scal, const T* gram, const int* idx,         \
                       T* delta, T* coef, int k, int b, int loss,            \
@@ -310,15 +436,22 @@ CHAIN_ENTRY(chain_block_batched_f64, double)
 #define FUSED_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* xb, const int* idx, const T* yb,             \
                       const T* qb, const T* a0, const T* live, const T* v,  \
-                      T* delta, T* dwu, int k, int b, int d, int loss,      \
-                      double lam_n, double coef_div, double sig_eff,        \
-                      double smoothing, int frozen, void* stream) {         \
+                      T* delta, T* dwu, int k, int b, int d, int cluster,   \
+                      int sw, int loss, double lam_n, double coef_div,      \
+                      double sig_eff, double smoothing, int frozen,         \
+                      void* stream) {                                       \
     return launch_fused<T>(xb, idx, yb, qb, a0, live, v, delta, dwu, k, b,  \
-                           d, loss, lam_n, coef_div, sig_eff, smoothing,    \
-                           frozen, stream);                                 \
+                           d, cluster, sw, loss, lam_n, coef_div, sig_eff,  \
+                           smoothing, frozen, stream);                      \
   }
 FUSED_ENTRY(fused_block_f32, float)
 FUSED_ENTRY(fused_block_f64, double)
+
+extern "C" int fused_block_clusters(int itemsize, int b, int cluster,
+                                    int frozen, int* out) {
+  return itemsize == 8 ? fused_clusters<double>(b, cluster, frozen, out)
+                       : fused_clusters<float>(b, cluster, frozen, out);
+}
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

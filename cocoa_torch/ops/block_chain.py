@@ -15,6 +15,11 @@ pass the full symmetric Gram or its strict triangle.
 
 Each wrapper takes the tensor's device as the rule: on a CPU tensor it
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
+
+The fused kernel runs each shard on a thread-block cluster whose blocks
+split d: :func:`fused_plan` picks the cluster's size and the slice width,
+and the kernel refuses a plan that breaks its rules and never picks
+another.
 """
 
 from __future__ import annotations
@@ -32,6 +37,18 @@ from cocoa_torch.ops.losses import LOSS_CODES
 CHAIN_MAX_B = 1024           # 32 Gram entries per lane in the chain's warp
 SMEM_OPTIN = 232_448         # H100: the 227 KB of shared memory a block may use
 _TILE, _LD = 64, 33          # the fused kernel's Gram tile and padded row
+# the fused kernel's step over d (kDk), the unit of a block's slice, and
+# the largest cluster it takes (kMaxCluster; above 8 blocks non-portable)
+SLICE_UNIT = 32
+MAX_CLUSTER = 16
+# the blocks of a shard's cluster under fused_plan's auto rule.  On the
+# epsilon-like block (8 x 128 x 2000, float32; chip_smoke.py phase 5, an
+# H100 80GB HBM3 at 700 W) C = 1, 2, 4, 8, 16 took 0.4696, 0.2841,
+# 0.1828, 0.1339, 0.1268 ms: 16 is 5 % faster than 8, but it is a
+# non-portable cluster size and at float64 the card holds 7 clusters of
+# 16 at once, fewer than K, so 8 serves both dtypes without an occupancy
+# query in the plan
+AUTO_CLUSTER = 8
 
 _CHAIN_FN = {torch.float32: "chain_block_batched_f32",
              torch.float64: "chain_block_batched_f64"}
@@ -47,6 +64,48 @@ def fused_smem_bytes(b: int, itemsize: int) -> int:
 
 def fused_fits(b: int, itemsize: int) -> bool:
     return b <= CHAIN_MAX_B and fused_smem_bytes(b, itemsize) <= SMEM_OPTIN
+
+
+def _check_cluster(cluster):
+    if cluster is None:
+        return None
+    if isinstance(cluster, bool) or not isinstance(cluster, int) \
+            or not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster must be an int in 1..{MAX_CLUSTER} or "
+                         f"None (auto), got {cluster!r}")
+    return cluster
+
+
+def fused_plan(b: int, d: int, itemsize: int, cluster=None):
+    """(cluster, width): the fused kernel's C blocks per shard, block r
+    owning columns [r * width, min(d, (r + 1) * width)) of d.  The width
+    is d for C = 1, else ceil(d / C) rounded up to SLICE_UNIT, so every
+    slice but the last is a multiple of SLICE_UNIT columns.
+
+    ``cluster`` None takes AUTO_CLUSTER blocks, fewer where d leaves a
+    block without columns; an int asks for exactly that many, and a count
+    that leaves a block without columns raises.  Every block holds the same
+    shared memory as C = 1 (:func:`fused_smem_bytes`); a B whose working
+    set does not fit raises."""
+    cluster = _check_cluster(cluster)
+    if not fused_fits(b, itemsize):
+        raise ValueError(f"fused_block at B={b} needs "
+                         f"{fused_smem_bytes(b, itemsize)} B of shared "
+                         f"memory, over the {SMEM_OPTIN} B a block may use")
+    c = cluster or AUTO_CLUSTER
+    while True:
+        width = d if c == 1 else _ceil(_ceil(d, c), SLICE_UNIT) * SLICE_UNIT
+        used = _ceil(d, width)
+        if used == c:
+            return c, width
+        if cluster is not None:
+            raise ValueError(f"cluster={cluster} leaves a block without "
+                             f"columns at d={d} (slices of {width})")
+        c = used
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 @contextlib.contextmanager
@@ -145,24 +204,24 @@ def fused_block_plain(xb, idx, yb, qb, a0, live, v, lam_n, coef_div,
 
 
 def fused_block(xb, idx, yb, qb, a0, live, v, lam_n, coef_div, sig_eff,
-                frozen, loss, smoothing=1.0):
+                frozen, loss, smoothing=1.0, cluster=None):
     """One whole block: margins x_j . v_k, the K Gram matrices, the chain
     and the Delta-w increment.  ``xb`` (K, B, d) the gathered rows; ``idx``
     (K, B) int32; ``yb``, ``qb`` (qii), ``a0``, ``live`` (K, B); ``v``
-    (K, d) = w + sig_eff * dw (w in frozen mode).  Returns (delta (K, B),
-    dwu (K, d) = sum_j coef_j x_j)."""
+    (K, d) = w + sig_eff * dw (w in frozen mode).  ``cluster`` asks the
+    kernel for that many blocks a shard (None: :func:`fused_plan`'s auto
+    rule); the plain version takes no plan, and ``cluster`` is checked on
+    every device.  Returns (delta (K, B), dwu (K, d) = sum_j coef_j x_j)."""
     kernels.check_dtype(xb.dtype, "the fused block kernel")
     losses.validate(loss, smoothing)
+    cluster = _check_cluster(cluster)
     if kernels.runs_plain(xb.device):
         return fused_block_plain(xb, idx, yb, qb, a0, live, v, lam_n,
                                  coef_div, sig_eff, frozen, loss, smoothing)
     kernels.require_cuda(xb, "fused_block")
     k, b, d = xb.shape
     dt, dev = xb.dtype, xb.device
-    if not fused_fits(b, dt.itemsize):
-        raise ValueError(f"fused_block at B={b} needs "
-                         f"{fused_smem_bytes(b, dt.itemsize)} B of shared "
-                         f"memory, over the {SMEM_OPTIN} B a block may use")
+    c, width = fused_plan(b, d, dt.itemsize, cluster)
     check = kernels.check_tensor
     check("xb", xb, dt, (k, b, d), dev)
     check("idx", idx, torch.int32, (k, b), dev)
@@ -176,9 +235,9 @@ def fused_block(xb, idx, yb, qb, a0, live, v, lam_n, coef_div, sig_eff,
         rc = getattr(lib, _FUSED_FN[dt])(
             xb.data_ptr(), idx.data_ptr(), yb.data_ptr(), qb.data_ptr(),
             a0.data_ptr(), live.data_ptr(), v.data_ptr(), delta.data_ptr(),
-            dwu.data_ptr(), k, b, d, LOSS_CODES[loss], float(lam_n),
-            float(coef_div), float(sig_eff), float(smoothing), int(frozen),
-            kernels.stream_ptr(dev))
+            dwu.data_ptr(), k, b, d, c, width, LOSS_CODES[loss],
+            float(lam_n), float(coef_div), float(sig_eff), float(smoothing),
+            int(frozen), kernels.stream_ptr(dev))
     kernels.raise_on_error(lib, rc, "fused_block")
     fused_block.launches += 1
     return delta, dwu
@@ -187,12 +246,31 @@ def fused_block(xb, idx, yb, qb, a0, live, v, lam_n, coef_div, sig_eff,
 fused_block.launches = 0
 
 
+def fused_clusters(b: int, dtype, cluster: int, frozen: bool = False,
+                   device="cuda") -> int:
+    """How many clusters of ``cluster`` fused blocks at B = ``b`` the card
+    of ``device`` holds at once (cudaOccupancyMaxActiveClusters): K
+    clusters or more run in one wave."""
+    kernels.check_dtype(dtype, "the fused block kernel")
+    cluster = _check_cluster(cluster)
+    lib = _library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.fused_block_clusters(dtype.itemsize, b, cluster, int(frozen),
+                                      ctypes.byref(out))
+    kernels.raise_on_error(lib, rc, "fused_block_clusters")
+    return out.value
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load("block_chain")
     kernels.declare(lib, _CHAIN_FN.values(), 5,
                     [ctypes.c_int] * 3 + [ctypes.c_double] * 4)
     kernels.declare(lib, _FUSED_FN.values(), 9,
-                    [ctypes.c_int] * 4 + [ctypes.c_double] * 4
+                    [ctypes.c_int] * 6 + [ctypes.c_double] * 4
                     + [ctypes.c_int])
+    lib.fused_block_clusters.restype = ctypes.c_int
+    lib.fused_block_clusters.argtypes = [ctypes.c_int] * 4 \
+        + [ctypes.POINTER(ctypes.c_int)]
     return lib

@@ -27,8 +27,13 @@ from cocoa_torch.solvers import base
 
 # ``--blockSize=auto`` at float32: the block size the JAX package ranks
 # first on a TPU v5e (cocoa_tpu/ops/pallas_chain.py BLOCK_SIZE_PREFERENCE).
-# Not yet measured on the card; ranking block sizes there is an open
-# measurement (ROADMAP).
+# On the card (chip_smoke.py phase 6, an H100 80GB HBM3 at 700 W, three
+# runs each in turns, in two calls) epsilon-like data puts fused B=128,
+# split B=256 and split B=512 within 4 % of one another by their medians
+# (9.505 / 9.777 / 9.924 ms a round in one call, 10.001 / 9.910 / 10.013
+# in the other), the order changing between calls while single runs
+# strayed to 14.7 and 20.1 ms: no size wins, and 128 stays.  The
+# sparse-Gram branch on rcv1-like data is not ranked across sizes.
 AUTO_BLOCK = 128
 
 
