@@ -9,12 +9,15 @@ stderr); any failed check exits non-zero:
 1. the card's name and power limit (nvidia-smi); build the four kernel
    libraries (one nvcc each, all started together) and time the build;
 2. each kernel against its plain PyTorch version on the same CUDA tensors:
-   the sparse SDCA round on the demo shards and on rcv1-like shards, for
-   modes cocoa/plus/frozen x losses hinge/smooth_hinge/logistic x
-   float32/float64 x dw in shared or global memory, with repeated draws
-   and a real column 0 followed by padding; then the kernel's (both dw
-   placements) and the plain version's time at the main path's shape, on
-   its own draws;
+   the sparse SDCA round (B1) on the demo shards, on rcv1-like shards and
+   on rows wider than its ring's slots, for modes cocoa/plus/frozen x
+   losses hinge/smooth_hinge/logistic x float32/float64, at every plan
+   (the auto ring depth and each depth 1..7, dw asked into shared and into
+   global memory), with draws repeated at every distance from 1 to 9
+   steps (inside and past the ring) and a real column 0 followed by
+   padding; then the kernel's (both dw placements) and the plain
+   version's time at the main path's shape, on its own draws, and B1 at
+   each ring depth and in frozen mode, in us per step;
 3. the bundled demo through the CLI entry point (CoCoA+ and CoCoA,
    --math=fast, float32): the gap falls and stays >= 0, CoCoA+ ends below
    1e-2, alpha stays in [0, 1], one launch per round, and every debugIter
@@ -54,7 +57,7 @@ stderr); any failed check exits non-zero:
    on the demo's dense column shards, each with w and dw asked into
    shared and into global memory, at the auto ring depth and at one slot;
    the sparse round (B1) in mode prox on the demo's padded-CSC column
-   shards; then B2's time (the auto plan, each ring depth, the state in
+   shards at every plan; then B2's time (the auto plan, each ring depth, the state in
    global memory) and its plain version's at the epsilon-like, lasso,
    demo (float32 and float64) and tall shapes on the main path's own
    draws, with the plan, us per step and the bound, two launches and
@@ -78,9 +81,11 @@ stderr); any failed check exits non-zero:
    panel width --hotCols=auto resolves (5248 and 896 columns), modes
    cocoa/plus/frozen x the three losses x float32/float64, mode prox on
    the demo, and the demo with every column hot (padding lanes at column
-   0 beside a real column 0), each with dw in shared and in global
-   memory; B5, B3 and B6 on the rcv1-like residual with the panel's
-   terms; B1h's time beside the unsplit B1's on the main path's draws;
+   0 beside a real column 0; too many panel lanes for registers), each
+   at every plan as in phase 2, with repeats inside and past the ring;
+   B5, B3 and B6 on the rcv1-like residual with the panel's terms; B1h's
+   time beside the unsplit B1's on the main path's draws, and at each
+   ring depth and in frozen mode;
    the rcv1-like data through the CLI with --hotCols=auto for 200 rounds,
    sequentially (one B1h launch a round) and with --blockSize=auto, the
    gaps within relative 1e-3 of phase 4's unsplit run; and the demo with
@@ -136,6 +141,9 @@ DEMO_TEST = ROOT / "data" / "small_test.dat"
 # bench_lasso, run to a relative gap of 1e-3 within LASSO_ROUNDS rounds;
 # a tall lasso design whose columns (B2's rows) are wider than a slot
 RCV1_SHAPE = (20242, 47236)
+# sparse rows wider than B1's ring slots (n, d, mean nonzeros a row): the
+# first entries staged, the rest read in the step, dw in shared memory
+WIDE_SHAPE = (2000, 20000, 2000)
 EPS_SHAPE = (400_000, 2000, 8)
 LASSO_SHAPE = (8192, 32768, 8)
 TALL_LASSO_SHAPE = (100_000, 1024, 8)
@@ -232,18 +240,52 @@ def column0_rows(ds, idxs):
     return spi, spv, sq, idxs
 
 
+# B1's and B1h's plans held against the plain version: the auto ring
+# depth and every depth, each with dw asked into shared and into global
+# memory
+SPARSE_PLANS = [(smem, stages) for smem in (True, False)
+                for stages in (None, *range(1, sp.MAX_STAGES + 1))]
+
+
+def sparse_repeats(idxs):
+    """Draws with repeats at every distance from 1 (round_inputs) to two
+    past the deepest ring of B1's producers (window_repeats)."""
+    return window_repeats(idxs, span=sp.MAX_STAGES + 3)
+
+
+def sparse_plan_of(ds, smem, stages):
+    n_hot = 0 if ds.X_hot is None else ds.n_hot
+    return sp.sparse_plan(ds.sp_indices.shape[-1], ds.num_features,
+                          ds.sp_values.element_size(),
+                          kernels.smem_optin(ds.sp_values.device), smem,
+                          stages, n_hot)
+
+
+def held_at_every_plan(tag, ds, args, kw, want, dt, worst, name, plans):
+    """The kernel at every plan of SPARSE_PLANS against ``want``; the plans
+    met are added to ``plans``, each with the row width."""
+    for smem, stages in SPARSE_PLANS:
+        plan = sparse_plan_of(ds, smem, stages)
+        plans.add((plan, ds.sp_indices.shape[-1]))
+        agree(f"{tag} dw_in_smem={smem} stages={stages} plan={plan}",
+              sp.sparse_sdca_round(*args, dw_in_smem=smem, stages=stages,
+                                   **kw),
+              want, dt, worst, name, ROUND_FLOORS)
+
+
 def phase_kernel_vs_plain(shapes):
-    """Every mode x loss x dtype x dw placement case at both shapes, plus
-    the crafted column-0 rows.  ``dw_in_smem=True`` is shared memory only
-    where dw fits (not rcv1-like float64).  Returns the largest error."""
-    worst = {}
+    """Every mode x loss x dtype case at each shape, plus the crafted
+    column-0 rows, at every plan (SPARSE_PLANS) on draws with repeats at
+    every distance inside and past the ring.  ``dw_in_smem=True`` is
+    shared memory only where dw fits (not rcv1-like float64).  Returns the
+    largest error and the plans met."""
+    worst, plans = {}, set()
     for name, (data, k, h, lam) in shapes.items():
-        for dt, smem in [(dt, smem) for dt in (torch.float32, torch.float64)
-                         for smem in (True, False)]:
+        for dt in (torch.float32, torch.float64):
             ds = shard_dataset(data, k, layout="sparse", dtype=dt,
                                device="cuda")
             w, alpha, idxs = round_inputs(ds, h, seed=3)
-            tag = f"{name} {str(dt)[6:]} dw_in_smem={smem}"
+            idxs = sparse_repeats(idxs)
             cases = [(ds.sp_indices, ds.sp_values, ds.sq_norms, idxs, mode,
                       sigma, loss, f"{mode}/{loss}")
                      for mode, sigma in MODES for loss in LOSSES]
@@ -256,11 +298,10 @@ def phase_kernel_vs_plain(shapes):
                 args = (w, alpha, spi, spv, ds.labels, sq, ix, lam, ds.n)
                 kw = dict(mode=mode, sigma=sigma or float(k), loss=loss,
                           smoothing=1.0)
-                agree(f"{tag} {case}",
-                      sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
-                      sp.sparse_sdca_round_plain(*args, **kw), dt, worst,
-                      "B1", ROUND_FLOORS)
-    return worst["B1"]
+                held_at_every_plan(f"{name} {str(dt)[6:]} {case}", ds, args,
+                                   kw, sp.sparse_sdca_round_plain(*args, **kw),
+                                   dt, worst, "B1", plans)
+    return worst["B1"], plans
 
 
 def phase_timing(data, k, h, lam):
@@ -296,6 +337,46 @@ def phase_timing(data, k, h, lam):
     bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
                 >= flops / PEAK_FLOPS[torch.float32] else "operations")
     return ms, global_ms, plain_ms, bound_ms, bound_by, n_bytes, nnz
+
+
+def stage_timing(ds, k, h, lam, reps=50):
+    """B1 (or B1h on a hybrid ``ds``) at each plan of SPARSE_PLANS'
+    depths with dw where auto puts it, dw asked into global memory, and
+    frozen mode at the auto plan (float32, CoCoA+, hinge; the main path's
+    draws): {plan name: (plan, ms)}.  Every plan's result equals the auto
+    plan's bit for bit wherever no row repeats a column: the plan changes
+    no lane's order of operations."""
+    w, alpha, idxs = round_inputs(ds, h, seed=5, repeats=False)
+    hot = {} if ds.X_hot is None else dict(hot_cols=ds.hot_cols,
+                                           hot_panel=ds.X_hot)
+    args = (w, alpha, ds.sp_indices, ds.sp_values, ds.labels, ds.sq_norms,
+            idxs, lam, ds.n)
+    rl = row_lengths(ds.sp_values)
+    kw = dict(mode="plus", sigma=float(k), loss="hinge", row_len=rl, **hot)
+    plans = {"auto": {}, **{f"stages={s}": dict(stages=s)
+                            for s in range(1, sp.MAX_STAGES + 1)},
+             "global": dict(dw_in_smem=False)}
+    first = sp.sparse_sdca_round(*args, **kw)
+    out = {}
+    for name, plan in plans.items():
+        got = sp.sparse_sdca_round(*args, **plan, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, got)),
+              f"sparse_sdca_round: plan {name} differs from auto")
+        out[name] = (sparse_plan_of(ds, plan.get("dw_in_smem", True),
+                                    plan.get("stages")),
+                     cuda_ms(lambda: sp.sparse_sdca_round(*args, **plan,
+                                                          **kw), reps))
+    frozen = dict(kw, mode="frozen", sigma=1.0)
+    out["frozen"] = (out["auto"][0], cuda_ms(
+        lambda: sp.sparse_sdca_round(*args, **frozen), reps))
+    return out
+
+
+def print_stage_timing(label, t, h):
+    print(f"  {label}: " + "; ".join(
+        f"{name} {plan} {ms:.4f} ms ({ms * 1e3 / h:.3f} us per step)"
+        for name, (plan, ms) in t.items()))
 
 
 def run_cli(argv):
@@ -844,20 +925,21 @@ def phase_dense_kernel(shapes, worst):
 
 def phase_sparse_prox(sets, h, lam, worst):
     """B1 in mode prox with the lasso rule against its plain version, on
-    the demo's padded-CSC column shards (n = 1: lam is the L1 weight)."""
+    the demo's padded-CSC column shards (n = 1: lam is the L1 weight), at
+    every plan, with repeats inside and past the ring."""
+    plans = set()
     for dt, ds in sets.items():
         w, alpha, idxs = round_inputs(ds, h, 4, prox=True)
         args = (w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
-                ds.sq_norms, idxs, lam, 1)
-        for smem in (True, False):
-            for l2 in PROX_L2:
-                kw = dict(mode="prox", sigma=float(ds.k), loss="lasso",
-                          smoothing=l2)
-                agree(f"demo columns {str(dt)[6:]} dw_in_smem={smem} "
-                      f"prox/lasso l2={l2}",
-                      sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
-                      sp.sparse_sdca_round_plain(*args, **kw), dt, worst,
-                      "B1", ROUND_FLOORS)
+                ds.sq_norms, sparse_repeats(idxs), lam, 1)
+        for l2 in PROX_L2:
+            kw = dict(mode="prox", sigma=float(ds.k), loss="lasso",
+                      smoothing=l2)
+            held_at_every_plan(f"demo columns {str(dt)[6:]} prox/lasso "
+                               f"l2={l2}", ds, args, kw,
+                               sp.sparse_sdca_round_plain(*args, **kw), dt,
+                               worst, "B1", plans)
+    return plans
 
 
 # B2's timed plans beside the auto one: each ring depth with the state
@@ -1096,23 +1178,26 @@ def column0_panel(ds):
 
 def phase_hybrid_kernel(shapes, worst):
     """B1's hot-panel branch against its plain version on the same CUDA
-    tensors, with forced repeats: ``shapes`` {name: ({dtype: dataset}, H,
-    lam, n, cases)}, a case (mode, sigma or None for K, loss, smoothing);
-    each case once with dw and Delta-w_hot in shared memory where they
-    fit and once forced into global memory."""
+    tensors, with forced repeats at every distance inside and past the
+    ring: ``shapes`` {name: ({dtype: dataset}, H, lam, n, cases)}, a case
+    (mode, sigma or None for K, loss, smoothing); each case at every plan
+    (SPARSE_PLANS: dw and Delta-w_hot asked into shared memory, where
+    they fit, and into global memory).  Returns the plans met."""
+    plans = set()
     for name, (sets, h, lam, n, cases) in shapes.items():
         for dt, ds in sets.items():
             for mode, sigma, loss, s in cases:
                 w, alpha, idxs = round_inputs(ds, h, 3, prox=mode == "prox")
-                args, hot = hybrid_args(ds, w, alpha, idxs, lam, n)
+                args, hot = hybrid_args(ds, w, alpha, sparse_repeats(idxs),
+                                        lam, n)
                 kw = dict(mode=mode, sigma=sigma or float(ds.k), loss=loss,
                           smoothing=s, **hot)
-                want = sp.sparse_sdca_round_plain(*args, **kw)
-                for smem in (True, False):
-                    agree(f"{name} {str(dt)[6:]} n_hot={ds.n_hot} "
-                          f"dw_in_smem={smem} {mode}/{loss} s={s}",
-                          sp.sparse_sdca_round(*args, dw_in_smem=smem, **kw),
-                          want, dt, worst, "B1h", ROUND_FLOORS)
+                held_at_every_plan(
+                    f"{name} {str(dt)[6:]} n_hot={ds.n_hot} {mode}/{loss} "
+                    f"s={s}", ds, args, kw,
+                    sp.sparse_sdca_round_plain(*args, **kw), dt, worst,
+                    "B1h", plans)
+    return plans
 
 
 def hybrid_timing(rcv1, ds_h, k, h, lam):
@@ -1241,13 +1326,28 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     demo_h = max(1, int(0.1 * demo.n / 4))
     rcv1_h = max(1, int(0.1 * rcv1.n / 8))
-    worst_b1 = phase_kernel_vs_plain({
+    wide = synth_sparse(*WIDE_SHAPE[:2], nnz_mean=WIDE_SHAPE[2], seed=2)
+    worst_b1, plans2 = phase_kernel_vs_plain({
         "demo": (demo, 4, demo_h, 1e-3),
         "rcv1-like": (rcv1, 8, rcv1_h, 1e-4),
+        "wide rows": (wide, 4, 50, 1e-3),
     })
+    streamed = {plan[0] for plan, width in plans2 if plan[2] < width}
+    check(streamed == {True, False},
+          f"B1's rows wider than a slot were not held with dw in both "
+          f"placements ({streamed})")
     ms, global_ms, plain_ms, bound_ms, bound_by, n_bytes, nnz = \
         phase_timing(rcv1, 8, rcv1_h, 1e-4)
     demo_ms = phase_timing(demo, 4, demo_h, 1e-3)
+    b1_stages = {
+        name: stage_timing(shard_dataset(data, k, layout="sparse",
+                                         dtype=torch.float32, device="cuda"),
+                           k, h, lam)
+        for name, data, k, h, lam in (("rcv1-like", rcv1, 8, rcv1_h, 1e-4),
+                                      ("demo", demo, 4, demo_h, 1e-3))}
+    print(f"phase 2: B1 held at {len(plans2)} plans (dw_in_smem, stages, "
+          f"slot, hot_in_regs) by row width: "
+          + ", ".join(f"{p} W={w}" for p, w in sorted(plans2)))
     print(f"phase 2: all cases agree (max_abs_err {worst_b1:.3e}); rcv1-like "
           f"f32 plus/hinge round: kernel {ms:.4f} ms (dw in global memory "
           f"{global_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
@@ -1255,6 +1355,9 @@ def main() -> int:
           f"the distinct sampled rows); demo round: kernel {demo_ms[0]:.4f} ms (dw in "
           f"global memory {demo_ms[1]:.4f} ms), plain {demo_ms[2]:.2f} ms, "
           f"bound {demo_ms[3]:.5f} ms")
+    for name, t in b1_stages.items():
+        print_stage_timing(f"B1 {name} f32 plus/hinge by plan, frozen last",
+                           t, rcv1_h if name == "rcv1-like" else demo_h)
 
     # --- phase 3: the demo through the CLI, kernel and plain
     demo_argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
@@ -1417,8 +1520,8 @@ def main() -> int:
     check(streamed == {"float32", "float64"},
           f"the tall lasso design's rows were not streamed in chunks in "
           f"both dtypes ({streamed})")
-    phase_sparse_prox(demo_cols, max(1, int(0.1 * demo.num_features / 4)),
-                      0.1, worst7)
+    prox_plans = phase_sparse_prox(
+        demo_cols, max(1, int(0.1 * demo.num_features / 4)), 0.1, worst7)
     b2 = {"epsilon-like": dense_timing(eps, eps_h, 1e-3, eps.n, "plus",
                                        "hinge", 1.0, 20),
           "lasso design": dense_timing(lasso_ds, lasso_h, 0.3 * lam_max, 1,
@@ -1432,7 +1535,8 @@ def main() -> int:
     del tall
     print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
           f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
-          f"launches, and every plan timed, agree bit for bit")
+          f"launches, and every plan timed, agree bit for bit; B1 prox "
+          f"plans: " + ", ".join(f"{p} W={w}" for p, w in sorted(prox_plans)))
     print("  B2 plans (state_in_smem, stages, chunk) by shape, dtype, state "
           "asked into shared memory, stages asked: " + "; ".join(
               f"{name} {dt} {smem} {asked}: {plan} H={h}"
@@ -1479,16 +1583,23 @@ def main() -> int:
           f"{rcv1_split['residual_mean_nnz']:.1f}); demo panel {demo_w} "
           f"columns, residual width {demo_hyb[f32].sp_indices.shape[-1]}; "
           f"made on the card in {time.perf_counter() - t0:.1f} s")
-    phase_hybrid_kernel({
+    hyb_plans = phase_hybrid_kernel({
         "rcv1-like hybrid": (rcv1_hyb, rcv1_h, 1e-4, rcv1.n, dual),
         "demo hybrid": (demo_hyb, demo_h, 1e-3, demo.n, dual + prox),
         "demo all columns hot, column 0": (
             demo_full, demo_h, 1e-3, demo.n,
             [("plus", None, "hinge", 1.0), ("cocoa", None, "logistic", 1.0)]),
     }, worst)
+    check({plan[3] for plan, _ in hyb_plans} == {True, False},
+          "B1h was not held with its panel lanes both in registers and "
+          "in memory")
     phase_block_sparse("rcv1-like hybrid", rcv1, 8, rcv1_h, 1e-4, worst,
                        hot_cols=rcv1_w)
     ht = hybrid_timing(rcv1, rcv1_hyb[f32], 8, rcv1_h, 1e-4)
+    b1h_stages = {"rcv1-like hybrid": stage_timing(rcv1_hyb[f32], 8, rcv1_h,
+                                                   1e-4),
+                  "demo hybrid": stage_timing(demo_hyb[f32], 4, demo_h,
+                                              1e-3)}
     del rcv1_hyb, demo_hyb, demo_full
     print(f"phase 10: all B1h cases agree (max_abs_err {worst['B1h']:.3e}), "
           f"B5/B3/B6 on the residual too; rcv1-like f32 plus/hinge round: "
@@ -1497,6 +1608,11 @@ def main() -> int:
           f"on the same draws (in turns), plain {ht['plain_ms']:.2f} ms, "
           f"bound {ht['bound'][0]:.5f} ms ({ht['bound'][1]}: "
           f"{ht['n_bytes']} B, {ht['rows']} distinct sampled rows)")
+    print(f"  B1h plans (dw_in_smem, stages, slot, hot_in_regs) held: "
+          + ", ".join(f"{p} W={w}" for p, w in sorted(hyb_plans)))
+    for name, t in b1h_stages.items():
+        print_stage_timing(f"B1h {name} f32 plus/hinge by plan, frozen last",
+                           t, rcv1_h if name.startswith("rcv1") else demo_h)
     launched10, per_round10 = phase_hybrid_path(rcv1_argv, rcv1_seq, rcv1_w,
                                                 DEMO_TRAIN, DEMO_TEST)
     tmp.cleanup()

@@ -154,15 +154,17 @@ def test_cli_bad_input_exits_2(change, needle, capsys):
 
 
 def test_port_imports_no_jax():
-    """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py and
-    time_fused_block.py import without pulling in jax or cocoa_tpu."""
+    """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py,
+    time_fused_block.py and time_sparse_sdca.py import without pulling in
+    jax or cocoa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
         "for m in pkgutil.walk_packages(cocoa_torch.__path__, "
         "'cocoa_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, time_dense_sdca, time_fused_block\n"
+        "import chip_smoke, time_dense_sdca, time_fused_block, "
+        "time_sparse_sdca\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cocoa_tpu')]\n"
         "assert not bad, bad\n"
