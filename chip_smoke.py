@@ -29,14 +29,21 @@ stderr); any failed check exits non-zero:
    tensors, at the shapes of the three block configurations: the chain
    (B3), the sparse Gram (B5) and the sparse apply (B6) on a demo and an
    rcv1-like block (K x 128 draws with repeats, crafted rows, a masked
-   tail), the fused block (B4) and the chain at B=256 on an epsilon-like
-   block (8 x 128 x 2000 and 8 x 256), every mode x loss x dtype; B4 also
-   at d=1000 and at B=100, each at every cluster size (1, 2, 4, 8, and
-   16 where the card holds K such clusters) and the auto plan, two
-   launches of the auto plan bit for bit; then each kernel's, its plain
-   version's and a library call's time (B5 also with its rows expanded
-   in global memory, float32 and float64; B4 at each cluster size and in
-   frozen mode, beside the Gram alone as one torch.bmm);
+   tail), B5 also on the block's rows with columns repeated within a row
+   and with every live row at the full width; the fused block (B4) and
+   the chain at B=256, 512 and 1024 on an epsilon-like block (8 x 128 x
+   2000, and the split branch's full Gram), every mode x loss x dtype; B3
+   at every plan (the auto plan, each ring depth up to it, each unit
+   width's whole triangle where it fits), B5 at every plan (the auto plan
+   and each rows_per_cta that fits, each with the default table and the
+   least one that holds a row); two launches of B3, B5 and B6 bit for
+   bit; B4 also at d=1000 and at B=100, each at every cluster size (1, 2,
+   4, 8, and 16 where the card holds K such clusters) and the auto plan,
+   two launches of the auto plan bit for bit; then each kernel's, its
+   plain version's and a library call's time (B3 also at each plan, in
+   frozen mode and at 8 x 512; B5 at each rows_per_cta, in float64 and on
+   the hybrid residual; B4 at each cluster size and in frozen mode,
+   beside the Gram alone as one torch.bmm);
 6. the block path (--blockSize): the demo and rcv1-like data through the
    CLI with --blockSize=auto (the sparse-Gram branch: B5, B3, B6), the
    rcv1-like gaps within relative 1e-3 of phase 4's sequential run; then
@@ -190,6 +197,32 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``reps`` calls captured in one CUDA graph and
+    replayed three times between CUDA events: the kernels alone, back to
+    back, without the wrapper's host time (which bounds :func:`cuda_ms`
+    for a kernel shorter than its wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (3 * reps)
 
 
 def round_inputs(ds, h: int, seed: int, prox: bool = False,
@@ -508,38 +541,97 @@ def chain_scal(bi, mb, qf, dt):
                         bi["live"]], dim=1).to(dt)
 
 
+def chain_plans_held(b, dt):
+    """B3's plans held against its plain version at B = ``b``: the auto
+    plan (None), every ring depth up to the auto plan's, and each unit
+    width's whole triangle (every unit in its own slot) where it fits, as
+    the ``stages`` asked for, each with its plan (stages, cols, bytes)."""
+    optin = kernels.smem_optin("cuda")
+    auto = bc.chain_plan(b, dt.itemsize, optin)
+    asked = set(range(1, auto[0] + 1)) | {-(-b // c) for c in bc.CHAIN_COLS}
+    out = [(None, auto)]
+    for stages in sorted(asked):
+        with contextlib.suppress(ValueError):
+            out.append((stages, bc.chain_plan(b, dt.itemsize, optin, stages)))
+    return out
+
+
+def gram_plans_held(width, dt):
+    """B5's plans held against its plain version for rows of ``width``
+    slots: the auto plan, every rows_per_cta that fits, and the least
+    table that holds a row (slots the least power of two above W, probes
+    colliding more), each with its plan (T, slots, bytes)."""
+    optin = kernels.smem_optin("cuda")
+    tight = 1 << max(0, width).bit_length()
+    out = []
+    for rows in (None, *sb.ROWS_PER_CTA):
+        for slots in (None, tight):
+            with contextlib.suppress(ValueError):
+                out.append((dict(rows_per_cta=rows, slots=slots),
+                            sb.gram_plan(BLOCK, width, dt.itemsize, optin,
+                                         rows, slots)))
+    return out
+
+
+def gram_variants(bi):
+    """The block's rows as drawn, then with columns repeated within each
+    row (every third slot a copy of the slot before it, so a chunk of 32
+    holds a column twice and the group sums), then every live row at the
+    full width W with distinct random columns."""
+    gidx, gvals, cnts = bi["gidx"], bi["gvals"], bi["cnts"]
+    rep = gidx.clone()
+    rep[..., 1::3] = rep[..., 0::3][..., :rep[..., 1::3].shape[-1]]
+    k, b, width = gidx.shape
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d = bi["ds"].num_features
+    full = torch.argsort(torch.rand(k, b, d, device="cuda", generator=gen),
+                         dim=-1)[..., :width].to(torch.int32).contiguous()
+    vals = torch.randn(k, b, width, device="cuda", generator=gen,
+                       dtype=gvals.dtype)
+    return {"as drawn": (gidx, gvals, cnts),
+            "repeated columns": (rep, gvals, cnts),
+            "full width": (full, vals, torch.where(cnts >= 0, width, cnts)
+                           .to(torch.int32))}
+
+
 def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
     """B5, B3 and B6 against their plain versions on one block of a
-    sparse round, every mode x loss x dtype; B5 with the row expanded in
-    shared and in global memory (float64 at rcv1-like width is global
-    only: 378 KB); B6 launched twice must agree bit for bit (its adds are
-    ordered).  With ``hot_cols`` the rows are the hybrid layout's cold
-    residual, and B3 reads the Gram and margins with the panel's terms."""
+    sparse round, every mode x loss x dtype, each kernel at every plan
+    (:func:`gram_plans_held`, :func:`chain_plans_held`); B5 also on the
+    block's rows with repeated columns and at the full width, and two
+    launches of B3, B5 and B6 must agree bit for bit.  With ``hot_cols``
+    the rows are the hybrid layout's cold residual, and B3 reads the Gram
+    and margins with the panel's terms.  Returns the plans held."""
+    held = set()
     for dt in (torch.float32, torch.float64):
         bi = sparse_block_inputs(data, k, h, dt, hot_cols=hot_cols)
         lam_n = lam * bi["ds"].n
         rows = (bi["gidx"], bi["gvals"], bi["cnts"])
+        width = rows[0].shape[-1]
         for mode, sigma in MODES:
             sig_eff, qf = mode_factors(mode, sigma or float(k))
             frozen = mode == "frozen"
             tag = f"{name} {str(dt)[6:]} {mode}"
-            args = (bi["w"], bi["dw"], *rows, sig_eff, frozen)
-            gram, mb = sb.sparse_block_gram_plain(*args)
-            for smem in (True, False):
-                agree(f"{tag} sparse_block_gram row_in_smem={smem}",
-                      sb.sparse_block_gram(*args, row_in_smem=smem),
-                      (gram, mb), dt, worst, "B5")
+            for variant, vrows in gram_variants(bi).items():
+                args = (bi["w"], bi["dw"], *vrows, sig_eff, frozen)
+                want = sb.sparse_block_gram_plain(*args)
+                for kw, plan in gram_plans_held(width, dt):
+                    held.add(("B5", str(dt)[6:], width, plan[:2]))
+                    agree(f"{tag} {variant} sparse_block_gram {kw} "
+                          f"plan={plan}", sb.sparse_block_gram(*args, **kw),
+                          want, dt, worst, "B5")
+                bit_for_bit(f"{tag} {variant} sparse_block_gram",
+                            lambda: sb.sparse_block_gram(*args))
+            gram, mb = sb.sparse_block_gram_plain(bi["w"], bi["dw"], *rows,
+                                                  sig_eff, frozen)
             if hot_cols:
                 gram, mb = with_panel(bi, gram, mb, sig_eff, frozen)
             scal = chain_scal(bi, mb, qf, dt)
             for loss in LOSSES:
                 kw = dict(lam_n=lam_n, coef_div=lam_n, sig_eff=sig_eff,
                           frozen=frozen, loss=loss)
-                want = bc.chain_block_batched_plain(scal, gram, bi["bidx32"],
-                                                    **kw)
-                agree(f"{tag}/{loss} chain_block_batched",
-                      bc.chain_block_batched(scal, gram, bi["bidx32"], **kw),
-                      want, dt, worst, "B3", (1.0, 1.0 / lam_n))
+                want = held_chain(f"{tag}/{loss}", scal, gram, bi["bidx32"],
+                                  kw, dt, worst, held)
             coefs = want[1]
             got = sb.sparse_block_apply(bi["dw"].clone(), *rows, coefs)
             agree(f"{tag} sparse_block_apply", [got],
@@ -548,6 +640,33 @@ def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
             check(torch.equal(got, sb.sparse_block_apply(
                 bi["dw"].clone(), *rows, coefs)),
                 f"{tag} sparse_block_apply differs between two launches")
+    return held
+
+
+def bit_for_bit(tag, launch):
+    """Two launches of a kernel give the same bits."""
+    one, two = launch(), launch()
+    torch.cuda.synchronize()
+    check(all((x is None and y is None) or torch.equal(x, y)
+              for x, y in zip(one, two)),
+          f"{tag} differs between two launches")
+
+
+def held_chain(tag, scal, gram, idx, kw, dt, worst, held):
+    """B3 at every plan of :func:`chain_plans_held` against its plain
+    version, two launches of the auto plan bit for bit; returns the plain
+    version's (delta, coef)."""
+    b = scal.shape[-1]
+    want = bc.chain_block_batched_plain(scal, gram, idx, **kw)
+    for stages, plan in chain_plans_held(b, dt):
+        held.add(("B3", str(dt)[6:], b, plan[:2]))
+        agree(f"{tag} chain_block_batched B={b} stages={stages} "
+              f"plan={plan}",
+              bc.chain_block_batched(scal, gram, idx, stages=stages, **kw),
+              want, dt, worst, "B3", (1.0, 1.0 / kw["coef_div"]))
+    bit_for_bit(f"{tag} chain_block_batched B={b}",
+                lambda: bc.chain_block_batched(scal, gram, idx, **kw))
+    return want
 
 
 def dense_block_inputs(eps, b, dt, seed=5):
@@ -603,10 +722,11 @@ def phase_block_dense(eps, lam, worst):
     x dtype.  Returns the cluster sizes held, by dtype."""
     lam_n = lam * eps.n
     d = eps.num_features
-    held = {}
+    held, chains = {}, set()
     for dt in (torch.float32, torch.float64):
         held[dt] = fused_clusters_held(BLOCK, dt, eps.k)
-        for b, dd in ((BLOCK, d), (BLOCK, d // 2), (100, d), (2 * BLOCK, d)):
+        for b, dd in ((BLOCK, d), (BLOCK, d // 2), (100, d), (2 * BLOCK, d),
+                      (4 * BLOCK, d), (bc.CHAIN_MAX_B, d)):
             bi = fused_shape(dense_block_inputs(eps, b, dt), dd)
             for mode, sigma in MODES:
                 sig_eff, qf = mode_factors(mode, sigma or float(eps.k))
@@ -623,13 +743,9 @@ def phase_block_dense(eps, lam, worst):
                               frozen=frozen, loss=loss)
                     tag = (f"epsilon-like {str(dt)[6:]} B={b} d={dd} "
                            f"{mode}/{loss}")
-                    if b == 2 * BLOCK:
-                        agree(f"{tag} chain_block_batched",
-                              bc.chain_block_batched(scal, gram, bi["bidx32"],
-                                                     **kw),
-                              bc.chain_block_batched_plain(
-                                  scal, gram, bi["bidx32"], **kw),
-                              dt, worst, "B3", (1.0, 1.0 / lam_n))
+                    if b > BLOCK:
+                        held_chain(tag, scal, gram, bi["bidx32"], kw, dt,
+                                   worst, chains)
                         continue
                     fargs = (bi["xb"], bi["bidx32"], bi["yb"], bi["sq"] * qf,
                              bi["a0"], bi["live"], v)
@@ -644,7 +760,7 @@ def phase_block_dense(eps, lam, worst):
                     check(all(torch.equal(x, y) for x, y in zip(got, again)),
                           f"{tag} fused_block differs between two launches "
                           f"of the auto plan")
-    return held
+    return held, chains
 
 
 def bound(n_bytes, flops, dtype=torch.float32):
@@ -659,7 +775,10 @@ def phase_block_timing(rcv1, eps, clusters, results):
     """Each block kernel's, its plain version's and a library call's ms
     per launch at the main path's shapes (float32, CoCoA+, hinge): B5, B3
     and B6 on an rcv1-like block, B4 on an epsilon-like block (B=128) and
-    B3 on its split shape (B=256); with each launch's bound.  B4 also at
+    B3 on its split shapes (B=256 and 512); with each launch's bound.  B5
+    also at each rows_per_cta that fits, in float64 and on the hybrid
+    residual; B3 also at each plan of :func:`chain_plans_held` and in
+    frozen mode.  B4 also at
     each of ``clusters`` and in frozen mode (no Gram), beside the Gram
     alone as one ``torch.bmm`` in full float32, a yardstick of that
     phase."""
@@ -687,16 +806,21 @@ def phase_block_timing(rcv1, eps, clusters, results):
         xd = torch.zeros(k, BLOCK, d, device="cuda").scatter_add_(2, cols, vals)
         return torch.bmm(xd, xd.transpose(1, 2)), torch.bmm(xd, v[:, :, None])
 
+    # B3, B5 and B6 are shorter than their wrappers' host time: ms is the
+    # kernels alone (graph_ms), wrapper_ms the wrapper calls (cuda_ms)
     results["B5"] = dict(
-        ms=cuda_ms(lambda: sb.sparse_block_gram(*gargs), 50),
+        ms=graph_ms(lambda: sb.sparse_block_gram(*gargs), 50),
+        wrapper_ms=cuda_ms(lambda: sb.sparse_block_gram(*gargs), 50),
         plain_ms=cuda_ms(lambda: sb.sparse_block_gram_plain(*gargs), 3),
-        library_ms=cuda_ms(densify_gram, 20),
+        library_ms=graph_ms(densify_gram, 20),
         bound=bound(nnz * (4 + isz) + 2 * nnz * isz + k * BLOCK * 4
                     + k * BLOCK * BLOCK * isz + k * BLOCK * isz,
                     2 * pairs + 4 * nnz))
     results["B3"] = dict(
-        ms=cuda_ms(lambda: bc.chain_block_batched(scal, gram, bi["bidx32"],
-                                                  **kw), 50),
+        ms=graph_ms(lambda: bc.chain_block_batched(scal, gram, bi["bidx32"],
+                                                   **kw), 50),
+        wrapper_ms=cuda_ms(lambda: bc.chain_block_batched(
+            scal, gram, bi["bidx32"], **kw), 50),
         plain_ms=cuda_ms(lambda: bc.chain_block_batched_plain(
             scal, gram, bi["bidx32"], **kw), 3),
         library_ms=None,
@@ -705,26 +829,47 @@ def phase_block_timing(rcv1, eps, clusters, results):
                     + 2 * k * BLOCK * isz,
                     3 * k * BLOCK * (BLOCK - 1) // 2 + 20 * k * BLOCK))
     results["B6"] = dict(
-        ms=cuda_ms(lambda: sb.sparse_block_apply(dw_t, *rows, coefs), 50),
+        ms=graph_ms(lambda: sb.sparse_block_apply(dw_t, *rows, coefs), 50),
+        wrapper_ms=cuda_ms(lambda: sb.sparse_block_apply(dw_t, *rows,
+                                                         coefs), 50),
         plain_ms=cuda_ms(lambda: sb.sparse_block_apply_plain(
             dw_t, *rows, coefs), 3),
-        library_ms=cuda_ms(lambda: dw_t.view(-1).index_add_(
+        library_ms=graph_ms(lambda: dw_t.view(-1).index_add_(
             0, flat, (coefs[..., None] * vals).reshape(-1)), 50),
         bound=bound(nnz * (4 + isz) + k * BLOCK * (4 + isz)
                     + 2 * nnz * isz, 2 * nnz))
     results["B5"]["nnz"] = nnz
-    # the rows expanded in a global scratch (d past shared memory, or
-    # float64 at rcv1-like width), float32 forced and float64 as it runs
-    results["B5"]["global_ms"] = cuda_ms(
-        lambda: sb.sparse_block_gram(*gargs, row_in_smem=False), 50)
+    optin = kernels.smem_optin("cuda")
+    width = bi["gidx"].shape[-1]
+    results["B5"]["plan"] = sb.gram_plan(BLOCK, width, isz, optin)
+    results["B5"]["rows_ms"] = {
+        rows: graph_ms(lambda: sb.sparse_block_gram(
+            *gargs, rows_per_cta=rows), 50) for rows in sb.ROWS_PER_CTA
+        if sb.gram_smem_bytes(rows, results["B5"]["plan"][1], width, BLOCK,
+                              isz) <= optin}
     b64 = sparse_block_inputs(rcv1, 8, 253, torch.float64, seed=7)
     g64 = (b64["w"], b64["dw"], b64["gidx"], b64["gvals"], b64["cnts"], sig,
            False)
-    results["B5"]["f64_ms"] = cuda_ms(lambda: sb.sparse_block_gram(*g64), 50)
+    results["B5"]["f64_ms"] = graph_ms(lambda: sb.sparse_block_gram(*g64), 50)
+    del b64, g64
+    # the hybrid residual at the --hotCols=auto panel
+    hot_w, _ = hybrid.resolve_hot_cols("auto", rcv1, 8, f32)
+    bh = sparse_block_inputs(rcv1, 8, 253, f32, seed=7, hot_cols=hot_w)
+    results["B5"]["residual_ms"] = graph_ms(lambda: sb.sparse_block_gram(
+        bh["w"], bh["dw"], bh["gidx"], bh["gvals"], bh["cnts"], sig, False),
+        50)
+    del bh
+    # B3 at each plan of the rcv1-like block, and in frozen mode
+    results["B3"]["stages_ms"] = {
+        stages: (plan, graph_ms(lambda: bc.chain_block_batched(
+            scal, gram, bi["bidx32"], stages=stages, **kw), 50))
+        for stages, plan in chain_plans_held(BLOCK, f32)}
+    results["B3"]["frozen_ms"] = graph_ms(lambda: bc.chain_block_batched(
+        scal, None, bi["bidx32"], **dict(kw, frozen=True, sig_eff=0.0)), 50)
 
     kd = eps.k
     lam_e = 1e-3 * eps.n
-    for b in (BLOCK, 2 * BLOCK):
+    for b in (BLOCK, 2 * BLOCK, 4 * BLOCK):
         di = dense_block_inputs(eps, b, f32, seed=9)
         de = eps.num_features
         v = di["w"] + float(kd) * di["dw"]
@@ -760,13 +905,14 @@ def phase_block_timing(rcv1, eps, clusters, results):
         else:
             with bc.fp32_matmul():
                 mbase = torch.matmul(di["xb"], v[:, :, None])[..., 0]
-                g256 = torch.matmul(di["xb"], di["xb"].transpose(1, 2))
-            s256 = torch.stack([mbase, di["yb"], di["sq"] * kd, di["a0"],
-                                torch.zeros_like(mbase), di["live"]], 1)
-            results["B3"]["split_ms"] = cuda_ms(
-                lambda: bc.chain_block_batched(s256, g256, di["bidx32"],
+                gb = torch.matmul(di["xb"], di["xb"].transpose(1, 2))
+            sb_ = torch.stack([mbase, di["yb"], di["sq"] * kd, di["a0"],
+                               torch.zeros_like(mbase), di["live"]], 1)
+            results["B3"][f"split{b}_ms"] = graph_ms(
+                lambda: bc.chain_block_batched(sb_, gb, di["bidx32"],
                                                **kwe), 20)
-            results["B3"]["split_bound"] = bound(
+            results["B3"][f"split{b}_plan"] = bc.chain_plan(b, isz, optin)
+            results["B3"][f"split{b}_bound"] = bound(
                 kd * 6 * b * isz + kd * b * 4 + kd * b * (b - 1) // 2 * isz
                 + 2 * kd * b * isz, 3 * kd * b * (b - 1) // 2 + 20 * kd * b)
     return results
@@ -1435,22 +1581,35 @@ def main() -> int:
     print(f"phase 5: epsilon-like data {eps.n} x {eps.num_features} made on "
           f"the card in {time.perf_counter() - t0:.1f} s")
     worst = {}
-    phase_block_sparse("demo", demo, 4, demo_h, 1e-3, worst)
-    phase_block_sparse("rcv1-like", rcv1, 8, rcv1_h, 1e-4, worst)
-    held = phase_block_dense(eps, 1e-3, worst)
+    plans5 = phase_block_sparse("demo", demo, 4, demo_h, 1e-3, worst)
+    plans5 |= phase_block_sparse("rcv1-like", rcv1, 8, rcv1_h, 1e-4, worst)
+    held, chains = phase_block_dense(eps, 1e-3, worst)
+    plans5 |= chains
     timing = phase_block_timing(rcv1, eps, held[torch.float32], {})
     print("phase 5: all block cases agree (max_abs_err " + ", ".join(
         f"{n} {e:.3e}" for n, e in sorted(worst.items())) + ")")
     for name, t in sorted(timing.items()):
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"  {name}: kernel {t['ms']:.4f} ms, plain "
+        wrapped = (f" (wrapper calls {t['wrapper_ms']:.4f} ms)"
+                   if "wrapper_ms" in t else "")
+        print(f"  {name}: kernel {t['ms']:.4f} ms{wrapped}, plain "
               f"{t['plain_ms']:.3f} ms, library {lib} ms, bound "
               f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
-    print(f"  B3 at the split shape (8 x 256): {timing['B3']['split_ms']:.4f} "
-          f"ms, bound {timing['B3']['split_bound'][0]:.5f} ms; rcv1-like "
-          f"block nonzeros {timing['B5']['nnz']:.0f}; B5 with rows in the "
-          f"global scratch: float32 {timing['B5']['global_ms']:.4f} ms, "
-          f"float64 {timing['B5']['f64_ms']:.4f} ms")
+    print("  plans held against the plain versions (kernel, dtype, B or W, "
+          "plan): " + ", ".join(str(p) for p in sorted(plans5)))
+    b3, b5 = timing["B3"], timing["B5"]
+    print("  B3 at the split shapes: " + "; ".join(
+        f"8 x {b} {b3[f'split{b}_ms']:.4f} ms at plan {b3[f'split{b}_plan']}"
+        f", bound {b3[f'split{b}_bound'][0]:.5f} ms"
+        for b in (2 * BLOCK, 4 * BLOCK)) + "; rcv1-like block by plan "
+        + ", ".join(f"stages={st} {plan[:2]} {ms:.4f}"
+                    for st, (plan, ms) in b3["stages_ms"].items())
+        + f" ms, frozen mode {b3['frozen_ms']:.4f} ms")
+    print(f"  B5: rcv1-like block nonzeros {b5['nnz']:.0f}, auto plan "
+          f"(T, slots, bytes) {b5['plan']}; by rows_per_cta " + ", ".join(
+              f"{r}: {ms:.4f}" for r, ms in b5["rows_ms"].items())
+          + f" ms; float64 {b5['f64_ms']:.4f} ms; the hybrid residual "
+          f"{b5['residual_ms']:.4f} ms")
     b4 = timing["B4"]
     print(f"  B4 (epsilon-like 8 x 128 x 2000): auto plan (cluster, width) "
           f"{b4['plan']} {b4['ms']:.4f} ms; by cluster size " + ", ".join(

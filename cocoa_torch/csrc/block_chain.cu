@@ -17,20 +17,55 @@
 //
 // What bounds it on this card:
 // - the chain: B dependent steps per shard and only K shards, so latency
-//   (each step: two B-wide dots, a shuffle reduction, alpha_step, one
-//   shared-memory write), not bytes or flops;
+//   (each step's alpha_step and the hand-off of its coefficient to the
+//   next step), not bytes or flops;
 // - the fused block: the same chain, on one warp of each shard.  Its
 //   Gram (K * B^2 * d / 2 multiply-adds), margins and apply are work over
 //   d, spread over a cluster of blocks a shard.
 //
-// What the design does about it:
-// - one warp runs a shard's chain.  Coefficients, deltas, indices and the
-//   step scalars live in shared memory; the i-strided dots end in a
-//   shuffle butterfly, so every lane holds the same bits and computes a'
-//   itself.  Gram row j+1 is loaded into registers while step j reduces
-//   (the loads do not depend on the chain), hiding their latency.
+// What the B3 design (chain_kernel) does about it:
+// - the chain is right-looking: a step pushes its coefficient into the
+//   margins of the rows still to come instead of pulling the past in with
+//   a dot.  One block a shard; warp 0, the consumer, holds in lane l, for
+//   its rows i = l + 32 r (r < R = ceil(B / 32)), acc_i = sum of
+//   coef_t * G[i, t] over the steps t < i taken so far, a_i = a0_i plus
+//   the deltas of earlier steps that drew the same index, and idx_i.  Step
+//   j broadcasts acc_j, a_j and idx_j from lane j mod 32 (__shfl_sync);
+//   every lane computes the margin, alpha_step, delta_j and coef_j with
+//   the same bits in the same order of operations as chain_warp; then
+//   each lane adds coef_j * G[i, j] to acc_i and delta_j to a_i (same
+//   draw) for its rows i > j, without a branch: the rows i <= j and past
+//   B take the terms too, and are never read again.  The step's G[i, j]
+//   are loaded before its chain needs them.  The dependent path of a step
+//   is one shuffle, alpha_step and one multiply-add: no butterfly and no
+//   __syncwarp.  The panel index r_j = j / 32 is a compile-time index (an
+//   unrolled loop over panels), so no register array is indexed at run
+//   time.  acc_i sums in step order, so float32 results differ from the
+//   left-looking kernel's butterfly order in the last bits.
+// - the Gram is staged in shared memory by 256 producer threads, ahead of
+//   the consumer: a unit is ``cols`` (32, 16 or 8) columns of the strict
+//   lower triangle, columns [q cols, (q + 1) cols) of rows 32 floor(q cols
+//   / 32) .. B-1, stored row-major with a row stride of cols + 1 words so
+//   that lane l reading rows l + 32 r at one column hits 32 different
+//   banks.  Units go round a ring of ``stages`` slots, slot s sized for
+//   its largest unit, s; with stages = ceil(B / cols) every unit has its
+//   own slot (the whole triangle, staged once: B=128 and 256 in float32).
+//   Producers copy with element-sized cp.async and arrive on the slot's
+//   "full" mbarrier through cp.async.mbarrier.arrive.noinc, so the
+//   arrival lands when the copies have; the consumer's lanes wait on it
+//   before the unit's first step and arrive on the slot's "empty" mbarrier
+//   after its last.  The consumer's step reads only shared memory and
+//   registers.  ops/block_chain.py chain_plan picks (stages, cols) against
+//   the shared-memory opt-in; the kernel refuses a plan it cannot hold.
+// - frozen mode reads no Gram and keeps no acc; the producers leave.
 // - repeated draws compare int32 indices, so there is no (B, K, B)
 //   equality tile and no 2^24 limit on the shard size.
+//
+// What the B4 design (fused_kernel) does about it:
+// - one warp runs a shard's chain (chain_warp, left-looking: the
+//   i-strided dots end in a shuffle butterfly, so every lane holds the
+//   same bits and computes a' itself; Gram row j+1 is loaded into
+//   registers while step j reduces).
 // - the fused kernel runs shard k on a thread-block cluster of C blocks
 //   (grid (C, K)).  Block r owns a contiguous slice of d, a multiple of 32
 //   columns but for the last, and computes in its own shared memory the
@@ -73,6 +108,64 @@ constexpr int kTile = 64;      // Gram output tile (rows and columns)
 constexpr int kDk = 32;        // slice of d per tile step
 constexpr int kLd = kDk + 1;   // padded shared row: no bank conflicts
 constexpr int kMaxCluster = 16;  // the non-portable cluster limit
+constexpr int kChainProducers = 256;  // B3: threads that stage the Gram
+constexpr int kChainThreads = 32 + kChainProducers;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One element from global to shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(__cvta_generic_to_global(src)),
+               "n"(sizeof(T)) : "memory");
+}
+
+// ``bar`` receives one arrival when every cp.async this thread issued so
+// far has landed (the arrival is one of the count it was initialised
+// with).
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// B3's ring: unit q holds columns [q * cols, (q + 1) * cols) of rows
+// 32 * floor(q * cols / 32) .. b-1; slot s holds units s, s + S, ... and
+// is sized for unit s.  The rows of slots 0..s-1, summed.
+__host__ __device__ inline long long slot_rows_before(int b, int cols,
+                                                      int s) {
+  const int g = 32 / cols, m = s / g;
+  return (long long)s * b -
+         32LL * (g * (long long)m * (m - 1) / 2 + (long long)m * (s - m * g));
+}
 
 // One shard's chain on the calling warp.  R = ceil(B / 32) Gram entries
 // per lane (B <= 32 R).  Every pointer but ``gram`` is shared memory;
@@ -128,27 +221,120 @@ __device__ void chain_warp(int b, const T* m0, const T* mb, const T* y,
   }
 }
 
-// B3: grid K, one warp per shard.  scal (K, 6, B) = [m0 | y | qii | a0 |
-// mb | live]; gram (K, B, B) or null (frozen); idx (K, B) int32.
+// B3: grid K, one block of kChainThreads per shard: warp 0 runs the chain
+// (right-looking), the other threads stage the Gram's units in a ring of
+// ``stages`` slots of ``cols`` columns.  scal (K, 6, B) = [m0 | y | qii |
+// a0 | mb | live]; gram (K, B, B) or null (frozen); idx (K, B) int32.
 template <typename T, int R>
-__global__ void __launch_bounds__(32) chain_kernel(
+__global__ void __launch_bounds__(kChainThreads) chain_kernel(
     const T* __restrict__ scal, const T* __restrict__ gram,
     const int* __restrict__ idx, T* __restrict__ delta_out,
-    T* __restrict__ coef_out, int b, int loss, T lam_n, T coef_div,
-    T sig_eff, T smoothing) {
+    T* __restrict__ coef_out, int b, int stages, int cols, int loss,
+    T lam_n, T coef_div, T sig_eff, T smoothing) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned long long* empty = full + stages;
+  T* ring = reinterpret_cast<T*>(empty + stages);
+  const int ld = cols + 1;
+  T* s = ring + ld * slot_rows_before(b, cols, stages);
   T* coef = s + 6 * b;
   T* delta = coef + b;
-  int* ix = reinterpret_cast<int*>(delta + b);
-  const int k = blockIdx.x, lane = threadIdx.x;
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const bool frozen = gram == nullptr;
+  const int units = (b + cols - 1) / cols;
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, kChainProducers);
+      mbar_init(empty + st, 32);
+    }
+  }
+  __syncthreads();
+  if (tid >= 32) {  // a producer: unit q into slot q mod S
+    if (frozen) return;
+    const int pt = tid - 32;
+    const T* g = gram + (size_t)k * b * b;
+    for (int q = 0; q < units; ++q) {
+      const int slot = q % stages, round = q / stages;
+      if (round > 0) mbar_wait(empty + slot, (round - 1) & 1);
+      const int j0 = q * cols, base = j0 & ~31;
+      T* dst = ring + ld * slot_rows_before(b, cols, slot);
+      const int n = (b - base) * cols;
+      for (int e = pt; e < n; e += kChainProducers) {
+        const int ri = e / cols, cc = e - ri * cols;
+        const int i = base + ri, j = j0 + cc;
+        if (j < i) cp_async(dst + ri * ld + cc, g + (size_t)i * b + j);
+      }
+      cp_async_arrive(full + slot);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  const int lane = tid;
   const T* sc = scal + (size_t)k * 6 * b;
   for (int t = lane; t < 6 * b; t += 32) s[t] = sc[t];
-  for (int t = lane; t < b; t += 32) ix[t] = idx[(size_t)k * b + t];
+  T acc[R], a[R];
+  int ix[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    acc[r] = T(0);
+    a[r] = i < b ? sc[3 * b + i] : T(0);
+    ix[r] = i < b ? idx[(size_t)k * b + i] : -1;
+  }
   __syncwarp();
-  chain_warp<T, R>(b, s, s + 4 * b, s + b, s + 2 * b, s + 3 * b, s + 5 * b,
-                   ix, gram != nullptr ? gram + (size_t)k * b * b : nullptr,
-                   b, coef, delta, loss, lam_n, coef_div, sig_eff, smoothing);
+  const T *m0 = s, *y = s + b, *qii = s + 2 * b, *mb = s + 4 * b,
+          *live = s + 5 * b;
+  const int per_panel = 32 / cols;
+#pragma unroll
+  for (int p = 0; p < R; ++p) {
+    if (32 * p < b) {
+      for (int h = 0; h < per_panel; ++h) {
+        const int q = p * per_panel + h, j0 = 32 * p + h * cols;
+        if (j0 >= b) break;
+        const int slot = q % stages;
+        const T* unit = ring + ld * slot_rows_before(b, cols, slot);
+        if (!frozen) mbar_wait(full + slot, (q / stages) & 1);
+        const int jn = min(b, j0 + cols);
+        for (int j = j0; j < jn; ++j) {
+          const int c = j - 32 * p;  // the lane that holds row j
+          const T aj = __shfl_sync(0xffffffffu, a[p], c);
+          const int idx_j = __shfl_sync(0xffffffffu, ix[p], c);
+          const T accj = __shfl_sync(0xffffffffu, acc[p], c);
+          // G[i, j] for this lane's rows, loaded before the chain needs
+          // them; a row past B reads row B-1's slot, and rows i <= j read
+          // entries no producer wrote: both are dead rows, never read
+          const T* col = unit + (j - j0);
+          T g[R];
+          if (!frozen) {
+#pragma unroll
+            for (int r = p; r < R; ++r)
+              g[r] = col[(min(lane + 32 * r, b - 1) - 32 * p) * ld];
+          }
+          T margin = m0[j];
+          if (!frozen) margin = margin + sig_eff * (mb[j] + accj);
+          const T yj = y[j];
+          const T new_a = sdca::alpha_step<T>(loss, aj, yj * margin, qii[j],
+                                              lam_n, smoothing);
+          const T dj = (new_a - aj) * live[j];
+          const T cj = yj * dj / coef_div;
+          if (lane == 0) {  // read only after the chain
+            coef[j] = cj;
+            delta[j] = dj;
+          }
+          // the rows still to come take step j's terms; the rows i <= j
+          // (and past B) are updated too, without a branch: they are not
+          // read again
+#pragma unroll
+          for (int r = p; r < R; ++r) {
+            if (!frozen) acc[r] = acc[r] + cj * g[r];
+            a[r] = a[r] + (ix[r] == idx_j ? dj : T(0));
+          }
+        }
+        if (!frozen) mbar_arrive(empty + slot);  // the unit is read
+      }
+    }
+  }
+  __syncwarp();
   for (int t = lane; t < b; t += 32) {
     delta_out[(size_t)k * b + t] = delta[t];
     coef_out[(size_t)k * b + t] = coef[t];
@@ -302,8 +488,21 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
   }
 }
 
-size_t chain_smem(int b, size_t itemsize) {
-  return 8 * (size_t)b * itemsize + (size_t)b * sizeof(int);
+// B3's shared memory: the 2 * stages mbarriers, the ring, the six step
+// scalars and coef and delta.  ops/block_chain.py chain_smem_bytes is the
+// same sum.
+size_t chain_smem(int b, int stages, int cols, size_t itemsize) {
+  return 16 * (size_t)stages +
+         ((size_t)(cols + 1) * slot_rows_before(b, cols, stages) +
+          8 * (size_t)b) * itemsize;
+}
+
+// A B3 plan: B in 1..1024, units of 32, 16 or 8 columns, 1..ceil(B / cols)
+// slots.
+inline bool chain_plan_ok(int b, int stages, int cols) {
+  if (b < 1 || b > 1024) return false;
+  if (cols != 32 && cols != 16 && cols != 8) return false;
+  return stages >= 1 && stages <= (b + cols - 1) / cols;
 }
 
 size_t fused_smem(int b, size_t itemsize, int frozen) {
@@ -313,18 +512,20 @@ size_t fused_smem(int b, size_t itemsize, int frozen) {
 
 template <typename T>
 int launch_chain(const T* scal, const T* gram, const int* idx, T* delta,
-                 T* coef, int k, int b, int loss, double lam_n,
-                 double coef_div, double sig_eff, double smoothing,
-                 void* stream) {
-  if (b < 1 || b > 1024) return (int)cudaErrorInvalidValue;
+                 T* coef, int k, int b, int stages, int cols, int loss,
+                 double lam_n, double coef_div, double sig_eff,
+                 double smoothing, void* stream) {
+  if (k < 1 || !chain_plan_ok(b, stages, cols))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = chain_smem(b, stages, cols, sizeof(T));
+  if (bytes > (size_t)sdca::smem_optin()) return (int)cudaErrorInvalidValue;
   auto kern = b <= 128 ? &chain_kernel<T, 4> : b <= 256 ? &chain_kernel<T, 8>
             : b <= 512 ? &chain_kernel<T, 16> : &chain_kernel<T, 32>;
-  const size_t bytes = chain_smem(b, sizeof(T));
   cudaError_t err = sdca::allow_smem(kern, bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<k, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      scal, gram, idx, delta, coef, b, loss, T(lam_n), T(coef_div),
-      T(sig_eff), T(smoothing));
+  kern<<<k, kChainThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      scal, gram, idx, delta, coef, b, stages, cols, loss, T(lam_n),
+      T(coef_div), T(sig_eff), T(smoothing));
   return (int)cudaGetLastError();
 }
 
@@ -420,15 +621,17 @@ int fused_clusters(int b, int cluster, int frozen, int* out) {
 // Plain C entry points for ctypes.  Every tensor is contiguous; indices
 // are int32; ``gram`` is null in frozen mode.  Outputs are written whole.
 // Returns the launch's error or cudaGetLastError() (cudaErrorInvalidValue
-// for a B outside 1..1024, a fused plan that breaks fused_plan_ok's rules
-// or a fused working set above the shared-memory opt-in).
+// for a chain plan that breaks chain_plan_ok's rules, a fused plan that
+// breaks fused_plan_ok's, or a working set above the shared-memory
+// opt-in).
 #define CHAIN_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* scal, const T* gram, const int* idx,         \
-                      T* delta, T* coef, int k, int b, int loss,            \
-                      double lam_n, double coef_div, double sig_eff,        \
-                      double smoothing, void* stream) {                     \
-    return launch_chain<T>(scal, gram, idx, delta, coef, k, b, loss, lam_n, \
-                           coef_div, sig_eff, smoothing, stream);           \
+                      T* delta, T* coef, int k, int b, int stages,          \
+                      int cols, int loss, double lam_n, double coef_div,    \
+                      double sig_eff, double smoothing, void* stream) {     \
+    return launch_chain<T>(scal, gram, idx, delta, coef, k, b, stages,      \
+                           cols, loss, lam_n, coef_div, sig_eff, smoothing, \
+                           stream);                                         \
   }
 CHAIN_ENTRY(chain_block_batched_f32, float)
 CHAIN_ENTRY(chain_block_batched_f64, double)

@@ -16,6 +16,13 @@ pass the full symmetric Gram or its strict triangle.
 Each wrapper takes the tensor's device as the rule: on a CPU tensor it
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
 
+The chain kernel is right-looking: each step pushes its coefficient into
+the running margins of the rows still to come, and producer threads stage
+the Gram's strict lower triangle in shared memory ahead of it, in units
+of 32, 16 or 8 columns round a ring of slots.  :func:`chain_plan` picks
+the ring's depth and the unit's width; the kernel refuses a plan it
+cannot hold and never picks another.
+
 The fused kernel runs each shard on a thread-block cluster whose blocks
 split d: :func:`fused_plan` picks the cluster's size and the slice width,
 and the kernel refuses a plan that breaks its rules and never picks
@@ -34,7 +41,7 @@ from cocoa_torch import kernels
 from cocoa_torch.ops import losses
 from cocoa_torch.ops.losses import LOSS_CODES
 
-CHAIN_MAX_B = 1024           # 32 Gram entries per lane in the chain's warp
+CHAIN_MAX_B = 1024           # 32 rows per lane in the chain's warp
 SMEM_OPTIN = 232_448         # H100: the 227 KB of shared memory a block may use
 _TILE, _LD = 64, 33          # the fused kernel's Gram tile and padded row
 # the fused kernel's step over d (kDk), the unit of a block's slice, and
@@ -50,6 +57,12 @@ MAX_CLUSTER = 16
 # query in the plan
 AUTO_CLUSTER = 8
 
+# the chain kernel's units of Gram columns, widest first (csrc/block_chain.cu
+# chain_plan_ok), and the ring the auto plan asks for: every unit in its
+# own slot, or at least this many slots of the widest unit that allows it
+CHAIN_COLS = (32, 16, 8)
+AUTO_CHAIN_STAGES = 4
+
 _CHAIN_FN = {torch.float32: "chain_block_batched_f32",
              torch.float64: "chain_block_batched_f64"}
 _FUSED_FN = {torch.float32: "fused_block_f32",
@@ -64,6 +77,68 @@ def fused_smem_bytes(b: int, itemsize: int) -> int:
 
 def fused_fits(b: int, itemsize: int) -> bool:
     return b <= CHAIN_MAX_B and fused_smem_bytes(b, itemsize) <= SMEM_OPTIN
+
+
+def chain_slot_rows(b: int, cols: int, slot: int) -> int:
+    """The rows of ring slot ``slot``: it holds units slot, slot + S, ...,
+    and unit q covers rows 32 * floor(q * cols / 32) .. B-1."""
+    return b - 32 * (slot * cols // 32)
+
+
+def chain_smem_bytes(b: int, stages: int, cols: int, itemsize: int) -> int:
+    """Shared memory of one chain block: two mbarriers a slot, the ring
+    (each slot's rows at a stride of cols + 1 values), the six step
+    scalars and the B coefficients and deltas."""
+    rows = sum(chain_slot_rows(b, cols, s) for s in range(stages))
+    return 16 * stages + ((cols + 1) * rows + 8 * b) * itemsize
+
+
+def _check_stages(stages):
+    if stages is None:
+        return None
+    if isinstance(stages, bool) or not isinstance(stages, int) \
+            or stages < 1:
+        raise ValueError(f"stages must be an int >= 1 or None (auto), got "
+                         f"{stages!r}")
+    return stages
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def chain_plan(b: int, itemsize: int, smem_optin: int, stages=None):
+    """(stages, cols, smem_bytes): the chain kernel's ring of ``stages``
+    slots, each holding a unit of ``cols`` Gram columns, and the block's
+    shared memory, for B = ``b`` and ``itemsize``-byte values under
+    ``smem_optin`` bytes.
+
+    ``stages`` None takes the widest unit of CHAIN_COLS at which every
+    unit has its own slot (the whole triangle, staged once) or at least
+    AUTO_CHAIN_STAGES slots fit, as many slots as fit; failing that, the
+    narrowest unit with as many slots as fit.  An int asks for exactly
+    that many slots, in the widest unit that holds them.  Raises
+    ValueError when no unit holds the slots asked for, or not even one."""
+    stages = _check_stages(stages)
+    if not 1 <= b <= CHAIN_MAX_B:
+        raise ValueError(f"the chain kernel takes B in 1..{CHAIN_MAX_B}, "
+                         f"got {b}")
+    depth = {}
+    for cols in CHAIN_COLS:
+        units = _ceil(b, cols)
+        fit = 0
+        while fit < units and chain_smem_bytes(b, fit + 1, cols,
+                                               itemsize) <= smem_optin:
+            fit += 1
+        depth[cols] = fit
+        if stages is None and fit >= min(units, AUTO_CHAIN_STAGES):
+            return fit, cols, chain_smem_bytes(b, fit, cols, itemsize)
+        if stages is not None and stages <= fit:
+            return stages, cols, chain_smem_bytes(b, stages, cols, itemsize)
+    cols = CHAIN_COLS[-1]
+    if stages is None and depth[cols] >= 1:
+        return depth[cols], cols, chain_smem_bytes(b, depth[cols], cols,
+                                                   itemsize)
+    raise ValueError(f"the chain kernel cannot stage {stages or 'auto'} "
+                     f"slots at B={b} ({itemsize}-byte values) in "
+                     f"{smem_optin} bytes of shared memory")
 
 
 def _check_cluster(cluster):
@@ -147,14 +222,17 @@ def chain_block_batched_plain(scal, gram, idx, lam_n, coef_div, sig_eff,
 
 
 def chain_block_batched(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
-                        loss, smoothing=1.0):
+                        loss, smoothing=1.0, stages=None):
     """One block's B-step recurrence for all K shards.  ``scal`` (K, 6, B)
     = [m0 | y | qii | alpha0 | mb | live]; ``gram`` (K, B, B) or None in
-    frozen mode; ``idx`` (K, B) int32 the block's draws.  Returns
-    (delta (K, B), coef (K, B)): alpha deltas for the caller's additive
-    scatter and Delta-w coefficients."""
+    frozen mode; ``idx`` (K, B) int32 the block's draws.  ``stages`` asks
+    the kernel for that many ring slots (None: :func:`chain_plan`'s auto
+    rule); the plain version takes no plan, and ``stages`` is checked on
+    every device.  Returns (delta (K, B), coef (K, B)): alpha deltas for
+    the caller's additive scatter and Delta-w coefficients."""
     kernels.check_dtype(scal.dtype, "the block chain kernel")
     losses.validate(loss, smoothing)
+    stages = _check_stages(stages)
     if not frozen and gram is None:
         raise ValueError("chain_block_batched needs the Gram unless frozen")
     gram = None if frozen else gram
@@ -163,9 +241,9 @@ def chain_block_batched(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
                                          sig_eff, frozen, loss, smoothing)
     kernels.require_cuda(scal, "chain_block_batched")
     k, _, b = scal.shape
-    if b > CHAIN_MAX_B:
-        raise ValueError(f"the chain kernel takes B <= {CHAIN_MAX_B}, got {b}")
     dt, dev = scal.dtype, scal.device
+    depth, cols, _ = chain_plan(b, dt.itemsize, kernels.smem_optin(dev),
+                                stages)
     check = kernels.check_tensor
     check("scal", scal, dt, (k, 6, b), dev)
     check("idx", idx, torch.int32, (k, b), dev)
@@ -177,9 +255,9 @@ def chain_block_batched(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
     with torch.cuda.device(dev):
         rc = getattr(lib, _CHAIN_FN[dt])(
             scal.data_ptr(), 0 if gram is None else gram.data_ptr(),
-            idx.data_ptr(), delta.data_ptr(), coef.data_ptr(), k, b,
-            LOSS_CODES[loss], float(lam_n), float(coef_div), float(sig_eff),
-            float(smoothing), kernels.stream_ptr(dev))
+            idx.data_ptr(), delta.data_ptr(), coef.data_ptr(), k, b, depth,
+            cols, LOSS_CODES[loss], float(lam_n), float(coef_div),
+            float(sig_eff), float(smoothing), kernels.stream_ptr(dev))
     kernels.raise_on_error(lib, rc, "chain_block_batched")
     chain_block_batched.launches += 1
     return delta, coef
@@ -266,7 +344,7 @@ def fused_clusters(b: int, dtype, cluster: int, frozen: bool = False,
 def _library() -> ctypes.CDLL:
     lib = kernels.load("block_chain")
     kernels.declare(lib, _CHAIN_FN.values(), 5,
-                    [ctypes.c_int] * 3 + [ctypes.c_double] * 4)
+                    [ctypes.c_int] * 5 + [ctypes.c_double] * 4)
     kernels.declare(lib, _FUSED_FN.values(), 9,
                     [ctypes.c_int] * 6 + [ctypes.c_double] * 4
                     + [ctypes.c_int])

@@ -5,14 +5,19 @@ CUDA kernels ``csrc/sparse_block.cu`` and their plain PyTorch versions
 
 A block's rows arrive as ``gidx`` int32 / ``gvals`` (K, B, W) with
 ``cnts`` (K, B) int32 their lengths; -1 marks a masked step, which reads
-nothing: zero Gram entries, a zero margin base, no update.  Row i is
-expanded densely and row j's columns are picked from it, so a column
+nothing: zero Gram entries, a zero margin base, no update.  A column
 repeated within a row sums (the padded-CSR semantics of ops/rows.py).
 The TPU kernels' lane-concatenated [w | dw] array and SMEM row segments
 are TPU addressing; here w is (d,) and dw is (K, d).
 
 Each wrapper takes the tensor's device as the rule: on a CPU tensor it
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
+
+The Gram kernel builds, for each row a block owns, a hash table of its
+columns in shared memory, then streams the shard's later rows once and
+looks their columns up in the tables.  :func:`gram_plan` picks the blocks
+a shard (the rows each owns) and the table's size against the card's
+shared memory; the kernel refuses a plan it cannot hold.
 """
 
 from __future__ import annotations
@@ -28,6 +33,81 @@ _GRAM_FN = {torch.float32: "sparse_block_gram_f32",
             torch.float64: "sparse_block_gram_f64"}
 _APPLY_FN = {torch.float32: "sparse_block_apply_f32",
              torch.float64: "sparse_block_apply_f64"}
+
+# the Gram kernel's constants (csrc/sparse_block.cu kWarps, kMaxTables):
+# each of its warps double-buffers a row; a block owns at most MAX_TABLES
+# rows, each with a hash table of int32 keys beside values
+GRAM_WARPS = 8
+MAX_TABLES = 8
+ROWS_PER_CTA = (8, 4, 2, 1)
+
+
+def table_slots(width: int) -> int:
+    """The default table size for rows of ``width`` slots: the least power
+    of two of at least 2 * width (and 32)."""
+    slots = 32
+    while slots < 2 * width:
+        slots *= 2
+    return slots
+
+
+def gram_tables(b: int, blocks: int) -> int:
+    """The tables (owned rows) of one block when a shard's B rows go
+    round-robin over ``blocks`` blocks, rounded up to a power of two."""
+    rows, tables = -(-b // blocks), 1
+    while tables < rows:
+        tables *= 2
+    return tables
+
+
+def gram_smem_bytes(tables: int, slots: int, width: int, b: int,
+                    itemsize: int) -> int:
+    """Shared memory of one Gram block: the tables (a slot holds the key
+    beside its value, two values wide), each warp's two row buffers (a
+    value and an int32 column an entry) and the B row lengths."""
+    return tables * slots * 2 * itemsize \
+        + 2 * GRAM_WARPS * width * (itemsize + 4) + 4 * b
+
+
+def _check_gram_plan(rows_per_cta, slots, width):
+    if rows_per_cta is not None and (
+            isinstance(rows_per_cta, bool)
+            or not isinstance(rows_per_cta, int)
+            or rows_per_cta not in ROWS_PER_CTA):
+        raise ValueError(f"rows_per_cta must be one of {ROWS_PER_CTA} or "
+                         f"None (auto), got {rows_per_cta!r}")
+    if slots is not None and (
+            isinstance(slots, bool) or not isinstance(slots, int)
+            or slots <= width or slots > 1 << 24 or slots & (slots - 1)):
+        raise ValueError(f"slots must be a power of two above the row "
+                         f"width {width} or None (auto), got {slots!r}")
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def gram_plan(b: int, width: int, itemsize: int, smem_optin: int,
+              rows_per_cta=None, slots=None):
+    """(T, slots, smem_bytes): the Gram kernel's T blocks a shard, block t
+    owning rows t, t + T, ..., tables of ``slots`` entries, and a block's
+    shared memory, for B = ``b`` rows of ``width`` slots and
+    ``itemsize``-byte values under ``smem_optin`` bytes.
+
+    ``slots`` None takes :func:`table_slots`; an int asks for that size (a
+    power of two above ``width``: every table keeps an empty slot).
+    ``rows_per_cta`` None takes the most rows of ROWS_PER_CTA whose tables
+    fit; an int asks for exactly that many.  Raises ValueError when the
+    plan does not fit."""
+    _check_gram_plan(rows_per_cta, slots, width)
+    slots = slots or table_slots(width)
+    for rows in (rows_per_cta,) if rows_per_cta else ROWS_PER_CTA:
+        blocks = -(-b // rows)
+        used = gram_smem_bytes(gram_tables(b, blocks), slots, width, b,
+                               itemsize)
+        if used <= smem_optin:
+            return blocks, slots, used
+    raise ValueError(f"the sparse Gram kernel cannot hold "
+                     f"{rows_per_cta or 'auto'} tables of {slots} slots "
+                     f"beside rows {width} wide ({itemsize}-byte values) in "
+                     f"{smem_optin} bytes of shared memory")
 
 
 def live_values(gvals, cnts):
@@ -59,14 +139,16 @@ def sparse_block_gram_plain(w, dw, gidx, gvals, cnts, sig_eff, frozen):
 
 
 def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
-                      row_in_smem=True):
+                      rows_per_cta=None, slots=None):
     """The block's Gram and margin base.  ``w`` (d,), ``dw`` (K, d) the
     Delta-w at the block's start.  Returns (gram, mb): gram (K, B, B) with
     row j holding x_i . x_j for i < j and zeros elsewhere (None in frozen
     mode), mb (K, B) = x_j . (w + sig_eff * dw_k) (x_j . w in frozen
-    mode).  The kernel expands a row in shared memory where d fits,
-    unless ``row_in_smem`` is False."""
+    mode).  ``rows_per_cta`` and ``slots`` ask the kernel for that plan
+    (None: :func:`gram_plan`'s auto rule); the plain version takes no
+    plan, and both are checked on every device."""
     kernels.check_dtype(w.dtype, "the sparse block Gram kernel")
+    _check_gram_plan(rows_per_cta, slots, gidx.shape[-1])
     if kernels.runs_plain(w.device):
         return sparse_block_gram_plain(w, dw, gidx, gvals, cnts, sig_eff,
                                        frozen)
@@ -76,37 +158,24 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
     _check_rows(gidx, gvals, cnts, dt, dev)
     kernels.check_tensor("w", w, dt, (d,), dev)
     kernels.check_tensor("dw", dw, dt, (k, d), dev)
+    blocks, n_slots, _ = gram_plan(b, width, dt.itemsize,
+                                   kernels.smem_optin(dev), rows_per_cta,
+                                   slots)
     lib = _library()
     gram = None if frozen else torch.empty(k, b, b, dtype=dt, device=dev)
     mb = torch.empty(k, b, dtype=dt, device=dev)
-    scratch = None
-    if not frozen and (not row_in_smem
-                       or d * dt.itemsize > kernels.smem_optin(dev)):
-        scratch = _row_scratch(k, b, d, dt, dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, _GRAM_FN[dt])(
             w.data_ptr(), dw.data_ptr(), gidx.data_ptr(), gvals.data_ptr(),
             cnts.data_ptr(), None if gram is None else gram.data_ptr(),
-            mb.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            k, b, width, d, float(sig_eff), int(frozen),
-            kernels.stream_ptr(dev))
+            mb.data_ptr(), k, b, width, d, blocks, n_slots, float(sig_eff),
+            int(frozen), kernels.stream_ptr(dev))
     kernels.raise_on_error(lib, rc, "sparse_block_gram")
     sparse_block_gram.launches += 1
     return gram, mb
 
 
 sparse_block_gram.launches = 0
-_SCRATCH: dict = {}
-
-
-def _row_scratch(k, b, d, dt, dev) -> torch.Tensor:
-    """The zeroed (K, B, d) buffer the Gram kernel expands rows into when
-    d does not fit shared memory, one per shape and kept: the kernel
-    zeroes the columns each row touched after use, so it stays zeroed."""
-    key = (k, b, d, dt, dev)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = torch.zeros(k, b, d, dtype=dt, device=dev)
-    return _SCRATCH[key]
 
 
 def sparse_block_apply_plain(dw, gidx, gvals, cnts, coefs):
@@ -152,7 +221,7 @@ def _check_rows(gidx, gvals, cnts, dt, dev):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load("sparse_block")
-    kernels.declare(lib, _GRAM_FN.values(), 8,
-                    [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_int])
+    kernels.declare(lib, _GRAM_FN.values(), 7,
+                    [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int])
     kernels.declare(lib, _APPLY_FN.values(), 5, [ctypes.c_int] * 4)
     return lib

@@ -1,0 +1,708 @@
+"""The block kernels' plans and designs (the chain B3, ``csrc/block_chain.cu``
+``chain_kernel``, and the sparse Gram B5, ``csrc/sparse_block.cu``
+``gram_kernel``), on the CPU where the kernels cannot run: ``chain_plan``
+and ``gram_plan`` at the main shapes and their refusals, their byte counts
+against the kernels' formulas, the wrappers' calls into the C entry
+points, the chain's ring of mbarrier-guarded slots under random
+interleavings, and numpy models of the two designs (the right-looking
+chain reading its Gram from the staged units, and the Gram from
+shared-memory hash tables) held against the plain versions in float64."""
+
+import random
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cocoa_torch import kernels  # noqa: E402
+from cocoa_torch.ops import block_chain as bc  # noqa: E402
+from cocoa_torch.ops import losses  # noqa: E402
+from cocoa_torch.ops import sparse_block as sb  # noqa: E402
+
+OPTIN = 232448  # an H100's opt-in shared memory per block
+HASH_MUL = 2654435769  # csrc/sparse_block.cu kHashMul
+TOL = 1e-12     # float64: the models and the plain versions sum in
+                # different orders
+LOSSES = [("hinge", 1.0), ("smooth_hinge", 0.5), ("logistic", 1.0)]
+MODES = [("cocoa", 1.0, 1.0), ("plus", 4.0, 4.0), ("frozen", 0.0, 1.0)]
+LAM_N = 0.96
+
+
+# --------------------------------------------------------------------------
+# the plans
+# --------------------------------------------------------------------------
+
+# (B, itemsize, the auto chain plan (stages, cols)): the rcv1-like and
+# demo blocks (128), the epsilon-like split shapes (256, 512) and the
+# wrapper's limit (1024); B=128 and B=256 float32 stage the whole triangle
+CHAIN_PLANS = [(128, 4, (4, 32)), (128, 8, (4, 32)), (256, 4, (8, 32)),
+               (256, 8, (7, 16)), (512, 4, (6, 16)), (512, 8, (5, 8)),
+               (1024, 4, (5, 8)), (1024, 8, (2, 8))]
+
+
+def _units(b, cols):
+    return -(-b // cols)
+
+
+@pytest.mark.parametrize("b,itemsize,want", CHAIN_PLANS,
+                         ids=[f"B{p[0]}-f{p[1] * 8}" for p in CHAIN_PLANS])
+def test_chain_plan_at_main_shapes(b, itemsize, want):
+    """The auto plan stages every unit in its own slot where that fits,
+    else the widest unit with at least AUTO_CHAIN_STAGES slots, as deep as
+    fits, else the narrowest unit as deep as fits; every plan fits the
+    opt-in and one more slot would not (unless every unit has one)."""
+    stages, cols, used = bc.chain_plan(b, itemsize, OPTIN)
+    assert (stages, cols) == want
+    assert used == bc.chain_smem_bytes(b, stages, cols, itemsize) <= OPTIN
+    units = _units(b, cols)
+    assert 1 <= stages <= units
+    if stages < units:
+        assert bc.chain_smem_bytes(b, stages + 1, cols, itemsize) > OPTIN
+    for wider in bc.CHAIN_COLS[:bc.CHAIN_COLS.index(cols)]:
+        need = min(_units(b, wider), bc.AUTO_CHAIN_STAGES)
+        assert bc.chain_smem_bytes(b, need, wider, itemsize) > OPTIN
+    # the whole triangle at the rcv1-like block and at B=256 float32
+    assert (stages == units and cols == 32) == (b == 128
+                                                or (b, itemsize) == (256, 4))
+
+
+def test_chain_plan_explicit_stages_and_refusals():
+    plan = bc.chain_plan
+    for s in range(1, 5):
+        assert plan(128, 4, OPTIN, s)[:2] == (s, 32)
+    # five slots are more units of 32 than B=128 has: units of 16
+    assert plan(128, 4, OPTIN, 5)[:2] == (5, 16)
+    assert plan(128, 4, OPTIN, 16)[:2] == (16, 8)
+    assert plan(1024, 8, OPTIN, 1)[:2] == (1, 16)
+    assert plan(1024, 8, OPTIN, 2)[:2] == (2, 8)
+    with pytest.raises(ValueError, match="cannot stage 17 slots"):
+        plan(128, 4, OPTIN, 17)
+    with pytest.raises(ValueError, match="cannot stage 3 slots"):
+        plan(1024, 8, OPTIN, 3)
+    # an opt-in that holds one slot of 8 columns at B=128 and no more
+    one = bc.chain_smem_bytes(128, 1, 8, 4)
+    assert plan(128, 4, one) == (1, 8, one)
+    with pytest.raises(ValueError, match="cannot stage auto slots"):
+        plan(128, 4, one - 1)
+    for b in (0, bc.CHAIN_MAX_B + 1):
+        with pytest.raises(ValueError, match="B in 1.."):
+            plan(b, 4, OPTIN)
+    for bad in (0, -1, 2.0, True, "3"):
+        with pytest.raises(ValueError, match="stages must be an int"):
+            plan(128, 4, OPTIN, bad)
+
+
+def _slot_rows_before(b, cols, s):
+    """csrc/block_chain.cu slot_rows_before, the closed form."""
+    g, m = 32 // cols, s // (32 // cols)
+    return s * b - 32 * (g * m * (m - 1) // 2 + m * (s - m * g))
+
+
+def test_chain_smem_matches_the_kernel():
+    """The plan's constants and byte count are the kernel's, read from the
+    source; the kernel's closed form of the ring's rows equals the plan's
+    sum at every B, unit width and depth."""
+    src = kernels.SOURCES["block_chain"].read_text()
+    assert "if (cols != 32 && cols != 16 && cols != 8) return false;" in src
+    assert tuple(sorted(bc.CHAIN_COLS, reverse=True)) == (32, 16, 8)
+    assert "return stages >= 1 && stages <= (b + cols - 1) / cols;" in src
+    assert "if (b < 1 || b > 1024) return false;" in src \
+        and bc.CHAIN_MAX_B == 1024
+    assert ("  return 16 * (size_t)stages +\n"
+            "         ((size_t)(cols + 1) * slot_rows_before(b, cols, stages)"
+            " +\n          8 * (size_t)b) * itemsize;") in src
+    assert "32LL * (g * (long long)m * (m - 1) / 2 + (long long)m * " \
+        "(s - m * g));" in src
+    for b in (1, 31, 32, 100, 128, 200, 256, 512, 1000, 1024):
+        for cols in bc.CHAIN_COLS:
+            for s in range(_units(b, cols) + 1):
+                assert _slot_rows_before(b, cols, s) == sum(
+                    bc.chain_slot_rows(b, cols, t) for t in range(s))
+    assert bc.chain_smem_bytes(128, 4, 32, 4) == \
+        64 + (33 * (128 + 96 + 64 + 32) + 8 * 128) * 4
+    # B4's chain is untouched: its three cluster barriers and chain_warp
+    assert src.count("cluster.sync();") == 3
+    assert "chain_warp<T, R>(b, m0, nullptr, ys, qs, as0, ls, ix," in src
+
+
+def _gram_bytes(tables, slots, width, itemsize, b=128):
+    return tables * slots * 2 * itemsize + 16 * width * (itemsize + 4) \
+        + 4 * b
+
+
+# (name, width, itemsize, the auto Gram plan (T, slots, bytes))
+GRAM_PLANS = [
+    ("rcv1-like", 548, 4, (16, 2048, _gram_bytes(8, 2048, 548, 4))),
+    ("rcv1-like", 548, 8, (64, 2048, _gram_bytes(2, 2048, 548, 8))),
+    ("rcv1-like residual", 174, 4, (16, 512, _gram_bytes(8, 512, 174, 4))),
+    ("rcv1-like residual", 174, 8, (16, 512, _gram_bytes(8, 512, 174, 8))),
+    ("demo", 283, 4, (16, 1024, _gram_bytes(8, 1024, 283, 4))),
+    ("demo", 283, 8, (16, 1024, _gram_bytes(8, 1024, 283, 8))),
+]
+
+
+@pytest.mark.parametrize("name,width,itemsize,want", GRAM_PLANS,
+                         ids=[f"{p[0]}-f{p[2] * 8}" for p in GRAM_PLANS])
+def test_gram_plan_at_main_shapes(name, width, itemsize, want):
+    """The default table is the least power of two of at least 2 W; the
+    auto plan owns as many rows a block as fit (at most 8); every asked
+    rows_per_cta that fits gives ceil(B / rows) blocks."""
+    plan = sb.gram_plan(128, width, itemsize, OPTIN)
+    assert plan == want
+    blocks, slots, used = plan
+    assert slots >= 2 * width and slots // 2 < 2 * width
+    assert used <= OPTIN
+    for rows in sb.ROWS_PER_CTA:
+        used = sb.gram_smem_bytes(rows, slots, width, 128, itemsize)
+        if used > OPTIN:
+            with pytest.raises(ValueError, match="cannot hold"):
+                sb.gram_plan(128, width, itemsize, OPTIN, rows)
+            assert rows > 128 // blocks
+            continue
+        assert sb.gram_plan(128, width, itemsize, OPTIN, rows) == \
+            (128 // rows, slots, used)
+
+
+def test_gram_plan_tables_and_refusals():
+    plan = sb.gram_plan
+    # B=100 over 8 rows a block: 13 blocks, the last owning 9 - 1 rows
+    assert plan(100, 20, 4, OPTIN, 8)[0] == 13
+    assert sb.gram_tables(100, 13) == 8
+    assert sb.gram_tables(10, 2) == 8      # 5 rows, rounded up
+    assert plan(128, 548, 4, OPTIN, slots=1024)[:2] == (16, 1024)
+    assert plan(128, 1, 4, OPTIN) == (16, 32, _gram_bytes(8, 32, 1, 4))
+    for bad in (548, 1000, 3000, 0, True, 2.0):
+        with pytest.raises(ValueError, match="slots must be a power of two"):
+            plan(128, 548, 4, OPTIN, slots=bad)
+    assert plan(128, 1, 4, OPTIN, slots=2)[1] == 2
+    for bad in (3, 16, 0, True, 2.0):
+        with pytest.raises(ValueError, match="rows_per_cta must be one of"):
+            plan(128, 548, 4, OPTIN, bad)
+    small = sb.gram_smem_bytes(1, 2048, 548, 128, 4)
+    assert plan(128, 548, 4, small) == (128, 2048, small)
+    with pytest.raises(ValueError, match="cannot hold auto tables"):
+        plan(128, 548, 4, small - 1)
+    with pytest.raises(ValueError, match="cannot hold 2 tables"):
+        plan(128, 548, 4, small, 2)
+
+
+def test_gram_smem_matches_the_kernel():
+    src = kernels.SOURCES["sparse_block"].read_text()
+    assert f"kWarps = kThreads / 32;" in src and "kThreads = 256;" in src
+    assert sb.GRAM_WARPS == 256 // 32
+    assert f"kMaxTables = {sb.MAX_TABLES};" in src
+    assert max(sb.ROWS_PER_CTA) == sb.MAX_TABLES
+    assert f"kHashMul = {HASH_MUL}u;" in src
+    assert "return bits == 0 ? 0 : (int)(((unsigned)col * kHashMul) >> " \
+        "(32 - bits));" in src
+    assert ("  return (size_t)tables * slots * 2 * itemsize +\n"
+            "         2 * (size_t)kWarps * width * (itemsize + sizeof(int))"
+            " +\n         (size_t)b * sizeof(int);") in src
+    assert "int pos = hash_slot(f, bits);" in src
+    assert "const int h = hash_slot(f, bits);" in src
+    assert sb.gram_smem_bytes(8, 2048, 548, 128, 4) == _gram_bytes(
+        8, 2048, 548, 4)
+    assert "return slots > width && slots <= (1 << 24) && " \
+        "(slots & (slots - 1)) == 0;" in src
+    # the d-wide row expansion is gone, in both placements
+    assert "scratch" not in src and "atomicAdd(xrow" not in src
+    assert not hasattr(sb, "_row_scratch") and not hasattr(sb, "_SCRATCH")
+
+
+# --------------------------------------------------------------------------
+# the chain's ring: mbarrier phases under random interleavings
+# --------------------------------------------------------------------------
+
+
+def _try_wait(done, parity):
+    """mbarrier.try_wait.parity: true when the phase of this parity has
+    completed, ``done`` phases having completed (phase -1 counts as
+    complete)."""
+    return done % 2 != parity
+
+
+def _ring_walk(units, stages, seed):
+    """The producers (one thread stands for all: they move together
+    through the same barrier waits) and the consumer of chain_kernel, one
+    move at a time, picked at random among those the barriers allow.
+    Returns the units in the order the consumer read them."""
+    rnd = random.Random(seed)
+    full, empty = [0] * stages, [0] * stages
+    held = [None] * stages
+    prod, cons, read = 0, 0, []
+    while cons < units:
+        moves = []
+        if prod < units:
+            s, r = prod % stages, prod // stages
+            if r == 0 or _try_wait(empty[s], (r - 1) & 1):
+                moves.append("produce")
+        s = cons % stages
+        if _try_wait(full[s], (cons // stages) & 1):
+            moves.append("consume")
+        assert moves, "deadlock"
+        if rnd.choice(moves) == "produce":
+            s = prod % stages
+            assert held[s] is None, "a slot refilled before it was read"
+            held[s] = prod
+            full[s] += 1
+            prod += 1
+        else:
+            s = cons % stages
+            assert held[s] == cons, "a unit read before it was staged"
+            held[s] = None
+            read.append(cons)
+            empty[s] += 1
+            cons += 1
+    return read
+
+
+@pytest.mark.parametrize("b,itemsize", [(p[0], p[1]) for p in CHAIN_PLANS])
+def test_chain_ring_at_every_depth(b, itemsize):
+    """Every depth a plan can take, at every unit width: the consumer reads
+    each unit once, in order, after it was staged, and no slot is
+    refilled before it was read, whatever the interleaving."""
+    for cols in bc.CHAIN_COLS:
+        units = _units(b, cols)
+        for stages in sorted({1, 2, 3, 7, units}):
+            if stages > units:
+                continue
+            for seed in range(3):
+                assert _ring_walk(units, stages, seed) == list(range(units))
+
+
+# --------------------------------------------------------------------------
+# a numpy model of the right-looking chain, reading the staged units
+# --------------------------------------------------------------------------
+
+
+def _stage_unit(ring, gram, b, cols, slot, q):
+    """The producers' copy of unit q into its slot (csrc/block_chain.cu):
+    columns [q cols, (q + 1) cols) of rows base..B-1, entries j < i only,
+    at a row stride of cols + 1 from the slot's offset."""
+    ld = cols + 1
+    off = ld * sum(bc.chain_slot_rows(b, cols, t) for t in range(slot))
+    j0, base = q * cols, (q * cols) // 32 * 32
+    for ri in range(b - base):
+        i = base + ri
+        for cc in range(cols):
+            j = j0 + cc
+            if j < i:
+                ring[:, off + ri * ld + cc] = gram[:, i, j]
+    return off
+
+
+def right_looking_chain(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
+                        loss, smoothing, stages, cols):
+    """chain_kernel's arithmetic over all K shards at once: acc_i and a_i
+    carried a row, each step's coefficient pushed into the rows still to
+    come, the Gram read from the ring of staged units (the rest of the
+    ring is NaN, so an entry read from the wrong place shows)."""
+    k, _, b = scal.shape
+    m0, y, qii, a0, mb, live = scal.unbind(1)
+    ld = cols + 1
+    ring = torch.full((k, ld * sum(bc.chain_slot_rows(b, cols, s)
+                                   for s in range(stages))), float("nan"),
+                      dtype=scal.dtype)
+    acc = torch.zeros(k, b, dtype=scal.dtype)
+    a = a0.clone()
+    delta = torch.zeros_like(acc)
+    coef = torch.zeros_like(acc)
+    lam_n_t = torch.tensor(lam_n, dtype=scal.dtype)
+    for q in range(_units(b, cols)):
+        j0 = q * cols
+        if not frozen:
+            off = _stage_unit(ring, gram, b, cols, q % stages, q)
+        for j in range(j0, min(b, j0 + cols)):
+            margin = m0[:, j]
+            if not frozen:
+                margin = margin + sig_eff * (mb[:, j] + acc[:, j])
+            new_a = losses.alpha_step(loss, a[:, j], y[:, j] * margin,
+                                      qii[:, j], lam_n_t, smoothing=smoothing)
+            dj = (new_a - a[:, j]) * live[:, j]
+            cj = y[:, j] * dj / coef_div
+            delta[:, j], coef[:, j] = dj, cj
+            rows = torch.arange(j + 1, b)
+            if not frozen and len(rows):
+                base = j // 32 * 32
+                g = ring[:, off + (rows - base) * ld + (j - j0)]
+                acc[:, j + 1:] = acc[:, j + 1:] + cj[:, None] * g
+            same = idx[:, j + 1:] == idx[:, j:j + 1]
+            a[:, j + 1:] = a[:, j + 1:] + torch.where(same, dj[:, None], 0.0)
+    return delta, coef
+
+
+def _chain_case(case, qf, seed=11, k=3, b=200, d=10):
+    """A block of B=200 draws (not a multiple of 32, so the last panel is
+    cut).  ``repeats``: each step t past 40 redraws step t - g, g cycling
+    over 1..40, so repeats fall inside units and across panel boundaries;
+    ``garbage``: the diagonal and the upper triangle hold large values
+    that a kernel reading them would carry into the result; ``masked``:
+    the last 37 steps and a run in the middle are masked."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(k, 60, d)) * 0.4
+    idx = rng.integers(0, 60, size=(k, b))
+    if case == "repeats":
+        for n, t in enumerate(range(40, b)):
+            g = n % 40 + 1
+            idx[:, t] = idx[:, t - g]
+    ks = np.arange(k)[:, None]
+    xb = X[ks, idx]
+    gram = np.einsum("kjd,kid->kji", xb, xb)
+    if case == "garbage":
+        gram = np.tril(gram, -1) + np.triu(rng.normal(size=gram.shape) * 1e6)
+    live = np.ones((k, b))
+    if case == "masked":
+        live[:, b - 37:] = 0.0
+        live[:, 60:70] = 0.0
+    scal = np.stack([xb @ (rng.normal(size=d) * 0.2),
+                     np.where(rng.random((k, b)) > 0.5, 1.0, -1.0),
+                     (xb * xb).sum(-1) * qf,
+                     np.clip(rng.normal(0.4, 0.3, (k, b)), 0, 1),
+                     rng.normal(size=(k, b)) * 0.1, live], axis=1)
+    to = torch.as_tensor
+    return to(scal), to(np.ascontiguousarray(gram)), \
+        to(idx, dtype=torch.int32)
+
+
+# each case at its own plan of the kernel: the whole triangle in units of
+# 32, a ring of 2 slots of 16 columns, a single slot of 8 columns
+CHAIN_CASES = [("repeats", (7, 32)), ("garbage", (2, 16)), ("masked", (1, 8))]
+
+
+@pytest.mark.parametrize("case,plan", CHAIN_CASES,
+                         ids=[c[0] for c in CHAIN_CASES])
+@pytest.mark.parametrize("loss,smoothing", LOSSES)
+@pytest.mark.parametrize("mode,sig_eff,qf", MODES)
+def test_right_looking_chain_matches_plain(mode, sig_eff, qf, loss,
+                                           smoothing, case, plan):
+    frozen = mode == "frozen"
+    scal, gram, idx = _chain_case(case, qf)
+    kw = dict(lam_n=LAM_N, coef_div=LAM_N, sig_eff=sig_eff, frozen=frozen,
+              loss=loss, smoothing=smoothing)
+    want = bc.chain_block_batched_plain(scal, None if frozen else gram, idx,
+                                        **kw)
+    got = right_looking_chain(scal, gram, idx, stages=plan[0], cols=plan[1],
+                              **kw)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=TOL)
+    if case == "repeats":   # the repeats moved alpha: the case is live
+        assert int((idx[:, 40:] == idx[:, 39:-1]).sum()) > 0
+        assert float(want[0].abs().max()) > 0.0
+
+
+# --------------------------------------------------------------------------
+# a numpy model of the Gram from shared-memory hash tables
+# --------------------------------------------------------------------------
+
+
+def _butterfly(part):
+    """sdca::warp_sum's order: lane l adds lane l ^ off, off = 16..1."""
+    v = part.copy()
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[lanes ^ off]
+    return v[0]
+
+
+def _hash_slot(col, bits):
+    """csrc/sparse_block.cu hash_slot: where the probe for column ``col``
+    starts in a table of 2**bits slots, the top ``bits`` bits of col *
+    kHashMul mod 2**32."""
+    return 0 if bits == 0 else ((col * HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+
+
+class _Table:
+    """One open-addressing table of gram_kernel, with its probe counts."""
+
+    def __init__(self, slots):
+        self.keys = np.full(slots, -1, np.int64)
+        self.vals = np.zeros(slots)
+        self.bits = slots.bit_length() - 1
+        self.mask = slots - 1
+        self.wraps = self.collisions = 0
+
+    def _find(self, f):
+        pos = _hash_slot(int(f), self.bits)
+        while self.keys[pos] not in (-1, f):
+            self.collisions += 1
+            self.wraps += pos == self.mask
+            pos = (pos + 1) & self.mask
+        return pos
+
+    def insert_chunk(self, cols, vals):
+        """A 32-entry chunk: equal columns grouped, each group's values
+        summed in lane order by its lowest lane, added to the slot."""
+        groups = {}
+        for f, v in zip(cols, vals):
+            groups.setdefault(int(f), []).append(v)
+        for f, vs in groups.items():
+            s = vs[0] if len(vs) == 1 else sum(vs, 0.0)
+            pos = self._find(f)
+            self.keys[pos] = f
+            self.vals[pos] = self.vals[pos] + s
+
+    def lookup(self, f):
+        pos = self._find(int(f))
+        return self.vals[pos] if self.keys[pos] == f else None
+
+
+def hash_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen, blocks, slots):
+    """gram_kernel's walk: block t of each shard owns rows t + o * blocks,
+    builds their tables chunk by chunk (and their margin bases), then
+    looks every later row's entries up, lane-strided, one butterfly a
+    table.  Returns (gram, mb, the tables)."""
+    k, b, _ = gidx.shape
+    gram = np.zeros((k, b, b))
+    mb = np.zeros((k, b))
+    built = []
+    for s in range(k):
+        for t in range(blocks):
+            owned = list(range(t, b, blocks))
+            tables = []
+            for i in owned:
+                cnt = max(int(cnts[s, i]), 0)
+                table, part = _Table(slots), np.zeros(32)
+                for base in range(0, cnt, 32):
+                    cols = gidx[s, i, base:min(cnt, base + 32)]
+                    vals = gvals[s, i, base:min(cnt, base + 32)]
+                    coord = w[cols] + (0 if frozen else sig_eff * dw[s, cols])
+                    part[:len(cols)] += vals * coord
+                    table.insert_chunk(cols, vals)
+                mb[s, i] = _butterfly(part)
+                tables.append(table)
+            built += tables
+            if frozen:
+                continue
+            for j in range(t + 1, b):
+                cnt = max(int(cnts[s, j]), 0)
+                for i, table in zip(owned, tables):
+                    if i >= j:
+                        continue
+                    part = np.zeros(32)
+                    for e in range(cnt):
+                        x = table.lookup(gidx[s, j, e])
+                        if x is not None:
+                            part[e % 32] += gvals[s, j, e] * x
+                    gram[s, j, i] = _butterfly(part)
+    return (None if frozen else gram), mb, built
+
+
+def _end_columns(slots, n, d):
+    """n columns below d whose probe starts at the table's last slot."""
+    out = [c for c in range(d)
+           if _hash_slot(c, slots.bit_length() - 1) == slots - 1]
+    assert len(out) >= n
+    return out[:n]
+
+
+def _gram_case(case, k=2, b=48, width=40, d=3000, seed=13):
+    """Padded-CSR rows of one block.  ``tiny table``: full-width rows of
+    distinct columns in a table of 64 slots (the least power of two above
+    W), several columns hashing to the last slot, so probes collide and
+    wrap; ``column 0 and repeats``: rows holding a real column 0 (first,
+    inside, and alone before padding), columns repeated within a row
+    (inside a chunk and across chunks) in rows i and j; ``masked and
+    full``: masked rows (-1) among live ones and rows at the full width."""
+    rng = np.random.default_rng(seed)
+    gidx = np.zeros((k, b, width), np.int32)
+    gvals = np.zeros((k, b, width))
+    cnts = np.zeros((k, b), np.int32)
+    pool = rng.choice(d, 120, replace=False)
+    for s in range(k):
+        for j in range(b):
+            n = width if case != "column 0 and repeats" else \
+                int(rng.integers(1, width + 1))
+            gidx[s, j, :n] = rng.choice(pool, n, replace=False)
+            gvals[s, j, :n] = rng.normal(size=n)
+            cnts[s, j] = n
+    if case == "tiny table":
+        ends = _end_columns(64, 6, d)
+        gidx[:, ::3, :6] = ends
+    elif case == "column 0 and repeats":
+        gidx[:, 0, 0], cnts[:, 0] = 0, 1
+        gidx[:, 1, :4], cnts[:, 1] = [9, 0, 9, 5], 4
+        gidx[:, 2, 0] = 0
+        for j in range(3, b, 5):
+            n = int(cnts[0, j])
+            gidx[:, j, n // 2] = gidx[:, j, 0]          # within a chunk
+            gidx[:, j, n - 1] = gidx[:, j, 1]           # maybe across
+        gidx[:, 7, :width], cnts[:, 7] = gidx[:, 8, :width], width
+        gidx[:, 7, 35] = gidx[:, 7, 2]                  # across chunks
+    elif case == "masked and full":
+        cnts[:, 5:9] = -1
+        cnts[1, 30:] = -1
+    w = rng.normal(size=d) * 0.3
+    dw = rng.normal(size=(k, d)) * 0.1
+    return gidx, gvals, cnts, w, dw
+
+
+GRAM_CASES = ["tiny table", "column 0 and repeats", "masked and full"]
+
+
+@pytest.mark.parametrize("blocks", [6, 48])
+@pytest.mark.parametrize("sig_eff,frozen", [(4.0, False), (1.0, True)])
+@pytest.mark.parametrize("case", GRAM_CASES)
+def test_hash_gram_matches_plain(case, sig_eff, frozen, blocks):
+    """The hash-table walk at 8 rows a block (6 blocks) and at one (48),
+    against the plain version's dense expansion, within 1e-12."""
+    gidx, gvals, cnts, w, dw = _gram_case(case)
+    width = gidx.shape[-1]
+    slots = 64 if case == "tiny table" else sb.table_slots(width)
+    gram, mb, tables = hash_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
+                                 blocks, slots)
+    to = torch.as_tensor
+    want_g, want_mb = sb.sparse_block_gram_plain(
+        to(w), to(dw), to(gidx), to(gvals), to(cnts), sig_eff, frozen)
+    np.testing.assert_allclose(mb, want_mb.numpy(), rtol=0, atol=TOL)
+    if frozen:
+        assert gram is None and want_g is None
+        return
+    np.testing.assert_allclose(gram, want_g.numpy(), rtol=0, atol=TOL)
+    assert np.all(np.triu(gram[0]) == 0)
+    if case == "tiny table":
+        assert sum(t.wraps for t in tables) > 0
+        assert sum(t.collisions for t in tables) > 0
+    if case == "column 0 and repeats":  # row 1 = 9, 0, 9, 5: 0 meets 0
+        assert gram[0, 1, 0] == pytest.approx(
+            gvals[0, 0, 0] * gvals[0, 1, 1], abs=TOL)
+    if case == "masked and full":
+        assert np.all(gram[:, 5:9] == 0) and np.all(gram[:, :, 5:9] == 0)
+        assert np.all(mb[:, 5:9] == 0) and np.all(mb[1, 30:] == 0)
+
+
+def test_tables_keep_an_empty_slot():
+    """A table of the least power of two above W holds a full row of
+    distinct columns with a slot to spare, so every miss ends."""
+    gidx, gvals, cnts, w, dw = _gram_case("tiny table")
+    table = _Table(64)
+    for base in range(0, 40, 32):
+        table.insert_chunk(gidx[0, 0, base:base + 32],
+                           gvals[0, 0, base:base + 32])
+    assert int((table.keys == -1).sum()) == 64 - 40
+    assert table.lookup(2999 if 2999 not in gidx[0, 0] else 2998) is None
+
+
+# --------------------------------------------------------------------------
+# the wrappers: the plan into the C entry points; none on the CPU
+# --------------------------------------------------------------------------
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _entry_arity(src, name):
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)', src, re.S).group(1)
+    return sig.count(",") + 1
+
+
+def _macro_arity(src, macro):
+    """The parameters of the C entry points a macro defines."""
+    sig = re.search(rf"#define {macro}\(NAME, T\)\s*\\\s*extern \"C\" int "
+                    rf"NAME\((.*?)\)", src, re.S).group(1)
+    return sig.count(",") + 1
+
+
+def _kernel_route(monkeypatch, module):
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(kernels, "runs_plain", lambda device: False)
+    monkeypatch.setattr(kernels, "require_cuda", lambda t, name: None)
+    monkeypatch.setattr(kernels, "smem_optin", lambda device: OPTIN)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(module, "_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
+    return calls
+
+
+@pytest.mark.parametrize("stages", [None, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chain_wrapper_passes_the_plan(monkeypatch, dtype, stages):
+    calls = _kernel_route(monkeypatch, bc)
+    scal, gram, idx = _chain_case("masked", 1.0, b=256)
+    before = bc.chain_block_batched.launches
+    bc.chain_block_batched(scal.to(dtype), gram.to(dtype), idx, LAM_N,
+                           LAM_N, 4.0, False, "hinge", stages=stages)
+    (name, args), = calls
+    assert name == bc._CHAIN_FN[dtype]
+    src = kernels.SOURCES["block_chain"].read_text()
+    assert len(args) == _macro_arity(src, "CHAIN_ENTRY")
+    plan = bc.chain_plan(256, dtype.itemsize, OPTIN, stages)
+    assert args[5:9] == (3, 256, plan[0], plan[1])
+    assert bc.chain_block_batched.launches == before + 1
+    bc.chain_block_batched.launches = before
+
+
+@pytest.mark.parametrize("rows,slots", [(None, None), (2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_wrapper_passes_the_plan(monkeypatch, dtype, rows, slots):
+    calls = _kernel_route(monkeypatch, sb)
+    gidx, gvals, cnts, w, dw = _gram_case("masked and full")
+    to = torch.as_tensor
+    before = sb.sparse_block_gram.launches
+    sb.sparse_block_gram(to(w).to(dtype), to(dw).to(dtype), to(gidx),
+                         to(gvals).to(dtype), to(cnts), 4.0, False,
+                         rows_per_cta=rows, slots=slots)
+    (name, args), = calls
+    assert name == sb._GRAM_FN[dtype]
+    src = kernels.SOURCES["sparse_block"].read_text()
+    assert len(args) == _macro_arity(src, "GRAM_ENTRY")
+    blocks, n_slots, _ = sb.gram_plan(48, 40, dtype.itemsize, OPTIN, rows,
+                                      slots)
+    assert args[7:13] == (2, 48, 40, 3000, blocks, n_slots)
+    assert sb.sparse_block_gram.launches == before + 1
+    sb.sparse_block_gram.launches = before
+
+
+def test_plain_routes_ignore_the_plans():
+    """On the CPU no plan exists: every valid plan gives the plain
+    version's result, bit for bit, with no launch."""
+    scal, gram, idx = _chain_case("repeats", 4.0)
+    kw = dict(lam_n=LAM_N, coef_div=LAM_N, sig_eff=4.0, frozen=False,
+              loss="hinge")
+    n3, n5 = bc.chain_block_batched.launches, sb.sparse_block_gram.launches
+    want = bc.chain_block_batched(scal, gram, idx, **kw)
+    for stages in (1, 3, 7, 50):
+        got = bc.chain_block_batched(scal, gram, idx, stages=stages, **kw)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+    to = torch.as_tensor
+    gidx, gvals, cnts, w, dw = _gram_case("column 0 and repeats")
+    args = (to(w), to(dw), to(gidx), to(gvals), to(cnts), 4.0, False)
+    want = sb.sparse_block_gram(*args)
+    for rows in sb.ROWS_PER_CTA:
+        got = sb.sparse_block_gram(*args, rows_per_cta=rows, slots=64)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert (bc.chain_block_batched.launches,
+            sb.sparse_block_gram.launches) == (n3, n5)
+
+
+@pytest.mark.parametrize("stages", [0, -2, 1.5, False, True])
+def test_chain_stages_refused_on_the_cpu_route(stages):
+    scal, gram, idx = _chain_case("masked", 1.0)
+    with pytest.raises(ValueError, match="stages must be an int"):
+        bc.chain_block_batched(scal, gram, idx, LAM_N, LAM_N, 1.0, False,
+                               "hinge", stages=stages)
+
+
+@pytest.mark.parametrize("rows,slots", [(3, None), (True, None),
+                                        (None, 40), (None, 48), (None, 1.0)])
+def test_gram_plan_refused_on_the_cpu_route(rows, slots):
+    gidx, gvals, cnts, w, dw = _gram_case("masked and full")
+    to = torch.as_tensor
+    with pytest.raises(ValueError, match="must be"):
+        sb.sparse_block_gram(to(w), to(dw), to(gidx), to(gvals), to(cnts),
+                             4.0, False, rows_per_cta=rows, slots=slots)
