@@ -96,7 +96,28 @@ stderr); any failed check exits non-zero:
    the rcv1-like data through the CLI with --hotCols=auto for 200 rounds,
    sequentially (one B1h launch a round) and with --blockSize=auto, the
    gaps within relative 1e-3 of phase 4's unsplit run; and the demo with
-   --hotCols=auto --justCoCoA=false.
+   --hotCols=auto --justCoCoA=false;
+11. ProxCoCoA+ through the block round (--objective=lasso --blockSize):
+   B4 (cluster sizes 1, 2, 4, 8 and the auto plan) on blocks of the lasso
+   design, the tall design and the demo's dense columns (d = n: 8192,
+   100000 and 2000), B3 at every plan at B=128 and 512 on the lasso
+   design's split inputs, and B5 (every plan, in passes too), B3 and B6
+   (into Delta-r) on the demo's padded-CSC columns (1738 wide), all in
+   mode prox with the lasso rule at l2 0 and 0.1, float32 and float64,
+   against their plain versions, two launches of each bit for bit; B5 on
+   rows 1560, 1738 and 20000 wide in float32 and 1028 and 1738 in
+   float64 (the widest in passes), against its plain version and timed,
+   the widest of each dtype bit for bit; B4, B3, B5 and B6 timed at those
+   prox shapes (float32); then the demo's columns through
+   the CLI with --blockSize=128 on both layouts (B4; B5, B3, B6), the
+   lasso design through run_prox_cocoa at B=128 (fused: B4) and B=512
+   (split: B3), lasso and elastic net, for 1000 rounds, in float32 and
+   in float64 (beside float64 sequential runs), and the tall design
+   through the fused branch beside its sequential run: launches counted,
+   every eval's gap within relative 1e-3 of the sequential run (phase
+   9's in float32, where the lasso design's last gaps are a few float32
+   ulps of the primal and 4 of those are allowed beside), ms per round
+   and the round that reaches 1e-3 * |b|^2 / 2.
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version and its times; the last line is
@@ -558,14 +579,15 @@ def chain_plans_held(b, dt):
 
 def gram_plans_held(width, dt):
     """B5's plans held against its plain version for rows of ``width``
-    slots: the auto plan, every rows_per_cta that fits, and the least
-    table that holds a row (slots the least power of two above W, probes
-    colliding more), each with its plan (T, slots, bytes)."""
+    slots: the auto plan, every rows_per_cta, the least table that holds
+    a row (slots the least power of two above W, probes colliding more),
+    and a table of a quarter of that, which takes the row in passes, each
+    with its plan (T, slots, chunk, cap, bytes)."""
     optin = kernels.smem_optin("cuda")
     tight = 1 << max(0, width).bit_length()
     out = []
     for rows in (None, *sb.ROWS_PER_CTA):
-        for slots in (None, tight):
+        for slots in (None, tight, max(sb.MIN_PASS_SLOTS, tight // 4)):
             with contextlib.suppress(ValueError):
                 out.append((dict(rows_per_cta=rows, slots=slots),
                             sb.gram_plan(BLOCK, width, dt.itemsize, optin,
@@ -616,7 +638,7 @@ def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
                 args = (bi["w"], bi["dw"], *vrows, sig_eff, frozen)
                 want = sb.sparse_block_gram_plain(*args)
                 for kw, plan in gram_plans_held(width, dt):
-                    held.add(("B5", str(dt)[6:], width, plan[:2]))
+                    held.add(("B5", str(dt)[6:], width, plan[:4]))
                     agree(f"{tag} {variant} sparse_block_gram {kw} "
                           f"plan={plan}", sb.sparse_block_gram(*args, **kw),
                           want, dt, worst, "B5")
@@ -845,8 +867,8 @@ def phase_block_timing(rcv1, eps, clusters, results):
     results["B5"]["rows_ms"] = {
         rows: graph_ms(lambda: sb.sparse_block_gram(
             *gargs, rows_per_cta=rows), 50) for rows in sb.ROWS_PER_CTA
-        if sb.gram_smem_bytes(rows, results["B5"]["plan"][1], width, BLOCK,
-                              isz) <= optin}
+        if sb.gram_smem_bytes(rows, results["B5"]["plan"].slots, width,
+                              BLOCK, isz) <= optin}
     b64 = sparse_block_inputs(rcv1, 8, 253, torch.float64, seed=7)
     g64 = (b64["w"], b64["dw"], b64["gidx"], b64["gvals"], b64["cnts"], sig,
            False)
@@ -918,15 +940,22 @@ def phase_block_timing(rcv1, eps, clusters, results):
     return results
 
 
-def check_same_gaps(label, res, ref, rel=1e-3):
+def check_same_gaps(label, res, ref, rel=1e-3, ulps=0):
+    """Every eval's gap of ``res`` within relative ``rel`` of ``ref``'s,
+    plus ``ulps`` units in the last place of ``ref``'s primal in float32
+    (the resolution of a float32 certificate, which subtracts two sums of
+    the primal's size)."""
     for r, p in zip(res, ref):
         ra, pa = r.trajectory.records, p.trajectory.records
         check([a.round for a in ra] == [b.round for b in pa],
               f"{label}: eval rounds differ")
         for a, b in zip(ra, pa):
-            err = abs(a.gap - b.gap) / abs(b.gap)
-            check(err <= rel, f"{label} {r.algorithm} round {a.round}: gap "
-                              f"{a.gap} vs {b.gap} (rel {err:.2e})")
+            diff = abs(a.gap - b.gap)
+            tol = rel * abs(b.gap) + ulps * float(
+                np.spacing(np.float32(abs(b.primal))))
+            check(diff <= tol, f"{label} {r.algorithm} round {a.round}: gap "
+                               f"{a.gap} vs {b.gap} (diff {diff:.2e}, "
+                               f"allowed {tol:.2e})")
 
 
 def phase_block_path(sparse_runs, eps):
@@ -1216,7 +1245,7 @@ def phase_entry_points(demo_train, demo_test):
     (B1 in mode frozen for mini-batch CD) and the dense one (B2), then
     --objective=lasso on the sparse (B1 prox) and dense (B2 prox) column
     shards; every run against the same run through the plain versions.
-    Returns ({run: counts}, {run: ms per round})."""
+    Returns ({run: counts}, {run: ms per round}, {run: results})."""
     rounds = 50
     base_argv = [f"--trainFile={demo_train}", "--numFeatures=9947",
                  "--numSplits=4", f"--numRounds={rounds}",
@@ -1224,7 +1253,7 @@ def phase_entry_points(demo_train, demo_test):
     menu = base_argv + [f"--testFile={demo_test}", "--lambda=.001",
                         "--justCoCoA=false"]
     lasso = base_argv + ["--lambda=.1", "--objective=lasso"]
-    launched, per_round = {}, {}
+    launched, per_round, results = {}, {}, {}
     for label, argv, kern, n_sdca in (
             ("demo menu sparse", menu + ["--layout=sparse"], "B1", 3),
             ("demo menu dense", menu + ["--layout=dense"], "B2", 3),
@@ -1252,6 +1281,7 @@ def phase_entry_points(demo_train, demo_test):
         check_same_gaps(f"{label} kernel vs plain", res[:n_sdca],
                         plain[:n_sdca])
         launched[label] = got
+        results[label] = res
         per_round[label] = [r.trajectory.records[-1].wall_time / rounds * 1e3
                             for r in res]
         print(f"phase 9: {label} ok: {n_sdca} x {rounds} {kern} launches, "
@@ -1259,7 +1289,7 @@ def phase_entry_points(demo_train, demo_test):
               f"(evals included) " + ", ".join(
                   f"{r.algorithm} {t:.3f}" for r, t in zip(res,
                                                            per_round[label])))
-    return launched, per_round
+    return launched, per_round, results
 
 
 def phase_lasso_design(ds, b, lam_max):
@@ -1268,11 +1298,11 @@ def phase_lasso_design(ds, b, lam_max):
     one B2 launch per round, a certified gap >= 0 that falls, and the
     first eval at which the gap reaches 1e-3 * |b|^2 / 2.  Returns
     ({run: counts}, {run: (ms per round, round reached or None, last
-    gap, target)})."""
+    gap, target)}, {run: its result})."""
     d, k = ds.n, ds.k
     h = d // k // 10
     target = 1e-3 * 0.5 * float(b @ b)
-    launched, result = {}, {}
+    launched, result, runs = {}, {}, {}
     for tag, l2 in (("lasso", 0.0), ("elastic net", 0.1)):
         params = Params(n=d, num_rounds=LASSO_ROUNDS, local_iters=h,
                         lam=0.3 * lam_max, loss="lasso", smoothing=l2)
@@ -1287,18 +1317,18 @@ def phase_lasso_design(ds, b, lam_max):
               and gaps[-1] < gaps[0], f"{label}: gaps {gaps}")
         check(bool(torch.isfinite(x).all() and torch.isfinite(r).all()),
               f"{label}: x or r not finite")
-        reached = next((rec.round for rec in traj.records
-                        if rec.gap <= target), None)
+        reached = lasso_reached(traj, target)
         ms = traj.records[-1].wall_time / LASSO_ROUNDS * 1e3
         launched[label] = got
         result[label] = (ms, reached, gaps[-1], target)
+        runs[label] = [cli.RunResult(traj.algorithm, r, x, traj)]
         print(f"phase 9: {label} ok: 1 B2 launch per round, {ms:.3f} ms per "
               f"round (evals included); gap {gaps[0]:.6g} at round "
               f"{traj.records[0].round} to {gaps[-1]:.6g} at "
               f"{traj.records[-1].round}; 1e-3 relative target {target:.6g} "
               + (f"reached at round {reached}" if reached else
                  "not reached"))
-    return launched, result
+    return launched, result, runs
 
 
 def hybrid_args(ds, w, alpha, idxs, lam, n):
@@ -1438,6 +1468,361 @@ def phase_hybrid_path(rcv1_argv, rcv1_seq, width, demo_train, demo_test):
     launched[label] = got
     print(f"phase 10: {label} ok: {resolved[0]}; six algorithms, "
           f"{3 * rounds} B1h launches")
+    return launched, per_round
+
+
+# phase 11: ProxCoCoA+ through the block round.  The lasso design's
+# block sizes (B, route, kernel); B5 at padded widths past the whole-row
+# plans (float32 1560 and up, float64 1028 and up), on K=2 shards of rows
+# of distinct random columns among WIDE_GRAM_D
+PROX_BLOCKS = ((BLOCK, "fused", "B4"), (4 * BLOCK, "split", "B3"))
+WIDE_GRAM = {torch.float32: (1560, 1738, 20000),
+             torch.float64: (1028, 1738)}
+WIDE_GRAM_D = 40_000
+TALL_ROUNDS = 30
+# float32 block and sequential runs of the lasso design: every eval's gap
+# within relative 1e-3 plus this many ulps of the primal in float32 (the
+# certificate's resolution: its last gaps are a few ulps, 2^-15 each at a
+# primal near 256; on an H100 the block and sequential float32 gaps
+# differed by one ulp from round 900, while float64 runs agreed in every
+# printed digit)
+F32_GAP_ULPS = 4
+
+
+def prox_block_inputs(ds, b, dt, seed=5):
+    """The first block of a prox round on column shards (dense or padded
+    CSC) in ``dt``: B draws with forced repeats (every fourth step redraws
+    the one before), the last 28 steps masked, unbounded coordinates x, a
+    residual r and a Delta-r; the gathered columns (``xb``, dense) or
+    their slots (``gidx``, ``gvals``, ``cnts``, padded CSC)."""
+    k, n, dev = ds.k, ds.num_features, ds.device
+    idxs = base.IndexSampler("reference", seed, b, ds.counts) \
+        .round_indices(1).to(dev).long()
+    idxs[:, 1::4] = idxs[:, 0::4]
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        return torch.as_tensor(a).to(dev, dt)
+
+    x = put(rng.normal(size=(k, ds.n_shard)) * 0.3) * ds.mask.to(dt)
+    live_b = torch.arange(b, device=dev) < b - 28
+    out = dict(bidx32=idxs.int(), live=live_b.to(dt).expand(k, b)
+               .contiguous(), yb=ds.labels.gather(1, idxs).to(dt),
+               sq=ds.sq_norms.gather(1, idxs).to(dt), a0=x.gather(1, idxs),
+               r=put(rng.normal(size=n) * 0.1),
+               dr=put(rng.normal(size=(k, n)) * 0.01))
+    if ds.layout == "dense":
+        out["xb"] = dense_rows({"X": ds.X}, idxs, n).to(dt)
+    else:
+        ks = torch.arange(k, device=dev)[:, None]
+        out.update(gidx=ds.sp_indices[ks, idxs].contiguous(),
+                   gvals=ds.sp_values[ks, idxs].to(dt).contiguous(),
+                   cnts=torch.where(live_b, row_lengths(ds.sp_values)
+                                    .gather(1, idxs), -1).to(torch.int32))
+    return out
+
+
+def lasso_kw(lam, sig, l2):
+    """The chain's arguments in mode prox: lam_n the L1 weight (n = 1),
+    the raw coordinate delta as the coefficient, the elastic-net l2."""
+    return dict(lam_n=lam, coef_div=1.0, sig_eff=sig, frozen=False,
+                loss="lasso", smoothing=l2)
+
+
+def phase_prox_block_kernels(designs, demo_cols, worst):
+    """B3, B4, B5 and B6 in mode prox with the lasso rule at l2 0 and 0.1
+    against their plain versions, float32 and float64.  ``designs``:
+    {name: (dense column dataset, L1 weight)}; B4 on a block of each
+    (d = n: 8192, 100000 and the demo's 2000) at cluster sizes 1, 2, 4, 8
+    and the auto plan, two launches of the auto plan bit for bit; B3 at
+    every plan of :func:`chain_plans_held` at B = 128 and 512 on the
+    first design's split inputs (its Gram by a full-float32 product); B5
+    at every plan of :func:`gram_plans_held`, B3 and B6 (into Delta-r, of
+    length n) on the demo's padded-CSC columns (``demo_cols`` by dtype;
+    rows 1738 wide), two launches of each bit for bit.  Returns the plans
+    held."""
+    held = set()
+    first = next(iter(designs))
+    for name, (ds, lam) in designs.items():
+        sig = float(ds.k)
+        for dt in (torch.float32, torch.float64):
+            n = ds.num_features
+            bi = prox_block_inputs(ds, BLOCK, dt)
+            v = bi["r"] + sig * bi["dr"]
+            fargs = (bi["xb"], bi["bidx32"], bi["yb"], bi["sq"] * sig,
+                     bi["a0"], bi["live"], v)
+            for l2 in PROX_L2:
+                kw = lasso_kw(lam, sig, l2)
+                tag = f"{name} {str(dt)[6:]} prox/lasso l2={l2}"
+                want = bc.fused_block_plain(*fargs, **kw)
+                for c in (1, 2, 4, 8, None):
+                    plan = bc.fused_plan(BLOCK, n, dt.itemsize, c)
+                    held.add(("B4", str(dt)[6:], n, plan))
+                    agree(f"{tag} fused_block cluster={c} plan={plan}",
+                          bc.fused_block(*fargs, cluster=c, **kw), want, dt,
+                          worst, "B4", (1.0, 0.0))
+                bit_for_bit(f"{tag} fused_block",
+                            lambda: bc.fused_block(*fargs, **kw))
+            del bi, fargs
+            if name != first:
+                continue
+            for b in (BLOCK, 4 * BLOCK):
+                bi = prox_block_inputs(ds, b, dt)
+                v = bi["r"] + sig * bi["dr"]
+                with bc.fp32_matmul():
+                    mbase = torch.matmul(bi["xb"], v[:, :, None])[..., 0]
+                    gram = torch.matmul(bi["xb"], bi["xb"].transpose(1, 2))
+                scal = torch.stack([mbase, bi["yb"], bi["sq"] * sig,
+                                    bi["a0"], torch.zeros_like(mbase),
+                                    bi["live"]], 1)
+                for l2 in PROX_L2:
+                    held_chain(f"{name} {str(dt)[6:]} prox/lasso l2={l2}",
+                               scal, gram, bi["bidx32"],
+                               lasso_kw(lam, sig, l2), dt, worst, held)
+    for dt, ds in demo_cols.items():
+        sig = float(ds.k)
+        bi = prox_block_inputs(ds, BLOCK, dt)
+        rows = (bi["gidx"], bi["gvals"], bi["cnts"])
+        width = rows[0].shape[-1]
+        gargs = (bi["r"], bi["dr"], *rows, sig, False)
+        gram, mb = sb.sparse_block_gram_plain(*gargs)
+        tag = f"demo columns {str(dt)[6:]} W={width}"
+        for kw, plan in gram_plans_held(width, dt):
+            held.add(("B5", str(dt)[6:], width, plan[:4]))
+            agree(f"{tag} sparse_block_gram {kw} plan={plan}",
+                  sb.sparse_block_gram(*gargs, **kw), (gram, mb), dt, worst,
+                  "B5")
+        bit_for_bit(f"{tag} sparse_block_gram",
+                    lambda: sb.sparse_block_gram(*gargs))
+        scal = torch.stack([mb, bi["yb"], bi["sq"] * sig, bi["a0"],
+                            torch.zeros_like(mb), bi["live"]], 1)
+        for l2 in PROX_L2:
+            coefs = held_chain(f"{tag} prox/lasso l2={l2}", scal, gram,
+                               bi["bidx32"], lasso_kw(0.1, sig, l2), dt,
+                               worst, held)[1]
+            got = sb.sparse_block_apply(bi["dr"].clone(), *rows, coefs)
+            agree(f"{tag} l2={l2} sparse_block_apply into Delta-r", [got],
+                  [sb.sparse_block_apply_plain(bi["dr"].clone(), *rows,
+                                               coefs)], dt, worst, "B6")
+            check(torch.equal(got, sb.sparse_block_apply(
+                bi["dr"].clone(), *rows, coefs)),
+                f"{tag} sparse_block_apply differs between two launches")
+    return held
+
+
+def prox_block_timing(designs, demo_cols):
+    """ms per launch in mode prox with the lasso rule, float32, at the
+    main path's shapes: B4 on a block of each dense design (CUDA events
+    around wrapper calls, as phase 5), B3 at 8 x 512 on the first
+    design's split inputs, and B5, B3 and B6 on the demo's padded-CSC
+    columns (the kernels alone, CUDA-graph replay)."""
+    f32, out = torch.float32, {}
+    first = next(iter(designs))
+    for name, (ds, lam) in designs.items():
+        sig = float(ds.k)
+        kw = lasso_kw(lam, sig, 0.0)
+        bi = prox_block_inputs(ds, BLOCK, f32, seed=9)
+        fargs = (bi["xb"], bi["bidx32"], bi["yb"], bi["sq"] * sig,
+                 bi["a0"], bi["live"], bi["r"] + sig * bi["dr"])
+        out[f"B4 {name} {ds.k} x {BLOCK} x {ds.num_features}"] = cuda_ms(
+            lambda: bc.fused_block(*fargs, **kw), 20)
+        del bi, fargs
+        if name != first:
+            continue
+        bi = prox_block_inputs(ds, 4 * BLOCK, f32, seed=9)
+        v = bi["r"] + sig * bi["dr"]
+        with bc.fp32_matmul():
+            mbase = torch.matmul(bi["xb"], v[:, :, None])[..., 0]
+            gram = torch.matmul(bi["xb"], bi["xb"].transpose(1, 2))
+        scal = torch.stack([mbase, bi["yb"], bi["sq"] * sig, bi["a0"],
+                            torch.zeros_like(mbase), bi["live"]], 1)
+        out[f"B3 {name} {ds.k} x {4 * BLOCK}"] = graph_ms(
+            lambda: bc.chain_block_batched(scal, gram, bi["bidx32"], **kw),
+            20)
+        del bi
+    ds = demo_cols[f32]
+    sig = float(ds.k)
+    bi = prox_block_inputs(ds, BLOCK, f32, seed=9)
+    rows = (bi["gidx"], bi["gvals"], bi["cnts"])
+    gargs = (bi["r"], bi["dr"], *rows, sig, False)
+    gram, mb = sb.sparse_block_gram_plain(*gargs)
+    scal = torch.stack([mb, bi["yb"], bi["sq"] * sig, bi["a0"],
+                        torch.zeros_like(mb), bi["live"]], 1)
+    kw = lasso_kw(0.1, sig, 0.0)
+    coefs = bc.chain_block_batched_plain(scal, gram, bi["bidx32"], **kw)[1]
+    dr = bi["dr"].clone()
+    tag = f"demo columns {ds.k} x {BLOCK} W={rows[0].shape[-1]}"
+    out[f"B5 {tag}"] = graph_ms(lambda: sb.sparse_block_gram(*gargs), 50)
+    out[f"B3 {tag}"] = graph_ms(lambda: bc.chain_block_batched(
+        scal, gram, bi["bidx32"], **kw), 50)
+    out[f"B6 {tag}"] = graph_ms(lambda: sb.sparse_block_apply(
+        dr, *rows, coefs), 50)
+    return out
+
+
+def wide_gram_inputs(width, dt, k=2, seed=13):
+    """A block of K x B rows ``width`` slots wide, each of distinct random
+    columns among WIDE_GRAM_D (every fifth row's last slot repeating its
+    first, so a column repeats across the passes of a row in passes),
+    every seventh row a third as long, the last three masked; w and a
+    Delta-w."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = WIDE_GRAM_D
+    gidx = torch.argsort(torch.rand(k, BLOCK, d, device="cuda",
+                                    generator=gen), dim=-1)[..., :width]
+    gidx[:, ::5, -1] = gidx[:, ::5, 0]
+    cnts = torch.full((k, BLOCK), width, dtype=torch.int32, device="cuda")
+    cnts[:, 1::7] = width // 3
+    cnts[:, -3:] = -1
+    return (torch.randn(d, device="cuda", generator=gen, dtype=dt) * 0.1,
+            torch.randn(k, d, device="cuda", generator=gen, dtype=dt) * 0.01,
+            gidx.to(torch.int32).contiguous(),
+            torch.randn(k, BLOCK, width, device="cuda", generator=gen,
+                        dtype=dt), cnts)
+
+
+def phase_wide_gram(worst):
+    """B5 at the widths of WIDE_GRAM against its plain version at its auto
+    plan, two launches of the widest bit for bit, and its time per launch
+    (the kernels alone, CUDA-graph replay).  Returns {(dtype, width):
+    (plan, passes, ms)}."""
+    optin = kernels.smem_optin("cuda")
+    out = {}
+    for dt, widths in WIDE_GRAM.items():
+        for width in widths:
+            args = (*wide_gram_inputs(width, dt), 4.0, False)
+            plan = sb.gram_plan(BLOCK, width, dt.itemsize, optin)
+            passes = -(-width // plan.cap)
+            tag = f"wide rows {str(dt)[6:]} W={width}"
+            agree(f"{tag} sparse_block_gram plan={plan} passes={passes}",
+                  sb.sparse_block_gram(*args),
+                  sb.sparse_block_gram_plain(*args), dt, worst, "B5")
+            if width == max(widths):
+                bit_for_bit(f"{tag} sparse_block_gram",
+                            lambda: sb.sparse_block_gram(*args))
+            out[(str(dt)[6:], width)] = (
+                plan, passes, graph_ms(lambda: sb.sparse_block_gram(*args),
+                                       5))
+            del args
+    return out
+
+
+def lasso_reached(traj, target):
+    """The first eval round whose gap is at or below ``target``, or None."""
+    return next((rec.round for rec in traj.records if rec.gap <= target),
+                None)
+
+
+def phase_prox_block_path(demo_train, demo_seq, lasso, lasso_seq, tall):
+    """ProxCoCoA+ through the block round, every kernel's launches counted
+    from 0 just before each run and read just after: the demo's columns
+    through the CLI with --blockSize=128 on the dense layout (B4) and the
+    padded-CSC one (B5, B3, B6), each against phase 9's sequential run
+    (``demo_seq`` by layout); the lasso design (``lasso``: dataset, b,
+    lambda_max) through run_prox_cocoa for LASSO_ROUNDS rounds at each of
+    PROX_BLOCKS, lasso and elastic net, in float32 against phase 9's
+    sequential runs (``lasso_seq``) and in float64 against float64
+    sequential runs; and the tall design through the fused branch beside
+    its own sequential run.  Gaps within relative 1e-3 of the sequential
+    run at every eval (float32 lasso design runs: plus F32_GAP_ULPS ulps
+    of the primal).  Returns ({run: counts}, {run: ms per round})."""
+    launched, per_round = {}, {}
+    rounds = 50
+    argv = [f"--trainFile={demo_train}", "--numFeatures=9947",
+            "--numSplits=4", f"--numRounds={rounds}", "--localIterFrac=0.1",
+            "--math=fast", "--dtype=float32", "--lambda=.1",
+            "--objective=lasso", "--blockSize=128"]
+    nb = -(-max(1, int(0.1 * 9947 / 4)) // BLOCK)
+    for layout, kerns in (("dense", ("B4",)), ("sparse", ("B5", "B3",
+                                                          "B6"))):
+        label = f"demo lasso {layout} --blockSize=128"
+        (out, res), got = reset_and_run(run_cli, argv + [f"--layout={layout}"])
+        (OUT / f"chip_smoke_demo_lasso_{layout}_block.log").write_text(out)
+        want = {name: rounds * nb if name in kerns else 0 for name in KERNELS}
+        check(got == want, f"{label}: launches {got}, want {want}")
+        check_same_gaps(f"{label} vs sequential", res, demo_seq[layout])
+        launched[label] = got
+        per_round[label] = res[0].trajectory.records[-1].wall_time \
+            / rounds * 1e3
+        print(f"phase 11: {label} ok: {'/'.join(kerns)} {nb} a round each, "
+              f"gaps within rel 1e-3 of the sequential run; "
+              f"{per_round[label]:.3f} ms per round (evals included)")
+    ds, b, lam_max = lasso
+    d = ds.n
+    h = d // ds.k // 10
+    target = 1e-3 * 0.5 * float(b @ b)
+    # float32, the timed runs beside phase 9's sequential ones; float64,
+    # whose certificate resolves the gaps far below a float32 ulp of the
+    # primal (the float32 gaps of the last evals are a few of those)
+    f32, f64 = torch.float32, torch.float64
+    runs = {(f32, 0, tag): lasso_seq[f"lasso design {tag}"]
+            for tag in ("lasso", "elastic net")}
+    for dt in (f32, f64):
+        dsd, bd = (ds, b) if dt == f32 else (as_dtype(ds, dt), b.to(dt))
+        for bs, route, kern in ((0, "sequential", "B2"), *PROX_BLOCKS):
+            if bs:
+                check(cocoa_mod.block_route("dense", bs, dt) == route,
+                      f"lasso design B={bs} does not route {route}")
+            elif dt == f32:
+                continue
+            nbl = -(-h // (bs or h))
+            for tag, l2 in (("lasso", 0.0), ("elastic net", 0.1)):
+                label = f"lasso design {str(dt)[6:]} {tag} B={bs} {route}"
+                params = Params(n=d, num_rounds=LASSO_ROUNDS, local_iters=h,
+                                lam=0.3 * lam_max, loss="lasso", smoothing=l2)
+                (x, r, traj), got = reset_and_run(
+                    run_prox_cocoa, dsd, bd, params,
+                    DebugParams(debug_iter=50, seed=0), quiet=True,
+                    math="fast", block_size=bs)
+                check(got == only(kern, LASSO_ROUNDS * nbl),
+                      f"{label}: launches {got}, want "
+                      f"{only(kern, LASSO_ROUNDS * nbl)}")
+                check(bool(torch.isfinite(x).all()
+                           and torch.isfinite(r).all()),
+                      f"{label}: x or r not finite")
+                runs[(dt, bs, tag)] = res = [
+                    cli.RunResult(traj.algorithm, r, x, traj)]
+                launched[label] = got
+                ms = traj.records[-1].wall_time / LASSO_ROUNDS * 1e3
+                per_round[label] = ms
+                seq = runs[(dt, 0, tag)][0].trajectory
+                if bs:
+                    check_same_gaps(label, res, runs[(dt, 0, tag)],
+                                    ulps=F32_GAP_ULPS if dt == f32 else 0)
+                print(f"phase 11: {label} ok: {nbl} {kern} launches per "
+                      f"round, {ms:.3f} ms per round (evals included; "
+                      f"sequential B2 "
+                      f"{seq.records[-1].wall_time / LASSO_ROUNDS * 1e3:.3f}"
+                      f"); 1e-3 relative target {target:.6g} reached at "
+                      f"round {lasso_reached(traj, target)} (sequential: "
+                      f"{lasso_reached(seq, target)}); round:gap/sequential "
+                      + " ".join(f"{a.round}:{a.gap:.6g}/{c.gap:.6g}"
+                                 for a, c in zip(traj.records, seq.records)))
+        del dsd, bd
+    ds, b, lam_max = tall
+    h = max(1, ds.n // ds.k // 10)
+    params = Params(n=ds.n, num_rounds=TALL_ROUNDS, local_iters=h,
+                    lam=0.3 * lam_max, loss="lasso", smoothing=0.0)
+    runs = {}
+    for bs, kern in ((0, "B2"), (BLOCK, "B4")):
+        label = f"tall lasso design B={bs or 'sequential'}"
+        (x, r, traj), got = reset_and_run(
+            run_prox_cocoa, ds, b, params, DebugParams(debug_iter=10, seed=0),
+            quiet=True, math="fast", block_size=bs)
+        check(got == only(kern, TALL_ROUNDS * (-(-h // (bs or h)))),
+              f"{label}: launches {got}")
+        gaps = [rec.gap for rec in traj.records]
+        check(all(np.isfinite(g) and g >= 0 for g in gaps)
+              and gaps[-1] < gaps[0], f"{label}: gaps {gaps}")
+        runs[bs] = [cli.RunResult(traj.algorithm, r, x, traj)]
+        launched[label] = got
+        per_round[label] = traj.records[-1].wall_time / TALL_ROUNDS * 1e3
+        print(f"phase 11: {label} ok: 1 {kern} launch per round, "
+              f"{per_round[label]:.3f} ms per round (evals included); gaps "
+              + " ".join(f"{rec.round}:{rec.gap:.6g}" for rec in
+                         traj.records))
+    check_same_gaps("tall lasso design fused vs sequential", runs[BLOCK],
+                    runs[0])
     return launched, per_round
 
 
@@ -1635,8 +2020,8 @@ def main() -> int:
     ln, ld, lk = LASSO_SHAPE
     lasso_ds, lasso_b, lam_max = synth_lasso_columns(ln, ld, lk, seed=0,
                                                      device="cuda")
-    tall, _, tall_max = synth_lasso_columns(*TALL_LASSO_SHAPE, seed=1,
-                                            device="cuda")
+    tall, tall_b, tall_max = synth_lasso_columns(*TALL_LASSO_SHAPE, seed=1,
+                                                 device="cuda")
     eps_h = EPS_SHAPE[0] // EPS_SHAPE[2] // 10
     lasso_h = ld // lk // 10
     f32, f64 = torch.float32, torch.float64
@@ -1691,7 +2076,6 @@ def main() -> int:
                                          demo.n, "plus", "hinge", 1.0, 50),
           "tall lasso design": dense_timing(tall, 40, 0.3 * tall_max, 1,
                                             "prox", "lasso", 0.0, 20)}
-    del tall
     print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
           f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
           f"launches, and every plan timed, agree bit for bit; B1 prox "
@@ -1715,10 +2099,10 @@ def main() -> int:
     del eps
 
     # --- phase 9: the new entry points: the menu and the lasso objective
-    launched9, _ = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
-    launched_lasso, _ = phase_lasso_design(lasso_ds, lasso_b, lam_max)
+    launched9, _, results9 = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
+    launched_lasso, _, lasso_runs = phase_lasso_design(lasso_ds, lasso_b,
+                                                       lam_max)
     launched9.update(launched_lasso)
-    del lasso_ds
 
     # --- phase 10: the hybrid hot/cold layout (--hotCols)
     t0 = time.perf_counter()
@@ -1783,8 +2167,40 @@ def main() -> int:
           f"{hyb_block[0]:.3f} vs {per_round['rcv1-like'][0]:.3f}, CoCoA "
           f"{hyb_block[1]:.3f} vs {per_round['rcv1-like'][1]:.3f}")
 
+    # --- phase 11: ProxCoCoA+ through the block round
+    t0 = time.perf_counter()
+    designs11 = {
+        "lasso design": (lasso_ds, 0.3 * lam_max),
+        "tall lasso design": (tall, 0.3 * tall_max),
+        "demo dense columns": (shard_columns(
+            demo, 4, dtype=f32, device="cuda", layout="dense")[0], 0.1)}
+    plans11 = phase_prox_block_kernels(designs11, demo_cols, worst)
+    wide_b5 = phase_wide_gram(worst)
+    prox_ms = prox_block_timing(designs11, demo_cols)
+    print(f"phase 11: B3, B4, B5 and B6 in mode prox/lasso at l2 "
+          f"{PROX_L2} agree with their plain versions (max_abs_err "
+          + ", ".join(f"{n} {worst[n]:.3e}" for n in ("B3", "B4", "B5",
+                                                      "B6"))
+          + f"; phases 5, 10 and 11) in {time.perf_counter() - t0:.1f} s; "
+          f"two launches of each bit for bit; plans held (kernel, dtype, "
+          f"B, n or W, plan): " + ", ".join(str(p) for p in sorted(plans11)))
+    print("  B5 at wide rows (K=2 x 128, CUDA-graph replay; plan (T, "
+          "slots, chunk, cap, bytes), passes, ms): " + "; ".join(
+              f"{dt} W={w} {tuple(plan)} {passes} {ms:.4f}"
+              for (dt, w), (plan, passes, ms) in wide_b5.items())
+          + "; the widest of each dtype bit for bit across two launches")
+    print("  prox/lasso block kernels, float32, ms per launch (B4 by CUDA "
+          "events around wrapper calls, B3, B5, B6 by CUDA-graph replay): "
+          + "; ".join(f"{name} {ms:.4f}" for name, ms in prox_ms.items()))
+    launched11, _ = phase_prox_block_path(
+        DEMO_TRAIN, {lay: results9[f"demo lasso {lay}"]
+                     for lay in ("dense", "sparse")},
+        (lasso_ds, lasso_b, lam_max), lasso_runs, (tall, tall_b, tall_max))
+    del lasso_ds, tall, designs11
+
     block_launches = {name: sum(c[name] for c in (*launched.values(),
-                                                  *launched10.values()))
+                                                  *launched10.values(),
+                                                  *launched11.values()))
                       for name in ("B3", "B4", "B5", "B6")}
     for name, n in block_launches.items():
         check(n > 0, f"{name} never launched on the block path")
@@ -1836,7 +2252,10 @@ def main() -> int:
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phase 9 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8 "
-          f"and 9)")
+          f"and 9); B3-B6 " + ", ".join(
+              f"{name} {n} (phase 11: "
+              f"{sum(c[name] for c in launched11.values())})"
+              for name, n in block_launches.items()))
     # the card once more, near the end of the output
     print(f"card (nvidia-smi name, power.limit): {card}; kernels built in "
           f"{build_s:.1f} s; all phases in {time.perf_counter() - start:.1f} s")

@@ -16,11 +16,12 @@ then runs the rest of the reference's comparison (hingeDriver.scala:
 84-110): mini-batch CD, mini-batch SGD, local SGD and DistGD.
 ``--objective=lasso`` runs ProxCoCoA+ instead, on the labels as the
 regression target with the L1 weight ``--lambda`` and the elastic-net
-weight ``--l2``.  It runs on CUDA unless ``--device=cpu`` is given, and
-exits 2 with ``error: ...`` when CUDA is absent.  ``--blockSize`` (with
-``--math=fast``) runs each SDCA round as the block-coordinate round;
-``auto`` picks the block size for the layout.  ``--hotCols`` (sparse
-layout, ``--objective=svm``) builds the hybrid hot/cold column split
+weight ``--l2``, on the column shards.  It runs on CUDA unless
+``--device=cpu`` is given, and exits 2 with ``error: ...`` when CUDA is
+absent.  ``--blockSize`` (with ``--math=fast``) runs each SDCA round,
+ProxCoCoA+'s too, as the block-coordinate round; ``auto`` picks the block
+size for the layout.  ``--hotCols`` (sparse layout,
+``--objective=svm``) builds the hybrid hot/cold column split
 (data/hybrid.py): the hottest columns move into a dense panel and the
 padded CSR keeps the cold residual; ``auto`` takes the panel that covers
 75% of the nonzeros within a 2 GiB budget.  Flags of the JAX CLI that
@@ -121,8 +122,6 @@ def parse_args(argv: list[str]):
             setattr(cfg, field, float(val))
         else:
             setattr(cfg, field, val)
-    if cfg.objective.lower() == "lasso" and cfg.block_size not in ("", "0"):
-        unported.append("objective=lasso with --blockSize")
     return cfg, unported
 
 
@@ -210,19 +209,33 @@ def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
     return hot_n
 
 
-def _run_lasso(cfg: RunConfig, l2: float, dtype, device):
-    """``--objective=lasso``: ProxCoCoA+ on A's column shards, then the
-    JAX CLI's summary line from one more certificate."""
+def _resolve_auto_block(ds, dtype) -> int:
+    """``--blockSize=auto`` against the active dataset (rows for svm,
+    columns for lasso), with the JAX CLI's line (cocoa_tpu/cli.py
+    ``_resolve_auto_block``)."""
+    block_size = auto_block_size(ds, dtype)
+    print(f"blockSize=auto: using {block_size or 'the sequential path'} "
+          f"for the {ds.layout} layout")
+    return block_size
+
+
+def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device):
+    """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
+    ``--blockSize``, through the block round), then the JAX CLI's summary
+    line from one more certificate."""
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
         ds, b = shard_columns(data, k, dtype=dtype, device=device,
                               layout=cfg.layout)
+        if cfg.block_size.lower() == "auto":
+            block_size = _resolve_auto_block(ds, dtype)
         # the same H = max(1, localIterFrac*d/K) law, over coordinates
         params = dataclasses.replace(cfg.to_params(data.num_features, k),
                                      loss="lasso", smoothing=l2)
         x, r, traj = run_prox_cocoa(ds, b, params, cfg.to_debug(),
-                                    rng=cfg.rng, math=cfg.math)
+                                    rng=cfg.rng, math=cfg.math,
+                                    block_size=block_size)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -254,7 +267,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
 
     dtype = _DTYPES[cfg.dtype]
     if objective == "lasso":
-        return _run_lasso(cfg, l2, dtype, device)
+        return _run_lasso(cfg, l2, block_size, dtype, device)
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
@@ -274,9 +287,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         return 2, []
 
     if cfg.block_size.lower() == "auto":
-        block_size = auto_block_size(ds, dtype)
-        print(f"blockSize=auto: using {block_size or 'the sequential path'} "
-              f"for the {ds.layout} layout")
+        block_size = _resolve_auto_block(ds, dtype)
     params = cfg.to_params(data.n, k)
     debug = cfg.to_debug()
     sdca = dict(test_ds=test_ds, rng=cfg.rng, math=cfg.math,

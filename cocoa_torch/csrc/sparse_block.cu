@@ -25,8 +25,9 @@
 //   (``tables`` of them, a power of two, at most kMaxTables), round-robin,
 //   so the triangle's work spreads evenly over the blocks.
 // - one open-addressing hash table a row it owns, in shared memory:
-//   ``slots`` (a power of two above W; the plan's default at least 2 W:
-//   2048 at rcv1-like W = 548) slots of an int32 column key (-1 empty)
+//   ``slots`` (a power of two above the entries a pass inserts; the
+//   plan's default at least 2 W: 2048 at rcv1-like W = 548) slots of an
+//   int32 column key (-1 empty)
 //   beside its value, read with one load, multiplicative hashing, linear
 //   probing.  A warp builds one table, 32 entries at a time in slot
 //   order: __match_any_sync groups a chunk's equal columns, the group's
@@ -36,21 +37,38 @@
 //   timing, and two launches agree bit for bit; only the slot a key lands
 //   in may.  The same warp writes mb[k, i] (lane-strided products, a
 //   shuffle butterfly).
-// - each later row j (j > t) of the shard is read once by the block: its
-//   8 warps take the rows j = t + 1 + w, t + 9 + w, ..., each staging its
-//   next row in a second shared-memory buffer by cp.async while it probes
-//   the current one (a lane reads back only the entries it copied, so
-//   cp.async.wait_group alone orders them).  A lane looks each of its
-//   entries up in the tables of the owned rows i < j, the first probes of
-//   all tables issued together, the tables that collided walking on
-//   together one slot a round, and one butterfly a table, the tables'
+// - each later row j (j > t) of the shard is read once (once a pass) by
+//   the block: its 8 warps take the rows j = t + 1 + w, t + 9 + w, ...,
+//   each warp staging its next row (next chunk) in a second shared-memory
+//   buffer by cp.async while it probes the current one (a lane reads back
+//   only the entries it copied, so cp.async.wait_group alone orders
+//   them).  gram_kernel stages whole rows, where two rows a warp fit
+//   beside the tables; gram_pass_kernel stages chunks of ``chunk`` (256)
+//   entries, a multiple of 32, so lane l holds entries l + 32 m of the
+//   row in every chunk and its sums keep the row's order: the same bits
+//   as whole rows.  A lane looks each of its entries up in the tables
+//   of the owned rows i < j, the first probes of all tables issued
+//   together, the tables that collided walking on together one slot a
+//   round, and one butterfly a table at the row's end, the tables'
 //   shuffles interleaved, gives gram[k, j, i].  The probe loop reads only
 //   shared memory; the shard's row lengths are staged there first.
+// - passes (gram_pass_kernel), for rows whose table does not fit: a
+//   table takes at most ``cap`` entries of its row (a multiple of 32
+//   below the slots), and pass p builds entries [p cap, (p + 1) cap) of
+//   every owned row, then
+//   streams the later rows against them; pass 0 writes each dot, a later
+//   pass adds its part for the owned rows that still had entries, on the
+//   same lane of the same warp, in pass order, so the sum does not depend
+//   on timing.  A column repeated within a row sums in slot order inside
+//   a pass; its entries in two passes reach the Gram as two partial dots.
+//   The margin base is summed over the passes in the row's order.  cap >=
+//   W (every plan whose tables of >= 2 W slots fit) is one pass.
 // - the entries j <= i of the owned columns are written as zeros, so the
 //   (K, B, B) Gram is written whole; a masked row builds an empty table
 //   and probes nothing.  Frozen mode builds no table.
-// - ops/sparse_block.py gram_plan picks (T, slots) against the
-//   shared-memory opt-in; the kernel refuses a plan it cannot hold.
+// - ops/sparse_block.py gram_plan picks (T, slots, chunk, cap) against
+//   the shared-memory opt-in, for rows of any width; the kernel refuses a
+//   plan it cannot hold.
 //
 // The apply's design (apply_kernel):
 // - grid K; one block per shard walks rows j = 0..B-1 in order,
@@ -259,6 +277,184 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// B5 on rows in chunks, in passes: gram_kernel's walk, with each warp's
+// two buffers of ``chunk`` entries (values, then columns) in place of two
+// whole rows, and an owned row's entries put in its table ``cap`` at a
+// time: pass p builds entries [p cap, (p + 1) cap) and streams the later
+// rows against them, adding its partial dots to the Gram.  A kernel of
+// its own: folding the chunk and pass bookkeeping into gram_kernel made
+// the whole-row plans 5-11 % slower on the card.
+template <typename T, int kTables>
+__global__ void __launch_bounds__(kThreads) gram_pass_kernel(
+    const T* __restrict__ w, const T* __restrict__ dw,
+    const int* __restrict__ gidx, const T* __restrict__ gval,
+    const int* __restrict__ cnts, T* __restrict__ gram, T* __restrict__ mb,
+    int b, int width, int d, int nt, int bits, int chunk, int cap,
+    T sig_eff, int frozen) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int slots = 1 << bits, mask = slots - 1;
+  Slot<T>* tab = reinterpret_cast<Slot<T>*>(smem_raw);
+  T* bv = reinterpret_cast<T*>(tab + kTables * slots);
+  int* bc = reinterpret_cast<int*>(bv + 2 * kWarps * chunk);
+  int* kc = bc + 2 * kWarps * chunk;
+  const int t = blockIdx.x, k = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int* rc = gidx + (size_t)k * b * width;
+  const T* rv = gval + (size_t)k * b * width;
+  for (int e = tid; e < b; e += kThreads) kc[e] = cnts[(size_t)k * b + e];
+  if (!frozen) {
+    for (int e = tid; e < kTables * slots; e += kThreads)
+      tab[e] = Slot<T>{-1, T(0)};
+    // the entries j <= i of the owned columns i
+    for (int e = tid; e < kTables * b; e += kThreads) {
+      const int o = e / b, j = e - o * b, i = t + o * nt;
+      if (i < b && j <= i) gram[((size_t)k * b + j) * b + i] = T(0);
+    }
+  }
+  __syncthreads();
+  // the passes: as many as the longest owned row needs (frozen mode
+  // builds no table and reads each owned row whole, in one)
+  int passes = 1;
+  if (!frozen)
+    for (int o = 0; o < kTables; ++o)
+      if (t + o * nt < b)
+        passes = max(passes, (max(kc[t + o * nt], 0) + cap - 1) / cap);
+  const int own = t + warp * nt;
+  const bool owner = warp < kTables && own < b;
+  const int own_cnt = owner ? kc[own] : 0;
+  // the pass that ends the owned row, where its margin base is written
+  const int own_last = frozen || own_cnt <= 0 ? 0 : (own_cnt - 1) / cap;
+  int* mc = bc + 2 * warp * chunk;
+  T* mv = bv + 2 * warp * chunk;
+  T macc = T(0);  // the owned row's margin base, summed over the passes
+  for (int p = 0; p < passes; ++p) {
+    if (p > 0) {
+      __syncthreads();  // the last pass's probes are done
+      for (int e = tid; e < kTables * slots; e += kThreads)
+        tab[e] = Slot<T>{-1, T(0)};
+      __syncthreads();
+    }
+    if (owner) {  // owned row i: this pass's entries into its table, mb
+      const int lo = frozen ? 0 : p * cap;
+      const int hi = frozen ? own_cnt : min(own_cnt, lo + cap);
+      const int* ci = rc + (size_t)own * width;
+      const T* vi = rv + (size_t)own * width;
+      // the next chunk's entries are loaded while this one is inserted
+      int f = lo + lane < hi ? ci[lo + lane] : 0;
+      T v = lo + lane < hi ? vi[lo + lane] : T(0);
+      for (int base = lo; base < hi; base += 32) {
+        const int e = base + lane, en = e + 32;
+        const bool ok = e < hi;
+        const int fn = en < hi ? ci[en] : 0;
+        const T vn = en < hi ? vi[en] : T(0);
+        T coord = T(0);
+        if (ok) {
+          coord = w[f];
+          if (!frozen) coord = coord + sig_eff * dw[(size_t)k * d + f];
+        }
+        if (!frozen) insert_chunk(tab + warp * slots, f, v, ok, lane, bits);
+        if (ok) macc = macc + v * coord;
+        f = fn;
+        v = vn;
+      }
+      if (p == own_last) {
+        const T sum = sdca::warp_sum(macc);
+        if (lane == 0) mb[(size_t)k * b + own] = sum;
+      }
+    }
+    if (frozen) return;
+    __syncthreads();  // every table of this pass is built
+    // stage entries [c chunk, c chunk + chunk) of row ``row`` (if any)
+    // into buffer ``buf``; returns how many
+    auto stage = [&](int row, int c, int buf) {
+      const int left = row < b ? max(kc[row], 0) - c * chunk : 0;
+      const int cnt = max(0, min(left, chunk));
+      const size_t at = (size_t)row * width + (size_t)c * chunk;
+      for (int e = lane; e < cnt; e += 32) {
+        cp_async(mc + buf * chunk + e, rc + at + e);
+        cp_async(mv + buf * chunk + e, rv + at + e);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      return cnt;
+    };
+    // the units (row j, chunk c) of this warp's rows j = t + 1 + warp,
+    // t + 9 + warp, ..., in order; a row of no entries is one empty unit
+    int j = t + 1 + warp, c = 0;
+    int len = stage(j, 0, 0);
+    T acc[kTables];
+#pragma unroll
+    for (int o = 0; o < kTables; ++o) acc[o] = T(0);
+    for (int n = 0; j < b; ++n) {
+      int jn = j, cn = c + 1;
+      if (cn * chunk >= kc[j]) {  // row j's last chunk: next, row j + 8
+        jn = j + kWarps;
+        cn = 0;
+      }
+      const int len_next = stage(jn, cn, (n + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      const int* cb = mc + (n & 1) * chunk;
+      const T* vb = mv + (n & 1) * chunk;
+      // a lane's entries are c chunk + lane + 32 m: chunk is a multiple
+      // of 32 (or the whole row), so each acc sums in the row's order
+      for (int e = lane; e < len; e += 32) {
+        const int f = cb[e];
+        const T v = vb[e];
+        const int h = hash_slot(f, bits);
+        Slot<T> hit[kTables];
+        // every table's first probe, issued together (a table of a row i
+        // >= j is read and not used: loading only the tables of rows i <
+        // j measured slower)
+#pragma unroll
+        for (int o = 0; o < kTables; ++o) hit[o] = tab[o * slots + h];
+        // a collision at the first probe: every such table walks on one
+        // slot a round, the loads of a round issued together
+        for (int step = 1;; ++step) {
+          bool walk = false;
+#pragma unroll
+          for (int o = 0; o < kTables; ++o)
+            walk |= t + o * nt < j && hit[o].key != f && hit[o].key != -1;
+          if (!walk) break;
+#pragma unroll
+          for (int o = 0; o < kTables; ++o)
+            if (t + o * nt < j && hit[o].key != f && hit[o].key != -1)
+              hit[o] = tab[o * slots + ((h + step) & mask)];
+        }
+#pragma unroll
+        for (int o = 0; o < kTables; ++o)
+          if (t + o * nt < j && hit[o].key == f)
+            acc[o] = acc[o] + v * hit[o].val;
+      }
+      if (jn != j) {  // row j is done: its dots with the owned rows
+        // the tables' butterflies interleaved, each in sdca::warp_sum's
+        // order
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+          for (int o = 0; o < kTables; ++o)
+            acc[o] = acc[o] + __shfl_xor_sync(0xffffffffu, acc[o], off);
+        }
+        if (lane == 0) {
+          // pass 0 writes the dot; a later pass adds its part for the
+          // owned rows that still had entries, in pass order
+#pragma unroll
+          for (int o = 0; o < kTables; ++o) {
+            const int i = t + o * nt;
+            if (i < j && p == 0) gram[((size_t)k * b + j) * b + i] = acc[o];
+            else if (i < j && p * cap < kc[i])
+              gram[((size_t)k * b + j) * b + i] += acc[o];
+          }
+        }
+#pragma unroll
+        for (int o = 0; o < kTables; ++o) acc[o] = T(0);
+      }
+      j = jn;
+      c = cn;
+      len = len_next;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) apply_kernel(
     T* __restrict__ dw, const int* __restrict__ gidx,
@@ -293,48 +489,72 @@ inline int gram_tables(int b, int nt) {
 }
 
 // B5's shared memory: the tables (a slot holds the key beside its value,
-// two values wide), each warp's two row buffers (a value and an int32
-// column an entry) and the B row lengths.  ops/sparse_block.py
-// gram_smem_bytes is the same sum.
-size_t gram_smem(int tables, int slots, int width, int b, size_t itemsize) {
+// two values wide), each warp's two buffers of ``chunk`` entries (a value
+// and an int32 column an entry) and the B row lengths.
+// ops/sparse_block.py gram_smem_bytes is the same sum.
+size_t gram_smem(int tables, int slots, int chunk, int b, size_t itemsize) {
   return (size_t)tables * slots * 2 * itemsize +
-         2 * (size_t)kWarps * width * (itemsize + sizeof(int)) +
+         2 * (size_t)kWarps * chunk * (itemsize + sizeof(int)) +
          (size_t)b * sizeof(int);
 }
 
 // A Gram plan: nt in 1..b blocks a shard, at most kMaxTables rows each,
-// a power-of-two table of more slots than a row has entries.
-inline bool gram_plan_ok(int b, int width, int nt, int slots) {
+// a power-of-two table of more slots than a pass inserts entries (cap),
+// and chunks and passes that are the whole row or multiples of 32 entries
+// (so a lane's entries keep the row's order).
+inline bool gram_plan_ok(int b, int width, int nt, int slots, int chunk,
+                         int cap) {
   if (b < 1 || width < 0 || nt < 1 || nt > b) return false;
   if (gram_tables(b, nt) > kMaxTables) return false;
-  return slots > width && slots <= (1 << 24) && (slots & (slots - 1)) == 0;
+  if (chunk < 1 || (chunk < width && chunk % 32 != 0)) return false;
+  if (cap < 1 || (cap < width && cap % 32 != 0)) return false;
+  return cap < slots && slots <= (1 << 24) && (slots & (slots - 1)) == 0;
 }
 
 template <typename T>
 using GramFn = void (*)(const T*, const T*, const int*, const T*, const int*,
                         T*, T*, int, int, int, int, int, T, int);
+template <typename T>
+using PassFn = void (*)(const T*, const T*, const int*, const T*,
+                        const int*, T*, T*, int, int, int, int, int, int,
+                        int, T, int);
 
 template <typename T>
 int launch_gram(const T* w, const T* dw, const int* gidx, const T* gval,
                 const int* cnts, T* gram, T* mb, int k, int b, int width,
-                int d, int nt, int slots, double sig_eff, int frozen,
-                void* stream) {
-  if (k < 1 || !gram_plan_ok(b, width, nt, slots))
+                int d, int nt, int slots, int chunk, int cap, double sig_eff,
+                int frozen, void* stream) {
+  if (k < 1 || !gram_plan_ok(b, width, nt, slots, chunk, cap))
     return (int)cudaErrorInvalidValue;
   const int tables = gram_tables(b, nt);
-  const size_t bytes = gram_smem(tables, slots, width, b, sizeof(T));
+  const size_t bytes = gram_smem(tables, slots, chunk, b, sizeof(T));
   if (bytes > (size_t)sdca::smem_optin()) return (int)cudaErrorInvalidValue;
-  const GramFn<T> kern = tables == 1 ? &gram_kernel<T, 1>
-                       : tables == 2 ? &gram_kernel<T, 2>
-                       : tables == 4 ? &gram_kernel<T, 4>
-                                     : &gram_kernel<T, 8>;
-  cudaError_t err = sdca::allow_smem(kern, bytes);
-  if (err != cudaSuccess) return (int)err;
   int bits = 0;
   while ((1 << bits) < slots) ++bits;
-  kern<<<dim3(nt, k), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      w, dw, gidx, gval, cnts, gram, mb, b, width, d, nt, bits, T(sig_eff),
-      frozen);
+  const dim3 grid(nt, k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (chunk >= width && cap >= width) {  // whole rows, one pass
+    const GramFn<T> kern = tables == 1 ? &gram_kernel<T, 1>
+                         : tables == 2 ? &gram_kernel<T, 2>
+                         : tables == 4 ? &gram_kernel<T, 4>
+                                       : &gram_kernel<T, 8>;
+    err = sdca::allow_smem(kern, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, bytes, s>>>(w, dw, gidx, gval, cnts, gram, mb, b,
+                                       width, d, nt, bits, T(sig_eff),
+                                       frozen);
+  } else {
+    const PassFn<T> kern = tables == 1 ? &gram_pass_kernel<T, 1>
+                         : tables == 2 ? &gram_pass_kernel<T, 2>
+                         : tables == 4 ? &gram_pass_kernel<T, 4>
+                                       : &gram_pass_kernel<T, 8>;
+    err = sdca::allow_smem(kern, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kThreads, bytes, s>>>(w, dw, gidx, gval, cnts, gram, mb, b,
+                                       width, d, nt, bits, chunk, cap,
+                                       T(sig_eff), frozen);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -354,7 +574,8 @@ int launch_apply(T* dw, const int* gidx, const T* gval, const int* cnts,
 
 // Plain C entry points for ctypes.  Every tensor is contiguous; indices
 // are int32.  ``gram`` (K, B, B) and ``mb`` (K, B) are written whole
-// (``gram`` is null in frozen mode); (nt, slots) is the Gram's plan.
+// (``gram`` is null in frozen mode); (nt, slots, chunk, cap) is the
+// Gram's plan.
 // ``dw`` is advanced in place by the apply.  Returns the launch's error
 // or cudaGetLastError() (cudaErrorInvalidValue for a Gram plan that
 // breaks gram_plan_ok's rules or does not fit the shared-memory opt-in).
@@ -362,9 +583,11 @@ int launch_apply(T* dw, const int* gidx, const T* gval, const int* cnts,
   extern "C" int NAME(const T* w, const T* dw, const int* gidx,             \
                       const T* gval, const int* cnts, T* gram, T* mb,       \
                       int k, int b, int width, int d, int nt, int slots,    \
-                      double sig_eff, int frozen, void* stream) {           \
+                      int chunk, int cap, double sig_eff, int frozen,       \
+                      void* stream) {                                       \
     return launch_gram<T>(w, dw, gidx, gval, cnts, gram, mb, k, b, width,   \
-                          d, nt, slots, sig_eff, frozen, stream);           \
+                          d, nt, slots, chunk, cap, sig_eff, frozen,        \
+                          stream);                                          \
   }
 GRAM_ENTRY(sparse_block_gram_f32, float)
 GRAM_ENTRY(sparse_block_gram_f64, double)

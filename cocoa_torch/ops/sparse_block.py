@@ -14,16 +14,19 @@ Each wrapper takes the tensor's device as the rule: on a CPU tensor it
 runs the plain version; on a CUDA tensor it launches the kernel or raises.
 
 The Gram kernel builds, for each row a block owns, a hash table of its
-columns in shared memory, then streams the shard's later rows once and
-looks their columns up in the tables.  :func:`gram_plan` picks the blocks
-a shard (the rows each owns) and the table's size against the card's
-shared memory; the kernel refuses a plan it cannot hold.
+columns in shared memory, then streams the shard's later rows in chunks
+and looks their columns up in the tables; a row whose table does not fit
+goes into a smaller one in passes.  :func:`gram_plan` picks the blocks a
+shard (the rows each owns), the table's size, the chunk and the entries a
+pass against the card's shared memory, for rows of any width; the kernel
+refuses a plan it cannot hold.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,11 +38,28 @@ _APPLY_FN = {torch.float32: "sparse_block_apply_f32",
              torch.float64: "sparse_block_apply_f64"}
 
 # the Gram kernel's constants (csrc/sparse_block.cu kWarps, kMaxTables):
-# each of its warps double-buffers a row; a block owns at most MAX_TABLES
-# rows, each with a hash table of int32 keys beside values
+# each of its warps double-buffers a chunk of a row; a block owns at most
+# MAX_TABLES rows, each with a hash table of int32 keys beside values
 GRAM_WARPS = 8
 MAX_TABLES = 8
 ROWS_PER_CTA = (8, 4, 2, 1)
+# the entries of a chunk where whole rows do not fit beside the tables
+CHUNK = 256
+# the least table of a plan in passes (a pass then inserts 32 entries)
+MIN_PASS_SLOTS = 64
+
+
+class GramPlan(NamedTuple):
+    """The Gram kernel's plan: ``blocks`` a shard (block t owns rows t,
+    t + blocks, ...), tables of ``slots`` entries, each warp's buffers of
+    ``chunk`` entries of a row, at most ``cap`` entries of a row in a
+    table at once (cap >= W: one pass), and a block's shared memory."""
+
+    blocks: int
+    slots: int
+    chunk: int
+    cap: int
+    smem: int
 
 
 def table_slots(width: int) -> int:
@@ -51,6 +71,15 @@ def table_slots(width: int) -> int:
     return slots
 
 
+def pass_cap(slots: int, width: int) -> int:
+    """The entries of a row that one pass puts in a table of ``slots``:
+    the whole row where it leaves an empty slot, else half the table,
+    rounded down to whole chunks of 32."""
+    if slots > width:
+        return max(width, 1)
+    return slots // 2 // 32 * 32
+
+
 def gram_tables(b: int, blocks: int) -> int:
     """The tables (owned rows) of one block when a shard's B rows go
     round-robin over ``blocks`` blocks, rounded up to a power of two."""
@@ -60,13 +89,14 @@ def gram_tables(b: int, blocks: int) -> int:
     return tables
 
 
-def gram_smem_bytes(tables: int, slots: int, width: int, b: int,
+def gram_smem_bytes(tables: int, slots: int, chunk: int, b: int,
                     itemsize: int) -> int:
     """Shared memory of one Gram block: the tables (a slot holds the key
-    beside its value, two values wide), each warp's two row buffers (a
-    value and an int32 column an entry) and the B row lengths."""
+    beside its value, two values wide), each warp's two buffers of
+    ``chunk`` entries (a value and an int32 column an entry) and the B row
+    lengths."""
     return tables * slots * 2 * itemsize \
-        + 2 * GRAM_WARPS * width * (itemsize + 4) + 4 * b
+        + 2 * GRAM_WARPS * chunk * (itemsize + 4) + 4 * b
 
 
 def _check_gram_plan(rows_per_cta, slots, width):
@@ -78,36 +108,63 @@ def _check_gram_plan(rows_per_cta, slots, width):
                          f"None (auto), got {rows_per_cta!r}")
     if slots is not None and (
             isinstance(slots, bool) or not isinstance(slots, int)
-            or slots <= width or slots > 1 << 24 or slots & (slots - 1)):
+            or slots < 1 or slots > 1 << 24 or slots & (slots - 1)
+            or (slots <= width and slots < MIN_PASS_SLOTS)):
         raise ValueError(f"slots must be a power of two above the row "
-                         f"width {width} or None (auto), got {slots!r}")
+                         f"width {width} or of at least {MIN_PASS_SLOTS} "
+                         f"(in passes), or None (auto), got {slots!r}")
 
 
 @functools.lru_cache(maxsize=None, typed=True)
 def gram_plan(b: int, width: int, itemsize: int, smem_optin: int,
-              rows_per_cta=None, slots=None):
-    """(T, slots, smem_bytes): the Gram kernel's T blocks a shard, block t
-    owning rows t, t + T, ..., tables of ``slots`` entries, and a block's
-    shared memory, for B = ``b`` rows of ``width`` slots and
-    ``itemsize``-byte values under ``smem_optin`` bytes.
+              rows_per_cta=None, slots=None) -> GramPlan:
+    """The Gram kernel's plan (:class:`GramPlan`) for B = ``b`` rows of
+    ``width`` slots and ``itemsize``-byte values under ``smem_optin``
+    bytes, for every width.  The rows a block owns are the most of
+    ROWS_PER_CTA that fit (``rows_per_cta`` asks for exactly that many),
+    tried in this order:
 
-    ``slots`` None takes :func:`table_slots`; an int asks for that size (a
-    power of two above ``width``: every table keeps an empty slot).
-    ``rows_per_cta`` None takes the most rows of ROWS_PER_CTA whose tables
-    fit; an int asks for exactly that many.  Raises ValueError when the
-    plan does not fit."""
+    1. whole rows in the warps' buffers beside tables of ``slots`` (None:
+       :func:`table_slots`), one pass (:func:`pass_cap`);
+    2. the same tables beside buffers of CHUNK entries;
+    3. only where ``slots`` is None: buffers of CHUNK entries beside the
+       largest tables that fit, at least MIN_PASS_SLOTS, each pass putting
+       half a table's entries of the row in it; one row a block unless
+       ``rows_per_cta`` asks for more, since fewer, larger tables mean
+       fewer passes and so fewer probes.
+
+    ``slots`` an int asks for that size: a power of two above ``width``
+    (one pass) or of at least MIN_PASS_SLOTS (passes where a row is
+    wider).  Raises ValueError only when the plan asked for cannot fit
+    (or B's row lengths alone overflow)."""
     _check_gram_plan(rows_per_cta, slots, width)
-    slots = slots or table_slots(width)
-    for rows in (rows_per_cta,) if rows_per_cta else ROWS_PER_CTA:
+    rows_tried = (rows_per_cta,) if rows_per_cta else ROWS_PER_CTA
+    table = slots or table_slots(width)
+    chunks = (max(width, 1), min(max(width, 1), CHUNK))
+    for chunk in dict.fromkeys(chunks):
+        for rows in rows_tried:
+            blocks = -(-b // rows)
+            used = gram_smem_bytes(gram_tables(b, blocks), table, chunk, b,
+                                   itemsize)
+            if used <= smem_optin:
+                return GramPlan(blocks, table, chunk,
+                                pass_cap(table, width), used)
+    if slots is None:
+        rows = rows_per_cta or 1
         blocks = -(-b // rows)
-        used = gram_smem_bytes(gram_tables(b, blocks), slots, width, b,
-                               itemsize)
-        if used <= smem_optin:
-            return blocks, slots, used
+        tables = gram_tables(b, blocks)
+        while table > MIN_PASS_SLOTS:
+            table //= 2
+            used = gram_smem_bytes(tables, table, chunks[1], b, itemsize)
+            if used <= smem_optin:
+                # half the table a pass, as the default tables hold
+                cap = min(max(width, 1), table // 2 // 32 * 32)
+                return GramPlan(blocks, table, chunks[1], cap, used)
     raise ValueError(f"the sparse Gram kernel cannot hold "
-                     f"{rows_per_cta or 'auto'} tables of {slots} slots "
-                     f"beside rows {width} wide ({itemsize}-byte values) in "
-                     f"{smem_optin} bytes of shared memory")
+                     f"{rows_per_cta or 'auto'} tables of "
+                     f"{slots or 'auto'} slots beside rows {width} wide "
+                     f"({itemsize}-byte values) in {smem_optin} bytes of "
+                     f"shared memory")
 
 
 def live_values(gvals, cnts):
@@ -158,9 +215,8 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
     _check_rows(gidx, gvals, cnts, dt, dev)
     kernels.check_tensor("w", w, dt, (d,), dev)
     kernels.check_tensor("dw", dw, dt, (k, d), dev)
-    blocks, n_slots, _ = gram_plan(b, width, dt.itemsize,
-                                   kernels.smem_optin(dev), rows_per_cta,
-                                   slots)
+    plan = gram_plan(b, width, dt.itemsize, kernels.smem_optin(dev),
+                     rows_per_cta, slots)
     lib = _library()
     gram = None if frozen else torch.empty(k, b, b, dtype=dt, device=dev)
     mb = torch.empty(k, b, dtype=dt, device=dev)
@@ -168,8 +224,9 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
         rc = getattr(lib, _GRAM_FN[dt])(
             w.data_ptr(), dw.data_ptr(), gidx.data_ptr(), gvals.data_ptr(),
             cnts.data_ptr(), None if gram is None else gram.data_ptr(),
-            mb.data_ptr(), k, b, width, d, blocks, n_slots, float(sig_eff),
-            int(frozen), kernels.stream_ptr(dev))
+            mb.data_ptr(), k, b, width, d, plan.blocks, plan.slots,
+            plan.chunk, plan.cap, float(sig_eff), int(frozen),
+            kernels.stream_ptr(dev))
     kernels.raise_on_error(lib, rc, "sparse_block_gram")
     sparse_block_gram.launches += 1
     return gram, mb
@@ -222,6 +279,6 @@ def _check_rows(gidx, gvals, cnts, dt, dev):
 def _library() -> ctypes.CDLL:
     lib = kernels.load("sparse_block")
     kernels.declare(lib, _GRAM_FN.values(), 7,
-                    [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_int])
+                    [ctypes.c_int] * 8 + [ctypes.c_double, ctypes.c_int])
     kernels.declare(lib, _APPLY_FN.values(), 5, [ctypes.c_int] * 4)
     return lib

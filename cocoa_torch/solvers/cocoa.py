@@ -75,11 +75,14 @@ def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
     and pallas_chain.py ``fused_fits``):
 
     - sparse layout: ``"sparse_gram"``, the Gram and margins from the rows'
-      slots and a sparse apply (no (K, B, d) densify);
+      slots and a sparse apply (no (K, B, d) densify), at any row width
+      (ops/sparse_block.py ``gram_plan``);
     - dense layout: ``"fused"`` when the fused kernel's per-shard
       shared-memory working set (the (B, B) Gram: 64 KB at B=128 in
       float32) fits the 227 KB a block may use, else ``"split"``.
 
+    ProxCoCoA+'s column shards take the same rule: a "row" is then a
+    column of A, n entries long (dense) or its nonzeros (padded CSC).
     The route depends on shapes only: a CPU tensor takes the same branch
     with the kernels' plain versions.  2-byte dtypes raise."""
     check_dtype(dtype)
@@ -96,8 +99,9 @@ def auto_block_size(ds: ShardedDataset, dtype: torch.dtype) -> int:
     ``auto_block_size``): float32 takes :data:`AUTO_BLOCK` on every
     layout, and any other dtype gives 0, the sequential path, as the JAX
     package gives for itemsize != 4.  Every branch of the port serves
-    B=128 at any K and row width; the JAX package's dependence on them
-    came from the TPU's VMEM and SMEM budgets."""
+    B=128 at any K and row width, on row and column shards alike; the
+    JAX package's dependence on them came from the TPU's VMEM and SMEM
+    budgets."""
     if dtype != torch.float32:
         return 0
     block_route(ds.layout, AUTO_BLOCK, dtype)

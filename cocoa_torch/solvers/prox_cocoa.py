@@ -9,7 +9,9 @@ x the analogue of alpha.  A round runs H prox coordinate steps per shard
 against the frozen r0 with sigma'-scaled reads of the shard's
 dv = A_[k].dx_[k] (CoCoA+'s subproblem, mode ``prox`` with the ``lasso``
 rule), then r += gamma*sum dv: the SDCA family's driver, so the sequential
-kernels (dense and sparse) run it on the card.
+kernels (dense and sparse) run it on the card, and with ``block_size``
+the block round's kernels (fused or split on dense columns, the sparse
+Gram on padded-CSC ones).
 
 The certificate is exact in both cases:
 - lasso (l2 = 0): gap = P(x) - D(s*r), with the dual-feasible scaling
@@ -57,7 +59,8 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
                    debug: DebugParams, rng: str = "reference",
                    x_init: Optional[torch.Tensor] = None,
                    r_init: Optional[torch.Tensor] = None,
-                   quiet: bool = False, math: str = "fast"):
+                   quiet: bool = False, math: str = "fast",
+                   block_size: int = 0):
     """Train; returns (x (K, d_shard) the sharded coordinates, r = Ax - b
     the residual, Trajectory).  ``ds`` and ``b`` come from
     :func:`cocoa_torch.data.columns.shard_columns`; ``params.lam`` is the
@@ -65,6 +68,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     ``params.gamma`` the aggregation (sigma' = K*gamma) and
     ``params.local_iters`` the coordinate steps per round.  The run
     starts from x = 0, r = -b unless ``x_init``/``r_init`` are given.
+    ``block_size`` > 0 (``--blockSize``, needs ``math="fast"``) runs each
+    round as the block-coordinate round on the column shards, with the
+    lasso rule in the block kernels (solvers/cocoa.py ``block_route``).
     Each eval fetches (primal, gap) from the device once."""
     l1, l2 = float(params.lam), float(params.smoothing)
     # mode prox has no lam*n factor: n = 1 makes lam_n the L1 weight
@@ -80,6 +86,6 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
 
     r, x, traj = run_sdca_family(
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,
-        w_init=-b if r_init is None else r_init, alpha_init=x_init,
-        eval_fn=eval_fn)
+        block_size=block_size, w_init=-b if r_init is None else r_init,
+        alpha_init=x_init, eval_fn=eval_fn)
     return x, r, traj

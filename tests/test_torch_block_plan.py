@@ -127,42 +127,72 @@ def test_chain_smem_matches_the_kernel():
     assert "chain_warp<T, R>(b, m0, nullptr, ys, qs, as0, ls, ix," in src
 
 
-def _gram_bytes(tables, slots, width, itemsize, b=128):
-    return tables * slots * 2 * itemsize + 16 * width * (itemsize + 4) \
+def _gram_bytes(tables, slots, chunk, itemsize, b=128):
+    return tables * slots * 2 * itemsize + 16 * chunk * (itemsize + 4) \
         + 4 * b
 
 
-# (name, width, itemsize, the auto Gram plan (T, slots, bytes))
+def _whole(blocks, tables, slots, width, itemsize):
+    """A one-pass plan whose warps buffer whole rows of ``width``."""
+    return sb.GramPlan(blocks, slots, width, width,
+                       _gram_bytes(tables, slots, width, itemsize))
+
+
+# (name, width, itemsize, the auto Gram plan): whole rows, one pass, the
+# plans of the kernel before rows of any width were taken
 GRAM_PLANS = [
-    ("rcv1-like", 548, 4, (16, 2048, _gram_bytes(8, 2048, 548, 4))),
-    ("rcv1-like", 548, 8, (64, 2048, _gram_bytes(2, 2048, 548, 8))),
-    ("rcv1-like residual", 174, 4, (16, 512, _gram_bytes(8, 512, 174, 4))),
-    ("rcv1-like residual", 174, 8, (16, 512, _gram_bytes(8, 512, 174, 8))),
-    ("demo", 283, 4, (16, 1024, _gram_bytes(8, 1024, 283, 4))),
-    ("demo", 283, 8, (16, 1024, _gram_bytes(8, 1024, 283, 8))),
+    ("rcv1-like", 548, 4, _whole(16, 8, 2048, 548, 4)),
+    ("rcv1-like", 548, 8, _whole(64, 2, 2048, 548, 8)),
+    ("rcv1-like residual", 174, 4, _whole(16, 8, 512, 174, 4)),
+    ("rcv1-like residual", 174, 8, _whole(16, 8, 512, 174, 8)),
+    ("demo", 283, 4, _whole(16, 8, 1024, 283, 4)),
+    ("demo", 283, 8, _whole(16, 8, 1024, 283, 8)),
 ]
+
+
+def _kernel_takes(plan, b, width):
+    """csrc/sparse_block.cu gram_plan_ok, and the shared memory."""
+    chunk_ok = plan.chunk >= width or plan.chunk % 32 == 0
+    cap_ok = plan.cap >= width or plan.cap % 32 == 0
+    return (1 <= plan.blocks <= b and chunk_ok and cap_ok
+            and plan.chunk >= 1 and 1 <= plan.cap < plan.slots
+            and sb.gram_tables(b, plan.blocks) <= sb.MAX_TABLES
+            and plan.slots & (plan.slots - 1) == 0
+            and plan.smem <= OPTIN)
 
 
 @pytest.mark.parametrize("name,width,itemsize,want", GRAM_PLANS,
                          ids=[f"{p[0]}-f{p[2] * 8}" for p in GRAM_PLANS])
 def test_gram_plan_at_main_shapes(name, width, itemsize, want):
     """The default table is the least power of two of at least 2 W; the
-    auto plan owns as many rows a block as fit (at most 8); every asked
-    rows_per_cta that fits gives ceil(B / rows) blocks."""
+    auto plan owns as many rows a block as fit (at most 8) beside whole
+    rows, in one pass; every asked rows_per_cta gives ceil(B / rows)
+    blocks, with whole rows where they fit, else chunks of CHUNK entries
+    beside the default tables, else beside the largest tables that fit,
+    in passes of half a table."""
     plan = sb.gram_plan(128, width, itemsize, OPTIN)
     assert plan == want
-    blocks, slots, used = plan
-    assert slots >= 2 * width and slots // 2 < 2 * width
-    assert used <= OPTIN
+    assert plan.slots >= 2 * width and plan.slots // 2 < 2 * width
+    assert plan.smem <= OPTIN
     for rows in sb.ROWS_PER_CTA:
-        used = sb.gram_smem_bytes(rows, slots, width, 128, itemsize)
-        if used > OPTIN:
-            with pytest.raises(ValueError, match="cannot hold"):
-                sb.gram_plan(128, width, itemsize, OPTIN, rows)
-            assert rows > 128 // blocks
-            continue
-        assert sb.gram_plan(128, width, itemsize, OPTIN, rows) == \
-            (128 // rows, slots, used)
+        got = sb.gram_plan(128, width, itemsize, OPTIN, rows)
+        assert got.blocks == 128 // rows and _kernel_takes(got, 128, width)
+        assert got.smem == sb.gram_smem_bytes(rows, got.slots, got.chunk,
+                                              128, itemsize)
+        whole = sb.gram_smem_bytes(rows, plan.slots, width, 128, itemsize)
+        chunked = sb.gram_smem_bytes(rows, plan.slots, sb.CHUNK, 128,
+                                     itemsize)
+        assert (whole <= OPTIN) == (rows <= 128 // plan.blocks)
+        if whole <= OPTIN:
+            assert got == plan._replace(blocks=got.blocks, smem=got.smem)
+        elif chunked <= OPTIN:
+            assert got == sb.GramPlan(got.blocks, plan.slots, sb.CHUNK,
+                                      width, chunked)
+        else:
+            assert got.slots < plan.slots and got.chunk == sb.CHUNK
+            assert got.cap == min(width, got.slots // 2) < width
+            assert sb.gram_smem_bytes(rows, 2 * got.slots, sb.CHUNK, 128,
+                                      itemsize) > OPTIN
 
 
 def test_gram_plan_tables_and_refusals():
@@ -172,8 +202,8 @@ def test_gram_plan_tables_and_refusals():
     assert sb.gram_tables(100, 13) == 8
     assert sb.gram_tables(10, 2) == 8      # 5 rows, rounded up
     assert plan(128, 548, 4, OPTIN, slots=1024)[:2] == (16, 1024)
-    assert plan(128, 1, 4, OPTIN) == (16, 32, _gram_bytes(8, 32, 1, 4))
-    for bad in (548, 1000, 3000, 0, True, 2.0):
+    assert plan(128, 1, 4, OPTIN) == _whole(16, 8, 32, 1, 4)
+    for bad in (548, 1000, 3000, 0, 32, True, 2.0):
         with pytest.raises(ValueError, match="slots must be a power of two"):
             plan(128, 548, 4, OPTIN, slots=bad)
     assert plan(128, 1, 4, OPTIN, slots=2)[1] == 2
@@ -181,11 +211,50 @@ def test_gram_plan_tables_and_refusals():
         with pytest.raises(ValueError, match="rows_per_cta must be one of"):
             plan(128, 548, 4, OPTIN, bad)
     small = sb.gram_smem_bytes(1, 2048, 548, 128, 4)
-    assert plan(128, 548, 4, small) == (128, 2048, small)
+    assert plan(128, 548, 4, small) == _whole(128, 1, 2048, 548, 4)
+    # a byte less: chunked buffers beside two tables of the same size
+    assert plan(128, 548, 4, small - 1) == sb.GramPlan(
+        64, 2048, sb.CHUNK, 548, _gram_bytes(2, 2048, sb.CHUNK, 4))
+    assert plan(128, 548, 4, small, 2) == plan(128, 548, 4, small - 1)
+    # a table asked for below the row's width: passes of half the table
+    assert plan(128, 548, 4, OPTIN, slots=256) == _whole(
+        16, 8, 256, 548, 4)._replace(cap=128)
+    # the one refusal: an asked plan that cannot fit
+    with pytest.raises(ValueError, match="cannot hold auto tables of 65536"):
+        plan(128, 548, 4, OPTIN, slots=1 << 16)
+    with pytest.raises(ValueError, match="cannot hold 8 tables of 8192"):
+        plan(128, 548, 8, OPTIN, 8, 1 << 13)
+    tiny = _gram_bytes(1, sb.MIN_PASS_SLOTS, sb.CHUNK, 4)
+    assert plan(128, 548, 4, tiny) == sb.GramPlan(
+        128, sb.MIN_PASS_SLOTS, sb.CHUNK, 32, tiny)
     with pytest.raises(ValueError, match="cannot hold auto tables"):
-        plan(128, 548, 4, small - 1)
-    with pytest.raises(ValueError, match="cannot hold 2 tables"):
-        plan(128, 548, 4, small, 2)
+        plan(128, 548, 4, tiny - 1)
+
+
+# the widths whose tables did not fit beside whole rows (the demo's
+# padded-CSC columns are 1738 wide; 20242 is a column of rcv1's rows)
+WIDE = [(4, 1560), (4, 1738), (4, 4096), (4, 20242), (8, 1028), (8, 1738)]
+
+
+@pytest.mark.parametrize("b", [128, 256, 512])
+@pytest.mark.parametrize("itemsize,width", WIDE,
+                         ids=[f"f{i * 8}-W{w}" for i, w in WIDE])
+def test_gram_plan_takes_every_width(itemsize, width, b):
+    """A plan for rows of every width, within an H100's shared memory:
+    chunked buffers beside default tables in one pass where they fit
+    (W = 1560 to 4096 in float32, 1028 and 1738 in float64), else the
+    largest table in passes of half of it, one row a block."""
+    plan = sb.gram_plan(b, width, itemsize, OPTIN)
+    assert _kernel_takes(plan, b, width)
+    assert plan.chunk == sb.CHUNK
+    passes = -(-width // plan.cap)
+    if plan.slots == sb.table_slots(width):
+        assert passes == 1 and plan.cap == width
+    else:
+        assert plan.blocks == b and plan.cap == plan.slots // 2
+        assert sb.gram_smem_bytes(1, 2 * plan.slots, sb.CHUNK, b,
+                                  itemsize) > OPTIN
+    assert passes == {20242: 3}.get(width, 1)
 
 
 def test_gram_smem_matches_the_kernel():
@@ -198,13 +267,17 @@ def test_gram_smem_matches_the_kernel():
     assert "return bits == 0 ? 0 : (int)(((unsigned)col * kHashMul) >> " \
         "(32 - bits));" in src
     assert ("  return (size_t)tables * slots * 2 * itemsize +\n"
-            "         2 * (size_t)kWarps * width * (itemsize + sizeof(int))"
+            "         2 * (size_t)kWarps * chunk * (itemsize + sizeof(int))"
             " +\n         (size_t)b * sizeof(int);") in src
     assert "int pos = hash_slot(f, bits);" in src
     assert "const int h = hash_slot(f, bits);" in src
     assert sb.gram_smem_bytes(8, 2048, 548, 128, 4) == _gram_bytes(
         8, 2048, 548, 4)
-    assert "return slots > width && slots <= (1 << 24) && " \
+    assert "if (chunk < 1 || (chunk < width && chunk % 32 != 0)) " \
+        "return false;" in src
+    assert "if (cap < 1 || (cap < width && cap % 32 != 0)) return false;" \
+        in src
+    assert "return cap < slots && slots <= (1 << 24) && " \
         "(slots & (slots - 1)) == 0;" in src
     # the d-wide row expansion is gone, in both placements
     assert "scratch" not in src and "atomicAdd(xrow" not in src
@@ -449,44 +522,65 @@ class _Table:
         return self.vals[pos] if self.keys[pos] == f else None
 
 
-def hash_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen, blocks, slots):
-    """gram_kernel's walk: block t of each shard owns rows t + o * blocks,
-    builds their tables chunk by chunk (and their margin bases), then
-    looks every later row's entries up, lane-strided, one butterfly a
-    table.  Returns (gram, mb, the tables)."""
-    k, b, _ = gidx.shape
+def hash_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen, blocks, slots,
+              chunk=None, cap=None):
+    """gram_kernel's walk: block t of each shard owns rows t + o * blocks;
+    pass p builds their tables from entries [p cap, (p + 1) cap), chunk
+    by chunk of 32 (and sums their margin bases on), then looks every
+    later row's entries up, staged ``chunk`` at a time, lane-strided, one
+    butterfly a table at the row's end: pass 0 writes the dot, a later
+    pass adds its part where the owned row still had entries.  ``chunk``
+    and ``cap`` None: the whole row (one pass).  Returns (gram, mb, the
+    tables of every pass)."""
+    k, b, width = gidx.shape
+    chunk, cap = chunk or max(width, 1), cap or max(width, 1)
     gram = np.zeros((k, b, b))
     mb = np.zeros((k, b))
     built = []
     for s in range(k):
         for t in range(blocks):
             owned = list(range(t, b, blocks))
-            tables = []
-            for i in owned:
-                cnt = max(int(cnts[s, i]), 0)
-                table, part = _Table(slots), np.zeros(32)
-                for base in range(0, cnt, 32):
-                    cols = gidx[s, i, base:min(cnt, base + 32)]
-                    vals = gvals[s, i, base:min(cnt, base + 32)]
-                    coord = w[cols] + (0 if frozen else sig_eff * dw[s, cols])
-                    part[:len(cols)] += vals * coord
-                    table.insert_chunk(cols, vals)
-                mb[s, i] = _butterfly(part)
-                tables.append(table)
-            built += tables
-            if frozen:
-                continue
-            for j in range(t + 1, b):
-                cnt = max(int(cnts[s, j]), 0)
-                for i, table in zip(owned, tables):
-                    if i >= j:
-                        continue
-                    part = np.zeros(32)
-                    for e in range(cnt):
-                        x = table.lookup(gidx[s, j, e])
-                        if x is not None:
-                            part[e % 32] += gvals[s, j, e] * x
-                    gram[s, j, i] = _butterfly(part)
+            cnt_of = [max(int(cnts[s, i]), 0) for i in owned]
+            passes = 1 if frozen else max(
+                [1] + [-(-c // cap) for c in cnt_of])
+            mparts = [np.zeros(32) for _ in owned]
+            for p in range(passes):
+                tables = []
+                for o, i in enumerate(owned):
+                    cnt = cnt_of[o]
+                    lo, hi = (0, cnt) if frozen else \
+                        (p * cap, min(cnt, (p + 1) * cap))
+                    table = _Table(slots)
+                    for base in range(lo, hi, 32):
+                        cols = gidx[s, i, base:min(hi, base + 32)]
+                        vals = gvals[s, i, base:min(hi, base + 32)]
+                        coord = w[cols] + (0 if frozen
+                                           else sig_eff * dw[s, cols])
+                        mparts[o][:len(cols)] += vals * coord
+                        table.insert_chunk(cols, vals)
+                    if p == (0 if frozen or cnt == 0 else (cnt - 1) // cap):
+                        mb[s, i] = _butterfly(mparts[o])
+                    tables.append(table)
+                built += tables
+                if frozen:
+                    continue
+                for j in range(t + 1, b):
+                    cnt = max(int(cnts[s, j]), 0)
+                    parts = [np.zeros(32) for _ in owned]
+                    for c0 in range(0, max(cnt, 1), chunk):
+                        for e in range(min(chunk, cnt - c0)):
+                            lane = e % 32   # the lane that staged it
+                            for o, (i, table) in enumerate(zip(owned,
+                                                               tables)):
+                                x = None if i >= j else \
+                                    table.lookup(gidx[s, j, c0 + e])
+                                if x is not None:
+                                    parts[o][lane] += gvals[s, j, c0 + e] * x
+                    for o, i in enumerate(owned):
+                        if i < j and p == 0:
+                            gram[s, j, i] = _butterfly(parts[o])
+                        elif i < j and p * cap < cnt_of[o]:
+                            gram[s, j, i] += _butterfly(parts[o])
     return (None if frozen else gram), mb, built
 
 
@@ -542,17 +636,25 @@ def _gram_case(case, k=2, b=48, width=40, d=3000, seed=13):
 GRAM_CASES = ["tiny table", "column 0 and repeats", "masked and full"]
 
 
+# (chunk, cap) of the model: whole rows in one pass; chunks of 32 in one
+# pass; whole rows in two passes of 32 (the 40-entry rows split 32 + 8)
+STAGINGS = [(None, None), (32, None), (None, 32)]
+
+
+@pytest.mark.parametrize("chunk,cap", STAGINGS,
+                         ids=["whole", "chunks", "passes"])
 @pytest.mark.parametrize("blocks", [6, 48])
 @pytest.mark.parametrize("sig_eff,frozen", [(4.0, False), (1.0, True)])
 @pytest.mark.parametrize("case", GRAM_CASES)
-def test_hash_gram_matches_plain(case, sig_eff, frozen, blocks):
+def test_hash_gram_matches_plain(case, sig_eff, frozen, blocks, chunk, cap):
     """The hash-table walk at 8 rows a block (6 blocks) and at one (48),
+    rows staged whole and in chunks, built in one pass and in two,
     against the plain version's dense expansion, within 1e-12."""
     gidx, gvals, cnts, w, dw = _gram_case(case)
     width = gidx.shape[-1]
     slots = 64 if case == "tiny table" else sb.table_slots(width)
     gram, mb, tables = hash_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
-                                 blocks, slots)
+                                 blocks, slots, chunk, cap)
     to = torch.as_tensor
     want_g, want_mb = sb.sparse_block_gram_plain(
         to(w), to(dw), to(gidx), to(gvals), to(cnts), sig_eff, frozen)
@@ -571,6 +673,22 @@ def test_hash_gram_matches_plain(case, sig_eff, frozen, blocks):
     if case == "masked and full":
         assert np.all(gram[:, 5:9] == 0) and np.all(gram[:, :, 5:9] == 0)
         assert np.all(mb[:, 5:9] == 0) and np.all(mb[1, 30:] == 0)
+
+
+@pytest.mark.parametrize("case", GRAM_CASES)
+def test_chunks_and_passes_keep_the_bits(case):
+    """Rows staged in chunks of 32 give the whole-row walk's bits (a lane
+    holds the same entries in the same order), and so does the margin
+    base built in passes; the Gram in passes differs only in rounding."""
+    gidx, gvals, cnts, w, dw = _gram_case(case)
+    slots = 64 if case == "tiny table" else sb.table_slots(gidx.shape[-1])
+    args = (w, dw, gidx, gvals, cnts, 4.0, False, 6, slots)
+    whole, chunks, passes = (hash_gram(*args, chunk, cap)[:2]
+                             for chunk, cap in STAGINGS)
+    assert np.array_equal(whole[0], chunks[0])
+    assert np.array_equal(whole[1], chunks[1])
+    assert np.array_equal(whole[1], passes[1])
+    np.testing.assert_allclose(passes[0], whole[0], rtol=0, atol=TOL)
 
 
 def test_tables_keep_an_empty_slot():
@@ -647,7 +765,7 @@ def test_chain_wrapper_passes_the_plan(monkeypatch, dtype, stages):
     bc.chain_block_batched.launches = before
 
 
-@pytest.mark.parametrize("rows,slots", [(None, None), (2, 128)])
+@pytest.mark.parametrize("rows,slots", [(None, None), (2, 128), (4, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gram_wrapper_passes_the_plan(monkeypatch, dtype, rows, slots):
     calls = _kernel_route(monkeypatch, sb)
@@ -661,9 +779,8 @@ def test_gram_wrapper_passes_the_plan(monkeypatch, dtype, rows, slots):
     assert name == sb._GRAM_FN[dtype]
     src = kernels.SOURCES["sparse_block"].read_text()
     assert len(args) == _macro_arity(src, "GRAM_ENTRY")
-    blocks, n_slots, _ = sb.gram_plan(48, 40, dtype.itemsize, OPTIN, rows,
-                                      slots)
-    assert args[7:13] == (2, 48, 40, 3000, blocks, n_slots)
+    plan = sb.gram_plan(48, 40, dtype.itemsize, OPTIN, rows, slots)
+    assert args[7:15] == (2, 48, 40, 3000, *plan[:4])
     assert sb.sparse_block_gram.launches == before + 1
     sb.sparse_block_gram.launches = before
 

@@ -205,11 +205,3 @@ def test_cli_lasso_refusals_match_jax(change, capsys):
     assert err.strip() == ref and ref.startswith("error: --")
     assert "Running" not in out
 
-
-def test_cli_lasso_with_block_size_is_not_ported(capsys):
-    assert cli.main(LASSO_ARGV + ["--math=fast", "--blockSize=128",
-                                  "--device=cpu"]) == 2
-    out, err = capsys.readouterr()
-    assert "error: --objective=lasso with --blockSize is not yet ported " \
-        "to cocoa_torch (ROADMAP Queue A)" in err
-    assert "Running" not in out
