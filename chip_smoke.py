@@ -22,6 +22,9 @@ stderr); any failed check exits non-zero:
    --math=fast, float32): the gap falls and stays >= 0, CoCoA+ ends below
    1e-2, alpha stays in [0, 1], one launch per round, and every debugIter
    gap is within relative 1e-3 of the same run through the plain version;
+   then the demo at bfloat16 with --math=fast for 20 rounds, sequential
+   and in blocks of 8, through the plain versions (no kernel launched,
+   finite gaps), and B1 called directly at bfloat16 refusing;
 4. the main path: rcv1-like data (20 242 x 47 236, about 75 nonzeros a
    row, from a seed) through the CLI at K=8, H=253, lambda=1e-4, with
    CUDA events around each of its kernel launches;
@@ -30,7 +33,10 @@ stderr); any failed check exits non-zero:
    (B3), the sparse Gram (B5) and the sparse apply (B6) on a demo and an
    rcv1-like block (K x 128 draws with repeats, crafted rows, a masked
    tail), B5 also on the block's rows with columns repeated within a row
-   and with every live row at the full width; the fused block (B4) and
+   and with every live row at the full width, B6 on those rows and on a
+   hot column in every row, at every plan (the auto plan and each asked
+   slice count that fits), bit for bit with its plain version run on CPU
+   copies of the same inputs; the fused block (B4) and
    the chain at B=256, 512 and 1024 on an epsilon-like block (8 x 128 x
    2000, and the split branch's full Gram), every mode x loss x dtype; B3
    at every plan (the auto plan, each ring depth up to it, each unit
@@ -42,8 +48,9 @@ stderr); any failed check exits non-zero:
    two launches of the auto plan bit for bit; then each kernel's, its
    plain version's and a library call's time (B3 also at each plan, in
    frozen mode and at 8 x 512; B5 at each rows_per_cta, in float64 and on
-   the hybrid residual; B4 at each cluster size and in frozen mode,
-   beside the Gram alone as one torch.bmm);
+   the hybrid residual; B6 at each plan, in float64, on the hybrid
+   residual and on a hot column; B4 at each cluster size and in frozen
+   mode, beside the Gram alone as one torch.bmm);
 6. the block path (--blockSize): the demo and rcv1-like data through the
    CLI with --blockSize=auto (the sparse-Gram branch: B5, B3, B6), the
    rcv1-like gaps within relative 1e-3 of phase 4's sequential run; then
@@ -459,6 +466,44 @@ def check_run(results, label: str):
                          for rec in r.trajectory.records))
 
 
+def phase_bf16(demo):
+    """bfloat16 on the card: the demo through the CLI with --math=fast for
+    20 rounds, sequential and in blocks of 8, every kernel's count set to
+    0 before each run and read after it: the routes send a 2-byte dtype to
+    the plain versions on every device, so each run exits 0 with finite
+    gaps >= 0 and launches no kernel; and the sparse SDCA kernel (B1)
+    called directly at bfloat16 still refuses.  Returns the runs' round
+    lines."""
+    argv = [f"--trainFile={DEMO_TRAIN}", "--numFeatures=9947",
+            "--numSplits=4", "--numRounds=20", "--localIterFrac=0.1",
+            "--lambda=.001", "--math=fast", "--dtype=bfloat16"]
+    lines = {}
+    for label, extra in (("sequential", []), ("block 8", ["--blockSize=8"])):
+        reset_counts()
+        out, res = run_cli(argv + extra)
+        launched = counts()
+        check(not any(launched.values()),
+              f"bf16 demo {label}: kernels launched {launched}")
+        check(len(res) == 2 and all(
+            np.isfinite(rec.gap) and rec.gap >= 0
+            for r in res for rec in r.trajectory.records),
+            f"bf16 demo {label}: gaps not finite and >= 0")
+        lines[label] = [f"{r.algorithm} {rec.round}:{rec.primal}/{rec.gap}"
+                        for r in res for rec in r.trajectory.records]
+    ds = shard_dataset(demo, 4, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    w, alpha, idxs = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                      for t in round_inputs(ds, 50, 3))
+    try:
+        sp.sparse_sdca_round(w, alpha, ds.sp_indices, ds.sp_values,
+                             ds.labels, ds.sq_norms, idxs.int(), 1e-3, ds.n)
+    except ValueError as e:
+        check("float32 or float64" in str(e), f"B1 at bf16: {e}")
+    else:
+        check(False, "B1 ran at bfloat16")
+    return lines
+
+
 BLOCK = 128
 # the epsilon-like block path's sizes (B, route, its kernel), each run
 # EPS_BLOCK_RUNS times in turns: the host-bound glue moves between runs
@@ -616,12 +661,69 @@ def gram_variants(bi):
                            .to(torch.int32))}
 
 
+def apply_plans_held(k, width, d, dt):
+    """B6's plans held against its plain version: the auto plan (None) and
+    each asked slice count that fits (one slice a shard, the whole Delta-w
+    in shared memory, only where it fits), each plan once, with the
+    slices asked for it."""
+    optin, sms = kernels.smem_optin("cuda"), kernels.sm_count("cuda")
+    out = {}
+    for slices in (None, 1, 2, 4, 8, 16, 32, 64, 128):
+        with contextlib.suppress(ValueError):
+            out.setdefault(sb.apply_plan(k, BLOCK, width, d, dt.itemsize,
+                                         optin, sms, slices), slices)
+    return out
+
+
+def apply_variants(rows):
+    """B6's rows: :func:`gram_variants` (as drawn, columns repeated within
+    each row, every live row at the full width), and a hot column: column
+    5 in slot 0 of every row and again in slot 2 of every third row, a
+    chain of adds into one column through the whole block."""
+    out = dict(rows)
+    gidx, gvals, cnts = rows["as drawn"]
+    hot = gidx.clone()
+    hot[..., 0] = 5
+    hot[:, ::3, 2 % hot.shape[-1]] = 5
+    out["hot column"] = (hot, gvals, cnts)
+    return out
+
+
+def held_apply(tag, dw, variants, coefs, dt, worst, held):
+    """B6 on each of ``variants`` (name: (gidx, gvals, cnts)) at every plan
+    of :func:`apply_plans_held`: equal bit for bit (torch.equal) to the
+    plain version run on CPU copies of the same inputs, within TOL of the
+    plain version on the card, and two launches of the auto plan bit for
+    bit."""
+    k, d = dw.shape
+    for variant, rows in variants.items():
+        want = sb.sparse_block_apply_plain(
+            dw.cpu().clone(), *(r.cpu() for r in rows), coefs.cpu())
+        on_card = sb.sparse_block_apply_plain(dw.clone(), *rows, coefs)
+        width = rows[0].shape[-1]
+        for plan, slices in apply_plans_held(k, width, d, dt).items():
+            held.add(("B6", str(dt)[6:], width, plan[:3]))
+            got = sb.sparse_block_apply(dw.clone(), *rows, coefs,
+                                        slices=slices)
+            agree(f"{tag} {variant} sparse_block_apply slices={slices} "
+                  f"plan={plan}", [got], [on_card], dt, worst, "B6")
+            check(torch.equal(got.cpu(), want),
+                  f"{tag} {variant} sparse_block_apply at plan {plan} != "
+                  f"the plain version on the CPU (err "
+                  f"{float((got.cpu() - want).abs().max()):.3e})")
+        bit_for_bit(f"{tag} {variant} sparse_block_apply",
+                    lambda: [sb.sparse_block_apply(dw.clone(), *rows,
+                                                   coefs)])
+
+
 def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
     """B5, B3 and B6 against their plain versions on one block of a
     sparse round, every mode x loss x dtype, each kernel at every plan
-    (:func:`gram_plans_held`, :func:`chain_plans_held`); B5 also on the
-    block's rows with repeated columns and at the full width, and two
-    launches of B3, B5 and B6 must agree bit for bit.  With ``hot_cols``
+    (:func:`gram_plans_held`, :func:`chain_plans_held`,
+    :func:`apply_plans_held`); B5 and B6 also on the block's rows with
+    repeated columns and at the full width, B6 with a hot column and
+    bit for bit with its plain version on the CPU (:func:`held_apply`),
+    and two launches of B3, B5 and B6 must agree bit for bit.  With ``hot_cols``
     the rows are the hybrid layout's cold residual, and B3 reads the Gram
     and margins with the panel's terms.  Returns the plans held."""
     held = set()
@@ -654,14 +756,8 @@ def phase_block_sparse(name, data, k, h, lam, worst, hot_cols=0):
                           frozen=frozen, loss=loss)
                 want = held_chain(f"{tag}/{loss}", scal, gram, bi["bidx32"],
                                   kw, dt, worst, held)
-            coefs = want[1]
-            got = sb.sparse_block_apply(bi["dw"].clone(), *rows, coefs)
-            agree(f"{tag} sparse_block_apply", [got],
-                  [sb.sparse_block_apply_plain(bi["dw"].clone(), *rows,
-                                               coefs)], dt, worst, "B6")
-            check(torch.equal(got, sb.sparse_block_apply(
-                bi["dw"].clone(), *rows, coefs)),
-                f"{tag} sparse_block_apply differs between two launches")
+            held_apply(tag, bi["dw"], apply_variants(gram_variants(bi)),
+                       want[1], dt, worst, held)
     return held
 
 
@@ -873,14 +969,40 @@ def phase_block_timing(rcv1, eps, clusters, results):
     g64 = (b64["w"], b64["dw"], b64["gidx"], b64["gvals"], b64["cnts"], sig,
            False)
     results["B5"]["f64_ms"] = graph_ms(lambda: sb.sparse_block_gram(*g64), 50)
-    del b64, g64
+    gram64, mb64 = sb.sparse_block_gram_plain(*g64)
+    coefs64 = bc.chain_block_batched_plain(
+        chain_scal(b64, mb64, sig, torch.float64), gram64, b64["bidx32"],
+        **kw)[1]
+    dw64 = b64["dw"].clone()
+    results["B6"]["f64_ms"] = graph_ms(lambda: sb.sparse_block_apply(
+        dw64, b64["gidx"], b64["gvals"], b64["cnts"], coefs64), 50)
+    del b64, g64, gram64, dw64
     # the hybrid residual at the --hotCols=auto panel
     hot_w, _ = hybrid.resolve_hot_cols("auto", rcv1, 8, f32)
     bh = sparse_block_inputs(rcv1, 8, 253, f32, seed=7, hot_cols=hot_w)
+    hrows = (bh["gidx"], bh["gvals"], bh["cnts"])
     results["B5"]["residual_ms"] = graph_ms(lambda: sb.sparse_block_gram(
-        bh["w"], bh["dw"], bh["gidx"], bh["gvals"], bh["cnts"], sig, False),
-        50)
-    del bh
+        bh["w"], bh["dw"], *hrows, sig, False), 50)
+    results["B6"]["residual_ms"] = graph_ms(lambda: sb.sparse_block_apply(
+        dw_t, *hrows, coefs), 50)
+    results["B6"]["residual_nnz"] = float(bh["cnts"].clamp(min=0).sum())
+    del bh, hrows
+    # B6 at each plan, and on a hot column (a chain of adds into column 5
+    # through every row of the block); the longest chain of the block as
+    # drawn: the most entries of one column in one shard
+    results["B6"]["plan"] = sb.apply_plan(8, BLOCK, width, d, isz, optin,
+                                          kernels.sm_count("cuda"))
+    results["B6"]["slices_ms"] = {
+        slices: (plan, graph_ms(lambda: sb.sparse_block_apply(
+            dw_t, *rows, coefs, slices=slices), 50))
+        for plan, slices in apply_plans_held(8, width, d, f32).items()}
+    hot = apply_variants({"as drawn": rows})["hot column"]
+    results["B6"]["hot_ms"] = graph_ms(lambda: sb.sparse_block_apply(
+        dw_t, *hot, coefs), 50)
+    live = torch.arange(width, device="cuda") < bi["cnts"][..., None]
+    results["B6"]["chain"] = max(
+        int(torch.bincount(bi["gidx"][s][live[s]].long()).max())
+        for s in range(8))
     # B3 at each plan of the rcv1-like block, and in frozen mode
     results["B3"]["stages_ms"] = {
         stages: (plan, graph_ms(lambda: bc.chain_block_batched(
@@ -1538,8 +1660,10 @@ def phase_prox_block_kernels(designs, demo_cols, worst):
     every plan of :func:`chain_plans_held` at B = 128 and 512 on the
     first design's split inputs (its Gram by a full-float32 product); B5
     at every plan of :func:`gram_plans_held`, B3 and B6 (into Delta-r, of
-    length n) on the demo's padded-CSC columns (``demo_cols`` by dtype;
-    rows 1738 wide), two launches of each bit for bit.  Returns the plans
+    length n; at every plan of :func:`apply_plans_held`, on the variants
+    of :func:`apply_variants`, bit for bit with its plain version on the
+    CPU) on the demo's padded-CSC columns (``demo_cols`` by dtype; rows
+    1738 wide), two launches of each bit for bit.  Returns the plans
     held."""
     held = set()
     first = next(iter(designs))
@@ -1600,13 +1724,9 @@ def phase_prox_block_kernels(designs, demo_cols, worst):
             coefs = held_chain(f"{tag} prox/lasso l2={l2}", scal, gram,
                                bi["bidx32"], lasso_kw(0.1, sig, l2), dt,
                                worst, held)[1]
-            got = sb.sparse_block_apply(bi["dr"].clone(), *rows, coefs)
-            agree(f"{tag} l2={l2} sparse_block_apply into Delta-r", [got],
-                  [sb.sparse_block_apply_plain(bi["dr"].clone(), *rows,
-                                               coefs)], dt, worst, "B6")
-            check(torch.equal(got, sb.sparse_block_apply(
-                bi["dr"].clone(), *rows, coefs)),
-                f"{tag} sparse_block_apply differs between two launches")
+            held_apply(f"{tag} l2={l2} into Delta-r", bi["dr"],
+                       apply_variants(gram_variants(dict(bi, ds=ds))),
+                       coefs, dt, worst, held)
     return held
 
 
@@ -1916,6 +2036,11 @@ def main() -> int:
                                f"gap {a.gap} vs plain {b.gap} (rel {rel:.2e})")
     print(f"phase 3: demo ok, {launches} launches for 200 rounds, gaps "
           f"within rel 1e-3 of the plain run")
+    bf16 = phase_bf16(demo)
+    print("phase 3: bfloat16 demo, --math=fast, 20 rounds, through the "
+          "plain versions (no kernel launched; B1 called at bf16 refuses): "
+          + "; ".join(f"{label} (round:primal/gap) " + ", ".join(ln)
+                      for label, ln in bf16.items()))
 
     # --- phase 4: the main path, rcv1-like at full width
     tmp = tempfile.TemporaryDirectory()
@@ -1995,6 +2120,15 @@ def main() -> int:
               f"{r}: {ms:.4f}" for r, ms in b5["rows_ms"].items())
           + f" ms; float64 {b5['f64_ms']:.4f} ms; the hybrid residual "
           f"{b5['residual_ms']:.4f} ms")
+    b6 = timing["B6"]
+    print(f"  B6: auto plan (slices, cols, chunk, bytes) {tuple(b6['plan'])}; "
+          f"by plan " + ", ".join(
+              f"slices={s} {plan[:3]} {ms:.5f}"
+              for s, (plan, ms) in b6["slices_ms"].items())
+          + f" ms; float64 {b6['f64_ms']:.5f} ms; the hybrid residual "
+          f"({b6['residual_nnz']:.0f} entries) {b6['residual_ms']:.5f} ms; "
+          f"a hot column in every row {b6['hot_ms']:.5f} ms; the longest "
+          f"chain of one column in a shard as drawn {b6['chain']}")
     b4 = timing["B4"]
     print(f"  B4 (epsilon-like 8 x 128 x 2000): auto plan (cluster, width) "
           f"{b4['plan']} {b4['ms']:.4f} ms; by cluster size " + ", ".join(

@@ -312,11 +312,22 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
             return 2, results
         w, traj = out[0], out[-1]
         alpha = out[1] if len(out) == 3 else None
-        traj.summary(*objectives.evaluate(
-            ds, w, alpha, params.lam, test_ds=test_ds, loss=params.loss,
-            smoothing=params.smoothing))
+        traj.summary(*_summary(ds, test_ds, w, alpha, params))
         results.append(RunResult(traj.algorithm, w, alpha, traj))
     return 0, results
+
+
+def _summary(ds, test_ds, w, alpha, params):
+    """The end-of-run (primal, gap, test error) as the JAX CLI's
+    ``finish`` computes them: each device sum combined on the host in
+    float64."""
+    kw = dict(loss=params.loss, smoothing=params.smoothing)
+    primal = objectives.primal_objective(ds, w, params.lam, **kw)
+    gap = None if alpha is None else \
+        primal - objectives.dual_objective(ds, w, alpha, params.lam, **kw)
+    err = None if test_ds is None else \
+        objectives.classification_error(test_ds, w)
+    return primal, gap, err
 
 
 def main(argv=None) -> int:

@@ -17,8 +17,9 @@
 // What bounds it on this card: the Gram is K * B^2 / 2 sparse dot
 // products of rows of ~nnz entries, against ~K * B * nnz distinct input
 // slots (77 KB at rcv1-like float32); the apply is a scatter of K * B *
-// nnz adds, and its rows must stay in order.  Both are latency-bound at
-// these sizes: a lookup of one row's column in another row.
+// nnz adds, and each column's adds must stay in order.  Both are
+// latency-bound at these sizes: a lookup of one row's column in another
+// row, a chain of adds into one column.
 //
 // What the Gram's design (gram_kernel) does about it:
 // - grid (T, K): block (t, k) owns the rows i = t, t + T, ... of shard k
@@ -70,14 +71,34 @@
 //   the shared-memory opt-in, for rows of any width; the kernel refuses a
 //   plan it cannot hold.
 //
-// The apply's design (apply_kernel):
-// - grid K; one block per shard walks rows j = 0..B-1 in order,
-//   threads over the row's slots, a barrier between rows.  Every column
-//   receives its adds in the row order of the TPU kernel (and of the
-//   plain version on the CPU), so the result is the same from run to run;
-//   atomics only resolve a column repeated within one row.  The product
-//   coef * v is rounded before the add (__fmul_rn / __dmul_rn: no
-//   contraction into an FMA), as the plain version rounds it.
+// The apply's design (apply_kernel), for a scatter whose order must hold:
+// - grid (S, K), S a power of two: block (t, k) owns the columns t + i S
+//   of shard k's dw and keeps them in shared memory, read once, and
+//   writes back once those an entry reached.  Interleaved, not
+//   contiguous: LIBSVM data puts its frequent columns together (rcv1-like
+//   data: 69 % of a block's entries fall in the first sixteenth of the
+//   columns), and the slowest block is the kernel's time.  ops/sparse_block.py apply_plan picks S so that K S
+//   blocks fill the card's SMs (16 slices of 2953 columns at the
+//   rcv1-like block: 128 blocks), more where a slice would not fit.
+// - every block reads the shard's live prefixes (the first cnts slots of
+//   each row, never the padding) as one stream in (row, slot) order, in
+//   chunks of ``chunk`` entries staged by cp.async into two shared-memory
+//   buffers: the next chunk is in flight while this one is used, and no
+//   global load waits behind an ordering point.
+// - each chunk is compacted to the entries in the block's slice, in
+//   (row, slot) order (a warp's ballots and the warps' counts give each
+//   entry its place), with the product coef * v rounded before the add
+//   (__fmul_rn / __dmul_rn: no contraction into an FMA), as the plain
+//   version rounds it.
+// - warp w owns the slice's columns f with f % 16 == w (16 warps: more
+//   shared-memory chains in flight) and folds the list
+//   32 entries at a time into the slice, starting from dw's value; a
+//   column met more than once among 32 entries (a column repeated within
+//   a row, or a hot column of many rows) is folded in lane order in its
+//   lowest lane's register.  So each column's adds are a strict left fold
+//   in (row, slot) order: the TPU kernel's order and that of the plain
+//   version's scatter_add_ on the CPU, bit for bit, with no atomics and no
+//   barrier a row (three a chunk).
 // - the TPU kernels' SMEM row segmentation, GROUP-rounded trip counts and
 //   lane-concatenated [w | dw] array are TPU addressing, not math; here w
 //   is (d,) and dw is (K, d).
@@ -91,6 +112,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTables = 8;            // owned rows a Gram block, at most
+constexpr int kApplyThreads = 512;       // the apply: more warps in flight
+constexpr int kApplyWarps = kApplyThreads / 32;
 constexpr unsigned kHashMul = 2654435769u;  // 2^32 / golden ratio
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -455,28 +478,182 @@ __global__ void __launch_bounds__(kThreads) gram_pass_kernel(
   }
 }
 
+// The slice that owns column f of d (-1 for a column outside 0..d-1).
+__device__ __forceinline__ int slice_of(int f, int d, int smask) {
+  return (unsigned)f < (unsigned)d ? f & smask : -1;
+}
+
+// The row of entry g of a shard's concatenated live prefixes: the last
+// row j < b whose first entry off[j] is at or before g.
+__device__ __forceinline__ int row_of(const int* off, int b, int g) {
+  int lo = 0, hi = b - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= g) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// B6: grid (S, K), kApplyThreads threads, S = 2^sbits; block (t, k) owns
+// the columns t + i S (i < cols) of shard k's Delta-w, at slice index i.
+// Shared memory (apply_smem): the dw slice, the coefficients, two staging
+// buffers of ``chunk`` values, the compacted list's values; the row
+// offsets, two staging buffers of columns, the list's columns, the warps'
+// counts; two buffers of row ids; a byte a slice column.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) apply_kernel(
+__global__ void __launch_bounds__(kApplyThreads) apply_kernel(
     T* __restrict__ dw, const int* __restrict__ gidx,
     const T* __restrict__ gval, const int* __restrict__ cnts,
-    const T* __restrict__ coefs, int b, int width, int d) {
+    const T* __restrict__ coefs, int b, int width, int d, int cols,
+    int sbits, int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cs = reinterpret_cast<T*>(smem_raw);
-  int* ns = reinterpret_cast<int*>(cs + b);
-  const int k = blockIdx.x, tid = threadIdx.x;
-  for (int t = tid; t < b; t += kThreads) {
-    cs[t] = coefs[(size_t)k * b + t];
-    ns[t] = cnts[(size_t)k * b + t];
+  T* dws = reinterpret_cast<T*>(smem_raw);
+  T* cs = dws + cols;
+  T* sv = cs + b;
+  T* lv = sv + 2 * chunk;
+  int* off = reinterpret_cast<int*>(lv + chunk);
+  int* sc = off + b + 1;
+  int* lc = sc + 2 * chunk;
+  int* wt = lc + chunk;
+  short* sr = reinterpret_cast<short*>(wt + kApplyWarps);
+  unsigned char* hit = reinterpret_cast<unsigned char*>(sr + 2 * chunk);
+  const int t = blockIdx.x, k = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int smask = (1 << sbits) - 1;
+  const int n_cols = (d - t + smask) >> sbits;  // columns t + i S < d
+  const int* rc = gidx + (size_t)k * b * width;
+  const T* rv = gval + (size_t)k * b * width;
+  T* dwk = dw + (size_t)k * d + t;
+  // the dw slice and the coefficients by cp.async, in the first chunk's
+  // group: their loads overlap the row offsets' round trip and scan
+  for (int i = tid; i < n_cols; i += kApplyThreads) {
+    cp_async(dws + i, dwk + ((size_t)i << sbits));
+    hit[i] = 0;
+  }
+  for (int j = tid; j < b; j += kApplyThreads) {
+    cp_async(cs + j, coefs + (size_t)k * b + j);
+    off[j] = min(max(cnts[(size_t)k * b + j], 0), width);
   }
   __syncthreads();
-  T* dwk = dw + (size_t)k * d;
-  for (int j = 0; j < b; ++j) {
-    const size_t row = ((size_t)k * b + j) * width;
-    const T c = cs[j];
-    for (int t = tid; t < ns[j]; t += kThreads)
-      atomicAdd(dwk + gidx[row + t], mul_rn(c, gval[row + t]));
-    __syncthreads();  // row j's adds precede row j+1's
+  if (warp == 0) {  // off[j]: row j's first entry among the live prefixes
+    int carry = 0;
+    for (int base = 0; base < b; base += 32) {
+      const int j = base + lane;
+      const int len = j < b ? off[j] : 0;
+      int incl = len;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (j < b) off[j] = carry + incl - len;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) off[b] = carry;
   }
+  __syncthreads();
+  const int total = off[b];
+  const int chunks = (total + chunk - 1) / chunk;
+  // stage entries [c chunk, c chunk + chunk) of the live prefixes into
+  // buffer ``buf``: warp w copies the part of rows ja + w, ja + w + 8, ...
+  // inside the chunk, and writes each entry's row beside it
+  auto stage = [&](int c, int buf) {
+    if (c < chunks) {
+      const int g0 = c * chunk, g1 = min(total, g0 + chunk);
+      for (int j = row_of(off, b, g0) + warp; j < b && off[j] < g1;
+           j += kApplyWarps) {
+        const int s0 = max(off[j], g0) - off[j];
+        const int s1 = min(off[j + 1], g1) - off[j];
+        const int at = buf * chunk + off[j] - g0;
+        const size_t src = (size_t)j * width;
+        for (int s = s0 + lane; s < s1; s += 32) {
+          cp_async(sc + at + s, rc + src + s);
+          cp_async(sv + at + s, rv + src + s);
+          sr[at + s] = (short)j;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + 1, (c + 1) & 1);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();  // chunk c is staged, every warp's copies
+    const int n = min(total - c * chunk, chunk);
+    const int* cb = sc + (c & 1) * chunk;
+    const T* vb = sv + (c & 1) * chunk;
+    const short* rb = sr + (c & 1) * chunk;
+    // compaction: warp w takes entries [e0, e1) of the chunk, 32 at a
+    // time; the entries in the slice keep their (row, slot) order
+    const int seg = (n + kApplyThreads - 1) / kApplyThreads * 32;
+    const int e0 = warp * seg, e1 = min(n, e0 + seg);
+    int mine = 0;
+    for (int base = e0; base < e1; base += 32) {
+      const int e = base + lane;
+      const bool in = e < e1 && slice_of(cb[e], d, smask) == t;
+      mine += __popc(__ballot_sync(0xffffffffu, in));
+    }
+    if (lane == 0) wt[warp] = mine;
+    __syncthreads();  // every warp's count
+    int at = 0, m = 0;
+#pragma unroll
+    for (int w = 0; w < kApplyWarps; ++w) {
+      at += w < warp ? wt[w] : 0;
+      m += wt[w];
+    }
+    for (int base = e0; base < e1; base += 32) {
+      const int e = base + lane;
+      const int f = e < e1 ? cb[e] : -1;
+      const bool in = e < e1 && slice_of(f, d, smask) == t;
+      const unsigned bal = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const int to = at + __popc(bal & ((1u << lane) - 1u));
+        lc[to] = f >> sbits;
+        lv[to] = mul_rn(cs[rb[e]], vb[e]);
+      }
+      at += __popc(bal);
+    }
+    __syncthreads();  // the list is whole; staging buffer c & 1 is free
+    // the fold: warp w owns the slice's columns f with f % kApplyWarps == w
+    // and takes the list 32 entries at a time; a column met more than
+    // once in 32 entries is folded in lane order in its lowest lane's
+    // register, so every column's adds run in (row, slot) order
+    for (int base = 0; base < m; base += 32) {
+      const int e = base + lane;
+      const int f = e < m ? lc[e] : -1;
+      const bool own = f >= 0 && (f & (kApplyWarps - 1)) == warp;
+      const T p = own ? lv[e] : T(0);
+      // the lanes that own no entry share one key: match.any's cost grows
+      // with the distinct keys of the warp
+      const unsigned grp = __match_any_sync(0xffffffffu, own ? f : -1);
+      const int size = own ? __popc(grp) : 0;
+      const int rounds = __reduce_max_sync(0xffffffffu, (unsigned)size);
+      if (own) hit[f] = 1;
+      if (rounds <= 1) {
+        if (own) dws[f] = dws[f] + p;
+      } else {
+        const bool lead = own && __ffs(grp) - 1 == lane;
+        T acc = lead ? dws[f] : T(0);
+        unsigned rest = grp;
+        for (int r = 0; r < rounds; ++r) {
+          const T x = __shfl_sync(0xffffffffu, p,
+                                  rest ? __ffs(rest) - 1 : lane);
+          if (lead && rest) acc = acc + x;
+          rest &= rest - 1u;
+        }
+        if (lead) dws[f] = acc;
+      }
+      __syncwarp();  // this window's adds precede the next window's
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // only the columns an entry reached: the others hold dw's own bits, and
+  // strided stores of the whole slice were a fifth of the kernel's time
+  for (int i = tid; i < n_cols; i += kApplyThreads)
+    if (hit[i]) dwk[(size_t)i << sbits] = dws[i];
 }
 
 // The tables a Gram block needs for nt blocks a shard: ceil(b / nt)
@@ -558,15 +735,43 @@ int launch_gram(const T* w, const T* dw, const int* gidx, const T* gval,
   return (int)cudaGetLastError();
 }
 
+// B6's shared memory: the dw slice, the B coefficients, two staging
+// buffers and the compacted list of ``chunk`` values; the B + 1 row
+// offsets, two staging buffers and the list of ``chunk`` int32 columns,
+// the warps' counts; two staging buffers of ``chunk`` int16 row ids; a
+// byte a slice column, set where an entry reached it.
+// ops/sparse_block.py apply_smem_bytes is the same sum.
+size_t apply_smem(int cols, int chunk, int b, size_t itemsize) {
+  return ((size_t)cols + b + 3 * (size_t)chunk) * itemsize +
+         ((size_t)b + 1 + 3 * (size_t)chunk + kApplyWarps) * sizeof(int) +
+         2 * (size_t)chunk * sizeof(short) + (size_t)cols;
+}
+
+// An apply plan: a power-of-two count of slices, each of at most ``cols``
+// columns, that covers d; chunks a multiple of 32 entries; row ids that
+// fit an int16.
+inline bool apply_plan_ok(int b, int d, int slices, int cols, int chunk) {
+  if (b < 1 || b > 32767 || d < 1 || slices < 1 || cols < 1) return false;
+  if ((slices & (slices - 1)) != 0 || slices > d) return false;
+  if (chunk < 32 || chunk % 32 != 0) return false;
+  return (long long)slices * cols >= d;
+}
+
 template <typename T>
 int launch_apply(T* dw, const int* gidx, const T* gval, const int* cnts,
-                 const T* coefs, int k, int b, int width, int d,
-                 void* stream) {
-  const size_t bytes = (size_t)b * (sizeof(T) + sizeof(int));
+                 const T* coefs, int k, int b, int width, int d, int slices,
+                 int cols, int chunk, void* stream) {
+  if (k < 1 || width < 0 || !apply_plan_ok(b, d, slices, cols, chunk))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = apply_smem(cols, chunk, b, sizeof(T));
+  if (bytes > (size_t)sdca::smem_optin()) return (int)cudaErrorInvalidValue;
   cudaError_t err = sdca::allow_smem(apply_kernel<T>, bytes);
   if (err != cudaSuccess) return (int)err;
-  apply_kernel<T><<<k, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      dw, gidx, gval, cnts, coefs, b, width, d);
+  int sbits = 0;
+  while ((1 << sbits) < slices) ++sbits;
+  apply_kernel<T><<<dim3(slices, k), kApplyThreads, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      dw, gidx, gval, cnts, coefs, b, width, d, cols, sbits, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -576,9 +781,10 @@ int launch_apply(T* dw, const int* gidx, const T* gval, const int* cnts,
 // are int32.  ``gram`` (K, B, B) and ``mb`` (K, B) are written whole
 // (``gram`` is null in frozen mode); (nt, slots, chunk, cap) is the
 // Gram's plan.
-// ``dw`` is advanced in place by the apply.  Returns the launch's error
-// or cudaGetLastError() (cudaErrorInvalidValue for a Gram plan that
-// breaks gram_plan_ok's rules or does not fit the shared-memory opt-in).
+// ``dw`` is advanced in place by the apply, whose plan is (slices, cols,
+// chunk).  Returns the launch's error or cudaGetLastError()
+// (cudaErrorInvalidValue for a plan that breaks gram_plan_ok's or
+// apply_plan_ok's rules or does not fit the shared-memory opt-in).
 #define GRAM_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const T* w, const T* dw, const int* gidx,             \
                       const T* gval, const int* cnts, T* gram, T* mb,       \
@@ -595,9 +801,10 @@ GRAM_ENTRY(sparse_block_gram_f64, double)
 #define APPLY_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(T* dw, const int* gidx, const T* gval,                \
                       const int* cnts, const T* coefs, int k, int b,        \
-                      int width, int d, void* stream) {                     \
+                      int width, int d, int slices, int cols, int chunk,    \
+                      void* stream) {                                       \
     return launch_apply<T>(dw, gidx, gval, cnts, coefs, k, b, width, d,     \
-                           stream);                                         \
+                           slices, cols, chunk, stream);                    \
   }
 APPLY_ENTRY(sparse_block_apply_f32, float)
 APPLY_ENTRY(sparse_block_apply_f64, double)

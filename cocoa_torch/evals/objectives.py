@@ -9,6 +9,10 @@ cocoa_tpu/evals/objectives.py; math from OptUtils.scala:57-98).
 Padded rows are excluded by the mask.  :func:`evaluate` fetches the three
 numbers to the host in one transfer.  With ``alpha`` None (the primal-only
 SGD and DistGD baselines) there is no dual objective and no gap.
+:func:`primal_objective`, :func:`dual_objective` and
+:func:`classification_error` give the end-of-run summary as the JAX CLI's
+``finish`` does: each device sum fetched on its own and combined on the
+host in float64.
 """
 
 from __future__ import annotations
@@ -63,3 +67,58 @@ def evaluate(ds: ShardedDataset, w, alpha, lam, test_ds=None,
     return (primal, None if math.isnan(gap) else gap,
             None if math.isnan(test_err) else test_err)
 
+
+
+def _sum_dtype(dtype):
+    """The dtype a device sum accumulates in: float32 for a 2-byte dtype,
+    whose products and sums XLA on the CPU keeps in float32 and rounds
+    once at the end, else the dtype itself."""
+    return torch.float32 if dtype.itemsize < 4 else dtype
+
+
+def _shard_sum(per_row, mask) -> float:
+    """The masked per-row values summed shard by shard, each sum rounded
+    to their dtype, then the K shard sums, as the JAX package's fan-out
+    sums them."""
+    acc = _sum_dtype(per_row.dtype)
+    parts = (per_row.to(acc) * mask.to(acc)).sum(-1).to(per_row.dtype)
+    return float(parts.to(acc).sum().to(per_row.dtype))
+
+
+def _summary_margins(w, shards):
+    """x.w of every row, the products summed unrounded in
+    :func:`_sum_dtype` and rounded once to w's dtype."""
+    acc = _sum_dtype(w.dtype)
+    wide = {name: t.to(acc) if t.is_floating_point() else t
+            for name, t in shards.items()}
+    return eval_margins(w.to(acc), wide).to(w.dtype)
+
+
+def primal_objective(ds: ShardedDataset, w, lam, loss: str = "hinge",
+                     smoothing: float = 1.0) -> float:
+    """The primal objective from the device's loss sum and w.w, combined
+    on the host in float64 (cocoa_tpu/evals/objectives.py
+    ``primal_objective``)."""
+    shards = ds.shard_arrays()
+    z = shards["labels"] * _summary_margins(w, shards)
+    loss_sum = _shard_sum(losses.primal(loss, z, smoothing=smoothing),
+                          shards["mask"])
+    return loss_sum / ds.n + 0.5 * lam * float(w @ w)
+
+
+def dual_objective(ds: ShardedDataset, w, alpha, lam, loss: str = "hinge",
+                   smoothing: float = 1.0) -> float:
+    """The dual objective from the device's dual-term sum and w.w,
+    combined on the host in float64 (cocoa_tpu/evals/objectives.py
+    ``dual_objective``); ``alpha`` (K, n_shard)."""
+    dual_sum = _shard_sum(losses.dual_term(loss, alpha, smoothing=smoothing),
+                          ds.shard_arrays()["mask"])
+    return -0.5 * lam * float(w @ w) + dual_sum / ds.n
+
+
+def classification_error(ds: ShardedDataset, w) -> float:
+    """The share of rows with y * (x.w) <= 0: the device's count over n on
+    the host (cocoa_tpu/evals/objectives.py ``classification_error``)."""
+    shards = ds.shard_arrays()
+    wrong = (_summary_margins(w, shards) * shards["labels"]) <= 0.0
+    return _shard_sum(wrong.to(w.dtype), shards["mask"]) / ds.n

@@ -92,11 +92,22 @@ def declare(lib: ctypes.CDLL, names, n_ptr: int, rest: list) -> None:
             + [ctypes.c_void_p]
 
 
+DTYPES = (torch.float32, torch.float64)
+
+
+def takes_dtype(dtype) -> bool:
+    """Whether the kernels are built for ``dtype``: float32 and float64.
+    The solvers' routes send any other dtype to the plain versions, on
+    every device, as the JAX auto-select keeps 2-byte dtypes off its
+    kernels."""
+    return dtype in DTYPES
+
+
 def check_dtype(dtype, what: str) -> None:
-    """The kernels are built for float32 and float64.  2-byte dtypes are
-    refused, as cocoa_tpu/ops/pallas_sdca.py ``check_dtype`` refuses them:
-    a bf16 round cannot certify a small duality gap."""
-    if dtype not in (torch.float32, torch.float64):
+    """A kernel wrapper's refusal of a dtype it is not built for (2-byte
+    dtypes), as cocoa_tpu/ops/pallas_sdca.py ``check_dtype`` refuses
+    them."""
+    if not takes_dtype(dtype):
         raise ValueError(f"{what} takes float32 or float64, got {dtype}")
 
 
@@ -128,11 +139,21 @@ def require_cuda(t, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _properties(device):
+    return torch.cuda.get_device_properties(device)
+
+
 def smem_optin(device) -> int:
     """The opt-in shared memory of a block on CUDA ``device``, in bytes
     (232 448 on an H100): the budget a kernel's plan is held to."""
-    return torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
+    return _properties(device).shared_memory_per_block_optin
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (132 on an H100
+    SXM): the blocks a kernel's plan counts to fill the card."""
+    return _properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -26,12 +26,12 @@ from __future__ import annotations
 import torch
 
 from cocoa_torch.ops import losses
-from cocoa_torch.ops.block_chain import chain_block_batched, fp32_matmul, \
-    fused_block
+from cocoa_torch.ops.block_chain import chain_block_batched, \
+    chain_block_batched_plain, fp32_matmul, fused_block, fused_block_plain
 from cocoa_torch.ops.rows import gather_rows, get_row, row_axpy, row_dot, \
     row_lengths
 from cocoa_torch.ops.sparse_block import sparse_block_apply, \
-    sparse_block_gram
+    sparse_block_apply_plain, sparse_block_gram, sparse_block_gram_plain
 
 MODES = ("cocoa", "plus", "frozen", "prox")
 
@@ -246,7 +246,8 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                              shards: dict, idxs_kh: torch.Tensor, lam: float,
                              n: int, mode: str = "cocoa", sigma: float = 1.0,
                              loss: str = "hinge", smoothing: float = 1.0,
-                             block: int = 128, route: str = "split"):
+                             block: int = 128, route: str = "split",
+                             plain: bool = False):
     """The block-coordinate round for all K shards on one device
     (counterpart of cocoa_tpu/ops/local_sdca.py
     ``local_sdca_block_batched``), the ``--blockSize`` path.  Only the
@@ -271,7 +272,9 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
 
     The row gathers, the alpha gathers and scatter-adds and the (K, d)
     adds are plain tensor ops; every branch scatter-adds its alpha deltas
-    once per block.  Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
+    once per block.  ``plain`` calls the kernels' plain versions on every
+    device (the solvers' rule for 2-byte dtypes, which the kernels
+    refuse).  Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
     if route not in BLOCK_ROUTES:
         raise ValueError(f"route must be one of {BLOCK_ROUTES}, got {route!r}")
     if route == "sparse_gram" and "sp_indices" not in shards:
@@ -299,6 +302,14 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
         hot_cols = shards["hot_cols"].long()                  # (K, n_hot)
         w_hot = w[hot_cols]
         dw_hot = torch.zeros_like(w_hot)
+    if plain:
+        gram_fn, chain_fn, apply_fn, fused_fn = (
+            sparse_block_gram_plain, chain_block_batched_plain,
+            sparse_block_apply_plain, fused_block_plain)
+    else:
+        gram_fn, chain_fn, apply_fn, fused_fn = (
+            sparse_block_gram, chain_block_batched, sparse_block_apply,
+            fused_block)
     ks = torch.arange(k, device=w.device)[:, None]
     for start in range(0, padded.shape[1], block):
         bidx = padded[:, start:start + block]
@@ -313,8 +324,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
             gvals = shards["sp_values"][ks, bidx]
             cnts = torch.where(live_b, row_len.gather(1, bidx),
                                -1).to(torch.int32)
-            gram, mbase = sparse_block_gram(w, dw, gidx, gvals, cnts,
-                                            sig_eff, frozen)
+            gram, mbase = gram_fn(w, dw, gidx, gvals, cnts, sig_eff, frozen)
             if hybrid:
                 xh = gather_rows(shards["X_hot"], bidx)      # (K, B, n_hot)
                 v_hot = w_hot if frozen else w_hot + sig_eff * dw_hot
@@ -325,9 +335,9 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                         gram = gram + torch.matmul(xh, xh.transpose(1, 2))
             scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                                 live], dim=1)
-            delta, coefs = chain_block_batched(scal, gram, bidx32, **chain_kw)
+            delta, coefs = chain_fn(scal, gram, bidx32, **chain_kw)
             a_vec.scatter_add_(1, bidx, delta)
-            sparse_block_apply(dw, gidx, gvals, cnts, coefs)
+            apply_fn(dw, gidx, gvals, cnts, coefs)
             if hybrid:
                 with fp32_matmul():
                     dw_hot = dw_hot + torch.matmul(coefs[:, None, :], xh)[:, 0]
@@ -335,9 +345,8 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
         xb = dense_rows(shards, bidx, d)
         if route == "fused":
             v = w.expand(k, d).contiguous() if frozen else w + sig_eff * dw
-            delta, dwu = fused_block(xb, bidx32, yb, qb,
-                                     a_vec.gather(1, bidx), live, v,
-                                     **chain_kw)
+            delta, dwu = fused_fn(xb, bidx32, yb, qb, a_vec.gather(1, bidx),
+                                  live, v, **chain_kw)
             dw = dw + dwu
             a_vec.scatter_add_(1, bidx, delta)
             continue
@@ -349,7 +358,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                 gram = torch.matmul(xb, xb.transpose(1, 2))
         scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                             live], dim=1)
-        delta, coefs = chain_block_batched(scal, gram, bidx32, **chain_kw)
+        delta, coefs = chain_fn(scal, gram, bidx32, **chain_kw)
         a_vec.scatter_add_(1, bidx, delta)
         with fp32_matmul():
             dw = dw + torch.matmul(coefs[:, None, :], xb)[:, 0]

@@ -20,6 +20,14 @@ goes into a smaller one in passes.  :func:`gram_plan` picks the blocks a
 shard (the rows each owns), the table's size, the chunk and the entries a
 pass against the card's shared memory, for rows of any width; the kernel
 refuses a plan it cannot hold.
+
+The apply kernel splits each shard's Delta-w over blocks that own an
+interleaved slice of its columns each (every S-th column), in shared
+memory; every block streams the shard's live entries in chunks, keeps
+those of its slice, and folds each column's adds in (row, slot) order,
+the order of the plain version on the CPU, so the two agree bit for bit.
+:func:`apply_plan` picks the slices a shard (counting the blocks against
+the card's SMs) and the chunk.
 """
 
 from __future__ import annotations
@@ -47,6 +55,15 @@ ROWS_PER_CTA = (8, 4, 2, 1)
 CHUNK = 256
 # the least table of a plan in passes (a pass then inserts 32 entries)
 MIN_PASS_SLOTS = 64
+
+
+# the apply kernel's chunk of staged entries, and the smaller ones it
+# takes where a slice of the asked width would not fit beside the largest
+APPLY_CHUNKS = (4096, 2048, 1024, 512, 256)
+# its row ids are int16
+APPLY_MAX_B = 32767
+# its warps (csrc/sparse_block.cu kApplyThreads / 32)
+APPLY_WARPS = 16
 
 
 class GramPlan(NamedTuple):
@@ -167,6 +184,79 @@ def gram_plan(b: int, width: int, itemsize: int, smem_optin: int,
                      f"shared memory")
 
 
+class ApplyPlan(NamedTuple):
+    """The apply kernel's plan: ``slices`` blocks a shard (a power of
+    two), slice t owning the columns t, t + slices, ... of its Delta-w, at
+    most ``cols`` of them; entries staged ``chunk`` at a time; and a
+    block's shared memory."""
+
+    slices: int
+    cols: int
+    chunk: int
+    smem: int
+
+
+def apply_smem_bytes(cols: int, chunk: int, b: int, itemsize: int) -> int:
+    """Shared memory of one apply block: the dw slice, the B coefficients,
+    two staging buffers and the compacted list of ``chunk`` values; the B
+    + 1 row offsets, two staging buffers and the list of ``chunk`` int32
+    columns, the warps' counts; two staging buffers of ``chunk`` int16
+    row ids; a byte a slice column, set where an entry reached it."""
+    return (cols + b + 3 * chunk) * itemsize \
+        + (b + 1 + 3 * chunk + APPLY_WARPS) * 4 + 2 * chunk * 2 + cols
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _check_slices(slices):
+    if slices is not None and (isinstance(slices, bool)
+                               or not isinstance(slices, int) or slices < 1
+                               or slices & (slices - 1)):
+        raise ValueError(f"slices must be a power of two or None (auto), "
+                         f"got {slices!r}")
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def apply_plan(k: int, b: int, width: int, d: int, itemsize: int,
+               smem_optin: int, sms: int, slices=None) -> ApplyPlan:
+    """The apply kernel's plan (:class:`ApplyPlan`) for K = ``k`` shards
+    of B = ``b`` rows of ``width`` slots into a (K, ``d``) Delta-w of
+    ``itemsize``-byte values, under ``smem_optin`` bytes of shared memory
+    a block on a card of ``sms`` SMs.  Each of the K S blocks reads all of
+    its shard's live entries and keeps those of its slice, so S fills the
+    card once: the largest power of two up to ``sms // k`` (at least 1, at
+    most d), with the largest chunk of APPLY_CHUNKS beside which a slice
+    of ceil(d / S) columns fits; where none does, S doubles until one
+    does.  ``slices`` asks for that many (a power of two; at most the
+    largest power of two up to d).  The row width does not enter the plan:
+    rows stream through the chunks at any width.  Raises ValueError only
+    when the asked slices cannot fit, or B's rows alone cannot (B above
+    APPLY_MAX_B, or the narrowest slices with the smallest chunk over
+    ``smem_optin``)."""
+    _check_slices(slices)
+    if not 1 <= b <= APPLY_MAX_B or k < 1 or d < 1 or width < 0:
+        raise ValueError(f"the sparse apply kernel takes 1 <= B <= "
+                         f"{APPLY_MAX_B}, K >= 1 and d >= 1, got B={b}, "
+                         f"K={k}, d={d}")
+    most = _pow2_floor(d)
+    count = min(slices or _pow2_floor(sms // k), most)
+    while True:
+        cols = -(-d // count)
+        for chunk in APPLY_CHUNKS:
+            used = apply_smem_bytes(cols, chunk, b, itemsize)
+            if used <= smem_optin:
+                return ApplyPlan(count, cols, chunk, used)
+        if slices is not None or count == most:
+            raise ValueError(
+                f"the sparse apply kernel cannot hold a slice of d={d} in "
+                f"{slices or 'auto'} slices beside {b} rows' staging "
+                f"({itemsize}-byte values) in {smem_optin} bytes of shared "
+                f"memory")
+        count *= 2
+
+
 def live_values(gvals, cnts):
     """The rows' values with every slot at or past the row's length (all
     of a masked row's) set to 0."""
@@ -236,17 +326,24 @@ sparse_block_gram.launches = 0
 
 
 def sparse_block_apply_plain(dw, gidx, gvals, cnts, coefs):
+    """The plain version: one scatter_add_ of coef * v over every slot,
+    the padding adding 0.  On the CPU it adds each column's terms in
+    (row, slot) order, the kernel's order."""
     k = gidx.shape[0]
     upd = coefs[..., None] * live_values(gvals, cnts)
     return dw.scatter_add_(1, gidx.long().reshape(k, -1), upd.reshape(k, -1))
 
 
-def sparse_block_apply(dw, gidx, gvals, cnts, coefs):
+def sparse_block_apply(dw, gidx, gvals, cnts, coefs, slices=None):
     """dw_k += sum_j coefs_kj * x_j over the block's nonzeros, in place;
-    returns ``dw``.  The kernel adds row by row in order, so every column
-    receives its adds in one fixed order and the result repeats bit for
-    bit; the plain version's ``scatter_add_`` is ordered on the CPU only."""
+    returns ``dw``.  Each column receives its adds in (row, slot) order,
+    a strict left fold from dw's value, so the kernel equals the plain
+    version run on the CPU bit for bit.  ``slices`` asks the kernel for
+    that many column slices a shard (None: :func:`apply_plan`'s auto
+    rule); the plain version takes no plan, and ``slices`` is checked on
+    every device."""
     kernels.check_dtype(dw.dtype, "the sparse block apply kernel")
+    _check_slices(slices)
     if kernels.runs_plain(dw.device):
         return sparse_block_apply_plain(dw, gidx, gvals, cnts, coefs)
     kernels.require_cuda(dw, "sparse_block_apply")
@@ -255,11 +352,14 @@ def sparse_block_apply(dw, gidx, gvals, cnts, coefs):
     _check_rows(gidx, gvals, cnts, dt, dev)
     kernels.check_tensor("dw", dw, dt, (k, d), dev)
     kernels.check_tensor("coefs", coefs, dt, (k, b), dev)
+    plan = apply_plan(k, b, width, d, dt.itemsize, kernels.smem_optin(dev),
+                      kernels.sm_count(dev), slices)
     lib = _library()
     with torch.cuda.device(dev):
         rc = getattr(lib, _APPLY_FN[dt])(
             dw.data_ptr(), gidx.data_ptr(), gvals.data_ptr(), cnts.data_ptr(),
-            coefs.data_ptr(), k, b, width, d, kernels.stream_ptr(dev))
+            coefs.data_ptr(), k, b, width, d, plan.slices, plan.cols,
+            plan.chunk, kernels.stream_ptr(dev))
     kernels.raise_on_error(lib, rc, "sparse_block_apply")
     sparse_block_apply.launches += 1
     return dw
@@ -280,5 +380,5 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("sparse_block")
     kernels.declare(lib, _GRAM_FN.values(), 7,
                     [ctypes.c_int] * 8 + [ctypes.c_double, ctypes.c_int])
-    kernels.declare(lib, _APPLY_FN.values(), 5, [ctypes.c_int] * 4)
+    kernels.declare(lib, _APPLY_FN.values(), 5, [ctypes.c_int] * 7)
     return lib

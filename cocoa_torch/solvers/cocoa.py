@@ -19,10 +19,12 @@ from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
-from cocoa_torch.ops.dense_sdca import dense_sdca_round
+from cocoa_torch.ops.dense_sdca import dense_sdca_round, \
+    dense_sdca_round_plain
 from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
 from cocoa_torch.ops.rows import row_lengths
-from cocoa_torch.ops.sparse_sdca import check_dtype, sparse_sdca_round
+from cocoa_torch.ops.sparse_sdca import sparse_sdca_round, \
+    sparse_sdca_round_plain
 from cocoa_torch.solvers import base
 
 # ``--blockSize=auto`` at float32: the block size the JAX package ranks
@@ -55,18 +57,22 @@ def fast_round_route(layout: str, device, dtype: torch.dtype) -> str:
     """Which inner loop runs a ``--math=fast`` round (the rule that stands
     in for the TPU auto-select at cocoa_tpu/solvers/cocoa.py:540-589):
     the wrappers' own device rule, :func:`cocoa_torch.kernels.runs_plain`,
-    on a layout and dtype that a round kernel takes.
+    for a dtype that a round kernel takes.
 
-    - a CPU tensor: ``"plain"``, the vectorised PyTorch loop;
-    - a CUDA tensor: ``"kernel"``, the CUDA sparse SDCA kernel on the
-      sparse layout and the CUDA dense SDCA kernel on the dense one.
+    - a CPU tensor, or a 2-byte dtype on any device: ``"plain"``, the
+      vectorised PyTorch loop (the JAX auto-select keeps 2-byte dtypes
+      off its kernels, ``itemsize == 4``, and runs them all the same);
+    - otherwise ``"kernel"``, the CUDA sparse SDCA kernel on the sparse
+      layout and the CUDA dense SDCA kernel on the dense one.
 
-    2-byte dtypes raise on every device, as the TPU kernels refuse them.
+    The dtype alone decides, before any launch: the kernels themselves
+    refuse 2-byte dtypes.
     """
-    check_dtype(dtype)
     if layout not in ("dense", "sparse"):
         raise ValueError(f"layout must be dense or sparse, got {layout!r}")
-    return "plain" if kernels.runs_plain(device) else "kernel"
+    if kernels.runs_plain(device) or not kernels.takes_dtype(dtype):
+        return "plain"
+    return "kernel"
 
 
 def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
@@ -83,9 +89,9 @@ def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
 
     ProxCoCoA+'s column shards take the same rule: a "row" is then a
     column of A, n entries long (dense) or its nonzeros (padded CSC).
-    The route depends on shapes only: a CPU tensor takes the same branch
-    with the kernels' plain versions.  2-byte dtypes raise."""
-    check_dtype(dtype)
+    The route depends on shapes only: a CPU tensor, and a 2-byte dtype
+    on any device, takes the same branch with the kernels' plain versions
+    (``local_sdca_block_batched(plain=True)`` for the dtype)."""
     if b < 1 or b > CHAIN_MAX_B:
         raise ValueError(f"--blockSize must be in 1..{CHAIN_MAX_B} on this "
                          f"port, got {b}")
@@ -140,30 +146,38 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             # per-row nnz bounds the kernels' loops; once per run
             shards = {**shards, "sp_row_len": row_lengths(ds.sp_values)}
 
+        plain = not kernels.takes_dtype(ds.dtype)
+
         def round_fn(state, idxs_kh, t):
             w, alpha = state
             da, dw = local_sdca_block_batched(
                 w, alpha, shards, idxs_kh, params.lam, params.n,
-                block=block_size, route=route, **common)
+                block=block_size, route=route, plain=plain, **common)
             return w + scaling * dw.sum(0), alpha + scaling * da
         return round_fn
 
     route = fast_round_route(ds.layout, ds.device, ds.dtype)
     if ds.layout == "sparse":
         # per-row nnz bounds the kernel's loops; once per run, not per round
-        row_len = row_lengths(ds.sp_values) if route == "kernel" else None
+        kw = dict(row_len=row_lengths(ds.sp_values)) \
+            if route == "kernel" else {}
+        fn = sparse_sdca_round if route == "kernel" \
+            else sparse_sdca_round_plain
 
         def inner(w, alpha, idxs_kh):
             # a hybrid layout (--hotCols) passes its hot panel through:
             # the round then runs B1's hot-panel branch
-            return sparse_sdca_round(
-                w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
-                ds.sq_norms, idxs_kh, params.lam, params.n, row_len=row_len,
-                hot_cols=ds.hot_cols, hot_panel=ds.X_hot, **common)
+            return fn(w, alpha, ds.sp_indices, ds.sp_values, ds.labels,
+                      ds.sq_norms, idxs_kh, params.lam, params.n,
+                      hot_cols=ds.hot_cols, hot_panel=ds.X_hot, **kw,
+                      **common)
     else:
+        fn = dense_sdca_round if route == "kernel" \
+            else dense_sdca_round_plain
+
         def inner(w, alpha, idxs_kh):
-            return dense_sdca_round(w, alpha, ds.X, ds.labels, ds.sq_norms,
-                                    idxs_kh, params.lam, params.n, **common)
+            return fn(w, alpha, ds.X, ds.labels, ds.sq_norms, idxs_kh,
+                      params.lam, params.n, **common)
 
     def round_fn(state, idxs_kh, t):
         w, alpha = state

@@ -1,12 +1,15 @@
 """The block kernels' plans and designs (the chain B3, ``csrc/block_chain.cu``
-``chain_kernel``, and the sparse Gram B5, ``csrc/sparse_block.cu``
-``gram_kernel``), on the CPU where the kernels cannot run: ``chain_plan``
-and ``gram_plan`` at the main shapes and their refusals, their byte counts
+``chain_kernel``, the sparse Gram B5 and the sparse apply B6,
+``csrc/sparse_block.cu`` ``gram_kernel`` and ``apply_kernel``), on the CPU
+where the kernels cannot run: ``chain_plan``, ``gram_plan`` and
+``apply_plan`` at the main shapes and their refusals, their byte counts
 against the kernels' formulas, the wrappers' calls into the C entry
 points, the chain's ring of mbarrier-guarded slots under random
-interleavings, and numpy models of the two designs (the right-looking
-chain reading its Gram from the staged units, and the Gram from
-shared-memory hash tables) held against the plain versions in float64."""
+interleavings, and numpy models of the three designs (the right-looking
+chain reading its Gram from the staged units, the Gram from shared-memory
+hash tables, the apply's column slices folded in (row, slot) order) held
+against the plain versions: in float64 to 1e-12, the apply bit for bit in
+float32 and float64."""
 
 import random
 import re
@@ -22,6 +25,7 @@ from cocoa_torch.ops import losses  # noqa: E402
 from cocoa_torch.ops import sparse_block as sb  # noqa: E402
 
 OPTIN = 232448  # an H100's opt-in shared memory per block
+SMS = 132       # an H100 SXM's streaming multiprocessors
 HASH_MUL = 2654435769  # csrc/sparse_block.cu kHashMul
 TOL = 1e-12     # float64: the models and the plain versions sum in
                 # different orders
@@ -741,6 +745,7 @@ def _kernel_route(monkeypatch, module):
     monkeypatch.setattr(kernels, "runs_plain", lambda device: False)
     monkeypatch.setattr(kernels, "require_cuda", lambda t, name: None)
     monkeypatch.setattr(kernels, "smem_optin", lambda device: OPTIN)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: SMS)
     monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(module, "_library", lambda: Lib())
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
@@ -823,3 +828,313 @@ def test_gram_plan_refused_on_the_cpu_route(rows, slots):
     with pytest.raises(ValueError, match="must be"):
         sb.sparse_block_gram(to(w), to(dw), to(gidx), to(gvals), to(cnts),
                              4.0, False, rows_per_cta=rows, slots=slots)
+
+
+# --------------------------------------------------------------------------
+# the apply (B6): its plan, and a numpy model of its slices, staging,
+# compaction and column owners, bit for bit
+# --------------------------------------------------------------------------
+
+def _apply(slices, cols, itemsize, b=128, chunk=4096):
+    return sb.ApplyPlan(slices, cols, chunk,
+                        (cols + b + 3 * chunk) * itemsize
+                        + (b + 1 + 3 * chunk + 16) * 4 + 4 * chunk + cols)
+
+
+# (name, K, W, d, itemsize, the auto apply plan): the main paths' blocks
+# (B = 128): rcv1-like and its hybrid residual (K = 8: 16 slices, 128
+# blocks), the demo and the demo's padded-CSC columns into Delta-r (K = 4:
+# 32 slices, 128 blocks), every slice in shared memory beside chunks of
+# 4096 entries
+APPLY_PLANS = [
+    (name, k, width, d, isz, _apply(slices, cols, isz))
+    for name, k, width, d, slices, cols in (
+        ("rcv1-like", 8, 548, 47236, 16, 2953),
+        ("rcv1-like residual", 8, 174, 47236, 16, 2953),
+        ("demo", 4, 283, 9947, 32, 311),
+        ("demo columns", 4, 1738, 2000, 32, 63))
+    for isz in (4, 8)]
+
+
+@pytest.mark.parametrize("name,k,width,d,itemsize,want", APPLY_PLANS,
+                         ids=[f"{p[0]}-f{p[4] * 8}" for p in APPLY_PLANS])
+def test_apply_plan_at_main_shapes(name, k, width, d, itemsize, want):
+    plan = sb.apply_plan(k, 128, width, d, itemsize, OPTIN, SMS)
+    assert plan == want
+    assert k * plan.slices <= SMS < 2 * k * plan.slices
+    assert plan.smem <= OPTIN
+    assert plan.slices * plan.cols >= d > plan.slices * (plan.cols - 1)
+    # the row width never enters the plan
+    assert sb.apply_plan(k, 128, 20000, d, itemsize, OPTIN, SMS) == plan
+
+
+def test_apply_plan_slices_and_refusals():
+    plan = sb.apply_plan
+    # one slice a shard: the whole Delta-w (189 KB in float32, 236 KB with
+    # its byte a column) fits beside no chunk; two slices fit beside
+    # chunks of 2048 in float32, of 256 in float64
+    for itemsize in (4, 8):
+        with pytest.raises(ValueError,
+                           match="cannot hold a slice of d=47236"):
+            plan(8, 128, 548, 47236, itemsize, OPTIN, SMS, 1)
+    assert plan(8, 128, 548, 47236, 4, OPTIN, SMS, 2) == _apply(
+        2, 23618, 4, chunk=2048)
+    assert plan(8, 128, 548, 47236, 8, OPTIN, SMS, 2) == _apply(
+        2, 23618, 8, chunk=256)
+    # asked slices: ceil(d / slices) columns, at most the largest power of
+    # two up to d
+    assert plan(8, 128, 548, 47236, 4, OPTIN, SMS, 64)[:2] == (64, 739)
+    assert plan(8, 128, 548, 47236, 8, OPTIN, SMS, 4)[:3] == (4, 11809,
+                                                             2048)
+    assert plan(4, 128, 10, 100, 4, OPTIN, SMS, 256)[:2] == (64, 2)
+    assert plan(4, 128, 10, 5, 4, OPTIN, SMS)[:2] == (4, 2)
+    assert plan(4, 128, 10, 1, 4, OPTIN, SMS)[:2] == (1, 1)
+    # more shards than SMs: one slice each
+    assert plan(200, 128, 10, 5000, 4, OPTIN, SMS)[:2] == (1, 5000)
+    # a Delta-w too wide for 16 slices: 32 of them
+    assert plan(8, 128, 548, 10 ** 6, 4, OPTIN, SMS)[:3] == (32, 31250,
+                                                            2048)
+    for bad in (0, -1, 3, 12, True, 1.5, "2"):
+        with pytest.raises(ValueError, match="slices must be a power of two"):
+            plan(8, 128, 548, 47236, 4, OPTIN, SMS, bad)
+    for b in (0, sb.APPLY_MAX_B + 1):
+        with pytest.raises(ValueError, match="takes 1 <= B"):
+            plan(8, b, 548, 47236, 4, OPTIN, SMS)
+    # the least slices: 32768, the largest power of two up to d, of 2
+    # columns each beside the smallest chunk
+    tiny = sb.apply_smem_bytes(2, sb.APPLY_CHUNKS[-1], 128, 4)
+    assert plan(8, 128, 548, 47236, 4, tiny, SMS) == sb.ApplyPlan(
+        32768, 2, sb.APPLY_CHUNKS[-1], tiny)
+    with pytest.raises(ValueError, match="cannot hold"):
+        plan(8, 128, 548, 47236, 4, tiny - 1, SMS)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b", [1, 128, 1024])
+@pytest.mark.parametrize("d", [1, 31, 2000, 9947, 47236, 10 ** 6, 10 ** 7])
+def test_apply_plan_takes_every_d(d, b, itemsize):
+    """Every Delta-w width at every block size the block round takes: a
+    plan the kernel holds (apply_plan_ok), within an H100's shared memory;
+    K S blocks fill the card where a slice fits, more slices where not."""
+    for k in (1, 8):
+        plan = sb.apply_plan(k, b, 548, d, itemsize, OPTIN, SMS)
+        assert plan.slices & (plan.slices - 1) == 0 and plan.slices <= d
+        assert plan.slices * plan.cols >= d > plan.slices * (plan.cols - 1)
+        assert plan.chunk in sb.APPLY_CHUNKS
+        assert plan.smem == sb.apply_smem_bytes(plan.cols, plan.chunk, b,
+                                                itemsize) <= OPTIN
+        fill = min(1 << ((SMS // k).bit_length() - 1),
+                   1 << (d.bit_length() - 1))
+        assert plan.slices >= fill
+        if plan.slices > fill:
+            # half as many slices fit beside no pieces
+            assert sb.apply_smem_bytes(-(-d // (plan.slices // 2)),
+                                       sb.APPLY_CHUNKS[-1], b,
+                                       itemsize) > OPTIN
+
+
+def test_apply_smem_matches_the_kernel():
+    src = kernels.SOURCES["sparse_block"].read_text()
+    assert ("  return ((size_t)cols + b + 3 * (size_t)chunk) * itemsize +\n"
+            "         ((size_t)b + 1 + 3 * (size_t)chunk + kApplyWarps) * "
+            "sizeof(int) +\n"
+            "         2 * (size_t)chunk * sizeof(short) + (size_t)cols;") in src
+    assert "constexpr int kApplyThreads = 512;" in src
+    assert sb.APPLY_WARPS == 512 // 32
+    assert sb.apply_smem_bytes(2953, 4096, 128, 4) == _apply(16, 2953,
+                                                             4).smem
+    assert "if (b < 1 || b > 32767 || d < 1 || slices < 1 || cols < 1) " \
+        "return false;" in src
+    assert "if ((slices & (slices - 1)) != 0 || slices > d) return false;" \
+        in src
+    assert sb.APPLY_MAX_B == 32767
+    assert "if (chunk < 32 || chunk % 32 != 0) return false;" in src
+    assert all(c % 32 == 0 for c in sb.APPLY_CHUNKS)
+    assert "const bool own = f >= 0 && (f & (kApplyWarps - 1)) == warp;" \
+        in src
+    assert "lv[to] = mul_rn(cs[rb[e]], vb[e]);" in src
+    # no atomics, and no barrier a row
+    body = src[src.index("__global__ void __launch_bounds__(kApplyThreads) "
+                         "apply_kernel"):src.index("size_t apply_smem")]
+    assert "atomic" not in body
+    assert body.count("__syncthreads();") == 6
+
+
+def apply_model(dw, gidx, gvals, cnts, coefs, slices, cols, chunk):
+    """apply_kernel's walk in numpy, in dw's dtype: block (t, k) loads
+    columns t + i slices (i < cols) of shard k's dw; the shard's live
+    prefixes stream in chunks of ``chunk`` entries (warp w of the 16
+    staging rows ja + w, ja + w + 16, ... of the chunk, each entry with
+    its row); each chunk is compacted by the warps' segments, 32 entries a
+    ballot, to the slice's entries with their products coef * v rounded;
+    warp w folds the list 32 entries at a time into the columns f with f %
+    16 == w, a column met twice in a window summed in lane order by its
+    lowest lane; the columns an entry reached are written back.  Returns
+    (dw, the longest fold of one column in one window)."""
+    dw = dw.copy()
+    ft = dw.dtype.type
+    k, b, width = gidx.shape
+    d = dw.shape[1]
+    nw = sb.APPLY_WARPS
+    longest = 0
+    for s in range(k):
+        off = np.concatenate([[0], np.cumsum(np.clip(cnts[s], 0, width))])
+        total = int(off[-1])
+        for t in range(slices):
+            owned = np.arange(t, d, slices)
+            assert len(owned) <= cols
+            dws = dw[s, owned].copy()
+            hit = np.zeros(len(owned), bool)
+            for g0 in range(0, total, chunk):
+                g1 = min(total, g0 + chunk)
+                n = g1 - g0
+                cb = np.full(n, -1, np.int64)
+                vb = np.zeros(n, dw.dtype)
+                rb = np.full(n, -1, np.int64)
+                ja = int(np.searchsorted(off[:b], g0, side="right")) - 1
+                for w in range(nw):
+                    for j in range(ja + w, b, nw):
+                        if off[j] >= g1:
+                            break
+                        s0, s1 = max(off[j], g0) - off[j], \
+                            min(off[j + 1], g1) - off[j]
+                        at = off[j] - g0
+                        cb[at + s0:at + s1] = gidx[s, j, s0:s1]
+                        vb[at + s0:at + s1] = gvals[s, j, s0:s1]
+                        rb[at + s0:at + s1] = j
+                assert (rb >= 0).all()      # every entry staged once
+                seg = -(-n // (32 * nw)) * 32
+                listed = []
+                for w in range(nw):
+                    e0, e1 = w * seg, min(n, w * seg + seg)
+                    for base in range(e0, e1, 32):
+                        for e in range(base, min(e1, base + 32)):
+                            f = int(cb[e])
+                            if 0 <= f < d and f % slices == t:
+                                listed.append((f // slices,
+                                               ft(coefs[s, rb[e]])
+                                               * ft(vb[e])))
+                assert sum(min(n, w * seg + seg) - min(n, w * seg)
+                           for w in range(nw)) == n
+                for w in range(nw):
+                    for base in range(0, len(listed), 32):
+                        groups = {}
+                        for f, p in listed[base:base + 32]:
+                            if f % nw == w:
+                                groups.setdefault(f, []).append(p)
+                        for f, ps in groups.items():
+                            acc = dws[f]
+                            for p in ps:
+                                acc = ft(acc + p)
+                            dws[f] = acc
+                            hit[f] = True
+                            longest = max(longest, len(ps))
+            dw[s, owned[hit]] = dws[hit]
+    return dw, longest
+
+
+def _apply_case(case, dtype, seed=17):
+    """A block's rows for the apply: ``_gram_case``'s cases (full-width
+    rows whose columns hash to one slot; column 0 and columns repeated
+    within a row, inside a 32-entry chunk and across chunks; masked rows
+    among rows at the full width), and ``hot column``: one column in
+    every live row, some rows holding it twice; with coefficients and a
+    Delta-w in ``dtype``."""
+    base = "column 0 and repeats" if case == "hot column" else case
+    gidx, gvals, cnts, _, dw = _gram_case(base)
+    rng = np.random.default_rng(seed)
+    if case == "hot column":
+        gidx[:, :, 0] = 1733
+        gidx[:, ::4, 3] = 1733
+        cnts[:, ::4] = np.maximum(cnts[:, ::4], 4)
+    coefs = rng.normal(size=cnts.shape) * np.where(cnts[..., None] > 0, 1,
+                                                   0)[..., 0]
+    return (dw.astype(dtype), gidx, gvals.astype(dtype), cnts,
+            coefs.astype(dtype))
+
+
+APPLY_CASES = GRAM_CASES + ["hot column"]
+
+
+@pytest.mark.parametrize("chunk", [32, 4096])
+@pytest.mark.parametrize("slices", [1, 8, 64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", APPLY_CASES)
+def test_apply_model_is_the_plain_version_bit_for_bit(case, dtype, slices,
+                                                      chunk):
+    """The model of the kernel equals the plain version's scatter_add_ on
+    the CPU bit for bit: one slice a shard and many, d = 3000 not a
+    multiple of 64 slices, rows staged in chunks of 32 entries (a row
+    repeating a column across chunks) and whole in one chunk."""
+    dw, gidx, gvals, cnts, coefs = _apply_case(case, dtype)
+    d = dw.shape[1]
+    got, longest = apply_model(dw, gidx, gvals, cnts, coefs, slices,
+                               -(-d // slices), chunk)
+    to = torch.as_tensor
+    want = sb.sparse_block_apply_plain(to(dw.copy()), to(gidx), to(gvals),
+                                       to(cnts), to(coefs)).numpy()
+    assert got.dtype == want.dtype == dtype
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, dw)
+    if case == "hot column" and chunk == 4096:
+        # the hot column's window folds many rows in one register
+        assert longest >= 4
+    if case == "column 0 and repeats":
+        assert longest >= 2
+
+
+def test_apply_order_is_a_left_fold():
+    """Why the order matters: the plain version folds a column's adds in
+    (row, slot) order, and another order gives other float32 bits."""
+    vals = np.array([1.0, 1e8, -1e8, 3.0], np.float32)
+    gidx = np.zeros((1, 4, 1), np.int32)
+    cnts = np.ones((1, 4), np.int32)
+    coefs = np.ones((1, 4), np.float32)
+    dw = np.zeros((1, 2), np.float32)
+    to = torch.as_tensor
+    want = sb.sparse_block_apply_plain(to(dw.copy()), to(gidx),
+                                       to(vals.reshape(1, 4, 1)), to(cnts),
+                                       to(coefs)).numpy()
+    got, _ = apply_model(dw, gidx, vals.reshape(1, 4, 1), cnts, coefs, 2, 1,
+                         32)
+    assert want[0, 0] == got[0, 0] == np.float32(3.0)
+    assert np.float32(np.float32(1.0) + np.float32(3.0)) == 4.0
+
+
+@pytest.mark.parametrize("slices", [None, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_apply_wrapper_passes_the_plan(monkeypatch, dtype, slices):
+    calls = _kernel_route(monkeypatch, sb)
+    dw, gidx, gvals, cnts, coefs = _apply_case("masked and full", np.float64)
+    to = torch.as_tensor
+    before = sb.sparse_block_apply.launches
+    out = to(dw).to(dtype)
+    assert sb.sparse_block_apply(out, to(gidx), to(gvals).to(dtype),
+                                 to(cnts), to(coefs).to(dtype),
+                                 slices=slices) is out
+    (name, args), = calls
+    assert name == sb._APPLY_FN[dtype]
+    src = kernels.SOURCES["sparse_block"].read_text()
+    assert len(args) == _macro_arity(src, "APPLY_ENTRY")
+    plan = sb.apply_plan(2, 48, 40, 3000, dtype.itemsize, OPTIN, SMS, slices)
+    assert args[5:12] == (2, 48, 40, 3000, *plan[:3])
+    assert plan.slices == (64 if slices is None else 4)
+    assert sb.sparse_block_apply.launches == before + 1
+    sb.sparse_block_apply.launches = before
+
+
+def test_apply_plain_route_ignores_the_plan():
+    dw, gidx, gvals, cnts, coefs = _apply_case("hot column", np.float32)
+    to = torch.as_tensor
+    n6 = sb.sparse_block_apply.launches
+    want = sb.sparse_block_apply(to(dw.copy()), to(gidx), to(gvals),
+                                 to(cnts), to(coefs))
+    for slices in (1, 4, 1024):
+        got = sb.sparse_block_apply(to(dw.copy()), to(gidx), to(gvals),
+                                    to(cnts), to(coefs), slices=slices)
+        assert torch.equal(got, want)
+    assert sb.sparse_block_apply.launches == n6
+    for bad in (0, -4, 3, True, 2.0):
+        with pytest.raises(ValueError, match="slices must be"):
+            sb.sparse_block_apply(to(dw.copy()), to(gidx), to(gvals),
+                                  to(cnts), to(coefs), slices=bad)

@@ -267,8 +267,9 @@ def test_block_route_at_the_three_configurations():
     assert route("dense", 512, f32) == "split"
     assert route("sparse", 512, f32) == "sparse_gram"
     assert cocoa_mod.AUTO_BLOCK == 128
-    with pytest.raises(ValueError, match="float32 or float64"):
-        route("sparse", 128, torch.bfloat16)
+    # bf16 takes the same branch, through the plain versions
+    assert route("sparse", 128, torch.bfloat16) == "sparse_gram"
+    assert route("dense", 512, torch.bfloat16) == "split"
     with pytest.raises(ValueError, match="1..1024"):
         route("dense", 2048, f32)
 
