@@ -125,6 +125,24 @@ stderr); any failed check exits non-zero:
    9's in float32, where the lasso design's last gaps are a few float32
    ulps of the primal and 4 of those are allowed beside), ms per round
    and the round that reaches 1e-3 * |b|^2 / 2.
+12. the gap-targeted driver ladder, float32, --math=fast, every
+   kernel's count set to 0 before each run and read after it: (a) the
+   demo through the CLI to a 1e-4 gap (--numRounds=500, accel auto: the
+   secant jump on CoCoA+), against the same command through the plain
+   versions: the same stop reason, stop rounds within one debugIter,
+   every common eval's gap within relative 1e-3; (b) the demo with
+   --sigma=auto (the anneal), --sigma=auto --sigmaSchedule=trial and
+   --warmStart=0.5,30, their stop reasons and sigma' on each record; (c)
+   rcv1-like data (K=8, H=253, lambda=1e-4, --rng=permuted) with sigma'
+   auto to a 1e-4 gap, no backoff, its stop round beside JAX's pin (575),
+   then the safe sigma' with accel auto and off, rounds and seconds to
+   the gap; (d) the same sigma' auto run through the block path at B=128
+   (B5, B3, B6), its gaps within relative 1e-3 of (c)'s; (e) the coherent
+   shards of tests/test_divergence.py (sigma' = 1, K = 4, dense: B2) bail
+   out DIVERGED at the same round as through the plain version; (f) the
+   lasso design, lasso and elastic net, to 1e-3 * |b|^2 / 2 sequentially
+   (B2) and at B=512 (split: B3), the stop rounds beside the 550 / 350 of
+   phase 9.  Each case prints its seconds to the stop and its launches.
 
 The line before the last lists every kernel with its launches on the main
 paths, its error against the plain version and its times; the last line is
@@ -153,6 +171,7 @@ import torch
 from cocoa_torch import cli, kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
+from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.data.columns import shard_columns
 from cocoa_torch.data.synth import synth_dense_sharded, \
     synth_lasso_columns, synth_sparse, write_libsvm
@@ -1946,6 +1965,266 @@ def phase_prox_block_path(demo_train, demo_seq, lasso, lasso_seq, tall):
     return launched, per_round
 
 
+
+# --- phase 12: the gap-targeted driver ladder -------------------------------
+
+GAP_TARGET = 1e-4
+# the coherent shards' data seed whose bail-out round does not move with
+# rounding: 425 in 12 of 12 CPU runs with X perturbed by 3e-7, in float32
+# and float64 (tests/test_torch_gap_target.py); the oscillation multiplies
+# a rounding difference by ~10 every 25 rounds
+COHERENT_SEED = 7
+
+
+def coherent_shards(k=4, m=32, d=16, seed=COHERENT_SEED):
+    """tests/test_divergence.py's K identical shards (the same m unit rows
+    K times: the true coupling is sigma' = K), dense float32 on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    y = np.where(x @ rng.standard_normal(d) >= 0, 1.0, -1.0)
+    n = k * m
+    data = LibsvmData(labels=np.tile(y, k),
+                      indptr=np.arange(0, (n + 1) * d, d, dtype=np.int64),
+                      indices=np.tile(np.arange(d, dtype=np.int32), n),
+                      values=np.tile(x, (k, 1)).reshape(-1), num_features=d)
+    return shard_dataset(data, k, layout="dense", dtype=torch.float32,
+                         device="cuda"), n
+
+
+def stop_of(traj):
+    """(stopped, last eval round, wall seconds to it)."""
+    last = traj.records[-1]
+    return traj.stopped, last.round, last.wall_time
+
+
+def ladder_line(label, results, got):
+    """One case's line: each run's stop, round and seconds, and the
+    launches of every kernel that ran."""
+    runs = "; ".join(f"{r.algorithm} {r.trajectory.stopped} at round "
+                     f"{r.trajectory.records[-1].round} in "
+                     f"{r.trajectory.records[-1].wall_time:.3f} s"
+                     for r in results)
+    kern = ", ".join(f"{k} {v}" for k, v in got.items() if v) or "none"
+    print(f"phase 12: {label}: {runs}; launches {kern}")
+
+
+def check_gaps_common(label, res, ref, debug_iter, rel=1e-3):
+    """The same stop reason, stop rounds within one ``debug_iter``, and
+    every common eval's gap within relative ``rel``."""
+    for r, p in zip(res, ref):
+        a, b = r.trajectory, p.trajectory
+        check(a.stopped == b.stopped,
+              f"{label} {r.algorithm}: stopped {a.stopped} vs {b.stopped}")
+        check(abs(a.records[-1].round - b.records[-1].round) <= debug_iter,
+              f"{label} {r.algorithm}: stop round {a.records[-1].round} vs "
+              f"{b.records[-1].round}")
+        for x, y in zip(a.records, b.records):
+            check(x.round == y.round and abs(x.gap - y.gap) <= rel * y.gap,
+                  f"{label} {r.algorithm} round {x.round}: gap {x.gap} vs "
+                  f"{y.gap}")
+
+
+def phase_ladder(rcv1, lasso, card):
+    """The gap-targeted driver ladder on the card, float32, --math=fast,
+    every kernel's count set to 0 just before each run and read just
+    after: (a) the demo to a 1e-4 gap through the CLI (accel auto) against
+    the same run through the plain versions; (b) the demo's ladder runs
+    (--sigma=auto anneal and trial, --warmStart); (c) rcv1-like data with
+    sigma' auto, and at the safe sigma' with accel auto and off; (d) the
+    rcv1-like block path; (e) the coherent shards' bail-out on B2 against
+    the plain route; (f) the lasso design to 1e-3 |b|^2/2, sequential and
+    at B=512.  Returns {run: counts}."""
+    launched = {}
+    demo = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4", "--numRounds=500",
+            "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
+            "--dtype=float32", f"--gapTarget={GAP_TARGET}"]
+
+    def rounds_run(res):
+        return sum(r.trajectory.records[-1].round for r in res)
+
+    # (a) the demo to the target, kernels against the plain versions
+    (out, res), got = reset_and_run(run_cli, demo)
+    (OUT / "chip_smoke_demo_gap_target.log").write_text(out)
+    check(all(r.trajectory.stopped == "target" for r in res),
+          f"(a) demo: stopped {[r.trajectory.stopped for r in res]}")
+    check(got == only("B1", rounds_run(res)),
+          f"(a) demo: launches {got}, want {only('B1', rounds_run(res))}")
+    check_run(res, "(a) demo to 1e-4")
+    with plain_kernels():
+        (_, plain), got_p = reset_and_run(run_cli, demo)
+    check(not any(got_p.values()), f"(a) plain run launched {got_p}")
+    check_gaps_common("(a) demo kernel vs plain", res, plain, 10)
+    launched["(a) demo"] = got
+    ladder_line("(a) demo CLI --gapTarget=1e-4 (accel auto)", res, got)
+    ladder_line("(a) the same through the plain versions", plain, got_p)
+    print(f"  (a) restarts: {out.count('momentum restart')} (kernels), "
+          f"the plain run stops at "
+          + ", ".join(str(p.trajectory.records[-1].round) for p in plain))
+
+    # (b) the demo's ladder runs
+    for label, extra in (("--sigma=auto", ["--sigma=auto"]),
+                         ("--sigma=auto --sigmaSchedule=trial",
+                          ["--sigma=auto", "--sigmaSchedule=trial"]),
+                         ("--warmStart=0.5,30", ["--warmStart=0.5,30"])):
+        (out, res), got = reset_and_run(run_cli, demo + extra)
+        check(all(r.trajectory.stopped == "target" for r in res),
+              f"(b) demo {label}: stopped "
+              f"{[r.trajectory.stopped for r in res]}")
+        check(got == only("B1", rounds_run(res)),
+              f"(b) demo {label}: launches {got}")
+        check_run(res, f"(b) demo {label}")
+        sig = [rec.sigma for rec in res[0].trajectory.records]
+        if label == "--sigma=auto":
+            check(all(s in base.anneal_levels(2.0, 4.0) for s in sig),
+                  f"(b) {label}: CoCoA+ sigma' {sig}")
+        else:
+            check(all(s is None for s in sig), f"(b) {label}: sigma' {sig}")
+        check(all(rec.sigma is None for rec in res[1].trajectory.records),
+              f"(b) {label}: CoCoA ran a schedule")
+        launched[f"(b) demo {label}"] = got
+        ladder_line(f"(b) demo {label}", res, got)
+        print(f"  (b) CoCoA+ sigma' by eval: {sorted(set(sig), key=str)}; "
+              f"restart lines {out.count('restarting with the safe')}, "
+              f"backoff lines {out.count('backing off')}")
+
+    # (c) rcv1-like with sigma' auto; the safe sigma' with accel on, off
+    k, h = 8, rcv1.n // 8 // 10
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    debug = DebugParams(debug_iter=25, seed=0)
+    run = dict(plus=True, quiet=True, math="fast", gap_target=GAP_TARGET,
+               rng="permuted")
+
+    def rcv1_params(sigma):
+        return Params(n=rcv1.n, num_rounds=1600, local_iters=h, lam=1e-4,
+                      sigma=sigma)
+
+    seq = {}
+    for label, sigma, kw in (("sigma' auto", "auto", {}),
+                             ("safe sigma' accel auto", None,
+                              dict(accel="auto")),
+                             ("safe sigma' accel off", None,
+                              dict(accel="off"))):
+        (w, alpha, traj), got = reset_and_run(
+            cocoa_mod.run_cocoa, ds, rcv1_params(sigma), debug, **run, **kw)
+        res = [cli.RunResult(traj.algorithm, w, alpha, traj)]
+        rounds = traj.records[-1].round
+        check(traj.stopped == "target", f"(c) rcv1-like {label}: stopped "
+                                        f"{traj.stopped} at {rounds}")
+        check(got == only("B1", rounds), f"(c) {label}: launches {got}")
+        check_run(res, f"(c) rcv1-like {label}")
+        if sigma == "auto":
+            check(all(rec.sigma == k / 2.0 for rec in traj.records),
+                  "(c) rcv1-like sigma' auto backed off")
+        seq[label] = res
+        launched[f"(c) rcv1-like {label}"] = got
+        ladder_line(f"(c) rcv1-like K=8 H={h} lambda=1e-4 {label}", res,
+                    got)
+    auto_stop = seq["sigma' auto"][0].trajectory.records[-1].round
+    print(f"  (c) rcv1-like sigma' auto stops at round {auto_stop} (JAX's "
+          f"pin, tests/test_sigma_anneal.py:337: <= 575), no "
+          f"backoff; the safe sigma' to 1e-4: accel auto "
+          + " vs accel off ".join(
+              f"{seq[lb][0].trajectory.records[-1].round} rounds in "
+              f"{seq[lb][0].trajectory.records[-1].wall_time:.3f} s"
+              for lb in ("safe sigma' accel auto", "safe sigma' accel off")))
+
+    # the host builds each chunk's (C, K, H) draw tables: their time a
+    # round in --rng=permuted (these runs) and reference (phase 4)
+    tables_ms = {}
+    for mode in ("permuted", "reference"):
+        sampler = base.IndexSampler(mode, 0, h, ds.counts)
+        t0 = time.perf_counter()
+        for t in range(1, auto_stop + 1, 25):
+            sampler.chunk_indices(t, 25)
+        tables_ms[mode] = (time.perf_counter() - t0) / auto_stop * 1e3
+    auto_wall = seq["sigma' auto"][0].trajectory.records[-1].wall_time
+    print(f"  (c) wall clock per round to the stop (evals included): "
+          f"sigma' auto {auto_wall / auto_stop * 1e3:.3f} ms; host draw "
+          f"tables per round: " + ", ".join(
+              f"{mode} {ms:.3f} ms" for mode, ms in tables_ms.items()))
+
+    # (d) the rcv1-like block path, sigma' auto
+    (w, alpha, traj), got = reset_and_run(
+        cocoa_mod.run_cocoa, ds, rcv1_params("auto"), debug, block_size=BLOCK,
+        **run)
+    res = [cli.RunResult(traj.algorithm, w, alpha, traj)]
+    nb = -(-h // BLOCK) * traj.records[-1].round
+    want = {name: 0 for name in KERNELS}
+    want.update(B3=nb, B5=nb, B6=nb)
+    check(traj.stopped == "target", f"(d) block: stopped {traj.stopped}")
+    check(got == want, f"(d) block: launches {got}, want {want}")
+    check_run(res, "(d) rcv1-like block")
+    a, b = traj.records, seq["sigma' auto"][0].trajectory.records
+    for x, y in zip(a, b):
+        check(x.round == y.round and abs(x.gap - y.gap) <= 1e-3 * y.gap,
+              f"(d) block round {x.round}: gap {x.gap} vs sequential {y.gap}")
+    launched["(d) rcv1-like block"] = got
+    ladder_line(f"(d) rcv1-like --blockSize={BLOCK} sigma' auto", res, got)
+    del ds
+
+    # (e) the coherent shards' bail-out, B2 against the plain route
+    coh, n = coherent_shards()
+    params = Params(n=n, num_rounds=1600, local_iters=16, lam=1e-4,
+                    sigma=1.0)
+    kw = dict(plus=True, math="fast", gap_target=1e-3, rng="jax")
+    outs = {}
+    # plain_kernels() patches as it is called, so each context is made
+    # just before its run
+    for label, ctx in (("kernel", contextlib.nullcontext),
+                       ("plain", plain_kernels)):
+        buf = io.StringIO()
+        with ctx(), contextlib.redirect_stdout(buf):
+            (_, _, traj), got = reset_and_run(
+                cocoa_mod.run_cocoa, coh, params, debug, **kw)
+        line = [ln for ln in buf.getvalue().splitlines() if "DIVERGED" in ln]
+        check(traj.stopped == "diverged" and len(line) == 1,
+              f"(e) coherent {label}: stopped {traj.stopped}")
+        outs[label] = (traj, got, line[0])
+    (tk, got, line), (tp, got_p, _) = outs["kernel"], outs["plain"]
+    check(got == only("B2", tk.records[-1].round) and not any(got_p.values()),
+          f"(e) coherent: launches {got} (plain run {got_p})")
+    check(tk.records[-1].round == tp.records[-1].round,
+          f"(e) coherent: DIVERGED at round {tk.records[-1].round} on the "
+          f"kernel, {tp.records[-1].round} on the plain route")
+    launched["(e) coherent"] = got
+    print(f"phase 12: (e) coherent shards K=4 sigma'=1 dense (seed "
+          f"{COHERENT_SEED}): {line}; the plain route at round "
+          f"{tp.records[-1].round}; {tk.records[-1].wall_time:.3f} s; "
+          f"launches B2 {got['B2']}")
+
+    # (f) the lasso design to 1e-3 |b|^2 / 2, sequential and B=512
+    lds, lb, lam_max = lasso
+    target = 1e-3 * 0.5 * float(lb @ lb)
+    hl = lds.n // lds.k // 10
+    for tag, l2, want_rounds in (("lasso", 0.0, 550),
+                                 ("elastic net", 0.1, 350)):
+        params = Params(n=lds.n, num_rounds=LASSO_ROUNDS, local_iters=hl,
+                        lam=0.3 * lam_max, loss="lasso", smoothing=l2)
+        for b, kern in ((0, "B2"), (4 * BLOCK, "B3")):
+            (x, r, traj), got = reset_and_run(
+                run_prox_cocoa, lds, lb, params,
+                DebugParams(debug_iter=50, seed=0), quiet=True, math="fast",
+                gap_target=target, block_size=b)
+            rounds = traj.records[-1].round
+            check(traj.stopped == "target",
+                  f"(f) {tag} B={b}: stopped {traj.stopped}")
+            check(got == only(kern, rounds),
+                  f"(f) {tag} B={b}: launches {got}")
+            check(bool(torch.isfinite(x).all() and torch.isfinite(r).all()),
+                  f"(f) {tag}: x or r not finite")
+            launched[f"(f) {tag} B={b}"] = got
+            print(f"phase 12: (f) lasso design {tag} "
+                  f"{'sequential' if not b else f'B={b} split'} to "
+                  f"{target:.6g}: stopped at round {rounds} (PERF.md §5: "
+                  f"{want_rounds}) in {traj.records[-1].wall_time:.3f} s; "
+                  f"launches {kern} {got[kern]}")
+    print(f"phase 12: card {card}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -2330,17 +2609,29 @@ def main() -> int:
         DEMO_TRAIN, {lay: results9[f"demo lasso {lay}"]
                      for lay in ("dense", "sparse")},
         (lasso_ds, lasso_b, lam_max), lasso_runs, (tall, tall_b, tall_max))
-    del lasso_ds, tall, designs11
+    del tall, designs11
+
+    # --- phase 12: the gap-targeted driver ladder
+    t0 = time.perf_counter()
+    launched12 = phase_ladder(rcv1, (lasso_ds, lasso_b, lam_max), card)
+    del lasso_ds
+    print(f"phase 12: all cases ok in {time.perf_counter() - t0:.1f} s")
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
-                                                  *launched11.values()))
+                                                  *launched11.values(),
+                                                  *launched12.values()))
                       for name in ("B3", "B4", "B5", "B6")}
     for name, n in block_launches.items():
         check(n > 0, f"{name} never launched on the block path")
     seq_launches = {name: sum(c[name] for c in (*launched8.values(),
-                                                *launched9.values()))
+                                                *launched9.values(),
+                                                *launched12.values()))
                     for name in ("B1", "B2")}
+    ladder_launches = {name: sum(c[name] for c in launched12.values())
+                       for name in ("B1", "B2", "B3", "B5", "B6")}
+    for name, n in ladder_launches.items():
+        check(n > 0, f"{name} never launched from a gap-targeted run")
     check(seq_launches["B2"] > 0, "B2 never launched on the main paths")
     hyb_launches = sum(c["B1h"] for c in launched10.values())
     check(hyb_launches > 0, "B1h never launched on the hybrid main path")
@@ -2384,9 +2675,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
-          f"{main_launches}, phase 9 {seq_launches['B1']}), B1h "
-          f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8 "
-          f"and 9); B3-B6 " + ", ".join(
+          f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
+          f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "
+          f"9 and 12); phase 12 alone: " + ", ".join(
+              f"{name} {n}" for name, n in ladder_launches.items())
+          + "; B3-B6 " + ", ".join(
               f"{name} {n} (phase 11: "
               f"{sum(c[name] for c in launched11.values())})"
               for name, n in block_launches.items()))

@@ -9,6 +9,9 @@
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
         --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
         [--objective=svm|lasso --l2=<float>] [--hotCols=auto|off|<n>]
+        [--gapTarget=<float> --divergenceGuard=auto|on|off
+        --sigma=auto --sigmaSchedule=anneal|trial --warmStart=<s>,<rounds>
+        --accel=auto|on|off --theta=fixed|adaptive] [--trajOut=P] [--quiet]
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
 prints the reference's round and summary lines; ``--justCoCoA=false``
@@ -24,9 +27,19 @@ size for the layout.  ``--hotCols`` (sparse layout,
 ``--objective=svm``) builds the hybrid hot/cold column split
 (data/hybrid.py): the hottest columns move into a dense panel and the
 padded CSR keeps the cold residual; ``auto`` takes the panel that covers
-75% of the nonzeros within a 2 GiB budget.  Flags of the JAX CLI that
-this port does not support yet exit 2 with ``error: --X is not yet ported
-to cocoa_torch (ROADMAP Queue A)``.
+75% of the nonzeros within a 2 GiB budget.
+
+The driver ladder, as in the JAX CLI: ``--gapTarget=<float>`` stops a
+run at the first eval whose duality gap is at or below it;
+``--divergenceGuard=auto|on|off`` arms the stall watch's bail-out (auto:
+only at a sigma' below K*gamma); ``--sigma=auto`` with
+``--sigmaSchedule=anneal|trial`` starts CoCoA+ at K*gamma/2;
+``--warmStart=<s>,<rounds>`` runs smooth_hinge(s) first;
+``--accel=auto|on|off`` and ``--theta=fixed|adaptive`` the accelerated
+outer loop (auto: on for gap-targeted CoCoA+); ``--trajOut=P`` writes
+``P.<algorithm>.jsonl`` after each summary; ``--quiet`` silences the
+console.  Flags of the JAX CLI that this port does not support yet exit 2
+with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue A)``.
 """
 
 from __future__ import annotations
@@ -50,21 +63,22 @@ from cocoa_torch.solvers.dist_gd import run_dist_gd
 from cocoa_torch.solvers.minibatch_cd import run_minibatch_cd
 from cocoa_torch.solvers.prox_cocoa import lasso_metrics, run_prox_cocoa
 from cocoa_torch.solvers.sgd import run_sgd
-from cocoa_torch.utils.logging import Trajectory
+from cocoa_torch.utils.logging import Trajectory, config_hash
 
 _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
                                "smoothing", "sigma", "device", "objective",
-                               "l2")}
-_PORT_FLAGS["blockSize"] = "block_size"
-_PORT_FLAGS["hotCols"] = "hot_cols"
+                               "l2", "quiet", "accel", "theta")}
+_PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
+                   gapTarget="gap_target", divergenceGuard="divergence_guard",
+                   trajOut="traj_out", sigmaSchedule="sigma_schedule",
+                   warmStart="warm_start")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
-    "chkptDir", "sampling", "mesh", "fp", "trajOut", "gapTarget", "resume",
+    "chkptDir", "sampling", "mesh", "fp", "resume",
     "scanChunk", "deviceLoop", "master", "processId", "numProcesses",
     "profile", "blockPipeline",
-    "divergenceGuard", "sigmaSchedule", "warmStart", "accel", "theta",
     "elastic", "stallTimeout", "evalDense", "ingest",
-    "ingestCache", "metrics", "events", "quiet", "trace", "flightRecorder",
+    "ingestCache", "metrics", "events", "trace", "flightRecorder",
     "eventsMaxMB", "metricsInterval", "overlapComm", "staleRounds", "fleet",
     "fleetLanes", "serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
     "serveDtype", "serveReplicas", "serveRoute", "traceSample",
@@ -116,10 +130,8 @@ def parse_args(argv: list[str]):
         elif field in _INT_FIELDS:
             setattr(cfg, field, int(val))
         elif field in _FLOAT_FIELDS:
-            if field == "sigma" and val == "auto":
-                unported.append("sigma=auto")
-                continue
-            setattr(cfg, field, float(val))
+            setattr(cfg, field, "auto" if field == "sigma" and val == "auto"
+                    else float(val))
         else:
             setattr(cfg, field, val)
     return cfg, unported
@@ -188,6 +200,105 @@ def _objective(cfg: RunConfig):
     return objective, l2
 
 
+def _quiet(cfg: RunConfig) -> bool:
+    return cfg.quiet is not None and cfg.quiet.lower() != "false"
+
+
+def _ladder(cfg: RunConfig) -> dict:
+    """The driver ladder's flags resolved, with the JAX CLI's checks and
+    messages (cocoa_tpu/cli.py:650-735, 1569-1577, 1645-1657): the
+    keywords of ``run_cocoa`` (gap_target, divergence_guard,
+    sigma_schedule, warm_start, accel, theta)."""
+    gap = cfg.gap_target
+    if cfg.sigma == "auto" and not gap:
+        raise ValueError("--sigma=auto requires --gapTarget (the σ′ fallback "
+                         "triggers on the divergence guard, which runs on the "
+                         "gap-target path)")
+    schedule = cfg.sigma_schedule
+    if schedule is not None and schedule not in ("trial", "anneal"):
+        raise ValueError(f"--sigmaSchedule must be trial|anneal, got "
+                         f"{schedule!r}")
+    if schedule == "trial" and cfg.sigma != "auto":
+        raise ValueError("--sigmaSchedule=trial is the --sigma=auto A/B "
+                         "control and needs --sigma=auto")
+    anneal_engages = (cfg.sigma == "auto"
+                      or (isinstance(cfg.sigma, float)
+                          and 0 < cfg.sigma < cfg.num_splits * cfg.gamma))
+    if schedule == "anneal" and anneal_engages and not gap:
+        raise ValueError("--sigmaSchedule=anneal requires --gapTarget (the "
+                         "in-loop backoff triggers on the stall watch, which "
+                         "runs on the gap-target path)")
+    accel = (cfg.accel or "auto").lower()
+    if accel not in ("auto", "on", "off"):
+        raise ValueError(f"--accel must be auto|on|off, got {cfg.accel!r}")
+    theta = (cfg.theta or "fixed").lower()
+    if theta not in ("fixed", "adaptive"):
+        raise ValueError(f"--theta must be fixed|adaptive, got "
+                         f"{cfg.theta!r}")
+    if accel == "on" and not gap:
+        raise ValueError("--accel=on requires --gapTarget (the momentum "
+                         "restart rule monitors the gap trajectory; "
+                         "fixed-round benchmark runs stay unaccelerated)")
+    if accel == "on" and schedule == "trial":
+        raise ValueError("--accel cannot ride --sigmaSchedule=trial (the "
+                         "trial is the bit-exact A/B control); use "
+                         "--sigmaSchedule=anneal")
+    if theta == "adaptive" and (accel == "off" or schedule == "trial"
+                                or not gap):
+        raise ValueError("--theta=adaptive requires an accelerated "
+                         "gap-targeted run (--accel=auto|on with --gapTarget, "
+                         "not --sigmaSchedule=trial)")
+    warm = None
+    if cfg.warm_start:
+        parts = cfg.warm_start.split(",")
+        try:
+            if len(parts) != 2:
+                raise ValueError
+            warm = (float(parts[0]), int(parts[1]))
+        except ValueError:
+            raise ValueError(f"--warmStart takes <smoothing>,<rounds> (e.g. "
+                             f"0.1,300), got {cfg.warm_start!r}") from None
+        if warm[0] <= 0 or warm[1] < 1:
+            raise ValueError("--warmStart needs smoothing > 0 and rounds >= 1")
+        if cfg.loss != "hinge":
+            raise ValueError("--warmStart hands a smooth_hinge phase off to "
+                             "hinge and requires --loss=hinge")
+        if cfg.debug_iter <= 0:
+            raise ValueError("--warmStart requires --debugIter > 0 (the "
+                             "in-loop handoff lands on the eval cadence)")
+    try:
+        gap_target = float(gap) if gap else None
+    except ValueError:
+        raise ValueError(f"--gapTarget must be a float, got {gap!r}") \
+            from None
+    if gap_target is not None and cfg.dtype == "bfloat16":
+        raise ValueError("--gapTarget cannot be certified at "
+                         "--dtype=bfloat16 (the gap is below bf16 "
+                         "resolution); use --dtype=float32 or drop "
+                         "--gapTarget")
+    guard = (cfg.divergence_guard or "auto").lower()
+    if guard not in ("auto", "on", "off"):
+        raise ValueError(f"--divergenceGuard must be auto|on|off, got "
+                         f"{cfg.divergence_guard!r}")
+    if guard == "off" and (cfg.sigma == "auto"
+                           or (schedule == "anneal" and anneal_engages)):
+        raise ValueError("--sigma=auto / --sigmaSchedule=anneal require the "
+                         "divergence guard; drop --divergenceGuard=off")
+    return dict(gap_target=gap_target, divergence_guard=guard,
+                sigma_schedule=schedule, warm_start=warm, accel=accel,
+                theta=theta)
+
+
+def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
+    """The summary, then ``--trajOut``'s file, as the JAX CLI's
+    ``finish`` (cocoa_tpu/cli.py:1771-1773)."""
+    traj.meta.update(run_meta)
+    traj.summary(*summary)
+    if cfg.traj_out:
+        traj.dump_jsonl(f"{cfg.traj_out}."
+                        f"{traj.algorithm.replace(' ', '_')}.jsonl")
+
+
 def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
     """``--hotCols`` resolved against the training data, with the JAX
     CLI's rule and messages (cocoa_tpu/cli.py:1452-1471): sparse layout
@@ -200,7 +311,7 @@ def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
     if layout != "sparse":
         return 0
     hot_n, split = hybrid.resolve_hot_cols(cfg.hot_cols, data, k, dtype)
-    if hot_n:
+    if hot_n and not _quiet(cfg):
         print(f"hotCols={split['spec']}: panel {hot_n} columns, "
               f"{split['coverage'] * 100:.1f}% nonzero coverage, "
               f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
@@ -209,17 +320,19 @@ def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
     return hot_n
 
 
-def _resolve_auto_block(ds, dtype) -> int:
+def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
     """``--blockSize=auto`` against the active dataset (rows for svm,
     columns for lasso), with the JAX CLI's line (cocoa_tpu/cli.py
     ``_resolve_auto_block``)."""
     block_size = auto_block_size(ds, dtype)
-    print(f"blockSize=auto: using {block_size or 'the sequential path'} "
-          f"for the {ds.layout} layout")
+    if not quiet:
+        print(f"blockSize=auto: using {block_size or 'the sequential path'} "
+              f"for the {ds.layout} layout")
     return block_size
 
 
-def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device):
+def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
+               ladder: dict, run_meta: dict):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
     line from one more certificate."""
@@ -228,20 +341,23 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device):
         data = load_libsvm(cfg.train_file, cfg.num_features)
         ds, b = shard_columns(data, k, dtype=dtype, device=device,
                               layout=cfg.layout)
+        quiet = _quiet(cfg)
         if cfg.block_size.lower() == "auto":
-            block_size = _resolve_auto_block(ds, dtype)
+            block_size = _resolve_auto_block(ds, dtype, quiet)
         # the same H = max(1, localIterFrac*d/K) law, over coordinates
         params = dataclasses.replace(cfg.to_params(data.num_features, k),
                                      loss="lasso", smoothing=l2)
-        x, r, traj = run_prox_cocoa(ds, b, params, cfg.to_debug(),
-                                    rng=cfg.rng, math=cfg.math,
-                                    block_size=block_size)
+        x, r, traj = run_prox_cocoa(
+            ds, b, params, cfg.to_debug(), rng=cfg.rng, math=cfg.math,
+            block_size=block_size, quiet=quiet,
+            gap_target=ladder["gap_target"],
+            divergence_guard=ladder["divergence_guard"])
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
     primal, gap, _ = lasso_metrics(r, x, ds.shard_arrays(), b, cfg.lam,
                                    l2).cpu().tolist()
-    traj.summary(primal, gap=gap)
+    _finish(cfg, traj, run_meta, primal, gap)
     return 0, [RunResult(traj.algorithm, r, x, traj)]
 
 
@@ -257,17 +373,23 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         _check_choices(cfg)
         block_size = _block_size(cfg)
         objective, l2 = _objective(cfg)
+        ladder = _ladder(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
 
-    # echo flags, as the reference does (hingeDriver.scala:41-48)
-    for f in dataclasses.fields(cfg):
-        print(f"{f.name}: {getattr(cfg, f.name)}")
+    quiet = _quiet(cfg)
+    if not quiet:
+        # echo flags, as the reference does (hingeDriver.scala:41-48)
+        for f in dataclasses.fields(cfg):
+            print(f"{f.name}: {getattr(cfg, f.name)}")
+    run_meta = {"dataset": cfg.train_file, "seed": cfg.seed,
+                "config_hash": config_hash(dataclasses.asdict(cfg))}
 
     dtype = _DTYPES[cfg.dtype]
     if objective == "lasso":
-        return _run_lasso(cfg, l2, block_size, dtype, device)
+        return _run_lasso(cfg, l2, block_size, dtype, device, ladder,
+                          run_meta)
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
@@ -287,22 +409,27 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         return 2, []
 
     if cfg.block_size.lower() == "auto":
-        block_size = _resolve_auto_block(ds, dtype)
+        block_size = _resolve_auto_block(ds, dtype, quiet)
     params = cfg.to_params(data.n, k)
     debug = cfg.to_debug()
     sdca = dict(test_ds=test_ds, rng=cfg.rng, math=cfg.math,
-                block_size=block_size)
-    # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836)
-    runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca),
-            lambda: run_cocoa(ds, params, debug, plus=False, **sdca)]
+                block_size=block_size, quiet=quiet)
+    # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836);
+    # as there, only CoCoA+ and CoCoA take the gap target
+    runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca, **ladder),
+            lambda: run_cocoa(ds, params, debug, plus=False, **sdca,
+                              **ladder)]
     if not cfg.just_cocoa:
         runs += [
-            lambda: run_minibatch_cd(ds, params, debug, **sdca),
+            lambda: run_minibatch_cd(
+                ds, params, debug,
+                divergence_guard=ladder["divergence_guard"], **sdca),
             lambda: run_sgd(ds, params, debug, local=False,
-                            test_ds=test_ds, rng=cfg.rng),
+                            test_ds=test_ds, rng=cfg.rng, quiet=quiet),
             lambda: run_sgd(ds, params, debug, local=True, test_ds=test_ds,
-                            rng=cfg.rng),
-            lambda: run_dist_gd(ds, params, debug, test_ds=test_ds)]
+                            rng=cfg.rng, quiet=quiet),
+            lambda: run_dist_gd(ds, params, debug, test_ds=test_ds,
+                                quiet=quiet)]
     results = []
     for run_alg in runs:
         try:
@@ -312,7 +439,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
             return 2, results
         w, traj = out[0], out[-1]
         alpha = out[1] if len(out) == 3 else None
-        traj.summary(*_summary(ds, test_ds, w, alpha, params))
+        _finish(cfg, traj, run_meta, *_summary(ds, test_ds, w, alpha, params))
         results.append(RunResult(traj.algorithm, w, alpha, traj))
     return 0, results
 

@@ -8,7 +8,7 @@ accepts, and ``REFERENCE_FLAGS`` maps the reference flag names onto it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 
 @dataclasses.dataclass
@@ -24,7 +24,9 @@ class Params:
     gamma: float = 1.0          # CoCoA+ aggregation scale
     loss: str = "hinge"         # "hinge" | "smooth_hinge" | "logistic"
     smoothing: float = 1.0      # smooth_hinge parameter s
-    sigma: Optional[float] = None  # sigma' override; None = the safe K*gamma
+    # sigma' override: None = the safe K*gamma, a float, or "auto"
+    # (solvers/cocoa.py run_cocoa)
+    sigma: Optional[Union[float, str]] = None
 
 
 @dataclasses.dataclass
@@ -60,12 +62,22 @@ class RunConfig:
     math: str = "exact"          # exact | fast
     loss: str = "hinge"
     smoothing: float = 1.0
-    sigma: float = 0.0           # 0 = the safe K*gamma
+    sigma: Union[float, str] = 0.0  # 0 = the safe K*gamma; a float, or auto
     device: str = "cuda"         # cuda | cpu
     block_size: str = ""         # --blockSize: "" (off), an int, or auto
     objective: str = "svm"       # svm | lasso (ProxCoCoA+)
     l2: str = ""                 # --l2: the elastic-net weight ("" = 0)
     hot_cols: Optional[str] = None  # --hotCols: auto | off | <n> (sparse)
+    # the driver ladder's flags, as the JAX CLI's strings ("" or None =
+    # not given); checked and resolved by cli.py ``_ladder``
+    gap_target: str = ""         # --gapTarget: stop at this duality gap
+    divergence_guard: str = ""   # --divergenceGuard: auto | on | off
+    traj_out: str = ""           # --trajOut: JSONL trajectory path prefix
+    quiet: Optional[str] = None  # --quiet: silence the console
+    sigma_schedule: Optional[str] = None  # --sigmaSchedule: anneal | trial
+    warm_start: str = ""         # --warmStart: <smoothing>,<rounds>
+    accel: str = ""              # --accel: auto | on | off
+    theta: str = ""              # --theta: fixed | adaptive
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""
@@ -79,7 +91,8 @@ class RunConfig:
             gamma=self.gamma,
             loss=self.loss,
             smoothing=self.smoothing,
-            sigma=self.sigma if self.sigma > 0 else None,
+            sigma=("auto" if self.sigma == "auto"
+                   else self.sigma if self.sigma > 0 else None),
         )
 
     def to_debug(self) -> DebugParams:

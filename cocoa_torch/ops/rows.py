@@ -92,6 +92,26 @@ def shard_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
     return m
 
 
+def shards_axpy(coefs: torch.Tensor, shards: dict,
+                vec: torch.Tensor) -> torch.Tensor:
+    """vec + sum over every row of every shard of coefs[k, i] * x_{k,i}: the
+    transpose of :func:`shard_margins` (counterpart of
+    cocoa_tpu/ops/rows.py ``shards_axpy``, plain torch as the JAX package
+    leaves it to XLA).  The accelerated loop's secant jump advances w by
+    it.  Padded slots add exactly 0; on the hybrid layout the panel
+    scatters per shard at ``hot_cols`` (K, n_hot), disjoint from the
+    residual's columns.  Returns a new tensor."""
+    if "X" in shards:
+        return vec + torch.einsum("kn,knd->d", coefs, shards["X"])
+    out = vec.index_add(0, shards["sp_indices"].reshape(-1).long(),
+                        (coefs[..., None] * shards["sp_values"]).reshape(-1))
+    if "X_hot" in shards:
+        out.index_add_(0, shards["hot_cols"].reshape(-1).long(),
+                       torch.einsum("kn,knh->kh", coefs,
+                                    shards["X_hot"]).reshape(-1))
+    return out
+
+
 def eval_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
     """The evaluation's margins.  The JAX package may read a dense eval
     twin here; the port has none, so this is :func:`shard_margins`."""

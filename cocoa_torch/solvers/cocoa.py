@@ -6,12 +6,21 @@ one device), the K dw summed, and the scaling law applied -- gamma for
 CoCoA+ (adding) or beta/K for CoCoA (averaging), with sigma' = K*gamma;
 beta/(K*H) for mini-batch CD (solvers/minibatch_cd.py).  ProxCoCoA+
 (solvers/prox_cocoa.py) runs through the same driver in mode ``prox``.
+
+A gap-targeted run can carry the JAX package's schedule (``--sigma=auto``,
+``--sigmaSchedule``, ``--warmStart``) and accelerated outer loop
+(``--accel``, ``--theta``): the branch a chunk of rounds runs (sigma'
+stage x loss phase x Theta stage) is the same round function with other
+scalars, picked on the host from the sched vector (solvers/base.py), where
+JAX's ``lax.switch`` picks it on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from cocoa_torch import kernels
@@ -22,7 +31,7 @@ from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
 from cocoa_torch.ops.dense_sdca import dense_sdca_round, \
     dense_sdca_round_plain
 from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
-from cocoa_torch.ops.rows import row_lengths
+from cocoa_torch.ops.rows import row_lengths, shards_axpy
 from cocoa_torch.ops.sparse_sdca import sparse_sdca_round, \
     sparse_sdca_round_plain
 from cocoa_torch.solvers import base
@@ -187,13 +196,36 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
     return round_fn
 
 
+def _secant_jump(w, alpha, hist, shards: dict, inv_lam_n: float):
+    """The accelerated loop's secant (Anderson-1) jump, as device ops with
+    no host read (cocoa_tpu/solvers/cocoa.py:781-803): rho from the two
+    banked window displacements, c = secant_coef(rho), the extrapolated
+    alpha clipped to [0, 1] and masked, and w advanced by the exact
+    correspondence update sum y*(alpha' - alpha)*x/(lam*n).  ``inv_lam_n``
+    is 1/(lam*n) rounded to float32, as JAX applies it."""
+    d1 = (hist[1] - hist[0]).reshape(-1)
+    den = d1 @ d1
+    pos = den > 0
+    rho = torch.where(pos, (d1 @ (alpha - hist[1]).reshape(-1))
+                      / torch.where(pos, den, torch.ones_like(den)),
+                      torch.zeros_like(den))
+    c = base.secant_coef(torch, rho)
+    a_ext = torch.clamp(alpha + c * (alpha - hist[1]), 0.0, 1.0) \
+        * shards["mask"]
+    coefs = shards["labels"] * (a_ext - alpha) * inv_lam_n
+    return shards_axpy(coefs, shards, w), a_ext
+
+
 def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     alg_name: str, alg, test_ds: Optional[ShardedDataset] = None,
                     rng: str = "reference", math: str = "exact",
                     quiet: bool = False, block_size: int = 0,
                     w_init: Optional[torch.Tensor] = None,
                     alpha_init: Optional[torch.Tensor] = None,
-                    eval_fn=None):
+                    eval_fn=None, gap_target: Optional[float] = None,
+                    divergence_guard: str = "auto", sigma_levels=None,
+                    warm_start=None, accel: bool = False,
+                    theta: str = "fixed"):
     """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
     the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
     from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
@@ -202,15 +234,76 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     block-coordinate round (see :func:`block_route`).  ``eval_fn(state) ->
     (primal, gap or None, test_error or None)`` replaces the
     classification objectives, for a state of other meaning (ProxCoCoA+'s
-    residual and coordinates)."""
+    residual and coordinates).
+
+    ``gap_target`` stops the run at the first eval whose gap is at or
+    below it; ``divergence_guard`` (auto | on | off,
+    :func:`base.resolve_divergence_guard`) arms the stall watch's
+    bail-out.  ``sigma_levels`` (the sigma' ladder,
+    :func:`base.anneal_levels`) and ``warm_start`` = (s, warm_end), a
+    smooth_hinge(s) phase for rounds <= warm_end (a ``debugIter``
+    multiple), carry the sched vector in the state; ``accel`` adds the
+    secant jump's window bank, and ``theta="adaptive"`` the Theta ladder
+    (cocoa_tpu/solvers/cocoa.py ``run_sdca_family``)."""
     base.check_shards(ds)
+    guard_on = base.resolve_divergence_guard(
+        divergence_guard, alg[0], alg[2], ds.k, params.gamma)
     k = ds.k
-    round_fn = _sdca_round_parts(params, *alg, math=math, ds=ds,
-                                 block_size=block_size)
     if not quiet:
         # ds.n, not params.n: the prox family runs with n = 1
         print(f"\nRunning {alg_name} on {ds.n} data examples, "
               f"distributed over {k} workers")
+    if gap_target is not None and ds.dtype == torch.bfloat16:
+        raise ValueError(
+            "gap-targeted runs cannot certify in bfloat16 (the duality "
+            "gap is below bf16 resolution — docs/DESIGN.md §6); use "
+            "--dtype=float32, or drop --gapTarget for an uncertified "
+            "bf16 run"
+        )
+    if theta not in ("fixed", "adaptive"):
+        raise ValueError(f"theta must be fixed|adaptive, got {theta!r}")
+    if accel:
+        if debug.debug_iter <= 0:
+            raise ValueError(
+                "--accel requires --debugIter > 0 (the momentum restart "
+                "rule rides the eval cadence)")
+        if theta == "adaptive" and gap_target is None:
+            raise ValueError(
+                "--theta=adaptive requires --gapTarget (the Θ ladder's "
+                "final full-accuracy stage is keyed to the target)")
+    levels = (tuple(float(v) for v in sigma_levels)
+              if sigma_levels is not None else (float(alg[2]),))
+    branch_params = [params]
+    warm_end = 0
+    if warm_start is not None:
+        warm_s, warm_end = warm_start
+        if debug.debug_iter <= 0:
+            raise ValueError(
+                "warm_start needs debug_iter > 0 (the loss handoff "
+                "lands on the eval-cadence chunk boundary)")
+        if warm_end % debug.debug_iter != 0:
+            raise ValueError(
+                f"warm_start rounds ({warm_end}) must be a multiple "
+                f"of debugIter ({debug.debug_iter}) — the CLI "
+                f"rounds up for you")
+        branch_params = [dataclasses.replace(params, loss="smooth_hinge",
+                                             smoothing=float(warm_s)),
+                         params]
+    full_h = params.local_iters
+    theta_hs = base.theta_ladder(full_h, accel and theta == "adaptive")
+    if len(theta_hs) > 1 and (block_size > 0 or (
+            math == "fast"
+            and fast_round_route(ds.layout, ds.device, ds.dtype) == "kernel")):
+        raise ValueError(
+            "--theta=adaptive slices the sequential (C, K, H) "
+            "index tables and is not available on the Pallas/"
+            "--blockSize paths (their kernels and the "
+            "block-distinct sampling license are keyed to the "
+            "full H); drop --theta=adaptive or the block flags")
+    # one round function a branch: sigma' stage x loss phase
+    branches = [[_sdca_round_parts(bp, alg[0], alg[1], lv, math=math, ds=ds,
+                                   block_size=block_size)
+                 for bp in branch_params] for lv in levels]
 
     def start(init, shape):
         if init is None:
@@ -224,20 +317,210 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
 
     if eval_fn is None:
         def eval_fn(state):
+            # state[0:2]: the scheduled state appends its own leaves
             return objectives.evaluate(ds, state[0], state[1], params.lam,
                                        test_ds=test_ds, loss=params.loss,
                                        smoothing=params.smoothing)
 
-    (w, alpha), traj = base.drive(
-        alg_name, params, debug, (w, alpha), round_fn, eval_fn, sampler,
+    scheduled = len(levels) > 1 or warm_start is not None
+    if not (scheduled or accel):
+        chunk_fn = base.per_round(branches[0][0])
+        state = (w, alpha)
+    else:
+        shards = ds.shard_arrays()
+        inv_lam_n = float(np.float32(1.0 / (params.lam * params.n)))
+        last_phase = len(branch_params) - 1
+
+        def chunk_fn(t0, tables, state):
+            """One chunk of rounds on the branch its sched vector picks
+            (chunks never straddle an eval boundary, so one warm-phase
+            test a chunk is exact), after an armed jump."""
+            w, alpha = state[0], state[1]
+            sched = state[-1].copy()
+            if accel:
+                if sched[base.A_JUMP] > 0:
+                    w, alpha = _secant_jump(w, alpha, state[2], shards,
+                                            inv_lam_n)
+                sched[base.A_JUMP] = 0.0
+            c = len(tables)
+            stage = min(max(int(sched[0]), 0), len(levels) - 1)
+            warm_now = sched[4] + np.float32(c - 1) <= np.float32(warm_end)
+            phase = 0 if warm_now else last_phase
+            hs = theta_hs[min(max(int(sched[base.A_TH_STAGE]), 0),
+                              len(theta_hs) - 1)] if accel else full_h
+            if hs < full_h:
+                tables = tables[:, :, :hs].contiguous()
+            step = branches[stage][phase]
+            for r, idxs_kh in enumerate(tables, start=t0):
+                w, alpha = step((w, alpha), idxs_kh, r)
+            sched[4] += np.float32(c)
+            return (w, alpha, *state[2:-1], sched)
+
+        state = (w, alpha)
+        if accel:
+            state += (torch.zeros((2,) + alpha.shape, dtype=ds.dtype,
+                                  device=ds.device),)
+        state += (base.sched_init_array(1, accel=accel),)
+
+    state, traj = base.drive(
+        alg_name, params, debug, state, chunk_fn, eval_fn, sampler,
         ds.device, base.chunk_rounds(debug, k, params.local_iters),
-        quiet=quiet)
-    return w, alpha, traj
+        quiet=quiet, gap_target=gap_target, divergence_guard=guard_on,
+        sigma_levels=levels,
+        accel=base.AccelConfig(theta_hs) if accel else None)
+    return state[0], state[1], traj
 
 
 def run_cocoa(ds: ShardedDataset, params: Params, debug: DebugParams,
-              plus: bool, **kw):
+              plus: bool, sigma_schedule: Optional[str] = None,
+              warm_start=None, accel: Optional[str] = None,
+              theta: Optional[str] = None, **kw):
     """CoCoA (plus=False) or CoCoA+ (plus=True); see
-    :func:`run_sdca_family` for the keyword options."""
+    :func:`run_sdca_family` for the keyword options.  The sigma' front end
+    of cocoa_tpu/solvers/cocoa.py ``run_cocoa``:
+
+    - ``params.sigma="auto"``: plain CoCoA runs the default sigma'; CoCoA+
+      anneals from K*gamma/2 to K*gamma (``sigma_schedule`` None or
+      "anneal"), or with "trial" runs a guarded trial at K*gamma/2 and,
+      if it diverges, restarts from scratch at K*gamma;
+    - an explicit sigma' below K*gamma with "anneal" anneals from it;
+    - ``warm_start=(s, rounds)``: a smooth_hinge(s) phase for the first
+      ``rounds`` rounds, rounded up to the ``debugIter`` cadence;
+    - ``accel`` auto | on | off (default off): auto turns the accelerated
+      loop on for gap-targeted CoCoA+; ``theta`` fixed | adaptive needs
+      an accelerated run, and falls back to fixed where auto resolved
+      off."""
+    if sigma_schedule not in (None, "trial", "anneal"):
+        raise ValueError(f"sigma schedule must be trial|anneal, got "
+                         f"{sigma_schedule!r}")
+    accel = "off" if accel is None else str(accel).lower()
+    if accel not in ("auto", "on", "off"):
+        raise ValueError(f"accel must be auto|on|off, got {accel!r}")
+    theta = "fixed" if theta is None else str(theta).lower()
+    if theta not in ("fixed", "adaptive"):
+        raise ValueError(f"theta must be fixed|adaptive, got {theta!r}")
+    if sigma_schedule == "trial":
+        # the trial is the bit-exact A/B control: no acceleration on it
+        if accel == "on":
+            raise ValueError(
+                "--accel cannot ride --sigmaSchedule=trial (the trial is "
+                "the bit-exact A/B control); use --sigmaSchedule=anneal")
+        accel = "off"
+    accel_on = (accel == "on"
+                or (accel == "auto" and plus
+                    and kw.get("gap_target") is not None))
+    if theta == "adaptive" and not accel_on:
+        if accel == "off":
+            raise ValueError(
+                "--theta=adaptive requires an accelerated run: pass "
+                "--accel=on, or --accel=auto with --gapTarget on CoCoA+")
+        theta = "fixed"
+    accel_kw = dict(accel="on" if accel_on else "off", theta=theta)
+    if warm_start is not None:
+        s_w, r_w = warm_start
+        if params.loss != "hinge":
+            raise ValueError(
+                "--warmStart hands a smooth_hinge phase off to hinge and "
+                "requires --loss=hinge")
+        if not float(s_w) > 0:
+            raise ValueError(
+                f"--warmStart smoothing must be > 0, got {s_w}")
+        if int(r_w) < 1:
+            raise ValueError(
+                f"--warmStart rounds must be >= 1, got {r_w}")
+        if debug.debug_iter <= 0:
+            raise ValueError(
+                "--warmStart requires --debugIter > 0 (the in-loop "
+                "handoff lands on the eval-cadence chunk boundary)")
+        r_al = -(-int(r_w) // debug.debug_iter) * debug.debug_iter
+        if r_al != int(r_w) and not kw.get("quiet", False):
+            print(f"warmStart: handoff rounded up to round {r_al} "
+                  f"(the debugIter={debug.debug_iter} cadence the device "
+                  f"loop chunks on)")
+        warm_start = (float(s_w), r_al)
+
+    safe = ds.k * params.gamma
+    if params.sigma == "auto":
+        if not plus:
+            # sigma' enters only the plus-mode subproblem: plain CoCoA
+            # runs the default (the CLI runs both from one flag set)
+            return run_cocoa(ds, dataclasses.replace(params, sigma=None),
+                             debug, plus, warm_start=warm_start, **accel_kw,
+                             **kw)
+        if (sigma_schedule or "anneal") == "anneal":
+            return _run_cocoa_anneal(
+                ds, params, debug, plus, base.anneal_levels(safe / 2.0, safe),
+                warm_start, accel_kw, kw)
+        if kw.get("gap_target") is None:
+            raise ValueError("--sigma=auto requires --gapTarget (the "
+                             "σ′ fallback triggers on the divergence "
+                             "guard, which runs on the gap-target path)")
+        if kw.get("divergence_guard", "auto") == "off":
+            raise ValueError("--sigma=auto requires the divergence guard "
+                             "(drop --divergenceGuard=off)")
+        quiet = kw.get("quiet", False)
+        if kw.get("w_init") is not None:
+            # a run started from a given iterate does not re-experiment
+            if not quiet:
+                print("sigma=auto: resumed run continues with the safe "
+                      f"σ′=K·γ={safe:g} (no re-trial from restored state)")
+            return run_cocoa(ds, dataclasses.replace(params, sigma=None),
+                             debug, plus, warm_start=warm_start, **accel_kw,
+                             **kw)
+        trial = dataclasses.replace(params, sigma=safe / 2.0)
+        w, alpha, traj = run_cocoa(ds, trial, debug, plus,
+                                   warm_start=warm_start, **kw)
+        if traj.stopped != "diverged":
+            return w, alpha, traj
+        if not quiet:
+            print(f"sigma=auto: σ′=K·γ/2={trial.sigma:g} diverged; "
+                  f"restarting with the safe σ′=K·γ={safe:g}")
+        # from scratch: the safe run inherits nothing of the trial's
+        safe_kw = {k2: v for k2, v in kw.items()
+                   if k2 not in ("w_init", "alpha_init")}
+        return run_cocoa(ds, dataclasses.replace(params, sigma=None), debug,
+                         plus, warm_start=warm_start, **accel_kw, **safe_kw)
+
+    if sigma_schedule == "trial":
+        raise ValueError(
+            "sigma schedule 'trial' is the --sigma=auto A/B control; it "
+            "needs --sigma=auto")
+    if (sigma_schedule == "anneal" and plus and params.sigma is not None
+            and float(params.sigma) < safe):
+        return _run_cocoa_anneal(
+            ds, params, debug, plus,
+            base.anneal_levels(float(params.sigma), safe), warm_start,
+            accel_kw, kw)
     return run_sdca_family(ds, params, debug, "CoCoA+" if plus else "CoCoA",
-                           _alg_config(params, ds.k, plus), **kw)
+                           _alg_config(params, ds.k, plus),
+                           warm_start=warm_start, accel=accel_on, theta=theta,
+                           **kw)
+
+
+def _run_cocoa_anneal(ds, params, debug, plus, levels, warm_start, accel_kw,
+                      kw):
+    """The sigma' anneal entry (cocoa_tpu/solvers/cocoa.py
+    ``_run_cocoa_anneal``): validate, and hand the ladder to
+    :func:`run_sdca_family`."""
+    if kw.get("gap_target") is None:
+        raise ValueError(
+            "the σ′ anneal schedule requires --gapTarget (the backoff "
+            "triggers on the stall watch, which runs on the gap-target "
+            "path)")
+    if kw.get("divergence_guard", "auto") == "off":
+        raise ValueError(
+            "the σ′ anneal schedule IS the divergence guard's backoff "
+            "action; drop --divergenceGuard=off")
+    if kw.get("w_init") is not None:
+        # a given iterate may sit mid-stage at an unknown sigma'
+        if not kw.get("quiet", False):
+            print("sigma anneal: resumed run has no schedule state; "
+                  f"continuing with the safe σ′=K·γ={ds.k * params.gamma:g}")
+        return run_cocoa(ds, dataclasses.replace(params, sigma=None), debug,
+                         plus, warm_start=warm_start, **accel_kw, **kw)
+    p = dataclasses.replace(params, sigma=levels[0])
+    return run_sdca_family(
+        ds, p, debug, "CoCoA+" if plus else "CoCoA",
+        _alg_config(p, ds.k, plus), sigma_levels=levels,
+        warm_start=warm_start, accel=accel_kw["accel"] == "on",
+        theta=accel_kw["theta"], **kw)

@@ -46,7 +46,7 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
                                    smoothing=params.smoothing)
 
     w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
-    (w,), traj = base.drive("Dist SGD", params, debug, (w,), round_fn,
-                            eval_fn, None, ds.device,
+    (w,), traj = base.drive("Dist SGD", params, debug, (w,),
+                            base.per_round(round_fn), eval_fn, None, ds.device,
                             base.chunk_rounds(debug, k, 1), quiet=quiet)
     return w, traj

@@ -20,9 +20,15 @@ from cocoa_torch.solvers.cocoa import _alg_config, run_sdca_family
 def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
                      test_ds: Optional[ShardedDataset] = None,
                      rng: str = "reference", math: str = "exact",
-                     quiet: bool = False, block_size: int = 0):
-    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory)."""
+                     quiet: bool = False, block_size: int = 0,
+                     gap_target: Optional[float] = None,
+                     divergence_guard: str = "auto"):
+    """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory).
+    ``gap_target`` and ``divergence_guard`` as in
+    :func:`cocoa_torch.solvers.cocoa.run_sdca_family` (the guard's
+    ``auto`` never arms here: the frozen subproblem reads no sigma')."""
     return run_sdca_family(
         ds, params, debug, "Mini-batch CD",
         _alg_config(params, ds.k, None, mode="frozen"), test_ds=test_ds,
-        rng=rng, math=math, quiet=quiet, block_size=block_size)
+        rng=rng, math=math, quiet=quiet, block_size=block_size,
+        gap_target=gap_target, divergence_guard=divergence_guard)

@@ -57,6 +57,6 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
     sampler = base.IndexSampler(rng, debug.seed, h, ds.counts)
     (w,), traj = base.drive(
         "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
-        round_fn, eval_fn, sampler, ds.device, base.chunk_rounds(debug, k, h),
-        quiet=quiet)
+        base.per_round(round_fn), eval_fn, sampler, ds.device,
+        base.chunk_rounds(debug, k, h), quiet=quiet)
     return w, traj

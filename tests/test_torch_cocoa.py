@@ -124,15 +124,13 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
 
 @pytest.mark.parametrize("flag", [
     "--ingest=stream", "--blockPipeline=on", "--evalDense=auto",
-    "--chkptDir=ckpt", "--deviceLoop", "--gapTarget=1e-3",
-    "--sigma=auto", "--accel=on", "--fleet=f.jsonl", "--serve=7000",
+    "--chkptDir=ckpt", "--deviceLoop", "--resume",
+    "--scanChunk=5", "--events=e.jsonl", "--fleet=f.jsonl", "--serve=7000",
     "--mesh=1"])
 def test_cli_unported_flags_exit_2(flag, capsys):
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag]) == 2
     out, err = capsys.readouterr()
     name = flag.lstrip("-").split("=")[0]
-    if flag == "--sigma=auto":
-        name = flag.lstrip("-")
     assert f"error: --{name} is not yet ported to cocoa_torch " \
         f"(ROADMAP Queue A)" in err
     assert "Running" not in out
