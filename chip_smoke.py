@@ -6,7 +6,7 @@
 Phases, each printed as it runs (one line per kernel-vs-plain case on
 stderr); any failed check exits non-zero:
 
-1. the card's name and power limit (nvidia-smi); build the four kernel
+1. the card's name and power limit (nvidia-smi); build the five kernel
    libraries (one nvcc each, all started together) and time the build;
 2. each kernel against its plain PyTorch version on the same CUDA tensors:
    the sparse SDCA round (B1) on the demo shards, on rcv1-like shards and
@@ -143,9 +143,28 @@ stderr); any failed check exits non-zero:
    lasso design, lasso and elastic net, to 1e-3 * |b|^2 / 2 sequentially
    (B2) and at B=512 (split: B3), the stop rounds beside the 550 / 350 of
    phase 9.  Each case prints its seconds to the stop and its launches.
+13. the chunked round loop (every run above already replays each chunk
+   of rounds as one CUDA graph, its draw tables made on the card): (a)
+   the draw kernel against the host tables bit for bit in the three
+   --rng modes at the demo's, rcv1-like and epsilon-like chunks and on
+   shards near 2^30 rows, first rounds 1 and ~1e6, seeds 0 and 2^31 - 1
+   - the last round; its time per launch, its plain version's and its
+   bound, and one lane alone; (b) rcv1-like sequential (B1), block (B5,
+   B3, B6) and hybrid (B1h), epsilon-like sequential (B2) and fused
+   B=128 (B4), the lasso design (B2 prox) and the demo's menu (SGD,
+   DistGD, mini-batch CD) run eager, captured, captured, eager, each
+   run's launches counted: captured equals eager bit for bit where the
+   two eager runs agree bit for bit, else within relative 1e-3 with
+   equal stop and eval rounds; (c) their ms per round past the first
+   chunk in those turns, and each graph's capture time; (d) the
+   rcv1-like permuted sigma' auto run to 1e-4 eager with host tables,
+   captured with host tables and captured with device tables, and the
+   demo to 1e-4, in turns; (e) busy shares by profile_round.py's method,
+   rcv1-like sequential, block and hybrid, captured and eager.
 
 The line before the last lists every kernel with its launches on the main
-paths, its error against the plain version and its times; the last line is
+paths (a replayed graph's launches counted at each replay), its error
+against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
 """
@@ -184,6 +203,7 @@ from cocoa_torch.ops.rows import gather_rows, row_lengths
 from cocoa_torch.solvers import base
 from cocoa_torch.solvers import cocoa as cocoa_mod
 from cocoa_torch.solvers.prox_cocoa import run_prox_cocoa
+from cocoa_torch.utils import prng
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -459,12 +479,13 @@ def print_stage_timing(label, t, h):
         for name, (plan, ms) in t.items()))
 
 
-def run_cli(argv):
-    """cocoa_torch.cli through its entry point; stdout is captured and
-    returned with the results."""
+def run_cli(argv, capture=None):
+    """cocoa_torch.cli through its entry point (each chunk of rounds a
+    replayed CUDA graph unless ``capture`` is False); stdout is captured
+    and returned with the results."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc, results = cli.run(argv)
+        rc, results = cli.run(argv, capture=capture)
     check(rc == 0, f"cli exited {rc} for {' '.join(argv)}")
     return buf.getvalue(), results
 
@@ -2225,6 +2246,325 @@ def phase_ladder(rcv1, lasso, card):
     return launched
 
 
+
+# --- phase 13: the captured round loop and the tables made on the card
+
+# the draw kernel's cases, (K, H, shard sizes, rounds a chunk): the demo's,
+# the rcv1-like and epsilon-like main paths', and shards near 2^30 rows,
+# where nextInt rejects about half of its raw draws
+DRAW_SHAPES = {
+    "demo": (4, 50, [500] * 4, 10),
+    "rcv1-like": (8, 253, [2531] * 2 + [2530] * 6, 25),
+    "epsilon-like": (8, 5000, [50_000] * 8, 10),
+    "near 2^30": (4, 64, [(1 << 30) + 1, (1 << 30) + 3, (1 << 30) - 1,
+                          1 << 30], 4),
+}
+# the draw kernel's timed shapes: the main path's chunk (phase 4: K=8,
+# H=253, 25 rounds) and the epsilon-like sequential chunk (K=8, H=5000,
+# 10 rounds)
+DRAW_TIMED = {"rcv1-like": (8, 253, [2531] * 2 + [2530] * 6, 25),
+              "epsilon-like": (8, 5000, [50_000] * 8, 10)}
+
+
+def late_round(h: int, c: int) -> int:
+    """A first round near 10^6 whose permuted global steps stay in int32
+    (the host's rule)."""
+    return min(1_000_000, (1 << 31) // h - c - 2)
+
+
+def draw_case(mode, seed, h, counts, t0, c):
+    """(kernel tables on the card, host tables)."""
+    got = prng.draw_tables(
+        mode, seed, h, torch.as_tensor(counts, dtype=torch.int64,
+                                       device="cuda"),
+        torch.tensor(t0, dtype=torch.int64, device="cuda"), c)
+    return got, prng.host_tables(mode, seed, h, np.asarray(counts), t0, c)
+
+
+def phase_draw_tables():
+    """(a) The draw kernel against the host tables, bit for bit: the three
+    modes at every shape of DRAW_SHAPES, first rounds 1 and near 10^6,
+    seeds 0 and 2^31 - 1 - the last round; then its time per launch
+    (CUDA-graph replay), its plain version's (the host tables) and its
+    bound at DRAW_TIMED's shapes, and one lane alone (the reference
+    mode's dependent chain).  Returns {shape: {mode: timing}}."""
+    cases = 0
+    for name, (k, h, counts, c) in DRAW_SHAPES.items():
+        for mode in prng.MODES:
+            for t0 in (1, late_round(h, c)):
+                for seed in (0, (1 << 31) - 1 - (t0 + c)):
+                    got, want = draw_case(mode, seed, h, counts, t0, c)
+                    check(torch.equal(got.cpu(), want),
+                          f"draw kernel {mode} {name} t0={t0} seed={seed}: "
+                          f"{int((got.cpu() != want).sum())} entries differ")
+                    cases += 1
+    print(f"phase 13: (a) the draw kernel equals the host tables bit for "
+          f"bit in {cases} cases (modes x shapes {list(DRAW_SHAPES)} x "
+          f"first rounds 1 and ~1e6 x seeds 0 and 2^31-1-rounds)")
+    timing = {}
+    for name, (k, h, counts, c) in DRAW_TIMED.items():
+        counts_d = torch.as_tensor(counts, dtype=torch.int64, device="cuda")
+        one = counts_d[:1].contiguous()
+        t0 = torch.tensor(1, dtype=torch.int64, device="cuda")
+        n_bytes = c * k * h * 4 + k * 8 + 8
+        timing[name] = {}
+        for mode in prng.MODES:
+            ms = graph_ms(lambda: prng.draw_tables(mode, 0, h, counts_d, t0,
+                                                   c), 20)
+            start = time.perf_counter()
+            for _ in range(3):
+                prng.host_tables(mode, 0, h, np.asarray(counts), 1, c)
+            plain = (time.perf_counter() - start) / 3 * 1e3
+            t = {"ms": ms, "plain_ms": plain, "n_bytes": n_bytes,
+                 "bound": (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")}
+            if mode == "reference":
+                t["lane_ms"] = graph_ms(
+                    lambda: prng.draw_tables(mode, 0, h, one, t0, 1), 20)
+            timing[name][mode] = t
+            print(f"  draw kernel {name} (C={c}, K={k}, H={h}) {mode}: "
+                  f"{ms:.4f} ms per launch, plain (host) {plain:.3f} ms, "
+                  f"bound {t['bound'][0]:.5f} ms (bytes: {n_bytes} B)"
+                  + (f"; one lane alone (H={h} draws in sequence) "
+                     f"{t['lane_ms']:.4f} ms" if "lane_ms" in t else ""))
+    return timing
+
+
+def steady_ms(traj) -> float:
+    """ms per round between the first eval and the last: past the first
+    chunk, which a captured run spends running eagerly and capturing."""
+    a, b = traj.records[0], traj.records[-1]
+    return (b.wall_time - a.wall_time) / max(1, b.round - a.round) * 1e3
+
+
+def same_bits(res, ref) -> bool:
+    """Two runs' trajectories and final iterates bit for bit."""
+    for r, p in zip(res, ref):
+        ta, tb = r.trajectory, p.trajectory
+        if ta.stopped != tb.stopped or len(ta.records) != len(tb.records):
+            return False
+        for x, y in zip(ta.records, tb.records):
+            if (x.round, x.primal, x.gap, x.test_error) != \
+                    (y.round, y.primal, y.gap, y.test_error):
+                return False
+        if not torch.equal(r.w, p.w):
+            return False
+        if (r.alpha is None) != (p.alpha is None) or (
+                r.alpha is not None and not torch.equal(r.alpha, p.alpha)):
+            return False
+    return True
+
+
+def close_runs(label, res, ref) -> None:
+    """Phase 12's tolerances where bits differ: equal stop reasons and
+    rounds, each eval's gap (else primal) within relative 1e-3."""
+    for r, p in zip(res, ref):
+        a, b = r.trajectory, p.trajectory
+        check(a.stopped == b.stopped and [x.round for x in a.records]
+              == [y.round for y in b.records],
+              f"{label} {r.algorithm}: stops or eval rounds differ")
+        for x, y in zip(a.records, b.records):
+            got, want = (x.gap, y.gap) if y.gap is not None else \
+                (x.primal, y.primal)
+            check(abs(got - want) <= 1e-3 * abs(want),
+                  f"{label} {r.algorithm} round {x.round}: {got} vs {want}")
+
+
+def captured_vs_eager(label, run, want):
+    """(b, c) ``run(capture) -> [RunResult]`` eager, captured, captured,
+    eager, every kernel's count set to 0 before each and read after: the
+    captured runs launch ``want`` (and the eager ones the same), and are
+    held bit for bit to the eager runs where those agree bit for bit with
+    each other, else to :func:`close_runs`.  Returns a summary dict."""
+    runs = {}
+    for tag, capture in (("eager", False), ("captured", True),
+                         ("captured2", True), ("eager2", False)):
+        reset_counts()
+        prng.draw_tables.launches = 0
+        res = run(capture)
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == want, f"{label} {tag}: launches {got}, want {want}")
+        runs[tag] = (res, prng.draw_tables.launches)
+    eager, captured = runs["eager"][0], runs["captured"][0]
+    stable = same_bits(eager, runs["eager2"][0])
+    check(same_bits(captured, runs["captured2"][0]) or not stable,
+          f"{label}: two captured runs differ where two eager runs agree")
+    if stable:
+        check(same_bits(captured, eager),
+              f"{label}: the captured run differs from the eager run, which "
+              f"is bit-stable")
+    else:
+        close_runs(label, captured, eager)
+    out = {"stable": stable,
+           "eager_ms": [steady_ms(r.trajectory) for tag in ("eager", "eager2")
+                        for r in runs[tag][0]],
+           "captured_ms": [steady_ms(r.trajectory)
+                           for tag in ("captured", "captured2")
+                           for r in runs[tag][0]],
+           "capture_s": {f"{r.algorithm} {key}": sec for r in captured
+                         for key, sec in r.trajectory.graphs.items()},
+           "draws": runs["captured"][1]}
+    n = len(captured)
+    held = "bit for bit" if stable else \
+        "within rel 1e-3 (eager runs differ in their bits)"
+    print(f"phase 13: (b) {label}: captured == eager {held}"
+          f"; launches {dict((k, v) for k, v in want.items() if v)}, draw "
+          f"kernel {out['draws']}; (c) steady ms per round (evals "
+          f"included), eager/captured by run in turns: "
+          + ", ".join(f"{captured[i].algorithm} "
+                      f"{out['eager_ms'][i]:.3f},{out['eager_ms'][n + i]:.3f}"
+                      f" / {out['captured_ms'][i]:.3f},"
+                      f"{out['captured_ms'][n + i]:.3f}" for i in range(n))
+          + "; capture s: " + ", ".join(f"{key} {sec:.3f}" for key, sec in
+                                         out["capture_s"].items()))
+    return out
+
+
+def sdca_run(fn, *args, **kw):
+    def run(capture):
+        w, alpha, traj = fn(*args, capture=capture, **kw)
+        return [cli.RunResult(traj.algorithm, w, alpha, traj)]
+    return run
+
+
+def phase_captured(rcv1, rcv1_w, eps, lasso):
+    """(b, c) Each path captured and eager on the same draws
+    (:func:`captured_vs_eager`): rcv1-like sequential (B1), hybrid (B1h)
+    and block (B5, B3, B6), epsilon-like sequential (B2) and fused B=128
+    (B4), the lasso design (B2 prox), and the demo's menu through the CLI
+    (B1; SGD, DistGD and mini-batch CD).  Returns {path: summary}."""
+    f32 = torch.float32
+    k, h = 8, rcv1.n // 8 // 10
+    rounds = 100
+    debug = DebugParams(debug_iter=25, seed=0)
+    params = Params(n=rcv1.n, num_rounds=rounds, local_iters=h, lam=1e-4)
+    fast = dict(plus=True, math="fast", quiet=True)
+    out = {}
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=f32, device="cuda")
+    nb = -(-h // BLOCK) * rounds
+    out["rcv1-like sequential"] = captured_vs_eager(
+        "rcv1-like sequential", sdca_run(cocoa_mod.run_cocoa, ds, params,
+                                         debug, **fast), only("B1", rounds))
+    want = {name: 0 for name in KERNELS}
+    want.update(B3=nb, B5=nb, B6=nb)
+    out["rcv1-like block"] = captured_vs_eager(
+        "rcv1-like block B=128", sdca_run(cocoa_mod.run_cocoa, ds, params,
+                                          debug, block_size=BLOCK, **fast),
+        want)
+    del ds
+    hyb = shard_dataset(rcv1, k, layout="sparse", dtype=f32, device="cuda",
+                        hot_cols=rcv1_w)
+    out["rcv1-like hybrid"] = captured_vs_eager(
+        "rcv1-like hybrid sequential", sdca_run(
+            cocoa_mod.run_cocoa, hyb, params, debug, **fast),
+        only("B1h", rounds))
+    del hyb
+    n, d, ke = EPS_SHAPE
+    eps_rounds = 30
+    eps_params = Params(n=n, num_rounds=eps_rounds, local_iters=n // ke // 10,
+                        lam=1e-3)
+    eps_debug = DebugParams(debug_iter=10, seed=0)
+    out["epsilon-like sequential"] = captured_vs_eager(
+        "epsilon-like sequential", sdca_run(
+            cocoa_mod.run_cocoa, eps, eps_params, eps_debug, **fast),
+        only("B2", eps_rounds))
+    nbe = -(-eps_params.local_iters // BLOCK) * eps_rounds
+    out["epsilon-like fused"] = captured_vs_eager(
+        "epsilon-like fused B=128", sdca_run(
+            cocoa_mod.run_cocoa, eps, eps_params, eps_debug,
+            block_size=BLOCK, **fast), only("B4", nbe))
+    lds, lb, lam_max = lasso
+    lasso_rounds = 100
+    lparams = Params(n=lds.n, num_rounds=lasso_rounds,
+                     local_iters=lds.n // lds.k // 10, lam=0.3 * lam_max,
+                     loss="lasso", smoothing=0.0)
+
+    def lasso_run(capture):
+        x, r, traj = run_prox_cocoa(lds, lb, lparams,
+                                    DebugParams(debug_iter=50, seed=0),
+                                    quiet=True, math="fast", capture=capture)
+        return [cli.RunResult(traj.algorithm, r, x, traj)]
+
+    out["lasso design"] = captured_vs_eager(
+        "lasso design sequential", lasso_run, only("B2", lasso_rounds))
+    menu_rounds = 50
+    argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4",
+            f"--numRounds={menu_rounds}", "--localIterFrac=0.1",
+            "--lambda=.001", "--math=fast", "--dtype=float32",
+            "--justCoCoA=false", "--layout=sparse"]
+    out["demo menu"] = captured_vs_eager(
+        "demo --justCoCoA=false (CoCoA+, CoCoA, mini-batch CD, SGD x2, "
+        "DistGD)", lambda capture: run_cli(argv, capture=capture)[1],
+        only("B1", 3 * menu_rounds))
+    return out
+
+
+def phase_retime(rcv1, demo_argv):
+    """(d) Phase 12's time-to-gap runs again, in turns: rcv1-like permuted
+    draws with sigma' auto to a 1e-4 gap as before (eager chunks, host
+    tables), captured with host tables, and captured with device tables;
+    the demo to 1e-4 (accel auto) eager with host tables and captured
+    with device tables.  Returns {case: [(rounds, seconds)]}."""
+    k, h = 8, rcv1.n // 8 // 10
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    params = Params(n=rcv1.n, num_rounds=1600, local_iters=h, lam=1e-4,
+                    sigma="auto")
+    debug = DebugParams(debug_iter=25, seed=0)
+    settings = {"eager, host tables": dict(capture=False, sampling="host"),
+                "captured, host tables": dict(sampling="host"),
+                "captured, device tables": dict(sampling="device")}
+    out = {}
+    for label in (*settings, *reversed(settings)):
+        w, alpha, traj = cocoa_mod.run_cocoa(
+            ds, params, debug, plus=True, quiet=True, math="fast",
+            gap_target=GAP_TARGET, rng="permuted", **settings[label])
+        check(traj.stopped == "target", f"(d) {label}: {traj.stopped}")
+        last = traj.records[-1]
+        out.setdefault(f"rcv1-like permuted sigma' auto, {label}", []) \
+            .append((last.round, last.wall_time))
+    del ds
+    demo = demo_argv + ["--numRounds=500", f"--gapTarget={GAP_TARGET}"]
+    for label, extra, capture in (
+            ("eager, host tables", ["--sampling=host"], False),
+            ("captured, device tables", [], None),
+            ("captured, device tables", [], None),
+            ("eager, host tables", ["--sampling=host"], False)):
+        _, res = run_cli(demo + extra, capture=capture)
+        out.setdefault(f"demo to 1e-4 accel auto, {label}", []).append(
+            tuple((r.trajectory.records[-1].round,
+                   r.trajectory.records[-1].wall_time) for r in res))
+    for case, runs in out.items():
+        print(f"phase 13: (d) {case}: " + "; ".join(str(r) for r in runs)
+              + " (stop round, seconds)")
+    stops = {runs[0][0] for case, runs in out.items()
+             if case.startswith("rcv1")}
+    check(len(stops) == 1, f"(d) rcv1-like stop rounds differ: {stops}")
+    return out
+
+
+def phase_busy(rcv1, rcv1_w):
+    """(e) Busy shares by profile_round.py's method: rcv1-like CoCoA+,
+    sequential, block and hybrid, captured and eager, 100 rounds each."""
+    import profile_round
+
+    out = {}
+    sets = {"unsplit": 0, "hybrid": rcv1_w}
+    for layout, hot in sets.items():
+        ds = shard_dataset(rcv1, 8, layout="sparse", dtype=torch.float32,
+                           device="cuda", hot_cols=hot)
+        for block in ((0, BLOCK) if not hot else (0,)):
+            for capture in (True, False):
+                label = (f"{layout} {'block' if block else 'sequential'} "
+                         f"{'captured' if capture else 'eager'}")
+                print(f"phase 13: (e) {label}:")
+                out[label] = profile_round.profile_config(
+                    ds, block, 100, capture=capture)
+        del ds
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -2341,27 +2681,44 @@ def main() -> int:
         return out
 
     sp.sparse_sdca_round.launches = 0
+    prng.draw_tables.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(cocoa_mod, "sparse_sdca_round", timed_round):
-        out, res = run_cli(rcv1_argv)
+    out, res = run_cli(rcv1_argv)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     main_launches = sp.sparse_sdca_round.launches
-    torch.cuda.synchronize()
-    path_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+    main_draws = prng.draw_tables.launches
     (OUT / "chip_smoke_rcv1.log").write_text(out)
     check(main_launches == 400,
           f"rcv1-like: {main_launches} launches for 400 rounds")
+    check(main_draws == 2 * 200 // 25,
+          f"rcv1-like: {main_draws} draw-table launches for 16 chunks")
     check_run(res, "rcv1-like")
     rcv1_seq = res
     for r in res:
         per_round = r.trajectory.records[-1].wall_time / 200 * 1e3
         print(f"  rcv1-like {r.algorithm}: {per_round:.3f} ms per round "
-              f"wall clock (evals included)")
+              f"wall clock (evals and the first chunk's capture included); "
+              f"graphs captured (branch, rounds): seconds "
+              + ", ".join(f"{key}: {sec:.3f}" for key, sec in
+                          r.trajectory.graphs.items()))
+    # the same command with eager chunks, CUDA events around each wrapper
+    # call: the kernel's time on this path (events cannot sit in a graph)
+    with mock.patch.object(cocoa_mod, "sparse_sdca_round", timed_round):
+        _, res_eager = run_cli(rcv1_argv, capture=False)
+    torch.cuda.synchronize()
+    path_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+    check(len(events) == 400, f"rcv1-like eager: {len(events)} launches")
     print(f"phase 4: rcv1-like ok in {wall:.1f} s (load included), "
-          f"{main_launches} launches for 400 rounds; {path_ms:.4f} ms per "
-          f"launch on this path (CUDA events around each wrapper call, its "
-          f"alpha copy included); phase 2 at this shape: kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.2f} ms per round")
+          f"{main_launches} launches for 400 rounds, {main_draws} of the "
+          f"draw kernel; {path_ms:.4f} ms per launch on this path (eager "
+          f"chunks, CUDA events around each wrapper call, its alpha copy "
+          f"included); phase 2 at this shape: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms per round; eager chunks "
+          + ", ".join(f"{r.algorithm} "
+                      f"{r.trajectory.records[-1].wall_time / 200 * 1e3:.3f}"
+                      for r in res_eager)
+          + " ms per round")
 
     # --- phase 5: the block kernels against their plain versions
     t0 = time.perf_counter()
@@ -2509,7 +2866,6 @@ def main() -> int:
 
     # --- phase 8: the dense sequential path, epsilon-like at full width
     launched8, per_round8 = phase_dense_path(eps, eps_fused)
-    del eps
 
     # --- phase 9: the new entry points: the menu and the lasso objective
     launched9, _, results9 = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
@@ -2614,8 +2970,24 @@ def main() -> int:
     # --- phase 12: the gap-targeted driver ladder
     t0 = time.perf_counter()
     launched12 = phase_ladder(rcv1, (lasso_ds, lasso_b, lam_max), card)
-    del lasso_ds
     print(f"phase 12: all cases ok in {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 13: the captured round loop, the tables made on the card
+    t0 = time.perf_counter()
+    draw_timing = phase_draw_tables()
+    captured13 = phase_captured(rcv1, rcv1_w, eps,
+                                (lasso_ds, lasso_b, lam_max))
+    del eps, lasso_ds
+    retimed = phase_retime(rcv1, demo_argv)
+    busy = phase_busy(rcv1, rcv1_w)
+    print(f"phase 13: all cases ok in {time.perf_counter() - t0:.1f} s; "
+          f"busy shares (device ms / wall ms per round, profiler on): "
+          + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
+                      for label, b in busy.items())
+          + f"; card {card}")
+    (OUT / "chip_smoke_phase13.json").write_text(json.dumps({
+        "card": card, "draw": draw_timing, "captured": captured13,
+        "retimed": retimed, "busy": busy}, default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
@@ -2674,6 +3046,18 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    draw = draw_timing["rcv1-like"]["reference"]
+    draw_launches = main_draws + sum(c["draws"] for c in
+                                     captured13.values())
+    check(draw_launches > 0, "the draw kernel never launched on a main path")
+    rows.append({
+        "name": "draw_tables", "route": "cuda",
+        "source": "cocoa_torch/csrc/draw_tables.cu",
+        "replaces": "cocoa_tpu/solvers/base.py:1571 (XLA, not a Pallas "
+                    "kernel)",
+        "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
+        "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
+        "bound_by": draw["bound"][1], "library_ms": None})
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "
@@ -2682,7 +3066,9 @@ def main() -> int:
           + "; B3-B6 " + ", ".join(
               f"{name} {n} (phase 11: "
               f"{sum(c[name] for c in launched11.values())})"
-              for name, n in block_launches.items()))
+              for name, n in block_launches.items())
+          + f"; the draw kernel {draw_launches} (phase 4 {main_draws}, "
+          f"phase 13 captured runs {draw_launches - main_draws})")
     # the card once more, near the end of the output
     print(f"card (nvidia-smi name, power.limit): {card}; kernels built in "
           f"{build_s:.1f} s; all phases in {time.perf_counter() - start:.1f} s")

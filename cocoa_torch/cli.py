@@ -5,7 +5,8 @@
         --numFeatures=... --numSplits=K --numRounds=T --localIterFrac=... \\
         --lambda=... [--justCoCoA=true] [--math=exact|fast] \\
         [--dtype=float32|float64] [--layout=auto|dense|sparse] \\
-        [--rng=reference|jax|permuted] [--debugIter=.. --seed=.. --beta=..
+        [--rng=reference|jax|permuted] [--sampling=auto|device|host]
+        [--scanChunk=<int>] [--debugIter=.. --seed=.. --beta=..
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
         --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
         [--objective=svm|lasso --l2=<float>] [--hotCols=auto|off|<n>]
@@ -21,7 +22,11 @@ then runs the rest of the reference's comparison (hingeDriver.scala:
 regression target with the L1 weight ``--lambda`` and the elastic-net
 weight ``--l2``, on the column shards.  It runs on CUDA unless
 ``--device=cpu`` is given, and exits 2 with ``error: ...`` when CUDA is
-absent.  ``--blockSize`` (with ``--math=fast``) runs each SDCA round,
+absent.  Rounds run in chunks of ``--scanChunk`` (default: the eval
+cadence), each chunk on the card one replayed CUDA graph, with its index
+tables made on the card (``--sampling=auto``, wherever they are exact;
+``host`` builds them on the host and copies them over).
+``--blockSize`` (with ``--math=fast``) runs each SDCA round,
 ProxCoCoA+'s too, as the block-coordinate round; ``auto`` picks the block
 size for the layout.  ``--hotCols`` (sparse layout,
 ``--objective=svm``) builds the hybrid hot/cold column split
@@ -67,15 +72,16 @@ from cocoa_torch.utils.logging import Trajectory, config_hash
 
 _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
                                "smoothing", "sigma", "device", "objective",
-                               "l2", "quiet", "accel", "theta")}
+                               "l2", "quiet", "accel", "theta", "sampling")}
 _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
+                   scanChunk="scan_chunk",
                    gapTarget="gap_target", divergenceGuard="divergence_guard",
                    trajOut="traj_out", sigmaSchedule="sigma_schedule",
                    warmStart="warm_start")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
-    "chkptDir", "sampling", "mesh", "fp", "resume",
-    "scanChunk", "deviceLoop", "master", "processId", "numProcesses",
+    "chkptDir", "mesh", "fp", "resume",
+    "deviceLoop", "master", "processId", "numProcesses",
     "profile", "blockPipeline",
     "elastic", "stallTimeout", "evalDense", "ingest",
     "ingestCache", "metrics", "events", "trace", "flightRecorder",
@@ -198,6 +204,19 @@ def _objective(cfg: RunConfig):
         raise ValueError(f"--l2 is the elastic-net weight, needs >= 0, "
                          f"got {l2}")
     return objective, l2
+
+
+def _scan_chunk(cfg: RunConfig) -> None:
+    """``--scanChunk`` as an int, with the JAX CLI's message
+    (cocoa_tpu/cli.py:1583-1589); absent, the solvers take the eval
+    cadence (solvers/base.py ``chunk_rounds``)."""
+    if cfg.scan_chunk is None:
+        return
+    try:
+        cfg.scan_chunk = int(cfg.scan_chunk)
+    except ValueError:
+        raise ValueError(f"--scanChunk must be an integer, got "
+                         f"{cfg.scan_chunk!r}") from None
 
 
 def _quiet(cfg: RunConfig) -> bool:
@@ -332,7 +351,7 @@ def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
 
 
 def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
-               ladder: dict, run_meta: dict):
+               ladder: dict, run_meta: dict, loop: dict):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
     line from one more certificate."""
@@ -351,7 +370,7 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
             ds, b, params, cfg.to_debug(), rng=cfg.rng, math=cfg.math,
             block_size=block_size, quiet=quiet,
             gap_target=ladder["gap_target"],
-            divergence_guard=ladder["divergence_guard"])
+            divergence_guard=ladder["divergence_guard"], **loop)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -361,8 +380,11 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
     return 0, [RunResult(traj.algorithm, r, x, traj)]
 
 
-def run(argv: list[str]) -> tuple[int, list[RunResult]]:
-    """The CLI's work: (exit code, one RunResult per algorithm run)."""
+def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
+    """The CLI's work: (exit code, one RunResult per algorithm run).
+    ``capture=False`` runs each chunk of rounds eagerly on the card, not
+    as a replayed CUDA graph (chip_smoke.py compares the two); it is no
+    flag of the CLI."""
     cfg, unported = parse_args(argv)
     if unported:
         print(f"error: --{unported[0]} is not yet ported to cocoa_torch "
@@ -374,6 +396,7 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         block_size = _block_size(cfg)
         objective, l2 = _objective(cfg)
         ladder = _ladder(cfg)
+        _scan_chunk(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -387,9 +410,10 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
                 "config_hash": config_hash(dataclasses.asdict(cfg))}
 
     dtype = _DTYPES[cfg.dtype]
+    loop = dict(scan_chunk=cfg.scan_chunk, capture=capture)
     if objective == "lasso":
         return _run_lasso(cfg, l2, block_size, dtype, device, ladder,
-                          run_meta)
+                          run_meta, dict(loop, sampling=cfg.sampling))
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
@@ -412,8 +436,9 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
         block_size = _resolve_auto_block(ds, dtype, quiet)
     params = cfg.to_params(data.n, k)
     debug = cfg.to_debug()
-    sdca = dict(test_ds=test_ds, rng=cfg.rng, math=cfg.math,
-                block_size=block_size, quiet=quiet)
+    draws = dict(rng=cfg.rng, sampling=cfg.sampling, **loop)
+    sdca = dict(test_ds=test_ds, math=cfg.math, block_size=block_size,
+                quiet=quiet, **draws)
     # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836);
     # as there, only CoCoA+ and CoCoA take the gap target
     runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca, **ladder),
@@ -425,11 +450,11 @@ def run(argv: list[str]) -> tuple[int, list[RunResult]]:
                 ds, params, debug,
                 divergence_guard=ladder["divergence_guard"], **sdca),
             lambda: run_sgd(ds, params, debug, local=False,
-                            test_ds=test_ds, rng=cfg.rng, quiet=quiet),
+                            test_ds=test_ds, quiet=quiet, **draws),
             lambda: run_sgd(ds, params, debug, local=True, test_ds=test_ds,
-                            rng=cfg.rng, quiet=quiet),
+                            quiet=quiet, **draws),
             lambda: run_dist_gd(ds, params, debug, test_ds=test_ds,
-                                quiet=quiet)]
+                                quiet=quiet, **loop)]
     results = []
     for run_alg in runs:
         try:

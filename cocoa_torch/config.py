@@ -59,6 +59,11 @@ class RunConfig:
     dtype: str = "float32"       # float32 | float64 | bfloat16
     layout: str = "auto"         # dense | sparse (padded CSR) | auto
     rng: str = "reference"       # reference | jax | permuted
+    sampling: str = "auto"       # where the index tables are made: auto |
+                                 # device | host (solvers/base.py
+                                 # resolve_sampling)
+    scan_chunk: Optional[int] = None  # --scanChunk: rounds a chunk (None:
+                                 # the eval cadence, capped)
     math: str = "exact"          # exact | fast
     loss: str = "hinge"
     smoothing: float = 1.0

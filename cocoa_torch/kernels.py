@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("sparse_sdca", "dense_sdca", "block_chain",
-                        "sparse_block")}
+                        "sparse_block", "draw_tables")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,6 +90,33 @@ def declare(lib: ctypes.CDLL, names, n_ptr: int, rest: list) -> None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + list(rest) \
             + [ctypes.c_void_p]
+
+
+# every kernel wrapper's launch counts, as (wrapper, attribute)
+_COUNTS: list = []
+
+
+def count_launches(wrapper, *attrs) -> None:
+    """Give a kernel wrapper its launch counts, plain integers named
+    ``attrs`` on the function, each 0; the wrapper adds one where it
+    launches its kernel.  A captured CUDA graph's launches count at each
+    replay (:func:`launch_counts`, :func:`add_launches`)."""
+    for attr in attrs:
+        setattr(wrapper, attr, 0)
+        _COUNTS.append((wrapper, attr))
+
+
+def launch_counts() -> list:
+    """Every wrapper's launch counts, in :func:`count_launches` order."""
+    return [getattr(fn, attr) for fn, attr in _COUNTS]
+
+
+def add_launches(delta) -> None:
+    """Add ``delta`` (a list in :func:`launch_counts` order) to the counts:
+    the launches of one replay of a captured graph, whose wrappers counted
+    once while it was captured and launched nothing then."""
+    for (fn, attr), n in zip(_COUNTS, delta):
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 DTYPES = (torch.float32, torch.float64)

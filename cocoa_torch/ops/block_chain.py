@@ -207,7 +207,7 @@ def chain_block_batched_plain(scal, gram, idx, lam_n, coef_div, sig_eff,
     delta = torch.zeros(k, b, dtype=scal.dtype, device=scal.device)
     coef = torch.zeros_like(delta)
     same = idx[:, :, None] == idx[:, None, :]       # same[k, i, j]
-    lam_n_t = torch.tensor(lam_n, dtype=scal.dtype, device=scal.device)
+    lam_n_t = torch.full((), lam_n, dtype=scal.dtype, device=scal.device)
     for j in range(b):
         a = a0[:, j] + (delta[:, :j] * same[:, :j, j]).sum(-1)
         margin = m0[:, j]
@@ -263,7 +263,7 @@ def chain_block_batched(scal, gram, idx, lam_n, coef_div, sig_eff, frozen,
     return delta, coef
 
 
-chain_block_batched.launches = 0
+kernels.count_launches(chain_block_batched, "launches")
 
 
 def fused_block_plain(xb, idx, yb, qb, a0, live, v, lam_n, coef_div,
@@ -321,7 +321,7 @@ def fused_block(xb, idx, yb, qb, a0, live, v, lam_n, coef_div, sig_eff,
     return delta, dwu
 
 
-fused_block.launches = 0
+kernels.count_launches(fused_block, "launches")
 
 
 def fused_clusters(b: int, dtype, cluster: int, frozen: bool = False,

@@ -138,7 +138,7 @@ def dense_sdca_round(w, alpha, X, labels, sq_norms, idxs, lam, n,
                    loss, smoothing, plan)
 
 
-dense_sdca_round.launches = 0
+kernels.count_launches(dense_sdca_round, "launches")
 
 
 @functools.lru_cache(maxsize=None)

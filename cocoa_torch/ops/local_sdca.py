@@ -47,10 +47,12 @@ def coef_divisor(mode: str, lam_n: float) -> float:
 def _coef_staging(mode: str, lam: float, n: int, dtype, device):
     """(lam_n, coef_of): lam*n as a 0-d tensor of the working dtype, and
     the coefficient as ``y * delta / coef_div`` -- a division, as the JAX
-    static path writes it, not a multiply by a reciprocal."""
-    lam_n = torch.tensor(lam * n, dtype=dtype, device=device)
-    coef_div = torch.tensor(coef_divisor(mode, lam * n), dtype=dtype,
-                            device=device)
+    static path writes it, not a multiply by a reciprocal.  The scalars
+    here and in every round are filled on the device, never copied from
+    the host, so a captured chunk of rounds replays them."""
+    lam_n = torch.full((), lam * n, dtype=dtype, device=device)
+    coef_div = torch.full((), coef_divisor(mode, lam * n), dtype=dtype,
+                          device=device)
 
     def coef_of(y, delta):
         return y * delta / coef_div
@@ -75,7 +77,7 @@ def local_sdca(w_init: torch.Tensor, alpha: torch.Tensor, shards: dict,
     k, d = labels.shape[0], w_init.shape[0]
     dtype, device = w_init.dtype, w_init.device
     lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device)
-    sigma_c = torch.tensor(sigma, dtype=dtype, device=device)
+    sigma_c = torch.full((), sigma, dtype=dtype, device=device)
     # CoCoA's local view of w advances with every step (CoCoA.scala:182-184)
     w = w_init.expand(k, d).clone() if mode == "cocoa" else w_init.expand(k, d)
     dw = torch.zeros(k, d, dtype=dtype, device=device)
@@ -134,8 +136,8 @@ def local_sdca_fast(margins0: torch.Tensor, alpha: torch.Tensor,
     labels, sq_norms = shards["labels"], shards["sq_norms"]
     dtype, device = margins0.dtype, margins0.device
     lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device)
-    sig_c = torch.tensor(sig_eff, dtype=dtype, device=device)
-    qf = torch.tensor(qii_factor, dtype=dtype, device=device)
+    sig_c = torch.full((), sig_eff, dtype=dtype, device=device)
+    qf = torch.full((), qii_factor, dtype=dtype, device=device)
     dw = dw_init
     a_vec = alpha.clone()
     idxs = idxs.long()
@@ -207,7 +209,7 @@ def local_sdca_block(margins0: torch.Tensor, alpha: torch.Tensor,
     labels, sq_norms = shards["labels"], shards["sq_norms"]
     dtype, device = margins0.dtype, margins0.device
     lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device)
-    sig_c = torch.tensor(sig_eff, dtype=dtype, device=device)
+    sig_c = torch.full((), sig_eff, dtype=dtype, device=device)
     d = dw_init.shape[1]
     padded, live = _pad_blocks(idxs, block)
     dw = dw_init

@@ -31,7 +31,7 @@ def local_sgd(w_init: torch.Tensor, shards: dict, idxs: torch.Tensor,
     labels = shards["labels"]
     k, d = idxs.shape[0], w_init.shape[0]
     dtype, device = w_init.dtype, w_init.device
-    lam_c = torch.tensor(lam, dtype=dtype, device=device)
+    lam_c = torch.full((), lam, dtype=dtype, device=device)
     t0 = torch.as_tensor(t_global, dtype=dtype, device=device)
     w = w_init.expand(k, d)  # local steps rebind w before writing it
     dw = torch.zeros(k, d, dtype=dtype, device=device)

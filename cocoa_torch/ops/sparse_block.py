@@ -322,7 +322,7 @@ def sparse_block_gram(w, dw, gidx, gvals, cnts, sig_eff, frozen,
     return gram, mb
 
 
-sparse_block_gram.launches = 0
+kernels.count_launches(sparse_block_gram, "launches")
 
 
 def sparse_block_apply_plain(dw, gidx, gvals, cnts, coefs):
@@ -365,7 +365,7 @@ def sparse_block_apply(dw, gidx, gvals, cnts, coefs, slices=None):
     return dw
 
 
-sparse_block_apply.launches = 0
+kernels.count_launches(sparse_block_apply, "launches")
 
 
 def _check_rows(gidx, gvals, cnts, dt, dev):

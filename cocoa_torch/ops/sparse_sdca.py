@@ -194,8 +194,7 @@ def sparse_sdca_round(w, alpha, sp_indices, sp_values, labels, sq_norms,
     return _launch(*args)
 
 
-sparse_sdca_round.launches = 0
-sparse_sdca_round.hybrid_launches = 0
+kernels.count_launches(sparse_sdca_round, "launches", "hybrid_launches")
 
 
 def _check_hot(hot_cols, hot_panel) -> None:

@@ -1,9 +1,10 @@
 """Shared solver machinery (counterpart of parts of
-cocoa_tpu/solvers/base.py): the shard check, the index sampler (host
-tables), the chunk size, and the chunked round loop with the JAX
-host-stepped driver's ladder (``drive_chunked``): the gap-target stop, the
-divergence guard's stall watch, the sigma' anneal schedule and the
-accelerated outer loop's window bookkeeping.
+cocoa_tpu/solvers/base.py): the shard check, the index sampler (host or
+device tables, ``--sampling``), the chunk size (``--scanChunk``), and the
+chunked round loop, each chunk of rounds one replayed CUDA graph on the
+card, with the JAX host-stepped driver's ladder (``drive_chunked``): the
+gap-target stop, the divergence guard's stall watch, the sigma' anneal
+schedule and the accelerated outer loop's window bookkeeping.
 
 The schedule state is the JAX package's float32 sched vector, kept here as
 a numpy array on the host: the host picks each chunk's branch from it, so
@@ -11,11 +12,13 @@ no device read is added to the one fetch per eval."""
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from cocoa_torch import kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.utils import prng
@@ -33,12 +36,18 @@ def check_shards(ds: ShardedDataset) -> None:
 
 
 class IndexSampler:
-    """Per-round local-coordinate draws, (C, K, H) int32 tables built on
-    the host for a chunk of rounds (see utils/prng.py for the modes)."""
+    """Per-round local-coordinate draws, (C, K, H) int32 tables for a
+    chunk of rounds (see utils/prng.py for the modes).  With ``device``
+    (``--sampling``, :func:`resolve_sampling`) a chunk makes its tables
+    where its first round lies, :meth:`draw`: on the card, one launch of
+    the draw kernel inside the captured chunk; without it the host builds
+    them, :meth:`chunk_indices`, and the chunk copies them over.  Both are
+    the same tables bit for bit."""
 
-    MODES = ("reference", "jax", "permuted")
+    MODES = prng.MODES
 
-    def __init__(self, mode: str, seed: int, h: int, counts):
+    def __init__(self, mode: str, seed: int, h: int, counts,
+                 device: bool = False):
         if mode not in self.MODES:
             raise ValueError(
                 f"rng mode must be one of {self.MODES}, got {mode!r}")
@@ -46,29 +55,98 @@ class IndexSampler:
         self.seed = seed
         self.h = h
         self.counts = np.asarray(counts)
+        self.device = device
         if np.any(self.counts <= 0):
             raise ValueError(
                 f"all shards must be non-empty, got sizes {self.counts}")
+        self._counts_on = {}
+
+    def device_capable(self, max_round: int) -> bool:
+        """Whether device tables are exact for this run, by the JAX
+        package's rule (cocoa_tpu/solvers/base.py ``device_capable``):
+        reference replay while seed + round stays in int32
+        (:func:`prng.device_replay_ok`), permuted while (rounds + 1) * H
+        does; the counter hash always."""
+        if self.mode == "reference":
+            return prng.device_replay_ok(self.seed, max_round)
+        if self.mode == "permuted":
+            return (max_round + 1) * self.h < (1 << 31)
+        return True
+
+    def ints_per_round(self) -> int:
+        """Index-table ints copied from the host per round: K*H, or 1 (the
+        first round) in device mode."""
+        return 1 if self.device else int(self.counts.shape[0]) * self.h
 
     def chunk_indices(self, t0: int, c: int) -> torch.Tensor:
-        """Tables for rounds t0..t0+c-1 (1-based, as the reference)."""
-        if self.mode == "reference":
-            tab = prng.sample_indices_per_shard(
-                self.seed, range(t0, t0 + c), self.h, self.counts)
-            return torch.from_numpy(np.ascontiguousarray(
-                np.swapaxes(tab, 0, 1)))
-        ts = torch.arange(t0, t0 + c, dtype=torch.int64)
-        if self.mode == "permuted":
-            return prng.permuted_tables(self.seed, ts, self.h, self.counts)
-        return prng.hash_tables(self.seed, ts, self.h, self.counts)
+        """Host tables for rounds t0..t0+c-1 (1-based, as the reference),
+        on the CPU."""
+        return prng.host_tables(self.mode, self.seed, self.h, self.counts,
+                                t0, c)
+
+    def draw(self, t0: torch.Tensor, c: int) -> torch.Tensor:
+        """Device mode's tables for rounds t0..t0+c-1, ``t0`` a 0-d int64
+        tensor read where it lies (:func:`prng.draw_tables`).  The shard
+        sizes go to that device once, at the first call."""
+        counts = self._counts_on.get(t0.device)
+        if counts is None:
+            counts = torch.as_tensor(self.counts, dtype=torch.int64).to(
+                t0.device)
+            self._counts_on[t0.device] = counts
+        return prng.draw_tables(self.mode, self.seed, self.h, counts, t0, c)
 
     def round_indices(self, t: int) -> torch.Tensor:
         return self.chunk_indices(t, 1)[0]
 
 
-def chunk_rounds(debug: DebugParams, k: int, h: int) -> int:
-    """Rounds per chunk: a chunk ends at each eval, and is capped so one
-    chunk's (C, K, H) table stays modest when debugIter is large."""
+def resolve_sampling(sampling: str, sampler: IndexSampler,
+                     max_round: int) -> bool:
+    """``--sampling`` resolved to the sampler's ``device`` switch, with
+    the JAX package's rules and messages (cocoa_tpu/solvers/base.py
+    ``resolve_sampling``): ``auto`` makes the tables on the device
+    wherever they are exact for this run, ``host`` never, ``device``
+    insists and raises where they are not exact; permuted draws past the
+    int32 global step raise in every setting."""
+    if sampling not in ("auto", "device", "host"):
+        raise ValueError(
+            f"sampling must be auto|device|host, got {sampling!r}")
+    capable = sampler.device_capable(max_round)
+    if not capable and sampler.mode == "permuted":
+        raise ValueError(
+            f"rng=permuted overflows int32 global-step arithmetic for "
+            f"num_rounds={max_round}, localIters={sampler.h} "
+            f"((rounds+1)*H must stay below 2^31); split the run via "
+            f"checkpoint/resume or lower localIterFrac"
+        )
+    if sampling == "host":
+        return False
+    if sampling == "device" and not capable:
+        raise ValueError(
+            f"device sampling is not exact for rng={sampler.mode!r} with "
+            f"seed={sampler.seed}, num_rounds={max_round} (int32 range); "
+            f"use --sampling=host"
+        )
+    return capable
+
+
+def make_sampler(rng: str, seed: int, h: int, counts, sampling: str,
+                 num_rounds: int) -> IndexSampler:
+    """The run's sampler with ``--sampling`` resolved."""
+    sampler = IndexSampler(rng, seed, h, counts)
+    sampler.device = resolve_sampling(sampling, sampler, num_rounds)
+    return sampler
+
+
+def chunk_rounds(debug: DebugParams, k: int, h: int,
+                 scan_chunk: Optional[int] = None) -> int:
+    """Rounds per chunk (``--scanChunk``): ``scan_chunk`` when given, and
+    one round a chunk when it is not positive, as the JAX package runs
+    ``scan_chunk <= 0`` round by round; by default the JAX CLI's
+    (cocoa_tpu/cli.py:1590-1599): the eval cadence, capped so one chunk's
+    (C, K, H) table stays modest when debugIter is large.  A chunk also
+    ends at every eval (:func:`drive`)."""
+    if scan_chunk is not None:
+        return max(1, int(scan_chunk))
     cap = max(1, 32_000_000 // max(1, k * h))
     return min(debug.debug_iter if debug.debug_iter > 0 else 50, cap)
 
@@ -341,31 +419,156 @@ class _GapWatch:
         return self.stall >= self.n
 
 
-def per_round(round_fn: Callable[[tuple, torch.Tensor, int], tuple]):
-    """A chunk function (see :func:`drive`) that runs ``round_fn(state,
-    idxs_kh, t)`` over the chunk's tables, one round each."""
-    def chunk_fn(t0, tables, state):
-        for r, idxs_kh in enumerate(tables, start=t0):
-            state = round_fn(state, idxs_kh, r)
-        return state
-    return chunk_fn
+def per_round(round_fn: Callable):
+    """A chunk body (see :func:`drive`) that runs ``round_fn(iterate,
+    idxs_kh, t) -> iterate`` once a round: ``idxs_kh`` the round's (K, H)
+    table (None for a solver without draws), ``t`` its 1-based number as
+    a 0-d int64 tensor on the device (the eta(t) schedules read it)."""
+    def body(key, c, tables, t0, iterate):
+        ts = t0 + torch.arange(c, dtype=torch.int64, device=t0.device)
+        for r in range(c):
+            iterate = round_fn(iterate, None if tables is None else tables[r],
+                               ts[r])
+        return iterate
+    return body
+
+
+class ChunkRunner:
+    """Runs a chunk of rounds, ``body(key, c, tables, t0, iterate) ->
+    iterate``: ``iterate`` the device tensors the rounds advance,
+    ``tables`` the chunk's (C, K, H) draws (None without a sampler),
+    ``t0`` the first round, a 0-d int64 tensor on the device that the host
+    writes before each chunk, and ``key`` the branch the host picked.
+
+    On the CPU, and with ``capture=False``, the body runs eagerly.  On
+    CUDA each (key, c) is run eagerly once, which loads the libraries and
+    sets every kernel's attributes outside any capture, then captured as
+    one ``torch.cuda.CUDAGraph`` and replayed from then on.  The graph
+    holds the chunk's tables (the draw kernel in device mode; else it
+    reads a static buffer that the host fills before each replay), every
+    round's kernels and glue, and the copy of the new iterate into static
+    buffers, which the host's evals and the jump read between replays.  All graphs share one
+    memory pool: a graph's outputs are copied into the static buffers,
+    which lie outside the pool, before it ends, so nothing a graph
+    allocates is live after its replay, and no order of replays can
+    corrupt what another graph left.  A capture that fails raises.
+
+    A replay launches no wrapper, so the wrappers' launch counts while a
+    graph is captured are taken back and added again at each replay
+    (:func:`cocoa_torch.kernels.add_launches`)."""
+
+    def __init__(self, body: Callable, sampler, device, capture=None):
+        self.body = body
+        self.sampler = sampler
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self.capture = cuda if capture is None else bool(capture)
+        if self.capture and not cuda:
+            raise ValueError("a captured chunk needs a CUDA device")
+        # device tables come from the draw kernel on the card; on the CPU
+        # its plain version is the host tables themselves
+        self.draws = sampler is not None and sampler.device and cuda
+        self.t0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.static = None
+        self.host_tabs = {}
+        self.graphs = {}
+        self.seconds = {}
+        self.pool = None
+        self.stream = None
+
+    def __call__(self, key, t: int, c: int, iterate: tuple) -> tuple:
+        """Rounds t..t+c-1 on ``iterate``; returns the new iterate (on
+        CUDA with capture, the static buffers themselves)."""
+        self.t0.fill_(t)
+        host = None
+        if self.sampler is not None and not self.draws:
+            host = self.sampler.chunk_indices(t, c)
+            if self.capture:
+                buf = self.host_tabs.get(c)
+                if buf is None:
+                    buf = torch.empty(host.shape, dtype=host.dtype,
+                                      device=self.device)
+                    self.host_tabs[c] = buf
+                host = buf.copy_(host)
+            else:
+                host = host.to(self.device)
+        if not self.capture:
+            return self._chunk(key, c, host, iterate)
+        if self.static is None:
+            self.static = tuple(x.clone() for x in iterate)
+        for buf, x in zip(self.static, iterate):
+            if buf is not x:
+                buf.copy_(x)
+        graph = self.graphs.get((key, c))
+        if graph is None:
+            self._store(self._chunk(key, c, host, self.static))
+            self.graphs[(key, c)] = self._capture(key, c, host)
+        else:
+            graph[0].replay()
+            kernels.add_launches(graph[1])
+        return self.static
+
+    def _chunk(self, key, c, host, iterate):
+        tables = self.sampler.draw(self.t0, c) if self.draws else host
+        return self.body(key, c, tables, self.t0, iterate)
+
+    def _store(self, out):
+        for buf, x in zip(self.static, out):
+            buf.copy_(x)
+
+    def _capture(self, key, c, host):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(self.pool)
+            try:
+                self._store(self._chunk(key, c, host, self.static))
+            except BaseException:
+                _end_failed_capture(graph)
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.seconds[(key, c)] = time.perf_counter() - start
+        delta = [b - a for a, b in zip(before, kernels.launch_counts())]
+        kernels.add_launches([-n for n in delta])
+        return graph, delta
+
+
+def _end_failed_capture(graph) -> None:
+    """End a capture that its body broke off, so the stream leaves capture
+    mode; the body's own error is the one raised."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
 
 
 def drive(name: str, params: Params, debug: DebugParams, state: tuple,
-          chunk_fn: Callable[[int, object, tuple], tuple],
-          eval_fn: Callable[[tuple], tuple], sampler, device, chunk: int,
-          quiet: bool = False, start_round: int = 1,
+          body: Callable, eval_fn: Callable[[tuple], tuple], sampler,
+          device, chunk: int, quiet: bool = False, start_round: int = 1,
           gap_target: Optional[float] = None, divergence_guard: bool = True,
           sigma_levels: Optional[tuple] = None,
-          accel: Optional[AccelConfig] = None):
+          accel: Optional[AccelConfig] = None,
+          head: Optional[Callable] = None, n_iterate: int = 1,
+          capture: Optional[bool] = None):
     """The outer loop (CoCoA.scala:39-63 skeleton, with the ladder of
     cocoa_tpu/solvers/base.py ``drive_chunked``).  Rounds run in chunks
-    that end at each ``debugIter`` boundary: a chunk's (C, K, H) index
-    table is built on the host and copied to ``device`` once, and
-    ``chunk_fn(t0, tables, state) -> state`` runs its rounds (``tables``
-    a list of None when ``sampler`` is None, for a solver without draws);
-    the host reads the device only at the evaluations, ``eval_fn(state)
-    -> (primal, gap, test_error)``.
+    of up to ``chunk`` that end at each ``debugIter`` boundary; the first
+    ``n_iterate`` entries of ``state`` are the device tensors the rounds
+    advance, and the rest the host's (the accel bank, the sched vector).
+    At a chunk's head ``head(t0, c, state) -> (key, state)`` (default: key
+    None) picks the branch on the host and may move the iterate (the
+    secant jump); then a :class:`ChunkRunner` runs ``body`` over the
+    chunk, on CUDA as a replayed CUDA graph unless ``capture`` is False.
+    The host reads the device only at the evaluations, ``eval_fn(state)
+    -> (primal, gap, test_error)``.  The returned state owns its tensors
+    (no graph writes them again), and ``Trajectory.graphs`` has each
+    graph's capture time.
 
     At an eval: ``gap <= gap_target`` stops the run (``stopped =
     "target"``); with ``divergence_guard`` and a target the stall watch
@@ -378,6 +581,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
         raise ValueError(f"chunk must be positive, got {chunk}")
     anneal = sigma_levels is not None and len(sigma_levels) > 1
     traj = Trajectory(name, quiet=quiet, device=device)
+    runner = ChunkRunner(body, sampler, device, capture)
+    traj.graphs = runner.seconds
     watch = _GapWatch(n_evals=stall_window(debug.debug_iter))
     t = start_round
     total = params.num_rounds
@@ -386,9 +591,11 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
         end = min(total, t + chunk - 1)
         if di > 0:
             end = min(end, ((t - 1) // di + 1) * di)
-        tables = ([None] * (end - t + 1) if sampler is None
-                  else sampler.chunk_indices(t, end - t + 1).to(device))
-        state = chunk_fn(t, tables, state)
+        c = end - t + 1
+        key = None
+        if head is not None:
+            key, state = head(t, c, state)
+        state = (*runner(key, t, c, state[:n_iterate]), *state[n_iterate:])
         t = end + 1
         if not (di > 0 and end % di == 0):
             continue
@@ -430,4 +637,7 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
                 and watch.update(gap)):
             traj.mark_diverged(end, watch.n)
             break
+    if runner.capture:
+        state = (*(x.clone() for x in state[:n_iterate]),
+                 *state[n_iterate:])
     return state, traj

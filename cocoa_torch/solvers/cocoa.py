@@ -225,7 +225,8 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     eval_fn=None, gap_target: Optional[float] = None,
                     divergence_guard: str = "auto", sigma_levels=None,
                     warm_start=None, accel: bool = False,
-                    theta: str = "fixed"):
+                    theta: str = "fixed", scan_chunk: Optional[int] = None,
+                    sampling: str = "auto", capture: Optional[bool] = None):
     """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
     the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
     from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
@@ -244,7 +245,13 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     smooth_hinge(s) phase for rounds <= warm_end (a ``debugIter``
     multiple), carry the sched vector in the state; ``accel`` adds the
     secant jump's window bank, and ``theta="adaptive"`` the Theta ladder
-    (cocoa_tpu/solvers/cocoa.py ``run_sdca_family``)."""
+    (cocoa_tpu/solvers/cocoa.py ``run_sdca_family``).
+
+    ``scan_chunk`` rounds run as one chunk (:func:`base.chunk_rounds`;
+    None: the JAX CLI's default), on CUDA one replayed CUDA graph a chunk
+    unless ``capture`` is False; ``sampling`` (auto | device | host,
+    :func:`base.resolve_sampling`) says where the chunk's tables are
+    made."""
     base.check_shards(ds)
     guard_on = base.resolve_divergence_guard(
         divergence_guard, alg[0], alg[2], ds.k, params.gamma)
@@ -312,8 +319,8 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
 
     w = start(w_init, (ds.num_features,))
     alpha = start(alpha_init, (k, ds.n_shard))
-    sampler = base.IndexSampler(rng, debug.seed, params.local_iters,
-                                ds.counts)
+    sampler = base.make_sampler(rng, debug.seed, params.local_iters,
+                                ds.counts, sampling, params.num_rounds)
 
     if eval_fn is None:
         def eval_fn(state):
@@ -323,18 +330,20 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                                        smoothing=params.smoothing)
 
     scheduled = len(levels) > 1 or warm_start is not None
+    head = None
+    state = (w, alpha)
     if not (scheduled or accel):
-        chunk_fn = base.per_round(branches[0][0])
-        state = (w, alpha)
+        body = base.per_round(branches[0][0])
     else:
         shards = ds.shard_arrays()
         inv_lam_n = float(np.float32(1.0 / (params.lam * params.n)))
         last_phase = len(branch_params) - 1
 
-        def chunk_fn(t0, tables, state):
-            """One chunk of rounds on the branch its sched vector picks
-            (chunks never straddle an eval boundary, so one warm-phase
-            test a chunk is exact), after an armed jump."""
+        def head(t0, c, state):
+            """The chunk's branch, (sigma' stage, loss phase, Theta
+            stage's H), from its sched vector (chunks never straddle an
+            eval boundary, so one warm-phase test a chunk is exact), after
+            an armed jump."""
             w, alpha = state[0], state[1]
             sched = state[-1].copy()
             if accel:
@@ -342,32 +351,35 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     w, alpha = _secant_jump(w, alpha, state[2], shards,
                                             inv_lam_n)
                 sched[base.A_JUMP] = 0.0
-            c = len(tables)
             stage = min(max(int(sched[0]), 0), len(levels) - 1)
             warm_now = sched[4] + np.float32(c - 1) <= np.float32(warm_end)
             phase = 0 if warm_now else last_phase
             hs = theta_hs[min(max(int(sched[base.A_TH_STAGE]), 0),
                               len(theta_hs) - 1)] if accel else full_h
+            sched[4] += np.float32(c)
+            return (stage, phase, hs), (w, alpha, *state[2:-1], sched)
+
+        def body(key, c, tables, t0, iterate):
+            stage, phase, hs = key
             if hs < full_h:
                 tables = tables[:, :, :hs].contiguous()
             step = branches[stage][phase]
-            for r, idxs_kh in enumerate(tables, start=t0):
-                w, alpha = step((w, alpha), idxs_kh, r)
-            sched[4] += np.float32(c)
-            return (w, alpha, *state[2:-1], sched)
+            for idxs_kh in tables:
+                iterate = step(iterate, idxs_kh, None)
+            return iterate
 
-        state = (w, alpha)
         if accel:
             state += (torch.zeros((2,) + alpha.shape, dtype=ds.dtype,
                                   device=ds.device),)
         state += (base.sched_init_array(1, accel=accel),)
 
     state, traj = base.drive(
-        alg_name, params, debug, state, chunk_fn, eval_fn, sampler,
-        ds.device, base.chunk_rounds(debug, k, params.local_iters),
+        alg_name, params, debug, state, body, eval_fn, sampler, ds.device,
+        base.chunk_rounds(debug, k, params.local_iters, scan_chunk),
         quiet=quiet, gap_target=gap_target, divergence_guard=guard_on,
         sigma_levels=levels,
-        accel=base.AccelConfig(theta_hs) if accel else None)
+        accel=base.AccelConfig(theta_hs) if accel else None, head=head,
+        n_iterate=2, capture=capture)
     return state[0], state[1], traj
 
 

@@ -23,8 +23,11 @@ from cocoa_torch.solvers import base
 
 def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
                 test_ds: Optional[ShardedDataset] = None,
-                quiet: bool = False):
-    """Train from w = 0; returns (w, Trajectory)."""
+                quiet: bool = False, scan_chunk: Optional[int] = None,
+                capture: Optional[bool] = None):
+    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk`` and
+    ``capture`` as in :func:`cocoa_torch.solvers.cocoa.run_sdca_family`
+    (no draws, so no ``sampling``)."""
     base.check_shards(ds)
     k = ds.k
     shards = ds.shard_arrays()
@@ -36,7 +39,7 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
         (w,) = state
         dw_sum = subgradient_pass(w, shards, params.lam, loss=params.loss,
                                   smoothing=params.smoothing).sum(0)
-        t_c = torch.tensor(float(t), dtype=w.dtype, device=w.device)
+        t_c = t.to(w.dtype)
         eta = 1.0 / (params.beta * t_c)
         return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)
 
@@ -48,5 +51,6 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
     w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
     (w,), traj = base.drive("Dist SGD", params, debug, (w,),
                             base.per_round(round_fn), eval_fn, None, ds.device,
-                            base.chunk_rounds(debug, k, 1), quiet=quiet)
+                            base.chunk_rounds(debug, k, 1, scan_chunk),
+                            quiet=quiet, capture=capture)
     return w, traj

@@ -61,7 +61,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
                    r_init: Optional[torch.Tensor] = None,
                    quiet: bool = False, math: str = "fast",
                    block_size: int = 0, gap_target: Optional[float] = None,
-                   divergence_guard: str = "auto"):
+                   divergence_guard: str = "auto",
+                   scan_chunk: Optional[int] = None, sampling: str = "auto",
+                   capture: Optional[bool] = None):
     """Train; returns (x (K, d_shard) the sharded coordinates, r = Ax - b
     the residual, Trajectory).  ``ds`` and ``b`` come from
     :func:`cocoa_torch.data.columns.shard_columns`; ``params.lam`` is the
@@ -74,7 +76,8 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     lasso rule in the block kernels (solvers/cocoa.py ``block_route``).
     ``gap_target`` stops at the first eval whose (absolute) gap is at or
     below it; ``divergence_guard`` as in ``run_sdca_family`` (``auto``
-    does not arm at the safe sigma' = K*gamma).  Each eval fetches
+    does not arm at the safe sigma' = K*gamma); ``scan_chunk``,
+    ``sampling`` and ``capture`` as there too.  Each eval fetches
     (primal, gap) from the device once."""
     l1, l2 = float(params.lam), float(params.smoothing)
     # mode prox has no lam*n factor: n = 1 makes lam_n the L1 weight
@@ -92,5 +95,6 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,
         block_size=block_size, w_init=-b if r_init is None else r_init,
         alpha_init=x_init, eval_fn=eval_fn, gap_target=gap_target,
-        divergence_guard=divergence_guard)
+        divergence_guard=divergence_guard, scan_chunk=scan_chunk,
+        sampling=sampling, capture=capture)
     return x, r, traj

@@ -27,8 +27,13 @@ from cocoa_torch.solvers import base
 
 def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
             local: bool, test_ds: Optional[ShardedDataset] = None,
-            rng: str = "reference", quiet: bool = False):
-    """Train from w = 0; returns (w, Trajectory)."""
+            rng: str = "reference", quiet: bool = False,
+            scan_chunk: Optional[int] = None, sampling: str = "auto",
+            capture: Optional[bool] = None):
+    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk``,
+    ``sampling`` and ``capture`` as in
+    :func:`cocoa_torch.solvers.cocoa.run_sdca_family`; eta(t) reads the
+    round number from the device, so a captured chunk replays it."""
     base.check_shards(ds)
     k, h, lam = ds.k, params.local_iters, params.lam
     scaling = params.beta / k if local else params.beta / (k * h)
@@ -39,7 +44,7 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
 
     def round_fn(state, idxs_kh, t):
         (w,) = state
-        t_c = torch.tensor(float(t), dtype=w.dtype, device=w.device)
+        t_c = t.to(w.dtype)
         eta = 1.0 / (lam * t_c)
         if not local:
             w = w * (1.0 - eta * lam)
@@ -54,9 +59,11 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
                                    smoothing=params.smoothing)
 
     w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
-    sampler = base.IndexSampler(rng, debug.seed, h, ds.counts)
+    sampler = base.make_sampler(rng, debug.seed, h, ds.counts, sampling,
+                                params.num_rounds)
     (w,), traj = base.drive(
         "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
         base.per_round(round_fn), eval_fn, sampler, ds.device,
-        base.chunk_rounds(debug, k, h), quiet=quiet)
+        base.chunk_rounds(debug, k, h, scan_chunk), quiet=quiet,
+        capture=capture)
     return w, traj

@@ -96,6 +96,9 @@ class Trajectory:
         self.stopped: Optional[str] = None
         # extra header fields for dump_jsonl (dataset, seed, config hash)
         self.meta: dict = {}
+        # a captured run's CUDA graphs: (branch, rounds) -> seconds to
+        # capture (solvers/base.py ``drive``); not dumped
+        self.graphs: dict = {}
         self._t0 = time.perf_counter()
 
     def _console(self, msg: str):

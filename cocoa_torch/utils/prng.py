@@ -14,13 +14,21 @@ The two hash modes are uint32 arithmetic in the JAX package.  PyTorch's
 uint32 support is thin, so here they run on int64 tensors masked to 32
 bits after every operation; every product is split so that it stays
 below 2**48 and never overflows int64.  All three return (C, K, H) int32
-tables on the CPU; the caller copies them to the device once per chunk.
+tables on the CPU: :func:`host_tables` is what ``--sampling=host`` copies
+to the device once per chunk, and the plain version of
+:func:`draw_tables`, which makes the same tables on the card
+(``csrc/draw_tables.cu``) from a first round held in device memory.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
+
+from cocoa_torch import kernels
 
 _MULT = 0x5DEECE66D
 _ADD = 0xB
@@ -132,6 +140,14 @@ def _sample_block(t0: np.ndarray, h: int, n_locals: np.ndarray) -> np.ndarray:
     return vals.astype(np.int32)
 
 
+def device_replay_ok(seed: int, max_round: int) -> bool:
+    """The JAX package's rule for its in-jit reference replay (int32 round
+    seeds): 0 <= seed and seed + max_round < 2^31.  The card's draw kernel
+    replays the full java long range, but ``--sampling`` follows this
+    rule so that both packages pick the same tables."""
+    return 0 <= seed and seed + max_round < (1 << 31)
+
+
 def _check_sizes(n_locals) -> np.ndarray:
     n_locals = np.asarray(n_locals, dtype=np.int64)
     if np.any(n_locals <= 0):
@@ -234,3 +250,64 @@ def permuted_tables(seed: int, ts, h: int, n_locals) -> torch.Tensor:
                     ^ (seed & _M32))
         outs.append(_feistel_perm(pos, cnt, rk).to(torch.int32).reshape(c, h))
     return torch.stack(outs, dim=1)
+
+
+MODES = ("reference", "jax", "permuted")
+_MODE_CODES = {mode: code for code, mode in enumerate(MODES)}
+
+
+def host_tables(mode: str, seed: int, h: int, n_locals, t0: int,
+                c: int) -> torch.Tensor:
+    """(C, K, H) int32 tables on the CPU for rounds t0..t0+c-1 (1-based,
+    as the reference) in ``mode``."""
+    if mode not in MODES:
+        raise ValueError(f"rng mode must be one of {MODES}, got {mode!r}")
+    if mode == "reference":
+        tab = sample_indices_per_shard(seed, range(t0, t0 + c), h, n_locals)
+        return torch.from_numpy(np.ascontiguousarray(np.swapaxes(tab, 0, 1)))
+    ts = torch.arange(t0, t0 + c, dtype=torch.int64)
+    if mode == "permuted":
+        return permuted_tables(seed, ts, h, n_locals)
+    return hash_tables(seed, ts, h, n_locals)
+
+
+def draw_tables(mode: str, seed: int, h: int, counts: torch.Tensor,
+                t0: torch.Tensor, c: int) -> torch.Tensor:
+    """The chunk's (C, K, H) int32 tables for rounds t0..t0+c-1 on the
+    device of ``t0`` (0-d int64, the first round, read where it lies) and
+    ``counts`` ((K,) int64 shard sizes): on CUDA one launch of the draw
+    kernel on the current stream, which a captured chunk replays; on the
+    CPU the plain version, :func:`host_tables`.  Bit for bit with
+    :func:`host_tables` in every mode."""
+    if mode not in MODES:
+        raise ValueError(f"rng mode must be one of {MODES}, got {mode!r}")
+    if c < 1 or h < 1:
+        raise ValueError(f"draw_tables needs c >= 1 and h >= 1, got c={c}, "
+                         f"h={h}")
+    if kernels.runs_plain(t0.device):
+        return host_tables(mode, seed, h, counts.numpy(), int(t0), c)
+    kernels.require_cuda(t0, "draw_tables")
+    k = counts.shape[0]
+    kernels.check_tensor("t0", t0, torch.int64, (), t0.device)
+    kernels.check_tensor("counts", counts, torch.int64, (k,), t0.device)
+    out = torch.empty(c, k, h, dtype=torch.int32, device=t0.device)
+    lib = _library()
+    with torch.cuda.device(t0.device):
+        rc = lib.draw_tables(_MODE_CODES[mode], counts.data_ptr(),
+                             t0.data_ptr(), out.data_ptr(), c, k, h, seed,
+                             kernels.stream_ptr(t0.device))
+    kernels.raise_on_error(lib, rc, "draw_tables")
+    draw_tables.launches += 1
+    return out
+
+
+kernels.count_launches(draw_tables, "launches")
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = kernels.load("draw_tables")
+    lib.draw_tables.restype = ctypes.c_int
+    lib.draw_tables.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    return lib

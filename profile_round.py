@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of an rcv1-like round goes on the card: torch.profiler
 around CoCoA+ rounds of the port, on the unsplit and the hybrid
-(``--hotCols=auto``) layouts, sequential and block (``--blockSize=128``).
+(``--hotCols=auto``) layouts, sequential and block (``--blockSize=128``),
+each chunk of rounds a replayed CUDA graph.
 
-    python3 profile_round.py [--rounds=50]      # one GPU
+    python3 profile_round.py [--rounds=100]      # one GPU
 
-For each configuration it prints the wall clock per round, the device
-time per round summed over CUDA kernels, their share of the wall clock,
-kernel launches per round, and the kernels that take the most device
-time.  The data are the rcv1-like shape of chip_smoke.py (20 242 x 47 236,
-about 75 nonzeros a row, from seed 0), K=8, H=253, lambda=1e-4, float32,
-evaluations every 25 rounds.
+For each configuration it prints the wall clock per round between the
+first eval and the last (past the first chunk, which a captured run
+spends running eagerly and capturing), the device time per round summed
+over CUDA kernels, their share of the wall clock, kernel launches per
+round, and the kernels that take the most device time.  The data are
+the rcv1-like shape of chip_smoke.py (20 242 x 47 236, about 75 nonzeros
+a row, from seed 0), K=8, H=253, lambda=1e-4, float32, evaluations every
+25 rounds.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -36,22 +38,30 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def profile_config(ds, block: int, rounds: int, top: int = 6) -> None:
+def profile_config(ds, block: int, rounds: int, top: int = 6,
+                   capture: bool = True) -> dict:
+    """Profile a run of ``rounds`` CoCoA+ rounds after a warm-up run;
+    prints and returns the wall clock per round between its first eval
+    and its last and the device time per round over the whole run (ms),
+    the busy share and the kernel launches per round."""
     h = max(1, int(0.1 * ds.n / K))
     params = Params(n=ds.n, num_rounds=rounds, local_iters=h, lam=LAM)
     debug = DebugParams(debug_iter=25, seed=0)
 
     def run():
-        cocoa_mod.run_cocoa(ds, params, debug, plus=True, math="fast",
-                            block_size=block, quiet=True)
+        traj = cocoa_mod.run_cocoa(ds, params, debug, plus=True,
+                                   math="fast", block_size=block, quiet=True,
+                                   capture=capture)[2]
         torch.cuda.synchronize()
+        return traj
 
     run()  # warm-up: kernel loads, allocator
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = (time.perf_counter() - t0) * 1e3 / rounds
+        traj = run()
+    first, last = traj.records[0], traj.records[-1]
+    wall = (last.wall_time - first.wall_time) * 1e3 / (last.round
+                                                       - first.round)
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and str(e.device_type).endswith("CUDA")]
     dev = sum(device_us(e) for e in kernels) / 1e3 / rounds
@@ -62,13 +72,15 @@ def profile_config(ds, block: int, rounds: int, top: int = 6) -> None:
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"    {device_us(e) / 1e3 / rounds:8.4f} ms/round "
               f"{e.count / rounds:6.1f}x  {e.key[:90]}")
+    return {"wall_ms": wall, "device_ms": dev, "busy": dev / wall,
+            "launches": launches}
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("error: profile_round.py needs a CUDA device", file=sys.stderr)
         return 1
-    rounds = 50
+    rounds = 100
     for arg in argv:
         if arg.startswith("--rounds="):
             rounds = int(arg.split("=", 1)[1])
