@@ -161,9 +161,28 @@ stderr); any failed check exits non-zero:
    captured with host tables and captured with device tables, and the
    demo to 1e-4, in turns; (e) busy shares by profile_round.py's method,
    rcv1-like sequential, block and hybrid, captured and eager.
+14. the device-resident run (--deviceLoop): the card's torch, CUDA and
+   driver versions and whether torch has CUDA graph conditional nodes
+   (probe_conditional.py; without them the loop takes design B), then
+   each configuration chunked (captured), with --deviceLoop twice, and
+   chunked again, every kernel's count set to 0 before each run and read
+   after: (a) rcv1-like sigma' auto to 1e-4 (B1, 575 rounds); (b) the
+   safe sigma' with accel auto and off; (c) its block path (B5, B3, B6);
+   (d) the lasso design, lasso and elastic net, to 1e-3 |b|^2/2 (B2);
+   (e) epsilon-like fused B=128 (B4) and sequential (B2), 30 rounds; (f)
+   the demo's menu through the CLI; (g) the coherent shards' bail-out
+   (B2, DIVERGED at 425); (h) rcv1-like hybrid, 100 rounds (B1h).  The
+   device loop launches what the chunked run launches, stops where it
+   stops, equals it bit for bit where the two chunked runs agree bit for
+   bit (else within relative 1e-3 with equal rounds), reads the card once
+   a run (and once a change of sigma'), and stamps only its last record;
+   each run's stop round, seconds, ms per round, fetches, capture seconds
+   and dead chunks are printed in turns; then busy shares of rcv1-like
+   sequential and block rounds, chunked and device loop.
 
 The line before the last lists every kernel with its launches on the main
-paths (a replayed graph's launches counted at each replay), its error
+paths (a replayed graph's launches counted at each replay; phase 14's
+device-loop runs included), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -2565,6 +2584,209 @@ def phase_busy(rcv1, rcv1_w):
     return out
 
 
+# --- phase 14: the device-resident run (--deviceLoop)
+
+
+def transitions(traj) -> int:
+    """The changes of sigma' between consecutive evals of a run."""
+    sig = [r.sigma for r in traj.records]
+    return sum(a != b for a, b in zip(sig, sig[1:]))
+
+
+def loop_turns(label, run):
+    """``run(device_loop) -> [RunResult]`` chunked (each chunk a captured
+    CUDA graph), device loop, device loop, chunked, every kernel's count
+    set to 0 just before each run and read just after.  Each device-loop
+    run launches what the chunked run launches (its live chunks; the draw
+    kernel too), stops where it stops with the same ``stopped``, equals it
+    bit for bit where the two chunked runs agree bit for bit, else within
+    relative 1e-3 with equal rounds, and reads the card once, plus once a
+    change of sigma'.  Returns a summary: per run, (stop round, seconds,
+    ms per round, fetches, capture seconds, dead chunks), and the device
+    runs' launches."""
+    runs = {}
+    for tag, loop in (("chunked", False), ("device", True),
+                      ("device2", True), ("chunked2", False)):
+        reset_counts()
+        prng.draw_tables.launches = 0
+        t0 = time.perf_counter()
+        res = run(loop)
+        torch.cuda.synchronize()
+        runs[tag] = (res, counts(), prng.draw_tables.launches,
+                     time.perf_counter() - t0)
+    chunked, device = runs["chunked"][0], runs["device"][0]
+    for tag in ("device", "device2"):
+        check(runs[tag][1:3] == runs["chunked"][1:3],
+              f"{label} {tag}: launches {runs[tag][1:3]}, the chunked run "
+              f"{runs['chunked'][1:3]}")
+    stable = same_bits(chunked, runs["chunked2"][0])
+    check(same_bits(device, runs["device2"][0]) or not stable,
+          f"{label}: two device-loop runs differ where two chunked runs "
+          f"agree")
+    if stable:
+        check(same_bits(device, chunked), f"{label}: the device loop differs "
+                                          f"from the chunked run, which is "
+                                          f"bit-stable")
+    else:
+        close_runs(label, device, chunked)
+    for r in device:
+        tr = r.trajectory
+        check(tr.fetches == 1 + transitions(tr),
+              f"{label} {r.algorithm}: {tr.fetches} fetches for one "
+              f"super-block and {transitions(tr)} changes of sigma'")
+        check(all(rec.wall_time is None for rec in tr.records[:-1])
+              and tr.records[-1].wall_time is not None,
+              f"{label} {r.algorithm}: wall times inside the super-block")
+    out = {"stable": stable, "launches": runs["device"][1],
+           "draws": runs["device"][2], "runs": {}}
+    for tag in ("chunked", "device", "device2", "chunked2"):
+        for r in runs[tag][0]:
+            tr, last = r.trajectory, r.trajectory.records[-1]
+            out["runs"].setdefault(f"{r.algorithm} {tag[:7]}", []).append(
+                (last.round, last.wall_time,
+                 last.wall_time / last.round * 1e3, tr.fetches,
+                 sum(tr.graphs.values()), tr.dead_chunks))
+    held = "bit for bit" if stable else \
+        "within rel 1e-3 (the chunked runs differ in their bits)"
+    print(f"phase 14: {label}: device loop == chunked {held}; launches "
+          f"{dict((k, v) for k, v in out['launches'].items() if v)}, draw "
+          f"kernel {out['draws']}; by run in turns (chunked, device, "
+          f"device, chunked): stop round, s to it, ms per round, fetches, "
+          f"capture s, dead chunks:")
+    for name, rows in out["runs"].items():
+        print(f"  {name}: " + "; ".join(
+            f"{rd} {s:.4f} {ms:.4f} {f} {c:.3f} {dd}"
+            for rd, s, ms, f, c, dd in rows))
+    return out
+
+
+def phase_device_loop(rcv1, rcv1_w, eps, lasso, card):
+    """The device-resident run against the chunked one (:func:`loop_turns`),
+    float32, --math=fast: (a) rcv1-like sigma' auto to a 1e-4 gap, permuted
+    draws (B1); (b) the safe sigma' with accel auto and off; (c) the
+    block path, sigma' auto (B5, B3, B6); (d) the lasso design, lasso and
+    elastic net, to 1e-3 |b|^2/2 (B2 prox); (e) epsilon-like fused B=128
+    (B4) and sequential (B2), 30 rounds; (f) the demo's menu through the
+    CLI with --deviceLoop --justCoCoA=false; (g) the coherent shards'
+    bail-out (B2); (h) rcv1-like hybrid, 100 rounds (B1h).  Then busy
+    shares by profile_round.py's method.  Returns a summary."""
+    import probe_conditional
+    import profile_round
+
+    ver = probe_conditional.versions()
+    print(f"phase 14: torch {ver['torch']}, CUDA runtime "
+          f"{ver['cuda_runtime']}, driver {ver['driver']}: CUDA graph "
+          f"conditional nodes {'present' if ver['api'] else 'absent'} in "
+          f"torch; the device loop takes design B (solvers/base.py "
+          f"DeviceLoopRunner)")
+    out = {"versions": ver}
+    k, h = 8, rcv1.n // 8 // 10
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    debug = DebugParams(debug_iter=25, seed=0)
+    fast = dict(plus=True, quiet=True, math="fast", gap_target=GAP_TARGET,
+                rng="permuted")
+
+    def rcv1_run(sigma, **kw):
+        params = Params(n=rcv1.n, num_rounds=1600, local_iters=h, lam=1e-4,
+                        sigma=sigma)
+        return sdca_loop(cocoa_mod.run_cocoa, ds, params, debug, **fast,
+                         **kw)
+
+    out["(a)"] = loop_turns("(a) rcv1-like sigma' auto to 1e-4 (B1)",
+                            rcv1_run("auto"))
+    out["(b) accel auto"] = loop_turns(
+        "(b) rcv1-like safe sigma' accel auto to 1e-4",
+        rcv1_run(None, accel="auto"))
+    out["(b) accel off"] = loop_turns(
+        "(b) rcv1-like safe sigma' accel off to 1e-4",
+        rcv1_run(None, accel="off"))
+    out["(c)"] = loop_turns(
+        f"(c) rcv1-like --blockSize={BLOCK} sigma' auto to 1e-4 (B5, B3, "
+        f"B6)", rcv1_run("auto", block_size=BLOCK))
+    lds, lb, lam_max = lasso
+    target = 1e-3 * 0.5 * float(lb @ lb)
+    for tag, l2 in (("lasso", 0.0), ("elastic net", 0.1)):
+        params = Params(n=lds.n, num_rounds=LASSO_ROUNDS,
+                        local_iters=lds.n // lds.k // 10, lam=0.3 * lam_max,
+                        loss="lasso", smoothing=l2)
+
+        def lasso_run(loop, params=params):
+            x, r, traj = run_prox_cocoa(
+                lds, lb, params, DebugParams(debug_iter=50, seed=0),
+                quiet=True, math="fast", gap_target=target, device_loop=loop)
+            return [cli.RunResult(traj.algorithm, r, x, traj)]
+
+        out[f"(d) {tag}"] = loop_turns(
+            f"(d) lasso design {tag} to {target:.6g} (B2 prox)", lasso_run)
+    n, _, ke = EPS_SHAPE
+    eps_params = Params(n=n, num_rounds=30, local_iters=n // ke // 10,
+                        lam=1e-3)
+    eps_debug = DebugParams(debug_iter=10, seed=0)
+    for tag, b in (("fused B=128 (B4)", BLOCK), ("sequential (B2)", 0)):
+        out[f"(e) {tag}"] = loop_turns(
+            f"(e) epsilon-like {tag}, 30 rounds", sdca_loop(
+                cocoa_mod.run_cocoa, eps, eps_params, eps_debug, plus=True,
+                quiet=True, math="fast", block_size=b))
+    argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4", "--numRounds=50",
+            "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
+            "--dtype=float32", "--justCoCoA=false", "--layout=sparse"]
+    out["(f)"] = loop_turns(
+        "(f) demo --justCoCoA=false (CoCoA+, CoCoA, mini-batch CD, SGD x2, "
+        "DistGD)", lambda loop: run_cli(
+            argv + (["--deviceLoop"] if loop else []))[1])
+    coh, nc = coherent_shards()
+    out["(g)"] = loop_turns(
+        f"(g) coherent shards sigma'=1 (seed {COHERENT_SEED}, B2)",
+        sdca_loop(cocoa_mod.run_cocoa, coh, Params(
+            n=nc, num_rounds=1600, local_iters=16, lam=1e-4, sigma=1.0),
+                  debug, plus=True, quiet=True, math="fast",
+                  gap_target=1e-3, rng="jax"))
+    for name, want in (("(a)", "target"), ("(g)", "diverged")):
+        rec = out[name]["runs"]["CoCoA+ device"][0]
+        print(f"  {name} stops ({want}) at round {rec[0]}")
+    hyb = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                        device="cuda", hot_cols=rcv1_w)
+    out["(h)"] = loop_turns(
+        "(h) rcv1-like hybrid, 100 rounds (B1h)", sdca_loop(
+            cocoa_mod.run_cocoa, hyb, Params(n=rcv1.n, num_rounds=100,
+                                             local_iters=h, lam=1e-4),
+            debug, plus=True, quiet=True, math="fast"))
+    del hyb
+    busy = {}
+    for block in (0, BLOCK):
+        name = "block" if block else "sequential"
+        print(f"phase 14: busy, rcv1-like {name}, chunked (captured):")
+        busy[f"{name} chunked"] = profile_round.profile_config(ds, block,
+                                                               100)
+        print(f"phase 14: busy, rcv1-like {name}, device loop:")
+        busy[f"{name} device loop"] = profile_round.profile_device_loop(
+            ds, block, 100)
+    out["busy"] = busy
+    del ds
+    launched = {}
+    for case in out.values():
+        if isinstance(case, dict) and "launches" in case:
+            for name, v in case["launches"].items():
+                launched[name] = launched.get(name, 0) + v
+    launched["D"] = sum(c["draws"] for c in out.values()
+                        if isinstance(c, dict) and "draws" in c)
+    for name, v in launched.items():
+        check(v > 0, f"phase 14: {name} never launched from a device-loop run")
+    out["launched"] = launched
+    print(f"phase 14: device-loop launches " + ", ".join(
+        f"{name} {v}" for name, v in launched.items()) + f"; card {card}")
+    return out
+
+
+def sdca_loop(fn, *args, **kw):
+    def run(loop):
+        w, alpha, traj = fn(*args, device_loop=loop, **kw)
+        return [cli.RunResult(traj.algorithm, w, alpha, traj)]
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -2977,7 +3199,6 @@ def main() -> int:
     draw_timing = phase_draw_tables()
     captured13 = phase_captured(rcv1, rcv1_w, eps,
                                 (lasso_ds, lasso_b, lam_max))
-    del eps, lasso_ds
     retimed = phase_retime(rcv1, demo_argv)
     busy = phase_busy(rcv1, rcv1_w)
     print(f"phase 13: all cases ok in {time.perf_counter() - t0:.1f} s; "
@@ -2988,6 +3209,18 @@ def main() -> int:
     (OUT / "chip_smoke_phase13.json").write_text(json.dumps({
         "card": card, "draw": draw_timing, "captured": captured13,
         "retimed": retimed, "busy": busy}, default=str))
+
+    # --- phase 14: the device-resident run (--deviceLoop)
+    t0 = time.perf_counter()
+    loop14 = phase_device_loop(rcv1, rcv1_w, eps,
+                               (lasso_ds, lasso_b, lam_max), card)
+    del eps, lasso_ds
+    print(f"phase 14: all cases ok in {time.perf_counter() - t0:.1f} s; "
+          f"busy shares (device ms / wall ms per round, profiler on): "
+          + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
+                      for label, b in loop14["busy"].items()))
+    (OUT / "chip_smoke_phase14.json").write_text(json.dumps(
+        {"card": card, **loop14}, default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
@@ -3058,6 +3291,12 @@ def main() -> int:
         "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
         "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
         "bound_by": draw["bound"][1], "library_ms": None})
+    # the device loop's runs (phase 14) are main-path runs of this slice
+    for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
+                                "D")):
+        row["launches"] += loop14["launched"][name]
+    print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
+        f"{name} {v}" for name, v in loop14["launched"].items()))
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "

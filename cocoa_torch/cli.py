@@ -6,7 +6,7 @@
         --lambda=... [--justCoCoA=true] [--math=exact|fast] \\
         [--dtype=float32|float64] [--layout=auto|dense|sparse] \\
         [--rng=reference|jax|permuted] [--sampling=auto|device|host]
-        [--scanChunk=<int>] [--debugIter=.. --seed=.. --beta=..
+        [--scanChunk=<int>] [--deviceLoop] [--debugIter=.. --seed=.. --beta=..
         --gamma=.. --sigma=<float> --loss=hinge|smooth_hinge|logistic
         --smoothing=..] [--device=cuda|cpu] [--blockSize=<int>|auto]
         [--objective=svm|lasso --l2=<float>] [--hotCols=auto|off|<n>]
@@ -26,6 +26,10 @@ absent.  Rounds run in chunks of ``--scanChunk`` (default: the eval
 cadence), each chunk on the card one replayed CUDA graph, with its index
 tables made on the card (``--sampling=auto``, wherever they are exact;
 ``host`` builds them on the host and copies them over).
+``--deviceLoop`` (bare, or any value but ``false``; needs
+``--debugIter`` > 0) runs the evals, the stop test and the driver
+ladder on the card too, and reads the card once a super-block of evals
+(solvers/base.py ``drive_device``).
 ``--blockSize`` (with ``--math=fast``) runs each SDCA round,
 ProxCoCoA+'s too, as the block-coordinate round; ``auto`` picks the block
 size for the layout.  ``--hotCols`` (sparse layout,
@@ -74,14 +78,14 @@ _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
                                "smoothing", "sigma", "device", "objective",
                                "l2", "quiet", "accel", "theta", "sampling")}
 _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
-                   scanChunk="scan_chunk",
+                   scanChunk="scan_chunk", deviceLoop="device_loop",
                    gapTarget="gap_target", divergenceGuard="divergence_guard",
                    trajOut="traj_out", sigmaSchedule="sigma_schedule",
                    warmStart="warm_start")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "chkptDir", "mesh", "fp", "resume",
-    "deviceLoop", "master", "processId", "numProcesses",
+    "master", "processId", "numProcesses",
     "profile", "blockPipeline",
     "elastic", "stallTimeout", "evalDense", "ingest",
     "ingestCache", "metrics", "events", "trace", "flightRecorder",
@@ -221,6 +225,17 @@ def _scan_chunk(cfg: RunConfig) -> None:
 
 def _quiet(cfg: RunConfig) -> bool:
     return cfg.quiet is not None and cfg.quiet.lower() != "false"
+
+
+def _device_loop(cfg: RunConfig) -> bool:
+    """``--deviceLoop`` with the JAX CLI's rule and message
+    (cocoa_tpu/cli.py:1579-1603): on unless its value is ``false``, and
+    only with an eval cadence."""
+    on = cfg.device_loop is not None and cfg.device_loop.lower() != "false"
+    if on and cfg.debug_iter <= 0:
+        raise ValueError("--deviceLoop requires --debugIter > 0 (the eval "
+                         "cadence is the device loop's chunk axis)")
+    return on
 
 
 def _ladder(cfg: RunConfig) -> dict:
@@ -397,6 +412,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         objective, l2 = _objective(cfg)
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
+        device_loop = _device_loop(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -410,7 +426,8 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
                 "config_hash": config_hash(dataclasses.asdict(cfg))}
 
     dtype = _DTYPES[cfg.dtype]
-    loop = dict(scan_chunk=cfg.scan_chunk, capture=capture)
+    loop = dict(scan_chunk=cfg.scan_chunk, capture=capture,
+                device_loop=device_loop)
     if objective == "lasso":
         return _run_lasso(cfg, l2, block_size, dtype, device, ladder,
                           run_meta, dict(loop, sampling=cfg.sampling))

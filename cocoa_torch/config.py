@@ -64,6 +64,8 @@ class RunConfig:
                                  # resolve_sampling)
     scan_chunk: Optional[int] = None  # --scanChunk: rounds a chunk (None:
                                  # the eval cadence, capped)
+    device_loop: Optional[str] = None  # --deviceLoop: evals and the ladder
+                                 # on the device (on unless "false")
     math: str = "exact"          # exact | fast
     loss: str = "hinge"
     smoothing: float = 1.0

@@ -6,8 +6,10 @@ cocoa_tpu/evals/objectives.py; math from OptUtils.scala:57-98).
 - duality gap        primal - dual
 - test error         mean over examples of [y*(x.w) <= 0]
 
-Padded rows are excluded by the mask.  :func:`evaluate` fetches the three
-numbers to the host in one transfer.  With ``alpha`` None (the primal-only
+Padded rows are excluded by the mask.  :func:`eval_metrics` computes the
+three numbers on the device with no host sync (the chunked loop's eval
+and the device loop's, in its captured chunks); :func:`fetch_metrics`
+fetches them to the host in one transfer.  With ``alpha`` None (the primal-only
 SGD and DistGD baselines) there is no dual objective and no gap.
 :func:`primal_objective`, :func:`dual_objective` and
 :func:`classification_error` give the end-of-run summary as the JAX CLI's
@@ -53,19 +55,23 @@ def eval_metrics(w, alpha, shard_arrays, lam, n, test_shard_arrays=None,
     return torch.stack([primal, gap, test_err])
 
 
+def fetch_metrics(metrics: torch.Tensor):
+    """(primal, gap or None, test_error or None) from a (3,) metrics
+    tensor, with one device-to-host fetch; NaN means there is none."""
+    primal, gap, test_err = metrics.cpu().tolist()
+    return (primal, None if math.isnan(gap) else gap,
+            None if math.isnan(test_err) else test_err)
+
+
 def evaluate(ds: ShardedDataset, w, alpha, lam, test_ds=None,
              loss: str = "hinge", smoothing: float = 1.0):
     """(primal, gap or None, test_error or None) with one device-to-host
     fetch; ``alpha`` None gives no gap."""
-    out = eval_metrics(
+    return fetch_metrics(eval_metrics(
         w, alpha, ds.shard_arrays(), lam, ds.n,
         test_shard_arrays=None if test_ds is None else test_ds.shard_arrays(),
         test_n=0 if test_ds is None else test_ds.n,
-        loss=loss, smoothing=smoothing,
-    ).cpu().tolist()
-    primal, gap, test_err = out
-    return (primal, None if math.isnan(gap) else gap,
-            None if math.isnan(test_err) else test_err)
+        loss=loss, smoothing=smoothing))
 
 
 

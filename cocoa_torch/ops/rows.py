@@ -92,23 +92,51 @@ def shard_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
     return m
 
 
+def nonzero_slots(shards: dict):
+    """The padded CSR slots that hold a nonzero, flattened once: (row over
+    all K shards, column, value) of each, for :func:`shards_axpy`, which
+    then scatters only these.  Each padding slot would add 0 at column 0:
+    on the card an atomic add to one address per slot, ~9.6 M of them on
+    rcv1-like shards.  None on the dense layout.  It reads the values'
+    pattern on the host, so it is made once, outside any capture."""
+    if "X" in shards:
+        return None
+    vals = shards["sp_values"].reshape(-1)
+    pos = torch.nonzero(vals != 0).squeeze(1)
+    return (pos // shards["sp_values"].shape[-1],
+            shards["sp_indices"].reshape(-1)[pos].long(), vals[pos])
+
+
 def shards_axpy(coefs: torch.Tensor, shards: dict,
-                vec: torch.Tensor) -> torch.Tensor:
+                vec: torch.Tensor, slots=None) -> torch.Tensor:
     """vec + sum over every row of every shard of coefs[k, i] * x_{k,i}: the
     transpose of :func:`shard_margins` (counterpart of
     cocoa_tpu/ops/rows.py ``shards_axpy``, plain torch as the JAX package
     leaves it to XLA).  The accelerated loop's secant jump advances w by
     it.  Padded slots add exactly 0; on the hybrid layout the panel
     scatters per shard at ``hot_cols`` (K, n_hot), disjoint from the
-    residual's columns.  Returns a new tensor."""
+    residual's columns.  ``slots`` (:func:`nonzero_slots`) leaves the
+    padding slots out of the scatter, the same sum.  The scatters
+    accumulate each column's terms in slot order on every device
+    (``index_put_`` with ``accumulate``, a sort on the card where
+    ``index_add`` would race atomics), so a run is bit-reproducible.
+    Returns a new tensor."""
     if "X" in shards:
         return vec + torch.einsum("kn,knd->d", coefs, shards["X"])
-    out = vec.index_add(0, shards["sp_indices"].reshape(-1).long(),
-                        (coefs[..., None] * shards["sp_values"]).reshape(-1))
+    if slots is not None:
+        rows, cols, vals = slots
+        out = vec.index_put((cols,), coefs.reshape(-1)[rows] * vals,
+                            accumulate=True)
+    else:
+        out = vec.index_put((shards["sp_indices"].reshape(-1).long(),),
+                            (coefs[..., None]
+                             * shards["sp_values"]).reshape(-1),
+                            accumulate=True)
     if "X_hot" in shards:
-        out.index_add_(0, shards["hot_cols"].reshape(-1).long(),
+        out.index_put_((shards["hot_cols"].reshape(-1).long(),),
                        torch.einsum("kn,knh->kh", coefs,
-                                    shards["X_hot"]).reshape(-1))
+                                    shards["X_hot"]).reshape(-1),
+                       accumulate=True)
     return out
 
 

@@ -11,8 +11,10 @@ A gap-targeted run can carry the JAX package's schedule (``--sigma=auto``,
 ``--sigmaSchedule``, ``--warmStart``) and accelerated outer loop
 (``--accel``, ``--theta``): the branch a chunk of rounds runs (sigma'
 stage x loss phase x Theta stage) is the same round function with other
-scalars, picked on the host from the sched vector (solvers/base.py), where
-JAX's ``lax.switch`` picks it on the device.
+scalars, picked on the host from the sched vector (solvers/base.py
+``Schedule``), where JAX's ``lax.switch`` picks it on the device; with
+``--deviceLoop`` the device picks it, one captured CUDA graph a branch
+(solvers/base.py ``DeviceLoopRunner``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
 from cocoa_torch.ops.dense_sdca import dense_sdca_round, \
     dense_sdca_round_plain
 from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
-from cocoa_torch.ops.rows import row_lengths, shards_axpy
+from cocoa_torch.ops.rows import nonzero_slots, row_lengths, shards_axpy
 from cocoa_torch.ops.sparse_sdca import sparse_sdca_round, \
     sparse_sdca_round_plain
 from cocoa_torch.solvers import base
@@ -196,13 +198,15 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
     return round_fn
 
 
-def _secant_jump(w, alpha, hist, shards: dict, inv_lam_n: float):
+def _secant_jump(w, alpha, hist, shards: dict, inv_lam_n: float,
+                 slots=None):
     """The accelerated loop's secant (Anderson-1) jump, as device ops with
     no host read (cocoa_tpu/solvers/cocoa.py:781-803): rho from the two
     banked window displacements, c = secant_coef(rho), the extrapolated
     alpha clipped to [0, 1] and masked, and w advanced by the exact
     correspondence update sum y*(alpha' - alpha)*x/(lam*n).  ``inv_lam_n``
-    is 1/(lam*n) rounded to float32, as JAX applies it."""
+    is 1/(lam*n) rounded to float32, as JAX applies it; ``slots`` the
+    shards' nonzero slots (:func:`nonzero_slots`)."""
     d1 = (hist[1] - hist[0]).reshape(-1)
     den = d1 @ d1
     pos = den > 0
@@ -213,7 +217,7 @@ def _secant_jump(w, alpha, hist, shards: dict, inv_lam_n: float):
     a_ext = torch.clamp(alpha + c * (alpha - hist[1]), 0.0, 1.0) \
         * shards["mask"]
     coefs = shards["labels"] * (a_ext - alpha) * inv_lam_n
-    return shards_axpy(coefs, shards, w), a_ext
+    return shards_axpy(coefs, shards, w, slots), a_ext
 
 
 def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
@@ -222,20 +226,21 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     quiet: bool = False, block_size: int = 0,
                     w_init: Optional[torch.Tensor] = None,
                     alpha_init: Optional[torch.Tensor] = None,
-                    eval_fn=None, gap_target: Optional[float] = None,
+                    metrics=None, gap_target: Optional[float] = None,
                     divergence_guard: str = "auto", sigma_levels=None,
                     warm_start=None, accel: bool = False,
                     theta: str = "fixed", scan_chunk: Optional[int] = None,
-                    sampling: str = "auto", capture: Optional[bool] = None):
+                    sampling: str = "auto", capture: Optional[bool] = None,
+                    device_loop: bool = False):
     """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
     the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
     from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
     (zeros when None); returns (w, alpha, Trajectory).  ``block_size`` > 0
     (``--blockSize``, needs ``math="fast"``) runs each round as the
-    block-coordinate round (see :func:`block_route`).  ``eval_fn(state) ->
-    (primal, gap or None, test_error or None)`` replaces the
-    classification objectives, for a state of other meaning (ProxCoCoA+'s
-    residual and coordinates).
+    block-coordinate round (see :func:`block_route`).  ``metrics(state) ->
+    (3,)`` (primal, gap, test error, NaN where there is none, on the
+    device with no host read) replaces the classification objectives, for
+    a state of other meaning (ProxCoCoA+'s residual and coordinates).
 
     ``gap_target`` stops the run at the first eval whose gap is at or
     below it; ``divergence_guard`` (auto | on | off,
@@ -251,7 +256,10 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     None: the JAX CLI's default), on CUDA one replayed CUDA graph a chunk
     unless ``capture`` is False; ``sampling`` (auto | device | host,
     :func:`base.resolve_sampling`) says where the chunk's tables are
-    made."""
+    made.  ``device_loop`` (``--deviceLoop``) runs the evals, the stop
+    test and the ladder on the device too (:func:`base.drive_device`):
+    the branch index from the device's sched vector, the secant jump
+    taken on the device at the chunk's head."""
     base.check_shards(ds)
     guard_on = base.resolve_divergence_guard(
         divergence_guard, alg[0], alg[2], ds.k, params.gamma)
@@ -322,42 +330,35 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     sampler = base.make_sampler(rng, debug.seed, params.local_iters,
                                 ds.counts, sampling, params.num_rounds)
 
-    if eval_fn is None:
-        def eval_fn(state):
-            # state[0:2]: the scheduled state appends its own leaves
-            return objectives.evaluate(ds, state[0], state[1], params.lam,
-                                       test_ds=test_ds, loss=params.loss,
-                                       smoothing=params.smoothing)
+    if metrics is None:
+        shards = ds.shard_arrays()
+        test = None if test_ds is None else test_ds.shard_arrays()
 
-    scheduled = len(levels) > 1 or warm_start is not None
-    head = None
+        def metrics(state):
+            # state[0:2]: the scheduled state appends its own leaves
+            return objectives.eval_metrics(
+                state[0], state[1], shards, params.lam, ds.n,
+                test_shard_arrays=test,
+                test_n=0 if test_ds is None else test_ds.n,
+                loss=params.loss, smoothing=params.smoothing)
+
     state = (w, alpha)
-    if not (scheduled or accel):
+    schedule = None
+    if not (len(levels) > 1 or warm_start is not None or accel):
         body = base.per_round(branches[0][0])
     else:
-        shards = ds.shard_arrays()
-        inv_lam_n = float(np.float32(1.0 / (params.lam * params.n)))
-        last_phase = len(branch_params) - 1
+        jump = None
+        if accel:
+            shards = ds.shard_arrays()
+            inv_lam_n = float(np.float32(1.0 / (params.lam * params.n)))
+            slots = nonzero_slots(shards)
 
-        def head(t0, c, state):
-            """The chunk's branch, (sigma' stage, loss phase, Theta
-            stage's H), from its sched vector (chunks never straddle an
-            eval boundary, so one warm-phase test a chunk is exact), after
-            an armed jump."""
-            w, alpha = state[0], state[1]
-            sched = state[-1].copy()
-            if accel:
-                if sched[base.A_JUMP] > 0:
-                    w, alpha = _secant_jump(w, alpha, state[2], shards,
-                                            inv_lam_n)
-                sched[base.A_JUMP] = 0.0
-            stage = min(max(int(sched[0]), 0), len(levels) - 1)
-            warm_now = sched[4] + np.float32(c - 1) <= np.float32(warm_end)
-            phase = 0 if warm_now else last_phase
-            hs = theta_hs[min(max(int(sched[base.A_TH_STAGE]), 0),
-                              len(theta_hs) - 1)] if accel else full_h
-            sched[4] += np.float32(c)
-            return (stage, phase, hs), (w, alpha, *state[2:-1], sched)
+            def jump(w, alpha, hist):
+                return _secant_jump(w, alpha, hist, shards, inv_lam_n,
+                                    slots)
+
+        schedule = base.Schedule(len(levels), warm_end, len(branch_params),
+                                 theta_hs, jump=jump)
 
         def body(key, c, tables, t0, iterate):
             stage, phase, hs = key
@@ -374,12 +375,13 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
         state += (base.sched_init_array(1, accel=accel),)
 
     state, traj = base.drive(
-        alg_name, params, debug, state, body, eval_fn, sampler, ds.device,
+        alg_name, params, debug, state, body, metrics, sampler, ds.device,
         base.chunk_rounds(debug, k, params.local_iters, scan_chunk),
         quiet=quiet, gap_target=gap_target, divergence_guard=guard_on,
         sigma_levels=levels,
-        accel=base.AccelConfig(theta_hs) if accel else None, head=head,
-        n_iterate=2, capture=capture)
+        accel=base.AccelConfig(theta_hs) if accel else None,
+        schedule=schedule, n_iterate=2, capture=capture,
+        device_loop=device_loop)
     return state[0], state[1], traj
 
 

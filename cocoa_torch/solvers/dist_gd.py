@@ -24,10 +24,11 @@ from cocoa_torch.solvers import base
 def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
                 test_ds: Optional[ShardedDataset] = None,
                 quiet: bool = False, scan_chunk: Optional[int] = None,
-                capture: Optional[bool] = None):
-    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk`` and
-    ``capture`` as in :func:`cocoa_torch.solvers.cocoa.run_sdca_family`
-    (no draws, so no ``sampling``)."""
+                capture: Optional[bool] = None, device_loop: bool = False):
+    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk``,
+    ``capture`` and ``device_loop`` as in
+    :func:`cocoa_torch.solvers.cocoa.run_sdca_family` (no draws, so no
+    ``sampling``); eta(t) reads the round from the device counter."""
     base.check_shards(ds)
     k = ds.k
     shards = ds.shard_arrays()
@@ -43,14 +44,20 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
         eta = 1.0 / (params.beta * t_c)
         return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)
 
-    def eval_fn(state):
-        return objectives.evaluate(ds, state[0], None, params.lam,
-                                   test_ds=test_ds, loss=params.loss,
-                                   smoothing=params.smoothing)
+    test = None if test_ds is None else test_ds.shard_arrays()
+
+    def metrics(state):
+        # no dual: the gap is NaN
+        return objectives.eval_metrics(
+            state[0], None, shards, params.lam, ds.n, test_shard_arrays=test,
+            test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
+            smoothing=params.smoothing)
 
     w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
     (w,), traj = base.drive("Dist SGD", params, debug, (w,),
-                            base.per_round(round_fn), eval_fn, None, ds.device,
-                            base.chunk_rounds(debug, k, 1, scan_chunk),
-                            quiet=quiet, capture=capture)
+                            base.per_round(round_fn), metrics, None,
+                            ds.device, base.chunk_rounds(debug, k, 1,
+                                                         scan_chunk),
+                            quiet=quiet, capture=capture,
+                            device_loop=device_loop)
     return w, traj

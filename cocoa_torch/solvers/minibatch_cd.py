@@ -24,10 +24,11 @@ def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
                      gap_target: Optional[float] = None,
                      divergence_guard: str = "auto",
                      scan_chunk: Optional[int] = None,
-                     sampling: str = "auto", capture: Optional[bool] = None):
+                     sampling: str = "auto", capture: Optional[bool] = None,
+                     device_loop: bool = False):
     """Train from w = 0, alpha = 0; returns (w, alpha, Trajectory).
-    ``gap_target``, ``divergence_guard``, ``scan_chunk``, ``sampling``
-    and ``capture`` as in
+    ``gap_target``, ``divergence_guard``, ``scan_chunk``, ``sampling``,
+    ``capture`` and ``device_loop`` as in
     :func:`cocoa_torch.solvers.cocoa.run_sdca_family` (the guard's
     ``auto`` never arms here: the frozen subproblem reads no sigma')."""
     return run_sdca_family(
@@ -35,4 +36,5 @@ def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
         _alg_config(params, ds.k, None, mode="frozen"), test_ds=test_ds,
         rng=rng, math=math, quiet=quiet, block_size=block_size,
         gap_target=gap_target, divergence_guard=divergence_guard,
-        scan_chunk=scan_chunk, sampling=sampling, capture=capture)
+        scan_chunk=scan_chunk, sampling=sampling, capture=capture,
+        device_loop=device_loop)

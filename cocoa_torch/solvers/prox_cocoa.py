@@ -39,7 +39,8 @@ from cocoa_torch.solvers.cocoa import run_sdca_family
 def lasso_metrics(r, x, shards: dict, b, l1: float,
                   l2: float) -> torch.Tensor:
     """(primal, gap, NaN) of the elastic-net objective as one (3,) tensor
-    on r's device, with no host sync."""
+    on r's device, with no host sync: the eval of the chunked loop (one
+    fetch) and of the device loop (inside its captured chunk)."""
     m = shards["mask"]
     corr = shard_margins(r, shards).abs() * m
     excess = torch.clamp(corr - l1, min=0.0)
@@ -63,7 +64,7 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
                    block_size: int = 0, gap_target: Optional[float] = None,
                    divergence_guard: str = "auto",
                    scan_chunk: Optional[int] = None, sampling: str = "auto",
-                   capture: Optional[bool] = None):
+                   capture: Optional[bool] = None, device_loop: bool = False):
     """Train; returns (x (K, d_shard) the sharded coordinates, r = Ax - b
     the residual, Trajectory).  ``ds`` and ``b`` come from
     :func:`cocoa_torch.data.columns.shard_columns`; ``params.lam`` is the
@@ -77,8 +78,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     ``gap_target`` stops at the first eval whose (absolute) gap is at or
     below it; ``divergence_guard`` as in ``run_sdca_family`` (``auto``
     does not arm at the safe sigma' = K*gamma); ``scan_chunk``,
-    ``sampling`` and ``capture`` as there too.  Each eval fetches
-    (primal, gap) from the device once."""
+    ``sampling``, ``capture`` and ``device_loop`` as there too.  Each
+    eval fetches (primal, gap) from the device once; the device loop
+    fetches a super-block's evals at once."""
     l1, l2 = float(params.lam), float(params.smoothing)
     # mode prox has no lam*n factor: n = 1 makes lam_n the L1 weight
     parts = dataclasses.replace(params, n=1, loss="lasso")
@@ -86,15 +88,13 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     b = b.to(device=ds.device, dtype=ds.dtype)
     shards = ds.shard_arrays()
 
-    def eval_fn(state):
-        r, x = state
-        primal, gap, _ = lasso_metrics(r, x, shards, b, l1, l2).cpu().tolist()
-        return primal, gap, None
+    def metrics(state):
+        return lasso_metrics(state[0], state[1], shards, b, l1, l2)
 
     r, x, traj = run_sdca_family(
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,
         block_size=block_size, w_init=-b if r_init is None else r_init,
-        alpha_init=x_init, eval_fn=eval_fn, gap_target=gap_target,
+        alpha_init=x_init, metrics=metrics, gap_target=gap_target,
         divergence_guard=divergence_guard, scan_chunk=scan_chunk,
-        sampling=sampling, capture=capture)
+        sampling=sampling, capture=capture, device_loop=device_loop)
     return x, r, traj

@@ -29,11 +29,12 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
             local: bool, test_ds: Optional[ShardedDataset] = None,
             rng: str = "reference", quiet: bool = False,
             scan_chunk: Optional[int] = None, sampling: str = "auto",
-            capture: Optional[bool] = None):
+            capture: Optional[bool] = None, device_loop: bool = False):
     """Train from w = 0; returns (w, Trajectory).  ``scan_chunk``,
-    ``sampling`` and ``capture`` as in
+    ``sampling``, ``capture`` and ``device_loop`` as in
     :func:`cocoa_torch.solvers.cocoa.run_sdca_family`; eta(t) reads the
-    round number from the device, so a captured chunk replays it."""
+    round number from the device counter that the chunk (and the device
+    loop) advances, so a captured chunk replays it."""
     base.check_shards(ds)
     k, h, lam = ds.k, params.local_iters, params.lam
     scaling = params.beta / k if local else params.beta / (k * h)
@@ -53,17 +54,21 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
         step = scaling if local else eta * scaling
         return (w + dw.sum(0) * step,)
 
-    def eval_fn(state):
-        return objectives.evaluate(ds, state[0], None, lam, test_ds=test_ds,
-                                   loss=params.loss,
-                                   smoothing=params.smoothing)
+    test = None if test_ds is None else test_ds.shard_arrays()
+
+    def metrics(state):
+        # no dual: the gap is NaN
+        return objectives.eval_metrics(
+            state[0], None, shards, lam, ds.n, test_shard_arrays=test,
+            test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
+            smoothing=params.smoothing)
 
     w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
     sampler = base.make_sampler(rng, debug.seed, h, ds.counts, sampling,
                                 params.num_rounds)
     (w,), traj = base.drive(
         "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
-        base.per_round(round_fn), eval_fn, sampler, ds.device,
+        base.per_round(round_fn), metrics, sampler, ds.device,
         base.chunk_rounds(debug, k, h, scan_chunk), quiet=quiet,
-        capture=capture)
+        capture=capture, device_loop=device_loop)
     return w, traj

@@ -37,6 +37,7 @@ class RoundRecord:
 
 
 _NOT_DUMPED = ("sigma_stage", "stall")
+_NOW = object()  # log_round's default wall time: the time of the call
 
 
 def _clean(v):
@@ -99,6 +100,11 @@ class Trajectory:
         # a captured run's CUDA graphs: (branch, rounds) -> seconds to
         # capture (solvers/base.py ``drive``); not dumped
         self.graphs: dict = {}
+        # the run's reads of the device (one per eval on the chunked
+        # loop, one per super-block on the device loop) and the device
+        # loop's chunk steps replayed after a stop or a change of branch
+        self.fetches = 0
+        self.dead_chunks = 0
         self._t0 = time.perf_counter()
 
     def _console(self, msg: str):
@@ -117,9 +123,13 @@ class Trajectory:
                       f"(σ′ set below the safe K·γ bound? see --sigma)")
 
     def log_round(self, t, primal=None, gap=None, test_error=None,
-                  sigma=None, sigma_stage=None, stall=None):
+                  sigma=None, sigma_stage=None, stall=None, wall_time=_NOW):
+        """Record (and print) an eval; ``wall_time`` defaults to the time
+        since the run started, and is None where it was not observed (the
+        device loop's evals inside a super-block)."""
         self.records.append(RoundRecord(
-            round=t, wall_time=self.elapsed(), primal=primal, gap=gap,
+            round=t, wall_time=self.elapsed() if wall_time is _NOW
+            else wall_time, primal=primal, gap=gap,
             test_error=test_error, sigma=sigma, sigma_stage=sigma_stage,
             stall=stall))
         if self.quiet:

@@ -10,9 +10,12 @@ For each configuration it prints the wall clock per round between the
 first eval and the last (past the first chunk, which a captured run
 spends running eagerly and capturing), the device time per round summed
 over CUDA kernels, their share of the wall clock, kernel launches per
-round, and the kernels that take the most device time.  The data are
-the rcv1-like shape of chip_smoke.py (20 242 x 47 236, about 75 nonzeros
-a row, from seed 0), K=8, H=253, lambda=1e-4, float32, evaluations every
+round, and the kernels that take the most device time; then the same for
+the device-resident run (``--deviceLoop``, :func:`profile_device_loop`),
+whose evals inside a super-block carry no time, on the device's own
+timeline past the first chunk and the capture.  The data are the
+rcv1-like shape of chip_smoke.py (20 242 x 47 236, about 75 nonzeros a
+row, from seed 0), K=8, H=253, lambda=1e-4, float32, evaluations every
 25 rounds.
 """
 
@@ -76,6 +79,66 @@ def profile_config(ds, block: int, rounds: int, top: int = 6,
             "launches": launches}
 
 
+def replay_window(events, main: str, rounds: int):
+    """The device loop's replayed chunks in a profile: ``events`` are the
+    run's device events as (name, start us, end us); a chunk's first step
+    runs eagerly and the host then captures it, the device idle, so the
+    longest pause between two launches of the ``main`` kernel ends the
+    eager chunk.  Returns (wall ms, device ms, launches) per round over the
+    rest of the run: the span from that launch to the last event's end,
+    the events' time in it, and their count, over its rounds."""
+    marks = sorted(start for name, start, _ in events if main in name)
+    if len(marks) < 2:
+        raise ValueError(f"no {main} launches in the profile")
+    _, first = max((b - a, i + 1) for i, (a, b) in
+                   enumerate(zip(marks, marks[1:])))
+    t0 = marks[first]
+    window = [(start, end) for _, start, end in events if start >= t0]
+    r = (len(marks) - first) * rounds / len(marks)
+    span = max(end for _, end in window) - t0
+    busy = sum(end - start for start, end in window)
+    return span / 1e3 / r, busy / 1e3 / r, len(window) / r
+
+
+def profile_device_loop(ds, block: int, rounds: int, top: int = 6) -> dict:
+    """:func:`profile_config` for the device loop (``--deviceLoop``),
+    whose evals inside a super-block carry no time: one run of ``rounds``
+    fixed rounds under the profiler after a warm-up run, measured on the
+    device's own timeline over its replayed chunks
+    (:func:`replay_window`), which leaves out the first chunk and the
+    capture as :func:`profile_config` leaves out the first chunk.  Prints
+    and returns them as :func:`profile_config` does."""
+    h = max(1, int(0.1 * ds.n / K))
+    params = Params(n=ds.n, num_rounds=rounds, local_iters=h, lam=LAM)
+    debug = DebugParams(debug_iter=25, seed=0)
+
+    def run():
+        cocoa_mod.run_cocoa(ds, params, debug, plus=True, math="fast",
+                            block_size=block, quiet=True, device_loop=True)
+        torch.cuda.synchronize()
+
+    run()  # warm-up: kernel loads, allocator
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    main = "gram_kernel" if block else "sparse_sdca"
+    wall, dev, launches = replay_window(events, main, rounds)
+    print(f"  wall {wall:.3f} ms per round (profiler on, the device's "
+          f"timeline past the first chunk), device {dev:.3f} ms per round "
+          f"({dev / wall * 100:.1f} % busy), {launches:.1f} device events "
+          f"per round")
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0
+               and str(e.device_type).endswith("CUDA")]
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"    {device_us(e) / 1e3 / rounds:8.4f} ms/round "
+              f"{e.count / rounds:6.1f}x  {e.key[:90]}")
+    return {"wall_ms": wall, "device_ms": dev, "busy": dev / wall,
+            "launches": launches}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("error: profile_round.py needs a CUDA device", file=sys.stderr)
@@ -95,6 +158,8 @@ def main(argv) -> int:
                   f"{'block ' + str(block) if block else 'sequential'}, "
                   f"{rounds} CoCoA+ rounds:")
             profile_config(ds, block, rounds)
+            print("  ... the same with --deviceLoop:")
+            profile_device_loop(ds, block, rounds)
         del ds
     return 0
 

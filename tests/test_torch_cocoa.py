@@ -124,7 +124,7 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
 
 @pytest.mark.parametrize("flag", [
     "--ingest=stream", "--blockPipeline=on", "--evalDense=auto",
-    "--chkptDir=ckpt", "--deviceLoop", "--resume",
+    "--chkptDir=ckpt", "--overlapComm=on", "--resume",
     "--profile=p", "--events=e.jsonl", "--fleet=f.jsonl", "--serve=7000",
     "--mesh=1"])
 def test_cli_unported_flags_exit_2(flag, capsys):
