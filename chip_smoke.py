@@ -179,10 +179,33 @@ stderr); any failed check exits non-zero:
    each run's stop round, seconds, ms per round, fetches, capture seconds
    and dead chunks are printed in turns; then busy shares of rcv1-like
    sequential and block rounds, chunked and device loop.
+15. checkpoints and --resume (cocoa_torch/checkpoint.py, the JAX
+   package's file format), every kernel's count set to 0 before each
+   in-process run and read after: (a) each configuration run
+   uninterrupted, run to a mid-run checkpoint, and resumed from it
+   (``latest`` and ``load_full``, as --resume), chunked and with
+   --deviceLoop: rcv1-like sigma' auto to 1e-4 (B1; a mid-schedule sched
+   vector), the safe sigma' with accel auto (a mid-momentum bank), its
+   block path (B5, B3, B6) and the hybrid (B1h), the lasso design
+   sequentially (B2) and fused B=128 (B4), and the demo's menu through
+   the CLI; each resume equals its uninterrupted run past the resume
+   point, records and final (w, alpha), bit for bit, or, for an
+   algorithm whose uninterrupted run is not bit-stable (two runs
+   differ), within relative 1e-3 with equal rounds; then a device-loop
+   resume that saves at its stop mid-super-block while a dead chunk
+   replays, its checkpoint the state it returns; (b) the demo through
+   ``python -m cocoa_torch.cli``, chunked and --deviceLoop side by side,
+   SIGKILLed once its first checkpoint exists and relaunched with
+   --resume: the summary lines of an uninterrupted run; (c) a torn
+   newest generation: the resume falls back to the previous one and ends
+   bit for bit; (d) seconds a save at rcv1-like and lasso-design shapes,
+   and seconds to the 1e-4 gap for rcv1-like sigma' auto with
+   --chkptIter=100 and without, chunked and device loop, in turns, each
+   beside the card's name and power limit.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
-device-loop runs included), its error
+device-loop runs and phase 15's in-process runs included), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -206,8 +229,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from cocoa_torch import cli, kernels
-from cocoa_torch.config import DebugParams, Params
+from cocoa_torch import checkpoint, cli, kernels
+from cocoa_torch.config import DebugParams, Params, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.data.columns import shard_columns
@@ -223,6 +246,7 @@ from cocoa_torch.solvers import base
 from cocoa_torch.solvers import cocoa as cocoa_mod
 from cocoa_torch.solvers.prox_cocoa import run_prox_cocoa
 from cocoa_torch.utils import prng
+from cocoa_torch.utils.logging import Trajectory
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -2787,6 +2811,489 @@ def sdca_loop(fn, *args, **kw):
     return run
 
 
+# --- phase 15: checkpoints and --resume --------------------------------------
+
+RESUME_AT = 300      # the rcv1-like and lasso cases' mid-run checkpoint
+KILL_ROUNDS = 10000  # the killed demo run's budget (CoCoA+ ~0.08 ms a round)
+KILL_CHKPT = 1000
+
+
+class Counted:
+    """Phase 15's launches: every kernel's count (and the draw kernel's)
+    set to 0 just before each in-process run and read just after, summed
+    over the phase (``total``) and over its resumed runs alone
+    (``resumed``)."""
+
+    def __init__(self):
+        self.total = dict.fromkeys([*KERNELS, "D"], 0)
+        self.resumed = dict.fromkeys(self.total, 0)
+        self.last = dict.fromkeys(self.total, 0)
+
+    def __call__(self, fn, *args, **kw):
+        reset_counts()
+        prng.draw_tables.launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.last = {**counts(), "D": prng.draw_tables.launches}
+        for name, n in self.last.items():
+            self.total[name] += n
+        return out
+
+    def resume(self, label, kernels, fn, *args, **kw):
+        """A resumed run (``restore_from`` in ``kw``): its own launches
+        are read apart, and each of ``kernels`` must have launched in
+        it."""
+        out = self(fn, *args, **kw)
+        for name, n in self.last.items():
+            self.resumed[name] += n
+        for name in kernels:
+            check(self.last[name] > 0,
+                  f"phase 15: {label}: {name} never launched from the "
+                  f"resumed run")
+        return out
+
+
+def restore_kw(directory, algorithm, prox=False):
+    """The keywords the CLI's ``--resume`` passes (cli.py ``_restore``:
+    ``latest``, then ``load_full``), its line kept off the console;
+    ProxCoCoA+'s as (r_init, x_init)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        kw = cli._restore(RunConfig(chkpt_dir=directory), algorithm, True)
+    check(bool(kw), f"no checkpoint of {algorithm} in {directory}")
+    if prox:
+        kw = dict(r_init=kw["w_init"], x_init=kw["alpha_init"],
+                  start_round=kw["start_round"])
+    return kw
+
+
+def after(results, m):
+    """Runs cut to their records past round ``m`` (views for
+    :func:`same_bits` and :func:`close_runs`)."""
+    out = []
+    for r in results:
+        traj = Trajectory(r.algorithm, quiet=True)
+        traj.records = [x for x in r.trajectory.records if x.round > m]
+        traj.stopped = r.trajectory.stopped
+        out.append(cli.RunResult(r.algorithm, r.w, r.alpha, traj))
+    return out
+
+
+def hold_resumed(label, res, full, m, rerun) -> list:
+    """Resumed runs against the uninterrupted ones past round ``m``, one
+    algorithm at a time: bit for bit, unless that algorithm's
+    uninterrupted run is itself not bit-stable (its second run,
+    ``rerun()``, differs from the first): then within relative 1e-3 with
+    equal stops and eval rounds, phase 14's rule.  Returns the
+    algorithms held to the tolerance (none: all bit for bit)."""
+    res, cut = after(res, m), after(full, m)
+    loose = [i for i, (r, f) in enumerate(zip(res, cut))
+             if not same_bits([r], [f])]
+    if loose:
+        again = rerun()
+        for i in loose:
+            check(not same_bits([again[i]], [full[i]]),
+                  f"{label} {full[i].algorithm}: the resume differs from "
+                  f"the uninterrupted run, which is bit-stable")
+            close_runs(label, [res[i]], [cut[i]])
+    return [full[i].algorithm for i in loose]
+
+
+def resume_case(label, run, m, counted, kernels, loops=(False, True)):
+    """Phase 15 (a) for one configuration: ``run(loop, rounds, save_to,
+    restore_from) -> [RunResult]`` uninterrupted, then to round ``m``
+    saving there, then resumed from that checkpoint (``latest`` and
+    ``load_full``, as ``--resume``), on each loop; the resumed run must
+    launch each of ``kernels`` (:meth:`Counted.resume`).  Returns, per loop,
+    the algorithms held only to the tolerance (:func:`hold_resumed`) and
+    the resumed run's seconds."""
+    out = {}
+    for loop in loops:
+        tag = "device loop" if loop else "chunked"
+        with tempfile.TemporaryDirectory(dir=OUT) as d:
+            full = counted(run, loop, None)
+            half = counted(run, loop, m, save_to=d)
+            for r in half:
+                check(r.trajectory.saves >= 1,
+                      f"{label} {tag} {r.algorithm}: no checkpoint saved")
+                path = checkpoint.latest(d, r.algorithm)
+                check(path is not None and path.endswith(f"-r{m:06d}.npz"),
+                      f"{label} {tag} {r.algorithm}: latest is {path}")
+            t0 = time.perf_counter()
+            res = counted.resume(f"{label} {tag}", kernels, run, loop,
+                                 None, restore_from=d)
+            sec = time.perf_counter() - t0
+        loose = hold_resumed(f"{label} {tag}", res, full, m,
+                             lambda: counted(run, loop, None))
+        out[tag] = (loose, sec)
+    print(f"phase 15 (a): {label}: resumed at round {m + 1} == "
+          f"uninterrupted, " + "; ".join(
+              f"{tag} bit for bit" + (
+                  f" but {', '.join(loose)} within rel 1e-3 (their "
+                  f"uninterrupted runs are not bit-stable)" if loose else "")
+              + f" ({sec:.3f} s resumed)"
+              for tag, (loose, sec) in out.items()))
+    return out
+
+
+def rcv1_resume_run(ds, rcv1, h, sigma, **kw):
+    """rcv1-like CoCoA+ to the 1e-4 gap (phase 14 (a)-(c)'s runs), with a
+    checkpoint budget."""
+    def run(loop, rounds, save_to=None, restore_from=None, chkpt_iter=None):
+        n_rounds = rounds or 1600
+        debug = DebugParams(debug_iter=25, seed=0,
+                            chkpt_iter=chkpt_iter or n_rounds,
+                            chkpt_dir=save_to or "")
+        extra = restore_kw(restore_from, "CoCoA+") if restore_from else {}
+        w, alpha, traj = cocoa_mod.run_cocoa(
+            ds, Params(n=rcv1.n, num_rounds=n_rounds, local_iters=h,
+                       lam=1e-4, sigma=sigma), debug, plus=True, quiet=True,
+            math="fast", gap_target=kw.get("gap", GAP_TARGET),
+            rng="permuted", device_loop=loop, **{
+                k: v for k, v in kw.items() if k != "gap"}, **extra)
+        return [cli.RunResult(traj.algorithm, w, alpha, traj)]
+    return run
+
+
+def phase_resume(rcv1, rcv1_w, lasso, card):
+    """Phase 15: checkpoints and --resume on the card's kernels, float32,
+    --math=fast.  (a) each configuration uninterrupted, to a mid-run
+    checkpoint and resumed from it (:func:`resume_case`): rcv1-like sigma'
+    auto (the anneal: a mid-schedule sched vector), the safe sigma' with
+    accel auto (a mid-momentum bank), the block path (B5, B3, B6) and
+    the hybrid (B1h); the lasso design sequentially (B2) and fused B=128
+    (B4); the demo's menu through the CLI; then a device-loop resume that
+    saves at a stop mid-super-block, where a dead chunk replays; (b) the
+    demo through ``python -m cocoa_torch.cli``, chunked and
+    --deviceLoop, SIGKILLed after its first checkpoint and relaunched
+    with --resume; (c) a torn newest generation; (d) seconds a save and
+    seconds to the gap with and without checkpoints.  Returns a
+    summary."""
+    counted = Counted()
+    out = {"card": card, "(a)": {}}
+    k, h = 8, rcv1.n // 8 // 10
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    t0 = time.perf_counter()
+    cases = {
+        "rcv1-like sigma' auto (B1, anneal)":
+            (rcv1_resume_run(ds, rcv1, h, "auto"), RESUME_AT, ("B1",)),
+        "rcv1-like accel auto (B1, accel)":
+            (rcv1_resume_run(ds, rcv1, h, None, accel="auto"), RESUME_AT,
+             ("B1",)),
+        "rcv1-like block (B5, B3, B6)":
+            (rcv1_resume_run(ds, rcv1, h, "auto", block_size=BLOCK),
+             RESUME_AT, ("B5", "B3", "B6"))}
+    for label, (run, m, kernels) in cases.items():
+        out["(a)"][label] = resume_case(label, run, m, counted, kernels)
+    hyb = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                        device="cuda", hot_cols=rcv1_w)
+
+    def hybrid_run(loop, rounds, save_to=None, restore_from=None):
+        extra = restore_kw(restore_from, "CoCoA+") if restore_from else {}
+        n_rounds = rounds or 100
+        w, alpha, traj = cocoa_mod.run_cocoa(
+            hyb, Params(n=rcv1.n, num_rounds=n_rounds, local_iters=h,
+                        lam=1e-4),
+            DebugParams(debug_iter=25, seed=0, chkpt_iter=n_rounds,
+                        chkpt_dir=save_to or ""), plus=True, quiet=True,
+            math="fast", device_loop=loop, **extra)
+        return [cli.RunResult(traj.algorithm, w, alpha, traj)]
+
+    out["(a)"]["rcv1-like hybrid (B1h)"] = resume_case(
+        "rcv1-like hybrid, 100 rounds (B1h)", hybrid_run, 50, counted,
+        ("B1h",))
+    del hyb
+    lds, lb, lam_max = lasso
+    target = 1e-3 * 0.5 * float(lb @ lb)
+    for name, block, kernel in (("sequential (B2)", 0, "B2"),
+                                (f"fused B={BLOCK} (B4)", BLOCK, "B4")):
+        def lasso_run(loop, rounds, save_to=None, restore_from=None,
+                      block=block):
+            extra = restore_kw(restore_from, "ProxCoCoA+", prox=True) \
+                if restore_from else {}
+            n_rounds = rounds or LASSO_ROUNDS
+            x, r, traj = run_prox_cocoa(
+                lds, lb, Params(n=lds.n, num_rounds=n_rounds,
+                                local_iters=lds.n // lds.k // 10,
+                                lam=0.3 * lam_max, loss="lasso",
+                                smoothing=0.0),
+                DebugParams(debug_iter=50, seed=0, chkpt_iter=n_rounds,
+                            chkpt_dir=save_to or ""), quiet=True,
+                math="fast", gap_target=target, device_loop=loop,
+                block_size=block, **extra)
+            return [cli.RunResult(traj.algorithm, r, x, traj)]
+
+        out["(a)"][f"lasso design {name}"] = resume_case(
+            f"lasso design {name} to {target:.6g}", lasso_run, RESUME_AT,
+            counted, (kernel,))
+    menu_argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+                 "--numFeatures=9947", "--numSplits=4",
+                 "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
+                 "--dtype=float32", "--justCoCoA=false", "--layout=sparse"]
+
+    def menu_run(loop, rounds, save_to=None, restore_from=None):
+        argv = menu_argv + [f"--numRounds={rounds or 100}"] + (
+            ["--deviceLoop"] if loop else [])
+        if save_to:
+            argv += [f"--chkptDir={save_to}", f"--chkptIter={rounds}"]
+        if restore_from:
+            argv += [f"--chkptDir={restore_from}", "--chkptIter=1000",
+                     "--resume"]
+        text, res = run_cli(argv)
+        check(not restore_from or text.count("resuming ") == len(MENU),
+              "the demo menu: not every algorithm resumed")
+        return res
+
+    out["(a)"]["demo menu"] = resume_case(
+        "demo --justCoCoA=false (CoCoA+, CoCoA, mini-batch CD, SGD x2, "
+        "DistGD), 100 rounds", menu_run, 50, counted, ("B1",))
+    out["(a)"]["dead chunk"] = phase_dead_chunk(cases["rcv1-like sigma' "
+                                                      "auto (B1, anneal)"][0],
+                                                counted)
+    print(f"phase 15 (a): all cases in {time.perf_counter() - t0:.1f} s")
+    out["(b)"] = phase_kill_resume()
+    out["(c)"] = phase_torn(cases["rcv1-like sigma' auto (B1, anneal)"][0],
+                            counted)
+    out["(d)"] = phase_resume_costs(ds, lasso, cases, counted, card)
+    del ds
+    out["launched"] = counted.total
+    out["launched_resumed"] = counted.resumed
+    check(counted.resumed["D"] > 0,
+          "phase 15: D never launched from a resumed run")
+    print("phase 15: launches of its in-process runs " + ", ".join(
+        f"{name} {v}" for name, v in counted.total.items())
+          + "; of its resumed runs alone " + ", ".join(
+        f"{name} {v}" for name, v in counted.resumed.items())
+          + f"; card {card}")
+    return out
+
+
+def phase_dead_chunk(run, counted):
+    """(a) on design B: the chunked run stops at S (575), and its state
+    saved at S - 45 (530) resumes on the device loop with chkptIter=40
+    (super-blocks of 2 chunks of 25): the head runs to S - 25, and the
+    block from S - 24 stops at S after one chunk, 45 >= 40 rounds past
+    the restored round, so it saves at S while the block's second chunk
+    replays dead.  The checkpoint holds the round and state the run
+    returns, bit for bit."""
+    with tempfile.TemporaryDirectory(dir=OUT) as d, \
+            tempfile.TemporaryDirectory(dir=OUT) as d2:
+        full = counted(run, False, None)
+        stop = full[0].trajectory.records[-1].round
+        counted(run, False, stop - 45, save_to=d)
+        (res,) = counted.resume("dead chunk", ("B1",), run, True, None,
+                                save_to=d2, restore_from=d, chkpt_iter=40)
+        meta, arrays = checkpoint.load_full(checkpoint.latest(d2, "CoCoA+"))
+    tr = res.trajectory
+    check(meta["round"] == tr.records[-1].round,
+          f"dead chunk: checkpoint round {meta['round']}, the run stopped "
+          f"at {tr.records[-1].round}")
+    check(np.array_equal(arrays["w"], res.w.cpu().numpy())
+          and np.array_equal(arrays["alpha"], res.alpha.cpu().numpy()),
+          "dead chunk: the checkpoint is not the state the run returned")
+    print(f"phase 15 (a): device loop resumed at {stop - 44} with "
+          f"chkptIter=40: "
+          f"stops at {tr.records[-1].round} (uninterrupted: {stop}), saves "
+          f"at round {meta['round']} after {tr.dead_chunks} dead chunk(s), "
+          f"the checkpoint equal to the returned state bit for bit")
+    return {"stop": tr.records[-1].round, "saved": meta["round"],
+            "dead_chunks": tr.dead_chunks}
+
+
+def kill_argv(loop, directory):
+    return [sys.executable, "-m", "cocoa_torch.cli",
+            f"--trainFile={DEMO_TRAIN}", "--numFeatures=9947",
+            "--numSplits=4", f"--numRounds={KILL_ROUNDS}",
+            "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
+            "--dtype=float32", "--debugIter=100",
+            f"--chkptIter={KILL_CHKPT}", f"--chkptDir={directory}"] + (
+        ["--deviceLoop"] if loop else [])
+
+
+def summary_lines(text):
+    return [ln.strip() for ln in text.splitlines()
+            if "Total Objective" in ln or "Duality Gap" in ln]
+
+
+def phase_kill_resume():
+    """(b) tests/test_crash_resume.py on the card: the demo through
+    ``python -m cocoa_torch.cli`` (CoCoA+ and CoCoA, 10000 rounds,
+    chkptIter 1000), chunked and --deviceLoop side by side, each
+    SIGKILLed once its first checkpoint exists, then both relaunched
+    with --resume; each resumed summary equals the uninterrupted run's
+    (in process, the same flags), bit for bit where two uninterrupted
+    runs agree."""
+    import signal
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        dirs = {loop: os.path.join(tmp, f"ck{int(loop)}")
+                for loop in (False, True)}
+        procs = {}
+        for loop, d in dirs.items():
+            os.makedirs(d)
+            log = open(os.path.join(tmp, f"killed{int(loop)}.log"), "w")
+            procs[loop] = (subprocess.Popen(kill_argv(loop, d), cwd=ROOT,
+                                            env=env, stdout=log,
+                                            stderr=subprocess.STDOUT), log)
+        killed_at = {}
+        try:
+            deadline = time.time() + 240
+            while len(killed_at) < len(procs) and time.time() < deadline:
+                for loop, (proc, _) in procs.items():
+                    if loop in killed_at:
+                        continue
+                    if any(f.endswith(".npz") for f in os.listdir(dirs[loop])):
+                        proc.send_signal(signal.SIGKILL)
+                        proc.wait(timeout=30)
+                        killed_at[loop] = time.perf_counter() - t0
+                    else:
+                        check(proc.poll() is None,
+                              f"kill: the run finished before a checkpoint "
+                              f"(loop={loop})")
+                time.sleep(0.002)
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        check(len(killed_at) == len(procs), "kill: no checkpoint in 240 s")
+        resumed = {loop: subprocess.Popen(
+            kill_argv(loop, d) + ["--resume"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for loop, d in dirs.items()}
+        texts = {}
+        for loop, proc in resumed.items():
+            o, e = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"resume exited {proc.returncode}: {e[-2000:]}")
+            texts[loop] = o
+    out = {}
+    for loop, text in texts.items():
+        tag = "device loop" if loop else "chunked"
+        (OUT / f"chip_smoke_resume_{tag.replace(' ', '_')}.log").write_text(
+            text)
+        lines = [ln for ln in text.splitlines() if ln.startswith("resuming")]
+        check(len(lines) == 1 and lines[0].startswith("resuming CoCoA+ "),
+              f"kill {tag}: resumed lines {lines}")
+        r0 = int(lines[0].split("from round ")[1].split()[0])
+        check(r0 < KILL_ROUNDS, f"kill {tag}: resumed at {r0}, the end")
+        argv = [a for a in kill_argv(loop, "")[3:]
+                if not a.startswith("--chkpt")]
+        ref_text, ref = run_cli(argv)
+        want = summary_lines(ref_text)
+        got = summary_lines(text)
+        exact = got == want
+        if not exact:
+            again_text, again = run_cli(argv)
+            check(not same_bits(again, ref),
+                  f"kill {tag}: the resumed summary {got} differs from the "
+                  f"uninterrupted {want}, which is bit-stable")
+            for a, b in zip(got, want):
+                fa, fb = float(a.split(": ")[1]), float(b.split(": ")[1])
+                check(abs(fa - fb) <= 1e-3 * abs(fb),
+                      f"kill {tag}: {a} against {b}")
+        out[tag] = {"killed_s": killed_at[loop], "resumed_from": r0,
+                    "exact": exact, "summary": got}
+        print(f"phase 15 (b): {tag}: SIGKILLed {killed_at[loop]:.2f} s "
+              f"after launch, resumed from round {r0} of {KILL_ROUNDS}; "
+              f"summary {'equal' if exact else 'within rel 1e-3 of'} the "
+              f"uninterrupted run's: " + " | ".join(got))
+    print(f"phase 15 (b): in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_torn(run, counted):
+    """(c) tests/test_chaos.py:484 on the card: the rcv1-like run to round
+    300 saved every 50 rounds (two generations kept: 250 and 300); the
+    newest torn, ``latest`` falls back to 250 with its stderr line, and
+    the run resumed from it ends bit for bit as the run that wrote them."""
+    prev = RESUME_AT - 50
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        (full,) = counted(run, False, RESUME_AT, save_to=d, chkpt_iter=50)
+        gens = checkpoint.generations(d, "CoCoA+")
+        check([os.path.basename(g) for g in gens] == [
+            f"CoCoA+-r{prev:06d}.npz", f"CoCoA+-r{RESUME_AT:06d}.npz"],
+            f"torn: generations {gens}")
+        with open(gens[-1], "r+b") as f:
+            f.truncate(100)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            path = checkpoint.latest(d, "CoCoA+")
+        check(path == gens[0] and "falling back to the previous generation"
+              in err.getvalue(), f"torn: latest gave {path}")
+        res = counted.resume("torn", ("B1",), run, False, RESUME_AT,
+                             restore_from=d)
+    exact = not hold_resumed("torn", res, [full], prev,
+                             lambda: counted(run, False, RESUME_AT))
+    print(f"phase 15 (c): newest generation (r{RESUME_AT}) torn: latest "
+          f"falls back to r{prev} (\"{err.getvalue().strip()[:90]}...\"), "
+          f"the resume "
+          f"ends {'bit for bit' if exact else 'within rel 1e-3'} as the "
+          f"run that wrote them")
+    return {"exact": exact}
+
+
+def phase_resume_costs(ds, lasso, cases, counted, card):
+    """(d) the seconds of one save (w, alpha, and the bank and sched vector
+    where a run has them) at rcv1-like and lasso-design shapes, the
+    median of 7; and seconds to the 1e-4 gap for rcv1-like sigma' auto
+    with --chkptIter=100 and without, chunked and device loop, in turns
+    (without, with, with, without)."""
+    out = {}
+    run = cases["rcv1-like sigma' auto (B1, anneal)"][0]
+    (res,) = counted(cases["rcv1-like accel auto (B1, accel)"][0], False,
+                     None)
+    lds, lb, _ = lasso
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {
+        "rcv1-like (w, alpha, hist, sched)": (
+            res.w, res.alpha,
+            torch.rand((2,) + tuple(res.alpha.shape), generator=rng,
+                       device="cuda"),
+            base.sched_init_array(1, accel=True)),
+        "lasso design (r, x)": (
+            torch.rand(lds.num_features, generator=rng, device="cuda"),
+            torch.rand((lds.k, lds.n_shard), generator=rng, device="cuda"),
+            None, None)}
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        for name, (w, alpha, hist, sched) in shapes.items():
+            secs = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = checkpoint.save(d, "timing", i + 1, w, alpha,
+                                       sched=sched, hist=hist, gap=1.0)
+                secs.append(time.perf_counter() - t0)
+            n_bytes = os.path.getsize(path)
+            out[name] = {"s": float(np.median(secs)), "bytes": n_bytes}
+            print(f"phase 15 (d): one save, {name}: {np.median(secs):.5f} s "
+                  f"(median of 7; min {min(secs):.5f}, max {max(secs):.5f}), "
+                  f"{n_bytes} bytes; card {card}")
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        turns = {}
+        for loop in (False, True):
+            for ck in (False, True, True, False):
+                tag = (f"{'device loop' if loop else 'chunked'} "
+                       f"{'chkptIter=100' if ck else 'no checkpoints'}")
+                t0 = time.perf_counter()
+                (r,) = counted(run, loop, None, save_to=d if ck else None,
+                               chkpt_iter=100 if ck else None)
+                turns.setdefault(tag, []).append(
+                    (time.perf_counter() - t0, r.trajectory.records[-1].round,
+                     r.trajectory.saves, r.trajectory.fetches))
+        out["to 1e-4"] = turns
+        for tag, rows in turns.items():
+            print(f"phase 15 (d): rcv1-like sigma' auto to {GAP_TARGET:g}, "
+                  f"{tag}: "
+                  + "; ".join(f"{s:.4f} s to round {rd}, {sv} saves, "
+                              f"{f} fetches" for s, rd, sv, f in rows)
+                  + f"; card {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -3214,13 +3721,21 @@ def main() -> int:
     t0 = time.perf_counter()
     loop14 = phase_device_loop(rcv1, rcv1_w, eps,
                                (lasso_ds, lasso_b, lam_max), card)
-    del eps, lasso_ds
+    del eps
     print(f"phase 14: all cases ok in {time.perf_counter() - t0:.1f} s; "
           f"busy shares (device ms / wall ms per round, profiler on): "
           + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
                       for label, b in loop14["busy"].items()))
     (OUT / "chip_smoke_phase14.json").write_text(json.dumps(
         {"card": card, **loop14}, default=str))
+
+    # --- phase 15: checkpoints and --resume
+    t0 = time.perf_counter()
+    resume15 = phase_resume(rcv1, rcv1_w, (lasso_ds, lasso_b, lam_max), card)
+    del lasso_ds
+    print(f"phase 15: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase15.json").write_text(json.dumps(resume15,
+                                                            default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
@@ -3291,12 +3806,17 @@ def main() -> int:
         "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
         "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
         "bound_by": draw["bound"][1], "library_ms": None})
-    # the device loop's runs (phase 14) are main-path runs of this slice
+    # the device loop's runs (phase 14) and the resumed runs (phase 15)
+    # are main-path runs of these slices
     for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
                                 "D")):
-        row["launches"] += loop14["launched"][name]
+        row["launches"] += loop14["launched"][name] + \
+            resume15["launched"][name]
     print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
         f"{name} {v}" for name, v in loop14["launched"].items()))
+    print(f"phase 15 launches (in-process runs), in the counts below: "
+          + ", ".join(f"{name} {v}"
+                      for name, v in resume15["launched"].items()))
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "

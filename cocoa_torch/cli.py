@@ -13,6 +13,7 @@
         [--gapTarget=<float> --divergenceGuard=auto|on|off
         --sigma=auto --sigmaSchedule=anneal|trial --warmStart=<s>,<rounds>
         --accel=auto|on|off --theta=fixed|adaptive] [--trajOut=P] [--quiet]
+        [--chkptDir=D --chkptIter=<int> [--resume]]
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
 prints the reference's round and summary lines; ``--justCoCoA=false``
@@ -47,8 +48,16 @@ only at a sigma' below K*gamma); ``--sigma=auto`` with
 ``--accel=auto|on|off`` and ``--theta=fixed|adaptive`` the accelerated
 outer loop (auto: on for gap-targeted CoCoA+); ``--trajOut=P`` writes
 ``P.<algorithm>.jsonl`` after each summary; ``--quiet`` silences the
-console.  Flags of the JAX CLI that this port does not support yet exit 2
-with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue A)``.
+console.
+
+``--chkptDir=D`` saves each algorithm's state every ``--chkptIter``
+rounds into ``D`` in the JAX package's checkpoint format
+(cocoa_torch/checkpoint.py; the device loop at its super-block
+boundaries); ``--resume`` (needs ``--chkptDir``) starts each algorithm
+from its newest healthy checkpoint there, printing ``resuming <alg> from
+round <r> (<path>)``.  Flags of the JAX CLI that this port does not
+support yet exit 2 with ``error: --X is not yet ported to cocoa_torch
+(ROADMAP Queue A)``.
 """
 
 from __future__ import annotations
@@ -57,8 +66,10 @@ import dataclasses
 import sys
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from cocoa_torch import checkpoint
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.columns import shard_columns
@@ -81,11 +92,10 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    scanChunk="scan_chunk", deviceLoop="device_loop",
                    gapTarget="gap_target", divergenceGuard="divergence_guard",
                    trajOut="traj_out", sigmaSchedule="sigma_schedule",
-                   warmStart="warm_start")
+                   warmStart="warm_start", resume="resume")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
-    "chkptDir", "mesh", "fp", "resume",
-    "master", "processId", "numProcesses",
+    "mesh", "fp", "master", "processId", "numProcesses",
     "profile", "blockPipeline",
     "elastic", "stallTimeout", "evalDense", "ingest",
     "ingestCache", "metrics", "events", "trace", "flightRecorder",
@@ -238,6 +248,39 @@ def _device_loop(cfg: RunConfig) -> bool:
     return on
 
 
+def _resume(cfg: RunConfig) -> bool:
+    """``--resume`` with the JAX CLI's rule and message
+    (cocoa_tpu/cli.py:1607-1610): on unless its value is ``false``, and
+    only with a checkpoint directory."""
+    on = cfg.resume is not None and cfg.resume.lower() != "false"
+    if on and not cfg.chkpt_dir:
+        raise ValueError("--resume requires --chkptDir")
+    return on
+
+
+def _restore(cfg: RunConfig, algorithm: str, resume: bool) -> dict:
+    """The keywords that resume ``algorithm`` from its newest healthy
+    checkpoint, as the JAX CLI's ``restore`` (cocoa_tpu/cli.py:1727-1757):
+    ``w_init``, ``start_round``, and ``alpha_init``, ``sched_init`` and
+    ``hist_init`` where the checkpoint has them; none without ``--resume``
+    or a checkpoint."""
+    if not resume:
+        return {}
+    path = checkpoint.latest(cfg.chkpt_dir, algorithm)
+    if path is None:
+        return {}
+    meta, arrays = checkpoint.load_full(path)
+    print(f"resuming {algorithm} from round {meta['round']} ({path})")
+    out = dict(w_init=arrays["w"], start_round=meta["round"] + 1)
+    if arrays.get("alpha") is not None:
+        out["alpha_init"] = arrays["alpha"]
+    if meta.get("sched") is not None:
+        out["sched_init"] = np.asarray(meta["sched"], np.float32)
+    if arrays.get("hist") is not None:
+        out["hist_init"] = arrays["hist"]
+    return out
+
+
 def _ladder(cfg: RunConfig) -> dict:
     """The driver ladder's flags resolved, with the JAX CLI's checks and
     messages (cocoa_tpu/cli.py:650-735, 1569-1577, 1645-1657): the
@@ -366,7 +409,7 @@ def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
 
 
 def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
-               ladder: dict, run_meta: dict, loop: dict):
+               ladder: dict, run_meta: dict, loop: dict, resume: bool):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
     line from one more certificate."""
@@ -381,11 +424,17 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
         # the same H = max(1, localIterFrac*d/K) law, over coordinates
         params = dataclasses.replace(cfg.to_params(data.num_features, k),
                                      loss="lasso", smoothing=l2)
+        # the JAX CLI restores (r, x) and the round (cli.py:1699-1716)
+        restored = _restore(cfg, "ProxCoCoA+", resume)
+        resume_kw = {} if not restored else dict(
+            r_init=restored["w_init"], x_init=restored.get("alpha_init"),
+            start_round=restored["start_round"])
         x, r, traj = run_prox_cocoa(
             ds, b, params, cfg.to_debug(), rng=cfg.rng, math=cfg.math,
             block_size=block_size, quiet=quiet,
             gap_target=ladder["gap_target"],
-            divergence_guard=ladder["divergence_guard"], **loop)
+            divergence_guard=ladder["divergence_guard"], **resume_kw,
+            **loop)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -413,6 +462,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
         device_loop = _device_loop(cfg)
+        resume = _resume(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -430,7 +480,8 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
                 device_loop=device_loop)
     if objective == "lasso":
         return _run_lasso(cfg, l2, block_size, dtype, device, ladder,
-                          run_meta, dict(loop, sampling=cfg.sampling))
+                          run_meta, dict(loop, sampling=cfg.sampling),
+                          resume)
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
@@ -456,22 +507,29 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     draws = dict(rng=cfg.rng, sampling=cfg.sampling, **loop)
     sdca = dict(test_ds=test_ds, math=cfg.math, block_size=block_size,
                 quiet=quiet, **draws)
+    def restore(algorithm):
+        return _restore(cfg, algorithm, resume)
+
     # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836);
-    # as there, only CoCoA+ and CoCoA take the gap target
-    runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca, **ladder),
+    # as there, only CoCoA+ and CoCoA take the gap target, and each
+    # algorithm restores its own checkpoint when it starts
+    runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca, **ladder,
+                              **restore("CoCoA+")),
             lambda: run_cocoa(ds, params, debug, plus=False, **sdca,
-                              **ladder)]
+                              **ladder, **restore("CoCoA"))]
     if not cfg.just_cocoa:
         runs += [
             lambda: run_minibatch_cd(
                 ds, params, debug,
-                divergence_guard=ladder["divergence_guard"], **sdca),
+                divergence_guard=ladder["divergence_guard"], **sdca,
+                **restore("Mini-batch CD")),
             lambda: run_sgd(ds, params, debug, local=False,
-                            test_ds=test_ds, quiet=quiet, **draws),
+                            test_ds=test_ds, quiet=quiet, **draws,
+                            **restore("Mini-batch SGD")),
             lambda: run_sgd(ds, params, debug, local=True, test_ds=test_ds,
-                            quiet=quiet, **draws),
+                            quiet=quiet, **draws, **restore("Local SGD")),
             lambda: run_dist_gd(ds, params, debug, test_ds=test_ds,
-                                quiet=quiet, **loop)]
+                                quiet=quiet, **loop, **restore("Dist SGD"))]
     results = []
     for run_alg in runs:
         try:

@@ -33,6 +33,10 @@ class Params:
 class DebugParams:
     debug_iter: int = 10        # evaluate every this many rounds; <=0 disables
     seed: int = 0
+    chkpt_iter: int = 201       # checkpoint every this many rounds
+                                # (num_rounds + 1 disables)
+    chkpt_dir: str = ""         # empty disables checkpointing
+                                # (hingeDriver.scala:55-59)
 
 
 @dataclasses.dataclass
@@ -85,6 +89,8 @@ class RunConfig:
     warm_start: str = ""         # --warmStart: <smoothing>,<rounds>
     accel: str = ""              # --accel: auto | on | off
     theta: str = ""              # --theta: fixed | adaptive
+    resume: Optional[str] = None  # --resume: restore each algorithm from
+                                 # the newest checkpoint in chkpt_dir
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""
@@ -103,7 +109,12 @@ class RunConfig:
         )
 
     def to_debug(self) -> DebugParams:
-        return DebugParams(debug_iter=self.debug_iter, seed=self.seed)
+        """The debug parameters; without ``chkpt_dir`` the checkpoint
+        cadence is past the last round, as in the JAX package."""
+        chkpt_iter = (self.chkpt_iter if self.chkpt_dir
+                      else self.num_rounds + 1)
+        return DebugParams(debug_iter=self.debug_iter, seed=self.seed,
+                           chkpt_iter=chkpt_iter, chkpt_dir=self.chkpt_dir)
 
 
 # reference CLI flag name -> RunConfig field (hingeDriver.scala:22-38)

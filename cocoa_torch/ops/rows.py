@@ -107,6 +107,18 @@ def nonzero_slots(shards: dict):
             shards["sp_indices"].reshape(-1)[pos].long(), vals[pos])
 
 
+def _scatter_add(vec: torch.Tensor, cols: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """``vec`` with ``vals`` added at ``cols``, each column's terms in slot
+    order, as a new tensor: ``index_put`` with ``accumulate`` on the card
+    (a sort, where ``index_add`` races atomics) and ``index_add`` on the
+    CPU (a serial loop, where ``index_put`` with ``accumulate`` splits
+    large scatters over threads that race)."""
+    if vec.device.type == "cuda":
+        return vec.index_put((cols,), vals, accumulate=True)
+    return vec.index_add(0, cols, vals)
+
+
 def shards_axpy(coefs: torch.Tensor, shards: dict,
                 vec: torch.Tensor, slots=None) -> torch.Tensor:
     """vec + sum over every row of every shard of coefs[k, i] * x_{k,i}: the
@@ -118,25 +130,21 @@ def shards_axpy(coefs: torch.Tensor, shards: dict,
     residual's columns.  ``slots`` (:func:`nonzero_slots`) leaves the
     padding slots out of the scatter, the same sum.  The scatters
     accumulate each column's terms in slot order on every device
-    (``index_put_`` with ``accumulate``, a sort on the card where
-    ``index_add`` would race atomics), so a run is bit-reproducible.
-    Returns a new tensor."""
+    (:func:`_scatter_add`), so a run is bit-reproducible.  Returns a new
+    tensor."""
     if "X" in shards:
         return vec + torch.einsum("kn,knd->d", coefs, shards["X"])
     if slots is not None:
         rows, cols, vals = slots
-        out = vec.index_put((cols,), coefs.reshape(-1)[rows] * vals,
-                            accumulate=True)
+        out = _scatter_add(vec, cols, coefs.reshape(-1)[rows] * vals)
     else:
-        out = vec.index_put((shards["sp_indices"].reshape(-1).long(),),
-                            (coefs[..., None]
-                             * shards["sp_values"]).reshape(-1),
-                            accumulate=True)
+        out = _scatter_add(vec, shards["sp_indices"].reshape(-1).long(),
+                           (coefs[..., None]
+                            * shards["sp_values"]).reshape(-1))
     if "X_hot" in shards:
-        out.index_put_((shards["hot_cols"].reshape(-1).long(),),
-                       torch.einsum("kn,knh->kh", coefs,
-                                    shards["X_hot"]).reshape(-1),
-                       accumulate=True)
+        out = _scatter_add(out, shards["hot_cols"].reshape(-1).long(),
+                           torch.einsum("kn,knh->kh", coefs,
+                                        shards["X_hot"]).reshape(-1))
     return out
 
 

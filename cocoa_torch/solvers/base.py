@@ -23,7 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from cocoa_torch import kernels
+from cocoa_torch import checkpoint, kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
@@ -39,6 +39,62 @@ def check_shards(ds: ShardedDataset) -> None:
             f"every shard needs at least one example; shard sizes are "
             f"{ds.counts.tolist()} (n={ds.n} over K={ds.k} shards) -- "
             f"lower numSplits")
+
+
+def _owned(init, ds: ShardedDataset) -> torch.Tensor:
+    """An owned copy of a restored tensor or array (as a checkpoint holds
+    it) in the dataset's dtype on its device, so no graph's buffer is
+    aliased."""
+    return torch.as_tensor(init).to(device=ds.device, dtype=ds.dtype).clone()
+
+
+def fit_padding(a: torch.Tensor, size: int):
+    """``a`` zero-padded or cut to ``size`` along its last axis; None when
+    the cut would drop a nonzero.  The JAX package pads its shards wider
+    than the port does (rows to a multiple of 16, dense features to one
+    of 8): slots that no update reaches and that stay exactly 0, so a JAX
+    checkpoint's state fits the port's shapes exactly."""
+    n = a.shape[-1]
+    if n <= size:
+        return torch.nn.functional.pad(a, (0, size - n))
+    if bool(torch.count_nonzero(a[..., size:])):
+        return None
+    return a[..., :size].clone()
+
+
+def restore_w(w_init, ds: ShardedDataset) -> torch.Tensor:
+    """w (or ProxCoCoA+'s residual) from a restored ``w_init``, its zero
+    padding fitted (:func:`fit_padding`)."""
+    w = _owned(w_init, ds)
+    out = fit_padding(w, ds.num_features) if w.ndim == 1 else None
+    if out is None or w.shape[0] < ds.num_features:
+        raise ValueError(
+            f"w_init has shape {tuple(w.shape)} but the dataset has "
+            f"{ds.num_features} features — was the checkpoint written with "
+            f"different data?")
+    return out
+
+
+def align_alpha(alpha_init, ds: ShardedDataset) -> torch.Tensor:
+    """(K, n_shard) alpha from a restored ``alpha_init`` with the JAX
+    package's rule and messages (cocoa_tpu/solvers/base.py:1427-1449):
+    the shard axis zero-padded when the checkpoint's is shorter (rows past
+    counts[k] are never drawn, so the padding is exact), and, unlike JAX,
+    cut when it is longer with only zeros past ``n_shard``, as a JAX
+    checkpoint's is (:func:`fit_padding`)."""
+    a = _owned(alpha_init, ds)
+    if a.ndim != 2 or a.shape[0] != ds.k:
+        raise ValueError(
+            f"alpha_init shape {tuple(a.shape)} is incompatible with "
+            f"K={ds.k} shards")
+    out = fit_padding(a, ds.n_shard)
+    if a.shape[1] < int(ds.counts.max()) or out is None:
+        raise ValueError(
+            f"alpha_init has {a.shape[1]} rows per shard but the dataset "
+            f"shards to counts={ds.counts.tolist()} "
+            f"(n_shard={ds.n_shard}) — was the checkpoint written with "
+            f"different data or numSplits?")
+    return out
 
 
 class IndexSampler:
@@ -403,6 +459,36 @@ def resolve_divergence_guard(flag: str, mode: str, sigma: float, k: int,
     return mode in ("plus", "prox") and sigma < k * gamma
 
 
+def _last_gap(traj: Trajectory):
+    """The newest eval's duality gap (None before the first eval and on
+    solvers without a gap): what a checkpoint stamps into its meta."""
+    for rec in reversed(traj.records):
+        if rec.gap is not None:
+            return float(rec.gap)
+    return None
+
+
+def save_checkpoint(debug: DebugParams, name: str, round_t: int,
+                    state: tuple, n_iterate: int, accel, traj: Trajectory):
+    """Save ``state`` at ``round_t`` in the JAX package's layout
+    (cocoa_tpu/solvers/base.py:680-687).  The port's state is the
+    iterate (``n_iterate`` tensors: w, then alpha), then the accel bank on
+    the device when ``accel`` is set, then the sched vector on the host
+    when the run has one; JAX's is (w, alpha, sched) or (w, alpha, hist,
+    sched).  Counted in ``traj.saves``, apart from the evals' fetches."""
+    rest = state[n_iterate:]
+    hist = rest[0] if accel is not None else None
+    sched = rest[-1] if len(rest) > (accel is not None) else None
+    checkpoint.save(debug.chkpt_dir, name, round_t, state[0],
+                    state[1] if n_iterate > 1 else None, seed=debug.seed,
+                    sched=sched, hist=hist, gap=_last_gap(traj))
+    traj.saves += 1
+
+
+def checkpoints_on(debug: DebugParams) -> bool:
+    return bool(debug.chkpt_dir) and debug.chkpt_iter > 0
+
+
 class _GapWatch:
     """Windowed no-improvement watch over eval-cadence gaps, in Python
     floats; ``update(gap)`` is True when the run should bail out."""
@@ -747,13 +833,18 @@ MAX_IDX_TABLE_BYTES = 256 << 20
 SMALL_TABLE_INTS = 4_000_000
 
 
-def super_blocks(n_full: int, chunk_ints: int, gap_target) -> list:
+def super_blocks(n_full: int, chunk_ints: int, gap_target,
+                 max_chunks: Optional[int] = None) -> list:
     """The device loop's super-block sizes in chunks, for ``n_full``
     chunks of ``chunk_ints`` table ints each (cocoa_tpu/solvers/
     base.py:1302-1337): equal blocks under the table cap, or, for a
     gap-targeted run with large tables, blocks doubling from what
-    SMALL_TABLE_INTS holds."""
+    SMALL_TABLE_INTS holds; none longer than ``max_chunks`` (a
+    checkpointed run's ceil(chkptIter / debugIter), so a block boundary,
+    where it saves, comes at least every chkptIter rounds)."""
     max_block = max(1, MAX_IDX_TABLE_BYTES // (4 * chunk_ints))
+    if max_chunks is not None:
+        max_block = min(max_block, max(1, max_chunks))
     if gap_target is None or n_full * chunk_ints <= SMALL_TABLE_INTS:
         n_blocks = -(-n_full // max_block)
         per_block = -(-n_full // n_blocks)
@@ -880,6 +971,15 @@ class DeviceLoopRunner:
         v = self.v
         out = v.iterate + ((v.hist,) if self.hist else ())
         return out + ((self.sched.copy(),) if self.sched is not None else ())
+
+    def snapshot(self) -> tuple:
+        """The state at the last super-block's end, as :meth:`leave`
+        orders it, copied to the host (owned numpy arrays; the sched
+        vector is the one that block's fetch read), with the loop left
+        where it is: its buffers hold only what live chunks committed, so
+        a chunk replayed dead after a stop is not in it."""
+        return tuple(checkpoint.host_array(x) if isinstance(x, torch.Tensor)
+                     else x for x in self.leave())
 
     def block(self, start: int, b: int, traj: Trajectory):
         """Chunks from round ``start`` on, ``b`` of them unless the run
@@ -1086,6 +1186,13 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
     backs sigma' off a rung instead (:func:`sched_host_step`).  ``accel``
     runs :func:`accel_host_step` on the state (w, alpha, hist, sched).
 
+    With ``debug.chkpt_dir`` the state is saved at every
+    ``debug.chkpt_iter`` boundary (:func:`save_checkpoint`), where a chunk
+    also ends, after that eval's ladder step; a run that stops at an eval
+    does not save there.  A ``chkpt_iter`` that is a multiple of
+    ``debugIter`` ends no chunk that an eval does not, so it adds no
+    graph.
+
     ``device_loop`` runs the evals and the ladder on the device instead
     (:func:`drive_device`).  Returns (state, Trajectory)."""
     if device_loop:
@@ -1105,14 +1212,21 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
     t = start_round
     total = params.num_rounds
     di = debug.debug_iter
+    ckpt_on = checkpoints_on(debug)
+    ci = debug.chkpt_iter
     while t <= total:
         end = min(total, t + chunk - 1)
         if di > 0:
             end = min(end, ((t - 1) // di + 1) * di)
+        if ckpt_on:
+            end = min(end, ((t - 1) // ci + 1) * ci)
         state = _run_chunk(runner, schedule, n_iterate, t, end - t + 1,
                            state)
         t = end + 1
         if not (di > 0 and end % di == 0):
+            if ckpt_on and end % ci == 0:
+                save_checkpoint(debug, name, end, state, n_iterate, accel,
+                                traj)
             continue
         primal, gap, test_err = _fetch_metrics(traj, metrics(state))
         anneal_on = gap_target is not None and divergence_guard and anneal
@@ -1150,6 +1264,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
                 and watch.update(gap)):
             traj.mark_diverged(end, watch.n)
             break
+        if ckpt_on and end % ci == 0:
+            save_checkpoint(debug, name, end, state, n_iterate, accel, traj)
     if runner.capture:
         state = (*(x.clone() for x in state[:n_iterate]),
                  *state[n_iterate:])
@@ -1188,7 +1304,15 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     vector carries the watch instead).  On CUDA the device loop's chunks
     are captured CUDA graphs: ``capture=False`` is refused.  The
     Trajectory's ``dead_chunks`` counts the chunk steps replayed after a
-    stop or a change of branch."""
+    stop or a change of branch.
+
+    With ``debug.chkpt_dir`` the state is saved as JAX's ``maybe_ckpt``
+    saves it (cocoa_tpu/solvers/base.py:1195-1247): after the head, after
+    each super-block at the round it actually reached, and after the
+    tail, whenever ``chkpt_iter`` rounds have passed since the last save;
+    the super-blocks are then capped at ceil(chkptIter / debugIter)
+    chunks, so the saves land at the first super-block boundary at or
+    past each ``chkpt_iter`` multiple."""
     c = debug.debug_iter
     if c <= 0:
         raise ValueError("the device loop requires debug_iter > 0 (the eval "
@@ -1203,6 +1327,15 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     traj.graphs = chunks.seconds
     watch = _GapWatch(n_evals=stall_window(c))
     total = params.num_rounds
+    ckpt_on = checkpoints_on(debug)
+    last_saved = start_round - 1
+
+    def maybe_ckpt(done_round, get_state):
+        nonlocal last_saved
+        if ckpt_on and done_round - last_saved >= debug.chkpt_iter:
+            save_checkpoint(debug, name, done_round, get_state(), n_iterate,
+                            accel, traj)
+            last_saved = done_round
 
     def hit_target():
         return (gap_target is not None and traj.records
@@ -1241,11 +1374,14 @@ def drive_device(name: str, params: Params, debug: DebugParams,
             if backed:
                 _print_backoff(name, watch.n, sigma_levels[stage], head_end,
                                quiet)
+        maybe_ckpt(head_end, lambda: state)
 
     n_full = max(0, (total - (t - 1)) // c)
     if n_full > 0 and not hit_target():
         ints = 1 if sampler is None else sampler.ints_per_round()
-        sizes = super_blocks(n_full, c * ints, gap_target)
+        sizes = super_blocks(
+            n_full, c * ints, gap_target,
+            -(-debug.chkpt_iter // c) if ckpt_on else None)
         loop = DeviceLoopRunner(
             body, metrics, sampler, device, c,
             Ladder(gap_target, divergence_guard,
@@ -1264,6 +1400,7 @@ def drive_device(name: str, params: Params, debug: DebugParams,
                 new[-1].wall_time = traj.elapsed()
             done = start - 1 + len(rows) * c
             start += b * c
+            maybe_ckpt(done, loop.snapshot)
             if hit_target():
                 traj.stopped = "target"
                 break
@@ -1280,6 +1417,7 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     rem = total - (t - 1)
     if rem > 0 and not hit_target() and traj.stopped is None:
         state = _run_chunk(chunks, schedule, n_iterate, t, rem, state)
+        maybe_ckpt(total, lambda: state)
     if chunks.capture:
         state = (*(x.clone() for x in state[:n_iterate]),
                  *state[n_iterate:])

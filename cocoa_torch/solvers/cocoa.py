@@ -20,6 +20,8 @@ scalars, picked on the host from the sched vector (solvers/base.py
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from typing import Optional
 
 import numpy as np
@@ -224,9 +226,9 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     alg_name: str, alg, test_ds: Optional[ShardedDataset] = None,
                     rng: str = "reference", math: str = "exact",
                     quiet: bool = False, block_size: int = 0,
-                    w_init: Optional[torch.Tensor] = None,
-                    alpha_init: Optional[torch.Tensor] = None,
-                    metrics=None, gap_target: Optional[float] = None,
+                    w_init=None, alpha_init=None, start_round: int = 1,
+                    sched_init=None, hist_init=None, metrics=None,
+                    gap_target: Optional[float] = None,
                     divergence_guard: str = "auto", sigma_levels=None,
                     warm_start=None, accel: bool = False,
                     theta: str = "fixed", scan_chunk: Optional[int] = None,
@@ -235,7 +237,11 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
     the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
     from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
-    (zeros when None); returns (w, alpha, Trajectory).  ``block_size`` > 0
+    (tensors or arrays; zeros when None) from round ``start_round``;
+    a resumed scheduled or accelerated run also restores its sched vector
+    (``sched_init``) and accel bank (``hist_init``), as a checkpoint
+    carries them (cocoa_torch/checkpoint.py).  Returns (w, alpha,
+    Trajectory).  ``block_size`` > 0
     (``--blockSize``, needs ``math="fast"``) runs each round as the
     block-coordinate round (see :func:`block_route`).  ``metrics(state) ->
     (3,)`` (primal, gap, test error, NaN where there is none, on the
@@ -320,13 +326,10 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                                    block_size=block_size)
                  for bp in branch_params] for lv in levels]
 
-    def start(init, shape):
-        if init is None:
-            return torch.zeros(shape, dtype=ds.dtype, device=ds.device)
-        return init.to(device=ds.device, dtype=ds.dtype).clone()
-
-    w = start(w_init, (ds.num_features,))
-    alpha = start(alpha_init, (k, ds.n_shard))
+    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+         if w_init is None else base.restore_w(w_init, ds))
+    alpha = (torch.zeros((k, ds.n_shard), dtype=ds.dtype, device=ds.device)
+             if alpha_init is None else base.align_alpha(alpha_init, ds))
     sampler = base.make_sampler(rng, debug.seed, params.local_iters,
                                 ds.counts, sampling, params.num_rounds)
 
@@ -371,14 +374,17 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
 
         if accel:
             state += (torch.zeros((2,) + alpha.shape, dtype=ds.dtype,
-                                  device=ds.device),)
-        state += (base.sched_init_array(1, accel=accel),)
+                                  device=ds.device) if hist_init is None
+                      else torch.stack([base.align_alpha(h, ds)
+                                        for h in hist_init]),)
+        state += (base.sched_init_array(start_round, sched_init,
+                                        accel=accel),)
 
     state, traj = base.drive(
         alg_name, params, debug, state, body, metrics, sampler, ds.device,
         base.chunk_rounds(debug, k, params.local_iters, scan_chunk),
-        quiet=quiet, gap_target=gap_target, divergence_guard=guard_on,
-        sigma_levels=levels,
+        quiet=quiet, start_round=start_round, gap_target=gap_target,
+        divergence_guard=guard_on, sigma_levels=levels,
         accel=base.AccelConfig(theta_hs) if accel else None,
         schedule=schedule, n_iterate=2, capture=capture,
         device_loop=device_loop)
@@ -473,25 +479,32 @@ def run_cocoa(ds: ShardedDataset, params: Params, debug: DebugParams,
             raise ValueError("--sigma=auto requires the divergence guard "
                              "(drop --divergenceGuard=off)")
         quiet = kw.get("quiet", False)
-        if kw.get("w_init") is not None:
-            # a run started from a given iterate does not re-experiment
+        if kw.get("w_init") is not None or kw.get("start_round", 1) > 1:
+            # a resumed run does not re-experiment: its state may be
+            # mid-trial
             if not quiet:
                 print("sigma=auto: resumed run continues with the safe "
                       f"σ′=K·γ={safe:g} (no re-trial from restored state)")
             return run_cocoa(ds, dataclasses.replace(params, sigma=None),
                              debug, plus, warm_start=warm_start, **accel_kw,
                              **kw)
+        ckpt_dir = debug.chkpt_dir if debug.chkpt_iter > 0 else ""
+        before = (set(os.listdir(ckpt_dir))
+                  if ckpt_dir and os.path.isdir(ckpt_dir) else set())
         trial = dataclasses.replace(params, sigma=safe / 2.0)
         w, alpha, traj = run_cocoa(ds, trial, debug, plus,
                                    warm_start=warm_start, **kw)
         if traj.stopped != "diverged":
             return w, alpha, traj
+        if ckpt_dir and os.path.isdir(ckpt_dir):
+            _drop_trial_checkpoints(ckpt_dir, before, plus, traj)
         if not quiet:
             print(f"sigma=auto: σ′=K·γ/2={trial.sigma:g} diverged; "
                   f"restarting with the safe σ′=K·γ={safe:g}")
         # from scratch: the safe run inherits nothing of the trial's
         safe_kw = {k2: v for k2, v in kw.items()
-                   if k2 not in ("w_init", "alpha_init")}
+                   if k2 not in ("w_init", "alpha_init", "start_round",
+                                 "sched_init", "hist_init")}
         return run_cocoa(ds, dataclasses.replace(params, sigma=None), debug,
                          plus, warm_start=warm_start, **accel_kw, **safe_kw)
 
@@ -511,6 +524,21 @@ def run_cocoa(ds: ShardedDataset, params: Params, debug: DebugParams,
                            **kw)
 
 
+def _drop_trial_checkpoints(ckpt_dir: str, before: set, plus: bool,
+                            traj) -> None:
+    """Delete a diverged sigma' trial's checkpoints before the safe rerun
+    (cocoa_tpu/solvers/cocoa.py:1140-1160), so a later ``--resume``
+    cannot pick its state: only files new since the trial began, with
+    this algorithm's exact stamp and a round the trial reached."""
+    algo = ("CoCoA+" if plus else "CoCoA").replace(" ", "_")
+    last = traj.records[-1].round if traj.records else 0
+    stamp = re.compile(re.escape(algo) + r"-r(\d+)\.(npz|npz\.json|json)$")
+    for f in sorted(set(os.listdir(ckpt_dir)) - before):
+        m = stamp.match(f)
+        if m and int(m.group(1)) <= last:
+            os.remove(os.path.join(ckpt_dir, f))
+
+
 def _run_cocoa_anneal(ds, params, debug, plus, levels, warm_start, accel_kw,
                       kw):
     """The sigma' anneal entry (cocoa_tpu/solvers/cocoa.py
@@ -525,8 +553,10 @@ def _run_cocoa_anneal(ds, params, debug, plus, levels, warm_start, accel_kw,
         raise ValueError(
             "the σ′ anneal schedule IS the divergence guard's backoff "
             "action; drop --divergenceGuard=off")
-    if kw.get("w_init") is not None:
-        # a given iterate may sit mid-stage at an unknown sigma'
+    resumed = kw.get("w_init") is not None or kw.get("start_round", 1) > 1
+    if resumed and kw.get("sched_init") is None:
+        # resumed without the schedule's state: the iterate may sit
+        # mid-stage at an unknown sigma'
         if not kw.get("quiet", False):
             print("sigma anneal: resumed run has no schedule state; "
                   f"continuing with the safe σ′=K·γ={ds.k * params.gamma:g}")

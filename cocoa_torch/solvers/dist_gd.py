@@ -22,10 +22,12 @@ from cocoa_torch.solvers import base
 
 
 def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
-                test_ds: Optional[ShardedDataset] = None,
-                quiet: bool = False, scan_chunk: Optional[int] = None,
+                test_ds: Optional[ShardedDataset] = None, w_init=None,
+                start_round: int = 1, quiet: bool = False,
+                scan_chunk: Optional[int] = None,
                 capture: Optional[bool] = None, device_loop: bool = False):
-    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk``,
+    """Train from w = 0, or from ``w_init`` at round ``start_round`` (a
+    resumed run); returns (w, Trajectory).  ``scan_chunk``,
     ``capture`` and ``device_loop`` as in
     :func:`cocoa_torch.solvers.cocoa.run_sdca_family` (no draws, so no
     ``sampling``); eta(t) reads the round from the device counter."""
@@ -53,11 +55,12 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
             smoothing=params.smoothing)
 
-    w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+         if w_init is None else base.restore_w(w_init, ds))
     (w,), traj = base.drive("Dist SGD", params, debug, (w,),
                             base.per_round(round_fn), metrics, None,
                             ds.device, base.chunk_rounds(debug, k, 1,
                                                          scan_chunk),
-                            quiet=quiet, capture=capture,
-                            device_loop=device_loop)
+                            quiet=quiet, start_round=start_round,
+                            capture=capture, device_loop=device_loop)
     return w, traj

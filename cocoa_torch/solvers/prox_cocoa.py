@@ -58,8 +58,7 @@ def lasso_metrics(r, x, shards: dict, b, l1: float,
 
 def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
                    debug: DebugParams, rng: str = "reference",
-                   x_init: Optional[torch.Tensor] = None,
-                   r_init: Optional[torch.Tensor] = None,
+                   x_init=None, r_init=None, start_round: int = 1,
                    quiet: bool = False, math: str = "fast",
                    block_size: int = 0, gap_target: Optional[float] = None,
                    divergence_guard: str = "auto",
@@ -71,7 +70,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     L1 weight, ``params.smoothing`` the elastic-net l2 weight (0: lasso),
     ``params.gamma`` the aggregation (sigma' = K*gamma) and
     ``params.local_iters`` the coordinate steps per round.  The run
-    starts from x = 0, r = -b unless ``x_init``/``r_init`` are given.
+    starts from x = 0, r = -b unless ``x_init``/``r_init`` (tensors or
+    arrays, as a checkpoint holds them) are given, at round
+    ``start_round``.
     ``block_size`` > 0 (``--blockSize``, needs ``math="fast"``) runs each
     round as the block-coordinate round on the column shards, with the
     lasso rule in the block kernels (solvers/cocoa.py ``block_route``).
@@ -94,7 +95,8 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     r, x, traj = run_sdca_family(
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,
         block_size=block_size, w_init=-b if r_init is None else r_init,
-        alpha_init=x_init, metrics=metrics, gap_target=gap_target,
-        divergence_guard=divergence_guard, scan_chunk=scan_chunk,
+        alpha_init=x_init, start_round=start_round, metrics=metrics,
+        gap_target=gap_target, divergence_guard=divergence_guard,
+        scan_chunk=scan_chunk,
         sampling=sampling, capture=capture, device_loop=device_loop)
     return x, r, traj

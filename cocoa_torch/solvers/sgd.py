@@ -27,14 +27,16 @@ from cocoa_torch.solvers import base
 
 def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
             local: bool, test_ds: Optional[ShardedDataset] = None,
-            rng: str = "reference", quiet: bool = False,
+            rng: str = "reference", w_init=None, start_round: int = 1,
+            quiet: bool = False,
             scan_chunk: Optional[int] = None, sampling: str = "auto",
             capture: Optional[bool] = None, device_loop: bool = False):
-    """Train from w = 0; returns (w, Trajectory).  ``scan_chunk``,
+    """Train from w = 0, or from ``w_init`` at round ``start_round`` (a
+    resumed run); returns (w, Trajectory).  ``scan_chunk``,
     ``sampling``, ``capture`` and ``device_loop`` as in
     :func:`cocoa_torch.solvers.cocoa.run_sdca_family`; eta(t) reads the
     round number from the device counter that the chunk (and the device
-    loop) advances, so a captured chunk replays it."""
+    loop) advances from ``start_round``, so a captured chunk replays it."""
     base.check_shards(ds)
     k, h, lam = ds.k, params.local_iters, params.lam
     scaling = params.beta / k if local else params.beta / (k * h)
@@ -63,12 +65,13 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
             smoothing=params.smoothing)
 
-    w = torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+         if w_init is None else base.restore_w(w_init, ds))
     sampler = base.make_sampler(rng, debug.seed, h, ds.counts, sampling,
                                 params.num_rounds)
     (w,), traj = base.drive(
         "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
         base.per_round(round_fn), metrics, sampler, ds.device,
         base.chunk_rounds(debug, k, h, scan_chunk), quiet=quiet,
-        capture=capture, device_loop=device_loop)
+        start_round=start_round, capture=capture, device_loop=device_loop)
     return w, traj

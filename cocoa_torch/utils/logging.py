@@ -100,11 +100,15 @@ class Trajectory:
         # a captured run's CUDA graphs: (branch, rounds) -> seconds to
         # capture (solvers/base.py ``drive``); not dumped
         self.graphs: dict = {}
-        # the run's reads of the device (one per eval on the chunked
-        # loop, one per super-block on the device loop) and the device
-        # loop's chunk steps replayed after a stop or a change of branch
+        # the run's reads of the device for its evals (one per eval on the
+        # chunked loop, one per super-block on the device loop) and the
+        # device loop's chunk steps replayed after a stop or a change of
+        # branch
         self.fetches = 0
         self.dead_chunks = 0
+        # checkpoints written (each one more read of the device, apart
+        # from ``fetches``)
+        self.saves = 0
         self._t0 = time.perf_counter()
 
     def _console(self, msg: str):
