@@ -189,9 +189,8 @@ stderr); any failed check exits non-zero:
    block path (B5, B3, B6) and the hybrid (B1h), the lasso design
    sequentially (B2) and fused B=128 (B4), and the demo's menu through
    the CLI; each resume equals its uninterrupted run past the resume
-   point, records and final (w, alpha), bit for bit, or, for an
-   algorithm whose uninterrupted run is not bit-stable (two runs
-   differ), within relative 1e-3 with equal rounds; then a device-loop
+   point, records and final (w, alpha), bit for bit (DistGD's too: its
+   sparse pass adds in slot order); then a device-loop
    resume that saves at its stop mid-super-block while a dead chunk
    replays, its checkpoint the state it returns; (b) the demo through
    ``python -m cocoa_torch.cli``, chunked and --deviceLoop side by side,
@@ -202,10 +201,33 @@ stderr); any failed check exits non-zero:
    and seconds to the 1e-4 gap for rcv1-like sigma' auto with
    --chkptIter=100 and without, chunked and device loop, in turns, each
    beside the card's name and power limit.
+16. the rest of the single-GPU training surface, float32, every
+   kernel's count set to 0 before each in-process run and read after:
+   (a) --blockPipeline: epsilon-like fused B=128 (B4) and split B=512
+   (B3) and the lasso design fused B=128 (B4, ProxCoCoA+), each off, on,
+   on, off on the captured chunked loop and on --deviceLoop: the runs
+   of a loop bit for bit, the same launches, ms per round past the
+   first chunk and the capture (the device loop's on the device's
+   timeline, with the busy share there: profile_round.py's union of
+   kernel spans), ms per round of the whole run and ms capturing; the
+   captured round forking into concurrent branches with the pipeline on
+   and not off (its DOT dump), on == off bit for bit; (b) --evalDense: rcv1-like
+   sequential (B1) and block (B5, B3, B6) runs without, with, with and
+   without the dense eval twin: training bit for bit, evals within
+   relative 1e-5, ms per round with evals, ms per eval with the twin
+   and with the sparse gather, and the evalDense=auto lines (rcv1-like
+   over the 2 GiB budget, the demo under it); (c) the native LIBSVM
+   parser built and taken by load_libsvm, bit for bit with the Python
+   parser, both timed on the demo and on an rcv1-like file; (d) the demo
+   menu twice, every algorithm bit for bit (DistGD included), and
+   DistGD's ms per round with the atomic scatter and the order-stable
+   one in turns; (e) ``python -m cocoa_torch`` on the demo in a
+   subprocess.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
-device-loop runs and phase 15's in-process runs included), its error
+device-loop runs and phase 15's and 16's in-process runs included), its
+error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -2878,24 +2900,16 @@ def after(results, m):
     return out
 
 
-def hold_resumed(label, res, full, m, rerun) -> list:
+def hold_resumed(label, res, full, m) -> None:
     """Resumed runs against the uninterrupted ones past round ``m``, one
-    algorithm at a time: bit for bit, unless that algorithm's
-    uninterrupted run is itself not bit-stable (its second run,
-    ``rerun()``, differs from the first): then within relative 1e-3 with
-    equal stops and eval rounds, phase 14's rule.  Returns the
-    algorithms held to the tolerance (none: all bit for bit)."""
+    algorithm at a time, bit for bit: every algorithm's uninterrupted run
+    is bit-stable (DistGD's sparse pass adds in slot order,
+    ops/subgradient.py), so a resume that differs fails."""
     res, cut = after(res, m), after(full, m)
-    loose = [i for i, (r, f) in enumerate(zip(res, cut))
-             if not same_bits([r], [f])]
-    if loose:
-        again = rerun()
-        for i in loose:
-            check(not same_bits([again[i]], [full[i]]),
-                  f"{label} {full[i].algorithm}: the resume differs from "
-                  f"the uninterrupted run, which is bit-stable")
-            close_runs(label, [res[i]], [cut[i]])
-    return [full[i].algorithm for i in loose]
+    for r, f in zip(res, cut):
+        check(same_bits([r], [f]),
+              f"{label} {f.algorithm}: the resume differs from the "
+              f"uninterrupted run")
 
 
 def resume_case(label, run, m, counted, kernels, loops=(False, True)):
@@ -2903,9 +2917,9 @@ def resume_case(label, run, m, counted, kernels, loops=(False, True)):
     restore_from) -> [RunResult]`` uninterrupted, then to round ``m``
     saving there, then resumed from that checkpoint (``latest`` and
     ``load_full``, as ``--resume``), on each loop; the resumed run must
-    launch each of ``kernels`` (:meth:`Counted.resume`).  Returns, per loop,
-    the algorithms held only to the tolerance (:func:`hold_resumed`) and
-    the resumed run's seconds."""
+    launch each of ``kernels`` (:meth:`Counted.resume`) and equal the
+    uninterrupted run bit for bit (:func:`hold_resumed`).  Returns, per
+    loop, the resumed run's seconds."""
     out = {}
     for loop in loops:
         tag = "device loop" if loop else "chunked"
@@ -2922,16 +2936,12 @@ def resume_case(label, run, m, counted, kernels, loops=(False, True)):
             res = counted.resume(f"{label} {tag}", kernels, run, loop,
                                  None, restore_from=d)
             sec = time.perf_counter() - t0
-        loose = hold_resumed(f"{label} {tag}", res, full, m,
-                             lambda: counted(run, loop, None))
-        out[tag] = (loose, sec)
+        hold_resumed(f"{label} {tag}", res, full, m)
+        out[tag] = sec
     print(f"phase 15 (a): {label}: resumed at round {m + 1} == "
           f"uninterrupted, " + "; ".join(
-              f"{tag} bit for bit" + (
-                  f" but {', '.join(loose)} within rel 1e-3 (their "
-                  f"uninterrupted runs are not bit-stable)" if loose else "")
-              + f" ({sec:.3f} s resumed)"
-              for tag, (loose, sec) in out.items()))
+              f"{tag} bit for bit ({sec:.3f} s resumed)"
+              for tag, sec in out.items()))
     return out
 
 
@@ -3121,8 +3131,7 @@ def phase_kill_resume():
     chkptIter 1000), chunked and --deviceLoop side by side, each
     SIGKILLed once its first checkpoint exists, then both relaunched
     with --resume; each resumed summary equals the uninterrupted run's
-    (in process, the same flags), bit for bit where two uninterrupted
-    runs agree."""
+    (in process, the same flags) bit for bit."""
     import signal
 
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
@@ -3182,25 +3191,17 @@ def phase_kill_resume():
         check(r0 < KILL_ROUNDS, f"kill {tag}: resumed at {r0}, the end")
         argv = [a for a in kill_argv(loop, "")[3:]
                 if not a.startswith("--chkpt")]
-        ref_text, ref = run_cli(argv)
+        ref_text, _ = run_cli(argv)
         want = summary_lines(ref_text)
         got = summary_lines(text)
-        exact = got == want
-        if not exact:
-            again_text, again = run_cli(argv)
-            check(not same_bits(again, ref),
-                  f"kill {tag}: the resumed summary {got} differs from the "
-                  f"uninterrupted {want}, which is bit-stable")
-            for a, b in zip(got, want):
-                fa, fb = float(a.split(": ")[1]), float(b.split(": ")[1])
-                check(abs(fa - fb) <= 1e-3 * abs(fb),
-                      f"kill {tag}: {a} against {b}")
+        check(got == want, f"kill {tag}: the resumed summary {got} differs "
+                           f"from the uninterrupted {want}")
         out[tag] = {"killed_s": killed_at[loop], "resumed_from": r0,
-                    "exact": exact, "summary": got}
+                    "summary": got}
         print(f"phase 15 (b): {tag}: SIGKILLed {killed_at[loop]:.2f} s "
               f"after launch, resumed from round {r0} of {KILL_ROUNDS}; "
-              f"summary {'equal' if exact else 'within rel 1e-3 of'} the "
-              f"uninterrupted run's: " + " | ".join(got))
+              f"summary equal to the uninterrupted run's: "
+              + " | ".join(got))
     print(f"phase 15 (b): in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3226,14 +3227,11 @@ def phase_torn(run, counted):
               in err.getvalue(), f"torn: latest gave {path}")
         res = counted.resume("torn", ("B1",), run, False, RESUME_AT,
                              restore_from=d)
-    exact = not hold_resumed("torn", res, [full], prev,
-                             lambda: counted(run, False, RESUME_AT))
+    hold_resumed("torn", res, [full], prev)
     print(f"phase 15 (c): newest generation (r{RESUME_AT}) torn: latest "
           f"falls back to r{prev} (\"{err.getvalue().strip()[:90]}...\"), "
-          f"the resume "
-          f"ends {'bit for bit' if exact else 'within rel 1e-3'} as the "
-          f"run that wrote them")
-    return {"exact": exact}
+          f"the resume ends bit for bit as the run that wrote them")
+    return {"exact": True}
 
 
 def phase_resume_costs(ds, lasso, cases, counted, card):
@@ -3291,6 +3289,427 @@ def phase_resume_costs(ds, lasso, cases, counted, card):
                   + "; ".join(f"{s:.4f} s to round {rd}, {sv} saves, "
                               f"{f} fetches" for s, rd, sv, f in rows)
                   + f"; card {card}")
+    return out
+
+
+# --- phase 16: the rest of the single-GPU training surface
+
+
+PIPE_CASES = (("epsilon-like fused B=128", "eps", BLOCK, "B4"),
+              ("epsilon-like split B=512", "eps", 4 * BLOCK, "B3"),
+              ("lasso design fused B=128", "lasso", BLOCK, "B4"))
+PIPE_ROUNDS = {"eps": 30, "lasso": 100}
+# each case's kernel as the profiler names it, to find the device loop's
+# replayed chunks (profile_round.replay_window)
+PIPE_MAIN = {"B4": "fused_kernel", "B3": "chain_kernel"}
+
+
+def graph_forks(fn):
+    """``fn()`` run eagerly once, then captured as one CUDA graph (kept
+    after instantiation) and replayed: (nodes of the graph with two or
+    more successors in its DOT dump, i.e. where it forks into concurrent
+    branches, or None where no dump could be read; edges; ``fn``'s output
+    of the replay)."""
+    import ctypes
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        path = os.path.join(d, "graph.dot")
+        # libcuda's DOT printer on the kept cudaGraph_t
+        ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(),
+            ctypes.c_uint(0))
+        text = Path(path).read_text() if os.path.exists(path) else ""
+    edges = re.findall(r'"?([\w.]+)"?\s*->\s*"?([\w.]+)"?', text)
+    succ = {}
+    for a, _ in edges:
+        succ[a] = succ.get(a, 0) + 1
+    forks = sum(1 for n in succ.values() if n > 1) if edges else None
+    return forks, len(edges), out
+
+
+def pipe_run(ds, b_vec, block, rounds, debug_iter):
+    """``run(device_loop, pipeline) -> [RunResult]``: CoCoA+ in blocks of
+    ``block`` on ``ds`` (ProxCoCoA+ with ``b_vec``), float32, on permuted
+    draws (no row twice in a block, so the alpha scatter adds in one
+    order and every run is bit-stable)."""
+    def run(loop, pipeline):
+        debug = DebugParams(debug_iter=debug_iter, seed=0)
+        if b_vec is not None:
+            params = Params(n=ds.n, num_rounds=rounds,
+                            local_iters=ds.n // ds.k // 10, lam=b_vec[1],
+                            loss="lasso", smoothing=0.0)
+            x, r, traj = run_prox_cocoa(
+                ds, b_vec[0], params, debug, quiet=True, math="fast",
+                rng="permuted",
+                block_size=block, block_pipeline=pipeline, device_loop=loop)
+            return [cli.RunResult(traj.algorithm, r, x, traj)]
+        params = Params(n=ds.n, num_rounds=rounds,
+                        local_iters=ds.n // ds.k // 10, lam=1e-3)
+        w, alpha, traj = cocoa_mod.run_cocoa(
+            ds, params, debug, plus=True, quiet=True, math="fast",
+            rng="permuted", block_size=block, block_pipeline=pipeline,
+            device_loop=loop)
+        return [cli.RunResult(traj.algorithm, w, alpha, traj)]
+    return run
+
+
+def turns(runs, key, fmt="{:.4f}"):
+    """``runs``' values at ``key``, in their order, for one printed line."""
+    return ", ".join(fmt.format(m[key]) for m in runs)
+
+
+def phase_pipeline(eps, lasso, counted, card):
+    """(a) ``--blockPipeline``: each of PIPE_CASES off, on, on, off on the
+    captured chunked loop and on the device loop, every kernel's count set
+    to 0 before each run and read after: the four runs of a loop equal
+    bit for bit, trajectories and final (w, alpha), each launching the
+    case's kernel as many times; ms per round past the first chunk and
+    the capture, the chunked runs' on the host's clock between their
+    first eval and their last, the device loop's under the profiler
+    (kernels only) on the device's timeline (profile_round.replay_window),
+    with the device's busy share there, the union of the kernels' spans;
+    each run's whole ms per round, capture included, on the host's clock,
+    and the time its captures took (``Trajectory.graphs``); and whether
+    the captured round forks into concurrent branches (on) and does not
+    (off)."""
+    import profile_round
+    from torch.profiler import ProfilerActivity, profile
+
+    lds, lb, lam_max = lasso
+    sets = {"eps": (eps, None), "lasso": (lds, (lb, 0.3 * lam_max))}
+    out = {}
+    for label, key, block, kern in PIPE_CASES:
+        t_case = time.perf_counter()
+        ds, b_vec = sets[key]
+        rounds = PIPE_ROUNDS[key]
+        run = pipe_run(ds, b_vec, block, rounds, 10 if key == "eps" else 25)
+        nb = -(-(ds.n // ds.k // 10) // block)
+        check(nb > 1, f"{label}: one block a round, nothing to pipeline")
+        case = {}
+        for loop in (False, True):
+            tag = "device loop" if loop else "chunked"
+            runs = []
+            for flag in (False, True, True, False):
+                # the profiler's host work would slow the chunked loop,
+                # which waits on the host at each eval
+                with profile(activities=[ProfilerActivity.CUDA]) if loop \
+                        else contextlib.nullcontext() as prof:
+                    t0 = time.perf_counter()
+                    res = counted(run, loop, flag)
+                    sec = time.perf_counter() - t0
+                tr = res[0].trajectory
+                if loop:
+                    wall, dev, _ = profile_round.replay_window(
+                        profile_round.device_events(prof), PIPE_MAIN[kern],
+                        rounds)
+                    ms = {"steady": wall, "busy": dev / wall}
+                else:
+                    ms = {"steady": steady_ms(tr)}
+                ms.update(whole=sec / rounds * 1e3,
+                          capture=sum(tr.graphs.values()) * 1e3)
+                runs.append((flag, res, dict(counted.last), ms))
+            ref = runs[0]
+            for flag, res, got, _ in runs[1:]:
+                check(same_bits(res, ref[1]),
+                      f"{label} {tag} pipeline {flag}: differs from off")
+                check(got == ref[2],
+                      f"{label} {tag}: launches {got} against {ref[2]}")
+            check(ref[2][kern] == rounds * nb,
+                  f"{label} {tag}: {ref[2][kern]} {kern} launches for "
+                  f"{rounds} rounds of {nb} blocks")
+            case[tag] = {"ms": [(flag, ms) for flag, _, _, ms in runs],
+                         "launches": {k: v for k, v in ref[2].items() if v}}
+        w = torch.zeros(ds.num_features, device="cuda")
+        alpha = torch.zeros(ds.k, ds.n_shard, device="cuda")
+        idxs = torch.stack([torch.randperm(int(c), device="cuda")[
+            :ds.n // ds.k // 10] for c in ds.counts]).to(torch.int32)
+        if b_vec is not None:
+            w = -b_vec[0].to(w.dtype)
+        route = cocoa_mod.block_route("dense", block, torch.float32)
+        mode = "prox" if b_vec is not None else "plus"
+        kw = dict(mode=mode, sigma=float(ds.k), block=block, route=route,
+                  loss="lasso" if b_vec is not None else "hinge",
+                  smoothing=0.0 if b_vec is not None else 1.0)
+        shards = ds.shard_arrays()
+        lam, n = (b_vec[1], 1) if b_vec is not None else (1e-3, ds.n)
+        forks = {}
+        outs = {}
+        for flag in (False, True):
+            forks[flag] = graph_forks(
+                lambda flag=flag: cocoa_mod.local_sdca_block_batched(
+                    w, alpha, shards, idxs, lam, n, pipeline=flag, **kw))
+            outs[flag] = forks[flag][2]
+        check(all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])),
+              f"{label}: the captured pipelined round differs from the "
+              f"serial one")
+        if forks[True][0] is not None:
+            check(forks[True][0] > 0 and forks[False][0] == 0,
+                  f"{label}: forks in the captured round, on "
+                  f"{forks[True][0]}, off {forks[False][0]}")
+        case["forks"] = {str(f): v[:2] for f, v in forks.items()}
+        out[label] = case
+        ch, dl = ([ms for _, ms in case[tag]["ms"]]
+                  for tag in ("chunked", "device loop"))
+        print(f"phase 16 (a): {label}: on == off bit for bit on both "
+              f"loops, {nb} blocks a round, launches a run "
+              f"{case['chunked']['launches']}; ms per round in turns (off, "
+              f"on, on, off), past the first chunk and the capture: chunked "
+              f"{turns(ch, 'steady')} (host clock), device loop "
+              f"{turns(dl, 'steady')} (profiler on, device timeline; busy "
+              f"there {turns(dl, 'busy', '{:.1%}')}); whole runs, capture "
+              f"included: chunked {turns(ch, 'whole')}, device loop "
+              f"{turns(dl, 'whole')}; ms a run capturing its "
+              f"graphs: chunked {turns(ch, 'capture', '{:.1f}')}, device "
+              f"loop {turns(dl, 'capture', '{:.1f}')}; captured round forks "
+              f"(nodes with >1 successor, edges): "
+              f"on {forks[True][:2]}, off {forks[False][:2]}; "
+              f"{time.perf_counter() - t_case:.1f} s; card {card}")
+    return out
+
+
+def phase_eval_twin(rcv1, demo, counted, card):
+    """(b) ``--evalDense``: rcv1-like CoCoA+ sequentially (B1) and at
+    B=128 (B5, B3, B6), 100 rounds, an eval every 25, on permuted draws
+    (a block that draws a row twice adds its alpha deltas by atomics in a
+    varying order, so only these are bit-stable), without the twin,
+    with it, with it, without: training bit for bit, each eval within
+    relative 1e-5; ms per round with the evals; ms per eval with the twin
+    and with the sparse gather, by CUDA events, in turns; and the
+    ``evalDense=auto`` lines at rcv1-like (without and with
+    ``--hotCols=auto``) and on the demo."""
+    from cocoa_torch.evals import objectives
+
+    k, h = 8, rcv1.n // 8 // 10
+    plain = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                          device="cuda")
+    t0 = time.perf_counter()
+    twin = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                         device="cuda", eval_dense=True)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "twin_bytes": twin.X_eval.numel() * 4}
+    params = Params(n=rcv1.n, num_rounds=100, local_iters=h, lam=1e-4)
+    debug = DebugParams(debug_iter=25, seed=0)
+    for label, block, kerns in (("sequential", 0, ("B1",)),
+                                (f"block B={BLOCK}", BLOCK,
+                                 ("B5", "B3", "B6"))):
+        runs = []
+        for tag, ds in (("sparse", plain), ("twin", twin), ("twin", twin),
+                        ("sparse", plain)):
+            w, alpha, traj = counted(cocoa_mod.run_cocoa, ds, params, debug,
+                                     plus=True, quiet=True, math="fast",
+                                     block_size=block, rng="permuted")
+            for kern in kerns:
+                check(counted.last[kern] > 0,
+                      f"(b) {label} {tag}: {kern} never launched")
+            runs.append((tag, w, alpha, traj))
+        _, w0, a0, traj0 = runs[0]
+        for tag, w, alpha, traj in runs[1:]:
+            check(torch.equal(w, w0) and torch.equal(alpha, a0),
+                  f"(b) {label} {tag}: the trained state differs")
+            for x, y in zip(traj.records, traj0.records):
+                for got, want in ((x.primal, y.primal), (x.gap, y.gap)):
+                    check(abs(got - want) <= 1e-5 * abs(want),
+                          f"(b) {label} {tag} round {x.round}: {got} "
+                          f"against {want}")
+        out[label] = [(tag, steady_ms(traj)) for tag, _, _, traj in runs]
+        print(f"phase 16 (b): rcv1-like {label}: with the twin == without, "
+              f"trained state bit for bit, evals within rel 1e-5; ms per "
+              f"round with an eval every 25 (in turns): " + ", ".join(
+                  f"{tag} {ms:.4f}" for tag, ms in out[label]))
+    w = w0.clone()
+    evals = {}
+    for tag, ds in (("sparse", plain), ("twin", twin), ("twin", twin),
+                    ("sparse", plain)):
+        shards = ds.shard_arrays()
+        evals.setdefault(tag, []).append(cuda_ms(
+            lambda: objectives.eval_metrics(w, a0, shards, 1e-4, rcv1.n),
+            20))
+    out["eval_ms"] = evals
+    del twin
+    lines = {}
+    for name, data, kk, hot in (("rcv1-like", rcv1, 8, None),
+                                ("rcv1-like --hotCols=auto", rcv1, 8, "auto"),
+                                ("demo", demo, 4, None)):
+        cfg = RunConfig(num_features=data.num_features, num_splits=kk,
+                        eval_dense="auto", hot_cols=hot)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, decided = cli._layout_knobs(cfg, data, kk, torch.float32)
+        lines[name] = (decided, [ln for ln in buf.getvalue().splitlines()
+                                 if ln.startswith("evalDense")])
+    check(not lines["rcv1-like"][0] and lines["demo"][0],
+          f"(b) evalDense=auto decided {lines}")
+    out["auto"] = lines
+    print(f"phase 16 (b): the twin {out['twin_bytes'] / 1e9:.3f} GB, built "
+          f"in {out['build_s']:.1f} s; ms per eval (eval_metrics, CUDA "
+          f"events, in turns) " + ", ".join(
+              f"{tag} " + "/".join(f"{v:.4f}" for v in vs)
+              for tag, vs in evals.items())
+          + "; evalDense=auto: " + "; ".join(
+              f"{name}: {ln}" for name, (_, ln) in lines.items())
+          + f"; card {card}")
+    return out
+
+
+def phase_parser(rcv1, card):
+    """(c) The native LIBSVM parser: built into cocoa_torch/_build/ and
+    taken by ``load_libsvm`` (its ``parse_file`` called), equal to the
+    Python parser bit for bit, and each one's seconds, on the demo and on
+    an rcv1-like file written from ``synth_sparse``'s rows."""
+    from cocoa_torch.data import libsvm, native_loader
+
+    t0 = time.perf_counter()
+    check(native_loader.available(), "the native LIBSVM parser did not build")
+    out = {"build_s": time.perf_counter() - t0,
+           "library": str(native_loader.library_path().relative_to(ROOT))}
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        path = os.path.join(d, "rcv1_like.svm")
+        write_libsvm(rcv1, path)
+        for name, p, nf in (("demo", str(DEMO_TRAIN), 9947),
+                            ("rcv1-like", path, RCV1_SHAPE[1])):
+            secs, took = [], []
+            real = native_loader.parse_file
+
+            def spy(*args):
+                data = real(*args)
+                took.append(data is not None)
+                return data
+
+            for _ in range(2):
+                with mock.patch.object(native_loader, "parse_file", spy):
+                    t0 = time.perf_counter()
+                    nat = load_libsvm(p, nf)
+                    secs.append(time.perf_counter() - t0)
+            check(took == [True, True],
+                  f"(c) {name}: load_libsvm did not take the native parser")
+            t0 = time.perf_counter()
+            py = libsvm.load_libsvm_python(p, nf)
+            py_s = time.perf_counter() - t0
+            for f in ("labels", "indptr", "indices", "values"):
+                a, b = getattr(nat, f), getattr(py, f)
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"(c) {name}: native {f} differs from Python's")
+            out[name] = {"bytes": os.path.getsize(p), "native_s": secs,
+                         "python_s": py_s, "rows": nat.n,
+                         "nnz": int(nat.indptr[-1])}
+            print(f"phase 16 (c): {name} ({out[name]['bytes']} bytes, "
+                  f"{nat.n} rows, {int(nat.indptr[-1])} nonzeros): native "
+                  f"{secs[0]:.4f}/{secs[1]:.4f} s, Python {py_s:.3f} s, bit "
+                  f"for bit; card's host, {card}")
+    return out
+
+
+def atomic_subgradient_pass(w, shards, lam, loss="hinge", smoothing=1.0,
+                            slots=None):
+    """DistGD's sparse pass with one ``scatter_add_`` over every slot of
+    a shard, whose atomics add a column's terms in a varying order: the
+    form the order-stable pass (ops/subgradient.py) replaced, timed
+    beside it in (d)."""
+    from cocoa_torch.ops import losses
+    from cocoa_torch.ops.rows import shard_margins
+
+    labels = shards["labels"]
+    coef = labels * losses.grad_factor(loss, labels * shard_margins(w, shards),
+                                       smoothing=smoothing)
+    k = coef.shape[0]
+    dw = torch.zeros(k, w.shape[0], dtype=w.dtype, device=w.device)
+    dw.scatter_add_(1, shards["sp_indices"].reshape(k, -1).long(),
+                    (shards["sp_values"] * coef[..., None]).reshape(k, -1))
+    return dw - lam * w
+
+
+def phase_dist_gd(demo, counted, card):
+    """(d) ROADMAP C4: the demo menu through the CLI twice, 100 rounds,
+    sparse layout: every algorithm bit for bit, DistGD included; then
+    DistGD alone on the demo's shards, 500 rounds, with the scatter it
+    replaced and with the order-stable pass, in turns (atomic, ordered,
+    ordered, atomic): ms per round past the first chunk, and whether each
+    pair of runs is bit-stable."""
+    from cocoa_torch.solvers import dist_gd as dist_gd_mod
+
+    argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4", "--localIterFrac=0.1",
+            "--lambda=.001", "--math=fast", "--dtype=float32",
+            "--justCoCoA=false", "--layout=sparse", "--numRounds=100"]
+    (_, first), (_, second) = (counted(run_cli, argv) for _ in range(2))
+    for a, b in zip(first, second):
+        check(same_bits([a], [b]),
+              f"(d) demo menu {a.algorithm}: two uninterrupted runs differ")
+    check(counted.last["B1"] > 0, "(d) demo menu: B1 never launched")
+    ds = shard_dataset(demo, 4, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    params = Params(n=demo.n, num_rounds=500, local_iters=1, lam=1e-3)
+    debug = DebugParams(debug_iter=25, seed=0)
+    runs = {}
+    for tag in ("atomic", "ordered", "ordered", "atomic"):
+        fn = atomic_subgradient_pass if tag == "atomic" else \
+            dist_gd_mod.subgradient_pass
+        with mock.patch.object(dist_gd_mod, "subgradient_pass", fn):
+            w, traj = dist_gd_mod.run_dist_gd(ds, params, debug, quiet=True)
+        torch.cuda.synchronize()
+        runs.setdefault(tag, []).append(
+            (cli.RunResult(traj.algorithm, w, None, traj), steady_ms(traj)))
+    stable = {tag: same_bits([r[0][0]], [r[1][0]])
+              for tag, r in runs.items()}
+    check(stable["ordered"], "(d) two order-stable DistGD runs differ")
+    out = {"ms": {tag: [ms for _, ms in r] for tag, r in runs.items()},
+           "bit_stable": stable}
+    print(f"phase 16 (d): the demo menu twice, every algorithm bit for bit "
+          f"(DistGD included); DistGD 500 rounds, ms per round in turns: "
+          + "; ".join(f"{tag} " + "/".join(f"{ms:.4f}" for ms in v)
+                      + f" (two runs bit for bit: {stable[tag]})"
+                      for tag, v in out["ms"].items()) + f"; card {card}")
+    return out
+
+
+def phase_entry_point():
+    """(e) ``python -m cocoa_torch`` on the demo in a subprocess: exit 0,
+    both algorithms' summaries."""
+    argv = [sys.executable, "-m", "cocoa_torch", f"--trainFile={DEMO_TRAIN}",
+            f"--testFile={DEMO_TEST}", "--numFeatures=9947", "--numSplits=4",
+            "--numRounds=20", "--localIterFrac=0.1", "--lambda=.001",
+            "--math=fast", "--debugIter=10"]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    sec = time.perf_counter() - t0
+    check(res.returncode == 0, f"(e) python -m cocoa_torch exited "
+                               f"{res.returncode}: {res.stderr[-2000:]}")
+    lines = summary_lines(res.stdout)
+    check(len(lines) == 4, f"(e) summary lines {lines}")
+    print(f"phase 16 (e): python -m cocoa_torch on the demo: exit 0 in "
+          f"{sec:.1f} s (process start included): " + " | ".join(lines))
+    return {"s": sec, "summary": lines}
+
+
+def phase_surface(rcv1, demo, eps, lasso, card):
+    """Phase 16: (a) the block pipeline, (b) the eval twin, (c) the native
+    parser, (d) DistGD bit-stable, (e) ``python -m cocoa_torch``.  Returns
+    a summary with the launches of its in-process runs."""
+    counted = Counted()
+    out = {"card": card}
+    for key, fn, args in (("(a)", phase_pipeline, (eps, lasso, counted)),
+                          ("(b)", phase_eval_twin, (rcv1, demo, counted)),
+                          ("(c)", phase_parser, (rcv1,)),
+                          ("(d)", phase_dist_gd, (demo, counted)),
+                          ("(e)", phase_entry_point, ())):
+        t0 = time.perf_counter()
+        out[key] = fn(*args, card) if key != "(e)" else fn()
+        print(f"phase 16 {key}: in {time.perf_counter() - t0:.1f} s")
+    out["launched"] = counted.total
+    print("phase 16: launches of its in-process runs " + ", ".join(
+        f"{name} {v}" for name, v in counted.total.items()))
     return out
 
 
@@ -3721,7 +4140,6 @@ def main() -> int:
     t0 = time.perf_counter()
     loop14 = phase_device_loop(rcv1, rcv1_w, eps,
                                (lasso_ds, lasso_b, lam_max), card)
-    del eps
     print(f"phase 14: all cases ok in {time.perf_counter() - t0:.1f} s; "
           f"busy shares (device ms / wall ms per round, profiler on): "
           + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
@@ -3732,9 +4150,17 @@ def main() -> int:
     # --- phase 15: checkpoints and --resume
     t0 = time.perf_counter()
     resume15 = phase_resume(rcv1, rcv1_w, (lasso_ds, lasso_b, lam_max), card)
-    del lasso_ds
     print(f"phase 15: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase15.json").write_text(json.dumps(resume15,
+                                                            default=str))
+
+    # --- phase 16: --blockPipeline, --evalDense, the parser, DistGD, -m
+    t0 = time.perf_counter()
+    surface16 = phase_surface(rcv1, demo, eps, (lasso_ds, lasso_b, lam_max),
+                              card)
+    del eps, lasso_ds
+    print(f"phase 16: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase16.json").write_text(json.dumps(surface16,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
@@ -3806,17 +4232,20 @@ def main() -> int:
         "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
         "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
         "bound_by": draw["bound"][1], "library_ms": None})
-    # the device loop's runs (phase 14) and the resumed runs (phase 15)
-    # are main-path runs of these slices
+    # the device loop's runs (phase 14), the resumed runs (phase 15) and
+    # phase 16's runs are main-path runs of these slices
     for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
                                 "D")):
         row["launches"] += loop14["launched"][name] + \
-            resume15["launched"][name]
+            resume15["launched"][name] + surface16["launched"][name]
     print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
         f"{name} {v}" for name, v in loop14["launched"].items()))
     print(f"phase 15 launches (in-process runs), in the counts below: "
           + ", ".join(f"{name} {v}"
                       for name, v in resume15["launched"].items()))
+    print(f"phase 16 launches (in-process runs), in the counts below: "
+          + ", ".join(f"{name} {v}"
+                      for name, v in surface16["launched"].items()))
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "

@@ -14,6 +14,9 @@
         --sigma=auto --sigmaSchedule=anneal|trial --warmStart=<s>,<rounds>
         --accel=auto|on|off --theta=fixed|adaptive] [--trajOut=P] [--quiet]
         [--chkptDir=D --chkptIter=<int> [--resume]]
+        [--blockPipeline=auto|on|off] [--evalDense[=auto|true|false]]
+
+    python -m cocoa_torch <the same flags>
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
 prints the reference's round and summary lines; ``--justCoCoA=false``
@@ -33,7 +36,12 @@ ladder on the card too, and reads the card once a super-block of evals
 (solvers/base.py ``drive_device``).
 ``--blockSize`` (with ``--math=fast``) runs each SDCA round,
 ProxCoCoA+'s too, as the block-coordinate round; ``auto`` picks the block
-size for the layout.  ``--hotCols`` (sparse layout,
+size for the layout, and ``--blockPipeline`` (needs ``--blockSize``
+unless ``auto``, the default: on when a round spans more than one
+block) gathers the next block's rows on a second stream while a block's
+kernel runs (dense rows and dense columns).  ``--evalDense`` (sparse
+layout) gives the evals a dense twin of the rows; ``auto`` takes it when
+it fits a 2 GiB budget and prints its decision.  ``--hotCols`` (sparse layout,
 ``--objective=svm``) builds the hybrid hot/cold column split
 (data/hybrid.py): the hottest columns move into a dense panel and the
 padded CSR keeps the cold residual; ``auto`` takes the panel that covers
@@ -73,7 +81,7 @@ from cocoa_torch import checkpoint
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.columns import shard_columns
-from cocoa_torch.data.sharding import resolve_layout
+from cocoa_torch.data.sharding import eval_dense_fits, resolve_layout
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
@@ -92,12 +100,12 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    scanChunk="scan_chunk", deviceLoop="device_loop",
                    gapTarget="gap_target", divergenceGuard="divergence_guard",
                    trajOut="traj_out", sigmaSchedule="sigma_schedule",
-                   warmStart="warm_start", resume="resume")
+                   warmStart="warm_start", resume="resume",
+                   blockPipeline="block_pipeline", evalDense="eval_dense")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "mesh", "fp", "master", "processId", "numProcesses",
-    "profile", "blockPipeline",
-    "elastic", "stallTimeout", "evalDense", "ingest",
+    "profile", "elastic", "stallTimeout", "ingest",
     "ingestCache", "metrics", "events", "trace", "flightRecorder",
     "eventsMaxMB", "metricsInterval", "overlapComm", "staleRounds", "fleet",
     "fleetLanes", "serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
@@ -193,6 +201,21 @@ def _block_size(cfg: RunConfig) -> int:
         raise ValueError("--blockSize requires --math=fast (the block kernel "
                          "is a margins-decomposition variant)")
     return size
+
+
+def _block_pipeline(cfg: RunConfig, block_size: int) -> Optional[bool]:
+    """``--blockPipeline`` as the solvers' ``block_pipeline`` (None auto,
+    True on, False off), with the JAX CLI's checks and messages
+    (cocoa_tpu/cli.py:1634-1643): ``auto`` needs no ``--blockSize``."""
+    bp = (cfg.block_pipeline or "auto").lower()
+    if bp not in ("auto", "on", "off"):
+        raise ValueError(f"--blockPipeline must be auto|on|off, got "
+                         f"{cfg.block_pipeline!r}")
+    if bp != "auto" and not (block_size
+                             or cfg.block_size.lower() == "auto"):
+        raise ValueError("--blockPipeline controls the block-coordinate "
+                         "scan schedule and needs --blockSize")
+    return None if bp == "auto" else bp == "on"
 
 
 def _objective(cfg: RunConfig):
@@ -376,25 +399,41 @@ def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
                         f"{traj.algorithm.replace(' ', '_')}.jsonl")
 
 
-def _hot_cols(cfg: RunConfig, data, k: int, dtype) -> int:
-    """``--hotCols`` resolved against the training data, with the JAX
-    CLI's rule and messages (cocoa_tpu/cli.py:1452-1471): sparse layout
-    only; prints the panel's accounting when it builds one.  Returns the
-    panel width, 0 for the plain stream layout."""
+def _layout_knobs(cfg: RunConfig, data, k: int, dtype):
+    """``--hotCols`` and ``--evalDense`` resolved against the training
+    data, with the JAX CLI's rules, lines and messages
+    (cocoa_tpu/cli.py:1197-1214,1452-1483): the hot panel on the sparse
+    layout only, printing its accounting when it builds one; the twin's
+    ``auto`` decided there by :func:`eval_dense_fits` and printed first.
+    Returns (panel width, 0 for the plain stream layout; eval twin)."""
     layout = resolve_layout(data, cfg.layout)
     if cfg.hot_cols is not None and layout != "sparse":
         raise ValueError("--hotCols (the hot/cold column split) only "
                          "applies to the sparse layout")
+    # JAX's reading (cocoa_tpu/cli.py:1107-1112): off when absent or
+    # false, resolved here when auto, on for any other value
+    spec = "false" if cfg.eval_dense is None else cfg.eval_dense.lower()
+    eval_dense = spec not in ("false", "auto")
     if layout != "sparse":
-        return 0
+        return 0, eval_dense
     hot_n, split = hybrid.resolve_hot_cols(cfg.hot_cols, data, k, dtype)
-    if hot_n and not _quiet(cfg):
+    quiet = _quiet(cfg)
+    if spec == "auto":
+        eval_dense = eval_dense_fits(data.n, cfg.num_features, k, dtype)
+        if not quiet:
+            fallback = ("hot panel + residual stream" if hot_n
+                        else "per-nonzero gather (no hot panel — "
+                             "consider --hotCols=auto)")
+            print(f"evalDense=auto: "
+                  f"{'dense twin' if eval_dense else fallback} "
+                  f"for the certificate margins")
+    if hot_n and not quiet:
         print(f"hotCols={split['spec']}: panel {hot_n} columns, "
               f"{split['coverage'] * 100:.1f}% nonzero coverage, "
               f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
               f"nnz {split['residual_mean_nnz']:.1f} (max "
               f"{split['residual_max_nnz']})")
-    return hot_n
+    return hot_n, eval_dense
 
 
 def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
@@ -408,8 +447,9 @@ def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
     return block_size
 
 
-def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
-               ladder: dict, run_meta: dict, loop: dict, resume: bool):
+def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
+               block_pipeline: Optional[bool], dtype, device, ladder: dict,
+               run_meta: dict, loop: dict, resume: bool):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
     line from one more certificate."""
@@ -431,8 +471,8 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int, dtype, device,
             start_round=restored["start_round"])
         x, r, traj = run_prox_cocoa(
             ds, b, params, cfg.to_debug(), rng=cfg.rng, math=cfg.math,
-            block_size=block_size, quiet=quiet,
-            gap_target=ladder["gap_target"],
+            block_size=block_size, block_pipeline=block_pipeline,
+            quiet=quiet, gap_target=ladder["gap_target"],
             divergence_guard=ladder["divergence_guard"], **resume_kw,
             **loop)
     except (OSError, ValueError) as e:
@@ -458,6 +498,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         device = resolve_device(cfg.device)
         _check_choices(cfg)
         block_size = _block_size(cfg)
+        block_pipeline = _block_pipeline(cfg, block_size)
         objective, l2 = _objective(cfg)
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
@@ -479,23 +520,25 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     loop = dict(scan_chunk=cfg.scan_chunk, capture=capture,
                 device_loop=device_loop)
     if objective == "lasso":
-        return _run_lasso(cfg, l2, block_size, dtype, device, ladder,
-                          run_meta, dict(loop, sampling=cfg.sampling),
+        return _run_lasso(cfg, l2, block_size, block_pipeline, dtype, device,
+                          ladder, run_meta, dict(loop, sampling=cfg.sampling),
                           resume)
     k = cfg.num_splits
     try:
         data = load_libsvm(cfg.train_file, cfg.num_features)
-        hot_n = _hot_cols(cfg, data, k, dtype)
+        hot_n, eval_dense = _layout_knobs(cfg, data, k, dtype)
         ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
-                           device=device, hot_cols=hot_n)
+                           device=device, hot_cols=hot_n,
+                           eval_dense=eval_dense)
         test_ds = None
         if cfg.test_file:
             # the test file gets a panel of the same width over its own
-            # hottest columns, as in the JAX CLI
+            # hottest columns, and the training set's twin decision, as
+            # in the JAX CLI
             test_ds = shard_dataset(
                 load_libsvm(cfg.test_file, cfg.num_features), k=k,
                 layout=cfg.layout, dtype=dtype, device=device,
-                hot_cols=hot_n)
+                hot_cols=hot_n, eval_dense=eval_dense)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -506,7 +549,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     debug = cfg.to_debug()
     draws = dict(rng=cfg.rng, sampling=cfg.sampling, **loop)
     sdca = dict(test_ds=test_ds, math=cfg.math, block_size=block_size,
-                quiet=quiet, **draws)
+                block_pipeline=block_pipeline, quiet=quiet, **draws)
     def restore(algorithm):
         return _restore(cfg, algorithm, resume)
 

@@ -76,9 +76,13 @@ class RunConfig:
     sigma: Union[float, str] = 0.0  # 0 = the safe K*gamma; a float, or auto
     device: str = "cuda"         # cuda | cpu
     block_size: str = ""         # --blockSize: "" (off), an int, or auto
+    block_pipeline: str = ""     # --blockPipeline: auto | on | off
     objective: str = "svm"       # svm | lasso (ProxCoCoA+)
     l2: str = ""                 # --l2: the elastic-net weight ("" = 0)
     hot_cols: Optional[str] = None  # --hotCols: auto | off | <n> (sparse)
+    eval_dense: Optional[str] = None  # --evalDense: the dense eval twin
+                                 # (sparse): off if absent or false, auto,
+                                 # on for any other value
     # the driver ladder's flags, as the JAX CLI's strings ("" or None =
     # not given); checked and resolved by cli.py ``_ladder``
     gap_target: str = ""         # --gapTarget: stop at this duality gap

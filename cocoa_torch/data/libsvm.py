@@ -1,5 +1,6 @@
-"""LIBSVM text ingestion (counterpart of cocoa_tpu/data/libsvm.py, Python
-parser only).
+"""LIBSVM text ingestion (counterpart of cocoa_tpu/data/libsvm.py): the
+native parser (data/native_loader.py) where it builds, and the Python
+parser, its reference and fallback.
 
 Semantics of the reference loader (OptUtils.scala:11-53): a label token
 containing ``+`` or equal to 1 is +1, anything else -1; ``idx:val`` pairs
@@ -94,16 +95,44 @@ def _parse_line(line: str):
     return label, row_idx[:m], row_val[:m]
 
 
-def load_libsvm(path: str, num_features: int) -> LibsvmData:
-    """Parse a LIBSVM file.  Reads bytes and decodes latin-1, so every
-    byte decodes and a lone ``\\r`` stays in-line whitespace."""
+def _parse_python_stream(path: str, num_features: int, lo: int, hi):
+    """The rows whose line starts in the byte range [lo, hi) (``hi`` None:
+    to the end; ``lo`` 0 reads the file strictly in order, so a pipe
+    works), as ``(LibsvmData, row_off)``, ``row_off[i]`` the byte offset
+    of row i's line.  Reads bytes and decodes latin-1, so every byte
+    decodes and a lone ``\\r`` stays in-line whitespace, as the native
+    parser sees the file."""
     labels: list[float] = []
     indptr: list[int] = [0]
     indices: list[np.ndarray] = []
     values: list[np.ndarray] = []
+    offsets: list[int] = []
     nnz = 0
     with open(path, "rb") as f:
-        for line in f:
+        pos = 0
+        if lo > 0:
+            # a line belongs to the range holding its first byte: start
+            # one past the first newline at or after lo - 1
+            f.seek(lo - 1)
+            pos, probe = -1, lo - 1
+            while True:
+                chunk = f.read(1 << 20)
+                if not chunk:
+                    break
+                j = chunk.find(b"\n")
+                if j >= 0:
+                    pos = probe + j + 1
+                    f.seek(pos)
+                    break
+                probe += len(chunk)
+        while pos >= 0:
+            start = pos
+            if hi is not None and start >= hi:
+                break
+            line = f.readline()
+            if not line:
+                break
+            pos = start + len(line)
             row = _parse_line(line.decode("latin-1"))
             if row is None:
                 continue
@@ -113,6 +142,7 @@ def load_libsvm(path: str, num_features: int) -> LibsvmData:
             values.append(row_val)
             nnz += len(row_idx)
             indptr.append(nnz)
+            offsets.append(start)
     data = LibsvmData(
         labels=np.asarray(labels, dtype=np.float64),
         indptr=np.asarray(indptr, dtype=np.int64),
@@ -122,9 +152,61 @@ def load_libsvm(path: str, num_features: int) -> LibsvmData:
                 else np.empty(0, dtype=np.float64)),
         num_features=num_features,
     )
-    if data.indices.size and int(data.indices.max()) >= num_features:
-        raise ValueError(
-            f"{path}: feature index {int(data.indices.max()) + 1} (1-based) "
-            f"exceeds num_features={num_features}; pass a larger "
-            f"--numFeatures")
+    return data, np.asarray(offsets, dtype=np.int64)
+
+
+def load_libsvm_python(path: str, num_features: int) -> LibsvmData:
+    """The Python parser over the whole file (the native parser's
+    reference), unvalidated."""
+    return _parse_python_stream(path, num_features, 0, None)[0]
+
+
+def load_libsvm_python_range(path: str, num_features: int, lo: int,
+                             hi: int):
+    """The Python parser over the rows owned by the byte range [lo, hi):
+    ``(LibsvmData, row_off)``.  Ranges that tile the file give the whole
+    file's rows, each once."""
+    return _parse_python_stream(path, num_features, max(0, lo), hi)
+
+
+def _validate(data: LibsvmData, path: str) -> LibsvmData:
+    if data.indices.size:
+        if int(data.indices.max()) >= data.num_features:
+            raise ValueError(
+                f"{path}: feature index {int(data.indices.max()) + 1} "
+                f"(1-based) exceeds num_features={data.num_features}; pass "
+                f"a larger --numFeatures")
+        if int(data.indices.min()) < 0:
+            raise ValueError(f"{path}: negative feature index after the "
+                             f"1-based shift")
     return data
+
+
+def load_libsvm(path: str, num_features: int,
+                prefer_native: bool = True) -> LibsvmData:
+    """Parse a LIBSVM file: with the native parser
+    (data/native_loader.py) where it builds, else, or for a path it
+    cannot map (a missing file, a pipe), with the Python parser; the two
+    agree bit for bit."""
+    if prefer_native:
+        from cocoa_torch.data import native_loader
+
+        data = native_loader.parse_file(path, num_features)
+        if data is not None:
+            return _validate(data, path)
+    return _validate(load_libsvm_python(path, num_features), path)
+
+
+def load_libsvm_range(path: str, num_features: int, lo: int, hi: int,
+                      prefer_native: bool = True):
+    """The rows owned by the byte range [lo, hi), as
+    :func:`load_libsvm_python_range` returns them, with the native parser
+    where it builds and the Python one otherwise."""
+    if prefer_native:
+        from cocoa_torch.data import native_loader
+
+        out = native_loader.parse_range(path, lo, hi, num_features)
+        if out is not None:
+            return _validate(out[0], path), out[1]
+    data, row_off = load_libsvm_python_range(path, num_features, lo, hi)
+    return _validate(data, path), row_off

@@ -9,6 +9,10 @@ cocoa_tpu/data/sharding.py, single process, dense and padded-CSR).
   a dense hot panel ``X_hot`` (K, n_shard, n_hot) over the globally
   hottest columns, ``hot_cols`` (K, n_hot) its column ids, and the
   padded CSR holding only the cold residual, at the residual's width.
+- **eval twin** (sparse or hybrid with ``eval_dense``, ``--evalDense``):
+  ``X_eval`` (K, n_shard, d), the rows dense, read only by the
+  evaluation's margins (ops/rows.py ``eval_margins``); training never
+  reads it.
 
 Shards are padded to the largest shard's row count; padded rows carry
 ``mask=0``, ``y=0``, ``x=0`` and are never sampled.  Unlike the JAX
@@ -36,6 +40,22 @@ def resolve_layout(data: LibsvmData, layout: str) -> str:
         return layout
     density = int(data.indptr[-1]) / max(1, data.n * data.num_features)
     return "sparse" if density < 0.10 else "dense"
+
+
+# the dense eval twin's device-memory budget under ``--evalDense=auto``
+# (cocoa_tpu/data/sharding.py EVAL_DENSE_HBM_BUDGET): kept at the JAX
+# package's value, so that auto decides as the JAX CLI decides
+EVAL_DENSE_HBM_BUDGET = 2 << 30
+
+
+def eval_dense_fits(n: int, d: int, k: int, dtype: torch.dtype,
+                    budget: int = EVAL_DENSE_HBM_BUDGET) -> bool:
+    """Whether the sparse layout's dense eval twin fits ``budget``
+    (``--evalDense=auto``), counted as the JAX package counts it: its
+    shards' rows rounded up to a multiple of 16 (cocoa_tpu/data/sharding.py
+    ``pad_rows``), though this port stores them unrounded."""
+    n_shard = -(-int(split_sizes(n, k).max()) // 16) * 16 if k > 0 else 0
+    return k * n_shard * d * dtype.itemsize <= budget
 
 
 def segment_sq_norms(values, ptr) -> np.ndarray:
@@ -76,6 +96,7 @@ class ShardedDataset:
     sp_values: Optional[torch.Tensor] = None   # sparse: (K, n_shard, W)
     X_hot: Optional[torch.Tensor] = None       # hybrid: (K, n_shard, n_hot)
     hot_cols: Optional[torch.Tensor] = None    # hybrid: (K, n_hot) int32
+    X_eval: Optional[torch.Tensor] = None      # eval twin: (K, n_shard, d)
 
     @property
     def k(self) -> int:
@@ -110,12 +131,15 @@ class ShardedDataset:
             if self.X_hot is not None:
                 out["X_hot"] = self.X_hot
                 out["hot_cols"] = self.hot_cols
+            if self.X_eval is not None:
+                out["X_eval"] = self.X_eval
         return out
 
 
 def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
                   dtype: torch.dtype = torch.float32, device=None,
-                  hot_cols: int = 0) -> ShardedDataset:
+                  hot_cols: int = 0, eval_dense: bool = False
+                  ) -> ShardedDataset:
     """Partition ``data`` into K balanced contiguous shards on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
     Host arrays are built in float64 and cast once, so ``sq_norms`` is
@@ -124,10 +148,16 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     ``hot_cols`` > 0 (sparse layout only) builds the hybrid layout with a
     panel of ``pad_panel(min(hot_cols, d))`` lanes over the data's own
     hottest columns (data/hybrid.py), the same split as
-    ``resolve_hot_cols`` measured."""
+    ``resolve_hot_cols`` measured.
+
+    ``eval_dense`` (sparse layout only, hybrid included) adds the dense
+    eval twin ``X_eval``, built one shard at a time on the host."""
     device = resolve_device(device)
     n, d = data.n, data.num_features
     layout = resolve_layout(data, layout)
+    if eval_dense and layout != "sparse":
+        raise ValueError("eval_dense only applies to the sparse layout "
+                         "(the dense layout's eval is already a matvec)")
     sizes = split_sizes(n, k)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     n_shard = int(sizes.max()) if k > 0 else 0
@@ -184,13 +214,26 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     def put(arr, dt=dtype):
         return torch.from_numpy(arr).to(device=device, dtype=dt)
 
-    hot = {}
+    extra = {}
+    if eval_dense:
+        # a repeated column keeps its last value, as the dense layout
+        # does; float32 is built as float32 (one rounding either way)
+        twin_np = np.float32 if dtype == torch.float32 else np.float64
+        extra["X_eval"] = torch.empty((k, n_shard, d), dtype=dtype,
+                                      device=device)
+        for s in range(k):
+            lo, hi = offsets[s], offsets[s + 1]
+            a, b = data.indptr[lo], data.indptr[hi]
+            slab = np.zeros((n_shard, d), twin_np)
+            slab[np.repeat(np.arange(hi - lo), row_nnz[lo:hi]),
+                 data.indices[a:b]] = data.values[a:b]
+            extra["X_eval"][s].copy_(torch.from_numpy(slab))
     if n_hot:
         # lanes past the real hot count carry column 0 and value 0
         hc = np.zeros(n_hot, dtype=np.int32)
         hc[:len(hot_ids)] = hot_ids
-        hot = dict(X_hot=put(X_hot),
-                   hot_cols=put(np.tile(hc[None], (k, 1)), torch.int32))
+        extra.update(X_hot=put(X_hot),
+                     hot_cols=put(np.tile(hc[None], (k, 1)), torch.int32))
     return ShardedDataset(
         layout=layout, n=n, num_features=d,
         counts=sizes.astype(np.int64),
@@ -198,5 +241,5 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         X=put(X) if layout == "dense" else None,
         sp_indices=put(spi, torch.int32) if layout == "sparse" else None,
         sp_values=put(spv) if layout == "sparse" else None,
-        **hot,
+        **extra,
     )

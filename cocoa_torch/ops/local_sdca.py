@@ -23,6 +23,8 @@ Sampled indices arrive precomputed as ``idxs`` (K, H).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from cocoa_torch.ops import losses
@@ -168,23 +170,105 @@ def _pad_blocks(idxs: torch.Tensor, block: int):
     return padded, torch.arange(nb * block, device=idxs.device) < h
 
 
-def dense_rows(shards: dict, bidx: torch.Tensor, d: int) -> torch.Tensor:
-    """(K, B, d) dense tile of rows ``bidx`` (K, B) of every shard; sparse
-    rows are scattered into zeros (padded slots add 0 at column 0, a
-    repeated column sums), and a hybrid row's panel slice is added at the
-    hot column ids, which no residual slot holds."""
+def dense_rows(shards: dict, bidx: torch.Tensor, d: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(K, B, d) dense tile of rows ``bidx`` (K, B) of every shard, into
+    ``out`` when given (the pipelined block round's buffers).  Dense rows
+    are one ``index_select`` over the (K*n_shard, d) rows; sparse rows
+    are scattered into zeros (padded slots add 0 at column 0, a repeated
+    column sums), and a hybrid row's panel slice is added at the hot
+    column ids, which no residual slot holds."""
     ks = torch.arange(bidx.shape[0], device=bidx.device)[:, None]
     if "X" in shards:
-        return shards["X"][ks, bidx]
+        x = shards["X"]
+        flat = (bidx + x.shape[1] * ks).reshape(-1)
+        rows = x.reshape(-1, x.shape[-1])
+        if out is None:
+            return rows.index_select(0, flat).view(*bidx.shape, -1)
+        torch.index_select(rows, 0, flat, out=out.view(-1, out.shape[-1]))
+        return out
     vals = shards["sp_values"][ks, bidx]
-    tile = torch.zeros(*bidx.shape, d, dtype=vals.dtype,
-                       device=vals.device).scatter_add_(
-        2, shards["sp_indices"][ks, bidx].long(), vals)
+    tile = (torch.zeros(*bidx.shape, d, dtype=vals.dtype, device=vals.device)
+            if out is None else out.zero_())
+    tile.scatter_add_(2, shards["sp_indices"][ks, bidx].long(), vals)
     if "X_hot" in shards:
         cols = shards["hot_cols"].long()[:, None, :].expand(
             *bidx.shape, -1)
         tile.scatter_add_(2, cols, gather_rows(shards["X_hot"], bidx))
     return tile
+
+
+class _TilePipeline:
+    """The pipelined block round's row tiles (counterpart of the JAX
+    package's ``pipelined_scan``, cocoa_tpu/ops/local_sdca.py:628-660):
+    block b+1's (K, B, d) tile is gathered while block b's kernel runs,
+    into one of two buffers allocated once, before the block loop, on the
+    stream that runs the round.  The round takes block b's tile with
+    :meth:`tile` and calls :meth:`prefetch` for block b+1 just before
+    block b's kernel: the fused kernel, or on the split route the chain
+    kernel, after the margin and Gram products, so that the gather meets
+    the kernel and not the products.
+
+    On the card the gathers run on a side stream forked from the current
+    stream (inside a capture, the capture stream: the graph then holds
+    the gathers as a parallel branch).  Events order the work both ways:
+    before gathering block b+1 the side stream waits for everything the
+    round stream has queued, block b-1's last read of that buffer
+    included; before block b+1's work the round stream waits for that
+    gather.  The last block's wait joins the side stream back into the
+    round stream before the round returns, as a capture's end requires.
+    On the CPU there is no second stream: the gather of block b+1 simply
+    runs before block b's kernel.  Each kernel reads a tile gathered from
+    the same indices by the same gather as the serial schedule, so the
+    two schedules are bit for bit the same."""
+
+    def __init__(self, shards: dict, padded: torch.Tensor, block: int,
+                 d: int, dtype):
+        self.shards, self.padded, self.block, self.d = shards, padded, \
+            block, d
+        self.nb = padded.shape[1] // block
+        shape = (padded.shape[0], block, d)
+        self.bufs = [torch.empty(shape, dtype=dtype, device=padded.device)
+                     for _ in range(min(2, self.nb))]
+        # one block has nothing to prefetch: no side stream to fork
+        self.side = _side_stream(padded.device) if self.nb > 1 else None
+        self._gather(0)
+
+    def _gather(self, b: int) -> None:
+        start = b * self.block
+        dense_rows(self.shards, self.padded[:, start:start + self.block],
+                   self.d, out=self.bufs[b % 2])
+
+    def tile(self, b: int) -> torch.Tensor:
+        """Block b's tile, once its gather (queued at block b-1) is done."""
+        if self.side is not None and b > 0:
+            torch.cuda.current_stream(self.padded.device).wait_stream(
+                self.side)
+        return self.bufs[b % 2]
+
+    def prefetch(self, b: int) -> None:
+        """Queue block b's gather (nothing past the last block)."""
+        if b >= self.nb:
+            return
+        if self.side is None:
+            self._gather(b)
+            return
+        # the buffer's last reader, block b-2's work, is queued
+        self.side.wait_stream(torch.cuda.current_stream(self.padded.device))
+        with torch.cuda.stream(self.side):
+            self._gather(b)
+
+
+def _side_stream(device: torch.device):
+    """A side stream of PyTorch's pool on ``device`` for the pipeline's
+    gathers (None on the CPU), never the stream that runs the round."""
+    if device.type != "cuda":
+        return None
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    while side == current:
+        side = torch.cuda.Stream(device)
+    return side
 
 
 def local_sdca_block(margins0: torch.Tensor, alpha: torch.Tensor,
@@ -249,7 +333,8 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                              n: int, mode: str = "cocoa", sigma: float = 1.0,
                              loss: str = "hinge", smoothing: float = 1.0,
                              block: int = 128, route: str = "split",
-                             plain: bool = False):
+                             plain: bool = False,
+                             pipeline: Optional[bool] = None):
     """The block-coordinate round for all K shards on one device
     (counterpart of cocoa_tpu/ops/local_sdca.py
     ``local_sdca_block_batched``), the ``--blockSize`` path.  Only the
@@ -271,6 +356,12 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
       (K, n_hot) Delta-w_hot, added into Delta-w at the hot columns after
       the round (hot and cold columns are disjoint, so each sum splits
       exactly).
+
+    ``pipeline`` (``--blockPipeline``; None: on when the round spans more
+    than one block) gathers block b+1's row tile while block b's kernel
+    runs, on the fused and split routes (:class:`_TilePipeline`), bit for
+    bit the serial schedule; the ``sparse_gram`` route gathers no tile
+    and ignores it, as in the JAX package.
 
     The row gathers, the alpha gathers and scatter-adds and the (K, d)
     adds are plain tensor ops; every branch scatter-adds its alpha deltas
@@ -313,7 +404,14 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
             sparse_block_gram, chain_block_batched, sparse_block_apply,
             fused_block)
     ks = torch.arange(k, device=w.device)[:, None]
-    for start in range(0, padded.shape[1], block):
+    tiles = None
+    if route != "sparse_gram":
+        if pipeline is None:
+            pipeline = padded.shape[1] > block
+        if pipeline:
+            src = shards["X"] if "X" in shards else shards["sp_values"]
+            tiles = _TilePipeline(shards, padded, block, d, src.dtype)
+    for b, start in enumerate(range(0, padded.shape[1], block)):
         bidx = padded[:, start:start + block]
         bidx32 = bidx.to(torch.int32)
         live_b = live_all[start:start + block]
@@ -344,11 +442,14 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                 with fp32_matmul():
                     dw_hot = dw_hot + torch.matmul(coefs[:, None, :], xh)[:, 0]
             continue
-        xb = dense_rows(shards, bidx, d)
+        xb = dense_rows(shards, bidx, d) if tiles is None else tiles.tile(b)
         if route == "fused":
             v = w.expand(k, d).contiguous() if frozen else w + sig_eff * dw
-            delta, dwu = fused_fn(xb, bidx32, yb, qb, a_vec.gather(1, bidx),
-                                  live, v, **chain_kw)
+            a0b = a_vec.gather(1, bidx)
+            if tiles is not None:
+                tiles.prefetch(b + 1)
+            delta, dwu = fused_fn(xb, bidx32, yb, qb, a0b, live, v,
+                                  **chain_kw)
             dw = dw + dwu
             a_vec.scatter_add_(1, bidx, delta)
             continue
@@ -360,6 +461,8 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                 gram = torch.matmul(xb, xb.transpose(1, 2))
         scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                             live], dim=1)
+        if tiles is not None:
+            tiles.prefetch(b + 1)
         delta, coefs = chain_fn(scal, gram, bidx32, **chain_kw)
         a_vec.scatter_add_(1, bidx, delta)
         with fp32_matmul():

@@ -149,6 +149,12 @@ def shards_axpy(coefs: torch.Tensor, shards: dict,
 
 
 def eval_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
-    """The evaluation's margins.  The JAX package may read a dense eval
-    twin here; the port has none, so this is :func:`shard_margins`."""
+    """The evaluation's margins (counterpart of cocoa_tpu/ops/rows.py
+    ``eval_margins``): one product with the dense eval twin ``X_eval``
+    where the shards carry one (``--evalDense``), else
+    :func:`shard_margins`.  Only the evals read the twin: training calls
+    :func:`shard_margins`, so the trained (w, alpha) are the same bit for
+    bit with and without it."""
+    if "X_eval" in shards:
+        return shards["X_eval"] @ w
     return shard_margins(w, shards)

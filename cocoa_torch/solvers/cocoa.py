@@ -129,10 +129,13 @@ def auto_block_size(ds: ShardedDataset, dtype: torch.dtype) -> int:
 
 def _sdca_round_parts(params: Params, mode: str, scaling: float,
                       sigma: float, math: str, ds: ShardedDataset,
-                      block_size: int = 0):
+                      block_size: int = 0,
+                      block_pipeline: Optional[bool] = None):
     """The round function ``(state, idxs_kh, t) -> state`` over
     ``state = (w, alpha)`` for one algorithm and math mode; ``block_size``
-    > 0 runs the fast round as the block-coordinate round."""
+    > 0 runs the fast round as the block-coordinate round, its row tiles
+    pipelined per ``block_pipeline`` (ops/local_sdca.py
+    ``local_sdca_block_batched``'s ``pipeline``)."""
     if math not in ("exact", "fast"):
         raise ValueError(f"math must be 'exact' or 'fast', got {math!r}")
     if block_size < 0:
@@ -165,7 +168,8 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             w, alpha = state
             da, dw = local_sdca_block_batched(
                 w, alpha, shards, idxs_kh, params.lam, params.n,
-                block=block_size, route=route, plain=plain, **common)
+                block=block_size, route=route, plain=plain,
+                pipeline=block_pipeline, **common)
             return w + scaling * dw.sum(0), alpha + scaling * da
         return round_fn
 
@@ -226,6 +230,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     alg_name: str, alg, test_ds: Optional[ShardedDataset] = None,
                     rng: str = "reference", math: str = "exact",
                     quiet: bool = False, block_size: int = 0,
+                    block_pipeline: Optional[bool] = None,
                     w_init=None, alpha_init=None, start_round: int = 1,
                     sched_init=None, hist_init=None, metrics=None,
                     gap_target: Optional[float] = None,
@@ -243,7 +248,10 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     carries them (cocoa_torch/checkpoint.py).  Returns (w, alpha,
     Trajectory).  ``block_size`` > 0
     (``--blockSize``, needs ``math="fast"``) runs each round as the
-    block-coordinate round (see :func:`block_route`).  ``metrics(state) ->
+    block-coordinate round (see :func:`block_route`); ``block_pipeline``
+    (``--blockPipeline``: None auto, True on, False off) gathers the next
+    block's row tile while a block's kernel runs, on the fused and split
+    routes.  ``metrics(state) ->
     (3,)`` (primal, gap, test error, NaN where there is none, on the
     device with no host read) replaces the classification objectives, for
     a state of other meaning (ProxCoCoA+'s residual and coordinates).
@@ -323,7 +331,8 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
             "full H); drop --theta=adaptive or the block flags")
     # one round function a branch: sigma' stage x loss phase
     branches = [[_sdca_round_parts(bp, alg[0], alg[1], lv, math=math, ds=ds,
-                                   block_size=block_size)
+                                   block_size=block_size,
+                                   block_pipeline=block_pipeline)
                  for bp in branch_params] for lv in levels]
 
     w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)

@@ -17,6 +17,7 @@ import torch
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
+from cocoa_torch.ops.rows import nonzero_slots
 from cocoa_torch.ops.subgradient import subgradient_pass
 from cocoa_torch.solvers import base
 
@@ -34,6 +35,8 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
     base.check_shards(ds)
     k = ds.k
     shards = ds.shard_arrays()
+    # the sparse pass scatters only the nonzero slots, in slot order
+    slots = nonzero_slots(shards)
     if not quiet:
         print(f"\nRunning DistGD on {params.n} data examples, "
               f"distributed over {k} workers")
@@ -41,7 +44,8 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
     def round_fn(state, idxs_kh, t):
         (w,) = state
         dw_sum = subgradient_pass(w, shards, params.lam, loss=params.loss,
-                                  smoothing=params.smoothing).sum(0)
+                                  smoothing=params.smoothing,
+                                  slots=slots).sum(0)
         t_c = t.to(w.dtype)
         eta = 1.0 / (params.beta * t_c)
         return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)

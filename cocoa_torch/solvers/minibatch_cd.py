@@ -22,6 +22,7 @@ def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
                      rng: str = "reference", w_init=None, alpha_init=None,
                      start_round: int = 1, math: str = "exact",
                      quiet: bool = False, block_size: int = 0,
+                     block_pipeline: Optional[bool] = None,
                      gap_target: Optional[float] = None,
                      divergence_guard: str = "auto",
                      scan_chunk: Optional[int] = None,
@@ -29,8 +30,8 @@ def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
                      device_loop: bool = False):
     """Train from w = 0, alpha = 0, or from ``w_init``/``alpha_init`` at
     round ``start_round`` (a resumed run); returns (w, alpha, Trajectory).
-    ``gap_target``, ``divergence_guard``, ``scan_chunk``, ``sampling``,
-    ``capture`` and ``device_loop`` as in
+    ``block_pipeline``, ``gap_target``, ``divergence_guard``,
+    ``scan_chunk``, ``sampling``, ``capture`` and ``device_loop`` as in
     :func:`cocoa_torch.solvers.cocoa.run_sdca_family` (the guard's
     ``auto`` never arms here: the frozen subproblem reads no sigma')."""
     return run_sdca_family(
@@ -38,7 +39,7 @@ def run_minibatch_cd(ds: ShardedDataset, params: Params, debug: DebugParams,
         _alg_config(params, ds.k, None, mode="frozen"), test_ds=test_ds,
         rng=rng, w_init=w_init, alpha_init=alpha_init,
         start_round=start_round, math=math, quiet=quiet,
-        block_size=block_size,
+        block_size=block_size, block_pipeline=block_pipeline,
         gap_target=gap_target, divergence_guard=divergence_guard,
         scan_chunk=scan_chunk, sampling=sampling, capture=capture,
         device_loop=device_loop)

@@ -60,7 +60,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
                    debug: DebugParams, rng: str = "reference",
                    x_init=None, r_init=None, start_round: int = 1,
                    quiet: bool = False, math: str = "fast",
-                   block_size: int = 0, gap_target: Optional[float] = None,
+                   block_size: int = 0,
+                   block_pipeline: Optional[bool] = None,
+                   gap_target: Optional[float] = None,
                    divergence_guard: str = "auto",
                    scan_chunk: Optional[int] = None, sampling: str = "auto",
                    capture: Optional[bool] = None, device_loop: bool = False):
@@ -75,7 +77,9 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     ``start_round``.
     ``block_size`` > 0 (``--blockSize``, needs ``math="fast"``) runs each
     round as the block-coordinate round on the column shards, with the
-    lasso rule in the block kernels (solvers/cocoa.py ``block_route``).
+    lasso rule in the block kernels (solvers/cocoa.py ``block_route``),
+    its column tiles pipelined per ``block_pipeline`` (as in
+    ``run_sdca_family``).
     ``gap_target`` stops at the first eval whose (absolute) gap is at or
     below it; ``divergence_guard`` as in ``run_sdca_family`` (``auto``
     does not arm at the safe sigma' = K*gamma); ``scan_chunk``,
@@ -94,7 +98,8 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
 
     r, x, traj = run_sdca_family(
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,
-        block_size=block_size, w_init=-b if r_init is None else r_init,
+        block_size=block_size, block_pipeline=block_pipeline,
+        w_init=-b if r_init is None else r_init,
         alpha_init=x_init, start_round=start_round, metrics=metrics,
         gap_target=gap_target, divergence_guard=divergence_guard,
         scan_chunk=scan_chunk,

@@ -45,7 +45,8 @@ def profile_config(ds, block: int, rounds: int, top: int = 6,
                    capture: bool = True) -> dict:
     """Profile a run of ``rounds`` CoCoA+ rounds after a warm-up run;
     prints and returns the wall clock per round between its first eval
-    and its last and the device time per round over the whole run (ms),
+    and its last and the device time per round over the whole run (ms:
+    the union of the device's events on its timeline, :func:`union_us`),
     the busy share and the kernel launches per round."""
     h = max(1, int(0.1 * ds.n / K))
     params = Params(n=ds.n, num_rounds=rounds, local_iters=h, lam=LAM)
@@ -67,7 +68,8 @@ def profile_config(ds, block: int, rounds: int, top: int = 6,
                                                        - first.round)
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and str(e.device_type).endswith("CUDA")]
-    dev = sum(device_us(e) for e in kernels) / 1e3 / rounds
+    dev = union_us([(start, end) for _, start, end in device_events(prof)]
+                   ) / 1e3 / rounds
     launches = sum(e.count for e in kernels) / rounds
     print(f"  wall {wall:.3f} ms per round (profiler on), device {dev:.3f} "
           f"ms per round ({dev / wall * 100:.1f} % busy), {launches:.1f} "
@@ -79,14 +81,35 @@ def profile_config(ds, block: int, rounds: int, top: int = 6,
             "launches": launches}
 
 
+def device_events(prof):
+    """The device's events of a profile (kernels, copies, fills) as
+    (name, start us, end us) on the device's timeline."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def union_us(spans) -> float:
+    """The time (us) in which at least one of the (start, end) ``spans``
+    runs: two kernels that overlap, on two streams, count once, so the
+    busy share of a round whose work forks stays at or under 100 %."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def replay_window(events, main: str, rounds: int):
-    """The device loop's replayed chunks in a profile: ``events`` are the
-    run's device events as (name, start us, end us); a chunk's first step
-    runs eagerly and the host then captures it, the device idle, so the
-    longest pause between two launches of the ``main`` kernel ends the
-    eager chunk.  Returns (wall ms, device ms, launches) per round over the
+    """A captured run's replayed chunks in a profile, the device loop's or
+    the chunked loop's: ``events`` are the run's device events as (name,
+    start us, end us); a chunk's first step runs eagerly and the host then
+    captures it, the device idle, so the longest pause between two
+    launches of the ``main`` kernel ends the eager chunk.  Returns (wall ms, device ms, launches) per round over the
     rest of the run: the span from that launch to the last event's end,
-    the events' time in it, and their count, over its rounds."""
+    the union of the events' time in it (:func:`union_us`), and their
+    count, over its rounds."""
     marks = sorted(start for name, start, _ in events if main in name)
     if len(marks) < 2:
         raise ValueError(f"no {main} launches in the profile")
@@ -96,8 +119,7 @@ def replay_window(events, main: str, rounds: int):
     window = [(start, end) for _, start, end in events if start >= t0]
     r = (len(marks) - first) * rounds / len(marks)
     span = max(end for _, end in window) - t0
-    busy = sum(end - start for start, end in window)
-    return span / 1e3 / r, busy / 1e3 / r, len(window) / r
+    return span / 1e3 / r, union_us(window) / 1e3 / r, len(window) / r
 
 
 def profile_device_loop(ds, block: int, rounds: int, top: int = 6) -> dict:
@@ -121,9 +143,7 @@ def profile_device_loop(ds, block: int, rounds: int, top: int = 6) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    events = [(e.name, e.time_range.start, e.time_range.end)
-              for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     main = "gram_kernel" if block else "sparse_sdca"
     wall, dev, launches = replay_window(events, main, rounds)
     print(f"  wall {wall:.3f} ms per round (profiler on, the device's "
