@@ -223,11 +223,31 @@ stderr); any failed check exits non-zero:
    DistGD's ms per round with the atomic scatter and the order-stable
    one in turns; (e) ``python -m cocoa_torch`` on the demo in a
    subprocess.
+17. telemetry (cocoa_torch/telemetry/), through the CLI on the rcv1-like
+   file, sigma' auto to the 1e-4 gap on permuted draws, --chkptIter=100,
+   every kernel's count set to 0 before each run and read after: the
+   sequential run (B1) chunked and with --deviceLoop, each off, on, on,
+   off ("on": --events --metrics --trace --flightRecorder=on), one
+   chunked "on" run with --metricsInterval=10, and the block path
+   (B=128: B5, B3, B6) on --deviceLoop off, on, off; on
+   against off w and alpha bit for bit, the same fetches, saves and
+   launches; every stream valid under the port's schema, its round_eval
+   rounds and gaps the trajectory's, one checkpoint_write event and one
+   checkpoint_save span a save, the metrics textfile counting every
+   eval; the seconds to the gap in turns; then --profile=DIR,100,200 on
+   the chunked run and on the block path's --deviceLoop run, and
+   --profile=DIR (the whole run, the profiler started before the graphs
+   are captured) on the chunked run: each trace holds each kernel of its
+   path (B1; B5, B3, B6) by name, at most once a launch and at least 90 %
+   of the launches queued while the profiler ran, and the whole-run
+   profile's w and alpha are the unprofiled run's bit for bit; and
+   ``python -m cocoa_torch`` SIGTERMed at its first eval leaving a valid
+   ``.flightrec``.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
-device-loop runs and phase 15's and 16's in-process runs included), its
-error
+device-loop runs and phase 15's, 16's and 17's in-process runs
+included), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -241,6 +261,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3544,7 +3565,7 @@ def phase_eval_twin(rcv1, demo, counted, card):
                         eval_dense="auto", hot_cols=hot)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            _, decided = cli._layout_knobs(cfg, data, kk, torch.float32)
+            _, decided, _ = cli._layout_knobs(cfg, data, kk, torch.float32)
         lines[name] = (decided, [ln for ln in buf.getvalue().splitlines()
                                  if ln.startswith("evalDense")])
     check(not lines["rcv1-like"][0] and lines["demo"][0],
@@ -3710,6 +3731,356 @@ def phase_surface(rcv1, demo, eps, lasso, card):
     out["launched"] = counted.total
     print("phase 16: launches of its in-process runs " + ", ".join(
         f"{name} {v}" for name, v in counted.total.items()))
+    return out
+
+
+
+# --- phase 17: telemetry on the card ---------------------------------------
+
+# the rcv1-like sequential run to the 1e-4 gap through the CLI, sigma'
+# auto on permuted draws, checkpoints every 100 rounds (the CLI's accel
+# auto is on for CoCoA+, which then stops at round 400, not phase 14
+# (a)'s 575); "on" adds every telemetry sink
+TELEMETRY_ROUNDS = 800
+
+
+def telemetry_argv(path, loop, block=0):
+    return [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", "--rng=permuted",
+            f"--numRounds={TELEMETRY_ROUNDS}", "--debugIter=25",
+            "--sigma=auto", f"--gapTarget={GAP_TARGET}", "--chkptIter=100",
+            "--quiet"] + (["--deviceLoop"] if loop else []) + (
+        [f"--blockSize={block}"] if block else [])
+
+
+def read_events(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def check_stream(label, d, res):
+    """One "on" run's artifacts against its results: the port's schema
+    accepts the stream; each algorithm's round_eval rounds and gaps are
+    its trajectory's; one checkpoint_write event and one checkpoint_save
+    span per save; the metrics textfile counts every eval.  Returns
+    (events, stream bytes)."""
+    from cocoa_torch.telemetry import schema as tele_schema
+
+    ev_path = os.path.join(d, "ev.jsonl")
+    errs = tele_schema.check_file(ev_path)
+    check(errs == [], f"{label}: schema violations {errs[:5]}")
+    evs = read_events(ev_path)
+    check([e["event"] for e in evs[:2]] == ["run_start", "ingest"],
+          f"{label}: the stream starts {[e['event'] for e in evs[:2]]}")
+    check(evs[0]["manifest"]["device_kind"] == torch.cuda.get_device_name(0),
+          f"{label}: manifest device {evs[0]['manifest']['device_kind']}")
+    n_evals = 0
+    for r in res:
+        tr = r.trajectory
+        got = [(e["t"], e["gap"]) for e in evs if e["event"] == "round_eval"
+               and e["algorithm"] == r.algorithm]
+        want = [(rec.round, rec.gap) for rec in tr.records]
+        check(got == want, f"{label} {r.algorithm}: round_eval (t, gap) "
+                           f"{got[:3]}... against the trajectory's "
+                           f"{want[:3]}...")
+        writes = [e for e in evs if e["event"] == "checkpoint_write"
+                  and e["algorithm"] == r.algorithm.replace(" ", "_")]
+        saves = [e for e in evs if e["event"] == "span"
+                 and e["phase"] == "checkpoint_save"
+                 and e["algorithm"] == r.algorithm]
+        check(len(writes) == len(saves) == tr.saves > 0,
+              f"{label} {r.algorithm}: {len(writes)} checkpoint_write, "
+              f"{len(saves)} checkpoint_save spans, {tr.saves} saves")
+        check([e["round"] for e in writes] == [e["round"] for e in saves],
+              f"{label} {r.algorithm}: save rounds differ")
+        n_evals += len(tr.records)
+    phases = {e["phase"] for e in evs if e["event"] == "span"}
+    check({"local_solve", "checkpoint_save"} <= phases,
+          f"{label}: span phases {phases}")
+    with open(os.path.join(d, "m.prom")) as f:
+        prom = f.read()
+    check(f"cocoa_evals_total {n_evals}\n" in prom,
+          f"{label}: the metrics textfile does not count {n_evals} evals")
+    return evs, os.path.getsize(ev_path)
+
+
+def same_results(label, res, ref):
+    """Two CLI runs' results: bit for bit (w, alpha, every record) and the
+    same fetches and saves."""
+    check([r.algorithm for r in res] == [r.algorithm for r in ref],
+          f"{label}: algorithms differ")
+    check(same_bits(res, ref), f"{label}: results differ in their bits")
+    for r, p in zip(res, ref):
+        check((r.trajectory.fetches, r.trajectory.saves)
+              == (p.trajectory.fetches, p.trajectory.saves),
+              f"{label} {r.algorithm}: fetches, saves "
+              f"{(r.trajectory.fetches, r.trajectory.saves)} against "
+              f"{(p.trajectory.fetches, p.trajectory.saves)}")
+
+
+def sigterm_flightrec(tmp):
+    """A ``python -m cocoa_torch`` run on the demo with --events and the
+    flight recorder, SIGTERMed at its first eval: it dies by the signal
+    and leaves a ``.flightrec`` dump the port's schema accepts."""
+    import signal
+
+    from cocoa_torch.telemetry import schema as tele_schema
+
+    ev = os.path.join(tmp, "killed.jsonl")
+    argv = [sys.executable, "-m", "cocoa_torch", f"--trainFile={DEMO_TRAIN}",
+            "--numFeatures=9947", "--numSplits=4", "--numRounds=10000000",
+            "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
+            "--debugIter=100", "--quiet", f"--events={ev}",
+            "--flightRecorder=on", "--trace"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        deadline = time.time() + 180
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.exists(ev) and '"round_eval"' in open(ev).read():
+                break
+            time.sleep(0.05)
+        if proc.poll() is not None:
+            check(False, f"the SIGTERM run ended by itself: "
+                         f"{proc.stderr.read()[-2000:]}")
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == -signal.SIGTERM,
+          f"the SIGTERMed run exited {proc.returncode}: {err[-2000:]}")
+    dump = ev + ".flightrec"
+    check(os.path.exists(dump), "SIGTERM left no .flightrec")
+    errs = tele_schema.check_file(dump)
+    check(errs == [], f"the .flightrec: schema violations {errs[:5]}")
+    head = read_events(dump)[0]["flightrec_manifest"]
+    check(head["reason"] == "sigterm" and head["n_events"] > 0,
+          f"the .flightrec manifest {head}")
+    sec = time.perf_counter() - t0
+    print(f"phase 17: python -m cocoa_torch SIGTERMed at its first eval: "
+          f"exit {proc.returncode}, .flightrec valid ({head['n_events']} "
+          f"events, reason {head['reason']}), {sec:.1f} s")
+    return {"n_events": head["n_events"], "seconds": sec}
+
+
+# the kernels of phase 17's paths as an exported trace names them (the
+# demangled name: namespace, then template arguments and parameters)
+TRACE_NAMES = {"B1": re.compile(r"::sparse_sdca_round_kernel<"),
+               "B3": re.compile(r"::chain_kernel<"),
+               "B5": re.compile(r"::gram(_pass)?_kernel<"),
+               "B6": re.compile(r"::apply_kernel<")}
+
+
+class CountingProfile:
+    """A ``torch.profiler.profile`` that reads the launch counts as it
+    starts and as it stops (``queued``: the launches queued while it ran).
+    The CLI starts and stops it between replays, after a fetch or before
+    the run, so every kernel queued in that span also ran in it."""
+
+    spans = []
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.at_start = None
+
+    def start(self):
+        self.inner.start()
+        self.at_start = counts()
+
+    def stop(self):
+        CountingProfile.spans.append(
+            {k: v - self.at_start[k] for k, v in counts().items()})
+        self.inner.stop()
+
+    def export_chrome_trace(self, path):
+        self.inner.export_chrome_trace(path)
+
+
+def profiled(label, argv, prof, counted, names):
+    """A CLI run under ``--profile`` (in ``argv``; its traces in ``prof``):
+    one trace, and each kernel of ``names`` in it by name, each launch at
+    most once and at least 90 % of those queued while the profiler ran
+    (CUPTI has been seen to miss one launch as a window opens).  Returns
+    (results, launches of the run, what the trace held)."""
+    from cocoa_torch.telemetry import profiling
+
+    inner = profiling.profiler
+    CountingProfile.spans = []
+    profiling.profiler = lambda: CountingProfile(inner())
+    try:
+        _, res = counted(run_cli, argv)
+    finally:
+        profiling.profiler = inner
+    check(len(CountingProfile.spans) == 1,
+          f"{label}: the profiler ran {len(CountingProfile.spans)} times")
+    queued = CountingProfile.spans[0]
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    rows, total_us = profiling.device_table(profiling.parse_trace(prof),
+                                            top=8)
+    launches = profiling.kernel_launches(prof)
+    traced = {name: sum(n for k, n in launches.items()
+                        if TRACE_NAMES[name].search(k)) for name in names}
+    print(f"phase 17: {label}: {len(traces)} trace(s), "
+          f"{sum(launches.values())} kernel events over {len(launches)} "
+          f"kernels, {total_us / 1e3:.3f} ms of kernel time; traced/queued "
+          + ", ".join(f"{name} {traced[name]}/{queued[name]}"
+                      for name in names) + "; top kernels (ms):")
+    for track, name, us in rows:
+        print(f"  {us / 1e3:9.4f}  {launches.get(name, 0):5d}x  "
+              f"{name[:90]}  [{track}]")
+    if not all(traced.values()):
+        cats = {}
+        for e in profiling.trace_events(prof):
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        print(f"phase 17: {label}: the trace lacks a kernel of its path; "
+              f"its events by category: {cats}")
+    check(len(traces) == 1, f"{label}: --profile wrote {traces}")
+    for name in names:
+        check(queued[name] > 0 and
+              0.9 * queued[name] <= traced[name] <= queued[name],
+              f"{label}: the trace holds {traced[name]} {name} launches, "
+              f"{queued[name]} queued while the profiler ran (want at most "
+              f"one event a launch and at least 90 % of them)")
+    return res, dict(counted.last), {
+        "traced": traced, "queued": {n: queued[n] for n in names},
+        "kernel_ms": total_us / 1e3,
+        "top": [(name, us / 1e3, launches.get(name, 0))
+                for _, name, us in rows]}
+
+
+def profile_runs(path, tmp, counted, chunked_off, chunked_n):
+    """--profile=DIR,100,200 on the chunked run (B1) and on the block
+    path's --deviceLoop run (B5, B3, B6; the window at super-block
+    fetches), every sink on; then --profile=DIR on the chunked run, the
+    profiler started before the graphs are captured: its w and alpha,
+    fetches and launches are the unprofiled run's (``chunked_off``,
+    ``chunked_n``)."""
+    out = {}
+    for tag, loop, block, names in (("chunked", False, 0, ("B1",)),
+                                    ("block device loop", True, BLOCK,
+                                     ("B5", "B3", "B6"))):
+        d = os.path.join(tmp, f"profiled {tag}")
+        prof = os.path.join(d, "profile")
+        os.makedirs(d)
+        argv = telemetry_argv(path, loop, block) + [
+            f"--chkptDir={d}/ck", f"--events={d}/ev.jsonl",
+            f"--metrics={d}/m.prom", "--trace", f"--profile={prof},100,200"]
+        res, _, out[tag] = profiled(f"--profile=DIR,100,200 ({tag})", argv,
+                                    prof, counted, names)
+        check_stream(f"profiled {tag}", d, res)
+    d = os.path.join(tmp, "profiled whole")
+    prof = os.path.join(d, "profile")
+    os.makedirs(d)
+    argv = telemetry_argv(path, False) + [f"--chkptDir={d}/ck",
+                                          f"--profile={prof}"]
+    res, launched, out["whole"] = profiled("--profile=DIR (chunked, the "
+                                           "whole run)", argv, prof,
+                                           counted, ("B1",))
+    same_results("profiled whole vs off", res, chunked_off)
+    check(launched == chunked_n, f"profiled whole: launches {launched} "
+                                 f"against {chunked_n}")
+    print("phase 17: --profile=DIR (chunked, the whole run): w and alpha "
+          "bit for bit the unprofiled run's, the same fetches, saves and "
+          "launches")
+    return out
+
+
+def phase_telemetry(path, card):
+    """Telemetry on the card, through the CLI on the rcv1-like
+    file: the sequential run to the 1e-4 gap (B1), chunked and with
+    --deviceLoop, each in turns off, on, on, off ("on": --events
+    --metrics --trace --flightRecorder=on), and one chunked "on" run with
+    the textfile debounced (--metricsInterval=10); the block path (B=128:
+    B5, B3, B6) on --deviceLoop off, on, off.  On against off: w and alpha
+    bit for bit, the same fetches, saves and launches (the block path's
+    permuted draws never repeat a row within a round, and its kernels
+    sum in a fixed order, so it is held bit for bit too); every stream
+    valid and equal to its trajectory (:func:`check_stream`).  Then
+    --profile (:func:`profile_runs`) and a SIGTERMed subprocess.  Prints
+    each run's seconds to the gap (CoCoA+)."""
+    counted = Counted()
+    out = {"card": card, "runs": {}}
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        def run(tag, loop, on, block=0, extra=()):
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
+            argv = telemetry_argv(path, loop, block) + [f"--chkptDir={d}/ck"]
+            if on:
+                argv += [f"--events={d}/ev.jsonl", f"--metrics={d}/m.prom",
+                         "--trace", "--flightRecorder=on", *extra]
+            t0 = time.perf_counter()
+            _, res = counted(run_cli, argv)
+            sec = time.perf_counter() - t0
+            launched = dict(counted.last)
+            stream = check_stream(tag, d, res) if on else (None, 0)
+            first = res[0].trajectory
+            out["runs"][tag] = {
+                "stop": first.records[-1].round,
+                "to_gap_s": first.records[-1].wall_time,
+                "run_s": sec, "fetches": [r.trajectory.fetches for r in res],
+                "saves": [r.trajectory.saves for r in res],
+                "events": len(stream[0] or ()), "stream_bytes": stream[1]}
+            return res, launched
+
+        for loop, name in ((False, "chunked"), (True, "device loop")):
+            runs = {}
+            for tag, on in (("off", False), ("on", True), ("on2", True),
+                            ("off2", False)):
+                runs[tag] = run(f"{name} {tag}", loop, on)
+            base_res, base_n = runs["off"]
+            if not loop:
+                chunked = (base_res, base_n)
+            check(base_n["B1"] > 0, f"{name}: B1 never launched")
+            same_results(f"{name} off2 vs off", runs["off2"][0], base_res)
+            for tag in ("on", "on2"):
+                same_results(f"{name} {tag} vs off", runs[tag][0], base_res)
+                check(runs[tag][1] == base_n, f"{name} {tag}: launches "
+                      f"{runs[tag][1]} against {base_n}")
+            print(f"phase 17: rcv1-like sigma' auto to {GAP_TARGET} "
+                  f"({name}): CoCoA+ stops at round "
+                  f"{out['runs'][name + ' off']['stop']}; seconds to the "
+                  f"gap in turns (off, on, on, off): " + ", ".join(
+                      f"{out['runs'][f'{name} {t}']['to_gap_s']:.4f}"
+                      for t in ("off", "on", "on2", "off2"))
+                  + f"; fetches {out['runs'][name + ' off']['fetches']} "
+                  f"on and off; bit for bit; launches {base_n}")
+            if not loop:
+                # the textfile rewritten at most every 10 s, not at each
+                # event: what of the cost of "on" the rewrites are
+                res, _ = run("chunked on debounced", False, True,
+                             extra=["--metricsInterval=10"])
+                same_results("chunked on debounced vs off", res, base_res)
+                print(f"phase 17: chunked, on with --metricsInterval=10: "
+                      f"{out['runs']['chunked on debounced']['to_gap_s']:.4f}"
+                      f" s to the gap")
+        runs = {}
+        for tag, on in (("off", False), ("on", True), ("off2", False)):
+            runs[tag] = run(f"block {tag}", True, on, block=BLOCK)
+        base_res, base_n = runs["off"]
+        for name in ("B3", "B5", "B6"):
+            check(base_n[name] > 0, f"block: {name} never launched")
+        same_results("block off2 vs off", runs["off2"][0], base_res)
+        same_results("block on vs off", runs["on"][0], base_res)
+        check(runs["on"][1] == base_n,
+              f"block on: launches {runs['on'][1]} against {base_n}")
+        print(f"phase 17: rcv1-like --blockSize={BLOCK} --deviceLoop: "
+              f"CoCoA+ stops at round {out['runs']['block off']['stop']}; "
+              f"seconds to the gap (off, on, off): " + ", ".join(
+                  f"{out['runs'][f'block {t}']['to_gap_s']:.4f}"
+                  for t in ("off", "on", "off2"))
+              + f": on == off == off2 bit for bit; launches {base_n}")
+        out["profile"] = profile_runs(path, tmp, counted, *chunked)
+        out["sigterm"] = sigterm_flightrec(tmp)
+    on_runs = [v for k, v in out["runs"].items() if " on" in k]
+    print("phase 17: the 'on' streams: " + ", ".join(
+        f"{v['events']} events / {v['stream_bytes']} bytes"
+        for v in on_runs) + f"; card {card}")
+    out["launched"] = dict(counted.total)
     return out
 
 
@@ -4075,7 +4446,6 @@ def main() -> int:
                            t, rcv1_h if name.startswith("rcv1") else demo_h)
     launched10, per_round10 = phase_hybrid_path(rcv1_argv, rcv1_seq, rcv1_w,
                                                 DEMO_TRAIN, DEMO_TEST)
-    tmp.cleanup()
     hyb_seq = per_round10["rcv1-like hybrid sequential"]
     hyb_block = per_round10["rcv1-like hybrid block"]
     print(f"phase 10: rcv1-like ms per round, hybrid vs unsplit (evals "
@@ -4163,6 +4533,14 @@ def main() -> int:
     (OUT / "chip_smoke_phase16.json").write_text(json.dumps(surface16,
                                                             default=str))
 
+    # --- phase 17: telemetry on the card
+    t0 = time.perf_counter()
+    telemetry17 = phase_telemetry(path, card)
+    tmp.cleanup()
+    print(f"phase 17: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase17.json").write_text(json.dumps(telemetry17,
+                                                            default=str))
+
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
                                                   *launched11.values(),
@@ -4237,7 +4615,8 @@ def main() -> int:
     for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
                                 "D")):
         row["launches"] += loop14["launched"][name] + \
-            resume15["launched"][name] + surface16["launched"][name]
+            resume15["launched"][name] + surface16["launched"][name] + \
+            telemetry17["launched"][name]
     print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
         f"{name} {v}" for name, v in loop14["launched"].items()))
     print(f"phase 15 launches (in-process runs), in the counts below: "
@@ -4246,6 +4625,9 @@ def main() -> int:
     print(f"phase 16 launches (in-process runs), in the counts below: "
           + ", ".join(f"{name} {v}"
                       for name, v in surface16["launched"].items()))
+    print(f"phase 17 launches (in-process runs), in the counts below: "
+          + ", ".join(f"{name} {v}"
+                      for name, v in telemetry17["launched"].items()))
     print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
           f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
           f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "

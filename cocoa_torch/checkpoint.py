@@ -19,6 +19,12 @@ bfloat16 tensor is written as the 2-byte void array (``|V2``) that the
 JAX package writes for its bfloat16 arrays, the same bytes; on load a
 ``|V2`` member comes back as a bfloat16 tensor (numpy has no bfloat16),
 so a bf16 run's checkpoint resumes, the port's and the JAX package's.
+
+Telemetry, as in the JAX package: a ``checkpoint_save`` span around each
+save and a ``checkpoint_write`` event when its files landed, a
+``checkpoint_validate`` span around each validation that reads the
+file, and a ``checkpoint_corrupt`` event for each generation
+:func:`latest` skips.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from cocoa_torch.telemetry import events as _events
+from cocoa_torch.telemetry import tracing as _tracing
 
 # round-stamped generations kept per algorithm; the newest is the resume
 # point, the one before it the fallback when the newest fails validation
@@ -74,6 +83,14 @@ def save(directory: str, algorithm: str, round_t: int, w, alpha=None,
     ``.npz`` last: :func:`latest` discovers a checkpoint by its ``.npz``,
     so a process killed mid-save leaves no discoverable half-written
     checkpoint."""
+    with _tracing.span("checkpoint_save", algorithm=algorithm,
+                       round=int(round_t)):
+        return _save(directory, algorithm, round_t, w, alpha=alpha,
+                     seed=seed, sched=sched, hist=hist, gap=gap)
+
+
+def _save(directory, algorithm, round_t, w, alpha=None, seed=0, sched=None,
+          hist=None, gap=None) -> str:
     os.makedirs(directory, exist_ok=True)
     algorithm = algorithm.replace(" ", "_")
     path = os.path.join(directory, f"{algorithm}-r{round_t:06d}.npz")
@@ -122,6 +139,10 @@ def save(directory: str, algorithm: str, round_t: int, w, alpha=None,
                 os.unlink(victim)
             except OSError:
                 pass
+    # every save goes through here: the one emission point of the
+    # checkpoint_write event
+    _events.get_bus().emit("checkpoint_write", algorithm=algorithm,
+                           round=int(round_t), path=path)
     return path
 
 
@@ -164,7 +185,8 @@ def validate(path: str) -> Optional[str]:
     key = _stat_key(path)
     if key is not None and _VALIDATED.get(path) == key:
         return None
-    reason = _validate(path)
+    with _tracing.span("checkpoint_validate", path=path):
+        reason = _validate(path)
     if reason is None and key is not None and key == _stat_key(path):
         # cache only a pass of the bytes that were read
         if len(_VALIDATED) >= _VALIDATED_CAP:
@@ -210,11 +232,14 @@ def _validate(path: str) -> Optional[str]:
 def latest(directory: str, algorithm: str) -> Optional[str]:
     """The newest healthy checkpoint of ``algorithm``, or None: each
     generation is validated newest first, and a torn or corrupt one is
-    skipped with a note on stderr."""
+    skipped with a ``checkpoint_corrupt`` event and a note on stderr."""
     for path in reversed(generations(directory, algorithm)):
         reason = validate(path)
         if reason is None:
             return path
+        _events.get_bus().emit(
+            "checkpoint_corrupt", algorithm=algorithm.replace(" ", "_"),
+            path=path, reason=reason)
         print(f"checkpoint: {path} failed validation ({reason}); "
               f"falling back to the previous generation",
               file=sys.stderr, flush=True)

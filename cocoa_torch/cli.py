@@ -15,6 +15,9 @@
         --accel=auto|on|off --theta=fixed|adaptive] [--trajOut=P] [--quiet]
         [--chkptDir=D --chkptIter=<int> [--resume]]
         [--blockPipeline=auto|on|off] [--evalDense[=auto|true|false]]
+        [--events=P [--eventsMaxMB=<int>] [--flightRecorder=auto|on|off]]
+        [--metrics=P [--metricsInterval=<s>]] [--trace]
+        [--profile=DIR[,START,STOP]]
 
     python -m cocoa_torch <the same flags>
 
@@ -63,15 +66,33 @@ rounds into ``D`` in the JAX package's checkpoint format
 (cocoa_torch/checkpoint.py; the device loop at its super-block
 boundaries); ``--resume`` (needs ``--chkptDir``) starts each algorithm
 from its newest healthy checkpoint there, printing ``resuming <alg> from
-round <r> (<path>)``.  Flags of the JAX CLI that this port does not
+round <r> (<path>)``.
+
+Telemetry (cocoa_torch/telemetry/), as in the JAX CLI: ``--events=P``
+appends the typed event stream to the JSONL ``P`` (``run_start`` with
+the run's manifest, one ``ingest`` per loaded file, ``round_eval``,
+``sigma_backoff``, ``checkpoint_write``, ``run_end``, ...; capped at
+``--eventsMaxMB`` with a ``.1`` rollover) and, unless
+``--flightRecorder=off``, dumps the last events to ``P.flightrec`` on a
+divergence, an unhandled exception or SIGTERM; ``--metrics=P`` keeps a
+Prometheus textfile at ``P`` (written at most every ``--metricsInterval``
+seconds); ``--trace`` adds timed ``span`` events (needs ``--events`` or
+``--metrics``); ``--profile=DIR`` records the whole run with
+``torch.profiler`` into ``DIR``, ``--profile=DIR,START,STOP`` the rounds
+[START, STOP), opened and closed at the evals (under ``--deviceLoop`` at
+the super-block fetches, where its evals reach the host).  The bus, the
+tracer and the process's exit hooks are put back as they were when
+:func:`run` returns.  Flags of the JAX CLI that this port does not
 support yet exit 2 with ``error: --X is not yet ported to cocoa_torch
 (ROADMAP Queue A)``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -91,6 +112,11 @@ from cocoa_torch.solvers.dist_gd import run_dist_gd
 from cocoa_torch.solvers.minibatch_cd import run_minibatch_cd
 from cocoa_torch.solvers.prox_cocoa import lasso_metrics, run_prox_cocoa
 from cocoa_torch.solvers.sgd import run_sgd
+from cocoa_torch.telemetry import events as tele_events
+from cocoa_torch.telemetry import profiling
+from cocoa_torch.telemetry import recorder as flightrec_lib
+from cocoa_torch.telemetry import tracing
+from cocoa_torch.data.ingest import whole_report
 from cocoa_torch.utils.logging import Trajectory, config_hash
 
 _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
@@ -101,16 +127,25 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    gapTarget="gap_target", divergenceGuard="divergence_guard",
                    trajOut="traj_out", sigmaSchedule="sigma_schedule",
                    warmStart="warm_start", resume="resume",
-                   blockPipeline="block_pipeline", evalDense="eval_dense")
+                   blockPipeline="block_pipeline", evalDense="eval_dense",
+                   events="events", metrics="metrics", trace="trace",
+                   flightRecorder="flight_recorder",
+                   eventsMaxMB="events_max_mb",
+                   metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
     "mesh", "fp", "master", "processId", "numProcesses",
-    "profile", "elastic", "stallTimeout", "ingest",
-    "ingestCache", "metrics", "events", "trace", "flightRecorder",
-    "eventsMaxMB", "metricsInterval", "overlapComm", "staleRounds", "fleet",
+    "elastic", "stallTimeout", "ingest",
+    "ingestCache", "overlapComm", "staleRounds", "fleet",
     "fleetLanes", "serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
     "serveDtype", "serveReplicas", "serveRoute", "traceSample",
     "statusPort")
+# the run manifest's config (the JAX CLI's ``cfg_manifest``): these
+# RunConfig fields always, as the JAX CLI holds its dataclass's; every
+# other flag given, by its flag name, as the string given
+_MANIFEST_FIELDS = (*REFERENCE_FLAGS.values(), "dtype", "layout", "rng",
+                    "sampling", "math", "loss", "smoothing", "sigma",
+                    "device")
 
 _BOOL_FIELDS = {"just_cocoa"}
 _INT_FIELDS = {"num_features", "num_splits", "chkpt_iter", "num_rounds",
@@ -134,13 +169,17 @@ class RunResult(NamedTuple):
 
 def parse_args(argv: list[str]):
     """--key=value (a bare --flag means true, hingeDriver.scala:13-19).
-    Returns (RunConfig, the flags given that are not ported yet)."""
+    Returns (RunConfig, the flags given that are not ported yet); the
+    flags given, as strings, are the config's ``_given`` (no field: the
+    flag echo does not show it)."""
     cfg = RunConfig()
     unported = []
+    given = {}
     for arg in argv:
         stripped = arg.lstrip("-")
         key, val = (stripped.split("=", 1) if "=" in stripped
                     else (stripped, "true"))
+        given[key] = val
         if key in _NOT_PORTED:
             unported.append(key)
             continue
@@ -162,7 +201,135 @@ def parse_args(argv: list[str]):
                     else float(val))
         else:
             setattr(cfg, field, val)
+    cfg._given = given
     return cfg, unported
+
+
+def _manifest_config(cfg: RunConfig) -> dict:
+    """The run's config as its manifest and config hash carry it, the
+    JAX CLI's layout (cocoa_tpu/cli.py:1026-1027): the fields of
+    :data:`_MANIFEST_FIELDS`, then each other flag given, by its name."""
+    out = {f: getattr(cfg, f) for f in _MANIFEST_FIELDS}
+    for key, val in getattr(cfg, "_given", {}).items():
+        if key in _PORT_FLAGS and _PORT_FLAGS[key] not in out:
+            out[key] = val
+    return out
+
+
+class _Telemetry(NamedTuple):
+    """The telemetry flags resolved (:func:`_telemetry_flags`)."""
+
+    trace: bool
+    flight_recorder: str       # auto | on | off
+    events_max_bytes: Optional[int]
+    metrics_interval: float
+
+
+def _telemetry_flags(cfg: RunConfig) -> _Telemetry:
+    """``--trace``, ``--flightRecorder``, ``--eventsMaxMB`` and
+    ``--metricsInterval`` checked up front, with the JAX CLI's rules and
+    messages (cocoa_tpu/cli.py:280-335)."""
+    trace = cfg.trace is not None and cfg.trace.lower() != "false"
+    if trace and not (cfg.events or cfg.metrics):
+        raise ValueError("--trace records spans through the telemetry sinks "
+                         "and needs --events (for trace_report/Perfetto) or "
+                         "--metrics (for the phase-seconds gauges)")
+    mode = (cfg.flight_recorder or "auto").lower()
+    if mode == "true":
+        mode = "on"   # bare --flightRecorder
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"--flightRecorder must be auto|on|off, got "
+                         f"{cfg.flight_recorder!r}")
+    if mode == "on" and not cfg.events:
+        raise ValueError("--flightRecorder=on needs --events (the dump lands "
+                         "at <events>.flightrec, and the supervisor-side dump "
+                         "tails the per-process event streams)")
+    max_bytes = None
+    if cfg.events_max_mb:
+        try:
+            max_bytes = int(cfg.events_max_mb) << 20
+        except ValueError:
+            max_bytes = 0
+        if max_bytes <= 0:
+            raise ValueError(f"--eventsMaxMB takes a positive integer of "
+                             f"mebibytes, got {cfg.events_max_mb!r}")
+        if not cfg.events:
+            raise ValueError("--eventsMaxMB caps the --events JSONL and "
+                             "needs --events")
+    interval = 0.0
+    if cfg.metrics_interval:
+        try:
+            interval = float(cfg.metrics_interval)
+        except ValueError:
+            interval = -1.0
+        if interval < 0:
+            raise ValueError(f"--metricsInterval takes seconds >= 0, got "
+                             f"{cfg.metrics_interval!r}")
+        if not cfg.metrics:
+            raise ValueError("--metricsInterval debounces the --metrics "
+                             "textfile and needs --metrics")
+    return _Telemetry(trace, mode, max_bytes, interval)
+
+
+@contextlib.contextmanager
+def _telemetry(cfg: RunConfig, tel: _Telemetry):
+    """The run's telemetry, as the JAX CLI sets it up for its single
+    process, worker 0 (cocoa_tpu/cli.py:996-1023): the bus's JSONL and
+    metrics sinks, the tracer, and the flight recorder under
+    ``--flightRecorder=auto|on``.  An exception that leaves the run dumps
+    the recorder (the JAX CLI's excepthook sees it at the top of its
+    process).  On the way out the bus and the tracer are put back as they
+    were, and the recorder's excepthook and SIGTERM handler removed."""
+    bus = tele_events.get_bus()
+    tracer = tracing.get_tracer()
+    saved, traced = bus.saved(), (tracer.enabled, tracer.worker)
+    events_path = (flightrec_lib.worker_stream_path(cfg.events, 0)
+                   if cfg.events else None)
+    rec = None
+    try:
+        if events_path or cfg.metrics:
+            bus.configure(jsonl_path=events_path,
+                          metrics_path=cfg.metrics or None,
+                          max_bytes=tel.events_max_bytes,
+                          metrics_interval_s=tel.metrics_interval)
+        if tel.trace:
+            tracer.configure(enabled=True, worker=0)
+        if events_path and tel.flight_recorder != "off":
+            rec = flightrec_lib.install(bus, events_path)
+        yield bus
+    except Exception as e:
+        if rec is not None:
+            rec.dump("unhandled_exception", error=type(e).__name__)
+        raise
+    finally:
+        if rec is not None:
+            rec.uninstall()
+        bus.restore(saved)
+        tracer.enabled, tracer.worker = traced
+
+
+def _run_start(bus, cfg_manifest: dict, run_meta: dict, dataset: str,
+               device, layout_split, reports: list) -> None:
+    """The ``run_start`` event, then one ``ingest`` event per loaded file,
+    as the JAX CLI emits them once the layout is resolved
+    (cocoa_tpu/cli.py:1548-1566): the manifest is the run's config (with
+    ``layout_split`` on the sparse layout, which the config hash then
+    covers) and the torch/device environment, with the train file's
+    ingest record beside the split."""
+    if layout_split is not None:
+        cfg_manifest["layout_split"] = layout_split
+        run_meta["config_hash"] = config_hash(cfg_manifest)
+    if not bus.active():
+        return
+    manifest = tele_events.run_manifest(cfg_manifest, dataset=dataset,
+                                        device=device)
+    if layout_split is not None:
+        manifest["layout_split"] = dict(layout_split)
+    if reports:
+        manifest["ingest"] = reports[0].as_fields()
+    bus.emit("run_start", manifest=manifest)
+    for rep in reports:
+        bus.emit("ingest", **rep.as_fields())
 
 
 def _check_choices(cfg: RunConfig):
@@ -405,7 +572,8 @@ def _layout_knobs(cfg: RunConfig, data, k: int, dtype):
     (cocoa_tpu/cli.py:1197-1214,1452-1483): the hot panel on the sparse
     layout only, printing its accounting when it builds one; the twin's
     ``auto`` decided there by :func:`eval_dense_fits` and printed first.
-    Returns (panel width, 0 for the plain stream layout; eval twin)."""
+    Returns (panel width, 0 for the plain stream layout; eval twin; the
+    split's record for the manifest, None off the sparse layout)."""
     layout = resolve_layout(data, cfg.layout)
     if cfg.hot_cols is not None and layout != "sparse":
         raise ValueError("--hotCols (the hot/cold column split) only "
@@ -415,7 +583,7 @@ def _layout_knobs(cfg: RunConfig, data, k: int, dtype):
     spec = "false" if cfg.eval_dense is None else cfg.eval_dense.lower()
     eval_dense = spec not in ("false", "auto")
     if layout != "sparse":
-        return 0, eval_dense
+        return 0, eval_dense, None
     hot_n, split = hybrid.resolve_hot_cols(cfg.hot_cols, data, k, dtype)
     quiet = _quiet(cfg)
     if spec == "auto":
@@ -433,7 +601,7 @@ def _layout_knobs(cfg: RunConfig, data, k: int, dtype):
               f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
               f"nnz {split['residual_mean_nnz']:.1f} (max "
               f"{split['residual_max_nnz']})")
-    return hot_n, eval_dense
+    return hot_n, eval_dense, split
 
 
 def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
@@ -449,15 +617,23 @@ def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
 
 def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
                block_pipeline: Optional[bool], dtype, device, ladder: dict,
-               run_meta: dict, loop: dict, resume: bool):
+               run_meta: dict, loop: dict, resume: bool, bus,
+               cfg_manifest: dict):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
-    line from one more certificate."""
+    line from one more certificate.  As in the JAX CLI, ``run_start``
+    carries the train file's ingest record (its parse) and no layout
+    split, and ``--profile`` records nothing here."""
     k = cfg.num_splits
     try:
+        t_load = time.perf_counter()
         data = load_libsvm(cfg.train_file, cfg.num_features)
+        report = whole_report(cfg.train_file, data,
+                              time.perf_counter() - t_load)
         ds, b = shard_columns(data, k, dtype=dtype, device=device,
                               layout=cfg.layout)
+        _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device,
+                   None, [report])
         quiet = _quiet(cfg)
         if cfg.block_size.lower() == "auto":
             block_size = _resolve_auto_block(ds, dtype, quiet)
@@ -495,6 +671,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
               f"(ROADMAP Queue A)", file=sys.stderr)
         return 2, []
     try:
+        tel = _telemetry_flags(cfg)
         device = resolve_device(cfg.device)
         _check_choices(cfg)
         block_size = _block_size(cfg)
@@ -504,6 +681,10 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         _scan_chunk(cfg)
         device_loop = _device_loop(cfg)
         resume = _resume(cfg)
+        # (dir, start, stop) with the JAX CLI's messages
+        # (cocoa_tpu/cli.py:610-624)
+        profile = (profiling.parse_profile_flag(cfg.profile) if cfg.profile
+                   else (None, None, None))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -513,35 +694,61 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         # echo flags, as the reference does (hingeDriver.scala:41-48)
         for f in dataclasses.fields(cfg):
             print(f"{f.name}: {getattr(cfg, f.name)}")
+    cfg_manifest = _manifest_config(cfg)
     run_meta = {"dataset": cfg.train_file, "seed": cfg.seed,
-                "config_hash": config_hash(dataclasses.asdict(cfg))}
+                "config_hash": config_hash(cfg_manifest)}
 
     dtype = _DTYPES[cfg.dtype]
     loop = dict(scan_chunk=cfg.scan_chunk, capture=capture,
                 device_loop=device_loop)
-    if objective == "lasso":
-        return _run_lasso(cfg, l2, block_size, block_pipeline, dtype, device,
-                          ladder, run_meta, dict(loop, sampling=cfg.sampling),
-                          resume)
+    with _telemetry(cfg, tel) as bus:
+        if objective == "lasso":
+            return _run_lasso(cfg, l2, block_size, block_pipeline, dtype,
+                              device, ladder, run_meta,
+                              dict(loop, sampling=cfg.sampling), resume,
+                              bus, cfg_manifest)
+        return _run_svm(cfg, block_size, block_pipeline, dtype, device,
+                        ladder, run_meta, loop, resume, bus, cfg_manifest,
+                        profile)
+
+
+def _run_svm(cfg: RunConfig, block_size: int,
+             block_pipeline: Optional[bool], dtype, device, ladder: dict,
+             run_meta: dict, loop: dict, resume: bool, bus,
+             cfg_manifest: dict, profile):
+    """The SVM runs on the row shards: CoCoA+ and CoCoA, and the rest of
+    the reference's menu unless ``--justCoCoA``, under ``--profile``
+    when it is given."""
+    quiet = _quiet(cfg)
     k = cfg.num_splits
+    reports = []
     try:
+        t_load = time.perf_counter()
         data = load_libsvm(cfg.train_file, cfg.num_features)
-        hot_n, eval_dense = _layout_knobs(cfg, data, k, dtype)
+        hot_n, eval_dense, split = _layout_knobs(cfg, data, k, dtype)
         ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
                            device=device, hot_cols=hot_n,
                            eval_dense=eval_dense)
+        # one ingest record per loaded file: the parse and the shards
+        reports.append(whole_report(cfg.train_file, data,
+                                    time.perf_counter() - t_load))
         test_ds = None
         if cfg.test_file:
             # the test file gets a panel of the same width over its own
             # hottest columns, and the training set's twin decision, as
             # in the JAX CLI
+            t_test = time.perf_counter()
+            test_data = load_libsvm(cfg.test_file, cfg.num_features)
             test_ds = shard_dataset(
-                load_libsvm(cfg.test_file, cfg.num_features), k=k,
-                layout=cfg.layout, dtype=dtype, device=device,
-                hot_cols=hot_n, eval_dense=eval_dense)
+                test_data, k=k, layout=cfg.layout, dtype=dtype,
+                device=device, hot_cols=hot_n, eval_dense=eval_dense)
+            reports.append(whole_report(cfg.test_file, test_data,
+                                        time.perf_counter() - t_test))
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
+    _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device, split,
+               reports)
 
     if cfg.block_size.lower() == "auto":
         block_size = _resolve_auto_block(ds, dtype, quiet)
@@ -573,18 +780,50 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
                             quiet=quiet, **draws, **restore("Local SGD")),
             lambda: run_dist_gd(ds, params, debug, test_ds=test_ds,
                                 quiet=quiet, **loop, **restore("Dist SGD"))]
-    results = []
-    for run_alg in runs:
+
+    def run_all():
+        results = []
+        for run_alg in runs:
+            try:
+                out = run_alg()
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2, results
+            w, traj = out[0], out[-1]
+            alpha = out[1] if len(out) == 3 else None
+            _finish(cfg, traj, run_meta,
+                    *_summary(ds, test_ds, w, alpha, params))
+            results.append(RunResult(traj.algorithm, w, alpha, traj))
+        return 0, results
+
+    profile_dir, start, stop = profile
+    if start is not None:
+        # --profile=DIR,START,STOP: the round window, opened and closed by
+        # the event stream (telemetry/profiling.py); the windower is a bus
+        # subscriber, which also activates the bus for the run
+        windower = profiling.RoundWindowProfiler(profile_dir, start, stop)
+        bus.subscribe(windower)
         try:
-            out = run_alg()
-        except ValueError as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2, results
-        w, traj = out[0], out[-1]
-        alpha = out[1] if len(out) == 3 else None
-        _finish(cfg, traj, run_meta, *_summary(ds, test_ds, w, alpha, params))
-        results.append(RunResult(traj.algorithm, w, alpha, traj))
-    return 0, results
+            return run_all()
+        finally:
+            windower.close()
+            bus.unsubscribe(windower)
+            if not quiet:
+                print(f"profiler trace of rounds [{start}, {stop}) "
+                      f"written to {profile_dir}")
+    if profile_dir:
+        # --profile=DIR: the whole run; the trace still lands when a
+        # solver raises
+        prof = profiling.profiler()
+        prof.start()
+        try:
+            return run_all()
+        finally:
+            prof.stop()
+            profiling.export(prof, profile_dir)
+            if not quiet:
+                print(f"profiler trace written to {profile_dir}")
+    return run_all()
 
 
 def _summary(ds, test_ds, w, alpha, params):

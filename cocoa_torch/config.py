@@ -95,6 +95,15 @@ class RunConfig:
     theta: str = ""              # --theta: fixed | adaptive
     resume: Optional[str] = None  # --resume: restore each algorithm from
                                  # the newest checkpoint in chkpt_dir
+    # telemetry (cocoa_torch/telemetry/), as the JAX CLI's strings;
+    # checked by cli.py ``_telemetry_flags``
+    events: str = ""             # --events: the event JSONL path
+    metrics: str = ""            # --metrics: the metrics textfile path
+    trace: Optional[str] = None  # --trace: span tracing (on unless false)
+    flight_recorder: Optional[str] = None  # --flightRecorder: auto|on|off
+    events_max_mb: str = ""      # --eventsMaxMB: the JSONL's size cap
+    metrics_interval: str = ""   # --metricsInterval: the write debounce (s)
+    profile: str = ""            # --profile: DIR or DIR,START,STOP
 
     def to_params(self, n: int, k: int) -> Params:
         """H = max(1, localIterFrac * n / K) as in hingeDriver.scala:70-71."""

@@ -12,7 +12,16 @@ The schedule state is the JAX package's float32 sched vector.  The
 chunked loop keeps it as a numpy array on the host, which picks each
 chunk's branch from it, so no device read is added to the one fetch per
 eval; the device loop keeps it on the card (:func:`ladder_step`, the
-device twin of the host steps) and reads it back once a super-block."""
+device twin of the host steps) and reads it back once a super-block.
+
+Telemetry rides the host side of both loops, as in the JAX package: a
+``local_solve`` span around each chunk's queueing (and each device-loop
+super-block, its fetch included), an ``eval`` span around each eval's
+fetch, and the events of the ladder (``round_eval``, ``sigma_backoff``,
+``momentum_restart``, ``theta_stage``, ``divergence``).  None of it sits
+inside a captured graph's body or reads the card: the device loop's
+events are decoded from each super-block's fetched rows
+(:class:`~cocoa_torch.telemetry.events.DeviceTap`)."""
 
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from cocoa_torch import checkpoint, kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
+from cocoa_torch.telemetry import events as _events
+from cocoa_torch.telemetry import tracing as _tracing
 from cocoa_torch.utils import prng
 from cocoa_torch.utils.logging import Trajectory
 
@@ -376,17 +387,24 @@ def _accel_replace(state, sched):
     return (w, alpha, hist, sched)
 
 
-def _emit_accel_events(name, t, restarted, staged, stage, accel, quiet):
-    """The console half of the JAX package's momentum-restart and
-    Theta-stage events."""
-    if quiet:
-        return
+def _emit_accel_events(name, t, restarted, restarts_total, staged, stage,
+                       accel, quiet):
+    """The ``momentum_restart`` and ``theta_stage`` events of one eval
+    (emitted whatever ``quiet`` says) and their console lines, as the JAX
+    package's ``_emit_accel_events``."""
+    bus = _events.get_bus()
     if restarted:
-        print(f"{name}: momentum restart at round {t} (gap rose; "
-              f"secant window bank discarded)")
+        bus.emit("momentum_restart", algorithm=name, t=int(t),
+                 restarts_total=int(restarts_total))
+        if not quiet:
+            print(f"{name}: momentum restart at round {t} (gap rose; "
+                  f"secant window bank discarded)")
     if staged:
-        print(f"{name}: Θ schedule — local accuracy raised to "
-              f"H={accel.theta_hs[int(stage)]} at round {t}")
+        bus.emit("theta_stage", algorithm=name, t=int(t), stage=int(stage),
+                 h=int(accel.theta_hs[int(stage)]))
+        if not quiet:
+            print(f"{name}: Θ schedule — local accuracy raised to "
+                  f"H={accel.theta_hs[int(stage)]} at round {t}")
 
 
 def anneal_levels(start: float, safe: float, factor: float = 2.0,
@@ -1220,15 +1238,18 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
             end = min(end, ((t - 1) // di + 1) * di)
         if ckpt_on:
             end = min(end, ((t - 1) // ci + 1) * ci)
-        state = _run_chunk(runner, schedule, n_iterate, t, end - t + 1,
-                           state)
+        with _tracing.span("local_solve", algorithm=name, round=end, t0=t,
+                           rounds=end - t + 1):
+            state = _run_chunk(runner, schedule, n_iterate, t, end - t + 1,
+                               state)
         t = end + 1
         if not (di > 0 and end % di == 0):
             if ckpt_on and end % ci == 0:
                 save_checkpoint(debug, name, end, state, n_iterate, accel,
                                 traj)
             continue
-        primal, gap, test_err = _fetch_metrics(traj, metrics(state))
+        with _tracing.span("eval", algorithm=name, round=end):
+            primal, gap, test_err = _fetch_metrics(traj, metrics(state))
         anneal_on = gap_target is not None and divergence_guard and anneal
         hit = gap_target is not None and gap is not None and gap <= gap_target
         sigma_val = stage = stall_v = None
@@ -1251,12 +1272,12 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
             sched, restarted, staged = accel_host_step(
                 state[-1], gap, accel.n_theta, gap_target, seam=backed)
             state = _accel_replace(state, sched)
-            _emit_accel_events(name, end, restarted, staged,
-                               sched[A_TH_STAGE], accel, quiet)
+            _emit_accel_events(name, end, restarted, sched[A_RESTARTS],
+                               staged, sched[A_TH_STAGE], accel, quiet)
         traj.log_round(end, primal=primal, gap=gap, test_error=test_err,
                        sigma=sigma_val, sigma_stage=stage, stall=stall_v)
         if backed:
-            _print_backoff(name, watch.n, sigma_levels[stage], end, quiet)
+            _emit_backoff(name, watch.n, sigma_levels, stage, end, quiet)
         if hit:
             traj.stopped = "target"
             break
@@ -1272,11 +1293,18 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
     return state, traj
 
 
-def _print_backoff(name, n_evals, sigma, t, quiet):
+def _emit_backoff(name, n_evals, sigma_levels, stage, t, quiet):
+    """One sigma' backoff at a host eval: the ``sigma_backoff`` event
+    (emitted whatever ``quiet`` says; the host step moves one rung) and
+    its console line, as the JAX package's ``_emit_backoff``."""
+    _events.get_bus().emit(
+        "sigma_backoff", algorithm=name, t=int(t),
+        sigma=sigma_levels[stage], from_sigma=sigma_levels[stage - 1],
+        stage=int(stage))
     if not quiet:
         print(f"{name}: σ′ anneal — gap stalled for {n_evals} evals; "
-              f"backing off to σ′={sigma:g} at round {t} (iterate kept, "
-              f"certificate exact)")
+              f"backing off to σ′={sigma_levels[stage]:g} at round {t} "
+              f"(iterate kept, certificate exact)")
 
 
 def drive_device(name: str, params: Params, debug: DebugParams,
@@ -1345,11 +1373,14 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     t = start_round
     head_end = min(total, ((t - 1) // c + 1) * c)
     if (t - 1) % c != 0 and head_end >= t:
-        state = _run_chunk(chunks, schedule, n_iterate, t, head_end - t + 1,
-                           state)
+        with _tracing.span("local_solve", algorithm=name, round=head_end,
+                           t0=t, rounds=head_end - t + 1):
+            state = _run_chunk(chunks, schedule, n_iterate, t,
+                               head_end - t + 1, state)
         t = head_end + 1
         if head_end % c == 0:
-            primal, gap, test_err = _fetch_metrics(traj, metrics(state))
+            with _tracing.span("eval", algorithm=name, round=head_end):
+                primal, gap, test_err = _fetch_metrics(traj, metrics(state))
             sigma_val = stage = stall_v = None
             backed = False
             hit = (gap_target is not None and gap is not None
@@ -1366,14 +1397,15 @@ def drive_device(name: str, params: Params, debug: DebugParams,
                 sched, restarted, staged = accel_host_step(
                     state[-1], gap, accel.n_theta, gap_target, seam=backed)
                 state = _accel_replace(state, sched)
-                _emit_accel_events(name, head_end, restarted, staged,
+                _emit_accel_events(name, head_end, restarted,
+                                   sched[A_RESTARTS], staged,
                                    sched[A_TH_STAGE], accel, quiet)
             traj.log_round(head_end, primal=primal, gap=gap,
                            test_error=test_err, sigma=sigma_val,
                            sigma_stage=stage, stall=stall_v)
             if backed:
-                _print_backoff(name, watch.n, sigma_levels[stage], head_end,
-                               quiet)
+                _emit_backoff(name, watch.n, sigma_levels, stage, head_end,
+                              quiet)
         maybe_ckpt(head_end, lambda: state)
 
     n_full = max(0, (total - (t - 1)) // c)
@@ -1391,10 +1423,25 @@ def drive_device(name: str, params: Params, debug: DebugParams,
         loop.enter(state, max(sizes))
         done = t - 1
         start = t
+        # one tap for the run, seeded from the host's sched vector; it
+        # carries the stage, Theta stage and restarts of each super-block's
+        # last row into the next
+        tap = _events.DeviceTap(
+            _events.get_bus(), name, start, c,
+            sigma_levels if anneal else None,
+            theta_hs=accel.theta_hs if accel is not None else None,
+            **_tap_seeds(state[-1] if schedule is not None else None,
+                         anneal, accel))
         for b in sizes:
-            rows, _, stop_stall = loop.block(start, b, traj)
+            # the super-block: its chunks queued and its one fetch (the
+            # finest local-solve timing the device loop can report)
+            with _tracing.span("local_solve", algorithm=name, t0=start,
+                               round=start - 1 + b * c, rounds=b * c,
+                               cadence=c):
+                rows, _, stop_stall = loop.block(start, b, traj)
+            tap.start_round = start
             new = _decode_rows(traj, name, rows, start, c,
-                               sigma_levels if anneal else None, quiet)
+                               sigma_levels if anneal else None, quiet, tap)
             if new:
                 # the super-block's fetch: its last record's time
                 new[-1].wall_time = traj.elapsed()
@@ -1416,7 +1463,9 @@ def drive_device(name: str, params: Params, debug: DebugParams,
 
     rem = total - (t - 1)
     if rem > 0 and not hit_target() and traj.stopped is None:
-        state = _run_chunk(chunks, schedule, n_iterate, t, rem, state)
+        with _tracing.span("local_solve", algorithm=name, round=total, t0=t,
+                           rounds=rem):
+            state = _run_chunk(chunks, schedule, n_iterate, t, rem, state)
         maybe_ckpt(total, lambda: state)
     if chunks.capture:
         state = (*(x.clone() for x in state[:n_iterate]),
@@ -1424,13 +1473,31 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     return state, traj
 
 
+def _tap_seeds(sched, anneal: bool, accel) -> dict:
+    """A :class:`~cocoa_torch.telemetry.events.DeviceTap`'s seeds from the
+    host's sched vector (None without one)."""
+    out = dict(init_stage=None, init_theta_stage=None, init_restarts=None)
+    if sched is None:
+        return out
+    if anneal:
+        out["init_stage"] = int(sched[0])
+    if accel is not None:
+        out["init_theta_stage"] = int(sched[A_TH_STAGE])
+        out["init_restarts"] = int(sched[A_RESTARTS])
+    return out
+
+
 def _decode_rows(traj: Trajectory, name: str, rows, start: int, c: int,
-                 levels: Optional[tuple], quiet: bool) -> list:
+                 levels: Optional[tuple], quiet: bool, tap) -> list:
     """A super-block's rows as records, as JAX's ``drive_on_device``
     decodes them: round ``start - 1 + (j + 1) * c`` for row j, NaN gap and
     test error as None, no wall time; under the anneal (``levels``) the
     stage and stall columns, and a line for each change of sigma' between
-    two rows of the super-block.  Returns the new records."""
+    two rows of the super-block.  The rows are first replayed through
+    ``tap``, which emits their events (JAX's fetch-fallback bridge), and
+    the records are logged without one.  Returns the new records."""
+    for j, row in enumerate(rows):
+        tap(j, row)
     prev = None
     out = []
     for j, row in enumerate(rows):
@@ -1444,7 +1511,7 @@ def _decode_rows(traj: Trajectory, name: str, rows, start: int, c: int,
                        gap=None if math.isnan(gap) else gap,
                        test_error=None if math.isnan(err) else err,
                        sigma=sigma, sigma_stage=stage, stall=stall,
-                       wall_time=None)
+                       wall_time=None, emit=False)
         if (not quiet and levels is not None and prev is not None
                 and sigma != prev):
             print(f"{name}: σ′ anneal — backed off to σ′={sigma:g} in the "

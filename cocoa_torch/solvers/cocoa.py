@@ -31,6 +31,7 @@ from cocoa_torch import kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
+from cocoa_torch.telemetry.events import get_bus
 from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
 from cocoa_torch.ops.dense_sdca import dense_sdca_round, \
     dense_sdca_round_plain
@@ -507,6 +508,11 @@ def run_cocoa(ds: ShardedDataset, params: Params, debug: DebugParams,
             return w, alpha, traj
         if ckpt_dir and os.path.isdir(ckpt_dir):
             _drop_trial_checkpoints(ckpt_dir, before, plus, traj)
+        get_bus().emit(
+            "restart", reason="sigma_trial_diverged",
+            algorithm="CoCoA+" if plus else "CoCoA",
+            sigma_trial=trial.sigma, sigma_safe=safe,
+            round=traj.records[-1].round if traj.records else 0)
         if not quiet:
             print(f"sigma=auto: σ′=K·γ/2={trial.sigma:g} diverged; "
                   f"restarting with the safe σ′=K·γ={safe:g}")

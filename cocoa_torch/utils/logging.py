@@ -1,23 +1,28 @@
 """Run trajectory and the reference's console format (counterpart of
-cocoa_tpu/utils/logging.py, without the telemetry bus).
+cocoa_tpu/utils/logging.py).
 
 The per-``debugIter`` lines follow CoCoA.scala:52-55 and the end-of-run
 block OptUtils.scala:102-126, so the two packages' output compares line
 by line.  ``dump_jsonl`` writes the JAX package's trajectory file
 (``--trajOut``): a manifest header, then one line per record.
+
+:class:`Trajectory` is a consumer of the event bus
+(cocoa_torch/telemetry/events.py): each record it collects is mirrored
+as a typed ``round_eval``, ``divergence`` or ``run_end`` event (a no-op
+while the bus is unconfigured).  ``--quiet`` silences the console only;
+the events are emitted all the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
-import math
 import time
 from typing import Optional
 
-import numpy as np
-import torch
+from cocoa_torch.telemetry import events as _events
+from cocoa_torch.telemetry.events import _clean, config_hash, \
+    environment_manifest
 
 
 @dataclasses.dataclass
@@ -30,58 +35,14 @@ class RoundRecord:
     sigma: Optional[float] = None  # sigma' in effect after this eval's
                                    # schedule update (scheduled runs only)
     # the sigma' ladder index and the stall-watch counter after this
-    # eval's update: JAX sends these on its event bus only, so the JSONL
-    # dump leaves them out
+    # eval's update: they ride the round_eval event, and the JSONL dump
+    # leaves them out
     sigma_stage: Optional[int] = None
     stall: Optional[int] = None
 
 
 _NOT_DUMPED = ("sigma_stage", "stall")
 _NOW = object()  # log_round's default wall time: the time of the call
-
-
-def _clean(v):
-    """JSON-safe scalars: numpy numerics -> python, NaN -> None (a copy of
-    cocoa_tpu/telemetry/events.py ``_clean``)."""
-    if isinstance(v, np.ndarray) and v.ndim == 0:
-        v = v.item()
-    if isinstance(v, np.floating):
-        v = float(v)
-    if isinstance(v, np.integer):
-        v = int(v)
-    if isinstance(v, float) and math.isnan(v):
-        return None
-    if isinstance(v, dict):
-        return {k: _clean(x) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return [_clean(x) for x in v]
-    return v
-
-
-def config_hash(config: dict) -> str:
-    """Stable short hash of a config mapping (the run's identity in the
-    trajectory header; cocoa_tpu/telemetry/events.py ``config_hash``)."""
-    blob = json.dumps(_clean(config), sort_keys=True, default=str)
-    return hashlib.sha256(blob.encode()).hexdigest()[:12]
-
-
-def environment_manifest(device=None) -> dict:
-    """torch/device provenance for the trajectory header (the port's
-    counterpart of cocoa_tpu/telemetry/events.py ``environment_manifest``).
-    ``device`` is the run's device; None reads the default CUDA device
-    when there is one."""
-    dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
-    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    return {
-        "torch_version": torch.__version__,
-        "backend": dev.type,
-        "device_count": (torch.cuda.device_count() if dev.type == "cuda"
-                         else 1),
-        "device_kind": kind,
-        "process_count": 1,
-    }
 
 
 class Trajectory:
@@ -119,23 +80,34 @@ class Trajectory:
         return time.perf_counter() - self._t0
 
     def mark_diverged(self, t: int, n_evals: int):
-        """Record (and report) a divergence/stall bail-out at round ``t``."""
+        """Record (and report) a divergence/stall bail-out at round ``t``;
+        the ``divergence`` event is emitted even under ``quiet``."""
         self.stopped = "diverged"
+        _events.get_bus().emit("divergence", algorithm=self.algorithm,
+                               t=int(t), n_evals=int(n_evals))
         self._console(f"{self.algorithm}: DIVERGED — best duality gap made no "
                       f"material progress over {n_evals} consecutive "
                       f"evaluations; stopped at round {t} "
                       f"(σ′ set below the safe K·γ bound? see --sigma)")
 
     def log_round(self, t, primal=None, gap=None, test_error=None,
-                  sigma=None, sigma_stage=None, stall=None, wall_time=_NOW):
+                  sigma=None, sigma_stage=None, stall=None, wall_time=_NOW,
+                  emit=True):
         """Record (and print) an eval; ``wall_time`` defaults to the time
         since the run started, and is None where it was not observed (the
-        device loop's evals inside a super-block)."""
+        device loop's evals inside a super-block).  ``emit=False`` leaves
+        out the ``round_eval`` event: the device loop's rows were emitted
+        by its :class:`~cocoa_torch.telemetry.events.DeviceTap`."""
         self.records.append(RoundRecord(
             round=t, wall_time=self.elapsed() if wall_time is _NOW
             else wall_time, primal=primal, gap=gap,
             test_error=test_error, sigma=sigma, sigma_stage=sigma_stage,
             stall=stall))
+        if emit:
+            _events.get_bus().emit(
+                "round_eval", algorithm=self.algorithm, t=int(t),
+                primal=primal, gap=gap, test_error=test_error, sigma=sigma,
+                sigma_stage=sigma_stage, stall=stall)
         if self.quiet:
             return
         print(f"Iteration: {t}")
@@ -147,6 +119,13 @@ class Trajectory:
             print(f"test error: {test_error}")
 
     def summary(self, primal, gap=None, test_error=None):
+        """The end-of-run block and the ``run_end`` event (emitted even
+        under ``quiet``)."""
+        _events.get_bus().emit(
+            "run_end", algorithm=self.algorithm, primal=primal, gap=gap,
+            test_error=test_error, stopped=self.stopped,
+            rounds=self.records[-1].round if self.records else 0,
+            elapsed_s=self.elapsed())
         if self.quiet:
             return
         out = f"{self.algorithm} has finished running. Summary Stats: "

@@ -123,9 +123,9 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
 
 
 @pytest.mark.parametrize("flag", [
-    "--ingest=stream", "--metrics=m.prom", "--trace=t.json",
+    "--ingest=stream", "--ingestCache=c", "--staleRounds=1",
     "--elastic=2", "--overlapComm=on", "--stallTimeout=60",
-    "--profile=p", "--events=e.jsonl", "--fleet=f.jsonl", "--serve=7000",
+    "--fleetLanes=2", "--statusPort=0", "--fleet=f.jsonl", "--serve=7000",
     "--mesh=1"])
 def test_cli_unported_flags_exit_2(flag, capsys):
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag]) == 2
