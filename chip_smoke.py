@@ -243,11 +243,34 @@ stderr); any failed check exits non-zero:
    profile's w and alpha are the unprofiled run's bit for bit; and
    ``python -m cocoa_torch`` SIGTERMed at its first eval leaving a valid
    ``.flightrec``.
+18. serving (cocoa_torch/serving/, ``--serve``), in processes of the CLI
+   on the card beside this one: (a) a trainer (rcv1-like, CoCoA+, a
+   checkpoint each 50 rounds) and ``--serve=0 --serveMaxNnz=548`` beside
+   it, lines of 1, 64, 256 and 1024 rows while it trains, every margin
+   against a host float64 w.x of the generation its response names
+   (each generation hard-linked aside by a separate process as it
+   lands), within 1e-5 of sum |w x|, no failed line, rounds
+   non-decreasing, at least three generations answered; after the
+   trainer stops, the server's margins bit for bit a cold start on the
+   last generation; (e) f32 serve_margins bit for bit shard_margins, and
+   its ms a batch by CUDA events per bucket x form (f32, bf16, int8) x
+   plain or hot panel beside its byte bound, and queries/s and p50/p99
+   latency through the TCP server; (b)
+   ``--serveDtype=bf16`` and ``int8`` servers: each response's dtype the
+   one its generation's model_quantize event served, quantized margins
+   within the event's bound of the f32 ones, and in process a forced
+   fallback bit for bit the f32 control and a forced quantized stack
+   within its certificate; (c) ``--hotCols=auto --trainFile`` against
+   the plain server within 1e-5 of sum |w x|; (d) ``--serveReplicas=2
+   --serveRoute=tenant`` over a (4, d) catalogue the port saved: bit for
+   bit four solo servers, a replica SIGKILLed under traffic with no
+   failed line, a requeue and a respawn, ``--statusPort``'s /metrics,
+   /healthz and /slo, one query_trace a traced line.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
-included), its error
+included; phase 18's serving runs no kernel of the table), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -262,9 +285,12 @@ import io
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -3153,8 +3179,6 @@ def phase_kill_resume():
     SIGKILLed once its first checkpoint exists, then both relaunched
     with --resume; each resumed summary equals the uninterrupted run's
     (in process, the same flags) bit for bit."""
-    import signal
-
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
@@ -3823,8 +3847,6 @@ def sigterm_flightrec(tmp):
     """A ``python -m cocoa_torch`` run on the demo with --events and the
     flight recorder, SIGTERMed at its first eval: it dies by the signal
     and leaves a ``.flightrec`` dump the port's schema accepts."""
-    import signal
-
     from cocoa_torch.telemetry import schema as tele_schema
 
     ev = os.path.join(tmp, "killed.jsonl")
@@ -4081,6 +4103,743 @@ def phase_telemetry(path, card):
         f"{v['events']} events / {v['stream_bytes']} bytes"
         for v in on_runs) + f"; card {card}")
     out["launched"] = dict(counted.total)
+    return out
+
+
+# --- phase 18: serving on the card (--serve) --------------------------------
+
+# the serving processes' and the trainer's --device
+SERVE_DEVICE = "cuda"
+# the trainer behind the server: rcv1-like CoCoA+ for up to this many
+# rounds, a checkpoint each SERVE_CHKPT; it is stopped once the traffic
+# has seen SERVE_SWAPS generations and run SERVE_TRAFFIC_S seconds
+SERVE_ROUNDS = 200_000
+SERVE_CHKPT = 50
+SERVE_SWAPS = 3
+SERVE_TRAFFIC_S = 6.0
+SERVE_BATCHES = (1, 64, 256, 1024)
+SERVE_BUCKETS = (64, 256, 1024)
+SERVE_MAX_NNZ = 548
+SERVE_TENANTS = 4
+# a margin against its float64 reference: of sum_j |w_j x_j|
+SERVE_REL = 1e-5
+
+# the archiver: a process of its own (no GIL shared with the client) that
+# hard-links each CoCoA+ generation into ARCHIVE as it lands, before the
+# trainer's pruning (two generations kept) unlinks it
+ARCHIVER = r"""
+import os, re, sys, time
+src, dst, stop = sys.argv[1:4]
+seen = set()
+while not os.path.exists(stop):
+    try:
+        names = os.listdir(src)
+    except OSError:
+        names = []
+    for n in names:
+        if re.fullmatch(r"CoCoA\+-r\d+\.npz", n) and n not in seen:
+            try:
+                os.link(os.path.join(src, n), os.path.join(dst, n))
+                seen.add(n)
+            except FileExistsError:
+                seen.add(n)
+            except OSError:
+                pass
+    time.sleep(0.0005)
+"""
+
+
+class ServeProc:
+    """One ``python -m cocoa_torch.cli`` process of this phase, its output
+    read on a thread: ``wait_for`` finds a line, ``address`` the announce
+    line's, ``close`` stops it (``shutdown``, then SIGTERM, then kill)."""
+
+    def __init__(self, name, argv):
+        self.name = name
+        self.argv = argv
+        self.lines = []
+        self._cv = threading.Condition()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "cocoa_torch.cli", *argv], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append(line)
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def wait_for(self, needle, count=1, timeout=240.0) -> str:
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                hits = [ln for ln in self.lines if needle in ln]
+                if len(hits) >= count:
+                    return hits[count - 1]
+                left = deadline - time.monotonic()
+                if left <= 0 or self.proc.poll() is not None:
+                    check(False, f"{self.name}: no {needle!r} (rc "
+                                 f"{self.proc.poll()}):\n"
+                                 + "".join(self.lines[-40:]))
+                self._cv.wait(min(left, 0.5))
+
+    def address(self, needle="listening on"):
+        host, port = self.wait_for(needle).split(needle)[1].split()[0] \
+            .split(":")
+        return host, int(port)
+
+    def close(self, addr=None, timeout=60.0) -> int:
+        if addr is not None and self.proc.poll() is None:
+            try:
+                with socket.create_connection(addr, timeout=10) as s:
+                    s.sendall(b"shutdown\n")
+                    s.makefile("rb").readline()
+            except OSError:
+                pass
+        try:
+            return self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            return self.stop()
+
+    def stop(self) -> int:
+        """SIGTERM (a fleet's router then stops its replicas), SIGKILL
+        if it does not exit."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                return self.proc.wait(20)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+        return self.proc.wait(15)
+
+
+class LineClient:
+    """One connection to a line-protocol server: ``ask`` sends a request
+    line and returns its parsed response and the seconds it took."""
+
+    def __init__(self, addr):
+        self.sock = socket.create_connection(addr, timeout=60)
+        self.f = self.sock.makefile("rwb")
+
+    def ask(self, line):
+        t0 = time.perf_counter()
+        self.f.write(line.encode() + b"\n")
+        self.f.flush()
+        raw = self.f.readline()
+        sec = time.perf_counter() - t0
+        check(raw != b"", "a serving connection closed mid-request")
+        return json.loads(raw), sec
+
+    def close(self):
+        self.f.close()
+        self.sock.close()
+
+
+def serve_argv(*flags):
+    return ["--serve=0", f"--numFeatures={RCV1_SHAPE[1]}",
+            f"--device={SERVE_DEVICE}", *flags]
+
+
+def query_rows(data, start, n):
+    """Rows ``start .. start+n`` of ``data`` (wrapping), as (idx, val)."""
+    out = []
+    for r in range(start, start + n):
+        lo, hi = data.indptr[r % data.n], data.indptr[r % data.n + 1]
+        out.append((data.indices[lo:hi].astype(np.int32),
+                    data.values[lo:hi]))
+    return out
+
+
+def query_text(qi, qv):
+    return " ".join(f"{i + 1}:{v!r}" for i, v in zip(qi.tolist(),
+                                                     qv.tolist()))
+
+
+def entries(resp):
+    return resp if isinstance(resp, list) else [resp]
+
+
+def margin_error(m, w, qi, qv):
+    """(|m - w.x| in float64 with x as float32, sum_j |w_j x_j|)."""
+    terms = np.asarray(w, np.float64)[qi] * \
+        np.asarray(qv, np.float32).astype(np.float64)
+    return abs(float(m) - float(terms.sum())), float(np.abs(terms).sum())
+
+
+def hold_margin(label, m, w, qi, qv, slack=0.0):
+    err, scale = margin_error(m, w, qi, qv)
+    check(err <= SERVE_REL * scale + slack,
+          f"{label}: margin {m} is {err:.3g} from w.x (sum |w x| "
+          f"{scale:.3g}, slack {slack:.3g})")
+
+
+def read_generation(path):
+    meta, arrays = checkpoint.load_full(path)
+    return meta["round"], np.asarray(arrays["w"], np.float32)
+
+
+def save_generation(directory, round_t, w):
+    return checkpoint.save(directory, "CoCoA+", round_t, w, None, gap=1e-4)
+
+
+def percentiles(secs):
+    ms = np.sort(np.asarray(secs)) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def serve_traffic(label, addr, data, deadline_s, min_rounds):
+    """(a)'s traffic: lines of 1, 64, 256 and 1024 rcv1-like rows in turn
+    on one connection while the trainer saves generations, until
+    ``min_rounds`` generations answered and ``deadline_s`` passed (or
+    30 s).  Returns [(round, query, margin)] in the order answered."""
+    client = LineClient(addr)
+    answered, start, t0 = [], 0, time.perf_counter()
+    try:
+        while True:
+            for b in SERVE_BATCHES:
+                rows = query_rows(data, start, b)
+                start += b
+                resp, _ = client.ask(";".join(query_text(*q) for q in rows))
+                got = entries(resp)
+                check(len(got) == b and all("margin" in g for g in got),
+                      f"{label}: a failed or dropped line: "
+                      f"{str(resp)[:300]}")
+                check(all(g["dtype"] == "f32" for g in got),
+                      f"{label}: served {str(resp)[:300]}")
+                # a line's queries may span batches, and so generations
+                answered += [(g["round"], q, g["margin"])
+                             for g, q in zip(got, rows)]
+            elapsed = time.perf_counter() - t0
+            seen = len({a[0] for a in answered})
+            if (elapsed >= deadline_s and seen >= min_rounds) \
+                    or elapsed >= 30.0:
+                return answered
+    finally:
+        client.close()
+
+
+def phase_serve_while_training(path, rcv1, tmp, card):
+    """(a): a port trainer on the card (rcv1-like, CoCoA+, a checkpoint
+    each SERVE_CHKPT rounds) and ``python -m cocoa_torch.cli --serve=0``
+    beside it; lines of 1, 64, 256 and 1024 rows while it trains: every
+    margin against a host float64 w.x of the generation its response
+    names, no failed or dropped line, rounds non-decreasing, at least
+    SERVE_SWAPS generations answered; then, the trainer stopped, the
+    server's margins on the last generation bit for bit those of a cold
+    start on it (one query a line: bucket 64 on both)."""
+    d = RCV1_SHAPE[1]
+    ck = os.path.join(tmp, "ck")
+    archive = os.path.join(tmp, "archive")
+    stop_file = os.path.join(tmp, "archive.stop")
+    os.makedirs(ck)
+    os.makedirs(archive)
+    archiver = subprocess.Popen([sys.executable, "-c", ARCHIVER, ck, archive,
+                                 stop_file])
+    t0 = time.perf_counter()
+    trainer_err = open(os.path.join(tmp, "trainer.err"), "w+")
+    trainer = subprocess.Popen(
+        [sys.executable, "-m", "cocoa_torch.cli", f"--trainFile={path}",
+         f"--numFeatures={d}", "--numSplits=8", "--localIterFrac=0.1",
+         "--lambda=1e-4", "--math=fast", "--dtype=float32",
+         f"--numRounds={SERVE_ROUNDS}", f"--debugIter={SERVE_CHKPT}",
+         f"--chkptIter={SERVE_CHKPT}", f"--chkptDir={ck}", "--quiet",
+         f"--device={SERVE_DEVICE}"],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=trainer_err,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    server = ServeProc("the server", serve_argv(
+        f"--chkptDir={ck}", f"--serveMaxNnz={SERVE_MAX_NNZ}"))
+    try:
+        try:
+            addr = server.address()
+            up_s = time.perf_counter() - t0
+            answered = serve_traffic("(a)", addr, rcv1, SERVE_TRAFFIC_S,
+                                     SERVE_SWAPS)
+            traffic_s = time.perf_counter() - t0 - up_s
+            trainer.terminate()
+            trainer.wait(60)
+            trainer_err.seek(0)
+            check(trainer.returncode in (0, -signal.SIGTERM),
+                  f"(a) trainer exited {trainer.returncode}: "
+                  f"{trainer_err.read()[-2000:]}")
+            final = checkpoint.latest(ck, "CoCoA+")
+            r_final, w_final = read_generation(final)
+            # the server swaps to the last generation within its 0.25 s poll
+            time.sleep(1.0)
+        finally:
+            with open(stop_file, "w"):
+                pass
+            archiver.wait(30)
+            if trainer.poll() is None:
+                trainer.kill()
+                trainer.wait()
+            trainer_err.close()
+        gens = {}
+        for name in os.listdir(archive):
+            r, w = read_generation(os.path.join(archive, name))
+            gens[r] = w
+        rounds = [a[0] for a in answered]
+        check(rounds == sorted(rounds), f"(a) rounds went back: {rounds}")
+        swaps = sum("hot-swapped to" in ln for ln in server.lines)
+        check(len(set(rounds)) >= SERVE_SWAPS and swaps >= 1,
+              f"(a) {len(set(rounds))} generations answered, {swaps} swaps")
+        worst = 0.0
+        for r, (qi, qv), m in answered:
+            check(r in gens, f"(a) generation r{r} answered, not archived")
+            err, scale = margin_error(m, gens[r], qi, qv)
+            check(err <= SERVE_REL * scale,
+                  f"(a) r{r}: margin {m} is {err:.3g} from w.x "
+                  f"(sum |w x| {scale:.3g})")
+            worst = max(worst, err / max(scale, 1e-30))
+        # the last generation: the server against a cold start, bit for bit
+        rows = query_rows(rcv1, 5000, 24)
+        client = LineClient(addr)
+        got = [client.ask(query_text(*q))[0] for q in rows]
+        client.close()
+        check(all(g["round"] == r_final for g in got),
+              f"(a) after the trainer stopped: rounds "
+              f"{sorted({g['round'] for g in got})}, newest r{r_final}")
+        cold = serve_stack(w_final, r_final, final)
+        want = [cold_margin(cold, q) for q in rows]
+        check([g["margin"] for g in got] == want,
+              "(a) the swapped server and a cold start differ on the last "
+              "generation")
+        print(f"phase 18 (a): server up {up_s:.1f} s after the trainer "
+              f"started; {len(answered)} margins in lines of "
+              f"{', '.join(map(str, SERVE_BATCHES))} in "
+              f"{traffic_s:.1f} s of traffic, generations r{rounds[0]}.."
+              f"r{rounds[-1]} ({len(set(rounds))} answered, {swaps} hot-swaps "
+              f"logged, {len(gens)} archived), every margin within "
+              f"{SERVE_REL:g} of sum |w x| of its generation's float64 w.x "
+              f"(worst {worst:.3g}), rounds non-decreasing, 0 failed; after "
+              f"the stop r{r_final} bit for bit a cold start (24 margins); "
+              f"card {card}")
+        return server, addr, (r_final, w_final, final, gens), {
+            "up_s": up_s, "traffic_s": traffic_s, "margins": len(answered),
+            "generations": len(set(rounds)),
+            "swaps": swaps, "worst_rel": worst, "r_final": r_final}
+    except BaseException:   # stop the server, whatever failed
+        server.stop()
+        raise
+
+
+def serve_stack(w, round_t, path, sd="f32", calibration=None,
+                flip_guard=None, hot_ids=None, n_tenants=None):
+    """An in-process serving stack on the card (what a server process
+    builds at its start): model slots and a bucket scorer."""
+    from cocoa_torch import serving
+
+    info = serving.ModelInfo(round=round_t, path=path, birth_ts=time.time(),
+                             gap=1e-4, seq=0)
+    slots = serving.ModelSlots(w, info, dtype=sd, calibration=calibration,
+                               flip_guard=flip_guard, device=SERVE_DEVICE)
+    scorer = serving.BatchScorer(RCV1_SHAPE[1], dtype=sd,
+                                 buckets=SERVE_BUCKETS,
+                                 max_nnz=SERVE_MAX_NNZ, hot_ids=hot_ids,
+                                 model_width=int(np.shape(w)[-1]),
+                                 n_tenants=n_tenants, device=SERVE_DEVICE)
+    w_dev, scale, _, form = slots.current()
+    scorer.warmup(w_dev, scale, form)
+    return slots, scorer
+
+
+def stack_margins(stack, queries, tenants=None):
+    """The margins of ``queries`` as one padded bucket, as floats."""
+    from cocoa_torch.serving import pick_bucket
+
+    slots, scorer = stack
+    w_dev, scale, _, form = slots.current()
+    bucket = pick_bucket(len(queries), scorer.buckets)
+    idx, val, hot = scorer.assemble(queries, bucket)
+    tenant = (None if tenants is None
+              else scorer.assemble_tenants(tenants, bucket))
+    out = scorer.score(w_dev, idx, val, hot, scale, tenant, form)
+    return [float(m) for m in out.cpu()[:len(queries)]]
+
+
+def cold_margin(stack, query, tenant=None):
+    """One query alone, as a server scores a one-query line."""
+    return stack_margins(stack, [query],
+                         None if tenant is None else [tenant])[0]
+
+
+def serve_timing(addr, rcv1, card):
+    """Queries/s and latency through the TCP server: 300 one-row lines
+    one after another, then 40 lines of 64, 20 of 256 and 10 of 1024."""
+    client = LineClient(addr)
+    out = {}
+    try:
+        for b, n in ((1, 300), (64, 40), (256, 20), (1024, 10)):
+            lines = [";".join(query_text(*q) for q in
+                              query_rows(rcv1, 7000 + i * b, b))
+                     for i in range(n)]
+            secs = []
+            t0 = time.perf_counter()
+            for line in lines:
+                resp, sec = client.ask(line)
+                check(all("margin" in e for e in entries(resp)),
+                      f"(e) a failed line at batch {b}")
+                secs.append(sec)
+            wall = time.perf_counter() - t0
+            p50, p99 = percentiles(secs)
+            out[b] = {"qps": b * n / wall, "p50_ms": p50, "p99_ms": p99}
+    finally:
+        client.close()
+    print("phase 18 (e): through the TCP server (one connection, rcv1-like "
+          "rows, f32): " + "; ".join(
+              f"lines of {b}: {v['qps']:.0f} queries/s, p50 "
+              f"{v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms a line"
+              for b, v in out.items()) + f"; card {card}")
+    return out
+
+
+def serve_margins_timing(rcv1, w, hot_ids, card):
+    """(e): ms a batch of ops/rows.py serve_margins by CUDA events, per
+    bucket x form x plain or hot panel, on rcv1-like rows, beside the
+    bytes it must move at 3.35 TB/s: the padded batch's index and value
+    (8 B a slot), the model gathered at each slot (4, 2 or 1 B), the
+    panel (4 B a lane a row) and its model lanes, the margins out.  The
+    f32 margins are held bit for bit to ops/rows.py shard_margins' on the
+    batch taken as one shard, the evaluator's margin."""
+    from cocoa_torch.ops import rows as rows_mod
+    from cocoa_torch.serving import BatchScorer, quantize
+
+    out = {}
+    lanes = {"f32": 4, "bf16": 2, "int8": 1}
+    for layout, ids in (("plain", None), ("hot", hot_ids)):
+        scorer = BatchScorer(RCV1_SHAPE[1], buckets=SERVE_BUCKETS,
+                             max_nnz=SERVE_MAX_NNZ, hot_ids=ids,
+                             device=SERVE_DEVICE)
+        for b in SERVE_BUCKETS:
+            batch = scorer.assemble(query_rows(rcv1, 11000, b), b)
+            idx, val, hot = (None if a is None else
+                             torch.from_numpy(a).to(SERVE_DEVICE)
+                             for a in batch)
+            shard = {"sp_indices": idx, "sp_values": val}
+            if hot is not None:
+                shard["X_hot"] = hot
+                shard["hot_cols"] = torch.from_numpy(
+                    np.asarray(hot_ids, np.int64)).to(SERVE_DEVICE)
+            w32 = torch.from_numpy(np.asarray(w, np.float32)).to(
+                SERVE_DEVICE)
+            check(torch.equal(
+                rows_mod.serve_margins(w32, shard),
+                rows_mod.shard_margins(w32, {k: v[None] for k, v in
+                                             shard.items()})[0]),
+                  f"(e) {layout} bucket {b}: f32 serving is not "
+                  f"shard_margins bit for bit")
+            for sd in ("f32", "bf16", "int8"):
+                qm = quantize.quantize(w, sd)
+                w_dev = quantize.device_words(qm, SERVE_DEVICE)
+                ms = cuda_ms(lambda: rows_mod.serve_margins(
+                    w_dev, shard, qm.scale, sd), 50)
+                slots = b * SERVE_MAX_NNZ
+                n_bytes = slots * (8 + lanes[sd]) + b * 4
+                if hot is not None:
+                    n_bytes += b * scorer.n_hot * 4 \
+                        + scorer.n_hot * (8 + lanes[sd])
+                bound = n_bytes / HBM_BYTES_PER_S * 1e3
+                out[f"{layout} {b} {sd}"] = {"ms": ms, "bound_ms": bound,
+                                             "bytes": n_bytes}
+    print("phase 18 (e): f32 serve_margins bit for bit shard_margins at "
+          "every bucket, plain and hot; serve_margins ms a batch (CUDA "
+          "events) / byte bound ms at 3.35 TB/s, max_nnz 548, hot panel "
+          f"{len(hot_ids)} lanes: " + "; ".join(
+              f"{k} {v['ms']:.4f} / {v['bound_ms']:.5f}"
+              for k, v in out.items()) + f"; card {card}")
+    return out
+
+
+def phase_low_precision(procs, gen, rcv1, tmp, card):
+    """(b): a ``--serveDtype=bf16`` and an ``int8`` server on the last
+    generation, with --events: 64 rows, then a new generation (the same
+    w, a later round) whose certificate is taken over those 64 rows, the
+    rows again: each response's dtype is the one its generation's
+    model_quantize event says was served; quantized margins lie within
+    that event's bound (plus the f32 rounding of 1e-5 of sum |w x|) of
+    the f32 model's; in process on the card, a forced fallback is bit for
+    bit the f32 control, and a forced quantized stack's margins lie
+    within the certificate computed on its queries."""
+    from cocoa_torch import serving
+    from cocoa_torch.serving import quantize
+
+    r_final, w, final, _ = gen
+    rows = query_rows(rcv1, 3000, 64)
+    line = ";".join(query_text(*q) for q in rows)
+    f32 = serve_stack(w, r_final, final)
+    f32_margins = stack_margins(f32, rows)
+    out = {}
+    for sd in ("bf16", "int8"):
+        proc, directory, events = procs[sd]
+        addr = proc.address()
+        client = LineClient(addr)
+        first = entries(client.ask(line)[0])
+        save_generation(directory, r_final + 1, w)
+        deadline = time.monotonic() + 30
+        while True:
+            time.sleep(0.3)
+            quant = [e for e in read_events(events)
+                     if e["event"] == "model_quantize"]
+            if len(quant) >= 2 or time.monotonic() > deadline:
+                break
+        second = entries(client.ask(line)[0])
+        client.close()
+        check(proc.close(addr) == 0, f"(b) {sd} server exit")
+        check(len(quant) == 2 and [e["swap_seq"] for e in quant] == [0, 1],
+              f"(b) {sd}: model_quantize events {quant}")
+        for resp, ev, r in ((first, quant[0], r_final),
+                            (second, quant[1], r_final + 1)):
+            check(all(e["round"] == r and e["dtype"] == ev["served"]
+                      for e in resp),
+                  f"(b) {sd}: responses {resp[:2]} against the event {ev}")
+        ev = quant[1]
+        check(ev["calib_n"] == 64, f"(b) {sd}: calibration {ev['calib_n']}")
+        worst = 0.0
+        for (qi, qv), m, m32 in zip(rows, [e["margin"] for e in second],
+                                    f32_margins):
+            _, scale = margin_error(m, w, qi, qv)
+            gap = abs(m - m32)
+            if ev["served"] == sd:
+                check(gap <= ev["bound"] + 2 * SERVE_REL * scale,
+                      f"(b) {sd}: |m - m_f32| {gap:.3g} past the bound "
+                      f"{ev['bound']:.3g}")
+            else:
+                check(gap == 0.0, f"(b) {sd}: the fallback's margin {m} "
+                                  f"is not the f32 control's {m32}")
+            worst = max(worst, gap)
+        # in process: the forced fallback and the forced quantized form
+        calib = serving.CalibrationBuffer(RCV1_SHAPE[1], max_nnz=8, seed=3)
+        for q in rows:
+            calib.record(*q)
+        fb = serve_stack(w, r_final, final, sd, calib, flip_guard=0.0)
+        check(fb[0].served_dtype == "f32" and fb[0].fallbacks_total == 1,
+              f"(b) {sd}: the forced fallback served {fb[0].served_dtype}")
+        check(stack_margins(fb, rows) == f32_margins,
+              f"(b) {sd}: the forced fallback is not the f32 control")
+        q_stack = serve_stack(w, r_final, final, sd, calib,
+                              flip_guard=float("inf"))
+        check(q_stack[0].served_dtype == sd,
+              f"(b) {sd}: the forced quantized stack served "
+              f"{q_stack[0].served_dtype}")
+        wq = quantize.dequantize(quantize.quantize(w, sd), RCV1_SHAPE[1])
+        bound, weakest, flips = quantize.margin_error_bound(w, wq, rows)
+        for (qi, qv), m, m32 in zip(rows, stack_margins(q_stack, rows),
+                                    f32_margins):
+            hold_margin(f"(b) {sd} forced", m, wq, qi, qv)
+            _, scale = margin_error(m, w, qi, qv)
+            check(abs(m - m32) <= bound + 2 * SERVE_REL * scale,
+                  f"(b) {sd} forced: past the certificate {bound:.3g}")
+        out[sd] = {"load": quant[0]["served"], "swap": ev["served"],
+                   "bound": ev["bound"], "worst": worst,
+                   "forced_bound": bound, "forced_flips": flips}
+        print(f"phase 18 (b): --serveDtype={sd}: served {quant[0]['served']} "
+              f"at load (bound {quant[0]['bound']}), {ev['served']} after "
+              f"the swap (bound {ev['bound']:.4g} over the 64 rows), "
+              f"largest |m - m_f32| "
+              f"{worst:.4g}; forced fallback bit for bit the f32 control; "
+              f"forced {sd}: bound {bound:.4g}, {flips} flips; card {card}")
+    return out
+
+
+def phase_hot_panel(hot_proc, plain_addr, gen, rcv1, card):
+    """(c): ``--hotCols=auto --trainFile`` on the last generation against
+    the plain server of (a): the same lines, every margin within 1e-5 of
+    sum |w x| of the plain one and of the host's float64 w.x."""
+    r_final, w, _, _ = gen
+    addr = hot_proc.address()
+    panel = hot_proc.wait_for("hot panel over")
+    clients = [LineClient(addr), LineClient(plain_addr)]
+    worst, n = 0.0, 0
+    try:
+        for i, b in enumerate(SERVE_BATCHES):
+            rows = query_rows(rcv1, 9000 + 1100 * i, b)
+            line = ";".join(query_text(*q) for q in rows)
+            hot, plain = (entries(c.ask(line)[0]) for c in clients)
+            for (qi, qv), h, p in zip(rows, hot, plain):
+                check(h["round"] == p["round"] == r_final,
+                      f"(c) rounds {h['round']} / {p['round']}")
+                err, scale = margin_error(h["margin"], w, qi, qv)
+                check(abs(h["margin"] - p["margin"]) <= SERVE_REL * scale
+                      and err <= SERVE_REL * scale,
+                      f"(c) hot {h['margin']} plain {p['margin']}")
+                worst = max(worst, abs(h["margin"] - p["margin"])
+                            / max(scale, 1e-30))
+                n += 1
+    finally:
+        for c in clients:
+            c.close()
+    check(hot_proc.close(addr) == 0, "(c) the hot-panel server's exit")
+    print(f"phase 18 (c): {panel.strip()}; {n} margins through the panel "
+          f"and residual within {SERVE_REL:g} of sum |w x| of the plain "
+          f"server's (worst {worst:.3g}); card {card}")
+    return {"margins": n, "worst_rel": worst, "panel": panel.strip()}
+
+
+def http_get(addr, route):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr[0]}:{addr[1]}{route}",
+                                timeout=30) as r:
+        return r.read().decode()
+
+
+def phase_fleet(fleet, cat_path, W, rcv1, tmp, card):
+    """(d): ``--serveReplicas=2 --serveRoute=tenant`` over the (T=4, d)
+    catalogue the port saved: every tenant's margins bit for bit those of
+    a solo server of its model (one query a line); a replica SIGKILLed
+    under traffic: 0 failed lines, cocoa_serve_requeue_total >= 1, a
+    respawn; /metrics, /healthz and /slo answer; one query_trace a traced
+    line (--traceSample=1)."""
+    from cocoa_torch import serving
+
+    addr = fleet.address("fleet listening on")
+    status = fleet.address("status listening on")
+    pid0 = int(fleet.wait_for("replica r0 pid=").split("pid=")[1].split()[0])
+    solos = []
+    for t in range(SERVE_TENANTS):
+        slots, scorer = serve_stack(W[t], 1, cat_path)
+        batcher = serving.MicroBatcher(scorer, slots, sla_s=0.05)
+        srv = serving.MarginServer(batcher, RCV1_SHAPE[1], SERVE_MAX_NNZ,
+                                   port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        solos.append((batcher, srv))
+    rows = query_rows(rcv1, 13000, 8)
+    client = LineClient(addr)
+    n_same = 0
+    try:
+        for t in range(SERVE_TENANTS):
+            solo = LineClient(solos[t][1].address)
+            for q in rows:
+                text = query_text(*q)
+                got = client.ask(f"tenant={t};{text}")[0]
+                want = solo.ask(text)[0]
+                check(got.get("tenant") == t
+                      and got["margin"] == want["margin"],
+                      f"(d) tenant {t}: fleet {got} solo {want}")
+                n_same += 1
+            solo.close()
+    finally:
+        for batcher, srv in solos:
+            srv.close()
+            batcher.stop()
+    failed, sent = [], [0]
+    stop = threading.Event()
+
+    def traffic():
+        c = LineClient(addr)
+        i = 0
+        while not stop.is_set():
+            t = i % SERVE_TENANTS
+            qi, qv = rows[i % len(rows)]
+            resp = c.ask(f"tenant={t};{query_text(qi, qv)}")[0]
+            sent[0] += 1
+            if "margin" not in resp:
+                failed.append(resp)
+            i += 1
+        c.close()
+
+    pump = threading.Thread(target=traffic, daemon=True)
+    pump.start()
+    time.sleep(0.5)
+    t_kill = time.perf_counter()
+    os.kill(pid0, signal.SIGKILL)
+    fleet.wait_for("replica r0 died")
+    fleet.wait_for("replica r0 pid=", count=2)
+    respawn_s = time.perf_counter() - t_kill
+    time.sleep(0.5)
+    stop.set()
+    pump.join(60)
+    check(not pump.is_alive() and failed == [],
+          f"(d) {len(failed)} failed lines under the SIGKILL: {failed[:3]}")
+    traced = [client.ask(f"trace={i:04x};tenant={i % SERVE_TENANTS};"
+                         f"{query_text(*rows[i % len(rows)])}")[0]
+              for i in range(6)]
+    check(all(r["trace"]["id"] == f"{i:04x}" for i, r in enumerate(traced)),
+          f"(d) traced responses {traced[:2]}")
+    health = json.loads(http_get(status, "/healthz"))
+    slo = json.loads(http_get(status, "/slo"))
+    merged = http_get(status, "/metrics")
+    client.close()
+    check(health["status"] == "ok" and health["replicas_live"] == 2,
+          f"(d) /healthz {health}")
+    check("attainment" in slo and slo["replicas_live"] == 2, f"(d) /slo {slo}")
+    requeues = [float(ln.split()[-1]) for ln in merged.splitlines()
+                if ln.startswith('cocoa_serve_requeue_total{replica="'
+                                 'router"}')]
+    check(requeues and requeues[0] >= 1,
+          f"(d) cocoa_serve_requeue_total {requeues}")
+    check(fleet.close(addr) == 0, "(d) the fleet's exit")
+    events = read_events(os.path.join(tmp, "fleet.jsonl"))
+    n_traces = sum(e["event"] == "query_trace" for e in events)
+    check(n_traces == len(traced), f"(d) {n_traces} query_trace events for "
+                                   f"{len(traced)} traced lines")
+    print(f"phase 18 (d): fleet of 2 replicas, route tenant, catalogue "
+          f"{W.shape}: {n_same} margins bit for bit four solo servers'; r0 "
+          f"SIGKILLed under traffic ({sent[0]} lines, 0 failed, requeues "
+          f"{requeues[0]:g}), respawned in {respawn_s:.1f} s; /healthz "
+          f"{health['status']}, /slo attainment {slo['attainment']}, "
+          f"/metrics {len(merged.splitlines())} lines; {n_traces} "
+          f"query_trace for {len(traced)} traced lines; card {card}")
+    return {"same": n_same, "lines": sent[0], "requeues": requeues[0],
+            "respawn_s": respawn_s, "slo": slo, "traces": n_traces}
+
+
+def phase_serving(path, rcv1, card):
+    """Phase 18: serving on the card, (a)-(e)."""
+    from cocoa_torch.data import hybrid as hybrid_lib
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        server, plain_addr, gen, out["a"] = phase_serve_while_training(
+            path, rcv1, tmp, card)
+        r_final, w, final, gens = gen
+        # (e) first, with no other process starting beside it
+        counts = hybrid_lib.column_counts(rcv1)
+        hot_n = hybrid_lib.resolve_hot_width("auto", counts, rcv1.n, 1,
+                                             torch.float32)
+        hot_ids = hybrid_lib.hottest_columns(counts, hot_n)
+        out["e_margins"] = serve_margins_timing(rcv1, w, hot_ids, card)
+        out["e_tcp"] = serve_timing(plain_addr, rcv1, card)
+        # (b), (c) and (d)'s processes start together
+        procs = {}
+        for sd in ("bf16", "int8"):
+            d = os.path.join(tmp, f"ck_{sd}")
+            save_generation(d, r_final, w)
+            events = os.path.join(tmp, f"{sd}.jsonl")
+            procs[sd] = (ServeProc(f"the {sd} server", serve_argv(
+                f"--chkptDir={d}", f"--serveMaxNnz={SERVE_MAX_NNZ}",
+                f"--serveDtype={sd}", f"--events={events}")), d, events)
+        d_hot = os.path.join(tmp, "ck_hot")
+        save_generation(d_hot, r_final, w)
+        hot_proc = ServeProc("the hot-panel server", serve_argv(
+            f"--chkptDir={d_hot}", f"--serveMaxNnz={SERVE_MAX_NNZ}",
+            "--hotCols=auto", f"--trainFile={path}"))
+        picks = sorted(gens)
+        picks = [picks[i * (len(picks) - 1) // (SERVE_TENANTS - 1)]
+                 for i in range(SERVE_TENANTS)]
+        W = np.stack([gens[r] for r in picks])
+        cat = os.path.join(tmp, "ck_cat")
+        cat_path = checkpoint.save(
+            cat, "CoCoA+", 1, W, None, gap=1e-4,
+            tenant_gaps=[1e-4] * SERVE_TENANTS,
+            tenant_cert_ts=[time.time()] * SERVE_TENANTS)
+        fleet = ServeProc("the fleet", serve_argv(
+            f"--chkptDir={cat}", f"--serveMaxNnz={SERVE_MAX_NNZ}",
+            "--serveReplicas=2", "--serveRoute=tenant", "--statusPort=0",
+            f"--metrics={tmp}/fleet.prom", f"--events={tmp}/fleet.jsonl",
+            "--traceSample=1"))
+        try:
+            out["b"] = phase_low_precision(procs, gen, rcv1, tmp, card)
+            out["c"] = phase_hot_panel(hot_proc, plain_addr, gen, rcv1, card)
+            out["d"] = phase_fleet(fleet, cat_path, W, rcv1, tmp, card)
+            check(server.close(plain_addr) == 0, "(a) the server's exit")
+        finally:
+            for proc in [server, hot_proc, fleet] + [p[0] for p in
+                                                     procs.values()]:
+                proc.stop()
     return out
 
 
@@ -4536,9 +5295,16 @@ def main() -> int:
     # --- phase 17: telemetry on the card
     t0 = time.perf_counter()
     telemetry17 = phase_telemetry(path, card)
-    tmp.cleanup()
     print(f"phase 17: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase17.json").write_text(json.dumps(telemetry17,
+                                                            default=str))
+
+    # --- phase 18: serving on the card
+    t0 = time.perf_counter()
+    serving18 = phase_serving(path, rcv1, card)
+    tmp.cleanup()
+    print(f"phase 18: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase18.json").write_text(json.dumps(serving18,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),

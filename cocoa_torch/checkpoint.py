@@ -70,14 +70,18 @@ def _from_file(a: np.ndarray):
 
 def save(directory: str, algorithm: str, round_t: int, w, alpha=None,
          seed: int = 0, sched=None, hist=None,
-         gap: Optional[float] = None) -> str:
+         gap: Optional[float] = None, tenant_gaps=None,
+         tenant_cert_ts=None) -> str:
     """Write the checkpoint of ``round_t``; returns its path.
 
     ``w``, ``alpha`` and ``hist`` (the ``--accel`` bank, (2, K, n_shard))
     are tensors or arrays; ``sched`` the float32 sched vector, which rides
     the meta as a list of floats (exact: a float32 is a JSON double).
     ``gap`` is the last certified duality gap the run saw before the save
-    (None without one).
+    (None without one).  ``tenant_gaps`` and ``tenant_cert_ts`` are a
+    (T, d) catalogue's per-tenant certified gaps and certification times,
+    one of each a tenant row, under the JAX package's meta keys; a
+    server reads them as the catalogue's per-tenant freshness.
 
     Both files are written to temporary names and renamed in, the
     ``.npz`` last: :func:`latest` discovers a checkpoint by its ``.npz``,
@@ -86,11 +90,12 @@ def save(directory: str, algorithm: str, round_t: int, w, alpha=None,
     with _tracing.span("checkpoint_save", algorithm=algorithm,
                        round=int(round_t)):
         return _save(directory, algorithm, round_t, w, alpha=alpha,
-                     seed=seed, sched=sched, hist=hist, gap=gap)
+                     seed=seed, sched=sched, hist=hist, gap=gap,
+                     tenant_gaps=tenant_gaps, tenant_cert_ts=tenant_cert_ts)
 
 
 def _save(directory, algorithm, round_t, w, alpha=None, seed=0, sched=None,
-          hist=None, gap=None) -> str:
+          hist=None, gap=None, tenant_gaps=None, tenant_cert_ts=None) -> str:
     os.makedirs(directory, exist_ok=True)
     algorithm = algorithm.replace(" ", "_")
     path = os.path.join(directory, f"{algorithm}-r{round_t:06d}.npz")
@@ -98,6 +103,22 @@ def _save(directory, algorithm, round_t, w, alpha=None, seed=0, sched=None,
     meta = {"algorithm": algorithm, "round": round_t, "seed": seed}
     if gap is not None:
         meta["gap"] = float(gap)
+    if tenant_gaps is not None or tenant_cert_ts is not None:
+        # both lists or neither, each covering every tenant row: a short
+        # list would mislabel the per-tenant gap-age series
+        if w.ndim != 2:
+            raise ValueError(
+                "tenant_gaps/tenant_cert_ts only ride a stacked (T, d) "
+                f"catalogue checkpoint — w has shape {w.shape}")
+        for name, vals in (("tenant_gaps", tenant_gaps),
+                           ("tenant_cert_ts", tenant_cert_ts)):
+            if vals is None or len(vals) != w.shape[0]:
+                raise ValueError(
+                    f"{name} must carry one entry per tenant row: got "
+                    f"{None if vals is None else len(vals)} entries "
+                    f"for a {w.shape[0]}-tenant catalogue")
+        meta["tenant_gaps"] = [float(v) for v in tenant_gaps]
+        meta["tenant_cert_ts"] = [float(v) for v in tenant_cert_ts]
     if sched is not None:
         meta["sched"] = [float(v) for v in
                          host_array(sched).astype(np.float32)]

@@ -19,6 +19,12 @@
         [--metrics=P [--metricsInterval=<s>]] [--trace]
         [--profile=DIR[,START,STOP]]
 
+    python -m cocoa_torch.cli --serve[=PORT] --chkptDir=D --numFeatures=N
+        [--serveBatch=64,256,1024] [--serveSlaMs=50] [--serveMaxNnz=<n>]
+        [--serveDtype=f32|bf16|int8] [--hotCols=auto --trainFile=F]
+        [--serveReplicas=<n> --serveRoute=rr|tenant] [--traceSample=<n>]
+        [--statusPort=PORT --metrics=P] [--events=P] [--device=cuda|cpu]
+
     python -m cocoa_torch <the same flags>
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
@@ -82,15 +88,28 @@ seconds); ``--trace`` adds timed ``span`` events (needs ``--events`` or
 [START, STOP), opened and closed at the evals (under ``--deviceLoop`` at
 the super-block fetches, where its evals reach the host).  The bus, the
 tracer and the process's exit hooks are put back as they were when
-:func:`run` returns.  Flags of the JAX CLI that this port does not
-support yet exit 2 with ``error: --X is not yet ported to cocoa_torch
-(ROADMAP Queue A)``.
+:func:`run` returns.
+
+``--serve`` (cocoa_torch/serving/) answers margin queries on a TCP line
+protocol from the newest validated CoCoA+ checkpoint in ``--chkptDir``,
+hot-swapping each newer generation a trainer writes there, with the JAX
+CLI's serve surface: static buckets (``--serveBatch``), admission under
+``--serveSlaMs``, ``--serveDtype=bf16|int8`` with its margin-error
+certificate, the hot panel (``--hotCols`` with ``--trainFile``), a
+``(T, d)`` catalogue, a router over ``--serveReplicas`` replica
+processes (``--serveRoute``), ``--traceSample`` and the ``--statusPort``
+ops plane; any training flag beside it exits 2 with the JAX CLI's
+message.  Flags of the JAX CLI that this port does not support yet exit
+2 with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue
+A)``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import signal
 import sys
 import time
 from typing import NamedTuple, Optional
@@ -98,7 +117,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from cocoa_torch import checkpoint
+from cocoa_torch import checkpoint, serving
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data.columns import shard_columns
@@ -112,6 +131,8 @@ from cocoa_torch.solvers.dist_gd import run_dist_gd
 from cocoa_torch.solvers.minibatch_cd import run_minibatch_cd
 from cocoa_torch.solvers.prox_cocoa import lasso_metrics, run_prox_cocoa
 from cocoa_torch.solvers.sgd import run_sgd
+from cocoa_torch.serving.watcher import emit_model_swap
+from cocoa_torch.telemetry import aggregate
 from cocoa_torch.telemetry import events as tele_events
 from cocoa_torch.telemetry import profiling
 from cocoa_torch.telemetry import recorder as flightrec_lib
@@ -137,9 +158,12 @@ _NOT_PORTED = (
     "mesh", "fp", "master", "processId", "numProcesses",
     "elastic", "stallTimeout", "ingest",
     "ingestCache", "overlapComm", "staleRounds", "fleet",
-    "fleetLanes", "serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
-    "serveDtype", "serveReplicas", "serveRoute", "traceSample",
-    "statusPort")
+    "fleetLanes")
+# the serving loop's flags (``--serve``): no RunConfig field, read from
+# the flags given (``cfg._given``), as the JAX CLI reads its extras
+_SERVE_FLAGS = ("serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
+                "serveDtype", "serveReplicas", "serveRoute", "traceSample",
+                "statusPort")
 # the run manifest's config (the JAX CLI's ``cfg_manifest``): these
 # RunConfig fields always, as the JAX CLI holds its dataclass's; every
 # other flag given, by its flag name, as the string given
@@ -183,6 +207,8 @@ def parse_args(argv: list[str]):
         if key in _NOT_PORTED:
             unported.append(key)
             continue
+        if key in _SERVE_FLAGS:
+            continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
         elif key in _PORT_FLAGS:
@@ -211,7 +237,8 @@ def _manifest_config(cfg: RunConfig) -> dict:
     :data:`_MANIFEST_FIELDS`, then each other flag given, by its name."""
     out = {f: getattr(cfg, f) for f in _MANIFEST_FIELDS}
     for key, val in getattr(cfg, "_given", {}).items():
-        if key in _PORT_FLAGS and _PORT_FLAGS[key] not in out:
+        if (key in _PORT_FLAGS and _PORT_FLAGS[key] not in out
+                or key in _SERVE_FLAGS):
             out[key] = val
     return out
 
@@ -672,7 +699,14 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         return 2, []
     try:
         tel = _telemetry_flags(cfg)
+        serve_flag = _serve_checks(cfg)
         device = resolve_device(cfg.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2, []
+    if serve_flag is not None:
+        return _serve(cfg, tel, device, serve_flag), []
+    try:
         _check_choices(cfg)
         block_size = _block_size(cfg)
         block_pipeline = _block_pipeline(cfg, block_size)
@@ -691,9 +725,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
 
     quiet = _quiet(cfg)
     if not quiet:
-        # echo flags, as the reference does (hingeDriver.scala:41-48)
-        for f in dataclasses.fields(cfg):
-            print(f"{f.name}: {getattr(cfg, f.name)}")
+        _echo(cfg)
     cfg_manifest = _manifest_config(cfg)
     run_meta = {"dataset": cfg.train_file, "seed": cfg.seed,
                 "config_hash": config_hash(cfg_manifest)}
@@ -824,6 +856,507 @@ def _run_svm(cfg: RunConfig, block_size: int,
             if not quiet:
                 print(f"profiler trace written to {profile_dir}")
     return run_all()
+
+
+def _echo(cfg: RunConfig) -> None:
+    """Echo the flags, as the reference does (hingeDriver.scala:41-48)."""
+    for f in dataclasses.fields(cfg):
+        print(f"{f.name}: {getattr(cfg, f.name)}")
+
+
+# --- the serving loop (--serve) ------------------------------------------
+
+# each serving flag, and what it sets; without --serve it is refused
+_SERVE_DEPS = (("serveBatch", "sets the static batch buckets"),
+               ("serveSlaMs", "sets the p99 latency budget"),
+               ("serveMaxNnz", "sets the per-query nonzero budget"),
+               ("serveDtype", "sets the serving precision"),
+               ("serveReplicas", "scales the scorer fleet"),
+               ("serveRoute", "selects the fleet routing policy"),
+               ("traceSample", "samples per-query distributed traces"),
+               ("statusPort", "serves the live ops plane"))
+# the serve surface: every other flag given beside --serve is refused
+# (the JAX CLI's whitelist, and the port's --device, which the fleet
+# hands to its replicas)
+_SERVE_ALLOWED = frozenset((
+    "serve", "serveBatch", "serveSlaMs", "serveMaxNnz", "serveDtype",
+    "serveReplicas", "serveRoute", "chkptDir", "numFeatures", "trainFile",
+    "hotCols", "quiet", "metrics", "events", "trace", "flightRecorder",
+    "eventsMaxMB", "metricsInterval", "seed", "traceSample", "statusPort",
+    "device"))
+# the JAX CLI's pointers for these flags (its --elastic and --ingestCache
+# pointers come with those flags, which the port refuses before this)
+_SERVE_POINTERS = {
+    "sigmaSchedule": "σ′ schedules belong to the trainer process "
+                     "(--sigmaSchedule=trial is a training A/B control; "
+                     "the server only reads validated checkpoints)",
+    "gapTarget": "the trainer certifies the gap; the server reports it as "
+                 "freshness (cocoa_model_gap_age_seconds)",
+    "resume": "the server always serves the newest validated generation; "
+              "there is nothing to resume",
+    "dtype": "--dtype is the TRAINING precision; the serving stack "
+             "quantizes the model at swap time — set "
+             "--serveDtype=f32|bf16|int8 instead (docs/DESIGN.md §20)",
+}
+
+
+def _serve_checks(cfg: RunConfig) -> Optional[str]:
+    """The ``--serve`` flag's value, or None when the run does not serve,
+    after the JAX CLI's checks with its messages (cocoa_tpu/cli.py:476-607,
+    626-632): each serving flag needs --serve; beside --serve only the
+    serve surface is accepted; --chkptDir is needed, --hotCols needs
+    --trainFile, --serveReplicas a count >= 1 (a warning past the cores),
+    --serveRoute rr|tenant and two replicas; --hotCols serves from one
+    process; --numFeatures must be positive."""
+    given = getattr(cfg, "_given", {})
+    serve_flag = given.get("serve")
+    for dep, what in _SERVE_DEPS:
+        if given.get(dep) and not serve_flag:
+            raise ValueError(f"--{dep} {what} of the serving loop and needs "
+                             f"--serve")
+    if not serve_flag:
+        return None
+    for key in sorted(set(given) - _SERVE_ALLOWED):
+        why = _SERVE_POINTERS.get(
+            key, "serving answers queries from the checkpoints in "
+                 "--chkptDir; training flags belong to the background "
+                 "trainer process (docs/DESIGN.md §17)")
+        raise ValueError(f"--{key} does not combine with --serve: {why}")
+    if not cfg.chkpt_dir:
+        raise ValueError("--serve needs --chkptDir (the checkpoint directory "
+                         "the hot-swap watcher polls — point it at the "
+                         "background trainer's --chkptDir)")
+    if cfg.hot_cols is not None and not cfg.train_file:
+        raise ValueError("--serve with --hotCols needs --trainFile: the hot "
+                         "panel is the TRAINED column split, resolved from "
+                         "the training data's column histogram "
+                         "(data/hybrid.py)")
+    n_replicas = 1
+    if given.get("serveReplicas"):
+        try:
+            n_replicas = int(given["serveReplicas"])
+        except ValueError:
+            n_replicas = 0
+        if n_replicas < 1:
+            raise ValueError(f"--serveReplicas takes a replica count >= 1, "
+                             f"got {given['serveReplicas']!r}")
+        cores = os.cpu_count() or 1
+        if n_replicas > cores:
+            print(f"warning: --serveReplicas={n_replicas} oversubscribes "
+                  f"the {cores} detected core(s): replicas time-share cores "
+                  f"and per-replica scaling efficiency degrades — measure "
+                  f"before trusting a fleet this wide", file=sys.stderr)
+    if given.get("serveRoute"):
+        if given["serveRoute"] not in serving.Router.ROUTES:
+            raise ValueError(f"--serveRoute takes one of "
+                             f"{'/'.join(serving.Router.ROUTES)}, got "
+                             f"{given['serveRoute']!r}")
+        if n_replicas < 2:
+            raise ValueError("--serveRoute picks how the fleet router "
+                             "spreads queries and needs --serveReplicas>=2 "
+                             "(one replica has nothing to route between)")
+    if n_replicas >= 2 and cfg.hot_cols is not None:
+        raise ValueError("--hotCols does not combine with --serveReplicas>=2: "
+                         "per-replica hot panels are not in the fleet v1 "
+                         "surface — serve the hybrid layout from a single "
+                         "process, or drop --hotCols (docs/DESIGN.md §21)")
+    if cfg.num_features <= 0:
+        raise ValueError("--numFeatures must be positive")
+    return serve_flag
+
+
+def _serve(cfg: RunConfig, tel: _Telemetry, device, serve_flag: str) -> int:
+    """The ``--serve`` run: the flag echo, the telemetry, then
+    :func:`_run_serve_cli`; the bus, the tracer and the process's hooks
+    are put back when it returns."""
+    quiet = _quiet(cfg)
+    if not quiet:
+        _echo(cfg)
+    with _telemetry(cfg, tel) as bus:
+        return _run_serve_cli(cfg, quiet, bus, _manifest_config(cfg),
+                              serve_flag, device)
+
+
+@contextlib.contextmanager
+def _stop_on_signals(stop):
+    """SIGTERM and SIGINT call ``stop`` while the block runs; the
+    previous handlers come back after."""
+    def handler(signum, frame):
+        stop()
+
+    prev = [signal.signal(signal.SIGTERM, handler),
+            signal.signal(signal.SIGINT, handler)]
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev[0])
+        signal.signal(signal.SIGINT, prev[1])
+
+
+def _serve_port(raw, flag: str) -> int:
+    """A TCP port flag (0 or the bare flag: ephemeral), or ValueError
+    with the JAX CLI's message."""
+    try:
+        port = 0 if str(raw).lower() == "true" else int(raw)
+    except ValueError:
+        port = -1
+    if port < 0 or port > 65535:
+        raise ValueError(f"--{flag} takes a TCP port (0 = ephemeral), got "
+                         f"{raw!r}")
+    return port
+
+
+class _ServeSettings(NamedTuple):
+    """The serving flags resolved (:func:`_serve_settings`)."""
+
+    port: int
+    buckets: tuple
+    sla_ms: float
+    serve_dtype: str
+    n_replicas: int
+    route: str
+    trace_sample: int
+    status_port: Optional[int]
+
+
+def _serve_settings(cfg: RunConfig, serve_flag: str) -> _ServeSettings:
+    """The serving flags as values, with the JAX CLI's checks and messages
+    (cocoa_tpu/cli.py:2180-2264)."""
+    given = cfg._given
+    port = _serve_port(serve_flag, "serve")
+    buckets = serving.DEFAULT_BUCKETS
+    if given.get("serveBatch"):
+        try:
+            buckets = tuple(sorted({int(b) for b in
+                                    str(given["serveBatch"]).split(",")}))
+            if not buckets or buckets[0] < 1 or buckets[-1] > 8192:
+                raise ValueError
+        except ValueError:
+            raise ValueError(f"--serveBatch takes ascending bucket sizes in "
+                             f"[1, 8192] (e.g. 64,256,1024), got "
+                             f"{given['serveBatch']!r}") from None
+    sla_ms = 50.0
+    if given.get("serveSlaMs"):
+        try:
+            sla_ms = float(given["serveSlaMs"])
+        except ValueError:
+            sla_ms = -1.0
+        if sla_ms <= 0:
+            raise ValueError(f"--serveSlaMs takes a positive latency budget "
+                             f"in ms, got {given['serveSlaMs']!r}")
+    serve_dtype = "f32"
+    if given.get("serveDtype"):
+        serve_dtype = serving.resolve_serve_dtype(given["serveDtype"])
+    n_replicas = (int(given["serveReplicas"]) if given.get("serveReplicas")
+                  else 1)
+    route = given.get("serveRoute") or "rr"
+    # 1 in N trace=-prefixed lines traced; 0 off; the bare flag 64
+    trace_sample = 0
+    if given.get("traceSample"):
+        raw = str(given["traceSample"])
+        try:
+            trace_sample = 64 if raw.lower() == "true" else int(raw)
+        except ValueError:
+            trace_sample = -1
+        if trace_sample < 0:
+            raise ValueError(f"--traceSample takes a sampling divisor >= 0 "
+                             f"(1 in N traced; 0 = off; bare flag = 64), got "
+                             f"{given['traceSample']!r}")
+    status_port = None
+    if given.get("statusPort") is not None:
+        status_port = _serve_port(given["statusPort"], "statusPort")
+        if not cfg.metrics:
+            raise ValueError("--statusPort serves the ops plane by scraping "
+                             "the metrics textfile(s) and needs --metrics")
+    return _ServeSettings(port, buckets, sla_ms, serve_dtype, n_replicas,
+                          route, trace_sample, status_port)
+
+
+def _serve_hot_ids(cfg: RunConfig, d: int, quiet: bool):
+    """(hot column ids or None, the per-query nonzero budget): with
+    ``--hotCols`` and ``--trainFile``, the trained hot/cold split resolved
+    from the training data's column histogram as the trainer resolves it;
+    then ``--serveMaxNnz``.  The JAX CLI's rules and messages
+    (cocoa_tpu/cli.py:2270-2315)."""
+    hot_ids = None
+    max_nnz = min(serving.DEFAULT_MAX_NNZ, d)
+    if cfg.train_file and cfg.hot_cols is not None:
+        data = load_libsvm(cfg.train_file, d)
+        # queries are not training rows: the data's widest row only
+        # raises the default budget
+        max_nnz = min(d, max(max_nnz, int(data.max_nnz)))
+        counts = hybrid.column_counts(data)
+        hot_n = hybrid.resolve_hot_width(cfg.hot_cols, counts, data.n, 1,
+                                         _DTYPES[cfg.dtype])
+        if hot_n:
+            hot_ids = hybrid.hottest_columns(counts, hot_n)
+            if not quiet:
+                print(f"serve: hot panel over {hot_n} columns — queries "
+                      f"ride panel + residual")
+    raw = cfg._given.get("serveMaxNnz")
+    if raw:
+        try:
+            max_nnz = int(raw)
+        except ValueError:
+            max_nnz = 0
+        if max_nnz < 1:
+            raise ValueError(f"--serveMaxNnz takes a positive per-query "
+                             f"nonzero budget, got {raw!r}")
+        max_nnz = min(max_nnz, d)
+    return hot_ids, max_nnz
+
+
+def _run_serve_cli(cfg: RunConfig, quiet: bool, bus, cfg_manifest: dict,
+                   serve_flag: str, device) -> int:
+    """The ``--serve`` run (counterpart of the JAX CLI's
+    ``_run_serve_cli``, cocoa_tpu/cli.py:2164-2470): wait for the first
+    validated CoCoA+ checkpoint in ``--chkptDir``, put the model on
+    ``device``, warm the scorer's buckets, start the hot-swap watcher and
+    the micro-batcher, and answer margin queries on the TCP line protocol
+    until ``shutdown`` or SIGTERM/SIGINT; with ``--serveReplicas>=2`` a
+    router over that many replica processes (:func:`_run_serve_fleet`).
+    Every rejection carries the JAX CLI's message and exit code."""
+    try:
+        st = _serve_settings(cfg, serve_flag)
+        d = cfg.num_features
+        hot_ids, max_nnz = _serve_hot_ids(cfg, d, quiet)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    algorithm = "CoCoA+"   # the production trainer's checkpoint key
+
+    path = serving.wait_for_model(cfg.chkpt_dir, algorithm,
+                                  timeout_s=300.0, quiet=quiet)
+    if path is None:
+        print(f"error: no validated {algorithm} checkpoint appeared in "
+              f"{cfg.chkpt_dir} within 300s — is the background trainer "
+              f"running with --chkptDir pointed here?", file=sys.stderr)
+        return 1
+    w, info = serving.load_model(path)
+    w = np.asarray(w)
+    # the trained width may exceed --numFeatures by padding (its columns
+    # carry no data); a (T, d) checkpoint is a catalogue of T tenants
+    n_tenants = int(w.shape[0]) if w.ndim == 2 else None
+    if w.ndim not in (1, 2) or w.shape[-1] < d \
+            or (w.ndim == 2 and w.shape[0] < 1):
+        print(f"error: the serving checkpoint {path} carries w of shape "
+              f"{tuple(w.shape)} but --numFeatures={d} — the query "
+              f"width must fit inside the trained width, as a (d,) "
+              f"model or a (T, d) tenant catalogue (fix the flag "
+              f"or point --chkptDir at the right model)",
+              file=sys.stderr)
+        return 2
+    if n_tenants is not None and st.serve_dtype != "f32":
+        print(f"error: --serveDtype={st.serve_dtype} does not combine "
+              f"with a (T, d) tenant catalogue (this checkpoint: "
+              f"{tuple(w.shape)}): per-tenant quantization "
+              f"certificates are not in the fleet v1 surface — serve "
+              f"the catalogue at f32 (docs/DESIGN.md §21)",
+              file=sys.stderr)
+        return 2
+    if n_tenants is not None and hot_ids is not None:
+        print(f"error: --hotCols does not combine with a (T, d) tenant "
+              f"catalogue (this checkpoint: {tuple(w.shape)}): "
+              f"per-tenant hot panels are not in the fleet v1 surface "
+              f"(docs/DESIGN.md §21)", file=sys.stderr)
+        return 2
+
+    if bus.active():
+        manifest = tele_events.run_manifest(cfg_manifest,
+                                            dataset=cfg.chkpt_dir,
+                                            device=device)
+        manifest["serve"] = {
+            "algorithm": algorithm, "buckets": list(st.buckets),
+            "sla_ms": st.sla_ms, "max_nnz": max_nnz, "num_features": d,
+            "hot_cols": 0 if hot_ids is None else int(len(hot_ids)),
+            "serve_dtype": st.serve_dtype, "replicas": st.n_replicas,
+            "route": st.route,
+            "tenants": 0 if n_tenants is None else n_tenants,
+        }
+        bus.emit("run_start", manifest=manifest)
+
+    if st.n_replicas >= 2:
+        return _run_serve_fleet(cfg, quiet, bus, st, max_nnz, algorithm,
+                                n_tenants)
+
+    # the calibration ring the per-swap certificate reads: seeded now,
+    # refilled by real traffic
+    calib = (serving.CalibrationBuffer(d, max_nnz=max_nnz, seed=cfg.seed)
+             if st.serve_dtype != "f32" else None)
+    slots = serving.ModelSlots(w, info, dtype=st.serve_dtype,
+                               calibration=calib, algorithm=algorithm,
+                               device=device)
+    scorer = serving.BatchScorer(d, dtype=st.serve_dtype, buckets=st.buckets,
+                                 max_nnz=max_nnz, hot_ids=hot_ids,
+                                 model_width=int(w.shape[-1]),
+                                 n_tenants=n_tenants, device=device)
+    emit_model_swap(algorithm, info)   # the initial load
+    with tracing.span("serve_warmup", buckets=len(st.buckets)):
+        w_dev, scale, _, form = slots.current()
+        n_exec = scorer.warmup(w_dev, scale, form)
+    if not quiet:
+        print(f"serve: model {algorithm} r{info.round} "
+              f"(gap={info.gap if info.gap is not None else 'n/a'}) — "
+              f"{n_exec} (bucket, form) pairs warmed up, swaps change no "
+              f"shape from here")
+        if st.serve_dtype != "f32":
+            print(f"serve: quantized to {slots.served_dtype} at load "
+                  f"(serveDtype={st.serve_dtype}, margin error bound "
+                  f"{slots.last_bound:.3g} over the warmup calibration "
+                  f"batch)" if slots.served_dtype != "f32" else
+                  f"serve: certificate fallback at load — the "
+                  f"{st.serve_dtype} margin error bound "
+                  f"{slots.last_bound:.3g} could flip a calibrated "
+                  f"sign; serving f32 until a generation certifies",
+                  flush=True)
+
+    batcher = serving.MicroBatcher(scorer, slots, sla_s=st.sla_ms / 1000.0,
+                                   algorithm=algorithm, calibration=calib)
+
+    def note_swap(inf):
+        if not quiet:
+            print(f"serve: hot-swapped to r{inf.round} "
+                  f"(gap={inf.gap if inf.gap is not None else 'n/a'}, "
+                  f"swap #{inf.seq})", flush=True)
+
+    watcher = serving.SwapWatcher(slots, cfg.chkpt_dir, algorithm,
+                                  poll_s=0.25, on_swap=note_swap).start()
+    server = serving.MarginServer(batcher, d, max_nnz, port=st.port,
+                                  n_tenants=n_tenants,
+                                  trace_sample=st.trace_sample,
+                                  algorithm=algorithm)
+    host, bound = server.address[0], server.address[1]
+    # the announce line is what a supervisor parses: it prints even under
+    # --quiet
+    catalogue = "" if n_tenants is None else f", tenants={n_tenants}"
+    print(f"serve: listening on {host}:{bound} "
+          f"(buckets={','.join(str(b) for b in st.buckets)}, "
+          f"slaMs={st.sla_ms:g}, maxNnz={max_nnz}, dtype={st.serve_dtype}"
+          f"{catalogue})", flush=True)
+
+    # the gap-age gauge is rendered at write time: a periodic rewrite
+    # keeps it climbing while the trainer is dead and the server idle
+    writer = getattr(bus, "metrics_writer", None)
+    if writer is not None:
+        writer.start_heartbeat(5.0)
+    # --statusPort: the ops plane over this process's own textfile
+    status = None
+    if st.status_port is not None:
+        status = aggregate.StatusServer(
+            lambda: {"server": cfg.metrics}, sla_s=st.sla_ms / 1000.0,
+            port=st.status_port, algorithm=algorithm).start()
+        print(f"serve: status listening on "
+              f"{status.address[0]}:{status.address[1]}", flush=True)
+    try:
+        with _stop_on_signals(server.stop):
+            server.serve_forever()
+    finally:
+        if status is not None:
+            status.stop()
+        if writer is not None:
+            writer.stop_heartbeat()
+        watcher.stop()
+        batcher.stop()
+        server.close()
+    if bus.active():
+        bus.emit("run_end", algorithm=algorithm, stopped="shutdown")
+    if not quiet:
+        print(f"serve: shut down after {batcher.requests_total} "
+              f"request(s) in {batcher.batches_total} batch(es), "
+              f"{watcher.swaps_total} hot-swap(s), final gap age "
+              f"{slots.gap_age_s():.1f}s")
+    return 0
+
+
+def _run_serve_fleet(cfg: RunConfig, quiet: bool, bus, st: _ServeSettings,
+                     max_nnz: int, algorithm: str, n_tenants) -> int:
+    """``--serveReplicas>=2`` (counterpart of the JAX CLI's
+    ``_run_serve_fleet``, cocoa_tpu/cli.py:2037-2163): spawn that many
+    single-process serve replicas of this CLI on ``--device`` against the
+    same ``--chkptDir``, put the router on the requested port, and relay
+    the line protocol until ``shutdown`` or SIGTERM.  Replica i writes its
+    events and metrics beside the front door's with the suffix ``.r<i>``
+    (a respawn reuses the slot); the router samples ``--traceSample`` and
+    ``--statusPort`` scrapes every textfile with the router's liveness."""
+    rep_argv = [f"--chkptDir={cfg.chkpt_dir}",
+                f"--numFeatures={cfg.num_features}",
+                "--serveBatch=" + ",".join(str(b) for b in st.buckets),
+                f"--serveSlaMs={st.sla_ms:g}", f"--serveMaxNnz={max_nnz}",
+                f"--serveDtype={st.serve_dtype}", f"--device={cfg.device}",
+                "--quiet"]
+    extra_fn = None
+    if cfg.events or cfg.metrics:
+        def extra_fn(i):
+            argv = []
+            if cfg.events:
+                argv.append(f"--events={cfg.events}.r{i}")
+            if cfg.metrics:
+                argv.append(f"--metrics={cfg.metrics}.r{i}")
+            return argv
+
+    def echo(s):
+        # replica pids and ports print even under --quiet: a supervisor
+        # parses them
+        print(f"serve: {s}", flush=True)
+
+    fleet = serving.ServeFleet(rep_argv, st.n_replicas,
+                               extra_argv_fn=extra_fn, echo=echo)
+    try:
+        members = fleet.start()
+    except RuntimeError as e:
+        fleet.stop()
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    router = serving.Router(members, sla_s=st.sla_ms / 1000.0,
+                            route=st.route, port=st.port,
+                            algorithm=algorithm,
+                            trace_sample=st.trace_sample)
+    fleet.attach(router)
+    router.emit_initial_state()
+    host, bound = router.address[0], router.address[1]
+    catalogue = "" if n_tenants is None else f", tenants={n_tenants}"
+    print(f"serve: fleet listening on {host}:{bound} "
+          f"(replicas={st.n_replicas}, route={st.route}, "
+          f"buckets={','.join(str(b) for b in st.buckets)}, "
+          f"slaMs={st.sla_ms:g}, maxNnz={max_nnz}, dtype={st.serve_dtype}"
+          f"{catalogue})", flush=True)
+
+    writer = getattr(bus, "metrics_writer", None)
+    if writer is not None:
+        writer.start_heartbeat(5.0)
+    status = None
+    if st.status_port is not None:
+        def sources():
+            out = {"router": cfg.metrics}
+            for i in range(st.n_replicas):
+                out[f"r{i}"] = f"{cfg.metrics}.r{i}"
+            return out
+
+        status = aggregate.StatusServer(
+            sources, sla_s=st.sla_ms / 1000.0, port=st.status_port,
+            algorithm=algorithm,
+            liveness_fn=lambda: {r.name: r.live
+                                 for r in router.replicas}).start()
+        print(f"serve: status listening on "
+              f"{status.address[0]}:{status.address[1]}", flush=True)
+    try:
+        with _stop_on_signals(router.stop):
+            router.serve_forever()
+    finally:
+        if status is not None:
+            status.stop()
+        if writer is not None:
+            writer.stop_heartbeat()
+        fleet.stop()
+        router.close()
+    if bus.active():
+        bus.emit("run_end", algorithm=algorithm, stopped="shutdown")
+    if not quiet:
+        print(f"serve: fleet shut down after {router.forwarded_total} "
+              f"forwarded line(s), {router.shed_total} shed, "
+              f"{router.requeue_total} requeued, "
+              f"{router.failed_total} failed")
+    return 0
 
 
 def _summary(ds, test_ds, w, alpha, params):

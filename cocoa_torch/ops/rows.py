@@ -92,6 +92,75 @@ def shard_margins(w: torch.Tensor, shards: dict) -> torch.Tensor:
     return m
 
 
+def gather_dequant(w: torch.Tensor, idx: torch.Tensor,
+                   form: str = "f32") -> torch.Tensor:
+    """``w[idx]`` that understands the packed serving forms
+    (serving/quantize.py; counterpart of cocoa_tpu/ops/rows.py
+    ``gather_dequant``).  ``idx`` is int64.  The JAX package tells the
+    forms apart by the model's dtype (uint32 bf16, int32 int8); here both
+    packed forms are int32, so the form is named.
+
+    - ``f32``: a plain gather, the same operation :func:`shard_margins`
+      runs.
+    - ``bf16``, two lanes a 32-bit word: word ``idx >> 1``, lane ``idx &
+      1`` shifted down and masked (``>>`` on int32 is arithmetic), then
+      shifted into the high half, whose bits viewed as float32 are the
+      bf16 value exactly (the shift wraps; the bits are right).
+    - ``int8``, four lanes a word: word ``idx >> 2``, lane ``idx & 3``
+      shifted down, masked and sign-extended; the caller applies the
+      model's scale once to the reduced margins.
+
+    Padded query slots (index 0, value 0) read lane 0 and multiply it by
+    0."""
+    if form == "bf16":
+        word = w[idx >> 1]
+        lane = (word >> ((idx & 1) << 4).to(torch.int32)) & 0xFFFF
+        return (lane << 16).view(torch.float32)
+    if form == "int8":
+        word = w[idx >> 2]
+        lane = (word >> ((idx & 3) << 3).to(torch.int32)) & 0xFF
+        return (lane - ((lane & 0x80) << 1)).to(torch.float32)
+    return w[idx]
+
+
+def serve_margins(w: torch.Tensor, shard: dict, scale=None,
+                  form: str = "f32") -> torch.Tensor:
+    """The serving twin of :func:`shard_margins` (counterpart of
+    cocoa_tpu/ops/rows.py ``serve_margins``, plain torch as the JAX
+    package leaves it to XLA): the margins of one padded batch, ``shard``
+    holding ``sp_indices`` and ``sp_values`` of shape (bucket, max_nnz)
+    and, on the hybrid layout, the panel ``X_hot`` (bucket, n_hot) and its
+    ``hot_cols`` (n_hot,); every read of the model goes through
+    :func:`gather_dequant`.  The batch is taken as one shard of
+    :func:`shard_margins`' (K, n, ...) layout, so with an f32 model and
+    no ``scale`` this runs the very operations of :func:`shard_margins` on
+    that shard, and its margins are the same bit for bit.
+
+    ``scale`` (int8's per-model scale) multiplies the reduced margins
+    once; the panel term gathers the same quantized model, so both parts
+    share it.
+
+    A 2-D ``w`` (T, d) is a catalogue of T tenant models, and the shard
+    carries a per-row ``tenant`` (bucket,): row r scores against
+    ``w[tenant[r]]`` through one flat gather at ``tenant * d + idx``, the
+    same values a single-model server gathers from that row of ``w``,
+    reduced in the same order, so each tenant's margins are those of a
+    server of that tenant alone, bit for bit.  Padded slots (tenant 0,
+    index 0, value 0) add 0."""
+    idx = shard["sp_indices"].long()
+    if w.dim() == 2:
+        idx = shard["tenant"].long()[:, None] * w.shape[1] + idx
+        w = w.reshape(-1)
+    m = (gather_dequant(w, idx[None], form) * shard["sp_values"][None]).sum(-1)
+    if "X_hot" in shard:
+        w_hot = gather_dequant(w, shard["hot_cols"].long()[None], form)
+        m = m + torch.matmul(shard["X_hot"][None], w_hot[:, :, None])[..., 0]
+    m = m[0]
+    if scale is not None:
+        m = m * float(scale)
+    return m
+
+
 def nonzero_slots(shards: dict):
     """The padded CSR slots that hold a nonzero, flattened once: (row over
     all K shards, column, value) of each, for :func:`shards_axpy`, which

@@ -41,8 +41,8 @@ EVENT_TYPES = (
     "run_end",          # final summary (primal, gap, stopped reason)
     "compile",          # one finished XLA compile (the JAX package's
                         # sanitizer bridge; the port emits none)
-    "host_transfer",    # one sanctioned device→host fetch (the JAX
-                        # package's intended_fetch; the port emits none)
+    "host_transfer",    # one sanctioned device→host fetch (host_fetch;
+                        # the serving batcher's one fetch a batch)
     "momentum_restart", # --accel: a gap rise reset the outer momentum
     "theta_stage",      # --accel: the Θ local-accuracy ladder stepped up
     "ingest",           # one loaded LIBSVM file (data/ingest.IngestReport:
@@ -344,6 +344,19 @@ _BUS = EventBus()
 def get_bus() -> EventBus:
     """The process-global bus every emitter and sink shares."""
     return _BUS
+
+
+def host_fetch(t, label: str) -> np.ndarray:
+    """``t`` copied to the host as a numpy array, a deliberate read of
+    the device, with a ``host_transfer`` event labelled ``label`` when the
+    bus is active (the counterpart of the JAX package's
+    ``intended_fetch``, cocoa_tpu/analysis/sanitize.py).  The copy waits
+    for the work queued before it."""
+    out = t.detach().cpu().numpy()
+    bus = get_bus()
+    if bus.active():
+        bus.emit("host_transfer", label=label)
+    return out
 
 
 # --- run manifest -----------------------------------------------------------

@@ -1,7 +1,9 @@
 """Prometheus-style textfile metrics, refreshed on every bus event (the
 port's copy of cocoa_tpu/telemetry/metrics.py, every family; the port
-emits no ``compile`` or ``host_transfer`` events, so their counters stay
-0, and only a later supervisor writes the ``gang`` family).
+compiles no XLA, so ``compiles_total`` stays 0, its ``host_transfer``
+events come from the serving batcher's one fetch a batch
+(events.py ``host_fetch``), and only a later supervisor writes the
+``gang`` family).
 
 The contract (docs/DESIGN.md §Observability): a single plain-text file in
 the Prometheus exposition format, rewritten ATOMICALLY (temp + rename, the
