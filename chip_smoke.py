@@ -153,10 +153,10 @@ stderr); any failed check exits non-zero:
    B3, B6) and hybrid (B1h), epsilon-like sequential (B2) and fused
    B=128 (B4), the lasso design (B2 prox) and the demo's menu (SGD,
    DistGD, mini-batch CD) run eager, captured, captured, eager, each
-   run's launches counted: captured equals eager bit for bit where the
-   two eager runs agree bit for bit, else within relative 1e-3 with
-   equal stop and eval rounds; (c) their ms per round past the first
-   chunk in those turns, and each graph's capture time; (d) the
+   run's launches counted: the two eager runs, the two captured runs,
+   and the captured and the eager run, each pair bit for bit (the block
+   round adds its alpha deltas in slot order); (c) their ms per round
+   past the first chunk in those turns, and each graph's capture time; (d) the
    rcv1-like permuted sigma' auto run to 1e-4 eager with host tables,
    captured with host tables and captured with device tables, and the
    demo to 1e-4, in turns; (e) busy shares by profile_round.py's method,
@@ -222,7 +222,8 @@ stderr); any failed check exits non-zero:
    menu twice, every algorithm bit for bit (DistGD included), and
    DistGD's ms per round with the atomic scatter and the order-stable
    one in turns; (e) ``python -m cocoa_torch`` on the demo in a
-   subprocess.
+   subprocess; (f) the rcv1-like block round (B5, B3, B6) on reference
+   draws, which repeat a row in most blocks, twice, bit for bit.
 17. telemetry (cocoa_torch/telemetry/), through the CLI on the rcv1-like
    file, sigma' auto to the 1e-4 gap on permuted draws, --chkptIter=100,
    every kernel's count set to 0 before each run and read after: the
@@ -266,6 +267,24 @@ stderr); any failed check exits non-zero:
    bit four solo servers, a replica SIGKILLed under traffic with no
    failed line, a requeue and a respawn, ``--statusPort``'s /metrics,
    /healthz and /slo, one query_trace a traced line.
+19. fleet training (``--fleet``; cocoa_torch/data/fleet.py,
+   solvers/fleet.py; plain torch, no kernel of the table): (a) 256
+   synthetic tenants (n=128, d=64, gap target 1e-2) through ``python -m
+   cocoa_torch.cli --fleet`` on vmap lanes with ``--events`` and
+   ``--metrics``: every tenant certified, the stream valid, the final
+   fleet_progress carrying models/s, one loop fetch; then 16 of the
+   tenants as solo runs in-process, models/s of each; (b) one-tenant
+   fleets against the solo run bit for bit at --math=exact (plain,
+   sigma' auto, accel on) and at --math=fast (the solo plain round; the
+   solo B2 run within relative 1e-3), four tenants of unequal lambda on
+   map lanes each its solo run's bits, and an early-certified lane
+   frozen from its eval on; (c) a lambda path of 64 tenants over one
+   8192 x 2048 set (K=4, H=204): ms per round of a replayed step, the
+   capture's seconds, the tenants certified and their rounds, models/s,
+   dead replays, the busy share of a shorter profiled run, and 8 of the
+   tenants' solo certified rounds against theirs; (d) the block round's
+   alpha update, the atomic scatter it replaced and the order-stable
+   one in turns (time_block_round.py's ``measure``), both rounds' bits.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
@@ -2484,9 +2503,10 @@ def close_runs(label, res, ref) -> None:
 def captured_vs_eager(label, run, want):
     """(b, c) ``run(capture) -> [RunResult]`` eager, captured, captured,
     eager, every kernel's count set to 0 before each and read after: the
-    captured runs launch ``want`` (and the eager ones the same), and are
-    held bit for bit to the eager runs where those agree bit for bit with
-    each other, else to :func:`close_runs`.  Returns a summary dict."""
+    captured runs launch ``want`` (and the eager ones the same); the two
+    eager runs equal bit for bit, the two captured runs equal bit for bit,
+    and the captured run equal to the eager run bit for bit.  Returns a
+    summary dict."""
     runs = {}
     for tag, capture in (("eager", False), ("captured", True),
                          ("captured2", True), ("eager2", False)):
@@ -2498,17 +2518,13 @@ def captured_vs_eager(label, run, want):
         check(got == want, f"{label} {tag}: launches {got}, want {want}")
         runs[tag] = (res, prng.draw_tables.launches)
     eager, captured = runs["eager"][0], runs["captured"][0]
-    stable = same_bits(eager, runs["eager2"][0])
-    check(same_bits(captured, runs["captured2"][0]) or not stable,
-          f"{label}: two captured runs differ where two eager runs agree")
-    if stable:
-        check(same_bits(captured, eager),
-              f"{label}: the captured run differs from the eager run, which "
-              f"is bit-stable")
-    else:
-        close_runs(label, captured, eager)
-    out = {"stable": stable,
-           "eager_ms": [steady_ms(r.trajectory) for tag in ("eager", "eager2")
+    check(same_bits(eager, runs["eager2"][0]),
+          f"{label}: two eager runs differ")
+    check(same_bits(captured, runs["captured2"][0]),
+          f"{label}: two captured runs differ")
+    check(same_bits(captured, eager),
+          f"{label}: the captured run differs from the eager run")
+    out = {"eager_ms": [steady_ms(r.trajectory) for tag in ("eager", "eager2")
                         for r in runs[tag][0]],
            "captured_ms": [steady_ms(r.trajectory)
                            for tag in ("captured", "captured2")
@@ -2517,9 +2533,8 @@ def captured_vs_eager(label, run, want):
                          for key, sec in r.trajectory.graphs.items()},
            "draws": runs["captured"][1]}
     n = len(captured)
-    held = "bit for bit" if stable else \
-        "within rel 1e-3 (eager runs differ in their bits)"
-    print(f"phase 13: (b) {label}: captured == eager {held}"
+    print(f"phase 13: (b) {label}: eager == eager, captured == captured, "
+          f"captured == eager, bit for bit"
           f"; launches {dict((k, v) for k, v in want.items() if v)}, draw "
           f"kernel {out['draws']}; (c) steady ms per round (evals "
           f"included), eager/captured by run in turns: "
@@ -3738,17 +3753,52 @@ def phase_entry_point():
     return {"s": sec, "summary": lines}
 
 
+def phase_reference_block(rcv1, counted, card):
+    """(f) The rcv1-like block round at B=128 (B5, B3, B6) on reference
+    draws, which repeat a row in most blocks: two captured runs of 100
+    rounds, an eval every 25, bit for bit, trajectories and (w, alpha),
+    with the same launches (the block round adds its alpha deltas in slot
+    order, ops/local_sdca.py ``_block_alpha_add``)."""
+    k, h = 8, rcv1.n // 8 // 10
+    ds = shard_dataset(rcv1, k, layout="sparse", dtype=torch.float32,
+                       device="cuda")
+    params = Params(n=rcv1.n, num_rounds=100, local_iters=h, lam=1e-4)
+    debug = DebugParams(debug_iter=25, seed=0)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        w, alpha, traj = counted(cocoa_mod.run_cocoa, ds, params, debug,
+                                 plus=True, quiet=True, math="fast",
+                                 block_size=BLOCK, rng="reference")
+        runs.append(([cli.RunResult(traj.algorithm, w, alpha, traj)],
+                     dict(counted.last), time.perf_counter() - t0))
+    nb = -(-h // BLOCK) * params.num_rounds
+    for kern in ("B5", "B3", "B6"):
+        check(runs[0][1][kern] == runs[1][1][kern] == nb,
+              f"(f) {kern}: launches {runs[0][1][kern]}, "
+              f"{runs[1][1][kern]}, want {nb}")
+    check(same_bits(runs[0][0], runs[1][0]),
+          "(f) rcv1-like block B=128 on reference draws: two runs differ")
+    print(f"phase 16 (f): rcv1-like block B={BLOCK}, reference draws, "
+          f"{params.num_rounds} rounds: two captured runs bit for bit "
+          f"(gap {runs[0][0][0].trajectory.records[-1].gap:.6e}); s a run "
+          f"{runs[0][2]:.3f}, {runs[1][2]:.3f}; card {card}")
+    return {"s": [r[2] for r in runs]}
+
+
 def phase_surface(rcv1, demo, eps, lasso, card):
     """Phase 16: (a) the block pipeline, (b) the eval twin, (c) the native
-    parser, (d) DistGD bit-stable, (e) ``python -m cocoa_torch``.  Returns
-    a summary with the launches of its in-process runs."""
+    parser, (d) DistGD bit-stable, (e) ``python -m cocoa_torch``, (f) the
+    rcv1-like block round on reference draws bit for bit.  Returns a
+    summary with the launches of its in-process runs."""
     counted = Counted()
     out = {"card": card}
     for key, fn, args in (("(a)", phase_pipeline, (eps, lasso, counted)),
                           ("(b)", phase_eval_twin, (rcv1, demo, counted)),
                           ("(c)", phase_parser, (rcv1,)),
                           ("(d)", phase_dist_gd, (demo, counted)),
-                          ("(e)", phase_entry_point, ())):
+                          ("(e)", phase_entry_point, ()),
+                          ("(f)", phase_reference_block, (rcv1, counted))):
         t0 = time.perf_counter()
         out[key] = fn(*args, card) if key != "(e)" else fn()
         print(f"phase 16 {key}: in {time.perf_counter() - t0:.1f} s")
@@ -4704,8 +4754,9 @@ def phase_fleet(fleet, cat_path, W, rcv1, tmp, card):
         batcher = serving.MicroBatcher(scorer, slots, sla_s=0.05)
         srv = serving.MarginServer(batcher, RCV1_SHAPE[1], SERVE_MAX_NNZ,
                                    port=0)
-        threading.Thread(target=srv.serve_forever, daemon=True).start()
-        solos.append((batcher, srv))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        solos.append((batcher, srv, thread))
     rows = query_rows(rcv1, 13000, 8)
     client = LineClient(addr)
     n_same = 0
@@ -4722,7 +4773,11 @@ def phase_fleet(fleet, cat_path, W, rcv1, tmp, card):
                 n_same += 1
             solo.close()
     finally:
-        for batcher, srv in solos:
+        # stop each loop before closing its socket: a serve_forever left
+        # polling a closed socket spins, and holds the interpreter lock
+        for batcher, srv, thread in solos:
+            srv.stop()
+            thread.join(timeout=10)
             srv.close()
             batcher.stop()
     failed, sent = [], [0]
@@ -4840,6 +4895,365 @@ def phase_serving(path, rcv1, card):
             for proc in [server, hot_proc, fleet] + [p[0] for p in
                                                      procs.values()]:
                 proc.stop()
+    return out
+
+
+# --- phase 19: fleet training on the card ----------------------------------
+
+FLEET_README = dict(tenants=256, n=128, d=64, gap=1e-2, k=2, rounds=400,
+                    debug_iter=20, frac=0.25)
+FLEET_SOLO = 16
+FLEET_BITS = dict(n=1024, d=128, k=4, frac=0.25, rounds=200, debug_iter=10,
+                  gap=1e-3, map_gap=3e-4, map_lam=(3e-3, 1e-1))
+FLEET_PATH = dict(tenants=64, n=8192, d=2048, k=4, frac=0.1, rounds=300,
+                  debug_iter=10, gap=1e-3, lam=(1e-4, 1e-1), solo=8,
+                  profiled_rounds=20)
+FLEET_DEVICE = "cuda"
+
+
+def fleet_solo(fleet, t, rounds, debug_iter, gap, **kw):
+    """Tenant t of ``fleet`` as a solo CoCoA+ run (the chunked loop,
+    captured), to ``gap``."""
+    ds = fleet.tenant_ds(t)
+    params = Params(n=ds.n, num_rounds=rounds, local_iters=fleet.local_iters,
+                    lam=float(fleet.lams[t]), sigma=kw.pop("sigma", None))
+    return cocoa_mod.run_cocoa(ds, params, DebugParams(debug_iter=debug_iter,
+                                                       seed=0),
+                               plus=True, quiet=True, gap_target=gap, **kw)
+
+
+def fleet_lane_is_solo(label, res, t, solo) -> None:
+    """Lane t of a fleet run against a solo run, bit for bit: (w, alpha)
+    and every eval's primal and gap up to the solo run's stop."""
+    w, alpha, traj = solo
+    m = alpha.shape[1]
+    check(torch.equal(res.w[t], w), f"{label}: lane {t}'s w differs")
+    check(torch.equal(res.alpha[t, :, :m], alpha),
+          f"{label}: lane {t}'s alpha differs")
+    n = len(traj.records)
+    check([r.primal for r in traj.records] == list(res.traj[:n, t, 0])
+          and [r.gap for r in traj.records] == list(res.traj[:n, t, 1]),
+          f"{label}: lane {t}'s evals differ from the solo run's")
+    check(bool(res.certified[t]) == (traj.stopped == "target") and (
+        traj.stopped != "target"
+        or int(res.cert_round[t]) == traj.records[-1].round),
+        f"{label}: lane {t} certified at {int(res.cert_round[t])}, the "
+        f"solo run stopped {traj.stopped} at {traj.records[-1].round}")
+
+
+def phase_fleet_readme(tmp, card):
+    """(a) The README's fleet through the CLI on the card, then solo runs
+    of some of its tenants in-process.  Returns a summary."""
+    from cocoa_torch.data.fleet import build_fleet, synth_fleet_specs, \
+        write_fleet_manifest
+    from cocoa_torch.telemetry import schema as tele_schema
+
+    c = FLEET_README
+    man = os.path.join(tmp, "fleet.jsonl")
+    specs = synth_fleet_specs(c["tenants"], n=c["n"], d=c["d"],
+                              gap_target=c["gap"])
+    write_fleet_manifest(man, specs)
+    ev, prom = os.path.join(tmp, "fleet_ev.jsonl"), \
+        os.path.join(tmp, "fleet.prom")
+    argv = [sys.executable, "-m", "cocoa_torch.cli", f"--fleet={man}",
+            f"--numSplits={c['k']}", f"--numRounds={c['rounds']}",
+            f"--debugIter={c['debug_iter']}",
+            f"--localIterFrac={c['frac']}", f"--metrics={prom}",
+            f"--events={ev}"]
+    if FLEET_DEVICE != "cuda":
+        argv.append(f"--device={FLEET_DEVICE}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(a) the fleet CLI exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    m = re.search(r"^fleet: (\d+)/(\d+) tenants certified, (\d+) rounds, "
+                  r"([\d.]+)s, ([\d.]+) models/s \(drive_mode=plain, "
+                  r"lanes=vmap\)$", proc.stdout, re.M)
+    check(m is not None, f"(a) no fleet summary line: "
+                         f"{proc.stdout[-1500:]}")
+    certified, t_count, rounds = (int(m.group(i)) for i in (1, 2, 3))
+    loop_s, fleet_mps = float(m.group(4)), float(m.group(5))
+    check(certified == t_count == c["tenants"],
+          f"(a) {certified}/{t_count} tenants certified")
+    errs = tele_schema.check_file(ev)
+    check(errs == [], f"(a) schema violations {errs[:5]}")
+    evs = read_events(ev)
+    check(evs[0]["event"] == "run_start"
+          and evs[0]["manifest"]["fleet"]["tenants"] == c["tenants"]
+          and evs[0]["manifest"]["device_kind"]
+          == torch.cuda.get_device_name(0),
+          f"(a) run_start {evs[0].get('manifest', {}).get('fleet')}")
+    prog = [e for e in evs if e["event"] == "fleet_progress"]
+    cert = [e for e in evs if e["event"] == "tenant_certified"]
+    fetches = [e["label"] for e in evs if e["event"] == "host_transfer"]
+    check(len(cert) == c["tenants"] and prog[-1]["certified_total"]
+          == c["tenants"] and prog[-1]["active"] == 0,
+          f"(a) {len(cert)} tenant_certified, last progress {prog[-1]}")
+    check(prog[-1]["models_per_second"] is not None
+          and all(p["models_per_second"] is None for p in prog[:-1]),
+          "(a) models/s not on the final fleet_progress alone")
+    check(fetches.count("fleet_loop_fetch") == 1
+          and fetches.count("fleet_result_fetch") == 1,
+          f"(a) fetches {fetches}")
+    with open(prom) as f:
+        text = f.read()
+    check(f"cocoa_tenants_certified_total {c['tenants']}\n" in text
+          and "cocoa_fleet_tenants_active 0\n" in text
+          and "cocoa_fleet_models_per_second" in text,
+          "(a) the metrics textfile lacks the fleet's gauges")
+    # the first tenants as solo runs, each to its own target
+    fleet = build_fleet(specs[:FLEET_SOLO], k=c["k"],
+                        local_iter_frac=c["frac"], device=FLEET_DEVICE)
+    t0 = time.perf_counter()
+    solo_cert = 0
+    for t in range(FLEET_SOLO):
+        _, _, traj = fleet_solo(fleet, t, c["rounds"], c["debug_iter"],
+                                c["gap"])
+        solo_cert += traj.stopped == "target"
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_mps = solo_cert / solo_s
+    out = {"cli_s": cli_s, "loop_s": loop_s, "rounds": rounds,
+           "fleet_models_per_s": fleet_mps, "solo_models_per_s": solo_mps,
+           "solo_certified": solo_cert, "solo_s": solo_s,
+           "events": len(evs)}
+    print(f"phase 19 (a): {c['tenants']} tenants (n={c['n']}, d={c['d']}, "
+          f"K={c['k']}) through the CLI: {certified} certified in {rounds} "
+          f"rounds, loop {loop_s:.2f} s ({cli_s:.1f} s the process), "
+          f"{fleet_mps:.1f} models/s; events schema-valid, one loop fetch; "
+          f"{FLEET_SOLO} of them solo: {solo_cert} certified in "
+          f"{solo_s:.2f} s, {solo_mps:.1f} models/s; fleet/solo "
+          f"{fleet_mps / max(solo_mps, 1e-9):.1f}x; card {card}")
+    return out
+
+
+def phase_fleet_bits(card):
+    """(b) One-tenant fleets against the solo runs, map lanes of an
+    unequal-lambda fleet against their solo runs, and an early-certified
+    lane frozen, bit for bit on the card.  Returns a summary."""
+    from cocoa_torch.data.fleet import build_fleet, synth_fleet_specs
+    from cocoa_torch.solvers.fleet import run_cocoa_fleet
+
+    c = FLEET_BITS
+    debug = DebugParams(debug_iter=c["debug_iter"], seed=0)
+    one = build_fleet(synth_fleet_specs(1, n=c["n"], d=c["d"],
+                                        gap_target=c["gap"], lam_lo=1e-2),
+                      k=c["k"], local_iter_frac=c["frac"],
+                      device=FLEET_DEVICE)
+    fparams = Params(n=0, num_rounds=c["rounds"],
+                     local_iters=one.local_iters)
+    out = {}
+    for mode, fkw, skw in (("plain", {}, {}),
+                           ("anneal", dict(sigma="auto"),
+                            dict(sigma="auto", sigma_schedule="anneal")),
+                           ("accel", {}, dict(accel="on"))):
+        res = run_cocoa_fleet(one, dataclasses.replace(fparams, **fkw),
+                              debug, drive_mode=mode, quiet=True)
+        solo = fleet_solo(one, 0, c["rounds"], c["debug_iter"], c["gap"],
+                          **skw)
+        fleet_lane_is_solo(f"(b) T=1 {mode}", res, 0, solo)
+        check(len(res.graphs) == (FLEET_DEVICE == "cuda"),
+              f"(b) {mode}: {len(res.graphs)} graphs")
+        out[mode] = (int(res.cert_round[0]), res.evals)
+    # --math=fast: the solo plain round bit for bit, the solo B2 run close
+    res = run_cocoa_fleet(one, fparams, debug, math="fast", quiet=True)
+    with mock.patch.object(cocoa_mod, "fast_round_route",
+                           lambda *a: "plain"):
+        plain = fleet_solo(one, 0, c["rounds"], c["debug_iter"], c["gap"],
+                           math="fast")
+    fleet_lane_is_solo("(b) T=1 fast, the solo plain round", res, 0, plain)
+    reset_counts()
+    _, _, b2 = fleet_solo(one, 0, c["rounds"], c["debug_iter"], c["gap"],
+                          math="fast")
+    check(counts()["B2"] > 0 or FLEET_DEVICE != "cuda",
+          "(b) the solo fast run launched no B2")
+    n = min(len(b2.records), res.evals)
+    worst = max(abs(b2.records[i].gap - res.traj[i, 0, 1])
+                / abs(b2.records[i].gap) for i in range(n))
+    check(worst <= 1e-3, f"(b) fast fleet against the solo B2 run: gaps "
+                         f"within relative {worst:.2e}")
+    out["fast_vs_b2_rel"] = worst
+    # four tenants of unequal lambda on map lanes
+    four = build_fleet(synth_fleet_specs(4, n=c["n"], d=c["d"],
+                                         gap_target=c["map_gap"],
+                                         lam_lo=c["map_lam"][0],
+                                         lam_hi=c["map_lam"][1]),
+                       k=c["k"], local_iter_frac=c["frac"],
+                       device=FLEET_DEVICE)
+    res = run_cocoa_fleet(four, fparams, debug, lane_exec="map", quiet=True)
+    for t in range(4):
+        fleet_lane_is_solo(f"(b) T=4 map lane {t}", res, t,
+                           fleet_solo(four, t, c["rounds"], c["debug_iter"],
+                                      c["map_gap"]))
+    early = [t for t in range(4) if res.certified[t]
+             and int(res.cert_round[t]) < res.rounds_run]
+    check(early, f"(b) no lane certified before the others "
+                 f"({res.cert_round.tolist()})")
+    t = early[0]
+    r_a = int(res.cert_round[t])
+    short = run_cocoa_fleet(four, dataclasses.replace(fparams,
+                                                      num_rounds=r_a),
+                            debug, lane_exec="map", quiet=True)
+    check(torch.equal(short.w[t], res.w[t])
+          and torch.equal(short.alpha[t], res.alpha[t]),
+          f"(b) lane {t} moved after certifying at round {r_a}")
+    out["map_cert_rounds"] = res.cert_round.tolist()
+    print(f"phase 19 (b): T=1 fleets == solo runs bit for bit (certified "
+          f"round, evals: " + ", ".join(f"{k} {v}" for k, v in out.items()
+                                        if k in ("plain", "anneal",
+                                                 "accel"))
+          + f"), --math=fast == the solo plain round bit for bit and the "
+          f"solo B2 run within relative {worst:.2e}; T=4 map lanes == their "
+          f"solo runs (certified at {out['map_cert_rounds']}), lane {t} "
+          f"frozen from round {r_a}; card {card}")
+    return out
+
+
+def fleet_busy(events) -> float:
+    """The device's busy share over a profiled fleet run's replays: the
+    union of its events' spans (profile_round.union_us) over the span
+    after the run's longest idle gap (the eager step's capture)."""
+    import profile_round
+
+    ev = sorted((a, b) for _, a, b in events)
+    first, widest, reach = 0, 0.0, ev[0][1]
+    for i in range(1, len(ev)):
+        if ev[i][0] - reach > widest:
+            first, widest = i, ev[i][0] - reach
+        reach = max(reach, ev[i][1])
+    window = ev[first:]
+    span = max(b for _, b in window) - window[0][0]
+    return profile_round.union_us(window) / span
+
+
+def phase_fleet_path(card):
+    """(c) A lambda path of 64 tenants over one 8192 x 2048 set on vmap
+    lanes: ms a replayed step and a round, capture s, certified tenants
+    and rounds, models/s, dead replays; a shorter run profiled for the
+    busy share; 8 tenants' solo certified rounds.  Returns a summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import profile_round
+    from cocoa_torch.data.fleet import TenantSpec, build_fleet
+    from cocoa_torch.solvers.fleet import run_cocoa_fleet
+
+    c = FLEET_PATH
+    ref = f"synth:dense:n={c['n']},d={c['d']}"
+    lams = np.logspace(np.log10(c["lam"][0]), np.log10(c["lam"][1]),
+                       c["tenants"])
+    t0 = time.perf_counter()
+    fleet = build_fleet([TenantSpec(f"lam-{i:02d}", ref, float(lam),
+                                    gap_target=c["gap"])
+                         for i, lam in enumerate(lams)], k=c["k"],
+                        local_iter_frac=c["frac"], device=FLEET_DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    slab_gb = fleet.X.numel() * fleet.X.element_size() / 1e9
+    debug = DebugParams(debug_iter=c["debug_iter"], seed=0)
+    params = Params(n=0, num_rounds=c["rounds"],
+                    local_iters=fleet.local_iters)
+    t0 = time.perf_counter()
+    res = run_cocoa_fleet(fleet, params, debug, quiet=True)
+    run_s = time.perf_counter() - t0
+    check(res.dead <= base.FleetRunner.AHEAD - 1,
+          f"(c) {res.dead} dead replays")
+    check(np.isfinite(res.traj).any() and np.all(res.final_gap >= -1e-4),
+          "(c) non-finite or negative final gaps")
+    capture_s = sum(res.graphs.values())
+    ms_round = (res.replay_ms / c["debug_iter"]
+                if res.replay_ms is not None else float("nan"))
+    cert = {fleet.tenants[t]: int(res.cert_round[t])
+            for t in range(fleet.t) if res.certified[t]}
+    prof_params = dataclasses.replace(params,
+                                      num_rounds=c["profiled_rounds"])
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_cocoa_fleet(fleet, prof_params, debug, quiet=True)
+        torch.cuda.synchronize()
+    busy = fleet_busy(profile_round.device_events(prof))
+    prof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = {}
+    # from the second quarter of the path on, where solo runs stop early
+    picks = np.linspace(fleet.t // 4, fleet.t - 1, c["solo"]).astype(int)
+    for t in picks:
+        _, _, traj = fleet_solo(fleet, int(t), c["rounds"], c["debug_iter"],
+                                c["gap"])
+        solo[fleet.tenants[t]] = (traj.records[-1].round
+                                  if traj.stopped == "target" else 0)
+    solo_s = time.perf_counter() - t0
+    differ = {name: (solo[name], cert.get(name, 0)) for name in solo
+              if solo[name] != cert.get(name, 0)}
+    out = {"build_s": build_s, "slab_gb": slab_gb,
+           "replay_ms_step": res.replay_ms, "ms_round": ms_round,
+           "capture_s": capture_s, "wall_s": res.wall_s,
+           "certified": len(cert), "cert_rounds": cert,
+           "models_per_s": res.models_per_second, "dead": res.dead,
+           "rounds_run": res.rounds_run, "busy": busy, "solo": solo,
+           "solo_differ": differ, "run_s": run_s, "profiled_s": prof_s,
+           "solo_s": solo_s}
+    print(f"phase 19 (c): lambda path, {fleet.t} tenants x (K={fleet.k}, "
+          f"n_shard={fleet.n_shard}, d={fleet.num_features}, "
+          f"H={fleet.local_iters}), {slab_gb:.2f} GB of rows stacked in "
+          f"{build_s:.1f} s; {res.rounds_run} rounds: {ms_round:.3f} ms a "
+          f"round replayed ({res.replay_ms or float('nan'):.2f} ms a step "
+          f"of {c['debug_iter']}), capture {capture_s:.2f} s, wall "
+          f"{res.wall_s:.2f} s; {len(cert)} certified "
+          f"(rounds {sorted(set(cert.values()))}), "
+          f"{res.models_per_second:.2f} models/s; dead replays {res.dead}; "
+          f"busy {busy:.1%} over a {c['profiled_rounds']}-round profiled "
+          f"run's replays; solo certified rounds of {len(solo)} tenants "
+          + ("all equal" if not differ else
+             f"differ (solo, fleet): {differ}")
+          + f"; s: run {run_s:.1f}, profiled run {prof_s:.1f}, solo runs "
+          f"{solo_s:.1f}; card {card}")
+    return out
+
+
+def phase_fleet_c5(rcv1, card):
+    """(d) The block round's alpha update: the atomic scatter it replaced
+    and the order-stable (masked) one, in turns (atomic, own, own,
+    atomic), on the rcv1-like block round and the epsilon-like fused
+    round (time_block_round.py ``measure``); the order-stable rounds
+    bit-stable, each time beside the card."""
+    import time_block_round as tbr
+
+    sets = tbr.block_sets(sys.modules[__name__], rcv1)
+    runs = [tbr.measure(sets, sys.modules[__name__], form)
+            for form in ("atomic", "own", "own", "atomic")]
+    for r in runs[1:3]:
+        check(r["rcv1_block_stable"] and r["eps_fused_stable"],
+              f"(d) the order-stable rounds differ between calls: {r}")
+    keys = [k for k in runs[0] if k.endswith("_ms")]
+    print("phase 19 (d): the block round's alpha update in turns (atomic, "
+          "order-stable, order-stable, atomic), ms by CUDA-graph replay: "
+          + "; ".join(f"{k} " + ", ".join(f"{r[k]:.4f}" for r in runs)
+                      for k in keys)
+          + "; blocks with a repeated row: rcv1-like "
+          f"{runs[0]['rcv1_block_repeat_blocks']:.1%}, epsilon-like "
+          f"{runs[0]['eps_fused_repeat_blocks']:.1%}; atomic rounds "
+          f"bit-stable across two calls: rcv1-like "
+          f"{runs[0]['rcv1_block_stable']}, {runs[3]['rcv1_block_stable']}"
+          f", epsilon-like {runs[0]['eps_fused_stable']}, "
+          f"{runs[3]['eps_fused_stable']}; card {card}")
+    return {"turns": runs}
+
+
+def phase_fleet_training(rcv1, card):
+    """Phase 19: fleet training on the card, (a)-(d), ``rcv1`` the
+    rcv1-like data of (d).  Returns a summary."""
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        for key, fn, args in (("(a)", phase_fleet_readme, (tmp,)),
+                              ("(b)", phase_fleet_bits, ()),
+                              ("(c)", phase_fleet_path, ()),
+                              ("(d)", phase_fleet_c5, (rcv1,))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args, card)
+            print(f"phase 19 {key}: in {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
     return out
 
 
@@ -5305,6 +5719,13 @@ def main() -> int:
     tmp.cleanup()
     print(f"phase 18: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase18.json").write_text(json.dumps(serving18,
+                                                            default=str))
+
+    # --- phase 19: fleet training on the card
+    t0 = time.perf_counter()
+    fleet19 = phase_fleet_training(rcv1, card)
+    print(f"phase 19: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase19.json").write_text(json.dumps(fleet19,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),

@@ -25,6 +25,13 @@
         [--serveReplicas=<n> --serveRoute=rr|tenant] [--traceSample=<n>]
         [--statusPort=PORT --metrics=P] [--events=P] [--device=cuda|cpu]
 
+    python -m cocoa_torch.cli --fleet=MANIFEST.jsonl --numSplits=K
+        --numRounds=T --debugIter=C [--fleetLanes=vmap|map]
+        [--localIterFrac=.. --dtype=.. --math=exact|fast --rng=..
+        --sigma=<float>|auto --sigmaSchedule=anneal --accel=on
+        --gapTarget=<float> --trajOut=P --events=P --metrics=P --trace]
+        [--device=cuda|cpu]
+
     python -m cocoa_torch <the same flags>
 
 Runs CoCoA+ and then CoCoA with the K shards batched on one device and
@@ -99,7 +106,18 @@ certificate, the hot panel (``--hotCols`` with ``--trainFile``), a
 ``(T, d)`` catalogue, a router over ``--serveReplicas`` replica
 processes (``--serveRoute``), ``--traceSample`` and the ``--statusPort``
 ops plane; any training flag beside it exits 2 with the JAX CLI's
-message.  Flags of the JAX CLI that this port does not support yet exit
+message.
+
+``--fleet`` (cocoa_torch/data/fleet.py, solvers/fleet.py) trains every
+tenant of a schema-validated JSONL manifest (its own dataset ref,
+lambda and gap target) through one loop on the card, one captured graph
+replayed, each tenant frozen once it certifies: a line per tenant, the
+models/s line, and ``--trajOut``'s ``P.fleet.jsonl``.  ``--fleetLanes``
+picks batched lanes (``vmap``) or a loop of the solo round's code over
+them (``map``, each lane its solo run bit for bit); ``--sigma=auto``
+anneals each tenant's sigma', ``--accel=on`` runs each tenant's secant
+jumps.  The flags that mean nothing there exit 2 with the JAX CLI's
+messages.  Flags of the JAX CLI that this port does not support yet exit
 2 with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue
 A)``.
 """
@@ -157,13 +175,14 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
 _NOT_PORTED = (
     "mesh", "fp", "master", "processId", "numProcesses",
     "elastic", "stallTimeout", "ingest",
-    "ingestCache", "overlapComm", "staleRounds", "fleet",
-    "fleetLanes")
+    "ingestCache", "overlapComm", "staleRounds")
 # the serving loop's flags (``--serve``): no RunConfig field, read from
 # the flags given (``cfg._given``), as the JAX CLI reads its extras
 _SERVE_FLAGS = ("serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
                 "serveDtype", "serveReplicas", "serveRoute", "traceSample",
                 "statusPort")
+# fleet training's flags (``--fleet``): no RunConfig field either
+_FLEET_FLAGS = ("fleet", "fleetLanes")
 # the run manifest's config (the JAX CLI's ``cfg_manifest``): these
 # RunConfig fields always, as the JAX CLI holds its dataclass's; every
 # other flag given, by its flag name, as the string given
@@ -207,7 +226,7 @@ def parse_args(argv: list[str]):
         if key in _NOT_PORTED:
             unported.append(key)
             continue
-        if key in _SERVE_FLAGS:
+        if key in _SERVE_FLAGS or key in _FLEET_FLAGS:
             continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
@@ -238,7 +257,7 @@ def _manifest_config(cfg: RunConfig) -> dict:
     out = {f: getattr(cfg, f) for f in _MANIFEST_FIELDS}
     for key, val in getattr(cfg, "_given", {}).items():
         if (key in _PORT_FLAGS and _PORT_FLAGS[key] not in out
-                or key in _SERVE_FLAGS):
+                or key in _SERVE_FLAGS or key in _FLEET_FLAGS):
             out[key] = val
     return out
 
@@ -699,11 +718,14 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         return 2, []
     try:
         tel = _telemetry_flags(cfg)
+        fleet_lanes = _fleet_checks(cfg)
         serve_flag = _serve_checks(cfg)
         device = resolve_device(cfg.device)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
+    if fleet_lanes is not None:
+        return _fleet(cfg, tel, device, fleet_lanes), []
     if serve_flag is not None:
         return _serve(cfg, tel, device, serve_flag), []
     try:
@@ -862,6 +884,245 @@ def _echo(cfg: RunConfig) -> None:
     """Echo the flags, as the reference does (hingeDriver.scala:41-48)."""
     for f in dataclasses.fields(cfg):
         print(f"{f.name}: {getattr(cfg, f.name)}")
+
+
+# --- fleet training (--fleet) --------------------------------------------
+
+# flags that cannot mean anything on the fleet's one loop over tenants,
+# with the JAX CLI's pointers (cocoa_tpu/cli.py:410-436); its --elastic
+# and --ingestCache pointers come with those flags, which the port
+# refuses before this
+_FLEET_REJECTED = {
+    "resume": "fleet checkpoint/resume is not in the v1 surface",
+    "warmStart": "the warm-start loss handoff is a solo-path schedule; "
+                 "fleets share one loss phase (docs/DESIGN.md §16)",
+    "hotCols": "fleet v1 is dense-layout only",
+    "evalDense": "fleet v1 is dense-layout only",
+    "blockSize": "the block/Pallas kernels own their shard axes and cannot "
+                 "ride the tenant vmap",
+    "blockPipeline": "the block/Pallas kernels own their shard axes and "
+                     "cannot ride the tenant vmap",
+}
+
+
+def _fleet_checks(cfg: RunConfig) -> Optional[str]:
+    """``--fleetLanes`` (vmap | map) when the run is a fleet, else None,
+    after the JAX CLI's checks of the fleet's flag surface with its
+    messages (cocoa_tpu/cli.py:385-475): ``--fleetLanes`` needs
+    ``--fleet``; beside ``--fleet``, ``--serve``, ``--testFile``,
+    ``--chkptDir``, the flags of :data:`_FLEET_REJECTED`, ``--trainFile``,
+    ``--lambda``, ``--numFeatures`` and ``--objective=lasso`` are
+    refused."""
+    given = getattr(cfg, "_given", {})
+    fleet_path = given.get("fleet")
+    lanes = (given.get("fleetLanes") or "vmap").lower()
+    if given.get("fleetLanes") and not fleet_path:
+        raise ValueError("--fleetLanes picks the fleet's lane execution and "
+                         "needs --fleet")
+    if lanes not in ("vmap", "map"):
+        raise ValueError(f"--fleetLanes must be vmap|map, got "
+                         f"{given.get('fleetLanes')!r}")
+    if not fleet_path:
+        return None
+    if given.get("serve"):
+        raise ValueError("--serve does not combine with --fleet: the fleet "
+                         "is one training dispatch, serving is a long-lived "
+                         "query loop — run them as separate processes "
+                         "(docs/DESIGN.md §17)")
+    if cfg.test_file:
+        raise ValueError("--testFile does not combine with --fleet: "
+                         "per-tenant test sets are not in the fleet v1 "
+                         "surface")
+    if cfg.chkpt_dir:
+        raise ValueError("--chkptDir does not combine with --fleet: fleet "
+                         "checkpoint/resume is not in the v1 surface (the "
+                         "run is one dispatch; rerun the fleet instead)")
+    for flag, why in _FLEET_REJECTED.items():
+        if given.get(flag):
+            raise ValueError(f"--{flag} does not combine with --fleet: {why}")
+    if cfg.train_file:
+        raise ValueError("--fleet names per-tenant datasets in the manifest; "
+                         "drop --trainFile")
+    if "lambda" in given:
+        raise ValueError("--lambda does not combine with --fleet: λ is "
+                         "per-tenant and comes from the manifest — a global "
+                         "--lambda would silently train different models "
+                         "than asked for")
+    if "numFeatures" in given:
+        raise ValueError("--numFeatures does not combine with --fleet: the "
+                         "feature dimension comes from each tenant's dataset "
+                         "ref (manifest num_features for file-backed "
+                         "tenants)")
+    if (cfg.objective or "svm").lower() != "svm":
+        raise ValueError("--fleet runs the SVM dual family only "
+                         "(--objective=lasso has no fleet path yet)")
+    return lanes
+
+
+def _fleet_ladder(cfg: RunConfig):
+    """(drive mode, gap target) of a fleet run, after the JAX CLI's checks
+    of the ladder's flags that a fleet reaches (cocoa_tpu/cli.py:633-716,
+    1893-1937): a fleet takes its gap targets from the manifest, so
+    ``--sigma=auto`` and ``--accel=on`` need no ``--gapTarget``; device
+    sampling, the adaptive Theta and the sigma' trial are refused; accel
+    is off unless ``on``, and does not combine with the anneal."""
+    if cfg.loss not in losses.LOSSES:
+        raise ValueError(f"--loss must be one of {losses.LOSSES}; use "
+                         f"--objective=lasso for the L1 family")
+    schedule = cfg.sigma_schedule
+    if schedule is not None and schedule not in ("trial", "anneal"):
+        raise ValueError(f"--sigmaSchedule must be trial|anneal, got "
+                         f"{schedule!r}")
+    if schedule == "trial" and cfg.sigma != "auto":
+        raise ValueError("--sigmaSchedule=trial is the --sigma=auto A/B "
+                         "control and needs --sigma=auto")
+    accel = (cfg.accel or "auto").lower()
+    if accel not in ("auto", "on", "off"):
+        raise ValueError(f"--accel must be auto|on|off, got {cfg.accel!r}")
+    theta = (cfg.theta or "fixed").lower()
+    if theta not in ("fixed", "adaptive"):
+        raise ValueError(f"--theta must be fixed|adaptive, got "
+                         f"{cfg.theta!r}")
+    if accel == "on" and schedule == "trial":
+        raise ValueError("--accel cannot ride --sigmaSchedule=trial (the "
+                         "trial is the bit-exact A/B control); use "
+                         "--sigmaSchedule=anneal")
+    if theta == "adaptive" and (accel == "off" or schedule == "trial"
+                                or not cfg.gap_target):
+        raise ValueError("--theta=adaptive requires an accelerated "
+                         "gap-targeted run (--accel=auto|on with --gapTarget, "
+                         "not --sigmaSchedule=trial)")
+    if cfg.sampling == "device":
+        raise ValueError("--sampling=device does not combine with --fleet "
+                         "(the fleet loop host-samples its stacked index "
+                         "tables once per run — solvers/fleet.py); use "
+                         "--sampling=auto")
+    if theta == "adaptive":
+        raise ValueError("--theta=adaptive does not combine with --fleet "
+                         "(the Θ ladder slices static index-table widths; "
+                         "fleet lanes share one table shape — "
+                         "docs/DESIGN.md §16)")
+    if cfg.sigma == "auto" and schedule == "trial":
+        raise ValueError("--sigmaSchedule=trial does not combine with "
+                         "--fleet (the trial's restart is a solo-path "
+                         "control; fleets anneal in place — "
+                         "--sigmaSchedule=anneal)")
+    gap_target = None
+    if cfg.gap_target:
+        try:
+            gap_target = float(cfg.gap_target)
+        except ValueError:
+            raise ValueError(f"--gapTarget must be a float, got "
+                             f"{cfg.gap_target!r}") from None
+    anneal = (cfg.sigma == "auto"
+              or (schedule == "anneal" and isinstance(cfg.sigma, float)
+                  and 0 < cfg.sigma < cfg.num_splits * cfg.gamma))
+    if accel == "on" and anneal:
+        raise ValueError("--accel does not combine with --sigma=auto/"
+                         "--sigmaSchedule=anneal on --fleet (fleet accel "
+                         "rides the fixed safe σ′; drop one of the two)")
+    return ("accel" if accel == "on" else "anneal" if anneal
+            else "plain"), gap_target
+
+
+def _fleet(cfg: RunConfig, tel: _Telemetry, device, lanes: str) -> int:
+    """The ``--fleet`` run (cocoa_tpu/cli.py ``_run_fleet_cli``): the
+    remaining checks, the flag echo, then under the run's telemetry the
+    manifest loaded and stacked (data/fleet.py), the one loop over every
+    tenant (solvers/fleet.py), a line per tenant and the models/s line,
+    and ``--trajOut``'s ``P.fleet.jsonl``."""
+    from cocoa_torch.data.fleet import build_fleet, load_fleet_manifest
+    from cocoa_torch.solvers.fleet import run_cocoa_fleet
+
+    try:
+        _check_choices(cfg)
+        drive_mode, gap_target = _fleet_ladder(cfg)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    quiet = _quiet(cfg)
+    if not quiet:
+        _echo(cfg)
+    cfg_manifest = _manifest_config(cfg)
+    manifest_path = cfg._given["fleet"]
+    with _telemetry(cfg, tel) as bus:
+        try:
+            specs = load_fleet_manifest(manifest_path)
+            fleet = build_fleet(specs, k=cfg.num_splits,
+                                dtype=_DTYPES[cfg.dtype],
+                                local_iter_frac=cfg.local_iter_frac,
+                                default_gap_target=gap_target, device=device)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if fleet.loss not in ("hinge", "smooth_hinge"):
+            print(f"error: fleet v1 runs the hinge family only (manifest "
+                  f"loss {fleet.loss!r}); the logistic dual rule divides by "
+                  f"λn in a way the traced-λ lane cannot mirror bit-exactly "
+                  f"(docs/DESIGN.md §16)", file=sys.stderr)
+            return 2
+        if cfg.loss != "hinge" and cfg.loss != fleet.loss:
+            print(f"error: the fleet's loss comes from the manifest "
+                  f"({fleet.loss!r}); drop --loss={cfg.loss} or make them "
+                  f"agree", file=sys.stderr)
+            return 2
+        if bus.active():
+            manifest = tele_events.run_manifest(
+                cfg_manifest, dataset=manifest_path, device=device)
+            manifest["fleet"] = {"tenants": fleet.t, "k": fleet.k,
+                                 "n_shard": fleet.n_shard,
+                                 "d": fleet.num_features,
+                                 "h": fleet.local_iters,
+                                 "drive_mode": drive_mode,
+                                 "lane_exec": lanes}
+            bus.emit("run_start", manifest=manifest)
+        params = dataclasses.replace(
+            cfg.to_params(0, fleet.k), local_iters=fleet.local_iters,
+            loss=fleet.loss, smoothing=fleet.smoothing)
+        try:
+            result = run_cocoa_fleet(
+                fleet, params, cfg.to_debug(), plus=True,
+                drive_mode=drive_mode, rng=cfg.rng, math=cfg.math,
+                lane_exec=lanes, quiet=quiet)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        certified = int(result.certified.sum())
+        stopped = "target" if certified == fleet.t else None
+        if bus.active():
+            bus.emit("run_end", algorithm=result.algorithm, stopped=stopped)
+    if not quiet:
+        for ti, tenant in enumerate(result.tenants):
+            status = (f"certified @ round {int(result.cert_round[ti])}"
+                      if result.certified[ti]
+                      else "DIVERGED (stall watch)" if result.stalled[ti]
+                      else "not certified")
+            print(f"  {tenant}: lambda={fleet.lams[ti]:g} "
+                  f"gap={result.final_gap[ti]:.3e} {status}")
+        print(f"fleet: {certified}/{fleet.t} tenants certified, "
+              f"{result.rounds_run} rounds, {result.wall_s:.2f}s, "
+              f"{result.models_per_second:.1f} models/s "
+              f"(drive_mode={drive_mode}, lanes={lanes})")
+    if cfg.traj_out:
+        import json
+
+        with open(f"{cfg.traj_out}.fleet.jsonl", "w") as f:
+            f.write(json.dumps({
+                "config": "fleet", "type": "fleet",
+                "tenants": fleet.t, "certified": certified,
+                "rounds": int(result.rounds_run),
+                "models_per_second": result.models_per_second,
+                "stopped": stopped}) + "\n")
+            for ti, tenant in enumerate(result.tenants):
+                f.write(json.dumps({
+                    "config": f"fleet/{tenant}", "type": "fleet-tenant",
+                    "lam": float(fleet.lams[ti]),
+                    "gap": float(result.final_gap[ti]),
+                    "rounds": (int(result.cert_round[ti])
+                               or int(result.rounds_run)),
+                    "stopped": ("target" if result.certified[ti]
+                                else None)}) + "\n")
+    return 0
 
 
 # --- the serving loop (--serve) ------------------------------------------

@@ -46,15 +46,25 @@ def coef_divisor(mode: str, lam_n: float) -> float:
     return 1.0 if mode == "prox" else lam_n
 
 
-def _coef_staging(mode: str, lam: float, n: int, dtype, device):
+def _coef_staging(mode: str, lam: float, n: int, dtype, device,
+                  lam_n=None):
     """(lam_n, coef_of): lam*n as a 0-d tensor of the working dtype, and
     the coefficient as ``y * delta / coef_div`` -- a division, as the JAX
     static path writes it, not a multiply by a reciprocal.  The scalars
     here and in every round are filled on the device, never copied from
-    the host, so a captured chunk of rounds replays them."""
-    lam_n = torch.full((), lam * n, dtype=dtype, device=device)
-    coef_div = torch.full((), coef_divisor(mode, lam * n), dtype=dtype,
-                          device=device)
+    the host, so a captured chunk of rounds replays them.
+
+    ``lam_n`` given (a tensor, one value per shard row of the batch: the
+    fleet's per-tenant lambda*n, counterpart of the JAX package's traced
+    ``lam_n``) replaces lam*n; it holds the values this function would
+    fill, float(lam)*n rounded once to the dtype, so each row divides by
+    the same number as a solo run's."""
+    if lam_n is None:
+        lam_n = torch.full((), lam * n, dtype=dtype, device=device)
+        coef_div = torch.full((), coef_divisor(mode, lam * n), dtype=dtype,
+                              device=device)
+    else:
+        coef_div = torch.ones_like(lam_n) if mode == "prox" else lam_n
 
     def coef_of(y, delta):
         return y * delta / coef_div
@@ -65,21 +75,33 @@ def _gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return v.gather(1, idx[:, None])[:, 0]
 
 
+def _scalar(v, dtype, device) -> torch.Tensor:
+    """A float as a 0-d tensor of the working dtype, or a tensor (a
+    fleet's per-row sigma') as it is."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), v, dtype=dtype, device=device)
+
+
 def local_sdca(w_init: torch.Tensor, alpha: torch.Tensor, shards: dict,
                idxs: torch.Tensor, lam: float, n: int, mode: str = "cocoa",
-               sigma: float = 1.0, loss: str = "hinge",
-               smoothing: float = 1.0):
+               sigma=1.0, loss: str = "hinge",
+               smoothing: float = 1.0, lam_n=None):
     """H sequential SDCA steps on each of the K shards, in the reference's
-    operation order.  ``w_init`` (d,), ``alpha`` (K, n_shard), ``idxs``
-    (K, H).  Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
+    operation order.  ``w_init`` (d,), or (K, d) one w per shard row (a
+    fleet's tenants, each expanded to its K shards), ``alpha``
+    (K, n_shard), ``idxs`` (K, H).  ``lam_n`` and ``sigma`` may be
+    tensors of shape (K,), a value per shard row (see
+    :func:`_coef_staging`), in place of lam*n and a float sigma'.
+    Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     losses.validate(loss, smoothing)
     labels, sq_norms = shards["labels"], shards["sq_norms"]
-    k, d = labels.shape[0], w_init.shape[0]
+    k, d = labels.shape[0], w_init.shape[-1]
     dtype, device = w_init.dtype, w_init.device
-    lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device)
-    sigma_c = torch.full((), sigma, dtype=dtype, device=device)
+    lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device, lam_n)
+    sigma_c = _scalar(sigma, dtype, device)
     # CoCoA's local view of w advances with every step (CoCoA.scala:182-184)
     w = w_init.expand(k, d).clone() if mode == "cocoa" else w_init.expand(k, d)
     dw = torch.zeros(k, d, dtype=dtype, device=device)
@@ -126,20 +148,21 @@ def mode_factors(mode: str, sigma: float):
 def local_sdca_fast(margins0: torch.Tensor, alpha: torch.Tensor,
                     shards: dict, idxs: torch.Tensor, lam: float, n: int,
                     dw_init: torch.Tensor, mode: str = "cocoa",
-                    sigma: float = 1.0, loss: str = "hinge",
-                    smoothing: float = 1.0):
+                    sigma=1.0, loss: str = "hinge",
+                    smoothing: float = 1.0, lam_n=None):
     """Fast-math counterpart of :func:`local_sdca`, over all K shards:
     margin = margins0[idx] + sig_eff * x.dw, with ``margins0`` = X.w0
     (K, n_shard) computed once per round.  Equal in real arithmetic,
     rounded in another order.  ``dw_init`` (K, d) zeros is advanced in
-    place.  Returns (delta_alpha, delta_w)."""
+    place; ``lam_n`` and ``sigma`` as in :func:`local_sdca`.  Returns
+    (delta_alpha, delta_w)."""
     losses.validate(loss, smoothing)
     sig_eff, qii_factor = mode_factors(mode, sigma)
     labels, sq_norms = shards["labels"], shards["sq_norms"]
     dtype, device = margins0.dtype, margins0.device
-    lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device)
-    sig_c = torch.full((), sig_eff, dtype=dtype, device=device)
-    qf = torch.full((), qii_factor, dtype=dtype, device=device)
+    lam_n, coef_of = _coef_staging(mode, lam, n, dtype, device, lam_n)
+    sig_c = _scalar(sig_eff, dtype, device)
+    qf = _scalar(qii_factor, dtype, device)
     dw = dw_init
     a_vec = alpha.clone()
     idxs = idxs.long()
@@ -328,6 +351,21 @@ def local_sdca_block(margins0: torch.Tensor, alpha: torch.Tensor,
 BLOCK_ROUTES = ("fused", "split", "sparse_gram")
 
 
+def _block_alpha_add(a_vec: torch.Tensor, bidx: torch.Tensor,
+                     delta: torch.Tensor) -> None:
+    """a_vec[k, bidx[k, j]] += delta[k, j] in place, in an order that does
+    not depend on the scheduling: each slot's total is the block's deltas
+    of the slots that drew its row, summed through a (K, B, B)
+    index-equality mask in one fixed order, and alpha + total is written
+    to every slot of the row by ``scatter_``, each with the same value.
+    ``scatter_add_`` would add a row drawn twice in a block with atomics
+    on the card, in no fixed order.  A row drawn once gets alpha + delta,
+    as before."""
+    eq = (bidx[:, :, None] == bidx[:, None, :]).to(delta.dtype)
+    total = (eq * delta[:, None, :]).sum(-1)
+    a_vec.scatter_(1, bidx, a_vec.gather(1, bidx) + total)
+
+
 def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                              shards: dict, idxs_kh: torch.Tensor, lam: float,
                              n: int, mode: str = "cocoa", sigma: float = 1.0,
@@ -363,11 +401,12 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
     bit the serial schedule; the ``sparse_gram`` route gathers no tile
     and ignores it, as in the JAX package.
 
-    The row gathers, the alpha gathers and scatter-adds and the (K, d)
-    adds are plain tensor ops; every branch scatter-adds its alpha deltas
-    once per block.  ``plain`` calls the kernels' plain versions on every
-    device (the solvers' rule for 2-byte dtypes, which the kernels
-    refuse).  Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
+    The row gathers, the alpha gathers and scatters and the (K, d) adds
+    are plain tensor ops; every branch adds its alpha deltas once
+    per block, in an order fixed by the block (:func:`_block_alpha_add`).
+    ``plain`` calls the kernels' plain versions on every device (the
+    solvers' rule for 2-byte dtypes, which the kernels refuse).  Returns
+    (delta_alpha (K, n_shard), delta_w (K, d))."""
     if route not in BLOCK_ROUTES:
         raise ValueError(f"route must be one of {BLOCK_ROUTES}, got {route!r}")
     if route == "sparse_gram" and "sp_indices" not in shards:
@@ -436,7 +475,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
             scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                                 live], dim=1)
             delta, coefs = chain_fn(scal, gram, bidx32, **chain_kw)
-            a_vec.scatter_add_(1, bidx, delta)
+            _block_alpha_add(a_vec, bidx, delta)
             apply_fn(dw, gidx, gvals, cnts, coefs)
             if hybrid:
                 with fp32_matmul():
@@ -451,7 +490,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
             delta, dwu = fused_fn(xb, bidx32, yb, qb, a0b, live, v,
                                   **chain_kw)
             dw = dw + dwu
-            a_vec.scatter_add_(1, bidx, delta)
+            _block_alpha_add(a_vec, bidx, delta)
             continue
         with fp32_matmul():
             if frozen:
@@ -464,7 +503,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
         if tiles is not None:
             tiles.prefetch(b + 1)
         delta, coefs = chain_fn(scal, gram, bidx32, **chain_kw)
-        a_vec.scatter_add_(1, bidx, delta)
+        _block_alpha_add(a_vec, bidx, delta)
         with fp32_matmul():
             dw = dw + torch.matmul(coefs[:, None, :], xb)[:, 0]
     if hybrid:

@@ -1520,3 +1520,341 @@ def _decode_rows(traj: Trajectory, name: str, rows, start: int, c: int,
         prev = sigma
         out.append(traj.records[-1])
     return out
+
+
+# --- the fleet's device loop (--fleet; cocoa_tpu/solvers/base.py:1685-2030)
+#
+# T independent tenants run as one loop: every state leaf carries a
+# leading T axis, and one step runs a chunk of rounds for every lane,
+# each lane's eval, and each lane's watch, sigma' anneal and accel
+# bookkeeping.  A tenant that certifies (or stalls out) is masked: the
+# step still computes its lane, and a lane-wise ``torch.where`` keeps its
+# (w, alpha, hist, sched) bit for bit from that eval on.  The step is
+# captured as one CUDA graph on the card and replayed (design B, as
+# :class:`DeviceLoopRunner`: the torch on the card has no conditional
+# nodes), its writes committed only while some lane is live; the host
+# stops queueing once a pinned live word says every lane is done, and
+# reads the card once at the end of the run.
+
+FLEET_N_COLS = 7   # the solo row layout (ROW_COLS), per tenant
+
+
+class FleetCarry:
+    """The per-tenant watch vectors on the device: the stop flags, the
+    guard's stall count and its float64 bests, and the 1-based eval each
+    lane certified or stalled out at (0: never), from which the host
+    decodes each eval's active lanes and each tenant's outcome."""
+
+    def __init__(self, done_tgt, done_stall, stall, best, best_prev,
+                 cert_chunk, stall_chunk):
+        self.done_tgt = done_tgt
+        self.done_stall = done_stall
+        self.stall = stall
+        self.best = best
+        self.best_prev = best_prev
+        self.cert_chunk = cert_chunk
+        self.stall_chunk = stall_chunk
+
+    @classmethod
+    def init(cls, t: int, device) -> "FleetCarry":
+        i64 = dict(dtype=torch.int64, device=device)
+        f64 = dict(dtype=torch.float64, device=device)
+        return cls(torch.zeros(t, dtype=torch.bool, device=device),
+                   torch.zeros(t, dtype=torch.bool, device=device),
+                   torch.zeros(t, **i64),
+                   torch.full((t,), math.inf, **f64),
+                   torch.full((t,), math.inf, **f64),
+                   torch.zeros(t, **i64), torch.zeros(t, **i64))
+
+    def tensors(self) -> tuple:
+        return (self.done_tgt, self.done_stall, self.stall, self.best,
+                self.best_prev, self.cert_chunk, self.stall_chunk)
+
+
+def _lane(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (T,) lane flag shaped to broadcast against ``like`` (T, ...)."""
+    return flag.reshape(flag.shape + (1,) * (like.dim() - 1))
+
+
+class FleetLadder:
+    """The fleet step's static configuration, as JAX's
+    ``_build_fleet_run`` derives it: the anneal's stages (> 1 arms it,
+    with the guard on), the guard's watch otherwise, and the accel
+    bookkeeping (the fixed-Theta ladder)."""
+
+    def __init__(self, gap_targets: torch.Tensor, stall_evals: int,
+                 divergence_guard: bool, n_stages: int, accel: bool):
+        self.tgt = gap_targets              # (T,) float64, -inf = none
+        self.stall_evals = stall_evals
+        self.anneal = divergence_guard and n_stages > 1
+        self.guard = divergence_guard and not self.anneal
+        self.n_stages = n_stages
+        self.accel = accel
+
+
+def fleet_ladder_step(lad: FleetLadder, metrics, state: tuple,
+                      carry: FleetCarry, done0, i):
+    """One eval's per-tenant ladder on the device: the solo device loop's
+    target test, guard watch, sigma' anneal and accel bookkeeping
+    (:func:`ladder_step`) with every scalar a (T,) column, each frozen
+    for a lane that was done before this eval (``done0``), as JAX's fleet
+    body does (cocoa_tpu/solvers/base.py:1800-1917).  ``i`` is the 0-d
+    chunk counter.  Returns (state, carry, row (T, FLEET_N_COLS)); the
+    target test and the guard's watch in float64 as the solo loop's,
+    the sched vector's slots in float32."""
+    gap = metrics[:, 1]
+    dt = metrics.dtype
+    hit = gap.to(torch.float64) <= lad.tgt
+    done_now = hit | done0
+    newly = hit & torch.logical_not(done0)
+    not_now = torch.logical_not(done_now)
+    nans = torch.full_like(gap, math.nan)
+    gv = torch.where(torch.isnan(gap), torch.full_like(gap, math.inf),
+                     gap)
+    gv32 = gv.to(torch.float32)
+    done_tgt, done_stall, stall, best, best_prev, cert, stall_chunk = \
+        carry.tensors()
+    step = (i + 1).to(torch.int64)
+    if lad.anneal:
+        sched = state[-1]
+        stg = sched[:, 0]
+        bst, bpv, stl = _watch_update(torch, gv32, sched[:, 2], sched[:, 3],
+                                      sched[:, 1], STALL_REL)
+        bo = ((stl >= float(lad.stall_evals)) & (stg < lad.n_stages - 1)
+              & not_now)
+        inf = torch.full_like(bst, math.inf)
+        stg = torch.where(bo, stg + 1.0, stg)
+        stl = torch.where(bo, torch.zeros_like(stl), stl)
+        bst = torch.where(bo, inf, bst)
+        bpv = torch.where(bo, inf, bpv)
+        head = torch.stack([stg, stl, bst, bpv, sched[:, 4]], dim=1)
+        state = (*state[:-1], torch.where(done0[:, None], sched, head))
+        extra = [stg.to(dt), stl.to(dt)]
+    elif lad.guard:
+        bst, bpv, stl = _watch_update(torch, gv.to(torch.float64), best,
+                                      best_prev, stall, STALL_REL)
+        best = torch.where(done0, best, bst)
+        best_prev = torch.where(done0, best_prev, bpv)
+        stall = torch.where(done0, stall, stl)
+        newly_stalled = ((stall >= lad.stall_evals) & (lad.tgt > -math.inf)
+                         & not_now & torch.logical_not(done_stall))
+        done_stall = done_stall | newly_stalled
+        stall_chunk = torch.where(newly_stalled, step, stall_chunk)
+        extra = [nans, stall.to(dt)]
+    else:
+        extra = [nans, torch.zeros_like(gap)]
+    if lad.accel:
+        w, alpha, hist, sched = state
+        hl, rst, lg = (sched[:, A_HIST], sched[:, A_RESTARTS],
+                       sched[:, A_LASTGAP])
+        one, zero = torch.ones_like(hl), torch.zeros_like(hl)
+        restart = (gv32 > lg) & not_now
+        arm = (hl >= 2.0) & torch.logical_not(restart) & not_now
+        rst = torch.where(restart, rst + 1.0, rst)
+        hl = torch.where(done_now, hl, torch.where(
+            arm, zero, torch.where(restart, one,
+                                   torch.minimum(hl + 1.0, 2.0 * one))))
+        jmp = torch.where(arm, one, zero)
+        lg = torch.where(done_now, lg, gv32)
+        push = torch.logical_not(arm) & not_now
+        tail = torch.stack([hl, jmp, rst, lg, sched[:, A_TH_STAGE],
+                            sched[:, A_TH_STALL], sched[:, A_TH_BEST],
+                            sched[:, A_TH_BPREV]], dim=1)
+        hist = torch.where(_lane(push, hist),
+                           torch.stack([hist[:, 1], alpha], dim=1), hist)
+        state = (w, alpha, hist,
+                 torch.cat([sched[:, :SCHED_LEN], tail], dim=1))
+        extra += [sched[:, A_TH_STAGE].to(dt), rst.to(dt)]
+    else:
+        extra += [nans, nans]
+    done_tgt = done_tgt | newly
+    cert = torch.where(newly, step, cert)
+    row = torch.stack([metrics[:, 0], metrics[:, 1], metrics[:, 2],
+                       *extra], dim=1)
+    return state, FleetCarry(done_tgt, done_stall, stall, best, best_prev,
+                             cert, stall_chunk), row
+
+
+class FleetRunner:
+    """The fleet's loop on its device: one step a chunk of ``c`` rounds,
+    ``step_fn(state, tables) -> (head, state)`` for every lane (``head``
+    the state after an accelerated run's jump at the chunk's head, else
+    the state given, and the state after the chunk), then ``eval_fn(state) ->
+    (T, 3)`` and :func:`fleet_ladder_step`, the eval's row written at the
+    device's chunk counter, every write committed only while ``live``
+    (some lane not done, chunks left).
+
+    On CUDA the first step runs eagerly on the loop's own buffers, then is
+    captured as one CUDA graph (``graphs``: its capture seconds by
+    ``key``) and replayed; the host keeps :data:`AHEAD` steps queued past
+    the last it has seen finish and stops once the pinned live word says
+    the run stopped, so at most ``AHEAD - 1`` steps replay dead
+    (``dead``), and they change no bit and write no row; ``replay_ms`` is
+    the device time of a replayed step, dead ones included.  A capture
+    that fails raises.  On the CPU the steps run eagerly, the host reading
+    ``live`` after each."""
+
+    AHEAD = DeviceLoopRunner.AHEAD
+
+    def __init__(self, step_fn: Callable, eval_fn: Callable,
+                 ladder: FleetLadder, tables: torch.Tensor, state: tuple,
+                 key):
+        self.step_fn = step_fn
+        self.eval_fn = eval_fn
+        self.ladder = ladder
+        dev = state[0].device
+        self.device = dev
+        cuda = dev.type == "cuda"
+        self.key = key
+        self.tabs = tables.to(dev)
+        self.n_chunks = int(tables.shape[0])
+        t = int(state[0].shape[0])
+        self.state = tuple(x.clone() for x in state)
+        self.carry = FleetCarry.init(t, dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.live = torch.ones((), dtype=torch.bool, device=dev)
+        self.rows = torch.full((self.n_chunks, t, FLEET_N_COLS), math.nan,
+                               dtype=state[0].dtype, device=dev)
+        self.flag = (torch.ones(1, dtype=torch.bool, pin_memory=True)
+                     if cuda else None)
+        self.graphs = {}
+        self.steps = 0
+        self.dead = 0
+        # CUDA events around the replays (after the eager step and the
+        # capture): their device time a replayed step, ``replay_ms``
+        self._marks = None
+        self.replay_ms = None
+
+    def _step(self) -> None:
+        """One chunk for every lane, its evals and ladder; device ops
+        only."""
+        live, i = self.live, self.i
+        carry = self.carry
+        done0 = carry.done_tgt | carry.done_stall
+        tables = self.tabs.index_select(
+            0, i.clamp(max=self.n_chunks - 1).view(1))[0]
+        cur, new = self.step_fn(self.state, tables)
+        # a done lane's whole state stays as it was, bit for bit
+        state = tuple(torch.where(_lane(done0, nw), o, nw)
+                      for o, nw in zip(cur, new))
+        metrics = self.eval_fn(state)
+        state, carry2, row = fleet_ladder_step(self.ladder, metrics, state,
+                                               carry, done0, i)
+        for buf, x in zip(self.state, state):
+            buf.copy_(torch.where(live, x, buf))
+        for buf, x in zip(carry.tensors(), carry2.tensors()):
+            buf.copy_(torch.where(live, x, buf))
+        slot = i.clamp(max=self.n_chunks - 1).view(1)
+        self.rows.index_copy_(0, slot, torch.where(
+            live, row, self.rows.index_select(0, slot)[0]).unsqueeze(0))
+        i.add_(live.to(torch.int64))
+        done = carry.done_tgt | carry.done_stall
+        live.copy_(live & torch.logical_not(done.all())
+                   & (i < self.n_chunks))
+        if self.flag is not None:
+            self.flag.copy_(live.view(1), non_blocking=True)
+
+    def run(self) -> None:
+        """Every chunk the run needs, queued as described above."""
+        if self.flag is None:
+            for _ in range(self.n_chunks):
+                self._step()
+                self.steps += 1
+                if not bool(self.live):
+                    break
+            return
+        graph = None
+        finished = []
+        for j in range(self.n_chunks):
+            if j >= self.AHEAD:
+                # wait for step j - AHEAD, then read the live word it wrote
+                finished[j - self.AHEAD].synchronize()
+                if not bool(self.flag[0]):
+                    break
+            if graph is None:
+                self._step()
+                graph = self._capture()
+                self._marks = [torch.cuda.Event(enable_timing=True)
+                               for _ in range(2)]
+                self._marks[0].record()
+            else:
+                graph.replay()
+            self.steps += 1
+            ev = torch.cuda.Event()
+            ev.record()
+            finished.append(ev)
+        if self._marks is not None:
+            self._marks[1].record()
+
+    def _capture(self):
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool)
+            try:
+                self._step()
+            except BaseException:
+                _end_failed_capture(graph)
+                raise
+            graph.capture_end()
+        current.wait_stream(stream)
+        self.graphs[self.key] = time.perf_counter() - start
+        return graph
+
+    def fetch(self):
+        """The run's two reads of the device (``host_transfer`` events
+        ``fleet_loop_fetch`` and ``fleet_result_fetch``): the chunks done
+        and their rows ((n_done, T, FLEET_N_COLS) float64), then the stop
+        flags and the certifying and stalling evals, as numpy."""
+        t = self.rows.shape[1]
+        out = _events.host_fetch(torch.cat([
+            self.i.view(1).to(torch.float64),
+            self.rows.reshape(-1).to(torch.float64)]), "fleet_loop_fetch")
+        n_done = int(out[0])
+        rows = out[1:].reshape(self.n_chunks, t, FLEET_N_COLS)[:n_done]
+        self.dead = self.steps - n_done
+        if self._marks is not None and self.steps > 1:
+            self.replay_ms = (self._marks[0].elapsed_time(self._marks[1])
+                              / (self.steps - 1))
+        c = self.carry
+        res = _events.host_fetch(torch.stack([
+            c.done_tgt.to(torch.int64), c.done_stall.to(torch.int64),
+            c.cert_chunk, c.stall_chunk]), "fleet_result_fetch")
+        return (n_done, rows, res[0].astype(bool), res[1].astype(bool),
+                res[2], res[3])
+
+
+def drive_fleet_on_device(name: str, state: tuple, step_fn: Callable,
+                          eval_fn: Callable, tables: torch.Tensor,
+                          gap_targets: np.ndarray, start_round: int = 1,
+                          stall_evals: int = STALL_EVALS,
+                          divergence_guard: bool = True, n_stages: int = 0,
+                          accel: bool = False, key=None):
+    """Run a whole fleet (cocoa_tpu/solvers/base.py
+    ``drive_fleet_on_device``): every chunk, every per-tenant eval, the
+    per-tenant anneal, accel and gap watch and the all-lanes-done stop on
+    the device (:class:`FleetRunner`), inside one ``local_solve`` span,
+    then the run's fetch.  ``tables`` is the run's (n_chunks, C, ...)
+    int32 draws, ``gap_targets`` (T,) float64 with NaN for none.  Returns
+    (runner, n_done, rows, done_tgt, done_stall, cert_chunk,
+    stall_chunk), the runner holding the final state (``state``), the
+    capture seconds (``graphs``) and the dead replays (``dead``)."""
+    dev = state[0].device
+    tgt = torch.as_tensor(np.where(np.isnan(gap_targets), -np.inf,
+                                   gap_targets), dtype=torch.float64,
+                          device=dev)
+    ladder = FleetLadder(tgt, stall_evals, divergence_guard, n_stages,
+                         accel)
+    runner = FleetRunner(step_fn, eval_fn, ladder, tables, state, key)
+    n_chunks, c = int(tables.shape[0]), int(tables.shape[1])
+    with _tracing.span("local_solve", algorithm=name, t0=start_round,
+                       round=start_round - 1 + n_chunks * c,
+                       rounds=n_chunks * c, cadence=c,
+                       tenants=int(state[0].shape[0])):
+        runner.run()
+        out = runner.fetch()
+    return (runner, *out)

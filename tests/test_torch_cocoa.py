@@ -131,9 +131,9 @@ def test_cli_unported_flags_exit_2(flag, capsys):
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag]) == 2
     out, err = capsys.readouterr()
     name = flag.lstrip("-").split("=")[0]
-    if name in cli._SERVE_FLAGS:
-        # the serving flags are ported: refused beside these training
-        # flags with the JAX CLI's exit code and message
+    if name in cli._SERVE_FLAGS or name in cli._FLEET_FLAGS:
+        # the serving and fleet flags are ported: refused beside these
+        # training flags with the JAX CLI's exit code and message
         assert jax_cli.main(DEMO_ARGV + [flag]) == 2
         assert err == capsys.readouterr().err and err.startswith("error: ")
     else:
@@ -159,8 +159,8 @@ def test_cli_bad_input_exits_2(change, needle, capsys):
 
 def test_port_imports_no_jax():
     """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py,
-    time_fused_block.py and time_sparse_sdca.py import without pulling in
-    jax or cocoa_tpu."""
+    time_fused_block.py, time_sparse_sdca.py and time_block_round.py
+    import without pulling in jax or cocoa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
@@ -168,7 +168,7 @@ def test_port_imports_no_jax():
         "'cocoa_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, time_dense_sdca, time_fused_block, "
-        "time_sparse_sdca\n"
+        "time_sparse_sdca, time_block_round\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cocoa_tpu')]\n"
         "assert not bad, bad\n"
