@@ -281,15 +281,34 @@ stderr); any failed check exits non-zero:
    frozen from its eval on; (c) a lambda path of 64 tenants over one
    8192 x 2048 set (K=4, H=204): ms per round of a replayed step, the
    capture's seconds, the tenants certified and their rounds, models/s,
-   dead replays, the busy share of a shorter profiled run, and 8 of the
-   tenants' solo certified rounds against theirs; (d) the block round's
-   alpha update, the atomic scatter it replaced and the order-stable
-   one in turns (time_block_round.py's ``measure``), both rounds' bits.
+   dead replays, the busy share of a shorter profiled run, and 2 of
+   the tenants' solo certified rounds against theirs; (d) the
+   block round's alpha update, the atomic scatter it replaced and the
+   order-stable one in turns (time_block_round.py's ``measure``), both
+   rounds' bits;
+20. the gang (``--master``, ``--processId``, ``--numProcesses``;
+   cocoa_torch/parallel/): the draw kernel given a first global lane
+   against the whole run's rows; (a) two ranks of ``cli.run`` as
+   processes sharing the card over the gloo device group, the rcv1-like
+   file at K=8 (m=4 a rank), sequential B1 for 100 rounds with
+   --chkptDir beside the solo run of the same flags: the ranks bit for
+   bit, their checkpoints bit for bit, the gang's gaps, w and alpha
+   within 1e-3 of the solo run's (relative, and of the largest entry),
+   and the solo process resuming the gang's file as the uninterrupted
+   solo run goes on; (b) the same gang with --blockSize=128 (B5, B3, B6)
+   and the demo's --justCoCoA=false menu, each rank's launches against
+   the m-shard prediction (one batched launch a round or block, as the
+   solo run's); (c) NCCL at one rank, the captured chunk loop and
+   --deviceLoop bit for bit with the runs without --master, the
+   all-reduce counted once a round and an eval inside the replayed
+   graphs; (d) ms per round of the three and the all-reduce of 47 236
+   float32 alone over gloo (two ranks) and NCCL (one rank).
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
-included; phase 18's serving runs no kernel of the table), its error
+included; phase 18's serving runs no kernel of the table; phase 20's
+processes count their own, printed with it), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -4906,7 +4925,7 @@ FLEET_SOLO = 16
 FLEET_BITS = dict(n=1024, d=128, k=4, frac=0.25, rounds=200, debug_iter=10,
                   gap=1e-3, map_gap=3e-4, map_lam=(3e-3, 1e-1))
 FLEET_PATH = dict(tenants=64, n=8192, d=2048, k=4, frac=0.1, rounds=300,
-                  debug_iter=10, gap=1e-3, lam=(1e-4, 1e-1), solo=8,
+                  debug_iter=10, gap=1e-3, lam=(1e-4, 1e-1), solo=2,
                   profiled_rounds=20)
 FLEET_DEVICE = "cuda"
 
@@ -5254,6 +5273,388 @@ def phase_fleet_training(rcv1, card):
             out[key] = fn(*args, card)
             print(f"phase 19 {key}: in {time.perf_counter() - t0:.1f} s")
             torch.cuda.empty_cache()
+    return out
+
+
+
+# --- phase 20: the gang on the card -----------------------------------------
+
+GANG_ROUNDS = 100
+GANG_EVAL = 25
+GANG_REL = 1e-3          # phase 12's float32 tolerance: gaps relative;
+                         # w and alpha relative to their largest entry
+GANG_TIMEOUT = 300       # s for a gang's children, then they are killed
+GANG_REPS = {"gloo": 50, "nccl": 500}   # all-reduces timed alone
+
+# One process of phase 20: each job is one cli.run (the CLI's own code,
+# the gang's flags in its argv), its results hashed and its iterates kept
+# in OUT for the parent; then, where asked, the all-reduce of d floats
+# timed alone on a fresh group.  Prints one line "GANG <json>".
+GANG_CHILD = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+from cocoa_torch import cli
+from cocoa_torch.ops import block_chain as bc
+from cocoa_torch.ops import sparse_block as sb
+from cocoa_torch.ops import sparse_sdca as sp
+from cocoa_torch.parallel import distributed
+from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.parallel.mesh import make_mesh
+from cocoa_torch.utils import prng
+
+COUNTED = {"B1": (sp.sparse_sdca_round, "launches"),
+           "B3": (bc.chain_block_batched, "launches"),
+           "B5": (sb.sparse_block_gram, "launches"),
+           "B6": (sb.sparse_block_apply, "launches"),
+           "D": (prng.draw_tables, "launches"),
+           "all_reduce": (all_reduce_sum, "calls")}
+
+
+def sha(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def run(job, out_dir):
+    for fn, attr in COUNTED.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    rc, results = cli.run(job["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    algs, arrays = [], {}
+    for r in results:
+        recs = r.trajectory.records
+        a, b = recs[0], recs[-1]
+        timed = a.wall_time is not None and b.wall_time is not None
+        algs.append({
+            "algorithm": r.algorithm, "stopped": r.trajectory.stopped,
+            "records": [[x.round, x.primal, x.gap, x.test_error]
+                        for x in recs],
+            "ms_round": ((b.wall_time - a.wall_time)
+                         / max(1, b.round - a.round) * 1e3
+                         if timed else None),
+            "w": sha(r.w), "alpha": None if r.alpha is None else sha(r.alpha)})
+        key = r.algorithm.replace(" ", "_")
+        arrays["w_" + key] = r.w.float().cpu().numpy()
+        if r.alpha is not None:
+            arrays["alpha_" + key] = r.alpha.float().cpu().numpy()
+    np.savez(f"{out_dir}/{job['tag']}.npz", **arrays)
+    return {"tag": job["tag"], "rc": rc, "wall_s": wall, "algs": algs,
+            "counts": {k: getattr(fn, attr)
+                       for k, (fn, attr) in COUNTED.items()}}
+
+
+def time_all_reduce(spec):
+    distributed.maybe_initialize(spec["master"], spec["rank"], spec["world"])
+    try:
+        mesh = make_mesh(None, "cuda")
+        x = torch.randn(spec["d"], device=mesh.device)
+        for _ in range(5):
+            all_reduce_sum(x, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(spec["reps"]):
+            all_reduce_sum(x, mesh)
+        torch.cuda.synchronize()
+        return {"backend": mesh.backend,
+                "ms": (time.perf_counter() - t0) / spec["reps"] * 1e3}
+    finally:
+        distributed.shutdown()
+
+
+spec = json.loads(sys.argv[1])
+out = {"jobs": [run(job, spec["out"]) for job in spec["jobs"]]}
+if spec.get("all_reduce"):
+    out["all_reduce"] = time_all_reduce(spec["all_reduce"])
+print("GANG " + json.dumps(out), flush=True)
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gang_flags(port: int, rank: int, world: int) -> list:
+    return [f"--master=127.0.0.1:{port}", f"--processId={rank}",
+            f"--numProcesses={world}"]
+
+
+def spawn_gang(label, specs, env_extra=None) -> list:
+    """One GANG_CHILD per spec, all started together; each one's log in
+    OUT, its parsed line returned in rank order.  Every child is killed
+    and joined on any failure (a hung rendezvous holds no port)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "GLOO_SOCKET_IFNAME": "lo",
+           **(env_extra or {})}
+    procs = [subprocess.Popen([sys.executable, "-c", GANG_CHILD,
+                               json.dumps(s)], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for s in specs]
+    outs = []
+    try:
+        deadline = time.time() + GANG_TIMEOUT
+        for p in procs:
+            o, e = p.communicate(timeout=max(1.0, deadline - time.time()))
+            outs.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    parsed = []
+    for rank, (rc, o, e) in enumerate(outs):
+        (OUT / f"chip_smoke_gang_{label}_{rank}.log").write_text(o + e)
+        check(rc == 0, f"phase 20 {label} rank {rank} exited {rc}: "
+                       f"{e[-3000:]}")
+        lines = [ln for ln in o.splitlines() if ln.startswith("GANG ")]
+        check(len(lines) == 1, f"phase 20 {label} rank {rank}: no result")
+        res = json.loads(lines[0][5:])
+        for job in res["jobs"]:
+            check(job["rc"] == 0, f"phase 20 {label} rank {rank} "
+                                  f"{job['tag']}: exit {job['rc']}")
+        res["stdout"] = o
+        parsed.append(res)
+    return parsed
+
+
+def job_of(res, tag):
+    return next(j for j in res["jobs"] if j["tag"] == tag)
+
+
+def same_ranks(label, ranks, tag) -> None:
+    """Every rank's records and w bit for bit (alpha is each rank's own
+    shards)."""
+    ref = job_of(ranks[0], tag)["algs"]
+    for r in ranks[1:]:
+        got = job_of(r, tag)["algs"]
+        check([(a["records"], a["w"], a["stopped"]) for a in got]
+              == [(a["records"], a["w"], a["stopped"]) for a in ref],
+              f"phase 20 {label} {tag}: the ranks differ")
+
+
+def close_to_solo(label, algs, ref_results, upto=None) -> None:
+    """A gang's records against the solo run's within GANG_REL: the gap,
+    the primal where there is none; rounds past ``upto`` left out."""
+    for a, r in zip(algs, ref_results):
+        check(a["algorithm"] == r.algorithm, f"{label}: algorithms differ")
+        want = [x for x in r.trajectory.records
+                if upto is None or x.round <= upto]
+        got = a["records"][:len(want)]
+        check([g[0] for g in got] == [x.round for x in want],
+              f"{label} {r.algorithm}: eval rounds differ")
+        for g, x in zip(got, want):
+            a_v, b_v = (g[2], x.gap) if x.gap is not None else (g[1],
+                                                                x.primal)
+            check(abs(a_v - b_v) <= GANG_REL * abs(b_v),
+                  f"{label} {r.algorithm} round {x.round}: {a_v} vs {b_v}")
+
+
+def close_arrays(label, got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{label}: shapes {got.shape} vs "
+                                   f"{want.shape}")
+    err = float(np.max(np.abs(got - want)))
+    check(err <= GANG_REL * float(np.max(np.abs(want))),
+          f"{label}: max |diff| {err} against max {np.max(np.abs(want))}")
+    return err
+
+
+def ckpt_arrays(directory, algorithm, round_t):
+    meta, arrays = checkpoint.load_full(os.path.join(
+        directory, f"{algorithm.replace(' ', '_')}-r{round_t:06d}.npz"))
+    check(meta["round"] == round_t, f"{directory}: round {meta['round']}")
+    return arrays
+
+
+def gang_draws() -> str:
+    """The draw kernel D given a first global lane: a rank's tables are
+    rows [lo, hi) of the whole run's host tables, bit for bit."""
+    counts = np.array([2531] * 2 + [2530] * 6)
+    t0 = torch.tensor(7, dtype=torch.int64, device="cuda")
+    for mode in prng.MODES:
+        whole = prng.host_tables(mode, 0, 253, counts, 7, 4)
+        for lo, hi in ((0, 4), (4, 8), (6, 8)):
+            got = prng.draw_tables(mode, 0, 253, torch.as_tensor(
+                counts[lo:hi], device="cuda"), t0, 4, lane0=lo).cpu()
+            check(torch.equal(got, whole[:, lo:hi]),
+                  f"phase 20: D at lane0={lo} ({mode}) differs from the "
+                  f"host rows")
+    return "D at first lanes 0, 4, 6 == the whole run's rows, 3 modes"
+
+
+def phase_gang(path, demo_argv, card):
+    """Phase 20: the gang on the card.  (a) two ranks, K=8 (m=4 a rank),
+    the rcv1-like file through the CLI, sequential B1 for 100 rounds over
+    the gloo device group, against the solo run; the checkpoints; the
+    solo process resuming the gang's file.  (b) the block round (B5, B3,
+    B6) and the demo menu on the same gang, each rank's launches against
+    the m-shard prediction.  (c) NCCL at one rank: the captured chunk
+    loop and --deviceLoop, bit for bit with the runs without --master.
+    (d) ms per round and the all-reduce alone.  Returns a summary."""
+    out = {"card": card, "draws": gang_draws()}
+    rcv1 = [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", f"--debugIter={GANG_EVAL}"]
+    seq = rcv1 + [f"--numRounds={GANG_ROUNDS}"]
+    longer = rcv1 + [f"--numRounds={GANG_ROUNDS + 2 * GANG_EVAL}",
+                     f"--chkptIter={2 * GANG_EVAL}"]
+    block = seq + ["--blockSize=128"]
+    menu = [a for a in demo_argv if not a.startswith("--numRounds")] + [
+        "--numRounds=50", "--justCoCoA=false"]
+    evals = GANG_ROUNDS // GANG_EVAL
+    # all-reduces of a CoCoA run: one a round, one an eval, and the end
+    # summary's primal and dual sums (cli.py _summary; no test file)
+    reduces = 2 * (GANG_ROUNDS + evals + 2)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        d_solo = os.path.join(tmp, "solo")
+        d_rank = [os.path.join(tmp, f"rank{r}") for r in range(2)]
+        # the solo runs, in this process (each chunk a captured graph)
+        t0 = time.perf_counter()
+        _, solo = run_cli(longer + [f"--chkptDir={d_solo}"])
+        reset_counts()
+        _, solo_block = run_cli(block)
+        solo_block_counts = counts()
+        _, solo_menu = run_cli(menu)
+        solo_s = time.perf_counter() - t0
+
+        # (a) + (b): the gang, two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        ports = [free_port() for _ in range(4)]
+        specs = [{"out": d_rank[r], "jobs": [
+            {"tag": "seq", "argv": seq + gang_flags(ports[0], r, 2) + [
+                f"--chkptDir={d_rank[r]}", f"--chkptIter={GANG_ROUNDS}"]},
+            {"tag": "block", "argv": block + gang_flags(ports[1], r, 2)},
+            {"tag": "menu", "argv": menu + gang_flags(ports[2], r, 2)}],
+            "all_reduce": {"master": f"127.0.0.1:{ports[3]}", "rank": r,
+                           "world": 2, "d": RCV1_SHAPE[1],
+                           "reps": GANG_REPS["gloo"]}}
+            for r in range(2)]
+        for d in d_rank:
+            os.makedirs(d)
+        ranks = spawn_gang("ab", specs)
+        gang_s = time.perf_counter() - t0
+        for tag in ("seq", "block", "menu"):
+            same_ranks("(a)/(b)", ranks, tag)
+        check("gang: rank 1 of 2 on cuda:0, device group gloo; chunks "
+              "eager: a gloo all-reduce cannot be captured"
+              in ranks[1]["stdout"], "phase 20 (a): the gang line")
+        close_to_solo("phase 20 (a) seq", job_of(ranks[0], "seq")["algs"],
+                      solo, upto=GANG_ROUNDS)
+        errs = {}
+        for alg in ("CoCoA+", "CoCoA"):
+            a0 = ckpt_arrays(d_rank[0], alg, GANG_ROUNDS)
+            a1 = ckpt_arrays(d_rank[1], alg, GANG_ROUNDS)
+            for name in ("w", "alpha"):
+                check(a0[name].tobytes() == a1[name].tobytes(),
+                      f"phase 20 (a) {alg}: the ranks' checkpoints differ "
+                      f"in {name}")
+            want = ckpt_arrays(d_solo, alg, GANG_ROUNDS)
+            errs[alg] = [close_arrays(f"phase 20 (a) {alg} {name}",
+                                      a0[name], want[name])
+                         for name in ("w", "alpha")]
+        # the solo process resumes the gang's checkpoint at round 100
+        _, resumed = run_cli(longer + [f"--chkptDir={d_rank[0]}",
+                                       "--resume"])
+        for r, f in zip(resumed, solo):
+            want = [x for x in f.trajectory.records if x.round > GANG_ROUNDS]
+            check([x.round for x in r.trajectory.records]
+                  == [x.round for x in want],
+                  f"phase 20 (a) resumed {r.algorithm}: eval rounds")
+            for x, y in zip(r.trajectory.records, want):
+                check(abs(x.gap - y.gap) <= GANG_REL * y.gap,
+                      f"phase 20 (a) resumed {r.algorithm} round {x.round}: "
+                      f"{x.gap} vs {y.gap}")
+            close_arrays(f"phase 20 (a) resumed {r.algorithm} w",
+                         r.w.cpu(), f.w.cpu())
+        # launches of each rank against the m-shard prediction: one
+        # batched launch over its m shards a round (B1) or a block (B5,
+        # B3, B6), as the solo run's over all K
+        h = int(0.1 * RCV1_SHAPE[0] / 8)
+        blocks = -(-h // 128)
+        for r, res in enumerate(ranks):
+            c = job_of(res, "seq")["counts"]
+            check(c["B1"] == 2 * GANG_ROUNDS and c["D"] == 2 * evals
+                  and c["all_reduce"] == reduces,
+                  f"phase 20 (a) rank {r}: counts {c}")
+            c = job_of(res, "block")["counts"]
+            for name in ("B3", "B5", "B6"):
+                check(c[name] == 2 * GANG_ROUNDS * blocks
+                      == solo_block_counts[name],
+                      f"phase 20 (b) rank {r}: {name} {c[name]} launches, "
+                      f"predicted {2 * GANG_ROUNDS * blocks}, solo "
+                      f"{solo_block_counts[name]}")
+            c = job_of(res, "menu")["counts"]
+            check(c["B1"] == 3 * 50,
+                  f"phase 20 (b) rank {r}: menu B1 {c['B1']} launches")
+        close_to_solo("phase 20 (b) block", job_of(ranks[0], "block")["algs"],
+                      solo_block)
+        close_to_solo("phase 20 (b) menu", job_of(ranks[0], "menu")["algs"],
+                      solo_menu)
+
+        # (c): NCCL at one rank, captured, against the runs without --master
+        t0 = time.perf_counter()
+        cports = [free_port() for _ in range(3)]
+        nccl = spawn_gang("c", [{"out": tmp, "jobs": [
+            {"tag": "solo", "argv": seq},
+            {"tag": "nccl", "argv": seq + gang_flags(cports[0], 0, 1)},
+            {"tag": "solo-dl", "argv": seq + ["--deviceLoop"]},
+            {"tag": "nccl-dl", "argv": seq + ["--deviceLoop"]
+             + gang_flags(cports[1], 0, 1)}],
+            "all_reduce": {"master": f"127.0.0.1:{cports[2]}", "rank": 0,
+                           "world": 1, "d": RCV1_SHAPE[1],
+                           "reps": GANG_REPS["nccl"]}}],
+            env_extra={"NCCL_SOCKET_IFNAME": "lo"})[0]
+        nccl_s = time.perf_counter() - t0
+        check("device group nccl; chunks captured with the all-reduce "
+              "inside" in nccl["stdout"], "phase 20 (c): the NCCL gang line")
+        for plain, gang in (("solo", "nccl"), ("solo-dl", "nccl-dl")):
+            a, b = job_of(nccl, plain), job_of(nccl, gang)
+            check([(x["records"], x["w"], x["alpha"]) for x in a["algs"]]
+                  == [(x["records"], x["w"], x["alpha"]) for x in b["algs"]],
+                  f"phase 20 (c) {gang}: not bit for bit with {plain}")
+            check(b["counts"]["all_reduce"] == reduces
+                  and a["counts"]["all_reduce"] == 0
+                  and b["counts"]["B1"] == a["counts"]["B1"]
+                  == 2 * GANG_ROUNDS,
+                  f"phase 20 (c) {gang}: counts {b['counts']} "
+                  f"({plain}: {a['counts']})")
+    ms = {
+        "gang gloo (uncaptured)": job_of(ranks[0], "seq")["algs"][0][
+            "ms_round"],
+        "solo (captured)": steady_ms(solo[0].trajectory),
+        "nccl one rank (captured)": job_of(nccl, "nccl")["algs"][0][
+            "ms_round"],
+        "solo in the (c) process (captured)": job_of(nccl, "solo")["algs"][
+            0]["ms_round"]}
+    ar = {"gloo 2 ranks": [r["all_reduce"]["ms"] for r in ranks],
+          "nccl 1 rank": nccl["all_reduce"]["ms"]}
+    out.update(ms_round=ms, all_reduce_ms=ar, ckpt_err=errs,
+               seconds={"solo": solo_s, "gang": gang_s, "nccl": nccl_s},
+               counts={f"rank{r}": {j["tag"]: j["counts"]
+                                    for j in res["jobs"]}
+                       for r, res in enumerate(ranks)},
+               nccl_counts={j["tag"]: j["counts"] for j in nccl["jobs"]})
+    print(f"phase 20 (a): 2 ranks x K=8 (m=4) over gloo on one card, "
+          f"rcv1-like {GANG_ROUNDS} rounds: ranks bit for bit, checkpoints "
+          f"bit for bit, w/alpha max |diff| to the solo run "
+          + ", ".join(f"{a} {e[0]:.2e}/{e[1]:.2e}" for a, e in errs.items())
+          + f"; the solo process resumed the gang's file within "
+          f"{GANG_REL:g}; {out['draws']}")
+    print(f"phase 20 (b): block B5/B3/B6 {2 * GANG_ROUNDS * blocks} "
+          f"launches a rank == the m-shard prediction == the solo run's; "
+          f"demo menu on 2 ranks within {GANG_REL:g} of the solo run")
+    print(f"phase 20 (c): NCCL at one rank, chunked and --deviceLoop "
+          f"captured, bit for bit with the runs without --master, "
+          f"{reduces} all-reduces a run (a round, an eval, the summary's "
+          f"two)")
+    print("phase 20 (d): ms per round (CoCoA+, steady): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; all-reduce of {RCV1_SHAPE[1]} float32 alone: gloo 2 ranks "
+        + "/".join(f"{v:.4f}" for v in ar["gloo 2 ranks"])
+        + f" ms, nccl 1 rank {ar['nccl 1 rank']:.4f} ms; s: solo runs "
+        f"{solo_s:.1f}, gang {gang_s:.1f}, nccl {nccl_s:.1f}; card {card}")
     return out
 
 
@@ -5716,7 +6117,6 @@ def main() -> int:
     # --- phase 18: serving on the card
     t0 = time.perf_counter()
     serving18 = phase_serving(path, rcv1, card)
-    tmp.cleanup()
     print(f"phase 18: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase18.json").write_text(json.dumps(serving18,
                                                             default=str))
@@ -5726,6 +6126,14 @@ def main() -> int:
     fleet19 = phase_fleet_training(rcv1, card)
     print(f"phase 19: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase19.json").write_text(json.dumps(fleet19,
+                                                            default=str))
+
+    # --- phase 20: the gang on the card
+    t0 = time.perf_counter()
+    gang20 = phase_gang(path, demo_argv, card)
+    tmp.cleanup()
+    print(f"phase 20: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase20.json").write_text(json.dumps(gang20,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
@@ -5804,6 +6212,18 @@ def main() -> int:
         row["launches"] += loop14["launched"][name] + \
             resume15["launched"][name] + surface16["launched"][name] + \
             telemetry17["launched"][name]
+    # phase 20's processes count their own launches, job by job
+    gang_counts = [job for rank in gang20["counts"].values()
+                   for job in rank.values()] + list(
+        gang20["nccl_counts"].values())
+    launched20 = {name: sum(j[name] for j in gang_counts)
+                  for name in ("B1", "B3", "B5", "B6", "D")}
+    for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
+                                "D")):
+        row["launches"] += launched20.get(name, 0)
+    print(f"phase 20 launches (the gang's and the NCCL child's processes), "
+          f"in the counts below: " + ", ".join(
+              f"{name} {v}" for name, v in launched20.items()))
     print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
         f"{name} {v}" for name, v in loop14["launched"].items()))
     print(f"phase 15 launches (in-process runs), in the counts below: "

@@ -143,6 +143,8 @@ from cocoa_torch.data.sharding import eval_dense_fits, resolve_layout
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
+from cocoa_torch.parallel import distributed
+from cocoa_torch.parallel.mesh import local_part, make_mesh
 from cocoa_torch.solvers import run_cocoa
 from cocoa_torch.solvers.cocoa import auto_block_size
 from cocoa_torch.solvers.dist_gd import run_dist_gd
@@ -173,9 +175,12 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
 _NOT_PORTED = (
-    "mesh", "fp", "master", "processId", "numProcesses",
-    "elastic", "stallTimeout", "ingest",
+    "fp", "elastic", "stallTimeout", "ingest",
     "ingestCache", "overlapComm", "staleRounds")
+# the gang's flags (``--master`` and its rank, ``--mesh``): no RunConfig
+# field, read from the flags given; beside ``--fleet`` (the fleet's
+# tenant mesh axis) they are not ported yet
+_GANG_FLAGS = ("mesh", "master", "processId", "numProcesses")
 # the serving loop's flags (``--serve``): no RunConfig field, read from
 # the flags given (``cfg._given``), as the JAX CLI reads its extras
 _SERVE_FLAGS = ("serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
@@ -226,7 +231,7 @@ def parse_args(argv: list[str]):
         if key in _NOT_PORTED:
             unported.append(key)
             continue
-        if key in _SERVE_FLAGS or key in _FLEET_FLAGS:
+        if key in _SERVE_FLAGS or key in _FLEET_FLAGS or key in _GANG_FLAGS:
             continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
@@ -246,6 +251,8 @@ def parse_args(argv: list[str]):
                     else float(val))
         else:
             setattr(cfg, field, val)
+    if "fleet" in given:
+        unported += [key for key in given if key in _GANG_FLAGS]
     cfg._given = given
     return cfg, unported
 
@@ -257,7 +264,8 @@ def _manifest_config(cfg: RunConfig) -> dict:
     out = {f: getattr(cfg, f) for f in _MANIFEST_FIELDS}
     for key, val in getattr(cfg, "_given", {}).items():
         if (key in _PORT_FLAGS and _PORT_FLAGS[key] not in out
-                or key in _SERVE_FLAGS or key in _FLEET_FLAGS):
+                or key in _SERVE_FLAGS or key in _FLEET_FLAGS
+                or key in _GANG_FLAGS):
             out[key] = val
     return out
 
@@ -318,28 +326,30 @@ def _telemetry_flags(cfg: RunConfig) -> _Telemetry:
 
 
 @contextlib.contextmanager
-def _telemetry(cfg: RunConfig, tel: _Telemetry):
-    """The run's telemetry, as the JAX CLI sets it up for its single
-    process, worker 0 (cocoa_tpu/cli.py:996-1023): the bus's JSONL and
-    metrics sinks, the tracer, and the flight recorder under
-    ``--flightRecorder=auto|on``.  An exception that leaves the run dumps
+def _telemetry(cfg: RunConfig, tel: _Telemetry, rank: int = 0):
+    """The run's telemetry, as the JAX CLI sets it up for process
+    ``rank`` (cocoa_tpu/cli.py:996-1023): the bus's JSONL sink (rank 0
+    owns ``<events>``, rank p writes ``<events>.p<p>``), the metrics
+    textfile on rank 0 only, the tracer tagging its spans with the
+    worker, and the flight recorder under ``--flightRecorder=auto|on``.  An exception that leaves the run dumps
     the recorder (the JAX CLI's excepthook sees it at the top of its
     process).  On the way out the bus and the tracer are put back as they
     were, and the recorder's excepthook and SIGTERM handler removed."""
     bus = tele_events.get_bus()
     tracer = tracing.get_tracer()
     saved, traced = bus.saved(), (tracer.enabled, tracer.worker)
-    events_path = (flightrec_lib.worker_stream_path(cfg.events, 0)
+    events_path = (flightrec_lib.worker_stream_path(cfg.events, rank)
                    if cfg.events else None)
+    metrics_path = cfg.metrics if rank == 0 and cfg.metrics else None
     rec = None
     try:
-        if events_path or cfg.metrics:
+        if events_path or metrics_path:
             bus.configure(jsonl_path=events_path,
-                          metrics_path=cfg.metrics or None,
+                          metrics_path=metrics_path,
                           max_bytes=tel.events_max_bytes,
                           metrics_interval_s=tel.metrics_interval)
         if tel.trace:
-            tracer.configure(enabled=True, worker=0)
+            tracer.configure(enabled=True, worker=rank)
         if events_path and tel.flight_recorder != "off":
             rec = flightrec_lib.install(bus, events_path)
         yield bus
@@ -355,7 +365,7 @@ def _telemetry(cfg: RunConfig, tel: _Telemetry):
 
 
 def _run_start(bus, cfg_manifest: dict, run_meta: dict, dataset: str,
-               device, layout_split, reports: list) -> None:
+               device, layout_split, reports: list, mesh=None) -> None:
     """The ``run_start`` event, then one ``ingest`` event per loaded file,
     as the JAX CLI emits them once the layout is resolved
     (cocoa_tpu/cli.py:1548-1566): the manifest is the run's config (with
@@ -368,7 +378,7 @@ def _run_start(bus, cfg_manifest: dict, run_meta: dict, dataset: str,
     if not bus.active():
         return
     manifest = tele_events.run_manifest(cfg_manifest, dataset=dataset,
-                                        device=device)
+                                        device=device, mesh=mesh)
     if layout_split is not None:
         manifest["layout_split"] = dict(layout_split)
     if reports:
@@ -604,10 +614,12 @@ def _ladder(cfg: RunConfig) -> dict:
 
 def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
     """The summary, then ``--trajOut``'s file, as the JAX CLI's
-    ``finish`` (cocoa_tpu/cli.py:1771-1773)."""
+    ``finish`` (cocoa_tpu/cli.py:1771-1773); in a gang rank 0 alone
+    writes the file, which every rank's trajectory would fill alike."""
     traj.meta.update(run_meta)
     traj.summary(*summary)
-    if cfg.traj_out:
+    if cfg.traj_out and not (distributed.initialized()
+                             and torch.distributed.get_rank() != 0):
         traj.dump_jsonl(f"{cfg.traj_out}."
                         f"{traj.algorithm.replace(' ', '_')}.jsonl")
 
@@ -664,7 +676,7 @@ def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
 def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
                block_pipeline: Optional[bool], dtype, device, ladder: dict,
                run_meta: dict, loop: dict, resume: bool, bus,
-               cfg_manifest: dict):
+               cfg_manifest: dict, mesh=None):
     """``--objective=lasso``: ProxCoCoA+ on A's column shards (with
     ``--blockSize``, through the block round), then the JAX CLI's summary
     line from one more certificate.  As in the JAX CLI, ``run_start``
@@ -677,9 +689,10 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
         report = whole_report(cfg.train_file, data,
                               time.perf_counter() - t_load)
         ds, b = shard_columns(data, k, dtype=dtype, device=device,
-                              layout=cfg.layout)
+                              layout=cfg.layout, part=local_part(mesh))
+        ds.mesh = mesh
         _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device,
-                   None, [report])
+                   None, [report], mesh)
         quiet = _quiet(cfg)
         if cfg.block_size.lower() == "auto":
             block_size = _resolve_auto_block(ds, dtype, quiet)
@@ -701,7 +714,7 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
         print(f"error: {e}", file=sys.stderr)
         return 2, []
     primal, gap, _ = lasso_metrics(r, x, ds.shard_arrays(), b, cfg.lam,
-                                   l2).cpu().tolist()
+                                   l2, mesh).cpu().tolist()
     _finish(cfg, traj, run_meta, primal, gap)
     return 0, [RunResult(traj.algorithm, r, x, traj)]
 
@@ -741,13 +754,95 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         # (cocoa_tpu/cli.py:610-624)
         profile = (profiling.parse_profile_flag(cfg.profile) if cfg.profile
                    else (None, None, None))
+        gang = _gang_args(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
+    try:
+        mesh = _join_gang(cfg, gang, device, device_loop)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        distributed.shutdown()
+        return 2, []
+    try:
+        return _train(cfg, tel, mesh, device if mesh is None
+                      else mesh.device, capture, block_size, block_pipeline,
+                      objective, l2, ladder, device_loop, resume, profile)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
 
+
+def _gang_args(cfg: RunConfig):
+    """``--master``, ``--processId`` and ``--numProcesses`` as the JAX
+    CLI reads them (cocoa_tpu/cli.py:957-975)."""
+    given = getattr(cfg, "_given", {})
+    try:
+        proc_id = (int(given["processId"]) if given.get("processId")
+                   else None)
+        n_procs = (int(given["numProcesses"]) if given.get("numProcesses")
+                   else None)
+    except ValueError:
+        raise ValueError("--processId/--numProcesses must be integers") \
+            from None
+    return given.get("master"), proc_id, n_procs
+
+
+def _join_gang(cfg: RunConfig, gang, device, device_loop: bool):
+    """Join the gang when ``--master`` names a rendezvous (parallel/
+    distributed.py) and build its mesh over every rank; then ``--mesh``
+    with the JAX CLI's rules and message (cocoa_tpu/cli.py:1042-1100),
+    its devices the gang's ranks (1 in one process).  Returns the mesh,
+    None in one process (the JAX package's ``--mesh=1`` path)."""
+    mesh = None
+    if distributed.maybe_initialize(*gang):
+        mesh = make_mesh(None, device)
+    raw = getattr(cfg, "_given", {}).get("mesh")
+    if raw is not None:
+        try:
+            size = int(raw)
+        except ValueError:
+            raise ValueError(f"--mesh must be an integer, got {raw!r}") \
+                from None
+        world = 1 if mesh is None else mesh.size
+        k = cfg.num_splits
+        if size != world or (size > 1 and k % size != 0):
+            raise ValueError(
+                f"--mesh={size} (x fp=1) needs a divisor of numSplits={k} "
+                f"and mesh x fp devices (have {world}); use --mesh=1 for "
+                f"the single-chip path")
+    if (device_loop and mesh is not None and mesh.device.type == "cuda"
+            and not mesh.capturable):
+        from cocoa_torch.solvers.base import GLOO_DEVICE_LOOP
+
+        raise ValueError(GLOO_DEVICE_LOOP)
+    return mesh
+
+
+def _gang_line(mesh, capture) -> str:
+    """The run echo's line for a gang: the rank, the device group's
+    backend and whether the chunks are captured."""
+    if mesh.device.type != "cuda":
+        how = "chunks eager (the CPU)"
+    elif not mesh.capturable:
+        how = "chunks eager: a gloo all-reduce cannot be captured"
+    else:
+        how = ("chunks eager (capture=False)" if capture is False
+               else "chunks captured with the all-reduce inside")
+    return f"gang: {mesh.describe()}; {how}"
+
+
+def _train(cfg: RunConfig, tel: _Telemetry, mesh, device, capture,
+           block_size: int, block_pipeline: Optional[bool], objective: str,
+           l2: float, ladder: dict, device_loop: bool, resume: bool,
+           profile) -> tuple[int, list[RunResult]]:
+    """The training run once the flags are checked and the gang (if any)
+    is joined: the echo, the telemetry, then the lasso or the SVM menu."""
     quiet = _quiet(cfg)
     if not quiet:
         _echo(cfg)
+        if mesh is not None:
+            print(_gang_line(mesh, capture))
     cfg_manifest = _manifest_config(cfg)
     run_meta = {"dataset": cfg.train_file, "seed": cfg.seed,
                 "config_hash": config_hash(cfg_manifest)}
@@ -755,21 +850,22 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     dtype = _DTYPES[cfg.dtype]
     loop = dict(scan_chunk=cfg.scan_chunk, capture=capture,
                 device_loop=device_loop)
-    with _telemetry(cfg, tel) as bus:
+    rank = 0 if mesh is None else mesh.rank
+    with _telemetry(cfg, tel, rank) as bus:
         if objective == "lasso":
             return _run_lasso(cfg, l2, block_size, block_pipeline, dtype,
                               device, ladder, run_meta,
                               dict(loop, sampling=cfg.sampling), resume,
-                              bus, cfg_manifest)
+                              bus, cfg_manifest, mesh)
         return _run_svm(cfg, block_size, block_pipeline, dtype, device,
                         ladder, run_meta, loop, resume, bus, cfg_manifest,
-                        profile)
+                        profile, mesh)
 
 
 def _run_svm(cfg: RunConfig, block_size: int,
              block_pipeline: Optional[bool], dtype, device, ladder: dict,
              run_meta: dict, loop: dict, resume: bool, bus,
-             cfg_manifest: dict, profile):
+             cfg_manifest: dict, profile, mesh=None):
     """The SVM runs on the row shards: CoCoA+ and CoCoA, and the rest of
     the reference's menu unless ``--justCoCoA``, under ``--profile``
     when it is given."""
@@ -782,7 +878,8 @@ def _run_svm(cfg: RunConfig, block_size: int,
         hot_n, eval_dense, split = _layout_knobs(cfg, data, k, dtype)
         ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
                            device=device, hot_cols=hot_n,
-                           eval_dense=eval_dense)
+                           eval_dense=eval_dense, part=local_part(mesh))
+        ds.mesh = mesh
         # one ingest record per loaded file: the parse and the shards
         reports.append(whole_report(cfg.train_file, data,
                                     time.perf_counter() - t_load))
@@ -795,14 +892,16 @@ def _run_svm(cfg: RunConfig, block_size: int,
             test_data = load_libsvm(cfg.test_file, cfg.num_features)
             test_ds = shard_dataset(
                 test_data, k=k, layout=cfg.layout, dtype=dtype,
-                device=device, hot_cols=hot_n, eval_dense=eval_dense)
+                device=device, hot_cols=hot_n, eval_dense=eval_dense,
+                part=local_part(mesh))
+            test_ds.mesh = mesh
             reports.append(whole_report(cfg.test_file, test_data,
                                         time.perf_counter() - t_test))
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
     _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device, split,
-               reports)
+               reports, mesh)
 
     if cfg.block_size.lower() == "auto":
         block_size = _resolve_auto_block(ds, dtype, quiet)

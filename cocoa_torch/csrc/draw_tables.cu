@@ -90,14 +90,14 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 __global__ void hash_kernel(const long long* __restrict__ counts,
                             const long long* __restrict__ t0p,
                             int* __restrict__ out, int c, int k, int h,
-                            long long seed) {
+                            int k0, long long seed) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= (long long)c * k * h) return;
   const int j = (int)(idx % h);
   const long long lane_id = idx / h;
   const int ci = (int)(lane_id / k), ki = (int)(lane_id % k);
   const uint32_t t = (uint32_t)(t0p[0] + ci);
-  const uint32_t base = mix32((t * kP1) ^ ((uint32_t)ki + 0x632BE5ABu) ^
+  const uint32_t base = mix32((t * kP1) ^ ((uint32_t)(k0 + ki) + 0x632BE5ABu) ^
                               (uint32_t)seed);
   const uint32_t v = mix32(base ^ ((uint32_t)j * kP3)) >> 1;
   out[idx] = (int)(v % (uint32_t)counts[ki]);
@@ -120,7 +120,7 @@ __device__ __forceinline__ uint32_t feistel(uint32_t x, int hb, uint32_t mask,
 __global__ void permuted_kernel(const long long* __restrict__ counts,
                                 const long long* __restrict__ t0p,
                                 int* __restrict__ out, int c, int k, int h,
-                                long long seed) {
+                                int k0, long long seed) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= (long long)c * k * h) return;
   const int j = (int)(idx % h);
@@ -135,7 +135,7 @@ __global__ void permuted_kernel(const long long* __restrict__ counts,
   const uint32_t e = (uint32_t)(g / cnt);
   uint32_t y = (uint32_t)(g % cnt);
   const uint32_t rk =
-      mix32((e * kP3) ^ ((uint32_t)(ki + 1) * kP1) ^ (uint32_t)seed);
+      mix32((e * kP3) ^ ((uint32_t)(k0 + ki + 1) * kP1) ^ (uint32_t)seed);
   // the enclosing even-bit power-of-two domain: 2 * ceil(ceil(log2 n) / 2)
   const int bits = 64 - __clzll((unsigned long long)(cnt - 1));
   const int b = bits < 2 ? 2 : ((bits + 1) / 2) * 2;
@@ -150,13 +150,15 @@ __global__ void permuted_kernel(const long long* __restrict__ counts,
 
 // Plain C entry point for ctypes.  ``counts`` (K,) int64 shard sizes and
 // ``t0`` (1,) int64 the chunk's first round, both in device memory;
-// ``out`` (C, K, H) int32 is written whole.  ``mode`` 0 reference, 1 jax,
+// ``out`` (C, K, H) int32 is written whole; lane ki is the global shard
+// ``k0 + ki`` (a gang's rank draws a run of the shards; the reference
+// replay reads only the lane's size).  ``mode`` 0 reference, 1 jax,
 // 2 permuted; anything else, or a non-positive extent, is refused with
 // cudaErrorInvalidValue.  Returns cudaGetLastError().
 extern "C" int draw_tables(int mode, const long long* counts,
                            const long long* t0, int* out, int c, int k, int h,
-                           long long seed, void* stream) {
-  if (c < 1 || k < 1 || h < 1 || mode < 0 || mode > 2)
+                           int k0, long long seed, void* stream) {
+  if (c < 1 || k < 1 || h < 1 || k0 < 0 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
@@ -170,10 +172,10 @@ extern "C" int draw_tables(int mode, const long long* counts,
     const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
     if (mode == 1)
       hash_kernel<<<blocks, kThreads, 0, st>>>(counts, t0, out, c, k, h,
-                                               seed);
+                                               k0, seed);
     else
       permuted_kernel<<<blocks, kThreads, 0, st>>>(counts, t0, out, c, k, h,
-                                                   seed);
+                                                   k0, seed);
   }
   return (int)cudaGetLastError();
 }

@@ -22,15 +22,16 @@ import numpy as np
 import torch
 
 from cocoa_torch.data.libsvm import LibsvmData
-from cocoa_torch.data.sharding import ShardedDataset, segment_sq_norms, \
-    split_sizes
+from cocoa_torch.data.sharding import ShardedDataset, gang_fields, \
+    part_range, segment_sq_norms, split_sizes
 from cocoa_torch.device import resolve_device
 
 
 def shard_columns(data: LibsvmData, k: int,
                   dtype: torch.dtype = torch.float32, device=None,
                   layout: str = "auto",
-                  max_col_nnz: Optional[int] = None):
+                  max_col_nnz: Optional[int] = None,
+                  part: Optional[tuple] = None):
     """Partition A's d columns into K balanced contiguous blocks on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Returns
     ``(ds, b)``: the transposed-role dataset (shard "row" j is column
@@ -45,7 +46,10 @@ def shard_columns(data: LibsvmData, k: int,
       padded encoding under half of dense (2 * widest < n) and within
       ``max_col_nnz``, else dense.
 
-    Host arrays are built in float64 and cast once."""
+    Host arrays are built in float64 and cast once.  ``part=(rank,
+    world)`` builds only that rank's column shards, as
+    :func:`cocoa_torch.data.sharding.shard_dataset` builds its rows: the
+    layout and padded width still from the whole design."""
     if layout not in ("auto", "dense", "sparse"):
         raise ValueError(f"layout must be auto|dense|sparse, got {layout!r}")
     device = resolve_device(device)
@@ -75,17 +79,19 @@ def shard_columns(data: LibsvmData, k: int,
             f"{max_col_nnz}; hot features make padded-CSC degenerate -- "
             f"use layout='dense'")
 
-    labels = np.zeros((k, d_shard))
-    mask = np.zeros((k, d_shard))
-    sq = np.zeros((k, d_shard))
+    lo_s, hi_s = part_range(k, part)
+    m_loc = hi_s - lo_s
+    labels = np.zeros((m_loc, d_shard))
+    mask = np.zeros((m_loc, d_shard))
+    sq = np.zeros((m_loc, d_shard))
     col_sq = segment_sq_norms(csc_vals, col_ptr)
     if layout == "dense":
-        X = np.zeros((k, d_shard, n))
+        X = np.zeros((m_loc, d_shard, n))
     else:
-        spi = np.zeros((k, d_shard, widest), np.int32)
-        spv = np.zeros((k, d_shard, widest))
-    for s in range(k):
-        lo, hi = offsets[s], offsets[s + 1]
+        spi = np.zeros((m_loc, d_shard, widest), np.int32)
+        spv = np.zeros((m_loc, d_shard, widest))
+    for s in range(m_loc):
+        lo, hi = offsets[lo_s + s], offsets[lo_s + s + 1]
         labels[s, :hi - lo] = 1.0
         mask[s, :hi - lo] = 1.0
         sq[s, :hi - lo] = col_sq[lo:hi]
@@ -102,9 +108,11 @@ def shard_columns(data: LibsvmData, k: int,
         return torch.from_numpy(arr).to(device=device, dtype=dt)
 
     ds = ShardedDataset(
-        layout=layout, n=d, num_features=n, counts=sizes.astype(np.int64),
+        layout=layout, n=d, num_features=n,
+        counts=sizes[lo_s:hi_s].astype(np.int64),
         labels=put(labels), mask=put(mask), sq_norms=put(sq),
         X=put(X) if layout == "dense" else None,
         sp_indices=put(spi, torch.int32) if layout == "sparse" else None,
-        sp_values=put(spv) if layout == "sparse" else None)
+        sp_values=put(spv) if layout == "sparse" else None,
+        **gang_fields(k, lo_s, hi_s, sizes, part))
     return ds, put(np.asarray(data.labels, np.float64))

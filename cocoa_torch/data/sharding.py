@@ -15,7 +15,13 @@ cocoa_tpu/data/sharding.py, single process, dense and padded-CSR).
   reads it.
 
 Shards are padded to the largest shard's row count; padded rows carry
-``mask=0``, ``y=0``, ``x=0`` and are never sampled.  Unlike the JAX
+``mask=0``, ``y=0``, ``x=0`` and are never sampled.
+
+A rank of a gang (``part=(rank, world size)``, parallel/mesh.py) builds
+only its own m = K/P consecutive shards [rank*m, (rank+1)*m): the same
+rows, padding, hot panel and twin as those shards of the single-process
+build, while ``n``, ``k`` and ``all_counts`` stay the whole dataset's
+(the certificate divides by n, the scaling laws read K).  Unlike the JAX
 package the row count is not rounded up to a TPU tile, so padded shapes
 may differ from it; the unpadded contents do not.
 """
@@ -97,10 +103,29 @@ class ShardedDataset:
     X_hot: Optional[torch.Tensor] = None       # hybrid: (K, n_shard, n_hot)
     hot_cols: Optional[torch.Tensor] = None    # hybrid: (K, n_hot) int32
     X_eval: Optional[torch.Tensor] = None      # eval twin: (K, n_shard, d)
+    # a gang's rank: the whole dataset's K, the first global shard it
+    # holds, every shard's real rows, and the mesh its sums cross
+    k_total: Optional[int] = None
+    shard_lo: int = 0
+    all_counts: Optional[np.ndarray] = None
+    mesh: Optional[object] = None
 
     @property
     def k(self) -> int:
+        """The whole dataset's shard count K (what the scaling laws and
+        sigma' read)."""
+        return self.labels.shape[0] if self.k_total is None \
+            else self.k_total
+
+    @property
+    def m(self) -> int:
+        """The shards this process holds (the tensors' leading axis)."""
         return self.labels.shape[0]
+
+    @property
+    def global_counts(self) -> np.ndarray:
+        """(K,) real rows of every shard of the whole dataset."""
+        return self.counts if self.all_counts is None else self.all_counts
 
     @property
     def n_shard(self) -> int:
@@ -136,10 +161,38 @@ class ShardedDataset:
         return out
 
 
+def part_range(k: int, part: Optional[tuple]) -> tuple:
+    """The shards [lo, hi) that rank r of P builds, ``part=(r, P)``: the
+    m = K/P consecutive shards [r*m, (r+1)*m) (parallel/mesh.py
+    ``dp_local_shards``); all K without a part.  Raises with the JAX
+    package's message when P does not divide K."""
+    if part is None:
+        return 0, k
+    rank, world = part
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(f"part must be (rank, world) with 0 <= rank < "
+                         f"world, got {part}")
+    if k % world != 0:
+        raise ValueError(
+            f"multi-process runs need numSplits divisible by the dp "
+            f"mesh size: K={k} shards cannot multiplex onto "
+            f"{world} devices")
+    m = k // world
+    return rank * m, (rank + 1) * m
+
+
+def gang_fields(k: int, lo: int, hi: int, sizes: np.ndarray,
+                 part: Optional[tuple]) -> dict:
+    """The fields that make a rank's dataset one part of the whole."""
+    if part is None:
+        return {}
+    return dict(k_total=k, shard_lo=lo, all_counts=sizes.astype(np.int64))
+
+
 def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
                   dtype: torch.dtype = torch.float32, device=None,
-                  hot_cols: int = 0, eval_dense: bool = False
-                  ) -> ShardedDataset:
+                  hot_cols: int = 0, eval_dense: bool = False,
+                  part: Optional[tuple] = None) -> ShardedDataset:
     """Partition ``data`` into K balanced contiguous shards on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
     Host arrays are built in float64 and cast once, so ``sq_norms`` is
@@ -151,7 +204,13 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     ``resolve_hot_cols`` measured.
 
     ``eval_dense`` (sparse layout only, hybrid included) adds the dense
-    eval twin ``X_eval``, built one shard at a time on the host."""
+    eval twin ``X_eval``, built one shard at a time on the host.
+
+    ``part=(rank, world)`` builds only that rank's shards
+    (:func:`part_range`), a pure function of the pair: the hot columns
+    still come from the whole file's histogram and the residual's width
+    from its widest row, so the result is rows [lo, hi) of the whole
+    build."""
     device = resolve_device(device)
     n, d = data.n, data.num_features
     layout = resolve_layout(data, layout)
@@ -161,6 +220,8 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     sizes = split_sizes(n, k)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     n_shard = int(sizes.max()) if k > 0 else 0
+    lo_s, hi_s = part_range(k, part)
+    m_loc = hi_s - lo_s
     row_nnz = np.diff(data.indptr)
     row_sq = segment_sq_norms(data.values, data.indptr)
     width = max(1, int(row_nnz.max(initial=1)))
@@ -182,18 +243,18 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         # the panel is built in the working precision where that is
         # float32 (one rounding either way): 427 MB at rcv1-like size
         hot_np = np.float32 if dtype == torch.float32 else np.float64
-        X_hot = np.zeros((k, n_shard, n_hot), hot_np)
+        X_hot = np.zeros((m_loc, n_shard, n_hot), hot_np)
 
-    labels = np.zeros((k, n_shard))
-    mask = np.zeros((k, n_shard))
-    sq = np.zeros((k, n_shard))
+    labels = np.zeros((m_loc, n_shard))
+    mask = np.zeros((m_loc, n_shard))
+    sq = np.zeros((m_loc, n_shard))
     if layout == "dense":
-        X = np.zeros((k, n_shard, d))
+        X = np.zeros((m_loc, n_shard, d))
     else:
-        spi = np.zeros((k, n_shard, width), np.int32)
-        spv = np.zeros((k, n_shard, width))
-    for s in range(k):
-        lo, hi = offsets[s], offsets[s + 1]
+        spi = np.zeros((m_loc, n_shard, width), np.int32)
+        spv = np.zeros((m_loc, n_shard, width))
+    for s in range(m_loc):
+        lo, hi = offsets[lo_s + s], offsets[lo_s + s + 1]
         m = hi - lo
         labels[s, :m] = data.labels[lo:hi]
         mask[s, :m] = 1.0
@@ -219,10 +280,10 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         # a repeated column keeps its last value, as the dense layout
         # does; float32 is built as float32 (one rounding either way)
         twin_np = np.float32 if dtype == torch.float32 else np.float64
-        extra["X_eval"] = torch.empty((k, n_shard, d), dtype=dtype,
+        extra["X_eval"] = torch.empty((m_loc, n_shard, d), dtype=dtype,
                                       device=device)
-        for s in range(k):
-            lo, hi = offsets[s], offsets[s + 1]
+        for s in range(m_loc):
+            lo, hi = offsets[lo_s + s], offsets[lo_s + s + 1]
             a, b = data.indptr[lo], data.indptr[hi]
             slab = np.zeros((n_shard, d), twin_np)
             slab[np.repeat(np.arange(hi - lo), row_nnz[lo:hi]),
@@ -233,13 +294,14 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         hc = np.zeros(n_hot, dtype=np.int32)
         hc[:len(hot_ids)] = hot_ids
         extra.update(X_hot=put(X_hot),
-                     hot_cols=put(np.tile(hc[None], (k, 1)), torch.int32))
+                     hot_cols=put(np.tile(hc[None], (m_loc, 1)),
+                                  torch.int32))
     return ShardedDataset(
         layout=layout, n=n, num_features=d,
-        counts=sizes.astype(np.int64),
+        counts=sizes[lo_s:hi_s].astype(np.int64),
         labels=put(labels), mask=put(mask), sq_norms=put(sq),
         X=put(X) if layout == "dense" else None,
         sp_indices=put(spi, torch.int32) if layout == "sparse" else None,
         sp_values=put(spv) if layout == "sparse" else None,
-        **extra,
+        **extra, **gang_fields(k, lo_s, hi_s, sizes, part),
     )

@@ -26,30 +26,40 @@ import torch
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.ops import losses
 from cocoa_torch.ops.rows import eval_margins
+from cocoa_torch.parallel.fanout import all_reduce_sum
 
 
 def eval_metrics(w, alpha, shard_arrays, lam, n, test_shard_arrays=None,
                  test_n: int = 0, loss: str = "hinge",
-                 smoothing: float = 1.0) -> torch.Tensor:
+                 smoothing: float = 1.0, mesh=None) -> torch.Tensor:
     """(primal, gap, test_error) as one (3,) tensor on w's device, with no
     host sync; test_error is NaN without a test set, gap NaN without
-    ``alpha``."""
+    ``alpha``.  In a gang (``mesh``) the shard sums -- the loss sum, the
+    dual sum and the test errors -- cross the ranks packed in ONE
+    all-reduce; w.w and every other term of the replicated w are this
+    rank's own, never summed across ranks."""
     w_norm_sq = w @ w
     mask = shard_arrays["mask"]
     z = shard_arrays["labels"] * eval_margins(w, shard_arrays)
-    loss_sum = (losses.primal(loss, z, smoothing=smoothing) * mask).sum()
+    sums = [(losses.primal(loss, z, smoothing=smoothing) * mask).sum()]
+    if alpha is not None:
+        sums.append((losses.dual_term(loss, alpha, smoothing=smoothing)
+                     * mask).sum())
+    if test_shard_arrays is not None:
+        wrong = (eval_margins(w, test_shard_arrays)
+                 * test_shard_arrays["labels"]) <= 0.0
+        sums.append((wrong.to(w.dtype) * test_shard_arrays["mask"]).sum())
+    if mesh is not None:
+        sums = list(all_reduce_sum(torch.stack(sums), mesh))
+    loss_sum = sums.pop(0)
     primal = loss_sum / n + 0.5 * lam * w_norm_sq
     if alpha is None:
         gap = torch.full_like(primal, math.nan)
     else:
-        dual_sum = (losses.dual_term(loss, alpha, smoothing=smoothing)
-                    * mask).sum()
+        dual_sum = sums.pop(0)
         gap = primal - (-0.5 * lam * w_norm_sq + dual_sum / n)
     if test_shard_arrays is not None:
-        wrong = (eval_margins(w, test_shard_arrays)
-                 * test_shard_arrays["labels"]) <= 0.0
-        test_err = (wrong.to(w.dtype) * test_shard_arrays["mask"]).sum() \
-            / test_n
+        test_err = sums.pop(0) / test_n
     else:
         test_err = torch.full_like(primal, math.nan)
     return torch.stack([primal, gap, test_err])
@@ -71,7 +81,7 @@ def evaluate(ds: ShardedDataset, w, alpha, lam, test_ds=None,
         w, alpha, ds.shard_arrays(), lam, ds.n,
         test_shard_arrays=None if test_ds is None else test_ds.shard_arrays(),
         test_n=0 if test_ds is None else test_ds.n,
-        loss=loss, smoothing=smoothing))
+        loss=loss, smoothing=smoothing, mesh=ds.mesh))
 
 
 
@@ -82,13 +92,15 @@ def _sum_dtype(dtype):
     return torch.float32 if dtype.itemsize < 4 else dtype
 
 
-def _shard_sum(per_row, mask) -> float:
+def _shard_sum(per_row, mask, mesh=None) -> float:
     """The masked per-row values summed shard by shard, each sum rounded
     to their dtype, then the K shard sums, as the JAX package's fan-out
-    sums them."""
+    sums them: in a gang (``mesh``) this rank's shard sums, then one
+    all-reduce across the ranks."""
     acc = _sum_dtype(per_row.dtype)
     parts = (per_row.to(acc) * mask.to(acc)).sum(-1).to(per_row.dtype)
-    return float(parts.to(acc).sum().to(per_row.dtype))
+    total = all_reduce_sum(parts.to(acc).sum(), mesh)
+    return float(total.to(per_row.dtype))
 
 
 def _summary_margins(w, shards):
@@ -108,7 +120,7 @@ def primal_objective(ds: ShardedDataset, w, lam, loss: str = "hinge",
     shards = ds.shard_arrays()
     z = shards["labels"] * _summary_margins(w, shards)
     loss_sum = _shard_sum(losses.primal(loss, z, smoothing=smoothing),
-                          shards["mask"])
+                          shards["mask"], ds.mesh)
     return loss_sum / ds.n + 0.5 * lam * float(w @ w)
 
 
@@ -118,7 +130,7 @@ def dual_objective(ds: ShardedDataset, w, alpha, lam, loss: str = "hinge",
     combined on the host in float64 (cocoa_tpu/evals/objectives.py
     ``dual_objective``); ``alpha`` (K, n_shard)."""
     dual_sum = _shard_sum(losses.dual_term(loss, alpha, smoothing=smoothing),
-                          ds.shard_arrays()["mask"])
+                          ds.shard_arrays()["mask"], ds.mesh)
     return -0.5 * lam * float(w @ w) + dual_sum / ds.n
 
 
@@ -127,4 +139,4 @@ def classification_error(ds: ShardedDataset, w) -> float:
     the host (cocoa_tpu/evals/objectives.py ``classification_error``)."""
     shards = ds.shard_arrays()
     wrong = (_summary_margins(w, shards) * shards["labels"]) <= 0.0
-    return _shard_sum(wrong.to(w.dtype), shards["mask"]) / ds.n
+    return _shard_sum(wrong.to(w.dtype), shards["mask"], ds.mesh) / ds.n

@@ -1,6 +1,18 @@
-"""Fan a fleet's per-tenant step out over its lanes (counterpart of
-cocoa_tpu/parallel/fanout.py ``lane_fanout``; the mesh parts of that
-module are not ported yet)."""
+"""The port's one place that reduces across ranks, and the fleet's lane
+fan-out (counterpart of cocoa_tpu/parallel/fanout.py).
+
+The JAX package's ``fanout`` runs a per-shard function over the K shards
+and sums its first output: over the m = K/D shards of a device in the
+device, then ONE ``psum`` over the dp axis.  The port's solvers run
+their local shards batched, as before, and sum them in the device; then
+:func:`all_reduce_sum` sums across the gang's ranks.  Without a mesh
+(one process, no ``--master``) nothing crosses a process and it returns
+its input.  Each reducer counts its calls, as the kernel wrappers count
+their launches (cocoa_torch/kernels.py ``count_launches``), so a call
+inside a captured CUDA graph counts at each replay; the counts are the
+port's form of tests/test_comm_contract.py (one all-reduce a round, one
+an eval).  With a mesh of one rank the call is still made on the group.
+"""
 
 from __future__ import annotations
 
@@ -8,7 +20,54 @@ from typing import Callable, Optional
 
 import torch
 
+from cocoa_torch import kernels
+
 LANE_EXECS = ("vmap", "map")
+
+
+def shards_per_device(mesh, k: int) -> int:
+    """m = logical shards per mesh position (Spark multiplexes K partitions
+    onto fewer executors via ``coalesce``, OptUtils.scala:14; a rank of
+    the gang runs its m = K/D shards batched).  1:1 when mesh is None
+    (the local path IS the all-shards-on-one-device case)."""
+    if mesh is None:
+        return 1
+    d = mesh.size
+    if k % d != 0:
+        raise ValueError(
+            f"{k} shards cannot multiplex evenly onto the {d}-device dp "
+            f"axis; K must be a multiple of the mesh size"
+        )
+    return k // d
+
+
+def _all_reduce(x: torch.Tensor, mesh, op) -> torch.Tensor:
+    out = x.clone()
+    torch.distributed.all_reduce(out, op=op, group=mesh.device_group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the gang's ranks (a new tensor, on x's device),
+    or ``x`` itself without a mesh."""
+    if mesh is None:
+        return x
+    all_reduce_sum.calls += 1
+    return _all_reduce(x, mesh, torch.distributed.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``'s elementwise maximum over the gang's ranks, or ``x`` itself
+    without a mesh: the lasso certificate's max |a_j.r| over the column
+    shards (cocoa_tpu/solvers/prox_cocoa.py:78)."""
+    if mesh is None:
+        return x
+    all_reduce_max.calls += 1
+    return _all_reduce(x, mesh, torch.distributed.ReduceOp.MAX)
+
+
+kernels.count_launches(all_reduce_sum, "calls")
+kernels.count_launches(all_reduce_max, "calls")
 
 
 def lane_fanout(per_lane: Callable, lane_exec: str = "vmap",

@@ -36,6 +36,7 @@ from cocoa_torch import checkpoint, kernels
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
+from cocoa_torch.parallel import distributed
 from cocoa_torch.telemetry import events as _events
 from cocoa_torch.telemetry import tracing as _tracing
 from cocoa_torch.utils import prng
@@ -45,10 +46,11 @@ from cocoa_torch.utils.logging import Trajectory
 def check_shards(ds: ShardedDataset) -> None:
     """Reject empty shards up front (the reference crashes inside the task
     on ``nextInt(0)`` when numSplits > rows)."""
-    if np.any(ds.counts <= 0):
+    counts = ds.global_counts
+    if np.any(counts <= 0):
         raise ValueError(
             f"every shard needs at least one example; shard sizes are "
-            f"{ds.counts.tolist()} (n={ds.n} over K={ds.k} shards) -- "
+            f"{counts.tolist()} (n={ds.n} over K={ds.k} shards) -- "
             f"lower numSplits")
 
 
@@ -92,9 +94,13 @@ def align_alpha(alpha_init, ds: ShardedDataset) -> torch.Tensor:
     the shard axis zero-padded when the checkpoint's is shorter (rows past
     counts[k] are never drawn, so the padding is exact), and, unlike JAX,
     cut when it is longer with only zeros past ``n_shard``, as a JAX
-    checkpoint's is (:func:`fit_padding`)."""
+    checkpoint's is (:func:`fit_padding`).  A gang's rank takes its own
+    shards [shard_lo, shard_lo + m) of a whole-run (K, ...) alpha, as
+    every checkpoint holds it, whatever gang wrote it."""
     a = _owned(alpha_init, ds)
-    if a.ndim != 2 or a.shape[0] != ds.k:
+    if a.ndim == 2 and ds.m != ds.k and a.shape[0] == ds.k:
+        a = a[ds.shard_lo:ds.shard_lo + ds.m]
+    if a.ndim != 2 or a.shape[0] != ds.m:
         raise ValueError(
             f"alpha_init shape {tuple(a.shape)} is incompatible with "
             f"K={ds.k} shards")
@@ -102,7 +108,7 @@ def align_alpha(alpha_init, ds: ShardedDataset) -> torch.Tensor:
     if a.shape[1] < int(ds.counts.max()) or out is None:
         raise ValueError(
             f"alpha_init has {a.shape[1]} rows per shard but the dataset "
-            f"shards to counts={ds.counts.tolist()} "
+            f"shards to counts={ds.global_counts.tolist()} "
             f"(n_shard={ds.n_shard}) — was the checkpoint written with "
             f"different data or numSplits?")
     return out
@@ -115,12 +121,14 @@ class IndexSampler:
     where its first round lies, :meth:`draw`: on the card, one launch of
     the draw kernel inside the captured chunk; without it the host builds
     them, :meth:`chunk_indices`, and the chunk copies them over.  Both are
-    the same tables bit for bit."""
+    the same tables bit for bit.  ``lane0`` is the first lane's global
+    shard id: a gang's rank draws rows [lane0, lane0 + len(counts)) of
+    the whole run's tables."""
 
     MODES = prng.MODES
 
     def __init__(self, mode: str, seed: int, h: int, counts,
-                 device: bool = False):
+                 device: bool = False, lane0: int = 0):
         if mode not in self.MODES:
             raise ValueError(
                 f"rng mode must be one of {self.MODES}, got {mode!r}")
@@ -129,6 +137,7 @@ class IndexSampler:
         self.h = h
         self.counts = np.asarray(counts)
         self.device = device
+        self.lane0 = int(lane0)
         if np.any(self.counts <= 0):
             raise ValueError(
                 f"all shards must be non-empty, got sizes {self.counts}")
@@ -155,7 +164,7 @@ class IndexSampler:
         """Host tables for rounds t0..t0+c-1 (1-based, as the reference),
         on the CPU."""
         return prng.host_tables(self.mode, self.seed, self.h, self.counts,
-                                t0, c)
+                                t0, c, self.lane0)
 
     def draw(self, t0: torch.Tensor, c: int) -> torch.Tensor:
         """Device mode's tables for rounds t0..t0+c-1, ``t0`` a 0-d int64
@@ -166,7 +175,8 @@ class IndexSampler:
             counts = torch.as_tensor(self.counts, dtype=torch.int64).to(
                 t0.device)
             self._counts_on[t0.device] = counts
-        return prng.draw_tables(self.mode, self.seed, self.h, counts, t0, c)
+        return prng.draw_tables(self.mode, self.seed, self.h, counts, t0, c,
+                                self.lane0)
 
     def round_indices(self, t: int) -> torch.Tensor:
         return self.chunk_indices(t, 1)[0]
@@ -203,9 +213,9 @@ def resolve_sampling(sampling: str, sampler: IndexSampler,
 
 
 def make_sampler(rng: str, seed: int, h: int, counts, sampling: str,
-                 num_rounds: int) -> IndexSampler:
+                 num_rounds: int, lane0: int = 0) -> IndexSampler:
     """The run's sampler with ``--sampling`` resolved."""
-    sampler = IndexSampler(rng, seed, h, counts)
+    sampler = IndexSampler(rng, seed, h, counts, lane0=lane0)
     sampler.device = resolve_sampling(sampling, sampler, num_rounds)
     return sampler
 
@@ -487,18 +497,28 @@ def _last_gap(traj: Trajectory):
 
 
 def save_checkpoint(debug: DebugParams, name: str, round_t: int,
-                    state: tuple, n_iterate: int, accel, traj: Trajectory):
+                    state: tuple, n_iterate: int, accel, traj: Trajectory,
+                    mesh=None):
     """Save ``state`` at ``round_t`` in the JAX package's layout
     (cocoa_tpu/solvers/base.py:680-687).  The port's state is the
     iterate (``n_iterate`` tensors: w, then alpha), then the accel bank on
     the device when ``accel`` is set, then the sched vector on the host
     when the run has one; JAX's is (w, alpha, sched) or (w, alpha, hist,
-    sched).  Counted in ``traj.saves``, apart from the evals' fetches."""
+    sched).  Counted in ``traj.saves``, apart from the evals' fetches.
+    A gang's ranks first gather the whole alpha and bank over the host
+    group (``mesh``), so that each writes a complete file, as the JAX
+    package's save does (cocoa_tpu/checkpoint.py:141-150)."""
     rest = state[n_iterate:]
     hist = rest[0] if accel is not None else None
     sched = rest[-1] if len(rest) > (accel is not None) else None
-    checkpoint.save(debug.chkpt_dir, name, round_t, state[0],
-                    state[1] if n_iterate > 1 else None, seed=debug.seed,
+    alpha = state[1] if n_iterate > 1 else None
+    if mesh is not None:
+        alpha = (None if alpha is None
+                 else distributed.host_gather_shards(alpha, 0))
+        hist = (None if hist is None
+                else distributed.host_gather_shards(hist, 1))
+    checkpoint.save(debug.chkpt_dir, name, round_t, state[0], alpha,
+                    seed=debug.seed,
                     sched=sched, hist=hist, gap=_last_gap(traj))
     traj.saves += 1
 
@@ -648,6 +668,24 @@ class ChunkRunner:
         delta = [b - a for a, b in zip(before, kernels.launch_counts())]
         kernels.add_launches([-n for n in delta])
         return graph, delta
+
+
+GLOO_DEVICE_LOOP = (
+    "--deviceLoop runs each chunk, its eval and the ladder as captured "
+    "CUDA graphs, and this gang's device group is gloo (two ranks share a "
+    "card), whose all-reduce cannot be captured; give each rank a card of "
+    "its own (NCCL), or drop --deviceLoop for the chunked loop")
+
+
+def gang_capture(capture: Optional[bool], device, mesh) -> Optional[bool]:
+    """The chunks' ``capture`` for a gang's run: as asked, except that on
+    the card a gloo device group (:attr:`~cocoa_torch.parallel.mesh.Mesh.
+    capturable` False) runs the chunks eagerly, since a gloo collective
+    cannot sit inside a CUDA graph."""
+    if (mesh is None or mesh.capturable
+            or torch.device(device).type != "cuda"):
+        return capture
+    return False
 
 
 def _end_failed_capture(graph) -> None:
@@ -918,14 +956,20 @@ class DeviceLoopRunner:
     The wrappers' launch counts: the eager steps count as they run, the
     capture's are taken back, and each branch's captured launches are
     added once for every replay that ran live (``runs``), so dead replays
-    do not count."""
+    do not count.
+
+    ``ahead`` overrides :data:`AHEAD`.  A gang of more than one rank runs
+    with 1: the host then reads the live word of the one step in flight,
+    so every rank queues the same steps, dead ones too, and the ranks'
+    all-reduces pair up (with 2 the count would depend on when the host
+    looks)."""
 
     # steps queued on the card past the last one the host has seen finish
     AHEAD = 2
 
     def __init__(self, body: Callable, metrics: Callable, sampler, device,
                  c: int, ladder: Ladder, schedule: Optional[Schedule],
-                 n_iterate: int, hist: bool):
+                 n_iterate: int, hist: bool, ahead: Optional[int] = None):
         self.body = body
         self.metrics = metrics
         self.sampler = sampler
@@ -938,6 +982,7 @@ class DeviceLoopRunner:
         self.n_iterate = n_iterate
         self.hist = hist
         self.draws = sampler is not None and sampler.device and self.cuda
+        self.ahead = self.AHEAD if ahead is None else int(ahead)
         self.graphs = {}
         self.deltas = {}
         self.seconds = {}
@@ -1044,9 +1089,9 @@ class DeviceLoopRunner:
             return n
         finished = []
         for j in range(n):
-            if j >= self.AHEAD:
-                # wait for step j - AHEAD, then read the live word it wrote
-                finished[j - self.AHEAD].synchronize()
+            if j >= self.ahead:
+                # wait for step j - ahead, then read the live word it wrote
+                finished[j - self.ahead].synchronize()
                 if not bool(self.flag[0]):
                     return j
             graph = self.graphs.get(k)
@@ -1181,7 +1226,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
           sigma_levels: Optional[tuple] = None,
           accel: Optional[AccelConfig] = None,
           schedule: Optional[Schedule] = None, n_iterate: int = 1,
-          capture: Optional[bool] = None, device_loop: bool = False):
+          capture: Optional[bool] = None, device_loop: bool = False,
+          mesh=None):
     """The outer loop (CoCoA.scala:39-63 skeleton, with the ladder of
     cocoa_tpu/solvers/base.py ``drive_chunked``).  Rounds run in chunks
     of up to ``chunk`` that end at each ``debugIter`` boundary; the first
@@ -1212,14 +1258,21 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
     graph.
 
     ``device_loop`` runs the evals and the ladder on the device instead
-    (:func:`drive_device`).  Returns (state, Trajectory)."""
+    (:func:`drive_device`).
+
+    ``mesh`` (parallel/mesh.py) is a gang's: ``body`` and ``metrics``
+    all-reduce across its ranks, the checkpoints gather alpha, and on the
+    card a gloo device group, whose collectives cannot be captured, runs
+    the chunks eagerly (:func:`gang_capture`).  Returns (state,
+    Trajectory)."""
+    capture = gang_capture(capture, device, mesh)
     if device_loop:
         return drive_device(
             name, params, debug, state, body, metrics, sampler, device,
             quiet=quiet, start_round=start_round, gap_target=gap_target,
             divergence_guard=divergence_guard, sigma_levels=sigma_levels,
             accel=accel, schedule=schedule, n_iterate=n_iterate,
-            capture=capture)
+            capture=capture, mesh=mesh)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     anneal = sigma_levels is not None and len(sigma_levels) > 1
@@ -1246,7 +1299,7 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
         if not (di > 0 and end % di == 0):
             if ckpt_on and end % ci == 0:
                 save_checkpoint(debug, name, end, state, n_iterate, accel,
-                                traj)
+                                traj, mesh)
             continue
         with _tracing.span("eval", algorithm=name, round=end):
             primal, gap, test_err = _fetch_metrics(traj, metrics(state))
@@ -1286,7 +1339,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
             traj.mark_diverged(end, watch.n)
             break
         if ckpt_on and end % ci == 0:
-            save_checkpoint(debug, name, end, state, n_iterate, accel, traj)
+            save_checkpoint(debug, name, end, state, n_iterate, accel, traj,
+                            mesh)
     if runner.capture:
         state = (*(x.clone() for x in state[:n_iterate]),
                  *state[n_iterate:])
@@ -1315,7 +1369,7 @@ def drive_device(name: str, params: Params, debug: DebugParams,
                  sigma_levels: Optional[tuple] = None,
                  accel: Optional[AccelConfig] = None,
                  schedule: Optional[Schedule] = None, n_iterate: int = 1,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, mesh=None):
     """The device-resident run (``--deviceLoop``; cocoa_tpu/solvers/
     base.py ``drive_device_full`` and ``drive_on_device``), arguments as
     :func:`drive`: the rounds up to the first ``debugIter`` boundary (an
@@ -1346,6 +1400,8 @@ def drive_device(name: str, params: Params, debug: DebugParams,
         raise ValueError("the device loop requires debug_iter > 0 (the eval "
                          "cadence is its chunk axis)")
     if torch.device(device).type == "cuda" and capture is False:
+        if mesh is not None and not mesh.capturable:
+            raise ValueError(GLOO_DEVICE_LOOP)
         raise ValueError("the device loop runs as captured CUDA graphs on "
                          "the card; capture=False is the chunked loop's")
     anneal = (sigma_levels is not None and len(sigma_levels) > 1
@@ -1362,7 +1418,7 @@ def drive_device(name: str, params: Params, debug: DebugParams,
         nonlocal last_saved
         if ckpt_on and done_round - last_saved >= debug.chkpt_iter:
             save_checkpoint(debug, name, done_round, get_state(), n_iterate,
-                            accel, traj)
+                            accel, traj, mesh)
             last_saved = done_round
 
     def hit_target():
@@ -1419,7 +1475,8 @@ def drive_device(name: str, params: Params, debug: DebugParams,
             Ladder(gap_target, divergence_guard,
                    len(sigma_levels) if sigma_levels is not None else 0,
                    watch.n, accel.n_theta if accel is not None else 0),
-            schedule, n_iterate, accel is not None)
+            schedule, n_iterate, accel is not None,
+            ahead=1 if mesh is not None and mesh.size > 1 else None)
         loop.enter(state, max(sizes))
         done = t - 1
         start = t

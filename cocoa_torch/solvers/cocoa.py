@@ -39,6 +39,7 @@ from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
 from cocoa_torch.ops.rows import nonzero_slots, row_lengths, shards_axpy
 from cocoa_torch.ops.sparse_sdca import sparse_sdca_round, \
     sparse_sdca_round_plain
+from cocoa_torch.parallel.fanout import all_reduce_sum
 from cocoa_torch.solvers import base
 
 # ``--blockSize=auto`` at float32: the block size the JAX package ranks
@@ -147,6 +148,12 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
     shards = ds.shard_arrays()
     common = dict(mode=mode, sigma=sigma, loss=params.loss,
                   smoothing=params.smoothing)
+    mesh = ds.mesh
+
+    def reduce(dw):
+        # the local shards' sum in the device, then the gang's one
+        # all-reduce of the round (a no-op in one process)
+        return all_reduce_sum(dw.sum(0), mesh)
 
     if math == "exact":
         def round_fn(state, idxs_kh, t):
@@ -154,7 +161,7 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             da, dw = local_sdca(w, alpha, shards, idxs_kh, params.lam,
                                 params.n, **common)
             # CoCoA.scala:47-48,101
-            return w + scaling * dw.sum(0), alpha + scaling * da
+            return w + scaling * reduce(dw), alpha + scaling * da
         return round_fn
 
     if block_size:
@@ -171,7 +178,7 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
                 w, alpha, shards, idxs_kh, params.lam, params.n,
                 block=block_size, route=route, plain=plain,
                 pipeline=block_pipeline, **common)
-            return w + scaling * dw.sum(0), alpha + scaling * da
+            return w + scaling * reduce(dw), alpha + scaling * da
         return round_fn
 
     route = fast_round_route(ds.layout, ds.device, ds.dtype)
@@ -200,31 +207,38 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
     def round_fn(state, idxs_kh, t):
         w, alpha = state
         dw, a_inner = inner(w, alpha, idxs_kh)
-        return (w + scaling * dw.sum(0),
+        return (w + scaling * reduce(dw),
                 alpha + scaling * (a_inner - alpha))
     return round_fn
 
 
 def _secant_jump(w, alpha, hist, shards: dict, inv_lam_n: float,
-                 slots=None):
+                 slots=None, mesh=None):
     """The accelerated loop's secant (Anderson-1) jump, as device ops with
     no host read (cocoa_tpu/solvers/cocoa.py:781-803): rho from the two
     banked window displacements, c = secant_coef(rho), the extrapolated
     alpha clipped to [0, 1] and masked, and w advanced by the exact
     correspondence update sum y*(alpha' - alpha)*x/(lam*n).  ``inv_lam_n``
     is 1/(lam*n) rounded to float32, as JAX applies it; ``slots`` the
-    shards' nonzero slots (:func:`nonzero_slots`)."""
+    shards' nonzero slots (:func:`nonzero_slots`).  In a gang (``mesh``)
+    the two dot products over alpha and the axpy's sum over the shards
+    each cross the ranks, one all-reduce apiece."""
     d1 = (hist[1] - hist[0]).reshape(-1)
     den = d1 @ d1
+    num = d1 @ (alpha - hist[1]).reshape(-1)
+    if mesh is not None:
+        den, num = all_reduce_sum(torch.stack([den, num]), mesh)
     pos = den > 0
-    rho = torch.where(pos, (d1 @ (alpha - hist[1]).reshape(-1))
-                      / torch.where(pos, den, torch.ones_like(den)),
+    rho = torch.where(pos, num / torch.where(pos, den, torch.ones_like(den)),
                       torch.zeros_like(den))
     c = base.secant_coef(torch, rho)
     a_ext = torch.clamp(alpha + c * (alpha - hist[1]), 0.0, 1.0) \
         * shards["mask"]
     coefs = shards["labels"] * (a_ext - alpha) * inv_lam_n
-    return shards_axpy(coefs, shards, w, slots), a_ext
+    if mesh is None:
+        return shards_axpy(coefs, shards, w, slots), a_ext
+    step = shards_axpy(coefs, shards, torch.zeros_like(w), slots)
+    return w + all_reduce_sum(step, mesh), a_ext
 
 
 def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
@@ -338,10 +352,11 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
 
     w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
-    alpha = (torch.zeros((k, ds.n_shard), dtype=ds.dtype, device=ds.device)
+    alpha = (torch.zeros((ds.m, ds.n_shard), dtype=ds.dtype, device=ds.device)
              if alpha_init is None else base.align_alpha(alpha_init, ds))
     sampler = base.make_sampler(rng, debug.seed, params.local_iters,
-                                ds.counts, sampling, params.num_rounds)
+                                ds.counts, sampling, params.num_rounds,
+                                lane0=ds.shard_lo)
 
     if metrics is None:
         shards = ds.shard_arrays()
@@ -353,7 +368,8 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                 state[0], state[1], shards, params.lam, ds.n,
                 test_shard_arrays=test,
                 test_n=0 if test_ds is None else test_ds.n,
-                loss=params.loss, smoothing=params.smoothing)
+                loss=params.loss, smoothing=params.smoothing,
+                mesh=ds.mesh)
 
     state = (w, alpha)
     schedule = None
@@ -368,7 +384,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
 
             def jump(w, alpha, hist):
                 return _secant_jump(w, alpha, hist, shards, inv_lam_n,
-                                    slots)
+                                    slots, ds.mesh)
 
         schedule = base.Schedule(len(levels), warm_end, len(branch_params),
                                  theta_hs, jump=jump)
@@ -397,7 +413,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
         divergence_guard=guard_on, sigma_levels=levels,
         accel=base.AccelConfig(theta_hs) if accel else None,
         schedule=schedule, n_iterate=2, capture=capture,
-        device_loop=device_loop)
+        device_loop=device_loop, mesh=ds.mesh)
     return state[0], state[1], traj
 
 

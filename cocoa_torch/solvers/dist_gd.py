@@ -19,6 +19,7 @@ from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.rows import nonzero_slots
 from cocoa_torch.ops.subgradient import subgradient_pass
+from cocoa_torch.parallel.fanout import all_reduce_sum
 from cocoa_torch.solvers import base
 
 
@@ -43,9 +44,11 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
 
     def round_fn(state, idxs_kh, t):
         (w,) = state
-        dw_sum = subgradient_pass(w, shards, params.lam, loss=params.loss,
-                                  smoothing=params.smoothing,
-                                  slots=slots).sum(0)
+        # the ordered scatter within the rank (C4), then the gang's sum
+        dw_sum = all_reduce_sum(
+            subgradient_pass(w, shards, params.lam, loss=params.loss,
+                             smoothing=params.smoothing,
+                             slots=slots).sum(0), ds.mesh)
         t_c = t.to(w.dtype)
         eta = 1.0 / (params.beta * t_c)
         return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)
@@ -57,7 +60,7 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
         return objectives.eval_metrics(
             state[0], None, shards, params.lam, ds.n, test_shard_arrays=test,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
-            smoothing=params.smoothing)
+            smoothing=params.smoothing, mesh=ds.mesh)
 
     w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
@@ -66,5 +69,6 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
                             ds.device, base.chunk_rounds(debug, k, 1,
                                                          scan_chunk),
                             quiet=quiet, start_round=start_round,
-                            capture=capture, device_loop=device_loop)
+                            capture=capture, device_loop=device_loop,
+                            mesh=ds.mesh)
     return w, traj

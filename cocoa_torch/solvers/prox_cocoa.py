@@ -33,25 +33,35 @@ import torch
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.ops.rows import shard_margins
+from cocoa_torch.parallel.fanout import all_reduce_max, all_reduce_sum
 from cocoa_torch.solvers.cocoa import run_sdca_family
 
 
 def lasso_metrics(r, x, shards: dict, b, l1: float,
-                  l2: float) -> torch.Tensor:
+                  l2: float, mesh=None) -> torch.Tensor:
     """(primal, gap, NaN) of the elastic-net objective as one (3,) tensor
     on r's device, with no host sync: the eval of the chunked loop (one
-    fetch) and of the device loop (inside its captured chunk)."""
+    fetch) and of the device loop (inside its captured chunk).  In a gang
+    (``mesh``) the column shards' sums cross the ranks in one
+    all-reduce, and the lasso's max |a_j.r| in one more (a maximum);
+    r.r and r.b are of the replicated residual, this rank's own."""
     m = shards["mask"]
     corr = shard_margins(r, shards).abs() * m
     excess = torch.clamp(corr - l1, min=0.0)
     rr = r @ r
-    primal = 0.5 * rr + l1 * (x.abs() * m).sum() + 0.5 * l2 * (x * x * m).sum()
+    sums = [(x.abs() * m).sum(), (x * x * m).sum()]
+    if l2 != 0.0:
+        sums.append((excess * excess).sum())
+    if mesh is not None:
+        sums = list(all_reduce_sum(torch.stack(sums), mesh))
+    primal = 0.5 * rr + l1 * sums[0] + 0.5 * l2 * sums[1]
     if l2 == 0.0:
-        s = torch.clamp(l1 / torch.clamp(corr.max(), min=1e-30), max=1.0)
+        corr_max = all_reduce_max(corr.max(), mesh)
+        s = torch.clamp(l1 / torch.clamp(corr_max, min=1e-30), max=1.0)
         u = s * r
         dual = -0.5 * (u @ u) - u @ b
     else:
-        dual = -0.5 * rr - r @ b - (excess * excess).sum() / (2.0 * l2)
+        dual = -0.5 * rr - r @ b - sums[2] / (2.0 * l2)
     return torch.stack([primal, primal - dual,
                         torch.full_like(primal, float("nan"))])
 
@@ -94,7 +104,8 @@ def run_prox_cocoa(ds: ShardedDataset, b: torch.Tensor, params: Params,
     shards = ds.shard_arrays()
 
     def metrics(state):
-        return lasso_metrics(state[0], state[1], shards, b, l1, l2)
+        return lasso_metrics(state[0], state[1], shards, b, l1, l2,
+                             ds.mesh)
 
     r, x, traj = run_sdca_family(
         ds, parts, debug, "ProxCoCoA+", alg, rng=rng, math=math, quiet=quiet,

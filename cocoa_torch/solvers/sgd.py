@@ -22,6 +22,7 @@ from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.local_sgd import local_sgd
+from cocoa_torch.parallel.fanout import all_reduce_sum
 from cocoa_torch.solvers import base
 
 
@@ -54,7 +55,7 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
         dw = local_sgd(w, shards, idxs_kh, lam, (t_c - 1.0) * h * k, local,
                        loss=params.loss, smoothing=params.smoothing)
         step = scaling if local else eta * scaling
-        return (w + dw.sum(0) * step,)
+        return (w + all_reduce_sum(dw.sum(0), ds.mesh) * step,)
 
     test = None if test_ds is None else test_ds.shard_arrays()
 
@@ -63,15 +64,16 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
         return objectives.eval_metrics(
             state[0], None, shards, lam, ds.n, test_shard_arrays=test,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
-            smoothing=params.smoothing)
+            smoothing=params.smoothing, mesh=ds.mesh)
 
     w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
     sampler = base.make_sampler(rng, debug.seed, h, ds.counts, sampling,
-                                params.num_rounds)
+                                params.num_rounds, lane0=ds.shard_lo)
     (w,), traj = base.drive(
         "Local SGD" if local else "Mini-batch SGD", params, debug, (w,),
         base.per_round(round_fn), metrics, sampler, ds.device,
         base.chunk_rounds(debug, k, h, scan_chunk), quiet=quiet,
-        start_round=start_round, capture=capture, device_loop=device_loop)
+        start_round=start_round, capture=capture, device_loop=device_loop,
+        mesh=ds.mesh)
     return w, traj

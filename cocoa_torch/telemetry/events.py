@@ -369,10 +369,12 @@ def config_hash(config: dict) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()[:12]
 
 
-def environment_manifest(device=None) -> dict:
+def environment_manifest(device=None, mesh=None) -> dict:
     """torch/device provenance for the run manifest and the trajectory
     header: ``device`` is the run's device; None reads the default CUDA
-    device when there is one (``device_kind`` the card's name)."""
+    device when there is one (``device_kind`` the card's name).  A gang's
+    ``mesh`` (parallel/mesh.py) gives the process count and the device
+    group's backend."""
     import torch
 
     dev = torch.device(device if device is not None else
@@ -385,18 +387,21 @@ def environment_manifest(device=None) -> dict:
         "device_count": (torch.cuda.device_count() if dev.type == "cuda"
                          else 1),
         "device_kind": kind,
-        "process_count": 1,
+        "process_count": 1 if mesh is None else mesh.size,
+        **({} if mesh is None else {"process_index": mesh.rank,
+                                    "device_group": mesh.backend}),
     }
 
 
-def run_manifest(config: dict, dataset=None, device=None) -> dict:
+def run_manifest(config: dict, dataset=None, device=None,
+                 mesh=None) -> dict:
     """The ``run_start`` payload: the full config, its hash, and the
-    torch/device environment of ``device``."""
+    torch/device environment of ``device`` (and of the gang's ``mesh``)."""
     return {
         "dataset": dataset,
         "config": _clean(config),
         "config_hash": config_hash(config),
-        **environment_manifest(device),
+        **environment_manifest(device, mesh),
     }
 
 

@@ -191,12 +191,14 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def hash_tables(seed: int, ts, h: int, n_locals) -> torch.Tensor:
-    """``rng=jax`` tables: (C, K, H) int32 draws uniform in [0, n_local)."""
+def hash_tables(seed: int, ts, h: int, n_locals,
+                lane0: int = 0) -> torch.Tensor:
+    """``rng=jax`` tables: (C, K, H) int32 draws uniform in [0, n_local);
+    lane j hashes the global shard id ``lane0 + j``."""
     n_locals = _check_sizes(n_locals)
     k = n_locals.shape[0]
     ts = torch.as_tensor(ts, dtype=torch.int64) & _M32
-    s = torch.arange(k, dtype=torch.int64)
+    s = torch.arange(lane0, lane0 + k, dtype=torch.int64)
     i = torch.arange(h, dtype=torch.int64)
     base = _mix32(_mul32(ts[:, None, None], _P1)
                   ^ ((s[None, :, None] + 0x632BE5AB) & _M32)
@@ -229,10 +231,12 @@ def _feistel_perm(i: torch.Tensor, cnt: int, rk: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def permuted_tables(seed: int, ts, h: int, n_locals) -> torch.Tensor:
+def permuted_tables(seed: int, ts, h: int, n_locals,
+                    lane0: int = 0) -> torch.Tensor:
     """``rng=permuted`` tables: (C, K, H) int32.  Global step
-    g = (t-1)*H + j of shard s reads perm_{(s, g // n_s)}[g mod n_s];
-    rounds must be consecutive."""
+    g = (t-1)*H + j of shard s reads perm_{(s, g // n_s)}[g mod n_s],
+    lane j being the global shard s = ``lane0 + j``; rounds must be
+    consecutive."""
     n_locals = _check_sizes(n_locals)
     ts = torch.as_tensor(ts, dtype=torch.int64)
     c = int(ts.shape[0])
@@ -246,7 +250,7 @@ def permuted_tables(seed: int, ts, h: int, n_locals) -> torch.Tensor:
         cnt = int(n_locals[s])
         e = g // cnt
         pos = g % cnt
-        rk = _mix32(_mul32(e, _P3) ^ (((s + 1) * _P1) & _M32)
+        rk = _mix32(_mul32(e, _P3) ^ (((lane0 + s + 1) * _P1) & _M32)
                     ^ (seed & _M32))
         outs.append(_feistel_perm(pos, cnt, rk).to(torch.int32).reshape(c, h))
     return torch.stack(outs, dim=1)
@@ -257,9 +261,12 @@ _MODE_CODES = {mode: code for code, mode in enumerate(MODES)}
 
 
 def host_tables(mode: str, seed: int, h: int, n_locals, t0: int,
-                c: int) -> torch.Tensor:
+                c: int, lane0: int = 0) -> torch.Tensor:
     """(C, K, H) int32 tables on the CPU for rounds t0..t0+c-1 (1-based,
-    as the reference) in ``mode``."""
+    as the reference) in ``mode``.  The K lanes are the global shards
+    ``lane0 .. lane0+K-1`` (a gang's rank holds a run of them), so a
+    rank's tables are those rows of the whole run's, bit for bit; the
+    reference replay reads only each lane's size."""
     if mode not in MODES:
         raise ValueError(f"rng mode must be one of {MODES}, got {mode!r}")
     if mode == "reference":
@@ -267,25 +274,27 @@ def host_tables(mode: str, seed: int, h: int, n_locals, t0: int,
         return torch.from_numpy(np.ascontiguousarray(np.swapaxes(tab, 0, 1)))
     ts = torch.arange(t0, t0 + c, dtype=torch.int64)
     if mode == "permuted":
-        return permuted_tables(seed, ts, h, n_locals)
-    return hash_tables(seed, ts, h, n_locals)
+        return permuted_tables(seed, ts, h, n_locals, lane0)
+    return hash_tables(seed, ts, h, n_locals, lane0)
 
 
 def draw_tables(mode: str, seed: int, h: int, counts: torch.Tensor,
-                t0: torch.Tensor, c: int) -> torch.Tensor:
+                t0: torch.Tensor, c: int, lane0: int = 0) -> torch.Tensor:
     """The chunk's (C, K, H) int32 tables for rounds t0..t0+c-1 on the
     device of ``t0`` (0-d int64, the first round, read where it lies) and
     ``counts`` ((K,) int64 shard sizes): on CUDA one launch of the draw
     kernel on the current stream, which a captured chunk replays; on the
     CPU the plain version, :func:`host_tables`.  Bit for bit with
-    :func:`host_tables` in every mode."""
+    :func:`host_tables` in every mode; ``lane0`` the first lane's global
+    shard id, as there."""
     if mode not in MODES:
         raise ValueError(f"rng mode must be one of {MODES}, got {mode!r}")
     if c < 1 or h < 1:
         raise ValueError(f"draw_tables needs c >= 1 and h >= 1, got c={c}, "
                          f"h={h}")
     if kernels.runs_plain(t0.device):
-        return host_tables(mode, seed, h, counts.numpy(), int(t0), c)
+        return host_tables(mode, seed, h, counts.numpy(), int(t0), c,
+                           lane0)
     kernels.require_cuda(t0, "draw_tables")
     k = counts.shape[0]
     kernels.check_tensor("t0", t0, torch.int64, (), t0.device)
@@ -294,8 +303,8 @@ def draw_tables(mode: str, seed: int, h: int, counts: torch.Tensor,
     lib = _library()
     with torch.cuda.device(t0.device):
         rc = lib.draw_tables(_MODE_CODES[mode], counts.data_ptr(),
-                             t0.data_ptr(), out.data_ptr(), c, k, h, seed,
-                             kernels.stream_ptr(t0.device))
+                             t0.data_ptr(), out.data_ptr(), c, k, h,
+                             lane0, seed, kernels.stream_ptr(t0.device))
     kernels.raise_on_error(lib, rc, "draw_tables")
     draw_tables.launches += 1
     return out
@@ -309,5 +318,5 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("draw_tables")
     lib.draw_tables.restype = ctypes.c_int
     lib.draw_tables.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
     return lib

@@ -126,7 +126,7 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
     "--ingest=stream", "--ingestCache=c", "--staleRounds=1",
     "--elastic=2", "--overlapComm=on", "--stallTimeout=60",
     "--fleetLanes=2", "--statusPort=0", "--fleet=f.jsonl", "--serve=7000",
-    "--mesh=1"])
+    "--fp=2"])
 def test_cli_unported_flags_exit_2(flag, capsys):
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag]) == 2
     out, err = capsys.readouterr()
@@ -169,6 +169,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, time_dense_sdca, time_fused_block, "
         "time_sparse_sdca, time_block_round\n"
+        "assert {'cocoa_torch.parallel.distributed', "
+        "'cocoa_torch.parallel.mesh'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cocoa_tpu')]\n"
         "assert not bad, bad\n"

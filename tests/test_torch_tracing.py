@@ -734,8 +734,8 @@ def test_cli_accepts_the_seven_flags(tmp_path, capsys):
                 "eventsMaxMB", "metricsInterval", "profile"} & \
         set(cli._NOT_PORTED)
     assert cli.main(DEMO + ["--numRounds=2", "--debugIter=2",
-                            "--device=cpu", "--mesh=1"]) == 2
-    assert "--mesh is not yet ported" in capsys.readouterr().err
+                            "--device=cpu", "--fp=2"]) == 2
+    assert "--fp is not yet ported" in capsys.readouterr().err
     rc = cli.main(DEMO + ["--numRounds=4", "--debugIter=2", "--device=cpu",
                           f"--events={tmp_path}/e.jsonl", "--trace",
                           "--flightRecorder", "--eventsMaxMB=1",
