@@ -302,7 +302,19 @@ stderr); any failed check exits non-zero:
    --deviceLoop bit for bit with the runs without --master, the
    all-reduce counted once a round and an eval inside the replayed
    graphs; (d) ms per round of the three and the all-reduce of 47 236
-   float32 alone over gloo (two ranks) and NCCL (one rank).
+   float32 alone over gloo (two ranks) and NCCL (one rank);
+21. streamed ingest and the slab cache (``--ingest``, ``--ingestCache``;
+   cocoa_torch/data/ingest.py, slab_cache.py): (a) the rcv1-like file
+   written as LIBSVM text and run through ``cli.run`` whole, streamed,
+   cache cold, cache warm and whole-mode warm, device shards, w and alpha
+   bit for bit, the warm runs reading no byte; (b) ``--hotCols=auto``
+   streamed against whole (B1h), the demo's dense layout streamed (B2) and
+   its hybrid through the cache, bit for bit; (c) two ranks streaming
+   beside two reading the whole file, and four streaming, as processes of
+   ``cli.run``: every shard bit for bit across the modes and gang sizes,
+   w and alpha across the modes, rows tiling n, a streamed rank of four
+   reading under 0.6 of the file in its two passes, and each rank's peak
+   resident set above its level before the ingest, sampled through it.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
@@ -339,6 +351,7 @@ import torch
 from cocoa_torch import checkpoint, cli, kernels
 from cocoa_torch.config import DebugParams, Params, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
+from cocoa_torch.data import ingest as ingest_lib
 from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.data.columns import shard_columns
 from cocoa_torch.data.synth import synth_dense_sharded, \
@@ -3623,7 +3636,10 @@ def phase_eval_twin(rcv1, demo, counted, card):
                         eval_dense="auto", hot_cols=hot)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            _, decided, _ = cli._layout_knobs(cfg, data, kk, torch.float32)
+            layout, hot_n, decided = cli._layout_knobs(
+                cfg, data.n, int(data.indptr[-1]),
+                hybrid.column_counts(data), kk, torch.float32)
+            cli._announce_eval(cfg, layout, hot_n, decided)
         lines[name] = (decided, [ln for ln in buf.getvalue().splitlines()
                                  if ln.startswith("evalDense")])
     check(not lines["rcv1-like"][0] and lines["demo"][0],
@@ -5382,13 +5398,15 @@ def gang_flags(port: int, rank: int, world: int) -> list:
             f"--numProcesses={world}"]
 
 
-def spawn_gang(label, specs, env_extra=None) -> list:
-    """One GANG_CHILD per spec, all started together; each one's log in
-    OUT, its parsed line returned in rank order.  Every child is killed
-    and joined on any failure (a hung rendezvous holds no port)."""
+def spawn_gang(label, specs, env_extra=None, child=GANG_CHILD,
+               phase=20) -> list:
+    """One ``child`` (GANG_CHILD unless another is given) per spec, all
+    started together; each one's log in OUT, its parsed line returned in
+    rank order.  Every child is killed and joined on any failure (a hung
+    rendezvous holds no port)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT), "GLOO_SOCKET_IFNAME": "lo",
            **(env_extra or {})}
-    procs = [subprocess.Popen([sys.executable, "-c", GANG_CHILD,
+    procs = [subprocess.Popen([sys.executable, "-c", child,
                                json.dumps(s)], cwd=ROOT, env=env, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for s in specs]
@@ -5406,13 +5424,14 @@ def spawn_gang(label, specs, env_extra=None) -> list:
     parsed = []
     for rank, (rc, o, e) in enumerate(outs):
         (OUT / f"chip_smoke_gang_{label}_{rank}.log").write_text(o + e)
-        check(rc == 0, f"phase 20 {label} rank {rank} exited {rc}: "
+        check(rc == 0, f"phase {phase} {label} rank {rank} exited {rc}: "
                        f"{e[-3000:]}")
         lines = [ln for ln in o.splitlines() if ln.startswith("GANG ")]
-        check(len(lines) == 1, f"phase 20 {label} rank {rank}: no result")
+        check(len(lines) == 1, f"phase {phase} {label} rank {rank}: no "
+                               f"result")
         res = json.loads(lines[0][5:])
         for job in res["jobs"]:
-            check(job["rc"] == 0, f"phase 20 {label} rank {rank} "
+            check(job["rc"] == 0, f"phase {phase} {label} rank {rank} "
                                   f"{job['tag']}: exit {job['rc']}")
         res["stdout"] = o
         parsed.append(res)
@@ -5655,6 +5674,342 @@ def phase_gang(path, demo_argv, card):
         + "/".join(f"{v:.4f}" for v in ar["gloo 2 ranks"])
         + f" ms, nccl 1 rank {ar['nccl 1 rank']:.4f} ms; s: solo runs "
         f"{solo_s:.1f}, gang {gang_s:.1f}, nccl {nccl_s:.1f}; card {card}")
+    return out
+
+
+# --- phase 21: streamed ingest and the slab cache -------------------------
+
+INGEST_ROUNDS = 100
+INGEST_DEMO_ROUNDS = 50
+INGEST_READ_SHARE = 0.6    # a streamed rank reads under this share: its
+#                            pass 2 in a gang of 2, both passes in one of 4
+
+
+# One process of phase 21 (c): one cli.run of the CLI's own code with the
+# gang's flags, its ingest spied on (each shard it built, its report, its
+# index scan, and its resident set sampled every 0.5 ms through the
+# ingest: CUDA's start-up sets the lifetime peak before any ingest);
+# prints "GANG <json>" in phase 20's layout
+INGEST_CHILD = r"""
+import hashlib, json, os, sys, threading, time
+import torch
+from cocoa_torch import cli
+from cocoa_torch.data import ingest
+from cocoa_torch.ops import sparse_sdca as sp
+from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.utils import prng
+
+
+def sha(t):
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+spec = json.loads(sys.argv[1])
+loaded, scans, grown = [], [], []
+ingest_svm, build_index = cli._ingest_svm, ingest.build_index
+
+
+def rss() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def spy_ingest(*a, **kw):
+    before = rss()
+    peak, done = [before], threading.Event()
+
+    def sample():
+        while not done.wait(0.0005):
+            peak[0] = max(peak[0], rss())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        loaded.append(ingest_svm(*a, **kw))
+    finally:
+        done.set()
+        sampler.join()
+    after = rss()
+    grown.append((max(peak[0], after) - before, after - before))
+    return loaded[-1]
+
+
+def spy_index(*a, **kw):
+    index = build_index(*a, **kw)
+    scans.append((index.scan_bytes, index.scan_seconds))
+    return index
+
+
+cli._ingest_svm, ingest.build_index = spy_ingest, spy_index
+sp.sparse_sdca_round.launches = prng.draw_tables.launches = 0
+all_reduce_sum.calls = 0
+t0 = time.perf_counter()
+rc, results = cli.run(spec["argv"])
+torch.cuda.synchronize()
+got = loaded[0]
+job = {"tag": spec["tag"], "rc": rc, "wall_s": time.perf_counter() - t0,
+       "report": got.reports[0].as_fields(),
+       "scan": scans[0] if scans else [0, 0.0],
+       "shards": {f: [sha(s) for s in t]
+                  for f, t in got.ds.shard_arrays().items()},
+       "w": [sha(r.w) for r in results],
+       "alpha": [sha(r.alpha) for r in results],
+       "peak_rss_bytes": ingest.peak_rss_bytes(),
+       "ingest_peak_bytes": grown[0][0],
+       "rss_growth_bytes": grown[0][1],
+       "counts": {"B1": sp.sparse_sdca_round.launches,
+                  "D": prng.draw_tables.launches,
+                  "all_reduce": all_reduce_sum.calls}}
+print("GANG " + json.dumps({"jobs": [job]}), flush=True)
+"""
+
+
+def ingest_run(argv):
+    """cli.run of ``argv`` in this process with its ingest spied on:
+    (results, what ``cli._ingest_svm`` built, the pass-1 indexes' (scan
+    bytes, seconds)), the counts read around the run."""
+    loaded, scans = [], []
+    ingest_svm, build_index = cli._ingest_svm, ingest_lib.build_index
+
+    def spy_ingest(*a, **kw):
+        loaded.append(ingest_svm(*a, **kw))
+        return loaded[-1]
+
+    def spy_index(*a, **kw):
+        index = build_index(*a, **kw)
+        scans.append((index.scan_bytes, index.scan_seconds))
+        return index
+
+    cli._ingest_svm, ingest_lib.build_index = spy_ingest, spy_index
+    try:
+        _, results = run_cli(argv)
+    finally:
+        cli._ingest_svm, ingest_lib.build_index = ingest_svm, build_index
+    torch.cuda.synchronize()
+    return results, loaded[0], scans
+
+
+def same_shards(label, got, want) -> None:
+    fa, fb = got.shard_arrays(), want.shard_arrays()
+    check(fa.keys() == fb.keys(), f"{label}: fields {sorted(fa)} vs "
+                                  f"{sorted(fb)}")
+    for f in fa:
+        check(fa[f].dtype == fb[f].dtype and torch.equal(fa[f], fb[f]),
+              f"{label}: shard tensor {f} differs")
+    check(np.array_equal(got.counts, want.counts), f"{label}: counts")
+
+
+def same_iterates(label, got, want) -> None:
+    for a, b in zip(got, want):
+        check(torch.equal(a.w, b.w) and torch.equal(a.alpha, b.alpha),
+              f"{label} {a.algorithm}: w or alpha not bit for bit")
+
+
+def pass2_seconds(loaded, scans) -> float:
+    """The train file's pass-2 seconds: its report's less its scan's."""
+    return loaded.reports[0].parse_seconds - (scans[0][1] if scans else 0.0)
+
+
+def phase_ingest(path, card):
+    """Phase 21: streamed ingest and the slab cache on the card.  (a) The
+    rcv1-like file through cli.run five ways (whole, stream, cache cold,
+    cache warm, whole warm from the cache): device shards, w and alpha
+    bit for bit; the warm runs read no byte.  (b) --hotCols=auto streamed
+    against whole (B1h): the same panel, residual and shards; the demo
+    dense streamed (B2) bit for bit, and the demo's hybrid through the
+    cache cold and warm.  (c) Two gloo ranks streaming against two
+    reading the whole file, then four streaming, as child processes:
+    each rank's shards and w bit for bit across the modes, every shard
+    of four ranks that of two, the bytes a rank reads, rows tiling n,
+    each rank's peak resident set through its ingest.  Returns a summary
+    with the launches of its runs."""
+    size = os.path.getsize(path)
+    rcv1 = [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", f"--numRounds={INGEST_ROUNDS}",
+            "--debugIter=25"]
+    demo = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4",
+            f"--numRounds={INGEST_DEMO_ROUNDS}", "--localIterFrac=0.1",
+            "--lambda=.001", "--math=fast", "--dtype=float32"]
+    out = {"card": card, "file_bytes": size}
+    reset_counts()
+    prng.draw_tables.launches = 0
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        # (a) five ways in this process
+        cache = os.path.join(tmp, "cache")
+        runs = {}
+        for tag, flags in (("whole", ["--ingest=whole"]),
+                           ("stream", ["--ingest=stream"]),
+                           ("cold", [f"--ingestCache={cache}"]),
+                           ("warm", [f"--ingestCache={cache}"]),
+                           ("whole warm", ["--ingest=whole",
+                                           f"--ingestCache={cache}"])):
+            t0 = time.perf_counter()
+            runs[tag] = (*ingest_run(rcv1 + flags),
+                         time.perf_counter() - t0)
+        ref_res, ref, _, _ = runs["whole"]
+        for tag, (res, got, scans, _) in runs.items():
+            same_shards(f"phase 21 (a) {tag}", got.ds, ref.ds)
+            same_iterates(f"phase 21 (a) {tag}", res, ref_res)
+            check_run(res, f"phase 21 (a) {tag}")
+        reports = {tag: r[1].reports[0] for tag, r in runs.items()}
+        for tag in ("warm", "whole warm"):
+            rep = reports[tag]
+            check(rep.bytes_read == 0 and rep.cache == "hit"
+                  and rep.rows == 0, f"phase 21 (a) {tag}: {rep}")
+        check(reports["cold"].cache == "miss"
+              and reports["stream"].bytes_read == 2 * size
+              and reports["whole"].bytes_read == size,
+              f"phase 21 (a): {reports}")
+        seconds = {
+            "whole parse and build": reports["whole"].parse_seconds,
+            "index scan": runs["stream"][2][0][1],
+            "pass 2": pass2_seconds(runs["stream"][1], runs["stream"][2]),
+            "cold scan + pass 2 + publish": reports["cold"].parse_seconds,
+            "warm load": reports["warm"].parse_seconds,
+            "whole warm load": reports["whole warm"].parse_seconds}
+        out["a"] = {"seconds": seconds,
+                    "run_s": {t: r[3] for t, r in runs.items()},
+                    "cache_bytes": sum(
+                        os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(cache) for f in fs)}
+        del runs, ref, ref_res
+        print(f"phase 21 (a): rcv1-like {size} bytes through cli.run "
+              f"whole, stream, cache cold, cache warm, whole warm: device "
+              f"shards, w and alpha bit for bit; warm runs 0 bytes, cache "
+              f"hit; s: " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in seconds.items())
+              + f"; artifacts {out['a']['cache_bytes']} bytes; card {card}")
+
+        # (b) the hybrid layout streamed; the demo dense; the demo's
+        # hybrid through the cache
+        hyb = {tag: ingest_run(rcv1 + ["--hotCols=auto", f"--ingest={tag}"])
+               for tag in ("whole", "stream")}
+        (w_res, w_got, _), (s_res, s_got, _) = hyb["whole"], hyb["stream"]
+        check(s_got.ds.n_hot == w_got.ds.n_hot > 0
+              and s_got.ds.sp_indices.shape == w_got.ds.sp_indices.shape
+              and s_got.split == w_got.split,
+              f"phase 21 (b): panel {s_got.ds.n_hot} vs {w_got.ds.n_hot}, "
+              f"residual {tuple(s_got.ds.sp_indices.shape)} vs "
+              f"{tuple(w_got.ds.sp_indices.shape)}")
+        same_shards("phase 21 (b) hybrid", s_got.ds, w_got.ds)
+        check_run(s_res, "phase 21 (b) hybrid stream")
+        hyb_bits = all(torch.equal(a.w, b.w) for a, b in zip(s_res, w_res))
+        panel, resid = w_got.ds.n_hot, int(w_got.ds.sp_indices.shape[-1])
+        del hyb, w_res, w_got, s_res, s_got
+        dense = {tag: ingest_run(demo + ["--layout=dense",
+                                         f"--ingest={tag}"])
+                 for tag in ("whole", "stream")}
+        same_shards("phase 21 (b) demo dense", dense["stream"][1].ds,
+                    dense["whole"][1].ds)
+        same_iterates("phase 21 (b) demo dense", dense["stream"][0],
+                      dense["whole"][0])
+        del dense
+        demo_cache = os.path.join(tmp, "demo_cache")
+        dh = [ingest_run(demo + ["--hotCols=auto", *flags])
+              for flags in ([], [f"--ingestCache={demo_cache}"],
+                            [f"--ingestCache={demo_cache}"])]
+        for tag, got in zip(("cold", "warm"), dh[1:]):
+            same_shards(f"phase 21 (b) demo hybrid cache {tag}", got[1].ds,
+                        dh[0][1].ds)
+            same_iterates(f"phase 21 (b) demo hybrid cache {tag}", got[0],
+                          dh[0][0])
+        check(dh[2][1].reports[0].cache == "hit"
+              and dh[2][1].reports[0].bytes_read == 0,
+              f"phase 21 (b) demo hybrid warm: {dh[2][1].reports[0]}")
+        del dh
+        out["b"] = {"panel": panel, "residual": resid,
+                    "hybrid_w_bits": hyb_bits}
+        launched = dict(counts(), D=prng.draw_tables.launches)
+        for name in ("B1", "B1h", "B2"):
+            check(launched[name] > 0, f"phase 21: {name} never launched")
+        print(f"phase 21 (b): rcv1-like --hotCols=auto streamed == whole "
+              f"(panel {panel}, residual {resid}, shards equal; w bit for "
+              f"bit {hyb_bits}); demo --layout=dense streamed == whole bit "
+              f"for bit (B2); the demo's hybrid through the cache cold and "
+              f"warm == uncached bit for bit, warm 0 bytes")
+
+        # (c) two ranks streaming beside two reading the whole file, and
+        # four streaming (each reads about a quarter in each pass, so its
+        # bytes_read, scan and pass 2, is under 0.6): eight processes
+        # started together
+        ports = [free_port() for _ in range(3)]
+        specs = [{"tag": mode, "argv": rcv1 + [f"--ingest={mode}"]
+                  + gang_flags(port, r, 2)}
+                 for mode, port in zip(("stream", "whole"), ports)
+                 for r in range(2)]
+        specs += [{"tag": "stream4", "argv": rcv1 + ["--ingest=stream"]
+                   + gang_flags(ports[2], r, 4)} for r in range(4)]
+        t0 = time.perf_counter()
+        ranks = spawn_gang("ingest", specs, child=INGEST_CHILD, phase=21)
+        gang_s = time.perf_counter() - t0
+    jobs = [res["jobs"][0] for res in ranks[:4]]
+    jobs4 = [res["jobs"][0] for res in ranks[4:]]
+    stream_jobs, whole_jobs = jobs[:2], jobs[2:]
+    for r, (s_job, w_job) in enumerate(zip(stream_jobs, whole_jobs)):
+        check(s_job["shards"] == w_job["shards"] and s_job["w"] == w_job["w"]
+              and s_job["alpha"] == w_job["alpha"],
+              f"phase 21 (c) rank {r}: stream and whole differ")
+        # at two ranks the scan alone reads half the file, so the share
+        # held is pass 2's; bytes_read (both passes) is about the file's
+        pass2 = s_job["report"]["bytes_read"] - s_job["scan"][0]
+        check(0 < pass2 < INGEST_READ_SHARE * size,
+              f"phase 21 (c) rank {r}: pass 2 read {pass2} of {size}")
+        check(w_job["report"]["bytes_read"] == size,
+              f"phase 21 (c) rank {r}: whole read "
+              f"{w_job['report']['bytes_read']}")
+        check(s_job["counts"]["B1"] == w_job["counts"]["B1"]
+              == 2 * INGEST_ROUNDS, f"phase 21 (c) rank {r}: counts "
+                                    f"{s_job['counts']}")
+    check(stream_jobs[0]["w"] == stream_jobs[1]["w"],
+          "phase 21 (c): the streamed ranks' w differ")
+    check(sum(j["report"]["rows"] for j in stream_jobs) == RCV1_SHAPE[0],
+          "phase 21 (c): the streamed ranks' rows do not tile n")
+    for r, job in enumerate(jobs4):
+        check(0 < job["report"]["bytes_read"] < INGEST_READ_SHARE * size,
+              f"phase 21 (c) rank {r} of 4: read "
+              f"{job['report']['bytes_read']} of {size}")
+        check(job["w"] == jobs4[0]["w"] and job["counts"]["B1"]
+              == 2 * INGEST_ROUNDS, f"phase 21 (c) rank {r} of 4: w differs "
+                                    f"or counts {job['counts']}")
+    check(sum(j["report"]["rows"] for j in jobs4) == RCV1_SHAPE[0],
+          "phase 21 (c): the four streamed ranks' rows do not tile n")
+    for f in stream_jobs[0]["shards"]:
+        check([h for j in jobs4 for h in j["shards"][f]]
+              == [h for j in stream_jobs for h in j["shards"][f]],
+              f"phase 21 (c): shard {f} of four ranks differs from two")
+    out["c"] = {"gang_s": gang_s, "ranks": [
+        {"mode": j["tag"], "bytes_read": j["report"]["bytes_read"],
+         "scan_bytes": j["scan"][0], "scan_s": j["scan"][1],
+         "parse_seconds": j["report"]["parse_seconds"],
+         "rows": j["report"]["rows"],
+         "peak_rss_bytes": j["peak_rss_bytes"],
+         "ingest_peak_bytes": j["ingest_peak_bytes"],
+         "rss_growth_bytes": j["rss_growth_bytes"], "wall_s": j["wall_s"]}
+        for j in jobs + jobs4]}
+    launched["B1"] += sum(j["counts"]["B1"] for j in jobs + jobs4)
+    launched["D"] += sum(j["counts"]["D"] for j in jobs + jobs4)
+    out["launched"] = launched
+    print("phase 21 (c): 2 ranks x K=8 streamed beside 2 reading the whole "
+          "file and 4 streamed beside them, one card over gloo: each rank's "
+          "shards, w and alpha bit for bit across the modes, every shard of "
+          "4 ranks that of 2; rows " + " + ".join(
+              str(j["report"]["rows"]) for j in stream_jobs)
+          + f" = {RCV1_SHAPE[0]}; per rank (mode: scan bytes + pass-2 "
+          f"bytes of {size}, ingest s, lifetime peak RSS MiB, peak RSS "
+          f"above the pre-ingest level MiB, resident growth across the "
+          f"ingest MiB): " + "; ".join(
+              f"{j['tag']} r{i}: {j['scan'][0]} + "
+              f"{j['report']['bytes_read'] - j['scan'][0]}, "
+              f"{j['report']['parse_seconds']:.4f} s, "
+              f"{j['peak_rss_bytes'] / 2**20:.1f}, "
+              f"{j['ingest_peak_bytes'] / 2**20:.1f}, "
+              f"{j['rss_growth_bytes'] / 2**20:.1f}"
+              for i, j in [(i % 2, j) for i, j in enumerate(jobs)]
+              + list(enumerate(jobs4)))
+          + f"; the eight children {gang_s:.1f} s; card {card}")
     return out
 
 
@@ -6131,9 +6486,16 @@ def main() -> int:
     # --- phase 20: the gang on the card
     t0 = time.perf_counter()
     gang20 = phase_gang(path, demo_argv, card)
-    tmp.cleanup()
     print(f"phase 20: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase20.json").write_text(json.dumps(gang20,
+                                                            default=str))
+
+    # --- phase 21: streamed ingest and the slab cache
+    t0 = time.perf_counter()
+    ingest21 = phase_ingest(path, card)
+    tmp.cleanup()
+    print(f"phase 21: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase21.json").write_text(json.dumps(ingest21,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
@@ -6220,7 +6582,11 @@ def main() -> int:
                   for name in ("B1", "B3", "B5", "B6", "D")}
     for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
                                 "D")):
-        row["launches"] += launched20.get(name, 0)
+        row["launches"] += launched20.get(name, 0) + \
+            ingest21["launched"].get(name, 0)
+    print("phase 21 launches (in-process runs and the gang's children), in "
+          "the counts below: " + ", ".join(
+              f"{name} {v}" for name, v in ingest21["launched"].items()))
     print(f"phase 20 launches (the gang's and the NCCL child's processes), "
           f"in the counts below: " + ", ".join(
               f"{name} {v}" for name, v in launched20.items()))

@@ -138,8 +138,10 @@ import torch
 from cocoa_torch import checkpoint, serving
 from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
+from cocoa_torch.data import ingest as ingest_lib
 from cocoa_torch.data.columns import shard_columns
-from cocoa_torch.data.sharding import eval_dense_fits, resolve_layout
+from cocoa_torch.data.sharding import eval_dense_fits, resolve_layout_stats
+from cocoa_torch.data.slab_cache import SlabCache
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
@@ -157,7 +159,6 @@ from cocoa_torch.telemetry import events as tele_events
 from cocoa_torch.telemetry import profiling
 from cocoa_torch.telemetry import recorder as flightrec_lib
 from cocoa_torch.telemetry import tracing
-from cocoa_torch.data.ingest import whole_report
 from cocoa_torch.utils.logging import Trajectory, config_hash
 
 _PORT_FLAGS = {f: f for f in ("dtype", "layout", "rng", "math", "loss",
@@ -174,9 +175,11 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    eventsMaxMB="events_max_mb",
                    metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
-_NOT_PORTED = (
-    "fp", "elastic", "stallTimeout", "ingest",
-    "ingestCache", "overlapComm", "staleRounds")
+_NOT_PORTED = ("fp", "elastic", "stallTimeout", "overlapComm",
+               "staleRounds")
+# how the training text reaches the device (``--ingest``) and the slab
+# cache (``--ingestCache``): no RunConfig field, read from the flags given
+_INGEST_FLAGS = ("ingest", "ingestCache")
 # the gang's flags (``--master`` and its rank, ``--mesh``): no RunConfig
 # field, read from the flags given; beside ``--fleet`` (the fleet's
 # tenant mesh axis) they are not ported yet
@@ -231,7 +234,8 @@ def parse_args(argv: list[str]):
         if key in _NOT_PORTED:
             unported.append(key)
             continue
-        if key in _SERVE_FLAGS or key in _FLEET_FLAGS or key in _GANG_FLAGS:
+        if (key in _SERVE_FLAGS or key in _FLEET_FLAGS or key in _GANG_FLAGS
+                or key in _INGEST_FLAGS):
             continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
@@ -265,7 +269,7 @@ def _manifest_config(cfg: RunConfig) -> dict:
     for key, val in getattr(cfg, "_given", {}).items():
         if (key in _PORT_FLAGS and _PORT_FLAGS[key] not in out
                 or key in _SERVE_FLAGS or key in _FLEET_FLAGS
-                or key in _GANG_FLAGS):
+                or key in _GANG_FLAGS or key in _INGEST_FLAGS):
             out[key] = val
     return out
 
@@ -365,13 +369,15 @@ def _telemetry(cfg: RunConfig, tel: _Telemetry, rank: int = 0):
 
 
 def _run_start(bus, cfg_manifest: dict, run_meta: dict, dataset: str,
-               device, layout_split, reports: list, mesh=None) -> None:
-    """The ``run_start`` event, then one ``ingest`` event per loaded file,
-    as the JAX CLI emits them once the layout is resolved
-    (cocoa_tpu/cli.py:1548-1566): the manifest is the run's config (with
-    ``layout_split`` on the sparse layout, which the config hash then
-    covers) and the torch/device environment, with the train file's
-    ingest record beside the split."""
+               device, layout_split, reports: list, mesh=None,
+               cache_events=()) -> None:
+    """The ``run_start`` event, then one ``ingest`` event per loaded file
+    and one ``ingest_cache`` event per file the slab cache saw, as the JAX
+    CLI emits them once the layout is resolved (cocoa_tpu/cli.py:
+    1548-1566): the manifest is the run's config (with ``layout_split``
+    on the sparse layout, which the config hash then covers) and the
+    torch/device environment, with the train file's ingest record beside
+    the split."""
     if layout_split is not None:
         cfg_manifest["layout_split"] = layout_split
         run_meta["config_hash"] = config_hash(cfg_manifest)
@@ -386,6 +392,8 @@ def _run_start(bus, cfg_manifest: dict, run_meta: dict, dataset: str,
     bus.emit("run_start", manifest=manifest)
     for rep in reports:
         bus.emit("ingest", **rep.as_fields())
+    for fields in cache_events:
+        bus.emit("ingest_cache", **fields)
 
 
 def _check_choices(cfg: RunConfig):
@@ -442,13 +450,14 @@ def _block_pipeline(cfg: RunConfig, block_size: int) -> Optional[bool]:
 
 
 def _objective(cfg: RunConfig):
-    """(objective, l2) with the JAX CLI's checks and messages
-    (cocoa_tpu/cli.py:1101-1105,1664-1681)."""
+    """(objective, l2, the slab cache or None) with the JAX CLI's checks
+    and messages (cocoa_tpu/cli.py:1101-1105,1119-1160,1664-1681)."""
     objective = (cfg.objective or "svm").lower()
     if objective not in ("svm", "lasso"):
         raise ValueError(f"--objective must be svm|lasso, got {objective!r}")
+    cache = _ingest_cache(cfg, objective)
     if objective == "svm":
-        return objective, 0.0
+        return objective, 0.0, cache
     if cfg.hot_cols is not None:
         raise ValueError("--hotCols does not apply to --objective=lasso "
                          "(column shards already partition the feature "
@@ -463,7 +472,33 @@ def _objective(cfg: RunConfig):
     if l2 < 0.0:
         raise ValueError(f"--l2 is the elastic-net weight, needs >= 0, "
                          f"got {l2}")
-    return objective, l2
+    return objective, l2, cache
+
+
+def _ingest_cache(cfg: RunConfig, objective: str):
+    """``--ingestCache=DIR`` armed (its directory made) and ``--ingest``
+    checked, with the JAX CLI's rules and messages (cocoa_tpu/cli.py:
+    1119-1160): the cache is the SVM rows' alone, and ``--ingest`` takes
+    stream|whole|auto, ``stream`` not with the lasso.  Returns the
+    :class:`SlabCache` or None; the mode itself is resolved once the gang
+    is known (:func:`_ingest_svm`)."""
+    given = getattr(cfg, "_given", {})
+    cache = None
+    if given.get("ingestCache"):
+        if objective == "lasso":
+            raise ValueError("--ingestCache does not apply to "
+                             "--objective=lasso (the column shards "
+                             "transpose the row slabs per run — nothing "
+                             "shard-keyed to cache); drop the flag")
+        try:
+            cache = SlabCache(str(given["ingestCache"]))
+        except OSError as e:
+            raise ValueError(f"--ingestCache={given['ingestCache']!r}: "
+                             f"{e}") from None
+    ingest_lib.resolve_ingest_mode(given.get("ingest"), None,
+                                   objective=objective,
+                                   cached=cache is not None)
+    return cache
 
 
 def _scan_chunk(cfg: RunConfig) -> None:
@@ -624,42 +659,235 @@ def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
                         f"{traj.algorithm.replace(' ', '_')}.jsonl")
 
 
-def _layout_knobs(cfg: RunConfig, data, k: int, dtype):
-    """``--hotCols`` and ``--evalDense`` resolved against the training
-    data, with the JAX CLI's rules, lines and messages
-    (cocoa_tpu/cli.py:1197-1214,1452-1483): the hot panel on the sparse
-    layout only, printing its accounting when it builds one; the twin's
-    ``auto`` decided there by :func:`eval_dense_fits` and printed first.
-    Returns (panel width, 0 for the plain stream layout; eval twin; the
-    split's record for the manifest, None off the sparse layout)."""
-    layout = resolve_layout(data, cfg.layout)
+def _layout_knobs(cfg: RunConfig, n: int, total_nnz: int, hist, k: int,
+                  dtype):
+    """``--layout``, ``--hotCols`` and ``--evalDense`` resolved from the
+    training file's counts alone (n, its nonzeros, its column histogram),
+    with the JAX CLI's rules and messages (cocoa_tpu/cli.py:1216-1242
+    ``resolve_stats_knobs``): the one resolver of the whole-file, the
+    streamed and the cached builds.  The hot panel is on the sparse
+    layout only; the twin's ``auto`` is decided by :func:`eval_dense_fits`.
+    Returns (layout, panel width, 0 for the plain stream layout; eval
+    twin)."""
+    layout = resolve_layout_stats(n, cfg.num_features, total_nnz,
+                                  cfg.layout)
     if cfg.hot_cols is not None and layout != "sparse":
         raise ValueError("--hotCols (the hot/cold column split) only "
                          "applies to the sparse layout")
     # JAX's reading (cocoa_tpu/cli.py:1107-1112): off when absent or
     # false, resolved here when auto, on for any other value
-    spec = "false" if cfg.eval_dense is None else cfg.eval_dense.lower()
-    eval_dense = spec not in ("false", "auto")
-    if layout != "sparse":
-        return 0, eval_dense, None
-    hot_n, split = hybrid.resolve_hot_cols(cfg.hot_cols, data, k, dtype)
-    quiet = _quiet(cfg)
-    if spec == "auto":
-        eval_dense = eval_dense_fits(data.n, cfg.num_features, k, dtype)
-        if not quiet:
-            fallback = ("hot panel + residual stream" if hot_n
-                        else "per-nonzero gather (no hot panel — "
-                             "consider --hotCols=auto)")
-            print(f"evalDense=auto: "
-                  f"{'dense twin' if eval_dense else fallback} "
-                  f"for the certificate margins")
-    if hot_n and not quiet:
-        print(f"hotCols={split['spec']}: panel {hot_n} columns, "
-              f"{split['coverage'] * 100:.1f}% nonzero coverage, "
-              f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
-              f"nnz {split['residual_mean_nnz']:.1f} (max "
-              f"{split['residual_max_nnz']})")
-    return hot_n, eval_dense, split
+    eval_dense = _eval_dense_spec(cfg) not in ("false", "auto")
+    hot_n = 0
+    if layout == "sparse":
+        hot_n = hybrid.resolve_hot_width(cfg.hot_cols, hist, n, k, dtype)
+        if _eval_dense_spec(cfg) == "auto":
+            eval_dense = eval_dense_fits(n, cfg.num_features, k, dtype)
+    return layout, hot_n, eval_dense
+
+
+def _eval_dense_spec(cfg: RunConfig) -> str:
+    return "false" if cfg.eval_dense is None else cfg.eval_dense.lower()
+
+
+def _announce_eval(cfg: RunConfig, layout: str, hot_n: int,
+                   eval_dense: bool) -> None:
+    """The JAX CLI's ``evalDense=auto: ...`` line on the sparse layout."""
+    if layout != "sparse" or _eval_dense_spec(cfg) != "auto" or _quiet(cfg):
+        return
+    fallback = ("hot panel + residual stream" if hot_n
+                else "per-nonzero gather (no hot panel — "
+                     "consider --hotCols=auto)")
+    print(f"evalDense=auto: {'dense twin' if eval_dense else fallback} "
+          f"for the certificate margins")
+
+
+def _announce_hot(cfg: RunConfig, split, hot_n: int) -> None:
+    """The JAX CLI's ``hotCols=...: panel ...`` line when a panel builds."""
+    if not hot_n or _quiet(cfg):
+        return
+    print(f"hotCols={split['spec']}: panel {hot_n} columns, "
+          f"{split['coverage'] * 100:.1f}% nonzero coverage, "
+          f"{split['panel_bytes'] / 2**20:.1f} MiB HBM, residual mean "
+          f"nnz {split['residual_mean_nnz']:.1f} (max "
+          f"{split['residual_max_nnz']})")
+
+
+class _Loaded(NamedTuple):
+    """What the SVM runs' ingest built (:func:`_ingest_svm`)."""
+
+    ds: object
+    test_ds: object
+    n: int                   # the training set's examples
+    split: Optional[dict]    # the layout split's record (sparse layout)
+    reports: list            # one IngestReport per loaded file
+    cache_events: list       # one ``ingest_cache`` record per cached file
+
+
+def _ingest_svm(cfg: RunConfig, k: int, dtype, device, mesh, mode: str,
+                cache) -> _Loaded:
+    """The training and test files as this rank's shards, by the resolved
+    ``--ingest`` mode, as the JAX CLI builds them (cocoa_tpu/cli.py:
+    1244-1545): ``stream`` scans the file (pass 1), resolves the knobs
+    from the index and parses only this rank's shards; ``whole`` parses
+    the whole file, first trying a build from the slab cache alone when
+    its index is cached (no byte read), and publishes what it builds."""
+    part = local_part(mesh)
+    procs = 1 if mesh is None else mesh.size
+    d = cfg.num_features
+    reports, cache_events = [], []
+
+    def record_cache(path, status, info):
+        if cache is not None:
+            cache_events.append(dict(
+                path=path, status=status, shards_cached=info.shards_cached,
+                shards_total=info.shards_total,
+                bytes_mapped=info.cache_bytes_mapped,
+                seconds_saved=info.seconds_saved))
+
+    def split_of(counts, hot_n, ds, max_row_nnz, n):
+        """The layout split's record; the residual is the whole row
+        without a panel."""
+        return hybrid.stats_from_counts(
+            cfg.hot_cols, counts, hot_n,
+            ds.residual_max_nnz if hot_n else max_row_nnz, n, k, dtype)
+
+    if mode == "stream":
+        def stream(index, hot_n, eval_dense):
+            ds, info = ingest_lib.stream_shard_dataset(
+                index.path, d, k, layout=cfg.layout, dtype=dtype,
+                device=device, part=part, eval_dense=eval_dense,
+                hot_cols=hot_n, index=index, cache=cache)
+            ds.mesh = mesh
+            # a warm run pays no scan and no parse: a scanned index
+            # makes a shard hit partial
+            status = "off" if cache is None else (
+                "partial" if info.cache_status == "hit" and index.scan_bytes
+                else info.cache_status)
+            reports.append(ingest_lib.stream_report(index, info, procs,
+                                                    status))
+            record_cache(index.path, status, info)
+            return ds, info
+
+        index = ingest_lib.build_index(cfg.train_file, d, cache=cache)
+        layout, hot_n, eval_dense = _layout_knobs(
+            cfg, index.n, index.total_nnz, index.hist, k, dtype)
+        _announce_eval(cfg, layout, hot_n, eval_dense)
+        ds, _ = stream(index, hot_n, eval_dense)
+        split = None
+        if layout == "sparse":
+            split = split_of(index.hist, hot_n, ds,
+                             int(index.row_nnz.max(initial=0)), index.n)
+            _announce_hot(cfg, split, hot_n)
+        test_ds = None
+        if cfg.test_file:
+            test_ds, _ = stream(ingest_lib.build_index(cfg.test_file, d,
+                                                       cache=cache),
+                                hot_n, eval_dense)
+        return _Loaded(ds, test_ds, index.n, split, reports, cache_events)
+
+    def handle_of(path):
+        if cache is None:
+            return None
+        try:
+            return cache.for_file(path, d)
+        except OSError:
+            return None  # the parse below fails with its own message
+
+    def warm(handle, stats, path, hot_n, eval_dense, t0):
+        """(ds, build info) from the cache's artifacts alone, or None."""
+        if handle is None or stats is None:
+            return None
+        layout = resolve_layout_stats(stats.n, d, stats.total_nnz,
+                                      cfg.layout)
+        got = ingest_lib.load_cached_dataset(
+            handle, stats, k, layout=layout, dtype=dtype, device=device,
+            part=part, eval_dense=eval_dense, hot_cols=hot_n)
+        if got is None:
+            return None
+        got[0].mesh = mesh
+        record_cache(path, "hit", got[1])
+        reports.append(ingest_lib.IngestReport(
+            mode="whole", path=path, file_bytes=stats.file_bytes,
+            processes=procs, parse_seconds=time.perf_counter() - t0,
+            bytes_read=0, rows=0, nnz=0, n=stats.n,
+            total_nnz=stats.total_nnz,
+            peak_rss_bytes=ingest_lib.peak_rss_bytes(), cache="hit"))
+        return got
+
+    def cold(handle, path, hot_n, eval_dense, t0, data=None, counts=None):
+        """Parse ``path`` (unless ``data`` is its parse, ``counts`` its
+        column histogram) and build its shards, publishing each and the
+        file's counts to the cache."""
+        if data is None:
+            data = load_libsvm(path, d)
+        if counts is None:
+            counts = hybrid.column_counts(data)
+        snap = None if cache is None else (cache.shard_hits,
+                                           cache.shard_misses,
+                                           cache.bytes_mapped)
+        ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
+                           device=device, hot_cols=hot_n,
+                           eval_dense=eval_dense, part=part, cache=handle,
+                           counts=counts)
+        ds.mesh = mesh
+        status = "off"
+        if handle is not None:
+            handle.store_index(hist=counts, n=data.n,
+                               total_nnz=int(data.indptr[-1]),
+                               max_row_nnz=int(data.max_nnz))
+            hits = cache.shard_hits - snap[0]
+            misses = cache.shard_misses - snap[1]
+            if hits == 0:
+                # a partial run paid for its missed shards alone
+                handle.store_cost(time.perf_counter() - t0)
+            status = "partial" if hits else "miss"
+            record_cache(path, status, ingest_lib.StreamBuildInfo(
+                rows=0, nnz=0, bytes_read=0, parse_seconds=0.0,
+                residual_max_nnz=0, shards_cached=hits,
+                shards_total=hits + misses,
+                cache_bytes_mapped=cache.bytes_mapped - snap[2],
+                cache_status=status))
+        reports.append(ingest_lib.whole_report(
+            path, data, time.perf_counter() - t0, procs, status))
+        return ds
+
+    t_load = time.perf_counter()
+    handle = handle_of(cfg.train_file)
+    stats = handle.load_index() if handle is not None else None
+    got = None
+    if stats is not None:
+        # the knobs from the cached counts, as the streamed build's
+        layout, hot_n, eval_dense = _layout_knobs(
+            cfg, stats.n, stats.total_nnz, stats.hist, k, dtype)
+        got = warm(handle, stats, cfg.train_file, hot_n, eval_dense, t_load)
+    if got is not None:
+        ds = got[0]
+        n, counts, max_row_nnz = stats.n, stats.hist, int(stats.max_row_nnz)
+    else:
+        data = load_libsvm(cfg.train_file, d)
+        n, counts, max_row_nnz = (data.n, hybrid.column_counts(data),
+                                  int(data.max_nnz))
+        layout, hot_n, eval_dense = _layout_knobs(
+            cfg, n, int(data.indptr[-1]), counts, k, dtype)
+        ds = cold(handle, cfg.train_file, hot_n, eval_dense, t_load, data,
+                  counts)
+        del data
+    split = None
+    if layout == "sparse":
+        _announce_eval(cfg, layout, hot_n, eval_dense)
+        split = split_of(counts, hot_n, ds, max_row_nnz, n)
+        _announce_hot(cfg, split, hot_n)
+    test_ds = None
+    if cfg.test_file:
+        # the test file gets a panel of the same width over its own
+        # hottest columns, and the training set's twin decision
+        t_test = time.perf_counter()
+        handle = handle_of(cfg.test_file)
+        got = warm(handle, handle.load_index() if handle is not None
+                   else None, cfg.test_file, hot_n, eval_dense, t_test)
+        test_ds = got[0] if got is not None else cold(
+            handle, cfg.test_file, hot_n, eval_dense, t_test)
+    return _Loaded(ds, test_ds, n, split, reports, cache_events)
 
 
 def _resolve_auto_block(ds, dtype, quiet: bool) -> int:
@@ -686,8 +914,9 @@ def _run_lasso(cfg: RunConfig, l2: float, block_size: int,
     try:
         t_load = time.perf_counter()
         data = load_libsvm(cfg.train_file, cfg.num_features)
-        report = whole_report(cfg.train_file, data,
-                              time.perf_counter() - t_load)
+        report = ingest_lib.whole_report(
+            cfg.train_file, data, time.perf_counter() - t_load,
+            1 if mesh is None else mesh.size)
         ds, b = shard_columns(data, k, dtype=dtype, device=device,
                               layout=cfg.layout, part=local_part(mesh))
         ds.mesh = mesh
@@ -745,7 +974,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         _check_choices(cfg)
         block_size = _block_size(cfg)
         block_pipeline = _block_pipeline(cfg, block_size)
-        objective, l2 = _objective(cfg)
+        objective, l2, ingest_cache = _objective(cfg)
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
         device_loop = _device_loop(cfg)
@@ -767,7 +996,8 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     try:
         return _train(cfg, tel, mesh, device if mesh is None
                       else mesh.device, capture, block_size, block_pipeline,
-                      objective, l2, ladder, device_loop, resume, profile)
+                      objective, l2, ladder, device_loop, resume, profile,
+                      ingest_cache)
     finally:
         if mesh is not None:
             distributed.shutdown()
@@ -835,7 +1065,7 @@ def _gang_line(mesh, capture) -> str:
 def _train(cfg: RunConfig, tel: _Telemetry, mesh, device, capture,
            block_size: int, block_pipeline: Optional[bool], objective: str,
            l2: float, ladder: dict, device_loop: bool, resume: bool,
-           profile) -> tuple[int, list[RunResult]]:
+           profile, ingest_cache=None) -> tuple[int, list[RunResult]]:
     """The training run once the flags are checked and the gang (if any)
     is joined: the echo, the telemetry, then the lasso or the SVM menu."""
     quiet = _quiet(cfg)
@@ -859,53 +1089,36 @@ def _train(cfg: RunConfig, tel: _Telemetry, mesh, device, capture,
                               bus, cfg_manifest, mesh)
         return _run_svm(cfg, block_size, block_pipeline, dtype, device,
                         ladder, run_meta, loop, resume, bus, cfg_manifest,
-                        profile, mesh)
+                        profile, mesh, ingest_cache)
 
 
 def _run_svm(cfg: RunConfig, block_size: int,
              block_pipeline: Optional[bool], dtype, device, ladder: dict,
              run_meta: dict, loop: dict, resume: bool, bus,
-             cfg_manifest: dict, profile, mesh=None):
+             cfg_manifest: dict, profile, mesh=None, ingest_cache=None):
     """The SVM runs on the row shards: CoCoA+ and CoCoA, and the rest of
     the reference's menu unless ``--justCoCoA``, under ``--profile``
     when it is given."""
     quiet = _quiet(cfg)
     k = cfg.num_splits
-    reports = []
     try:
-        t_load = time.perf_counter()
-        data = load_libsvm(cfg.train_file, cfg.num_features)
-        hot_n, eval_dense, split = _layout_knobs(cfg, data, k, dtype)
-        ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
-                           device=device, hot_cols=hot_n,
-                           eval_dense=eval_dense, part=local_part(mesh))
-        ds.mesh = mesh
-        # one ingest record per loaded file: the parse and the shards
-        reports.append(whole_report(cfg.train_file, data,
-                                    time.perf_counter() - t_load))
-        test_ds = None
-        if cfg.test_file:
-            # the test file gets a panel of the same width over its own
-            # hottest columns, and the training set's twin decision, as
-            # in the JAX CLI
-            t_test = time.perf_counter()
-            test_data = load_libsvm(cfg.test_file, cfg.num_features)
-            test_ds = shard_dataset(
-                test_data, k=k, layout=cfg.layout, dtype=dtype,
-                device=device, hot_cols=hot_n, eval_dense=eval_dense,
-                part=local_part(mesh))
-            test_ds.mesh = mesh
-            reports.append(whole_report(cfg.test_file, test_data,
-                                        time.perf_counter() - t_test))
+        if ingest_cache is not None and bus.active():
+            ingest_cache.on_corrupt = (
+                lambda **kw: bus.emit("ingest_cache_corrupt", **kw))
+        mode = ingest_lib.resolve_ingest_mode(
+            cfg._given.get("ingest"), mesh, objective="svm",
+            cached=ingest_cache is not None)
+        got = _ingest_svm(cfg, k, dtype, device, mesh, mode, ingest_cache)
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
-    _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device, split,
-               reports, mesh)
+    ds, test_ds = got.ds, got.test_ds
+    _run_start(bus, cfg_manifest, run_meta, cfg.train_file, device,
+               got.split, got.reports, mesh, got.cache_events)
 
     if cfg.block_size.lower() == "auto":
         block_size = _resolve_auto_block(ds, dtype, quiet)
-    params = cfg.to_params(data.n, k)
+    params = cfg.to_params(got.n, k)
     debug = cfg.to_debug()
     draws = dict(rng=cfg.rng, sampling=cfg.sampling, **loop)
     sdca = dict(test_ds=test_ds, math=cfg.math, block_size=block_size,
@@ -989,14 +1202,17 @@ def _echo(cfg: RunConfig) -> None:
 
 # flags that cannot mean anything on the fleet's one loop over tenants,
 # with the JAX CLI's pointers (cocoa_tpu/cli.py:410-436); its --elastic
-# and --ingestCache pointers come with those flags, which the port
-# refuses before this
+# pointer comes with that flag, which the port refuses before this
 _FLEET_REJECTED = {
     "resume": "fleet checkpoint/resume is not in the v1 surface",
     "warmStart": "the warm-start loss handoff is a solo-path schedule; "
                  "fleets share one loss phase (docs/DESIGN.md §16)",
     "hotCols": "fleet v1 is dense-layout only",
     "evalDense": "fleet v1 is dense-layout only",
+    "ingestCache": "the slab cache is keyed to the solo shard layout; fleet "
+                   "tenants sharing a dataset ref already dedupe through the "
+                   "in-process memo (data/fleet.py — one parse per distinct "
+                   "ref)",
     "blockSize": "the block/Pallas kernels own their shard axes and cannot "
                  "ride the tenant vmap",
     "blockPipeline": "the block/Pallas kernels own their shard axes and "
@@ -1244,8 +1460,8 @@ _SERVE_ALLOWED = frozenset((
     "hotCols", "quiet", "metrics", "events", "trace", "flightRecorder",
     "eventsMaxMB", "metricsInterval", "seed", "traceSample", "statusPort",
     "device"))
-# the JAX CLI's pointers for these flags (its --elastic and --ingestCache
-# pointers come with those flags, which the port refuses before this)
+# the JAX CLI's pointers for these flags (its --elastic pointer comes
+# with that flag, which the port refuses before this)
 _SERVE_POINTERS = {
     "sigmaSchedule": "σ′ schedules belong to the trainer process "
                      "(--sigmaSchedule=trial is a training A/B control; "
@@ -1254,6 +1470,10 @@ _SERVE_POINTERS = {
                  "freshness (cocoa_model_gap_age_seconds)",
     "resume": "the server always serves the newest validated generation; "
               "there is nothing to resume",
+    "ingestCache": "the slab cache serves TRAINING ingest; put "
+                   "--ingestCache on the background trainer's command line "
+                   "(the serve-side --trainFile parse only derives the "
+                   "query nonzero budget)",
     "dtype": "--dtype is the TRAINING precision; the serving stack "
              "quantizes the model at swap time — set "
              "--serveDtype=f32|bf16|int8 instead (docs/DESIGN.md §20)",

@@ -89,6 +89,14 @@ def split_stats(data: LibsvmData, hot_ids: np.ndarray) -> dict:
     }
 
 
+def residual_max_nnz(data: LibsvmData, rank: np.ndarray) -> int:
+    """The largest row's count of cold nonzeros (``rank`` < 0): the
+    residual's padded width before its floor of 1."""
+    rows = np.repeat(np.arange(data.n, dtype=np.int64), np.diff(data.indptr))
+    cold = rows[rank[data.indices] < 0]
+    return int(np.bincount(cold, minlength=max(1, data.n)).max(initial=0))
+
+
 def panel_bytes(n_hot: int, k: int, n_shard: int, itemsize: int) -> int:
     """Device bytes of the (K, n_shard, n_hot) hot panel."""
     return k * n_shard * n_hot * itemsize
@@ -156,6 +164,33 @@ def resolve_hot_width(spec, counts: np.ndarray, n: int, k: int, dtype, *,
             f"budget; lower --hotCols or use --hotCols=auto"
         )
     return int(width)
+
+
+def stats_from_counts(spec, counts: np.ndarray, width: int,
+                      residual_max_nnz: int, n: int, k: int,
+                      dtype) -> dict:
+    """The split's record from the column histogram and the residual's
+    widest row (exchanged across a gang): what :func:`resolve_hot_cols`
+    records, for a streamed or cached build that holds no whole dataset.
+    Coverage and the residual's mean come from exact integer totals, so
+    the record equals the whole-file one; ``panel_bytes`` counts the rows
+    as :func:`resolve_hot_cols` counts them (the JAX layout's)."""
+    total = max(1, int(counts.sum()))
+    hot_total = int(counts[hottest_columns(counts, width)].sum()) \
+        if width else 0
+    spec_s = normalize_spec(spec)
+    if width == 0 and spec_s != "auto":
+        spec_s = "off"
+    return {
+        "coverage": float(hot_total / total) if width else 0.0,
+        "residual_mean_nnz": float((total - hot_total) / n) if n else 0.0,
+        "residual_max_nnz": int(residual_max_nnz),
+        "total_nnz": int(counts.sum()),
+        "spec": spec_s,
+        "hot_cols": int(width),
+        "panel_bytes": panel_bytes(width, k, _n_shard(n, k),
+                                   _itemsize(dtype)),
+    }
 
 
 def resolve_hot_cols(spec, data: LibsvmData, k: int, dtype, *,

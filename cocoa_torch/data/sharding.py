@@ -24,6 +24,11 @@ build, while ``n``, ``k`` and ``all_counts`` stay the whole dataset's
 (the certificate divides by n, the scaling laws read K).  Unlike the JAX
 package the row count is not rounded up to a TPU tile, so padded shapes
 may differ from it; the unpadded contents do not.
+
+Each shard is built on the host by :func:`_build_shard_slabs` and copied
+to the device by :func:`assemble`; the whole-file build here, the
+streamed one and the slab cache (data/ingest.py, data/slab_cache.py) all
+go through the two, so their shards are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -38,14 +43,21 @@ from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.device import resolve_device
 
 
-def resolve_layout(data: LibsvmData, layout: str) -> str:
-    """``auto``: sparse below 10% density (rcv1-like), dense otherwise."""
+def resolve_layout_stats(n: int, d: int, nnz: int, layout: str) -> str:
+    """The one place the ``layout="auto"`` rule lives, from the dataset's
+    counts alone (streamed ingest resolves before any shard is parsed):
+    sparse below 10% density (rcv1-like), dense otherwise."""
     if layout not in ("auto", "dense", "sparse"):
         raise ValueError(f"layout must be auto|dense|sparse, got {layout!r}")
     if layout != "auto":
         return layout
-    density = int(data.indptr[-1]) / max(1, data.n * data.num_features)
-    return "sparse" if density < 0.10 else "dense"
+    return "sparse" if nnz / max(1, n * d) < 0.10 else "dense"
+
+
+def resolve_layout(data: LibsvmData, layout: str) -> str:
+    """``layout="auto"`` against a parsed dataset."""
+    return resolve_layout_stats(data.n, data.num_features,
+                                int(data.indptr[-1]), layout)
 
 
 # the dense eval twin's device-memory budget under ``--evalDense=auto``
@@ -103,6 +115,8 @@ class ShardedDataset:
     X_hot: Optional[torch.Tensor] = None       # hybrid: (K, n_shard, n_hot)
     hot_cols: Optional[torch.Tensor] = None    # hybrid: (K, n_hot) int32
     X_eval: Optional[torch.Tensor] = None      # eval twin: (K, n_shard, d)
+    residual_max_nnz: int = 0          # hybrid: its residual's widest row
+                                       # as the ingest measured it
     # a gang's rank: the whole dataset's K, the first global shard it
     # holds, every shard's real rows, and the mesh its sums cross
     k_total: Optional[int] = None
@@ -189,28 +203,167 @@ def gang_fields(k: int, lo: int, hi: int, sizes: np.ndarray,
     return dict(k_total=k, shard_lo=lo, all_counts=sizes.astype(np.int64))
 
 
+# a bfloat16 array on the host: its 16-bit patterns as the 2-byte void
+# type, the form checkpoint.py stores (numpy has no bfloat16)
+BF16_HOST = np.dtype("V2")
+
+
+def _build_np(dtype: torch.dtype):
+    """The precision a slab's float fields are built in: float32 runs
+    build in float32 (each value rounded once on assignment, as a cast
+    would round it); float64 and bfloat16 runs in float64."""
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _finish_np(arr: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """A built float field in the run's dtype: bfloat16 rounded once from
+    float64 by torch's cast and kept as its 16-bit patterns."""
+    if dtype != torch.bfloat16:
+        return arr
+    return (torch.from_numpy(arr).to(torch.bfloat16).view(torch.int16)
+            .numpy().view(BF16_HOST))
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A slab field as a CPU tensor, a ``|V2`` one as bfloat16.  A
+    read-only array (a cache artifact's memmap) is copied first, so
+    torch never holds a view it could write through."""
+    if not arr.flags.writeable:
+        arr = np.array(arr)
+    if arr.dtype == BF16_HOST:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _densify_rows(piece, lo, hi, n_shard, d, np_dtype, row_nnz):
+    """Rows [lo, hi) of the CSR ``piece`` as a zero-padded (n_shard, d)
+    dense slab (a repeated column keeps its last value): the dense layout
+    and the eval twin."""
+    a, b = piece.indptr[lo], piece.indptr[hi]
+    X = np.zeros((n_shard, d), np_dtype)
+    X[np.repeat(np.arange(hi - lo), row_nnz[lo:hi]),
+      piece.indices[a:b]] = piece.values[a:b]
+    return X
+
+
+def _build_shard_slabs(piece, lo, hi, n_shard, layout, dtype, d, width,
+                       row_nnz, row_sq, *, rank=None, n_hot=0,
+                       eval_dense=False) -> dict:
+    """One shard's host arrays (rows [lo, hi) of the CSR ``piece``) in the
+    run's ``dtype``: labels, mask and sq_norms, then the dense ``X``, the
+    padded CSR, or (``n_hot`` > 0) the hot panel and the cold residual,
+    and the eval twin.  ``row_nnz`` and ``row_sq`` (the exact float64
+    sums of squares) index ``piece`` as ``lo`` and ``hi`` do.  Every
+    build (whole file, streamed, cached) makes its shards here, so equal
+    rows give equal bits."""
+    np_dtype = _build_np(dtype)
+    m = hi - lo
+    labels = np.zeros(n_shard, np_dtype)
+    labels[:m] = piece.labels[lo:hi]
+    mask = np.zeros(n_shard, np_dtype)
+    mask[:m] = 1.0
+    sq = np.zeros(n_shard, np_dtype)
+    sq[:m] = row_sq[lo:hi]
+    out = dict(labels=labels, mask=mask, sq_norms=sq)
+    if layout == "dense":
+        out["X"] = _densify_rows(piece, lo, hi, n_shard, d, np_dtype,
+                                 row_nnz)
+    elif n_hot:
+        from cocoa_torch.data import hybrid
+
+        out["X_hot"], out["sp_indices"], out["sp_values"] = \
+            hybrid.split_slab(piece, lo, hi, n_shard, rank, n_hot, width,
+                              np_dtype)
+    else:
+        a, b = piece.indptr[lo], piece.indptr[hi]
+        rows = np.repeat(np.arange(m), row_nnz[lo:hi])
+        cols = np.arange(a, b) - np.repeat(piece.indptr[lo:hi],
+                                           row_nnz[lo:hi])
+        spi = np.zeros((n_shard, width), np.int32)
+        spv = np.zeros((n_shard, width), np_dtype)
+        spi[rows, cols] = piece.indices[a:b]
+        spv[rows, cols] = piece.values[a:b]
+        out["sp_indices"], out["sp_values"] = spi, spv
+    if eval_dense:
+        out["X_eval"] = _densify_rows(piece, lo, hi, n_shard, d, np_dtype,
+                                      row_nnz)
+    return {f: v if f == "sp_indices" else _finish_np(v, dtype)
+            for f, v in out.items()}
+
+
+def assemble(slabs, *, layout: str, n: int, d: int, k: int,
+             sizes: np.ndarray, dtype: torch.dtype, device,
+             part: Optional[tuple], hot_ids=None, n_hot: int = 0,
+             residual_max_nnz: int = 0) -> ShardedDataset:
+    """A rank's :class:`ShardedDataset` from ``slabs``, an iterable of
+    ``(global shard id, slab dict)`` over its shards (in any order): each
+    slab is copied once into its row of the (m, ...) tensors on
+    ``device`` and then dropped, so the host holds one slab at a time."""
+    lo_s, hi_s = part_range(k, part)
+    fields: dict = {}
+    for s, slab in slabs:
+        for f, v in slab.items():
+            t = host_tensor(v)
+            if f not in fields:
+                fields[f] = torch.empty((hi_s - lo_s, *t.shape),
+                                        dtype=t.dtype, device=device)
+            fields[f][s - lo_s].copy_(t)
+    if n_hot:
+        # lanes past the real hot count carry column 0 and value 0
+        hc = np.zeros(n_hot, dtype=np.int32)
+        hc[:len(hot_ids)] = hot_ids
+        fields["hot_cols"] = torch.from_numpy(
+            np.tile(hc[None], (hi_s - lo_s, 1))).to(device)
+    return ShardedDataset(
+        layout=layout, n=n, num_features=d,
+        counts=sizes[lo_s:hi_s].astype(np.int64), **fields,
+        residual_max_nnz=int(residual_max_nnz),
+        **gang_fields(k, lo_s, hi_s, sizes, part))
+
+
+def cached_or_built(view, s: int, build):
+    """Shard ``s`` through the optional slab-cache view
+    (data/slab_cache.py): a valid artifact is used as it is, a miss is
+    built and published."""
+    if view is not None:
+        slab = view.load(s)
+        if slab is not None:
+            return slab
+    slab = build()
+    if view is not None:
+        view.store(s, slab)
+    return slab
+
+
 def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
                   dtype: torch.dtype = torch.float32, device=None,
                   hot_cols: int = 0, eval_dense: bool = False,
-                  part: Optional[tuple] = None) -> ShardedDataset:
+                  part: Optional[tuple] = None,
+                  cache=None, counts=None) -> ShardedDataset:
     """Partition ``data`` into K balanced contiguous shards on ``device``
-    (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA).
-    Host arrays are built in float64 and cast once, so ``sq_norms`` is
-    the exact float64 sum of squares rounded to ``dtype``.
+    (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA), one
+    shard at a time through :func:`_build_shard_slabs`, so ``sq_norms``
+    is the exact float64 sum of squares rounded once to ``dtype``.
 
     ``hot_cols`` > 0 (sparse layout only) builds the hybrid layout with a
     panel of ``pad_panel(min(hot_cols, d))`` lanes over the data's own
     hottest columns (data/hybrid.py), the same split as
-    ``resolve_hot_cols`` measured.
+    ``resolve_hot_cols`` measured; ``counts`` is the data's column
+    histogram (``hybrid.column_counts``) where the caller holds it.  The
+    residual's widest row is kept as ``residual_max_nnz``.
 
     ``eval_dense`` (sparse layout only, hybrid included) adds the dense
-    eval twin ``X_eval``, built one shard at a time on the host.
+    eval twin ``X_eval``.
 
     ``part=(rank, world)`` builds only that rank's shards
     (:func:`part_range`), a pure function of the pair: the hot columns
     still come from the whole file's histogram and the residual's width
     from its widest row, so the result is rows [lo, hi) of the whole
-    build."""
+    build.
+
+    ``cache`` (a ``slab_cache.FileCacheHandle``, ``--ingestCache``)
+    serves each shard from its artifact where one is valid and publishes
+    each shard built, with the hybrid residual's width beside them."""
     device = resolve_device(device)
     n, d = data.n, data.num_features
     layout = resolve_layout(data, layout)
@@ -221,11 +374,11 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     n_shard = int(sizes.max()) if k > 0 else 0
     lo_s, hi_s = part_range(k, part)
-    m_loc = hi_s - lo_s
     row_nnz = np.diff(data.indptr)
     row_sq = segment_sq_norms(data.values, data.indptr)
-    width = max(1, int(row_nnz.max(initial=1)))
-    n_hot = 0
+    width = max(1, int(row_nnz.max(initial=1))) if layout == "sparse" \
+        else 0
+    n_hot, rank, hot_ids, resid_max = 0, None, None, 0
     if hot_cols:
         from cocoa_torch.data import hybrid
 
@@ -233,75 +386,22 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
             raise ValueError("hot_cols (the hot/cold column split) only "
                              "applies to the sparse layout")
         n_hot = hybrid.pad_panel(min(int(hot_cols), d))
-        hot_ids = hybrid.hottest_columns(hybrid.column_counts(data), n_hot)
+        if counts is None:
+            counts = hybrid.column_counts(data)
+        hot_ids = hybrid.hottest_columns(counts, n_hot)
         rank = hybrid.hot_rank(d, hot_ids)
         # the residual is as wide as the largest row's cold nonzeros
-        cold_rows = np.repeat(np.arange(n, dtype=np.int64),
-                              row_nnz)[rank[data.indices] < 0]
-        width = max(1, int(np.bincount(cold_rows, minlength=max(1, n))
-                           .max(initial=0)))
-        # the panel is built in the working precision where that is
-        # float32 (one rounding either way): 427 MB at rcv1-like size
-        hot_np = np.float32 if dtype == torch.float32 else np.float64
-        X_hot = np.zeros((m_loc, n_shard, n_hot), hot_np)
-
-    labels = np.zeros((m_loc, n_shard))
-    mask = np.zeros((m_loc, n_shard))
-    sq = np.zeros((m_loc, n_shard))
-    if layout == "dense":
-        X = np.zeros((m_loc, n_shard, d))
-    else:
-        spi = np.zeros((m_loc, n_shard, width), np.int32)
-        spv = np.zeros((m_loc, n_shard, width))
-    for s in range(m_loc):
-        lo, hi = offsets[lo_s + s], offsets[lo_s + s + 1]
-        m = hi - lo
-        labels[s, :m] = data.labels[lo:hi]
-        mask[s, :m] = 1.0
-        sq[s, :m] = row_sq[lo:hi]
-        a, b = data.indptr[lo], data.indptr[hi]
-        rows = np.repeat(np.arange(m), row_nnz[lo:hi])
-        if layout == "dense":
-            X[s, rows, data.indices[a:b]] = data.values[a:b]
-        elif n_hot:
-            X_hot[s], spi[s], spv[s] = hybrid.split_slab(
-                data, lo, hi, n_shard, rank, n_hot, width, np.float64)
-        else:
-            cols = (np.arange(a, b)
-                    - np.repeat(data.indptr[lo:hi], row_nnz[lo:hi]))
-            spi[s, rows, cols] = data.indices[a:b]
-            spv[s, rows, cols] = data.values[a:b]
-
-    def put(arr, dt=dtype):
-        return torch.from_numpy(arr).to(device=device, dtype=dt)
-
-    extra = {}
-    if eval_dense:
-        # a repeated column keeps its last value, as the dense layout
-        # does; float32 is built as float32 (one rounding either way)
-        twin_np = np.float32 if dtype == torch.float32 else np.float64
-        extra["X_eval"] = torch.empty((m_loc, n_shard, d), dtype=dtype,
-                                      device=device)
-        for s in range(m_loc):
-            lo, hi = offsets[lo_s + s], offsets[lo_s + s + 1]
-            a, b = data.indptr[lo], data.indptr[hi]
-            slab = np.zeros((n_shard, d), twin_np)
-            slab[np.repeat(np.arange(hi - lo), row_nnz[lo:hi]),
-                 data.indices[a:b]] = data.values[a:b]
-            extra["X_eval"][s].copy_(torch.from_numpy(slab))
-    if n_hot:
-        # lanes past the real hot count carry column 0 and value 0
-        hc = np.zeros(n_hot, dtype=np.int32)
-        hc[:len(hot_ids)] = hot_ids
-        extra.update(X_hot=put(X_hot),
-                     hot_cols=put(np.tile(hc[None], (m_loc, 1)),
-                                  torch.int32))
-    return ShardedDataset(
-        layout=layout, n=n, num_features=d,
-        counts=sizes[lo_s:hi_s].astype(np.int64),
-        labels=put(labels), mask=put(mask), sq_norms=put(sq),
-        X=put(X) if layout == "dense" else None,
-        sp_indices=put(spi, torch.int32) if layout == "sparse" else None,
-        sp_values=put(spv) if layout == "sparse" else None,
-        **extra, **gang_fields(k, lo_s, hi_s, sizes, part),
-    )
+        resid_max = hybrid.residual_max_nnz(data, rank)
+        width = max(1, resid_max)
+        if cache is not None:
+            cache.store_hybrid_meta(n_hot, resid_max)
+    view = None if cache is None else cache.view(
+        layout=layout, k=k, n_shard=n_shard, width=width, n_hot=n_hot, d=d,
+        dtype=dtype, eval_dense=eval_dense)
+    slabs = ((s, cached_or_built(view, s, lambda s=s: _build_shard_slabs(
+        data, offsets[s], offsets[s + 1], n_shard, layout, dtype, d, width,
+        row_nnz, row_sq, rank=rank, n_hot=n_hot, eval_dense=eval_dense)))
+        for s in range(lo_s, hi_s))
+    return assemble(slabs, layout=layout, n=n, d=d, k=k, sizes=sizes,
+                    dtype=dtype, device=device, part=part, hot_ids=hot_ids,
+                    n_hot=n_hot, residual_max_nnz=resid_max)

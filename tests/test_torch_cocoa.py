@@ -128,13 +128,17 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
     "--fleetLanes=2", "--statusPort=0", "--fleet=f.jsonl", "--serve=7000",
     "--fp=2"])
 def test_cli_unported_flags_exit_2(flag, capsys):
-    assert cli.main(DEMO_ARGV + ["--device=cpu", flag]) == 2
-    out, err = capsys.readouterr()
     name = flag.lstrip("-").split("=")[0]
-    if name in cli._SERVE_FLAGS or name in cli._FLEET_FLAGS:
+    # the ingest flags are ported: refused beside the lasso, with the JAX
+    # CLI's exit code and message
+    extra = ["--objective=lasso"] if name in cli._INGEST_FLAGS else []
+    assert cli.main(DEMO_ARGV + ["--device=cpu", flag] + extra) == 2
+    out, err = capsys.readouterr()
+    if (name in cli._SERVE_FLAGS or name in cli._FLEET_FLAGS
+            or name in cli._INGEST_FLAGS):
         # the serving and fleet flags are ported: refused beside these
         # training flags with the JAX CLI's exit code and message
-        assert jax_cli.main(DEMO_ARGV + [flag]) == 2
+        assert jax_cli.main(DEMO_ARGV + [flag] + extra) == 2
         assert err == capsys.readouterr().err and err.startswith("error: ")
     else:
         assert f"error: --{name} is not yet ported to cocoa_torch " \
@@ -159,8 +163,8 @@ def test_cli_bad_input_exits_2(change, needle, capsys):
 
 def test_port_imports_no_jax():
     """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py,
-    time_fused_block.py, time_sparse_sdca.py and time_block_round.py
-    import without pulling in jax or cocoa_tpu."""
+    time_fused_block.py, time_sparse_sdca.py, time_block_round.py and
+    probe_ingest_memory.py import without pulling in jax or cocoa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
@@ -168,7 +172,7 @@ def test_port_imports_no_jax():
         "'cocoa_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, time_dense_sdca, time_fused_block, "
-        "time_sparse_sdca, time_block_round\n"
+        "time_sparse_sdca, time_block_round, probe_ingest_memory\n"
         "assert {'cocoa_torch.parallel.distributed', "
         "'cocoa_torch.parallel.mesh'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

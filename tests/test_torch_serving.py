@@ -722,7 +722,7 @@ def test_unported_flags_still_refused_beside_serve(capsys):
         assert cli.main(["--serve", f"--{flag}=1", "--device=cpu"]) == 2
         assert f"--{flag} is not yet ported" in capsys.readouterr().err
     assert not set(cli._SERVE_FLAGS) & set(cli._NOT_PORTED)
-    assert len(cli._NOT_PORTED) == 7
+    assert len(cli._NOT_PORTED) == 5
 
 
 def _spawn_server(argv):
