@@ -314,13 +314,26 @@ stderr); any failed check exits non-zero:
    ``cli.run``: every shard bit for bit across the modes and gang sizes,
    w and alpha across the modes, rows tiling n, a streamed rank of four
    reading under 0.6 of the file in its two passes, and each rank's peak
-   resident set above its level before the ingest, sampled through it.
+   resident set above its level before the ingest, sampled through it;
+22. the elastic supervisor (``--elastic``, ``--stallTimeout``;
+   cocoa_torch/elastic.py) over processes of the CLI: (a) a gang of 2 at
+   K=2 with the slab cache loses worker 1 to SIGKILL after round 100 and
+   reforms at 1 (NCCL, captured), w and alpha bit for bit with the
+   unfailed gang and its eval lines within 1e-6 of the primal, with its
+   events, the victim's dump, the gang gauge, the warm
+   re-ingest, the seconds from the kill to the reformed gang's first
+   round and the rounds lost; (b) K=8 on 4 ranks through the block path
+   shrunk to 2 after one death, within 1e-3 of the unfailed gang, rows
+   tiling n; (c) the CLI as supervisor with --stallTimeout, worker 1
+   SIGSTOPped, restarted at 2 and bit for bit with (a)'s control; (d) the
+   CLI as supervisor from another directory, exit 0, worker 0's lines,
+   CUDA never initialised in either supervisor.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
-included; phase 18's serving runs no kernel of the table; phase 20's
-processes count their own, printed with it), its error
+included; phase 18's serving runs no kernel of the table; phase 20's,
+21's and 22's processes count their own, printed with it), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -6013,6 +6026,455 @@ def phase_ingest(path, card):
     return out
 
 
+# --- phase 22: the elastic supervisor ------------------------------------
+
+ELASTIC_ROUNDS = 400     # rounds of (a) and (c); the kill lands near 100
+ELASTIC_BLOCK_ROUNDS = 300
+ELASTIC_KILL_AT = 100    # the fault fires once CoCoA+ saved this round
+ELASTIC_STALL_S = 45.0   # (c)'s --stallTimeout: past a generation's start
+ELASTIC_TIMEOUT = 400    # s for a CLI supervisor child, then it is killed
+ELASTIC_EVAL_REL = 1e-6  # (a)'s eval lines across the resize, of the
+                         # primal (~8 float32 ulps): a rank sums its m
+                         # shards' eval terms in one reduction, whose
+                         # order changes with m
+
+# One worker of phase 22's in-process supervisors: the CLI's own run on
+# the flags the supervisor gave it; it leaves its kernels' launch counts,
+# its trajectories and its run's facts in $ELASTIC_OUT/<tag>-<pid>.json
+# and exits with the CLI's code.
+ELASTIC_CHILD = r"""
+import json, os, sys
+import torch
+from cocoa_torch import cli
+from cocoa_torch.ops import block_chain as bc
+from cocoa_torch.ops import sparse_block as sb
+from cocoa_torch.ops import sparse_sdca as sp
+from cocoa_torch.utils import prng
+
+COUNTED = {"B1": (sp.sparse_sdca_round, "launches"),
+           "B3": (bc.chain_block_batched, "launches"),
+           "B5": (sb.sparse_block_gram, "launches"),
+           "B6": (sb.sparse_block_apply, "launches"),
+           "D": (prng.draw_tables, "launches")}
+tag = [a for a in sys.argv[1:] if a.startswith("--tag_=")][0][7:]
+argv = [a for a in sys.argv[1:] if not a.startswith("--tag_=")]
+for fn, attr in COUNTED.values():
+    setattr(fn, attr, 0)
+rc, results = cli.run(argv)
+torch.cuda.synchronize()
+flags = dict(a.lstrip("-").partition("=")[::2] for a in argv)
+out = {"rc": rc, "rank": int(flags["processId"]),
+       "world": int(flags["numProcesses"]), "resume": "resume" in flags,
+       "counts": {k: getattr(fn, attr) for k, (fn, attr) in COUNTED.items()},
+       "algs": [{"algorithm": r.algorithm,
+                 "records": [[x.round, x.primal, x.gap] for x in
+                             r.trajectory.records],
+                 "graphs": len(r.trajectory.graphs)} for r in results]}
+with open(os.path.join(os.environ["ELASTIC_OUT"],
+                       f"{tag}-{os.getpid()}.json"), "w") as f:
+    json.dump(out, f)
+sys.exit(rc)
+"""
+
+
+def elastic_argv(path, k, rounds, tag_dir, extra=()):
+    """A supervised run's worker flags on the rcv1-like file: float32,
+    --math=fast, checkpoints every 50 rounds, events, metrics and spans
+    in ``tag_dir``."""
+    return [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            f"--numSplits={k}", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", f"--numRounds={rounds}",
+            "--debugIter=25", "--chkptIter=50", "--justCoCoA=true",
+            f"--chkptDir={tag_dir}/ck", f"--events={tag_dir}/ev.jsonl",
+            f"--metrics={tag_dir}/m.prom", "--trace", *extra]
+
+
+def elastic_reports(out_dir, tag) -> list:
+    """The phase-22 workers' JSON reports of one run, oldest first."""
+    paths = sorted((p for p in Path(out_dir).glob(f"{tag}-*.json")),
+                   key=lambda p: p.stat().st_mtime)
+    return [json.loads(p.read_text()) for p in paths]
+
+
+def elastic_records(path) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def same_final(label, tag_dir, ref_dir, rounds, got_recs, ref_recs,
+               eval_rel=0.0):
+    """w, alpha of the final checkpoints bit for bit, and the eval
+    records of every round both runs evaluated: bit for bit, or primal
+    and gap within ``eval_rel`` of the primal.  Returns the largest
+    difference of an eval line, relative to its primal."""
+    worst = 0.0
+    for alg in ("CoCoA+", "CoCoA"):
+        a = ckpt_arrays(f"{tag_dir}/ck", alg, rounds)
+        b = ckpt_arrays(f"{ref_dir}/ck", alg, rounds)
+        for name in ("w", "alpha"):
+            check(np.array_equal(a[name], b[name]),
+                  f"{label} {alg}: {name} differs from the control's")
+        got = {r[0]: r for r in got_recs[alg]}
+        ref = {r[0]: r for r in ref_recs[alg]}
+        both = sorted(set(got) & set(ref))
+        check(both and both[-1] == rounds,
+              f"{label} {alg}: no common final eval ({sorted(got)})")
+        for t in both:
+            diff = max(abs(got[t][1] - ref[t][1]),
+                       abs(got[t][2] - ref[t][2])) / ref[t][1]
+            worst = max(worst, diff)
+            check(diff <= eval_rel, f"{label} {alg} round {t}: "
+                                    f"{got[t]} vs control {ref[t]}")
+    return worst
+
+
+def records_of(reports) -> dict:
+    """Each algorithm's eval records from the last generation's rank 0."""
+    last = [r for r in reports if r["rank"] == 0][-1]
+    return {a["algorithm"]: a["records"] for a in last["algs"]}
+
+
+def run_supervised(label, argv, n, **kw):
+    """``elastic.supervise`` over ELASTIC_CHILD workers (module
+    chip_elastic_worker on the path); returns (rc, wall s)."""
+    from cocoa_torch import elastic
+
+    t0 = time.perf_counter()
+    rc = elastic.supervise(argv + [f"--tag_={label}"], n,
+                           module="chip_elastic_worker", poll_s=0.05,
+                           **kw)
+    return rc, time.perf_counter() - t0
+
+
+def phase_elastic(path, card):
+    """Phase 22: the elastic supervisor (cocoa_torch/elastic.py) over
+    processes of the CLI on the card.  (a) ``--elastic=2,shrink`` at K=2
+    with --ingestCache, --events, --metrics and --trace: worker 1
+    SIGKILLed once CoCoA+ saved round 100; the gang reforms at 1 (NCCL,
+    captured) and ends on the unfailed gang of 2's w and alpha bit for
+    bit, its eval lines within 1e-6 of the primal; the events, the victim's dump, the gang gauge and the warm re-ingest; the
+    seconds from the kill to the reformed gang's first round and the
+    rounds lost.  (b) K=8 on 4 ranks through the block path (B5, B3, B6),
+    one death, the budget 0: the gang shrinks to 2; the final gaps within
+    1e-3 of the unfailed gang's and the reformed ranks' rows tiling n.
+    (c) the CLI as supervisor in a child process with --stallTimeout and
+    ``shrink``: worker 1 SIGSTOPped; the watchdog restarts the gang at 2
+    and it ends bit for bit with (a)'s control.  (d) the CLI as
+    supervisor in a child process from another directory: exit 0,
+    worker 0's lines, and CUDA never initialised in the supervisor."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _faults import Fault, FaultPlan, checkpoint_at_least
+    from cocoa_torch.telemetry import events as tele_events
+    from cocoa_torch.telemetry.metrics import MetricsWriter
+
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    (base / "chip_elastic_worker.py").write_text(ELASTIC_CHILD)
+    out_dir = base / "reports"
+    out_dir.mkdir()
+    env = {"PYTHONPATH": os.pathsep.join(
+               [str(base), str(ROOT), os.environ.get("PYTHONPATH", "")]),
+           "ELASTIC_OUT": str(out_dir)}
+    dirs = {tag: base / tag for tag in ("a", "a_ref", "b", "b_ref", "c",
+                                        "d")}
+    for d in dirs.values():
+        d.mkdir()
+    n = RCV1_SHAPE[0]
+    argv_a = elastic_argv(path, 2, ELASTIC_ROUNDS, dirs["a"],
+                          (f"--ingestCache={base}/cache_a", "--quiet"))
+    argv_ref = elastic_argv(path, 2, ELASTIC_ROUNDS, dirs["a_ref"],
+                            ("--quiet",))
+    argv_b = elastic_argv(path, 8, ELASTIC_BLOCK_ROUNDS, dirs["b"],
+                          ("--blockSize=128", "--quiet"))
+    argv_b_ref = elastic_argv(path, 8, ELASTIC_BLOCK_ROUNDS, dirs["b_ref"],
+                              ("--blockSize=128", "--quiet"))
+    bus = tele_events.get_bus()
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    threads, boxes = [], {}
+
+    def in_thread(key, fn, *a, **kw):
+        def go():
+            try:
+                boxes[key] = fn(*a, **kw)
+            except BaseException as e:   # reported by the caller's check
+                boxes[key] = e
+        th = threading.Thread(target=go, daemon=True)
+        th.start()
+        threads.append(th)
+
+    def kill_timed(sig, idx, stamp):
+        def act(procs):
+            stamp.append(time.time())
+            procs[idx].send_signal(sig)
+        return act
+
+    with mock.patch.dict(os.environ, env):
+        # --- stage 1: (a) with the two unfailed controls beside it
+        in_thread("a_ref", run_supervised, "a_ref", argv_ref, 2,
+                  max_restarts=0, backoff_base_s=0.0, resume=True)
+        in_thread("b_ref", run_supervised, "b_ref", argv_b_ref, 4,
+                  max_restarts=0, backoff_base_s=0.0, resume=True)
+        killed_a, resumed_a = [], []
+        plan_a = FaultPlan(Fault(
+            generation=0, actions=(kill_timed(signal.SIGKILL, 1, killed_a),),
+            trigger=checkpoint_at_least(dirs["a"] / "ck", "CoCoA+",
+                                        ELASTIC_KILL_AT), name="a"),
+            poll_s=0.005, timeout_s=ELASTIC_TIMEOUT)
+        saved = bus.saved()
+        bus.configure(jsonl_path=str(dirs["a"] / "ev.jsonl"))
+        gang_a = bus.subscribe(MetricsWriter(str(dirs["a"] / "m.prom.gang"),
+                                             families="gang"))
+        try:
+            rc_a, wall_a = run_supervised(
+                "a", argv_a, 2, max_restarts=3, num_splits=2,
+                shrink="now", backoff_base_s=0.0, resume=True,
+                on_generation=plan_a.on_generation,
+                on_restart=lambda *a: resumed_a.append(checkpoint.load(
+                    checkpoint.latest(str(dirs["a"] / "ck"), "CoCoA+"))[0]
+                    ["round"]))
+        finally:
+            gang_a.flush()
+            bus.restore(saved)
+        plan_a.join()
+        for th in threads:
+            th.join(ELASTIC_TIMEOUT)
+        threads.clear()
+        check(rc_a == 0, f"phase 22 (a): supervisor exit {rc_a}")
+        check(plan_a.errors == [] and plan_a.fired == ["a"],
+              f"phase 22 (a): the kill did not fire: {plan_a.errors}")
+        for key in ("a_ref", "b_ref"):
+            check(not isinstance(boxes.get(key), BaseException)
+                  and boxes.get(key, (1,))[0] == 0,
+                  f"phase 22 {key}: {boxes.get(key)}")
+        stage1_s = time.perf_counter() - t_phase
+
+        # --- stage 2: (b) in process, (c) and (d) as CLI children
+        t2 = time.perf_counter()
+        cli_env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        cli_env.pop("ELASTIC_OUT", None)
+        argv_c = elastic_argv(path, 2, ELASTIC_ROUNDS, dirs["c"],
+                              (f"--ingestCache={base}/cache_c",
+                               "--elastic=2,shrink",
+                               f"--stallTimeout={ELASTIC_STALL_S:g}"))
+        argv_d = elastic_argv(path, 2, 100, dirs["d"], ("--elastic=2",))
+        probe = ("import sys, torch\n"
+                 "from cocoa_torch import cli\n"
+                 "rc = cli.main(sys.argv[1:])\n"
+                 "print('SUPERVISOR cuda_initialized=%s'"
+                 " % torch.cuda.is_initialized(), flush=True)\n"
+                 "sys.exit(rc)\n")
+        children = {}
+        for key, argv in (("c", argv_c), ("d", argv_d)):
+            children[key] = subprocess.Popen(
+                [sys.executable, "-c", probe, *argv], cwd=str(dirs[key]),
+                env=cli_env, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)
+            in_thread(key, children[key].communicate,
+                      timeout=ELASTIC_TIMEOUT)
+        stopped_c = []
+
+        def stop_c():
+            """SIGSTOP (c)'s worker 1 once CoCoA+ saved round 100 (its pid
+            from its own event stream)."""
+            ready = checkpoint_at_least(dirs["c"] / "ck", "CoCoA+",
+                                        ELASTIC_KILL_AT)
+            deadline = time.time() + ELASTIC_TIMEOUT
+            while not ready() and time.time() < deadline \
+                    and children["c"].poll() is None:
+                time.sleep(0.005)
+            starts = [r for r in elastic_records(dirs["c"] / "ev.jsonl.p1")
+                      if r["event"] == "run_start"]
+            if ready() and starts:
+                os.kill(starts[0]["pid"], signal.SIGSTOP)
+                stopped_c.extend([starts[0]["pid"], time.time()])
+
+        stopper = threading.Thread(target=stop_c, daemon=True)
+        stopper.start()
+        killed_b = []
+        plan_b = FaultPlan(Fault(
+            generation=0, actions=(kill_timed(signal.SIGKILL, 1, killed_b),),
+            trigger=checkpoint_at_least(dirs["b"] / "ck", "CoCoA+",
+                                        ELASTIC_KILL_AT), name="b"),
+            poll_s=0.005, timeout_s=ELASTIC_TIMEOUT)
+        sizes_b = []
+        rc_b, wall_b = run_supervised(
+            "b", argv_b, 4, max_restarts=0, num_splits=8,
+            shrink="auto", backoff_base_s=0.0, resume=True,
+            on_generation=lambda g, p: (sizes_b.append(len(p)),
+                                        plan_b.on_generation(g, p)))
+        plan_b.join()
+        stopper.join(ELASTIC_TIMEOUT)
+        for th in threads:
+            th.join(ELASTIC_TIMEOUT)
+        for key, child in children.items():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if stopped_c:
+            with contextlib.suppress(OSError):
+                os.kill(stopped_c[0], signal.SIGKILL)
+        stage2_s = time.perf_counter() - t2
+
+    # --- (a): bits, events, dump, gauge, ingest, recovery time
+    reports_a = elastic_reports(out_dir, "a")
+    reports_ref = elastic_reports(out_dir, "a_ref")
+    check([(r["world"], r["rc"]) for r in reports_a] == [(1, 0)],
+          f"phase 22 (a): workers that finished {reports_a and [(r['world'], r['rc']) for r in reports_a]}")
+    check(len(resumed_a) == 1, f"phase 22 (a): restarts {resumed_a}")
+    eval_a = same_final("phase 22 (a)", dirs["a"], dirs["a_ref"],
+                        ELASTIC_ROUNDS, records_of(reports_a),
+                        records_of(reports_ref), ELASTIC_EVAL_REL)
+    ev_a = elastic_records(dirs["a"] / "ev.jsonl")
+    kinds = [r["event"] for r in ev_a]
+    check("restart" in kinds and "gang_resize" in kinds,
+          f"phase 22 (a): no restart/gang_resize event")
+    (resize,) = [r for r in ev_a if r["event"] == "gang_resize"]
+    check((resize["old_size"], resize["new_size"], resize["exit_code"])
+          == (2, 1, -9), f"phase 22 (a): {resize}")
+    frec = elastic_records(dirs["a"] / "ev.jsonl.p1.flightrec")
+    man = frec[0]["flightrec_manifest"]
+    check(man["victim_index"] == 1 and man["scope"] == "victim"
+          and man["exit_code"] == -9 and len(frec) > 1,
+          f"phase 22 (a): the dump does not name worker 1: {man}")
+    gang_text = (dirs["a"] / "m.prom.gang").read_text()
+    check("cocoa_gang_size 1" in gang_text.splitlines(),
+          f"phase 22 (a): {gang_text!r}")
+    ingests = [r for r in ev_a if r["event"] == "ingest"]
+    check(ingests[0]["cache"] == "miss" and ingests[-1]["cache"] == "hit"
+          and ingests[-1]["bytes_read"] == 0,
+          f"phase 22 (a): ingests {ingests}")
+    starts = [r for r in ev_a if r["event"] == "run_start"]
+    reformed = starts[-1]
+    check(reformed["manifest"]["process_count"] == 1
+          and reformed["manifest"]["device_group"] == "nccl",
+          f"phase 22 (a): reformed gang {reformed['manifest']}")
+    last = [r for r in reports_a if r["rank"] == 0][-1]
+    check(all(a["graphs"] > 0 for a in last["algs"]),
+          "phase 22 (a): the reformed gang ran no captured chunk")
+    spans = [r for r in ev_a if r["event"] == "span"
+             and r.get("phase") == "local_solve"]
+    first_new = min(r["start_ts"] for r in spans
+                    if r["pid"] == reformed["pid"])
+    dead_rounds = [r["round"] for r in spans if r["pid"] == starts[0]["pid"]
+                   and r.get("algorithm") == "CoCoA+"]
+    recover_s = first_new - killed_a[0]
+    rounds_lost = max(dead_rounds) - resumed_a[0]
+    check(0 <= rounds_lost < ELASTIC_ROUNDS, f"phase 22 (a): rounds lost "
+                                             f"{rounds_lost}")
+    out["a"] = {"wall_s": wall_a, "recover_s": recover_s, "eval_rel": eval_a,
+                "resumed_from": resumed_a[0], "dead_last_round":
+                max(dead_rounds), "rounds_lost": rounds_lost,
+                "counts": [r["counts"] for r in reports_a + reports_ref]}
+
+    # --- (b): the block path shrunk from 4 to 2
+    check(rc_b == 0, f"phase 22 (b): supervisor exit {rc_b}")
+    check(plan_b.errors == [] and plan_b.fired == ["b"],
+          f"phase 22 (b): the kill did not fire: {plan_b.errors}")
+    check(sizes_b == [4, 2], f"phase 22 (b): gang sizes {sizes_b}")
+    reports_b = elastic_reports(out_dir, "b")
+    reports_b_ref = elastic_reports(out_dir, "b_ref")
+    check(sorted((r["world"], r["rank"], r["rc"]) for r in reports_b)
+          == [(2, 0, 0), (2, 1, 0)], f"phase 22 (b): {reports_b}")
+    recs_b, recs_ref = records_of(reports_b), records_of(reports_b_ref)
+    rel_b = 0.0
+    for alg in ("CoCoA+", "CoCoA"):
+        g, r = recs_b[alg][-1], recs_ref[alg][-1]
+        check(g[0] == r[0] == ELASTIC_BLOCK_ROUNDS,
+              f"phase 22 (b) {alg}: final rounds {g[0]}, {r[0]}")
+        rel = abs(g[2] - r[2]) / abs(r[2])
+        rel_b = max(rel_b, rel)
+        check(rel <= GANG_REL, f"phase 22 (b) {alg}: gap {g[2]} vs "
+                               f"control {r[2]} (rel {rel:.2e})")
+    for rep in reports_b + reports_b_ref:
+        check(all(rep["counts"][k] > 0 for k in ("B3", "B5", "B6", "D")),
+              f"phase 22 (b): a worker ran no block kernel: "
+              f"{rep['counts']}")
+    rows = 0
+    for rank in range(2):
+        stream = dirs["b"] / ("ev.jsonl" if rank == 0 else
+                              f"ev.jsonl.p{rank}")
+        rows += [r for r in elastic_records(stream)
+                 if r["event"] == "ingest"][-1]["rows"]
+    check(rows == n, f"phase 22 (b): the reformed ranks parsed {rows} "
+                     f"rows of {n}")
+    out["b"] = {"wall_s": wall_b, "rel_gap": rel_b, "rows": rows,
+                "counts": [r["counts"] for r in reports_b + reports_b_ref]}
+    for rep in reports_a + reports_ref:
+        check(rep["counts"]["B1"] > 0 and rep["counts"]["D"] > 0,
+              f"phase 22 (a): a worker ran no B1: {rep['counts']}")
+
+    # --- (c): the stall watchdog through the CLI
+    rc_c = children["c"].returncode
+    o_c, e_c = boxes["c"] if isinstance(boxes.get("c"), tuple) else ("", "")
+    (OUT / "chip_smoke_elastic_c.log").write_text(o_c + e_c)
+    check(rc_c == 0, f"phase 22 (c): exit {rc_c}: {e_c[-3000:]}")
+    check(len(stopped_c) == 2, "phase 22 (c): worker 1 was never stopped")
+    ev_c = elastic_records(dirs["c"] / "ev.jsonl")
+    check([r["reason"] for r in ev_c if r["event"] == "restart"]
+          == ["gang_stalled"], "phase 22 (c): not one stalled restart")
+    check(not [r for r in ev_c if r["event"] == "gang_resize"],
+          "phase 22 (c): the stall shrank the gang")
+    check("SUPERVISOR cuda_initialized=False" in o_c,
+          "phase 22 (c): the supervisor initialised CUDA")
+    for alg in ("CoCoA+", "CoCoA"):
+        a = ckpt_arrays(f"{dirs['c']}/ck", alg, ELASTIC_ROUNDS)
+        b = ckpt_arrays(f"{dirs['a_ref']}/ck", alg, ELASTIC_ROUNDS)
+        for name in ("w", "alpha"):
+            check(np.array_equal(a[name], b[name]),
+                  f"phase 22 (c) {alg}: {name} differs from (a)'s control")
+    gaps_c = {r["algorithm"]: r.get("gap") for r in ev_c
+              if r["event"] == "run_end"}
+    gaps_ref = {r["algorithm"]: r.get("gap") for r in
+                elastic_records(dirs["a_ref"] / "ev.jsonl")
+                if r["event"] == "run_end"}
+    check(gaps_c == gaps_ref, f"phase 22 (c): gaps {gaps_c} vs {gaps_ref}")
+    restart_c = [r for r in ev_c if r["event"] == "restart"][0]
+    out["c"] = {"stopped_to_restart_s": restart_c["ts"] - stopped_c[1]}
+
+    # --- (d): the CLI supervisor from another directory
+    rc_d = children["d"].returncode
+    o_d, e_d = boxes["d"] if isinstance(boxes.get("d"), tuple) else ("", "")
+    (OUT / "chip_smoke_elastic_d.log").write_text(o_d + e_d)
+    check(rc_d == 0, f"phase 22 (d): exit {rc_d}: {e_d[-3000:]}")
+    check("SUPERVISOR cuda_initialized=False" in o_d,
+          "phase 22 (d): the supervisor initialised CUDA")
+    for line in ("gang: rank 0 of 2 on cuda:0, device group gloo",
+                 "CoCoA+ has finished running", "CoCoA has finished running"):
+        check(line in o_d, f"phase 22 (d): no {line!r} in worker 0's lines")
+    out["d"] = {"lines": len(o_d.splitlines())}
+    out.update(stage1_s=stage1_s, stage2_s=stage2_s,
+               phase_s=time.perf_counter() - t_phase)
+    launched = {k: sum(c[k] for c in out["a"]["counts"] + out["b"]["counts"])
+                for k in ("B1", "B3", "B5", "B6", "D")}
+    out["launched"] = launched
+    print(f"phase 22 (a): worker 1 SIGKILLed after CoCoA+ saved round "
+          f"{ELASTIC_KILL_AT}: the gang of 2 (gloo, eager) reformed at 1 "
+          f"(nccl, captured) from round {resumed_a[0]}, w and alpha bit for "
+          f"bit with the unfailed gang, its eval lines within "
+          f"{eval_a:.2e} of the primal (bound {ELASTIC_EVAL_REL:g}); kill "
+          f"to the "
+          f"reformed gang's first round {recover_s:.3f} s, rounds lost "
+          f"{rounds_lost} (the dead gang reached round {max(dead_rounds)});"
+          f" restart and gang_resize events, .p1.flightrec names worker 1,"
+          f" cocoa_gang_size 1, the reformed ingest a hit of 0 bytes; "
+          f"supervised run {wall_a:.1f} s; card {card}")
+    print(f"phase 22 (b): K=8 block path (B5, B3, B6) on 4 ranks, worker 1 "
+          f"SIGKILLed, budget 0: reformed at 2, final gaps within "
+          f"{rel_b:.2e} of the unfailed gang's (bound {GANG_REL:g}), the "
+          f"reformed ranks' rows {rows} of {n}; {wall_b:.1f} s; card {card}")
+    print(f"phase 22 (c): the CLI supervisor with --stallTimeout="
+          f"{ELASTIC_STALL_S:g}, worker 1 SIGSTOPped: restarted at 2 after "
+          f"{out['c']['stopped_to_restart_s']:.1f} s, bit for bit with "
+          f"(a)'s control; (d): the CLI supervisor from another directory "
+          f"exits 0 with worker 0's lines; CUDA never initialised in either "
+          f"supervisor; stages {stage1_s:.1f} + {stage2_s:.1f} s; "
+          f"launches in the workers that finished: " + ", ".join(
+              f"{k} {v}" for k, v in launched.items()) + f"; card {card}")
+    tmp.cleanup()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -6493,9 +6955,16 @@ def main() -> int:
     # --- phase 21: streamed ingest and the slab cache
     t0 = time.perf_counter()
     ingest21 = phase_ingest(path, card)
-    tmp.cleanup()
     print(f"phase 21: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase21.json").write_text(json.dumps(ingest21,
+                                                            default=str))
+
+    # --- phase 22: the elastic supervisor
+    t0 = time.perf_counter()
+    elastic22 = phase_elastic(path, card)
+    tmp.cleanup()
+    print(f"phase 22: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase22.json").write_text(json.dumps(elastic22,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
@@ -6583,7 +7052,11 @@ def main() -> int:
     for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
                                 "D")):
         row["launches"] += launched20.get(name, 0) + \
-            ingest21["launched"].get(name, 0)
+            ingest21["launched"].get(name, 0) + \
+            elastic22["launched"].get(name, 0)
+    print("phase 22 launches (the supervised workers that finished), in "
+          "the counts below: " + ", ".join(
+              f"{name} {v}" for name, v in elastic22["launched"].items()))
     print("phase 21 launches (in-process runs and the gang's children), in "
           "the counts below: " + ", ".join(
               f"{name} {v}" for name, v in ingest21["launched"].items()))

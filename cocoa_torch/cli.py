@@ -18,6 +18,7 @@
         [--events=P [--eventsMaxMB=<int>] [--flightRecorder=auto|on|off]]
         [--metrics=P [--metricsInterval=<s>]] [--trace]
         [--profile=DIR[,START,STOP]]
+        [--elastic=N[,shrink][,devices=1] [--stallTimeout=<s>]]
 
     python -m cocoa_torch.cli --serve[=PORT] --chkptDir=D --numFeatures=N
         [--serveBatch=64,256,1024] [--serveSlaMs=50] [--serveMaxNnz=<n>]
@@ -108,6 +109,15 @@ processes (``--serveRoute``), ``--traceSample`` and the ``--statusPort``
 ops plane; any training flag beside it exits 2 with the JAX CLI's
 message.
 
+``--elastic=N`` (or ``N,shrink``, or ``shrink`` with ``--numProcesses``)
+turns the process into the supervisor of a gang of N workers of this
+CLI (cocoa_torch/elastic.py): it resolves no device and joins no gang,
+relaunches the gang from the latest checkpoint when a worker dies,
+reforms it at fewer workers after its restart budget (at the first
+loss with ``shrink``), and with ``--stallTimeout=<s>`` also restarts a
+gang whose checkpoints and metrics stop moving; its events join
+``--events``, its gauges ``<metrics>.gang``.
+
 ``--fleet`` (cocoa_torch/data/fleet.py, solvers/fleet.py) trains every
 tenant of a schema-validated JSONL manifest (its own dataset ref,
 lambda and gap target) through one loop on the card, one captured graph
@@ -175,8 +185,11 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    eventsMaxMB="events_max_mb",
                    metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
-_NOT_PORTED = ("fp", "elastic", "stallTimeout", "overlapComm",
-               "staleRounds")
+_NOT_PORTED = ("fp", "overlapComm", "staleRounds")
+# the elastic supervisor's flags (``--elastic``, ``--stallTimeout``): no
+# RunConfig field, read from the flags given; the supervisor strips them
+# from its workers' command line (elastic.py ``strip_elastic_flags``)
+_ELASTIC_FLAGS = ("elastic", "stallTimeout")
 # how the training text reaches the device (``--ingest``) and the slab
 # cache (``--ingestCache``): no RunConfig field, read from the flags given
 _INGEST_FLAGS = ("ingest", "ingestCache")
@@ -235,7 +248,7 @@ def parse_args(argv: list[str]):
             unported.append(key)
             continue
         if (key in _SERVE_FLAGS or key in _FLEET_FLAGS or key in _GANG_FLAGS
-                or key in _INGEST_FLAGS):
+                or key in _INGEST_FLAGS or key in _ELASTIC_FLAGS):
             continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
@@ -958,11 +971,19 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         print(f"error: --{unported[0]} is not yet ported to cocoa_torch "
               f"(ROADMAP Queue A)", file=sys.stderr)
         return 2, []
+    given = getattr(cfg, "_given", {})
     try:
         tel = _telemetry_flags(cfg)
         fleet_lanes = _fleet_checks(cfg)
         serve_flag = _serve_checks(cfg)
-        device = resolve_device(cfg.device)
+        if given.get("stallTimeout") and not given.get("elastic"):
+            # without a supervisor nothing acts on the timeout
+            raise ValueError("--stallTimeout only acts under --elastic=N "
+                             "(the supervisor is what kills and restarts "
+                             "a wedged gang)")
+        # the supervisor resolves no device: the cards are its workers'
+        device = (None if given.get("elastic")
+                  else resolve_device(cfg.device))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -978,11 +999,15 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
         device_loop = _device_loop(cfg)
-        resume = _resume(cfg)
         # (dir, start, stop) with the JAX CLI's messages
         # (cocoa_tpu/cli.py:610-624)
         profile = (profiling.parse_profile_flag(cfg.profile) if cfg.profile
                    else (None, None, None))
+        if given.get("elastic"):
+            # this process becomes the gang's supervisor, before any
+            # device, shard or rendezvous
+            return _elastic(cfg, tel, argv), []
+        resume = _resume(cfg)
         gang = _gang_args(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -1001,6 +1026,164 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     finally:
         if mesh is not None:
             distributed.shutdown()
+
+
+# --- the elastic supervisor (--elastic, --stallTimeout) -----------------
+
+
+def _elastic_spec(cfg: RunConfig) -> tuple:
+    """(workers, shrink mode: auto | now) from ``--elastic=N[,shrink]
+    [,devices=D]`` (or ``shrink`` with ``--numProcesses``), with the JAX
+    CLI's rules and messages (cocoa_tpu/cli.py:767-816).  ``devices=D``
+    above 1 names several cards in one worker process, which the port
+    does not run: its workers own one device each."""
+    given = cfg._given
+    shrink, n_workers, devices = "auto", None, 1
+    for part in str(given["elastic"]).split(","):
+        part = part.strip()
+        if part == "shrink":
+            shrink = "now"
+        elif part.startswith("devices="):
+            # declared, never probed: the supervisor touches no device
+            try:
+                devices = int(part[len("devices="):])
+            except ValueError:
+                devices = 0
+            if devices < 1:
+                raise ValueError(f"--elastic devices= takes a positive "
+                                 f"per-worker device count, got {part!r}")
+            if devices > 1:
+                raise ValueError(f"--elastic {part}: a port worker drives "
+                                 f"one card (one rank a device); several "
+                                 f"cards in one process are not run "
+                                 f"(ROADMAP, configurations the port does "
+                                 f"not run) — use devices=1 and one worker "
+                                 f"a card")
+        elif part:
+            try:
+                n_workers = int(part)
+            except ValueError:
+                raise ValueError(
+                    "--elastic takes an integer worker count and/or "
+                    "'shrink' and/or 'devices=D' (--elastic=4, "
+                    "--elastic=4,shrink, --elastic=shrink, "
+                    "--elastic=4,shrink,devices=4), got "
+                    f"{given['elastic']!r}") from None
+    if n_workers is None:
+        # bare shrink: the gang's size is --numProcesses
+        if not given.get("numProcesses"):
+            raise ValueError("--elastic=shrink needs a gang size; pass "
+                             "--elastic=N,shrink or add --numProcesses=N")
+        try:
+            n_workers = int(given["numProcesses"])
+        except ValueError:
+            raise ValueError("--numProcesses must be an integer") from None
+    if n_workers < 1:
+        raise ValueError("--elastic needs at least 1 worker")
+    return n_workers, shrink
+
+
+def _stall_timeout(cfg: RunConfig, tel: _Telemetry) -> Optional[float]:
+    """``--stallTimeout`` in seconds (None without it), with the JAX
+    CLI's checks, messages and two warnings (cocoa_tpu/cli.py:870-914):
+    the watchdog reads checkpoint or metrics progress, cannot tell a
+    slow start from a wedge under 120 s, and is blinded by a
+    ``--metricsInterval`` near the timeout."""
+    raw = cfg._given.get("stallTimeout")
+    if not raw:
+        return None
+    try:
+        stall = float(raw)
+    except ValueError:
+        raise ValueError(f"--stallTimeout must be seconds (float), got "
+                         f"{raw!r}") from None
+    if stall <= 0:
+        raise ValueError("--stallTimeout must be > 0")
+    if not cfg.chkpt_dir and not cfg.metrics:
+        raise ValueError("--stallTimeout watches checkpoint/metrics "
+                         "progress — it needs --chkptDir or --metrics")
+    if stall < 120:
+        print(f"warning: --stallTimeout={stall:g}s is shorter than a "
+              f"typical first-compile + first-checkpoint budget; healthy "
+              f"gangs may be killed as stalled — consider >= 120s (and a "
+              f"--chkptIter the gang can reach within the timeout)",
+              file=sys.stderr)
+    interval = tel.metrics_interval
+    if cfg.metrics and interval > 0 and interval * 2 > stall:
+        print(f"warning: --metricsInterval={interval:g}s debounces the "
+              f"metrics progress signal the --stallTimeout={stall:g}s "
+              f"watchdog reads; keep the interval well under half the "
+              f"timeout (or rely on --chkptDir progress)", file=sys.stderr)
+    return stall
+
+
+def _progress_token(cfg: RunConfig):
+    """The supervisor's progress signal, as the JAX CLI's
+    (cocoa_tpu/cli.py:845-868): the sorted ``.npz`` names in
+    ``--chkptDir`` and the text of worker 0's ``--metrics`` file (which
+    moves at every eval), None when neither exists."""
+    def token():
+        ckpts = None
+        if cfg.chkpt_dir and os.path.isdir(cfg.chkpt_dir):
+            ckpts = tuple(sorted(f for f in os.listdir(cfg.chkpt_dir)
+                                 if f.endswith(".npz")))
+        metrics = None
+        if cfg.metrics:
+            try:
+                with open(cfg.metrics) as f:
+                    metrics = f.read()
+            except OSError:
+                pass
+        if ckpts is None and metrics is None:
+            return None
+        return (ckpts, metrics)
+    return token
+
+
+def _elastic(cfg: RunConfig, tel: _Telemetry, argv: list) -> int:
+    """The ``--elastic`` run, in the JAX CLI's order and words
+    (cocoa_tpu/cli.py:626-633, 752-953): this process supervises a gang
+    of port workers (elastic.py) and touches no device.  Its restart and
+    resize events join ``--events`` (worker 0's file), its gauges go to
+    ``<metrics>.gang``, its spans ride ``--trace``; the bus and the tracer
+    are put back when it returns."""
+    from cocoa_torch import elastic
+    from cocoa_torch.telemetry.metrics import MetricsWriter
+
+    if not cfg.train_file:
+        raise ValueError("--trainFile is required")
+    if cfg.num_features <= 0:
+        raise ValueError("--numFeatures must be positive")
+    n_workers, shrink = _elastic_spec(cfg)
+    if not cfg.chkpt_dir:
+        print("warning: --elastic without --chkptDir restarts from round 1 "
+              "on failure (no checkpoints to resume from)", file=sys.stderr)
+    stall = _stall_timeout(cfg, tel)
+    bus, tracer = tele_events.get_bus(), tracing.get_tracer()
+    saved, traced = bus.saved(), (tracer.enabled, tracer.worker)
+    gang_writer = None
+    try:
+        if cfg.events or cfg.metrics:
+            # no cap here: worker 0 owns the file's rotation
+            bus.configure(jsonl_path=cfg.events)
+            if cfg.metrics:
+                gang_writer = bus.subscribe(MetricsWriter(
+                    cfg.metrics + ".gang", families="gang",
+                    flush_interval_s=tel.metrics_interval))
+            if tel.trace:
+                # no worker tag: trace_report places these spans by pid
+                tracer.configure(enabled=True)
+        return elastic.supervise(
+            elastic.strip_elastic_flags(argv), n_workers,
+            resume=bool(cfg.chkpt_dir), progress_token=_progress_token(cfg),
+            stall_timeout_s=stall, num_splits=cfg.num_splits,
+            shrink=shrink, devices_per_worker=1)
+    finally:
+        if gang_writer is not None:
+            gang_writer.flush()
+            gang_writer.stop_heartbeat()
+        bus.restore(saved)
+        tracer.enabled, tracer.worker = traced
 
 
 def _gang_args(cfg: RunConfig):
@@ -1201,9 +1384,12 @@ def _echo(cfg: RunConfig) -> None:
 # --- fleet training (--fleet) --------------------------------------------
 
 # flags that cannot mean anything on the fleet's one loop over tenants,
-# with the JAX CLI's pointers (cocoa_tpu/cli.py:410-436); its --elastic
-# pointer comes with that flag, which the port refuses before this
+# with the JAX CLI's pointers (cocoa_tpu/cli.py:410-436)
 _FLEET_REJECTED = {
+    "elastic": "the elastic supervisor gang-restarts one model's training; "
+               "a fleet is thousands of independent models in one dispatch "
+               "— shrinking a gang mid-fleet has no defined tenant "
+               "semantics (docs/DESIGN.md §16)",
     "resume": "fleet checkpoint/resume is not in the v1 surface",
     "warmStart": "the warm-start loss handoff is a solo-path schedule; "
                  "fleets share one loss phase (docs/DESIGN.md §16)",
@@ -1460,9 +1646,12 @@ _SERVE_ALLOWED = frozenset((
     "hotCols", "quiet", "metrics", "events", "trace", "flightRecorder",
     "eventsMaxMB", "metricsInterval", "seed", "traceSample", "statusPort",
     "device"))
-# the JAX CLI's pointers for these flags (its --elastic pointer comes
-# with that flag, which the port refuses before this)
+# the JAX CLI's pointers for these flags
 _SERVE_POINTERS = {
+    "elastic": "supervise the background TRAINER with --elastic and point "
+               "--serve's --chkptDir at its checkpoints — the server must "
+               "stay outside the gang so a resize can never wedge a query "
+               "(docs/DESIGN.md §17)",
     "sigmaSchedule": "σ′ schedules belong to the trainer process "
                      "(--sigmaSchedule=trial is a training A/B control; "
                      "the server only reads validated checkpoints)",

@@ -130,14 +130,18 @@ def test_library_without_cuda_refuses_to_run(tiny_data):
 def test_cli_unported_flags_exit_2(flag, capsys):
     name = flag.lstrip("-").split("=")[0]
     # the ingest flags are ported: refused beside the lasso, with the JAX
-    # CLI's exit code and message
-    extra = ["--objective=lasso"] if name in cli._INGEST_FLAGS else []
+    # CLI's exit code and message; --elastic is ported: refused with a
+    # timeout of 0 (no gang starts), and --stallTimeout without it
+    extra = {"ingest": ["--objective=lasso"],
+             "ingestCache": ["--objective=lasso"],
+             "elastic": ["--stallTimeout=0", "--chkptDir=ck"]}.get(name, [])
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag] + extra) == 2
     out, err = capsys.readouterr()
     if (name in cli._SERVE_FLAGS or name in cli._FLEET_FLAGS
-            or name in cli._INGEST_FLAGS):
-        # the serving and fleet flags are ported: refused beside these
-        # training flags with the JAX CLI's exit code and message
+            or name in cli._INGEST_FLAGS or name in cli._ELASTIC_FLAGS):
+        # the serving, fleet, ingest and elastic flags are ported: refused
+        # beside these training flags with the JAX CLI's exit code and
+        # message
         assert jax_cli.main(DEMO_ARGV + [flag] + extra) == 2
         assert err == capsys.readouterr().err and err.startswith("error: ")
     else:
@@ -163,8 +167,11 @@ def test_cli_bad_input_exits_2(change, needle, capsys):
 
 def test_port_imports_no_jax():
     """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py,
-    time_fused_block.py, time_sparse_sdca.py, time_block_round.py and
-    probe_ingest_memory.py import without pulling in jax or cocoa_tpu."""
+    time_fused_block.py, time_sparse_sdca.py, time_block_round.py,
+    probe_ingest_memory.py and the toy gang worker of the supervisor's
+    tests (tests/torch_elastic_worker.py, one round run, and the fault
+    plans of tests/_faults.py) import without pulling in jax or
+    cocoa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
@@ -173,6 +180,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, time_dense_sdca, time_fused_block, "
         "time_sparse_sdca, time_block_round, probe_ingest_memory\n"
+        "import cocoa_torch.elastic\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_elastic_worker, _faults\n"
+        "torch_elastic_worker.main(['--numSplits=2', '--numRounds=1', "
+        "'--stepSeconds=0'])\n"
         "assert {'cocoa_torch.parallel.distributed', "
         "'cocoa_torch.parallel.mesh'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -182,4 +194,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"

@@ -6,8 +6,8 @@ exit code from the port, and a float64 manifest through both with the
 same per-tenant lines and ``--trajOut`` rows.
 
 Flags the port does not support yet (``--mesh``, ``--fp``,
-``--elastic``, ``--staleRounds``, ``--overlapComm``) keep the port's own
-refusal beside ``--fleet`` (ROADMAP Queue A 6).
+``--staleRounds``, ``--overlapComm``) keep the port's own refusal
+beside ``--fleet`` (ROADMAP Queue A); ``--elastic`` gets the JAX CLI's.
 
 The JAX fleet stages lambda*n and 1/n in float32 even at
 ``--dtype=float64`` (cocoa_tpu/solvers/fleet.py:162-175), so its float64
@@ -84,10 +84,11 @@ HARDENING = [
     (["--serve=0"], "separate processes"),
     (["--loss=logistic"], "drop --loss=logistic"),
     (["--sigmaSchedule=bogus"], "trial|anneal"),
+    (["--elastic=2"], "tenant semantics"),
 ]
 # the JAX CLI's rows whose flag the port does not support yet
-UNPORTED = [["--elastic=2"], ["--staleRounds=1"], ["--overlapComm=on"],
-            ["--mesh=4"], ["--fp=2"]]
+UNPORTED = [["--staleRounds=1"], ["--overlapComm=on"], ["--mesh=4"],
+            ["--fp=2"]]
 
 
 @pytest.mark.parametrize("extra,needle", HARDENING,

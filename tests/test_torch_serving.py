@@ -722,7 +722,13 @@ def test_unported_flags_still_refused_beside_serve(capsys):
         assert cli.main(["--serve", f"--{flag}=1", "--device=cpu"]) == 2
         assert f"--{flag} is not yet ported" in capsys.readouterr().err
     assert not set(cli._SERVE_FLAGS) & set(cli._NOT_PORTED)
-    assert len(cli._NOT_PORTED) == 5
+    assert len(cli._NOT_PORTED) == 3
+    # --elastic is ported: beside --serve it gets the JAX CLI's pointer
+    assert jax_cli.main(["--serve", "--elastic=1"]) == 2
+    want = capsys.readouterr().err
+    assert cli.main(["--serve", "--elastic=1", "--device=cpu"]) == 2
+    assert capsys.readouterr().err == want
+    assert want.startswith("error: --elastic does not combine with --serve")
 
 
 def _spawn_server(argv):
