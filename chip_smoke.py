@@ -327,13 +327,28 @@ stderr); any failed check exits non-zero:
    tiling n; (c) the CLI as supervisor with --stallTimeout, worker 1
    SIGSTOPped, restarted at 2 and bit for bit with (a)'s control; (d) the
    CLI as supervisor from another directory, exit 0, worker 0's lines,
-   CUDA never initialised in either supervisor.
+   CUDA never initialised in either supervisor;
+23. overlapped exchanges and bounded staleness: (a) the rcv1-like set
+   through the CLI's device loop to the 1e-4 gap, saving at least 4
+   times, --overlapComm off, on, on, off (the write on a thread): every
+   generation's w, alpha and sched vector (read back from its file), the
+   final w and alpha, the fetches, the saves and the stop round equal,
+   with the seconds to the gap and the host seconds a save boundary
+   holds the loop; (b) the real-math gang harness
+   (tests/torch_elastic_worker.py --real=cocoa) as two ranks over gloo
+   on the card, float64, K=4 x 8192 x 2000, each local solve one B2
+   launch: the control and --overlapComm=on --staleRounds=0 bit for bit,
+   then under a rotating straggler the control and --overlapComm=on
+   --staleRounds=1, both certifying, the stale run within 1.25x the
+   control's rounds, no join later than 1, the exchange slack of both,
+   ms a round and B2's launches; (c) B2 on the harness's round against
+   its plain version in float64 and float32, with its time.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
 included; phase 18's serving runs no kernel of the table; phase 20's,
-21's and 22's processes count their own, printed with it), its error
+21's, 22's and 23's processes count their own, printed with it), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -6475,6 +6490,400 @@ def phase_elastic(path, card):
     return out
 
 
+# --- phase 23: overlapped exchanges and bounded staleness ------------------
+
+OVERLAP_ROUNDS = 3000    # (a)'s cap: the runs stop at the gap before it
+OVERLAP_SAVES = 8        # (a)'s --chkptIter puts about this many saves in
+                         # the shorter algorithm's run
+STALE_SHAPE = (4, 8192, 2000)   # (b), (c): K, rows a shard (= H), d
+STALE_LAMBDA = 5e-5      # (b): the control certifies 1e-4 in 60-200 rounds
+                         # (a single CPU process of the harness at this
+                         # shape: 100 rounds; 50 at 1e-4, 170 at 3e-5)
+STALE_ROUNDS = 400       # (b)'s cap
+STALE_EVAL = 10          # (b)'s --debugIter (and --chkptIter)
+STALE_TIMEOUT = 300      # s for one of (b)'s gangs, then it is killed
+STALE_SLACK_BAR = 0.40   # the JAX package's exchange-slack drop (reported)
+
+# One worker of phase 23 (b): the real-math gang harness
+# (tests/torch_elastic_worker.py --real=cocoa) on the flags the supervisor
+# gave it; it leaves its B2 launches and its seconds in
+# $STALE_OUT/<tag>-<pid>.json and exits with the harness's code.
+STALE_CHILD = r"""
+import json, os, sys, time
+import torch
+import torch_elastic_worker as harness
+from cocoa_torch.ops import dense_sdca as dn
+
+tag = [a for a in sys.argv[1:] if a.startswith("--tag_=")][0][7:]
+argv = [a for a in sys.argv[1:] if not a.startswith("--tag_=")]
+dn.dense_sdca_round.launches = 0
+t0 = time.perf_counter()
+rc = harness.main(argv)
+torch.cuda.synchronize()
+flags = dict(a.lstrip("-").partition("=")[::2] for a in argv)
+out = {"rc": rc, "rank": int(flags["processId"]),
+       "launches": dn.dense_sdca_round.launches,
+       "s": time.perf_counter() - t0}
+with open(os.path.join(os.environ["STALE_OUT"],
+                       f"{tag}-{os.getpid()}.json"), "w") as f:
+    json.dump(out, f)
+sys.exit(rc)
+"""
+
+
+def overlap_argv(path, ckdir, chkpt_iter, overlap):
+    """(a)'s run: the rcv1-like file through the CLI's device loop to the
+    1e-4 gap, CoCoA+ then CoCoA, float32, --math=fast; with ``ckdir``
+    saving every ``chkpt_iter`` rounds, the write overlapped or not."""
+    argv = [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", f"--numRounds={OVERLAP_ROUNDS}",
+            "--debugIter=25", "--deviceLoop", f"--gapTarget={GAP_TARGET}",
+            "--quiet"]
+    if ckdir:
+        argv += [f"--chkptDir={ckdir}", f"--chkptIter={chkpt_iter}",
+                 f"--overlapComm={'on' if overlap else 'off'}"]
+    return argv
+
+
+def sha_array(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def save_probe():
+    """Each checkpoint written, read back from its file (algorithm, round,
+    digests of w and alpha, the sched vector), and the host seconds each
+    save boundary held the loop: a synchronous save, or the snapshot and
+    the handoff to the writer thread."""
+    gens, holds, starts = [], [], []
+    real_save, real_sync = checkpoint.save, base.save_checkpoint
+    real_args, real_writer = base._save_args, base._Writer
+
+    def save(*a, **kw):
+        path = real_save(*a, **kw)
+        meta, arrays = checkpoint.load_full(path)
+        gens.append((meta["algorithm"], meta["round"],
+                     sha_array(arrays["w"]), sha_array(arrays["alpha"]),
+                     tuple(meta.get("sched") or ())))
+        return path
+
+    def sync(*a, **kw):
+        t0 = time.perf_counter()
+        real_sync(*a, **kw)
+        holds.append(time.perf_counter() - t0)
+
+    def save_args(*a, **kw):
+        starts.append(time.perf_counter())
+        return real_args(*a, **kw)
+
+    class Writer(real_writer):
+        def __init__(self, args, kw):
+            super().__init__(args, kw)
+            holds.append(time.perf_counter() - starts[-1])
+
+    with mock.patch.object(checkpoint, "save", save), \
+            mock.patch.object(base, "save_checkpoint", sync), \
+            mock.patch.object(base, "_save_args", save_args), \
+            mock.patch.object(base, "_Writer", Writer):
+        yield gens, holds
+
+
+def phase_overlap_io(path, card):
+    """(a) --overlapComm's checkpoint write on a thread, through the CLI at
+    full width: the rcv1-like device loop to the 1e-4 gap, saving every
+    chkptIter rounds (>= 4 saves), --overlapComm off, on, on, off.  Every
+    generation written (w, alpha, the sched vector, read back from its
+    file), the final w and alpha, the fetches, the saves and the stop
+    round equal across the four; the seconds to the gap, and the host
+    seconds a save boundary holds the loop."""
+    keys = ("B1", "D")
+    launched = dict.fromkeys(keys, 0)
+
+    def run(argv):
+        reset_counts()
+        prng.draw_tables.launches = 0
+        _, res = run_cli(argv)
+        torch.cuda.synchronize()
+        c = counts()
+        launched["B1"] += c["B1"]
+        launched["D"] += prng.draw_tables.launches
+        check(c["B1"] > 0 and prng.draw_tables.launches > 0,
+              f"phase 23 (a): B1 {c['B1']}, D {prng.draw_tables.launches}")
+        return res
+
+    # the rounds to the gap, without checkpoints, set chkptIter
+    first = run(overlap_argv(path, None, 0, False))
+    stop = min(r.trajectory.records[-1].round for r in first)
+    chkpt_iter = max(25, stop // OVERLAP_SAVES // 25 * 25)
+    out = {"chkpt_iter": chkpt_iter, "runs": []}
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        for i, on in enumerate((False, True, True, False)):
+            with save_probe() as (gens, holds):
+                res = run(overlap_argv(path, f"{d}/ck{i}", chkpt_iter, on))
+            out["runs"].append({
+                "on": on, "gens": gens, "holds": holds,
+                "algs": [{"algorithm": r.algorithm,
+                          "stop": r.trajectory.records[-1].round,
+                          "stopped": r.trajectory.stopped,
+                          "to_gap_s": r.trajectory.records[-1].wall_time,
+                          "fetches": r.trajectory.fetches,
+                          "saves": r.trajectory.saves,
+                          "w": sha_array(r.w.cpu().numpy()),
+                          "alpha": sha_array(r.alpha.cpu().numpy())}
+                         for r in res]})
+    ref = out["runs"][0]
+    for alg in ref["algs"]:
+        check(alg["saves"] >= 4, f"phase 23 (a) {alg['algorithm']}: "
+                                 f"{alg['saves']} saves")
+    check(all(a["stopped"] == "target" for a in ref["algs"][:1]),
+          f"phase 23 (a): CoCoA+ did not reach the gap: {ref['algs']}")
+    for run_ in out["runs"][1:]:
+        check(run_["gens"] == ref["gens"],
+              f"phase 23 (a) overlap {run_['on']}: the generations differ")
+        for got, want in zip(run_["algs"], ref["algs"]):
+            same = {k: got[k] == want[k] for k in
+                    ("stop", "stopped", "fetches", "saves", "w", "alpha")}
+            check(all(same.values()),
+                  f"phase 23 (a) overlap {run_['on']} {got['algorithm']}: "
+                  f"{same}")
+    for run_ in out["runs"]:
+        check(len(run_["holds"]) == len(ref["gens"]),
+              f"phase 23 (a): {len(run_['holds'])} boundaries timed, "
+              f"{len(ref['gens'])} generations")
+    by = {on: [h for r in out["runs"] if r["on"] == on for h in r["holds"]]
+          for on in (False, True)}
+    out["hold_ms"] = {("on" if on else "off"): {
+        "median": float(np.median(h)) * 1e3, "max": max(h) * 1e3}
+        for on, h in by.items()}
+    out["launched"] = launched
+    print(f"phase 23 (a): rcv1-like device loop to {GAP_TARGET:g}, "
+          f"--chkptIter={chkpt_iter}, {len(ref['gens'])} generations bit for "
+          f"bit across off/on/on/off; to the gap (s) " + "; ".join(
+              f"{a['algorithm']} round {a['stop']} ({a['saves']} saves, "
+              f"{a['fetches']} fetches): " + " / ".join(
+                  f"{r['algs'][j]['to_gap_s']:.4f}" for r in out["runs"])
+              for j, a in enumerate(ref["algs"]))
+          + f"; a save boundary holds the loop {by[False] and np.median(by[False]) * 1e3:.3f} ms "
+          f"synchronous (max {max(by[False]) * 1e3:.3f}) against "
+          f"{np.median(by[True]) * 1e3:.3f} ms snapshot and handoff (max "
+          f"{max(by[True]) * 1e3:.3f}); card {card}")
+    return out
+
+
+def stale_harness():
+    """The real-math gang harness, tests/torch_elastic_worker.py."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_elastic_worker
+    return torch_elastic_worker
+
+
+def stale_flags() -> list:
+    k, rows, d = STALE_SHAPE
+    return ["--real=cocoa", f"--numSplits={k}", f"--rowsPerShard={rows}",
+            f"--numFeatures={d}", f"--localIters={rows}"]
+
+
+def stale_runs(label, reports, events):
+    """(b)'s facts of one supervised gang: its eval trajectory, stop,
+    joins, slack and round times from worker 0's and 1's streams, and
+    the workers' reports."""
+    from cocoa_torch.telemetry import trace_report
+
+    harness = stale_harness()
+    recs = elastic_records(events)
+    end = [r for r in recs if r["event"] == "run_end"]
+    check(len(end) == 1, f"phase 23 (b) {label}: run_end {end}")
+    spans = trace_report.load_spans([events, events + ".p1"])
+    rows = trace_report.stragglers(spans)
+    rounds = [s for s in spans if s.get("phase") == "round"
+              and s.get("worker") == 0]
+    solves = [s for s in spans if s.get("phase") == "local_solve"]
+    check(len(reports) == 2 and all(r["rc"] == 0 for r in reports),
+          f"phase 23 (b) {label}: workers {reports}")
+    return {"evals": [(r["t"], r["primal"], r["gap"]) for r in recs
+                      if r["event"] == "round_eval"],
+            "stop": end[0]["round"], "stopped": end[0]["stopped"],
+            "gap": end[0]["gap"],
+            "late": [r["rounds_late"] for r in recs
+                     if r["event"] == "stale_join"],
+            "slack_s": sum(r["slack_s"] for r in rows
+                           if r["phase"] in harness.EXCHANGE_PHASES),
+            "round_ms": float(np.mean([s["dur_s"] for s in rounds])) * 1e3,
+            "solve_ms": float(np.median([s["dur_s"] for s in solves])) * 1e3,
+            "launches": sum(r["launches"] for r in reports),
+            "wall_s": max(r["s"] for r in reports)}
+
+
+def phase_stale_gang(card):
+    """(b) the real-math gang harness on the card: two ranks over gloo on
+    one H100, float64, K=4, 8192 rows a shard, d=2000, H=8192, to the
+    1e-4 gap, each local solve one B2 launch over the rank's two shards.
+    A control (--overlapComm=off --staleRounds=0); the off-switch
+    (--overlapComm=on --staleRounds=0), bit for bit with it (trajectory,
+    every checkpoint generation); then under a rotating straggler
+    (--stepSkew of one local solve, --skewEvery=2) a control and the
+    treatment (--overlapComm=on --staleRounds=1): both certify, the
+    treatment within 1.25x the control's rounds, no join later than 1;
+    the exchange phases' straggler slack of both against the JAX
+    package's 40 % bar, ms a round, B2's launches."""
+    from cocoa_torch import elastic
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    (root / "chip_stale_worker.py").write_text(STALE_CHILD)
+    (root / "reports").mkdir()
+    env = {"PYTHONPATH": os.pathsep.join(
+               [str(root), str(ROOT / "tests"), str(ROOT),
+                os.environ.get("PYTHONPATH", "")]),
+           "STALE_OUT": str(root / "reports"), "OMP_NUM_THREADS": "1"}
+    flags = stale_flags() + [
+             f"--lambda={STALE_LAMBDA}", "--gapTarget=1e-4",
+             f"--numRounds={STALE_ROUNDS}", f"--debugIter={STALE_EVAL}",
+             f"--chkptIter={STALE_EVAL}", "--device=cuda",
+             "--dtype=float64", "--trace"]
+    out = {"card": card}
+
+    def gang(label, extra):
+        events = str(root / f"{label}.jsonl")
+        argv = flags + [f"--chkptDir={root}/ck_{label}",
+                        f"--events={events}", f"--tag_={label}", *extra]
+        spawned = []
+        # a gang past its time is killed, and its supervisor returns
+        # the death
+        watchdog = threading.Timer(STALE_TIMEOUT, lambda: [
+            p.kill() for procs in spawned for p in procs])
+        t0 = time.perf_counter()
+        watchdog.start()
+        try:
+            with mock.patch.dict(os.environ, env):
+                rc = elastic.supervise(
+                    argv, 2, module="chip_stale_worker", max_restarts=0,
+                    poll_s=0.05, backoff_base_s=0.0, resume=False,
+                    on_generation=lambda gen, procs: spawned.append(procs))
+        finally:
+            watchdog.cancel()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase 23 (b) {label}: supervisor exit {rc}")
+        reports = [json.loads(p.read_text()) for p in
+                   (root / "reports").glob(f"{label}-*.json")]
+        got = stale_runs(label, reports, events)
+        got["supervised_s"] = wall
+        check(got["stopped"] == "target" and got["gap"] <= 1e-4,
+              f"phase 23 (b) {label}: did not certify ({got['stop']}, "
+              f"{got['gap']})")
+        out[label] = got
+        return got
+
+    ctl = gang("control", ["--overlapComm=off", "--staleRounds=0"])
+    off = gang("off-switch", ["--overlapComm=on", "--staleRounds=0"])
+    check(off["evals"] == ctl["evals"] and not off["late"],
+          "phase 23 (b): the off-switch's trajectory is not the control's")
+    for name in ("w", "alpha"):
+        a = ckpt_arrays(root / "ck_control", "GangCoCoA+", ctl["stop"])
+        b = ckpt_arrays(root / "ck_off-switch", "GangCoCoA+", off["stop"])
+        check(np.array_equal(a[name], b[name]),
+              f"phase 23 (b): the off-switch's final {name} differs")
+    skew = round(ctl["solve_ms"] / 1e3, 4)
+    skewed = [f"--stepSkew={skew}", "--skewEvery=2"]
+    sk_ctl = gang("skewed control", ["--overlapComm=off", "--staleRounds=0",
+                                     *skewed])
+    sk_trt = gang("treatment", ["--overlapComm=on", "--staleRounds=1",
+                                *skewed])
+    check(sk_trt["stop"] <= 1.25 * sk_ctl["stop"],
+          f"phase 23 (b): the stale run took {sk_trt['stop']} rounds, the "
+          f"control {sk_ctl['stop']}")
+    check(sk_trt["late"] and max(sk_trt["late"]) <= 1,
+          f"phase 23 (b): joins late by {sorted(set(sk_trt['late']))}")
+    drop = 1.0 - sk_trt["slack_s"] / max(sk_ctl["slack_s"], 1e-12)
+    out["skew_s"], out["slack_drop"] = skew, drop
+    out["launched"] = {"B2": sum(out[k]["launches"] for k in (
+        "control", "off-switch", "skewed control", "treatment"))}
+    tmp.cleanup()
+    print(f"phase 23 (b): the gang harness, 2 ranks on one card, float64 "
+          f"K x rows x d = {STALE_SHAPE}, lambda={STALE_LAMBDA:g}: control and "
+          f"off-switch bit for bit at round {ctl['stop']} "
+          f"({ctl['round_ms']:.2f} / {off['round_ms']:.2f} ms a round, local "
+          f"solve {ctl['solve_ms']:.2f} ms); skew {skew * 1e3:.1f} ms every "
+          f"other round: control {sk_ctl['stop']} rounds, "
+          f"{sk_ctl['round_ms']:.2f} ms a round, exchange slack "
+          f"{sk_ctl['slack_s']:.3f} s; --overlapComm=on --staleRounds=1 "
+          f"{sk_trt['stop']} rounds ({sk_trt['stop'] / sk_ctl['stop']:.2f}x), "
+          f"{sk_trt['round_ms']:.2f} ms a round, slack {sk_trt['slack_s']:.3f} "
+          f"s ({drop * 100:.1f} % less; the JAX package's bar "
+          f"{STALE_SLACK_BAR * 100:.0f} %), {len(sk_trt['late'])} joins a "
+          f"round late; B2 launches {out['launched']['B2']}; card {card}")
+    return out
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def phase_stale_kernel(card, worst):
+    """(c) one round of (b)'s local solve on the card: B2 against its
+    plain version on the same draws, at a state three rounds in, float64
+    (TOL 1e-12 of max(1, |plain|)) and float32 (phase 2's 1e-5); the
+    kernel's and the plain version's ms by CUDA events."""
+    harness = stale_harness()
+    opts = harness.parse(stale_flags() + [f"--lambda={STALE_LAMBDA}"])
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        gang = harness.GangCocoa(opts, 0, 2, torch.device("cuda"), dt)
+        for t in (1, 2, 3):
+            gang.contribs[(t, 0)] = gang.local_solve(t)
+            gang.recompute_w()
+        idxs = torch.tensor(np.stack([
+            harness.round_idxs(4, s, gang.n_rows, gang.h, gang.seed)
+            for s in gang.mine]), dtype=torch.int32, device="cuda")
+        args = (gang.w_device(), gang.alpha, gang.X, gang.y, gang.sq, idxs,
+                gang.lam, gang.n)
+        kw = dict(mode="plus", sigma=gang.sigma)
+        want, plain = timed_once(
+            lambda: dn.dense_sdca_round_plain(*args, **kw))
+        agree(f"phase 23 (c) gang local solve {str(dt)[6:]}",
+              dn.dense_sdca_round(*args, **kw), want, dt, worst, "B2",
+              ROUND_FLOORS)
+        ms = cuda_ms(lambda: dn.dense_sdca_round(*args, **kw), reps=5)
+        n_bytes = gang.m * gang.n_rows * gang.d * gang.X.element_size()
+        out[str(dt)[6:]] = {"ms": ms, "plain_ms": plain,
+                            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        del gang, args, want
+        torch.cuda.empty_cache()
+    print(f"phase 23 (c): B2 on the harness's round (2 shards x "
+          f"{STALE_SHAPE[1]} steps, d={STALE_SHAPE[2]}) against its plain "
+          f"version: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.1f} ms, byte "
+              f"bound {v['bound_ms']:.4f} ms)" for k, v in out.items())
+          + f"; card {card}")
+    return out
+
+
+def phase_overlap(path, card):
+    """Phase 23: (a) the device loop's checkpoint write on a thread, (b)
+    the real-math gang with overlapped exchanges and bounded staleness,
+    (c) B2 on the gang's local solve against its plain version."""
+    worst = {}
+    out = {"a": phase_overlap_io(path, card)}
+    out["b"] = phase_stale_gang(card)
+    out["c"] = phase_stale_kernel(card, worst)
+    out["c"]["max_abs_err"] = worst["B2"]
+    out["launched"] = {**out["a"]["launched"], **out["b"]["launched"]}
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
@@ -6962,9 +7371,16 @@ def main() -> int:
     # --- phase 22: the elastic supervisor
     t0 = time.perf_counter()
     elastic22 = phase_elastic(path, card)
-    tmp.cleanup()
     print(f"phase 22: all cases ok in {time.perf_counter() - t0:.1f} s")
     (OUT / "chip_smoke_phase22.json").write_text(json.dumps(elastic22,
+                                                            default=str))
+
+    # --- phase 23: overlapped exchanges and bounded staleness
+    t0 = time.perf_counter()
+    overlap23 = phase_overlap(path, card)
+    tmp.cleanup()
+    print(f"phase 23: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase23.json").write_text(json.dumps(overlap23,
                                                             default=str))
 
     block_launches = {name: sum(c[name] for c in (*launched.values(),
@@ -7053,7 +7469,11 @@ def main() -> int:
                                 "D")):
         row["launches"] += launched20.get(name, 0) + \
             ingest21["launched"].get(name, 0) + \
-            elastic22["launched"].get(name, 0)
+            elastic22["launched"].get(name, 0) + \
+            overlap23["launched"].get(name, 0)
+    print("phase 23 launches ((a)'s runs and (b)'s gang workers), in the "
+          "counts below: " + ", ".join(
+              f"{name} {v}" for name, v in overlap23["launched"].items()))
     print("phase 22 launches (the supervised workers that finished), in "
           "the counts below: " + ", ".join(
               f"{name} {v}" for name, v in elastic22["launched"].items()))

@@ -118,6 +118,13 @@ loss with ``shrink``), and with ``--stallTimeout=<s>`` also restarts a
 gang whose checkpoints and metrics stop moving; its events join
 ``--events``, its gauges ``<metrics>.gang``.
 
+``--overlapComm[=auto|on|off]`` writes the device loop's checkpoints on
+a thread while the next super-block runs (a single process with
+``--deviceLoop``; elsewhere ``on`` says on stderr why it has no effect).
+``--staleRounds=0`` is the synchronous round this CLI always runs;
+``S > 0`` exits 2 with the JAX CLI's pointer to the host-exchange gang
+harness (tests/torch_elastic_worker.py ``--real=cocoa``).
+
 ``--fleet`` (cocoa_torch/data/fleet.py, solvers/fleet.py) trains every
 tenant of a schema-validated JSONL manifest (its own dataset ref,
 lambda and gap target) through one loop on the card, one captured graph
@@ -185,7 +192,10 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    eventsMaxMB="events_max_mb",
                    metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
-_NOT_PORTED = ("fp", "overlapComm", "staleRounds")
+_NOT_PORTED = ("fp",)
+# the round-barrier levers (``--overlapComm``, ``--staleRounds``): no
+# RunConfig field, read from the flags given (:func:`_exchange_flags`)
+_EXCHANGE_FLAGS = ("overlapComm", "staleRounds")
 # the elastic supervisor's flags (``--elastic``, ``--stallTimeout``): no
 # RunConfig field, read from the flags given; the supervisor strips them
 # from its workers' command line (elastic.py ``strip_elastic_flags``)
@@ -248,7 +258,8 @@ def parse_args(argv: list[str]):
             unported.append(key)
             continue
         if (key in _SERVE_FLAGS or key in _FLEET_FLAGS or key in _GANG_FLAGS
-                or key in _INGEST_FLAGS or key in _ELASTIC_FLAGS):
+                or key in _INGEST_FLAGS or key in _ELASTIC_FLAGS
+                or key in _EXCHANGE_FLAGS):
             continue
         if key in REFERENCE_FLAGS:
             field = REFERENCE_FLAGS[key]
@@ -272,6 +283,64 @@ def parse_args(argv: list[str]):
         unported += [key for key in given if key in _GANG_FLAGS]
     cfg._given = given
     return cfg, unported
+
+
+def _exchange_flags(cfg: RunConfig) -> str:
+    """``--overlapComm`` (auto | on | off; a bare flag means on) after the
+    JAX CLI's checks of it and of ``--staleRounds``, with its messages
+    (cocoa_tpu/cli.py:342-384).  The CLI's consumer of ``--overlapComm``
+    is the device loop's checkpoint write (:func:`_overlap_io`).
+    ``--staleRounds`` must be an integer >= 0, and S > 0 is refused: this
+    path sums dw in one all-reduce a round, which cannot be split, and
+    bounded staleness rides the host-exchange gang harness
+    (tests/torch_elastic_worker.py --real=cocoa)."""
+    given = getattr(cfg, "_given", {})
+    flag = (given.get("overlapComm") or "off").lower()
+    if flag == "true":
+        flag = "on"   # bare --overlapComm
+    if flag not in ("auto", "on", "off"):
+        raise ValueError(f"--overlapComm must be auto|on|off, got "
+                         f"{given.get('overlapComm')!r}")
+    if given.get("staleRounds") is not None:
+        try:
+            stale_rounds = int(given["staleRounds"])
+        except ValueError:
+            stale_rounds = -1
+        if stale_rounds < 0:
+            raise ValueError(f"--staleRounds takes an integer >= 0, got "
+                             f"{given['staleRounds']!r}")
+        if stale_rounds > 0:
+            raise ValueError(
+                "--staleRounds > 0 rides the host-exchange aggregation path "
+                "(the chaos gang harness, tests/_gang_worker.py "
+                "--real=cocoa); this CLI path aggregates Δw inside the "
+                "compiled collective, which is synchronous by construction "
+                "— drop the flag (docs/DESIGN.md §15)")
+    return flag
+
+
+def _overlap_io(cfg: RunConfig, mesh, device_loop: bool) -> bool:
+    """``--overlapComm`` resolved for this process, as the JAX CLI
+    resolves it (cocoa_tpu/cli.py:1778-1797): the checkpoint-write
+    overlap runs only in a single process with ``--deviceLoop``; ``on``
+    that cannot take effect says why on stderr."""
+    flag = _exchange_flags(cfg)
+    if flag == "off":
+        return False
+    single = mesh is None or mesh.size == 1
+    overlap_io = single and device_loop
+    if flag == "on" and not overlap_io:
+        if not single:
+            print("overlapComm: checkpoint-write overlap disabled on the "
+                  "multi-process path (the save's alpha allgather is a "
+                  "collective); exchanges overlap via the gang "
+                  "host-aggregation path instead", file=sys.stderr)
+        else:
+            print("note: --overlapComm's CLI consumer is the "
+                  "device-resident driver's checkpoint-write overlap — pass "
+                  "--deviceLoop (the host-stepped path has no effect to "
+                  "enable)", file=sys.stderr)
+    return overlap_io
 
 
 def _manifest_config(cfg: RunConfig) -> dict:
@@ -974,6 +1043,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     given = getattr(cfg, "_given", {})
     try:
         tel = _telemetry_flags(cfg)
+        _exchange_flags(cfg)
         fleet_lanes = _fleet_checks(cfg)
         serve_flag = _serve_checks(cfg)
         if given.get("stallTimeout") and not given.get("elastic"):
@@ -1309,13 +1379,16 @@ def _run_svm(cfg: RunConfig, block_size: int,
     def restore(algorithm):
         return _restore(cfg, algorithm, resume)
 
+    overlap_io = _overlap_io(cfg, mesh, loop["device_loop"])
     # hingeDriver.scala:84-110, in the JAX CLI's order (cli.py:1807-1836);
-    # as there, only CoCoA+ and CoCoA take the gap target, and each
-    # algorithm restores its own checkpoint when it starts
+    # as there, only CoCoA+ and CoCoA take the gap target and the
+    # checkpoint-write overlap, and each algorithm restores its own
+    # checkpoint when it starts
     runs = [lambda: run_cocoa(ds, params, debug, plus=True, **sdca, **ladder,
-                              **restore("CoCoA+")),
+                              overlap_io=overlap_io, **restore("CoCoA+")),
             lambda: run_cocoa(ds, params, debug, plus=False, **sdca,
-                              **ladder, **restore("CoCoA"))]
+                              **ladder, overlap_io=overlap_io,
+                              **restore("CoCoA"))]
     if not cfg.just_cocoa:
         runs += [
             lambda: run_minibatch_cd(
@@ -1457,6 +1530,11 @@ def _fleet_checks(cfg: RunConfig) -> Optional[str]:
     if (cfg.objective or "svm").lower() != "svm":
         raise ValueError("--fleet runs the SVM dual family only "
                          "(--objective=lasso has no fleet path yet)")
+    if given.get("overlapComm") and _exchange_flags(cfg) != "off":
+        raise ValueError("--overlapComm does not combine with --fleet: the "
+                         "whole fleet is ONE dispatch and one fetch — there "
+                         "is no per-round exchange or checkpoint write to "
+                         "overlap (docs/DESIGN.md §16)")
     return lanes
 
 

@@ -26,6 +26,7 @@ events are decoded from each super-block's fetched rows
 from __future__ import annotations
 
 import math
+import threading
 import time
 from typing import Callable, Optional
 
@@ -496,6 +497,25 @@ def _last_gap(traj: Trajectory):
     return None
 
 
+def _save_args(debug: DebugParams, name: str, round_t: int, state: tuple,
+               n_iterate: int, accel, traj: Trajectory, mesh=None):
+    """The arguments of :func:`checkpoint.save` for ``state`` at
+    ``round_t`` (see :func:`save_checkpoint`), a gang's alpha and bank
+    gathered over the host group."""
+    rest = state[n_iterate:]
+    hist = rest[0] if accel is not None else None
+    sched = rest[-1] if len(rest) > (accel is not None) else None
+    alpha = state[1] if n_iterate > 1 else None
+    if mesh is not None:
+        alpha = (None if alpha is None
+                 else distributed.host_gather_shards(alpha, 0))
+        hist = (None if hist is None
+                else distributed.host_gather_shards(hist, 1))
+    return ((debug.chkpt_dir, name, round_t, state[0], alpha),
+            dict(seed=debug.seed, sched=sched, hist=hist,
+                 gap=_last_gap(traj)))
+
+
 def save_checkpoint(debug: DebugParams, name: str, round_t: int,
                     state: tuple, n_iterate: int, accel, traj: Trajectory,
                     mesh=None):
@@ -508,19 +528,41 @@ def save_checkpoint(debug: DebugParams, name: str, round_t: int,
     A gang's ranks first gather the whole alpha and bank over the host
     group (``mesh``), so that each writes a complete file, as the JAX
     package's save does (cocoa_tpu/checkpoint.py:141-150)."""
-    rest = state[n_iterate:]
-    hist = rest[0] if accel is not None else None
-    sched = rest[-1] if len(rest) > (accel is not None) else None
-    alpha = state[1] if n_iterate > 1 else None
-    if mesh is not None:
-        alpha = (None if alpha is None
-                 else distributed.host_gather_shards(alpha, 0))
-        hist = (None if hist is None
-                else distributed.host_gather_shards(hist, 1))
-    checkpoint.save(debug.chkpt_dir, name, round_t, state[0], alpha,
-                    seed=debug.seed,
-                    sched=sched, hist=hist, gap=_last_gap(traj))
+    args, kw = _save_args(debug, name, round_t, state, n_iterate, accel,
+                          traj, mesh)
+    checkpoint.save(*args, **kw)
     traj.saves += 1
+
+
+def _host_copy(x):
+    """``x`` as an owned host array when it is a tensor or an array."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return checkpoint.host_array(x)
+    return x
+
+
+class _Writer:
+    """One checkpoint write on a daemon thread (the JAX package's
+    ``_Prefetch``, cocoa_tpu/solvers/base.py:728); :meth:`result` joins it
+    and re-raises its error.  It is handed host arrays that it alone
+    owns."""
+
+    def __init__(self, args: tuple, kw: dict):
+        self._err = None
+        self._t = threading.Thread(target=self._run, args=(args, kw),
+                                   daemon=True, name="cocoa-ckpt-writer")
+        self._t.start()
+
+    def _run(self, args, kw):
+        try:
+            checkpoint.save(*args, **kw)
+        except BaseException as e:  # re-raised by result()
+            self._err = e
+
+    def result(self) -> None:
+        self._t.join()
+        if self._err is not None:
+            raise self._err
 
 
 def checkpoints_on(debug: DebugParams) -> bool:
@@ -1227,7 +1269,7 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
           accel: Optional[AccelConfig] = None,
           schedule: Optional[Schedule] = None, n_iterate: int = 1,
           capture: Optional[bool] = None, device_loop: bool = False,
-          mesh=None):
+          mesh=None, overlap_io: bool = False):
     """The outer loop (CoCoA.scala:39-63 skeleton, with the ladder of
     cocoa_tpu/solvers/base.py ``drive_chunked``).  Rounds run in chunks
     of up to ``chunk`` that end at each ``debugIter`` boundary; the first
@@ -1258,7 +1300,9 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
     graph.
 
     ``device_loop`` runs the evals and the ladder on the device instead
-    (:func:`drive_device`).
+    (:func:`drive_device`), and ``overlap_io`` (``--overlapComm``) writes
+    its checkpoints on a thread there; the chunked loop ignores it, as
+    JAX's ``drive_chunked`` does.
 
     ``mesh`` (parallel/mesh.py) is a gang's: ``body`` and ``metrics``
     all-reduce across its ranks, the checkpoints gather alpha, and on the
@@ -1272,7 +1316,7 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
             quiet=quiet, start_round=start_round, gap_target=gap_target,
             divergence_guard=divergence_guard, sigma_levels=sigma_levels,
             accel=accel, schedule=schedule, n_iterate=n_iterate,
-            capture=capture, mesh=mesh)
+            capture=capture, mesh=mesh, overlap_io=overlap_io)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     anneal = sigma_levels is not None and len(sigma_levels) > 1
@@ -1369,7 +1413,8 @@ def drive_device(name: str, params: Params, debug: DebugParams,
                  sigma_levels: Optional[tuple] = None,
                  accel: Optional[AccelConfig] = None,
                  schedule: Optional[Schedule] = None, n_iterate: int = 1,
-                 capture: Optional[bool] = None, mesh=None):
+                 capture: Optional[bool] = None, mesh=None,
+                 overlap_io: bool = False):
     """The device-resident run (``--deviceLoop``; cocoa_tpu/solvers/
     base.py ``drive_device_full`` and ``drive_on_device``), arguments as
     :func:`drive`: the rounds up to the first ``debugIter`` boundary (an
@@ -1394,7 +1439,15 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     tail, whenever ``chkpt_iter`` rounds have passed since the last save;
     the super-blocks are then capped at ceil(chkptIter / debugIter)
     chunks, so the saves land at the first super-block boundary at or
-    past each ``chkpt_iter`` multiple."""
+    past each ``chkpt_iter`` multiple.
+
+    ``overlap_io`` (``--overlapComm``; cocoa_tpu/solvers/base.py:1195-
+    1245) writes each checkpoint on a thread while the next super-block
+    runs.  The state is copied to owned host arrays on this thread first
+    (a view would alias the captured graphs' static buffers, which the
+    next replay overwrites), so the files are those of a synchronous
+    save.  One write is in flight at a time: the next save, and the
+    return, join it first, and a writer's error is raised there."""
     c = debug.debug_iter
     if c <= 0:
         raise ValueError("the device loop requires debug_iter > 0 (the eval "
@@ -1414,11 +1467,26 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     ckpt_on = checkpoints_on(debug)
     last_saved = start_round - 1
 
+    writes: list = []   # the one checkpoint write in flight (overlap_io)
+
+    def join_writes():
+        while writes:
+            writes.pop().result()
+
     def maybe_ckpt(done_round, get_state):
         nonlocal last_saved
         if ckpt_on and done_round - last_saved >= debug.chkpt_iter:
-            save_checkpoint(debug, name, done_round, get_state(), n_iterate,
-                            accel, traj, mesh)
+            if overlap_io:
+                join_writes()
+                args, kw = _save_args(debug, name, done_round, get_state(),
+                                      n_iterate, accel, traj, mesh)
+                writes.append(_Writer(tuple(_host_copy(a) for a in args),
+                                      {key: _host_copy(v)
+                                       for key, v in kw.items()}))
+                traj.saves += 1
+            else:
+                save_checkpoint(debug, name, done_round, get_state(),
+                                n_iterate, accel, traj, mesh)
             last_saved = done_round
 
     def hit_target():
@@ -1524,6 +1592,9 @@ def drive_device(name: str, params: Params, debug: DebugParams,
                            rounds=rem):
             state = _run_chunk(chunks, schedule, n_iterate, t, rem, state)
         maybe_ckpt(total, lambda: state)
+    # every write has landed when the run returns: a caller may read the
+    # files next
+    join_writes()
     if chunks.capture:
         state = (*(x.clone() for x in state[:n_iterate]),
                  *state[n_iterate:])

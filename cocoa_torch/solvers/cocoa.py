@@ -253,7 +253,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                     warm_start=None, accel: bool = False,
                     theta: str = "fixed", scan_chunk: Optional[int] = None,
                     sampling: str = "auto", capture: Optional[bool] = None,
-                    device_loop: bool = False):
+                    device_loop: bool = False, overlap_io: bool = False):
     """The SDCA family's driver: CoCoA, CoCoA+, mini-batch CD and, with
     the overrides below, ProxCoCoA+; ``alg`` is (mode, scaling, sigma')
     from :func:`_alg_config`.  Trains from ``w_init`` and ``alpha_init``
@@ -288,7 +288,10 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     made.  ``device_loop`` (``--deviceLoop``) runs the evals, the stop
     test and the ladder on the device too (:func:`base.drive_device`):
     the branch index from the device's sched vector, the secant jump
-    taken on the device at the chunk's head."""
+    taken on the device at the chunk's head; with ``overlap_io``
+    (``--overlapComm``, resolved by the CLI for a single process) it
+    writes its checkpoints on a thread, the files those of a synchronous
+    save."""
     base.check_shards(ds)
     guard_on = base.resolve_divergence_guard(
         divergence_guard, alg[0], alg[2], ds.k, params.gamma)
@@ -413,7 +416,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
         divergence_guard=guard_on, sigma_levels=levels,
         accel=base.AccelConfig(theta_hs) if accel else None,
         schedule=schedule, n_iterate=2, capture=capture,
-        device_loop=device_loop, mesh=ds.mesh)
+        device_loop=device_loop, mesh=ds.mesh, overlap_io=overlap_io)
     return state[0], state[1], traj
 
 
@@ -599,3 +602,150 @@ def _run_cocoa_anneal(ds, params, debug, plus, levels, warm_start, accel_kw,
         _alg_config(p, ds.k, plus), sigma_levels=levels,
         warm_start=warm_start, accel=accel_kw["accel"] == "on",
         theta=accel_kw["theta"], **kw)
+
+
+# --- bounded-staleness CoCoA+ aggregation (--staleRounds) -------------------
+#
+# The counterpart of cocoa_tpu/solvers/cocoa.py:1200-1390.  The
+# synchronous round pays the slowest worker's time at every barrier.
+# Bounded staleness relaxes the barrier, not the math: a worker may start
+# round t+1 with its peers' contributions of rounds (t-S, t] still
+# outstanding, as long as every round-r contribution is applied before
+# round r+S+1's local solve.
+#
+# Safety (Ma et al., arXiv:1502.03508): every local subproblem is solved
+# against sigma' = K*gamma, the bound under which all K contributions may
+# be added at once; a subset of m <= K of them at the same gamma lies
+# inside that region, and a late contribution joining alone is m = 1.
+# The scale is gamma for every contribution, whenever it joins: its owner
+# advanced alpha by gamma*dalpha at solve time, so any other scale of dw
+# would break w = (1/(lambda n)) sum y alpha x, on which the duality-gap
+# certificate rests.  The gap is evaluated at drained boundaries, where
+# every contribution has landed and w = w(alpha) holds exactly again
+# (arXiv:1611.02189).
+#
+# Determinism: the window is indexed by round, never by arrival.  Round r
+# joins at round r + S, so the trajectory is a function of round numbers
+# alone and bit for bit from run to run; the asynchrony moves the waiting
+# off the critical path, not the data.
+
+
+def partial_gamma(gamma: float, k: int, m: int) -> float:
+    """The aggregation scale for applying ``m`` of ``k`` CoCoA+
+    contributions whose subproblems were solved against sigma' = K*gamma:
+    gamma itself, on purpose.  sigma' >= gamma*m holds for every m <= K,
+    so the subset is safe at gamma; a subset scaled up (gamma*K/m, also
+    inside the bound) would need the gang to agree on which contributions
+    made the subset to keep w = w(alpha), since each owner applied
+    gamma*dalpha at solve time."""
+    if not 1 <= m <= k:
+        raise ValueError(f"partial aggregation needs 1 <= m <= K, got "
+                         f"m={m}, K={k}")
+    return float(gamma)
+
+
+class StaleJoinWindow:
+    """The join window of a host-exchange gang round (``--staleRounds``;
+    the transport is parallel/distributed.py's ExchangeHandle).
+
+    Each round ``t`` the caller posts its contribution, registers the
+    exchange with :meth:`admit`, then applies what :meth:`join_due`
+    returns: exactly the rounds whose window ends at ``t`` (round r at
+    t = r + S).  :meth:`drain` joins everything pending, at the eval and
+    checkpoint boundaries, where w = w(alpha) must hold exactly.
+    ``stale_rounds=0`` is the synchronous barrier: round t joins at t.
+
+    **Gap-rise collapse** (:meth:`on_eval`): a gap that rose at an eval
+    sets the window to 0 until a later eval improves again, as a momentum
+    restart does; it withdraws the permission for further late joins and
+    never unwinds an applied contribution.
+
+    **Elastic** (:meth:`abort`): a gang teardown or resize drops the
+    pending handles without joining them; the next generation resumes
+    from a drained checkpoint, so no half-joined round crosses
+    generations.
+
+    Each late join (``rounds_late >= 1``) emits one ``stale_join``
+    event; synchronous joins emit none."""
+
+    def __init__(self, stale_rounds: int, algorithm: str = "CoCoA+"):
+        s = int(stale_rounds)
+        if s < 0:
+            raise ValueError(f"staleRounds must be >= 0, got {stale_rounds}")
+        self.stale_rounds = s
+        self.algorithm = algorithm
+        self.collapsed = False   # a gap rise set the window to 0
+        self._last_gap = None
+        self._pending: dict = {}   # round -> ExchangeHandle | payload list
+
+    def effective_window(self) -> int:
+        return 0 if self.collapsed else self.stale_rounds
+
+    def pending_rounds(self) -> list:
+        return sorted(self._pending)
+
+    def admit(self, t: int, handle) -> None:
+        """Register round ``t``'s exchange: an ExchangeHandle, or a
+        payload list already collected (the synchronous path)."""
+        if t in self._pending:
+            raise ValueError(f"round {t} already has a pending exchange")
+        self._pending[t] = handle
+
+    def join_due(self, t: int) -> list:
+        """Join every round whose window ends by round ``t`` (rounds
+        r <= t - S): ``[(round, payloads, rounds_late), ...]`` in round
+        order, ``rounds_late = t - r`` never past the configured S."""
+        cut = t - self.effective_window()
+        return self._join([r for r in sorted(self._pending) if r <= cut], t)
+
+    def drain(self, t: int) -> list:
+        """Join everything pending (an eval or checkpoint boundary): the
+        contributions returned must be applied before the gap is
+        evaluated."""
+        return self._join(sorted(self._pending), t)
+
+    def abort(self) -> None:
+        """Drop the pending handles unjoined (teardown or resize): their
+        collector threads die with the process; nothing is applied."""
+        self._pending.clear()
+
+    def _join(self, rounds: list, t: int) -> list:
+        out = []
+        for r in rounds:
+            h = self._pending.pop(r)
+            payloads = h.join() if hasattr(h, "join") else h
+            late = max(0, t - r)
+            if late > self.stale_rounds:
+                # the bound the user asked for: a caller that skipped
+                # join_due for a round fails here, rather than applying an
+                # arbitrarily stale contribution
+                raise RuntimeError(
+                    f"round {r} would join {late} rounds late — past "
+                    f"the --staleRounds={self.stale_rounds} window; a "
+                    f"caller skipped join_due for it")
+            if late >= 1:
+                get_bus().emit(
+                    "stale_join", algorithm=self.algorithm, t=int(t),
+                    round=int(r), rounds_late=int(late),
+                    workers=len(payloads) if payloads is not None else None)
+            out.append((r, payloads, late))
+        return out
+
+    def on_eval(self, gap) -> bool:
+        """The gap-rise rule at an eval (after :meth:`drain` and the
+        gap's evaluation): a rise sets the window to 0 until an eval that
+        improves restores it.  True when this eval changed the state."""
+        if gap is None:
+            return False
+        g = float(gap)
+        prev = self._last_gap
+        self._last_gap = g
+        if prev is None:
+            return False
+        if g > prev and not self.collapsed:
+            self.collapsed = True
+            return True
+        if g <= prev and self.collapsed:
+            self.collapsed = False
+            return True
+        return False

@@ -131,17 +131,22 @@ def test_cli_unported_flags_exit_2(flag, capsys):
     name = flag.lstrip("-").split("=")[0]
     # the ingest flags are ported: refused beside the lasso, with the JAX
     # CLI's exit code and message; --elastic is ported: refused with a
-    # timeout of 0 (no gang starts), and --stallTimeout without it
+    # timeout of 0 (no gang starts), and --stallTimeout without it;
+    # --overlapComm is ported: accepted, and the supervisor it is given to
+    # refuses the timeout of 0; --staleRounds=1 is refused by its own check
     extra = {"ingest": ["--objective=lasso"],
              "ingestCache": ["--objective=lasso"],
-             "elastic": ["--stallTimeout=0", "--chkptDir=ck"]}.get(name, [])
+             "elastic": ["--stallTimeout=0", "--chkptDir=ck"],
+             "overlapComm": ["--elastic=2", "--stallTimeout=0",
+                             "--chkptDir=ck"]}.get(name, [])
     assert cli.main(DEMO_ARGV + ["--device=cpu", flag] + extra) == 2
     out, err = capsys.readouterr()
     if (name in cli._SERVE_FLAGS or name in cli._FLEET_FLAGS
-            or name in cli._INGEST_FLAGS or name in cli._ELASTIC_FLAGS):
-        # the serving, fleet, ingest and elastic flags are ported: refused
-        # beside these training flags with the JAX CLI's exit code and
-        # message
+            or name in cli._INGEST_FLAGS or name in cli._ELASTIC_FLAGS
+            or name in cli._EXCHANGE_FLAGS):
+        # the serving, fleet, ingest, elastic and exchange flags are
+        # ported: refused beside these training flags with the JAX CLI's
+        # exit code and message
         assert jax_cli.main(DEMO_ARGV + [flag] + extra) == 2
         assert err == capsys.readouterr().err and err.startswith("error: ")
     else:
@@ -168,10 +173,10 @@ def test_cli_bad_input_exits_2(change, needle, capsys):
 def test_port_imports_no_jax():
     """Every cocoa_torch module, chip_smoke.py, time_dense_sdca.py,
     time_fused_block.py, time_sparse_sdca.py, time_block_round.py,
-    probe_ingest_memory.py and the toy gang worker of the supervisor's
-    tests (tests/torch_elastic_worker.py, one round run, and the fault
-    plans of tests/_faults.py) import without pulling in jax or
-    cocoa_tpu."""
+    probe_ingest_memory.py and the gang worker of the supervisor's tests
+    (tests/torch_elastic_worker.py, one round run of its toy mode and one
+    of its real-math mode, and the fault plans of tests/_faults.py) import
+    without pulling in jax or cocoa_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
@@ -185,6 +190,9 @@ def test_port_imports_no_jax():
         "import torch_elastic_worker, _faults\n"
         "torch_elastic_worker.main(['--numSplits=2', '--numRounds=1', "
         "'--stepSeconds=0'])\n"
+        "assert torch_elastic_worker.main(['--real=cocoa', "
+        "'--numSplits=2', '--numRounds=1', '--debugIter=1', "
+        "'--device=cpu']) == 0\n"
         "assert {'cocoa_torch.parallel.distributed', "
         "'cocoa_torch.parallel.mesh'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

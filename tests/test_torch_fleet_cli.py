@@ -5,9 +5,9 @@ JAX CLI's hardening tables (tests/test_cli_flags.py
 exit code from the port, and a float64 manifest through both with the
 same per-tenant lines and ``--trajOut`` rows.
 
-Flags the port does not support yet (``--mesh``, ``--fp``,
-``--staleRounds``, ``--overlapComm``) keep the port's own refusal
-beside ``--fleet`` (ROADMAP Queue A); ``--elastic`` gets the JAX CLI's.
+Flags the port does not support yet (``--mesh``, ``--fp``) keep the
+port's own refusal beside ``--fleet`` (ROADMAP Queue A); ``--elastic``,
+``--staleRounds`` and ``--overlapComm`` get the JAX CLI's.
 
 The JAX fleet stages lambda*n and 1/n in float32 even at
 ``--dtype=float64`` (cocoa_tpu/solvers/fleet.py:162-175), so its float64
@@ -85,10 +85,11 @@ HARDENING = [
     (["--loss=logistic"], "drop --loss=logistic"),
     (["--sigmaSchedule=bogus"], "trial|anneal"),
     (["--elastic=2"], "tenant semantics"),
+    (["--staleRounds=1"], "host-exchange"),
+    (["--overlapComm=on"], "no per-round exchange"),
 ]
 # the JAX CLI's rows whose flag the port does not support yet
-UNPORTED = [["--staleRounds=1"], ["--overlapComm=on"], ["--mesh=4"],
-            ["--fp=2"]]
+UNPORTED = [["--mesh=4"], ["--fp=2"]]
 
 
 @pytest.mark.parametrize("extra,needle", HARDENING,

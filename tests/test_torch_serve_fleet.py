@@ -354,12 +354,21 @@ class _Reader:
                 self._cv.wait(left)
 
 
+def _poll(cond, what, timeout=120.0):
+    """Wait for ``cond()`` to hold, up to ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"no {what} in {timeout:g} s"
+        time.sleep(0.05)
+
+
 def test_cli_fleet_sigkill_respawn_status_and_traces(tmp_path):
     """--serveReplicas=2 --serveRoute=tenant over a (T=4, d) catalogue the
     port saved: every tenant's margins those of one in-process catalogue
-    server; a replica SIGKILLed under traffic costs no failed line, is
-    requeued and respawned; /metrics, /healthz, /slo answer; each traced
-    line yields one query_trace."""
+    server; a replica SIGKILLed under traffic (stopped first, with a line
+    held at it) costs no failed line, is requeued and respawned; /metrics,
+    /healthz, /slo answer; each traced line yields one query_trace.  The
+    waits are polls to a deadline, so a loaded host only slows it."""
     T = 4
     rng = np.random.default_rng(14)
     W = rng.standard_normal((T, D)).astype(np.float32)
@@ -388,22 +397,46 @@ def test_cli_fleet_sigkill_respawn_status_and_traces(tmp_path):
             assert got["margin"] == ref[2].score_sync(qi, qv, timeout=10,
                                                       tenant=t)
         failed = []
+        served = [0]       # lines answered
+        waiting = [None]   # (tenant, since) of the line the pump waits on
 
         def traffic(stop):
+            # one line at a time: an idle replica always admits it, so a
+            # slow host sheds nothing (router.py)
             while not stop.is_set():
                 for t, qi, qv in lines:
+                    waiting[0] = (t, time.monotonic())
                     r = _ask(addr, _line(qi, qv, t))
+                    waiting[0] = None
+                    served[0] += 1
                     if "margin" not in r:
                         failed.append(r)
+
+        def held_at_r0():
+            # tenants 0 and 2 are homed on r0 (tenant % 2); a line of
+            # theirs open for a second is held by the stopped replica
+            w = waiting[0]
+            return w is not None and w[0] % 2 == 0 \
+                and time.monotonic() - w[1] > 1.0
 
         stop = threading.Event()
         pump = threading.Thread(target=traffic, args=(stop,), daemon=True)
         pump.start()
-        time.sleep(0.3)
+        _poll(lambda: served[0] >= len(lines), "traffic before the kill")
+        # r0 is stopped first, so that a line is in flight at it when it
+        # dies: the router meets the death on that line (a requeue), not
+        # first through the fleet's liveness poll, however loaded the host
+        os.kill(pid0, signal.SIGSTOP)
+        _poll(held_at_r0, "a line held at the stopped replica r0")
         os.kill(pid0, signal.SIGKILL)
         out.wait_for("replica r0 died")
         out.wait_for("replica r0 pid=", count=2)
-        time.sleep(0.3)
+        # the respawned replica rejoins the routing, and traffic flows on
+        _poll(lambda: _http_json(status, "/healthz")["replicas_live"] == 2,
+              "replicas_live == 2 after the respawn")
+        after = served[0]
+        _poll(lambda: served[0] - after >= len(lines),
+              "traffic after the respawn")
         stop.set()
         pump.join(60)
         assert not pump.is_alive() and failed == []

@@ -722,13 +722,20 @@ def test_unported_flags_still_refused_beside_serve(capsys):
         assert cli.main(["--serve", f"--{flag}=1", "--device=cpu"]) == 2
         assert f"--{flag} is not yet ported" in capsys.readouterr().err
     assert not set(cli._SERVE_FLAGS) & set(cli._NOT_PORTED)
-    assert len(cli._NOT_PORTED) == 3
-    # --elastic is ported: beside --serve it gets the JAX CLI's pointer
-    assert jax_cli.main(["--serve", "--elastic=1"]) == 2
-    want = capsys.readouterr().err
-    assert cli.main(["--serve", "--elastic=1", "--device=cpu"]) == 2
-    assert capsys.readouterr().err == want
-    assert want.startswith("error: --elastic does not combine with --serve")
+    assert len(cli._NOT_PORTED) == 1
+    # --elastic, --overlapComm and --staleRounds are ported: beside --serve
+    # they get the JAX CLI's line (the staleRounds > 0 refusal comes first)
+    for extra, head in ((["--elastic=1"], "--elastic does not combine"),
+                        (["--overlapComm=on"],
+                         "--overlapComm does not combine"),
+                        (["--overlapComm"], "--overlapComm does not combine"),
+                        (["--staleRounds=0"], "--staleRounds does not combine"),
+                        (["--staleRounds=1"], "--staleRounds > 0 rides")):
+        assert jax_cli.main(["--serve", *extra]) == 2
+        want = capsys.readouterr().err
+        assert cli.main(["--serve", *extra, "--device=cpu"]) == 2
+        assert capsys.readouterr().err == want
+        assert want.startswith(f"error: {head}")
 
 
 def _spawn_server(argv):
