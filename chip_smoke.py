@@ -192,10 +192,10 @@ stderr); any failed check exits non-zero:
    point, records and final (w, alpha), bit for bit (DistGD's too: its
    sparse pass adds in slot order); then a device-loop
    resume that saves at its stop mid-super-block while a dead chunk
-   replays, its checkpoint the state it returns; (b) the demo through
-   ``python -m cocoa_torch.cli``, chunked and --deviceLoop side by side,
-   SIGKILLed once its first checkpoint exists and relaunched with
-   --resume: the summary lines of an uninterrupted run; (c) a torn
+   replays, its checkpoint the state it returns; (b) left out, to keep
+   the whole script within 1200 s (the demo's CLI SIGKILLed and resumed
+   runs in tests/test_torch_resume.py's slow cases on the CPU); (c) a
+   torn
    newest generation: the resume falls back to the previous one and ends
    bit for bit; (d) seconds a save at rcv1-like and lasso-design shapes,
    and seconds to the 1e-4 gap for rcv1-like sigma' auto with
@@ -281,8 +281,9 @@ stderr); any failed check exits non-zero:
    frozen from its eval on; (c) a lambda path of 64 tenants over one
    8192 x 2048 set (K=4, H=204): ms per round of a replayed step, the
    capture's seconds, the tenants certified and their rounds, models/s,
-   dead replays, the busy share of a shorter profiled run, and 2 of
-   the tenants' solo certified rounds against theirs; (d) the
+   dead replays (no profiled run, to keep the whole script within 1200
+   s), and 2 of the tenants' solo certified rounds against theirs; (d)
+   the
    block round's alpha update, the atomic scatter it replaced and the
    order-stable one in turns (time_block_round.py's ``measure``), both
    rounds' bits;
@@ -342,13 +343,27 @@ stderr); any failed check exits non-zero:
    --staleRounds=1, both certifying, the stale run within 1.25x the
    control's rounds, no join later than 1, the exchange slack of both,
    ms a round and B2's launches; (c) B2 on the harness's round against
-   its plain version in float64 and float32, with its time.
+   its plain version in float64 and float32, with its time;
+24. feature-parallel gangs (``--fp``; parallel/mesh.py, fanout.py
+   ``fp_sum``): (a) the demo's reference command (the menu) at
+   --numSplits=4 --fp=2, 20 rounds, float32, on eight ranks sharing the
+   card over gloo (d = 9947 padded to 9952): every rank's eval lines bit
+   for bit, the two fp peers of each dp position holding alpha bit for
+   bit, the gathered w and every eval line within 1e-3 of the solo run;
+   (b) an epsilon-like dense file (d = 2000) at --numSplits=2 --fp=2
+   --blockSize=128 --math=fast on four ranks: the split block round, B3
+   launched once a block on every rank (the solo split round's count),
+   the first block's chain, as the gang fed it to B3, held against
+   ``chain_block_batched_plain``, the run within 1e-3 of the solo split
+   round; (c) ms per round of both beside the solo runs, the per-step fp
+   all-reduce timed alone (1 float, and a block's 128 + 128 x 128), and
+   the phase's seconds.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
 included; phase 18's serving runs no kernel of the table; phase 20's,
-21's, 22's and 23's processes count their own, printed with it), its error
+21's, 22's, 23's and 24's processes count their own, printed with it), its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -382,7 +397,7 @@ from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data import ingest as ingest_lib
 from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.data.columns import shard_columns
-from cocoa_torch.data.synth import synth_dense_sharded, \
+from cocoa_torch.data.synth import synth_dense, synth_dense_sharded, \
     synth_lasso_columns, synth_sparse, write_libsvm
 from cocoa_torch.ops import block_chain as bc
 from cocoa_torch.ops import dense_sdca as dn
@@ -390,6 +405,7 @@ from cocoa_torch.ops import sparse_block as sb
 from cocoa_torch.ops import sparse_sdca as sp
 from cocoa_torch.ops.local_sdca import dense_rows, mode_factors
 from cocoa_torch.ops.rows import gather_rows, row_lengths
+from cocoa_torch.parallel import mesh as mesh_lib
 from cocoa_torch.solvers import base
 from cocoa_torch.solvers import cocoa as cocoa_mod
 from cocoa_torch.solvers.prox_cocoa import run_prox_cocoa
@@ -2958,8 +2974,6 @@ def sdca_loop(fn, *args, **kw):
 # --- phase 15: checkpoints and --resume --------------------------------------
 
 RESUME_AT = 300      # the rcv1-like and lasso cases' mid-run checkpoint
-KILL_ROUNDS = 10000  # the killed demo run's budget (CoCoA+ ~0.08 ms a round)
-KILL_CHKPT = 1000
 
 
 class Counted:
@@ -3183,7 +3197,6 @@ def phase_resume(rcv1, rcv1_w, lasso, card):
                                                       "auto (B1, anneal)"][0],
                                                 counted)
     print(f"phase 15 (a): all cases in {time.perf_counter() - t0:.1f} s")
-    out["(b)"] = phase_kill_resume()
     out["(c)"] = phase_torn(cases["rcv1-like sigma' auto (B1, anneal)"][0],
                             counted)
     out["(d)"] = phase_resume_costs(ds, lasso, cases, counted, card)
@@ -3232,98 +3245,9 @@ def phase_dead_chunk(run, counted):
             "dead_chunks": tr.dead_chunks}
 
 
-def kill_argv(loop, directory):
-    return [sys.executable, "-m", "cocoa_torch.cli",
-            f"--trainFile={DEMO_TRAIN}", "--numFeatures=9947",
-            "--numSplits=4", f"--numRounds={KILL_ROUNDS}",
-            "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
-            "--dtype=float32", "--debugIter=100",
-            f"--chkptIter={KILL_CHKPT}", f"--chkptDir={directory}"] + (
-        ["--deviceLoop"] if loop else [])
-
-
 def summary_lines(text):
     return [ln.strip() for ln in text.splitlines()
             if "Total Objective" in ln or "Duality Gap" in ln]
-
-
-def phase_kill_resume():
-    """(b) tests/test_crash_resume.py on the card: the demo through
-    ``python -m cocoa_torch.cli`` (CoCoA+ and CoCoA, 10000 rounds,
-    chkptIter 1000), chunked and --deviceLoop side by side, each
-    SIGKILLed once its first checkpoint exists, then both relaunched
-    with --resume; each resumed summary equals the uninterrupted run's
-    (in process, the same flags) bit for bit."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
-        dirs = {loop: os.path.join(tmp, f"ck{int(loop)}")
-                for loop in (False, True)}
-        procs = {}
-        for loop, d in dirs.items():
-            os.makedirs(d)
-            log = open(os.path.join(tmp, f"killed{int(loop)}.log"), "w")
-            procs[loop] = (subprocess.Popen(kill_argv(loop, d), cwd=ROOT,
-                                            env=env, stdout=log,
-                                            stderr=subprocess.STDOUT), log)
-        killed_at = {}
-        try:
-            deadline = time.time() + 240
-            while len(killed_at) < len(procs) and time.time() < deadline:
-                for loop, (proc, _) in procs.items():
-                    if loop in killed_at:
-                        continue
-                    if any(f.endswith(".npz") for f in os.listdir(dirs[loop])):
-                        proc.send_signal(signal.SIGKILL)
-                        proc.wait(timeout=30)
-                        killed_at[loop] = time.perf_counter() - t0
-                    else:
-                        check(proc.poll() is None,
-                              f"kill: the run finished before a checkpoint "
-                              f"(loop={loop})")
-                time.sleep(0.002)
-        finally:
-            for proc, log in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.close()
-        check(len(killed_at) == len(procs), "kill: no checkpoint in 240 s")
-        resumed = {loop: subprocess.Popen(
-            kill_argv(loop, d) + ["--resume"], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for loop, d in dirs.items()}
-        texts = {}
-        for loop, proc in resumed.items():
-            o, e = proc.communicate(timeout=300)
-            check(proc.returncode == 0,
-                  f"resume exited {proc.returncode}: {e[-2000:]}")
-            texts[loop] = o
-    out = {}
-    for loop, text in texts.items():
-        tag = "device loop" if loop else "chunked"
-        (OUT / f"chip_smoke_resume_{tag.replace(' ', '_')}.log").write_text(
-            text)
-        lines = [ln for ln in text.splitlines() if ln.startswith("resuming")]
-        check(len(lines) == 1 and lines[0].startswith("resuming CoCoA+ "),
-              f"kill {tag}: resumed lines {lines}")
-        r0 = int(lines[0].split("from round ")[1].split()[0])
-        check(r0 < KILL_ROUNDS, f"kill {tag}: resumed at {r0}, the end")
-        argv = [a for a in kill_argv(loop, "")[3:]
-                if not a.startswith("--chkpt")]
-        ref_text, _ = run_cli(argv)
-        want = summary_lines(ref_text)
-        got = summary_lines(text)
-        check(got == want, f"kill {tag}: the resumed summary {got} differs "
-                           f"from the uninterrupted {want}")
-        out[tag] = {"killed_s": killed_at[loop], "resumed_from": r0,
-                    "summary": got}
-        print(f"phase 15 (b): {tag}: SIGKILLed {killed_at[loop]:.2f} s "
-              f"after launch, resumed from round {r0} of {KILL_ROUNDS}; "
-              f"summary equal to the uninterrupted run's: "
-              + " | ".join(got))
-    print(f"phase 15 (b): in {time.perf_counter() - t0:.1f} s")
-    return out
 
 
 def phase_torn(run, counted):
@@ -4969,8 +4893,7 @@ FLEET_SOLO = 16
 FLEET_BITS = dict(n=1024, d=128, k=4, frac=0.25, rounds=200, debug_iter=10,
                   gap=1e-3, map_gap=3e-4, map_lam=(3e-3, 1e-1))
 FLEET_PATH = dict(tenants=64, n=8192, d=2048, k=4, frac=0.1, rounds=300,
-                  debug_iter=10, gap=1e-3, lam=(1e-4, 1e-1), solo=2,
-                  profiled_rounds=20)
+                  debug_iter=10, gap=1e-3, lam=(1e-4, 1e-1), solo=2)
 FLEET_DEVICE = "cuda"
 
 
@@ -5174,31 +5097,11 @@ def phase_fleet_bits(card):
     return out
 
 
-def fleet_busy(events) -> float:
-    """The device's busy share over a profiled fleet run's replays: the
-    union of its events' spans (profile_round.union_us) over the span
-    after the run's longest idle gap (the eager step's capture)."""
-    import profile_round
-
-    ev = sorted((a, b) for _, a, b in events)
-    first, widest, reach = 0, 0.0, ev[0][1]
-    for i in range(1, len(ev)):
-        if ev[i][0] - reach > widest:
-            first, widest = i, ev[i][0] - reach
-        reach = max(reach, ev[i][1])
-    window = ev[first:]
-    span = max(b for _, b in window) - window[0][0]
-    return profile_round.union_us(window) / span
-
-
 def phase_fleet_path(card):
     """(c) A lambda path of 64 tenants over one 8192 x 2048 set on vmap
     lanes: ms a replayed step and a round, capture s, certified tenants
-    and rounds, models/s, dead replays; a shorter run profiled for the
-    busy share; 8 tenants' solo certified rounds.  Returns a summary."""
-    from torch.profiler import ProfilerActivity, profile
-
-    import profile_round
+    and rounds, models/s, dead replays; 2 tenants' solo certified
+    rounds.  Returns a summary."""
     from cocoa_torch.data.fleet import TenantSpec, build_fleet
     from cocoa_torch.solvers.fleet import run_cocoa_fleet
 
@@ -5229,14 +5132,6 @@ def phase_fleet_path(card):
                 if res.replay_ms is not None else float("nan"))
     cert = {fleet.tenants[t]: int(res.cert_round[t])
             for t in range(fleet.t) if res.certified[t]}
-    prof_params = dataclasses.replace(params,
-                                      num_rounds=c["profiled_rounds"])
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run_cocoa_fleet(fleet, prof_params, debug, quiet=True)
-        torch.cuda.synchronize()
-    busy = fleet_busy(profile_round.device_events(prof))
-    prof_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     solo = {}
     # from the second quarter of the path on, where solo runs stop early
@@ -5254,9 +5149,8 @@ def phase_fleet_path(card):
            "capture_s": capture_s, "wall_s": res.wall_s,
            "certified": len(cert), "cert_rounds": cert,
            "models_per_s": res.models_per_second, "dead": res.dead,
-           "rounds_run": res.rounds_run, "busy": busy, "solo": solo,
-           "solo_differ": differ, "run_s": run_s, "profiled_s": prof_s,
-           "solo_s": solo_s}
+           "rounds_run": res.rounds_run, "solo": solo,
+           "solo_differ": differ, "run_s": run_s, "solo_s": solo_s}
     print(f"phase 19 (c): lambda path, {fleet.t} tenants x (K={fleet.k}, "
           f"n_shard={fleet.n_shard}, d={fleet.num_features}, "
           f"H={fleet.local_iters}), {slab_gb:.2f} GB of rows stacked in "
@@ -5266,12 +5160,10 @@ def phase_fleet_path(card):
           f"{res.wall_s:.2f} s; {len(cert)} certified "
           f"(rounds {sorted(set(cert.values()))}), "
           f"{res.models_per_second:.2f} models/s; dead replays {res.dead}; "
-          f"busy {busy:.1%} over a {c['profiled_rounds']}-round profiled "
-          f"run's replays; solo certified rounds of {len(solo)} tenants "
+          f"solo certified rounds of {len(solo)} tenants "
           + ("all equal" if not differ else
              f"differ (solo, fleet): {differ}")
-          + f"; s: run {run_s:.1f}, profiled run {prof_s:.1f}, solo runs "
-          f"{solo_s:.1f}; card {card}")
+          + f"; s: run {run_s:.1f}, solo runs {solo_s:.1f}; card {card}")
     return out
 
 
@@ -6883,6 +6775,258 @@ def phase_overlap(path, card):
     return out
 
 
+FP_ROUNDS = 20
+FP_EVAL = 10
+FP_TIMEOUT = 400         # s for one of phase 24's gangs, then it is killed
+FP_EPS = (2048, 2000)    # (b)'s epsilon-like file: rows x features
+FP_REPS = 200            # fp all-reduces timed alone
+FP_BLOCK = 128
+
+# One rank of phase 24: each job is one cli.run; the rank's own column
+# block of w and its alpha kept in OUT for the parent, with the first
+# block's chain inputs as the gang fed them to B3; then, where asked, the
+# fp all-reduce timed alone on a fresh (dp, fp) mesh.  Prints one line
+# "GANG <json>".
+FP_CHILD = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+from cocoa_torch import cli
+from cocoa_torch.ops import block_chain as bc
+from cocoa_torch.ops import local_sdca as ls
+from cocoa_torch.parallel import distributed
+from cocoa_torch.parallel.fanout import all_reduce_sum, fp_sum
+from cocoa_torch.parallel.mesh import make_mesh
+
+COUNTED = {"B3": (bc.chain_block_batched, "launches"),
+           "B4": (bc.fused_block, "launches"),
+           "all_reduce": (all_reduce_sum, "calls"),
+           "fp_sum": (fp_sum, "calls")}
+chain = ls.chain_block_batched
+fed = {}
+
+
+def recording_chain(scal, gram, idx, **kw):
+    if not fed:
+        fed.update(scal=scal.cpu().numpy(), gram=gram.cpu().numpy(),
+                   idx=idx.cpu().numpy(), kw=kw)
+    return chain(scal, gram, idx, **kw)
+
+
+ls.chain_block_batched = recording_chain
+
+
+def sha(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def run(job, out_dir, rank):
+    for fn, attr in COUNTED.values():
+        setattr(fn, attr, 0)
+    fed.clear()
+    t0 = time.perf_counter()
+    rc, results = cli.run(job["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    algs, arrays = [], {}
+    for r in results:
+        recs = r.trajectory.records
+        a, b = recs[0], recs[-1]
+        algs.append({
+            "algorithm": r.algorithm,
+            "records": [[x.round, x.primal, x.gap, x.test_error]
+                        for x in recs],
+            "ms_round": ((b.wall_time - a.wall_time)
+                         / max(1, b.round - a.round) * 1e3),
+            "w": sha(r.w), "alpha": None if r.alpha is None else sha(r.alpha)})
+        key = r.algorithm.replace(" ", "_")
+        arrays["w_" + key] = r.w.float().cpu().numpy()
+        if r.alpha is not None:
+            arrays["alpha_" + key] = r.alpha.float().cpu().numpy()
+    if fed:
+        arrays.update(chain_scal=fed["scal"], chain_gram=fed["gram"],
+                      chain_idx=fed["idx"])
+    np.savez(f"{out_dir}/{job['tag']}_{rank}.npz", **arrays)
+    return {"tag": job["tag"], "rc": rc, "wall_s": wall, "algs": algs,
+            "chain_kw": fed.get("kw"),
+            "counts": {k: getattr(fn, attr)
+                       for k, (fn, attr) in COUNTED.items()}}
+
+
+def time_fp_sum(spec):
+    distributed.maybe_initialize(spec["master"], spec["rank"], spec["world"])
+    try:
+        mesh = make_mesh(None, "cuda", fp=spec["fp"])
+        out = {}
+        for n in spec["sizes"]:
+            x = torch.ones(n, device=mesh.device)
+            for _ in range(10):
+                fp_sum(x, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(spec["reps"]):
+                fp_sum(x, mesh)
+            torch.cuda.synchronize()
+            out[str(n)] = (time.perf_counter() - t0) / spec["reps"] * 1e3
+        return {"backend": mesh.backend, "ms": out}
+    finally:
+        distributed.shutdown()
+
+
+spec = json.loads(sys.argv[1])
+out = {"jobs": [run(job, spec["out"], spec["rank"]) for job in spec["jobs"]]}
+if spec.get("fp_sum"):
+    out["fp_sum"] = time_fp_sum(spec["fp_sum"])
+print("GANG " + json.dumps(out), flush=True)
+"""
+
+
+def fp_whole_w(tmp, tag, key, fp):
+    """The whole w of a fp gang's run: dp position 0's column blocks, in
+    fp-slice order, from the ranks' files."""
+    return np.concatenate([np.load(os.path.join(tmp, f"{tag}_{f}.npz"))[
+        "w_" + key] for f in range(fp)])
+
+
+def fp_checks(label, ranks, tag, fp, solo, tmp, d):
+    """Every rank's eval lines bit for bit, the fp peers' alpha bit for
+    bit, the gathered w (pad columns zero) and the eval lines within
+    GANG_REL of the solo run; returns the largest |w - solo w|."""
+    ref = job_of(ranks[0], tag)["algs"]
+    for r, res in enumerate(ranks):
+        got = job_of(res, tag)["algs"]
+        check([a["records"] for a in got] == [a["records"] for a in ref],
+              f"phase 24 {label}: rank {r}'s eval lines differ from rank "
+              f"0's")
+        p, f = divmod(r, fp)
+        check(f"dp position {p} of {len(ranks) // fp}, fp slice {f} of {fp}"
+              in res["stdout"], f"phase 24 {label}: rank {r}'s gang line")
+        if f:
+            peer = job_of(ranks[r - f], tag)["algs"]
+            check([a["alpha"] for a in got] == [a["alpha"] for a in peer],
+                  f"phase 24 {label}: rank {r}'s alpha differs from its fp "
+                  f"peer's")
+    close_to_solo(f"phase 24 {label}", ref, solo)
+    err = 0.0
+    for r in solo:
+        w = fp_whole_w(tmp, tag, r.algorithm.replace(" ", "_"), fp)
+        check(w.shape == (mesh_lib.padded_width(d, fp),) and not w[d:].any(),
+              f"phase 24 {label} {r.algorithm}: w {w.shape}, pad not zero")
+        err = max(err, close_arrays(f"phase 24 {label} {r.algorithm} w",
+                                    w[:d], r.w.float().cpu()))
+    return err
+
+
+def phase_fp(card):
+    """Phase 24: feature-parallel gangs on one card.  Returns a summary
+    with B3's launches on the fp path (every rank of (b)) and its largest
+    error against the plain version."""
+    t_phase = time.perf_counter()
+    out, worst = {"card": card}, {}
+    demo = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
+            "--numFeatures=9947", "--numSplits=4",
+            f"--numRounds={FP_ROUNDS}", "--localIterFrac=0.1",
+            "--lambda=.001", "--justCoCoA=false", "--dtype=float32",
+            f"--debugIter={FP_EVAL}"]
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        # (a) the reference command on 4 x 2 ranks, the solo run here
+        t0 = time.perf_counter()
+        _, solo = run_cli(demo)
+        solo_a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ports = [free_port() for _ in range(2)]
+        ranks = spawn_gang("fp_a", [{
+            "out": tmp, "rank": r,
+            "jobs": [{"tag": "demo",
+                      "argv": demo + ["--fp=2"] + gang_flags(ports[0], r, 8)}],
+            "fp_sum": {"master": f"127.0.0.1:{ports[1]}", "rank": r,
+                       "world": 8, "fp": 2, "reps": FP_REPS,
+                       "sizes": [1, FP_BLOCK + FP_BLOCK * FP_BLOCK]}}
+            for r in range(8)], env_extra={"OMP_NUM_THREADS": "1"},
+            child=FP_CHILD, phase=24)
+        gang_a_s = time.perf_counter() - t0
+        err_a = fp_checks("(a)", ranks, "demo", 2, solo, tmp, 9947)
+        counts_a = [job_of(r, "demo")["counts"] for r in ranks]
+        check(all(c["fp_sum"] > 0 and c["B3"] == 0 for c in counts_a),
+              f"phase 24 (a): counts {counts_a[0]}")
+        ms_a = {"fp gang (gloo, 8 ranks)": job_of(ranks[0], "demo")[
+            "algs"][0]["ms_round"], "solo": steady_ms(solo[0].trajectory)}
+        fp_ms = [r["fp_sum"]["ms"] for r in ranks]
+
+        # (b) the epsilon-like file's split block round on 2 x 2 ranks
+        eps = synth_dense(*FP_EPS, seed=4)
+        path = os.path.join(tmp, "eps.svm")
+        write_libsvm(eps, path)
+        h = FP_EPS[0] // 2 // 2      # localIterFrac 0.5 of a shard
+        argv = [f"--trainFile={path}", f"--numFeatures={FP_EPS[1]}",
+                "--numSplits=2", f"--numRounds={FP_ROUNDS}",
+                "--localIterFrac=0.5", "--lambda=1e-4", "--math=fast",
+                "--dtype=float32", f"--blockSize={FP_BLOCK}",
+                f"--debugIter={FP_EVAL}"]
+        t0 = time.perf_counter()
+        reset_counts()
+        with mock.patch.object(cocoa_mod, "block_route",
+                               lambda *a: "split"):
+            _, solo_b = run_cli(argv)
+        solo_b_counts = counts()
+        solo_b_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        port = free_port()
+        ranks_b = spawn_gang("fp_b", [{
+            "out": tmp, "rank": r,
+            "jobs": [{"tag": "block",
+                      "argv": argv + ["--fp=2"] + gang_flags(port, r, 4)}]}
+            for r in range(4)], env_extra={"OMP_NUM_THREADS": "1"},
+            child=FP_CHILD, phase=24)
+        gang_b_s = time.perf_counter() - t0
+        err_b = fp_checks("(b)", ranks_b, "block", 2, solo_b, tmp,
+                          FP_EPS[1])
+        blocks = -(-h // FP_BLOCK)
+        want = 2 * FP_ROUNDS * blocks
+        counts_b = [job_of(r, "block")["counts"] for r in ranks_b]
+        for r, c in enumerate(counts_b):
+            check(c["B3"] == want == solo_b_counts["B3"] and c["B4"] == 0,
+                  f"phase 24 (b) rank {r}: B3 {c['B3']} launches, B4 "
+                  f"{c['B4']}; predicted {want} B3, the solo split round "
+                  f"{solo_b_counts['B3']}")
+        # the first block's chain as the gang fed it to B3
+        fed = np.load(os.path.join(tmp, "block_0.npz"))
+        kw = job_of(ranks_b[0], "block")["chain_kw"]
+        scal = torch.from_numpy(fed["chain_scal"]).cuda()
+        gram = torch.from_numpy(fed["chain_gram"]).cuda()
+        idx = torch.from_numpy(fed["chain_idx"]).cuda()
+        agree("phase 24 (b) the fp block's chain", bc.chain_block_batched(
+            scal, gram, idx, **kw), bc.chain_block_batched_plain(
+            scal, gram, idx, **kw), torch.float32, worst, "B3",
+            (1.0, 1.0 / kw["coef_div"]))
+        ms_b = {"fp gang (gloo, 4 ranks)": job_of(ranks_b[0], "block")[
+            "algs"][0]["ms_round"], "solo split": steady_ms(
+            solo_b[0].trajectory)}
+    launched = {"B3": sum(c["B3"] for c in counts_b)}
+    out.update(
+        ms_round={"a": ms_a, "b": ms_b}, fp_sum_ms=fp_ms,
+        w_err={"a": err_a, "b": err_b}, counts={"a": counts_a,
+                                                 "b": counts_b},
+        seconds={"solo a": solo_a_s, "gang a": gang_a_s,
+                 "solo b": solo_b_s, "gang b": gang_b_s,
+                 "phase": time.perf_counter() - t_phase},
+        launched=launched, max_abs_err=worst["B3"])
+    med = {n: float(np.median([m[n] for m in fp_ms])) for n in fp_ms[0]}
+    print(f"phase 24 (a): the demo menu at --numSplits=4 --fp=2 on 8 ranks "
+          f"(gloo, one card), d 9947 -> 9952: ranks' lines bit for bit, fp "
+          f"peers' alpha bit for bit, w within {err_a:.2e} of the solo run; "
+          f"fp sums a rank {counts_a[0]['fp_sum']}")
+    print(f"phase 24 (b): epsilon-like {FP_EPS[0]} x {FP_EPS[1]} at "
+          f"--numSplits=2 --fp=2 --blockSize={FP_BLOCK}: B3 {want} launches "
+          f"a rank (the solo split round's), the fed chain within "
+          f"{worst['B3']:.2e} of its plain version, w within {err_b:.2e}")
+    print("phase 24 (c): ms per round (CoCoA+, steady): " + ", ".join(
+        f"{k} {v:.4f}" for part in (ms_a, ms_b) for k, v in part.items())
+        + "; fp all-reduce alone (median of 8 ranks, ms): " + ", ".join(
+            f"{n} floats {v:.4f}" for n, v in med.items())
+        + f"; card {card}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -7383,6 +7527,13 @@ def main() -> int:
     (OUT / "chip_smoke_phase23.json").write_text(json.dumps(overlap23,
                                                             default=str))
 
+    # --- phase 24: feature-parallel gangs
+    t0 = time.perf_counter()
+    fp24 = phase_fp(card)
+    print(f"phase 24: all cases ok in {time.perf_counter() - t0:.1f} s")
+    (OUT / "chip_smoke_phase24.json").write_text(json.dumps(fp24,
+                                                            default=str))
+
     block_launches = {name: sum(c[name] for c in (*launched.values(),
                                                   *launched10.values(),
                                                   *launched11.values(),
@@ -7470,7 +7621,13 @@ def main() -> int:
         row["launches"] += launched20.get(name, 0) + \
             ingest21["launched"].get(name, 0) + \
             elastic22["launched"].get(name, 0) + \
-            overlap23["launched"].get(name, 0)
+            overlap23["launched"].get(name, 0) + \
+            fp24["launched"].get(name, 0)
+        if name == "B3":
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     fp24["max_abs_err"])
+    print("phase 24 launches (the fp gangs' ranks), in the counts below: "
+          + ", ".join(f"{name} {v}" for name, v in fp24["launched"].items()))
     print("phase 23 launches ((a)'s runs and (b)'s gang workers), in the "
           "counts below: " + ", ".join(
               f"{name} {v}" for name, v in overlap23["launched"].items()))

@@ -157,13 +157,15 @@ from cocoa_torch.config import REFERENCE_FLAGS, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data import ingest as ingest_lib
 from cocoa_torch.data.columns import shard_columns
-from cocoa_torch.data.sharding import eval_dense_fits, resolve_layout_stats
+from cocoa_torch.data.sharding import FP_SPARSE, eval_dense_fits, \
+    resolve_layout_stats
 from cocoa_torch.data.slab_cache import SlabCache
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
 from cocoa_torch.parallel import distributed
-from cocoa_torch.parallel.mesh import local_part, make_mesh
+from cocoa_torch.parallel.mesh import feature_part, has_fp, local_part, \
+    make_mesh
 from cocoa_torch.solvers import run_cocoa
 from cocoa_torch.solvers.cocoa import auto_block_size
 from cocoa_torch.solvers.dist_gd import run_dist_gd
@@ -192,7 +194,7 @@ _PORT_FLAGS.update(blockSize="block_size", hotCols="hot_cols",
                    eventsMaxMB="events_max_mb",
                    metricsInterval="metrics_interval", profile="profile")
 # flags of the JAX CLI that this port does not accept yet
-_NOT_PORTED = ("fp",)
+_NOT_PORTED = ()
 # the round-barrier levers (``--overlapComm``, ``--staleRounds``): no
 # RunConfig field, read from the flags given (:func:`_exchange_flags`)
 _EXCHANGE_FLAGS = ("overlapComm", "staleRounds")
@@ -203,10 +205,12 @@ _ELASTIC_FLAGS = ("elastic", "stallTimeout")
 # how the training text reaches the device (``--ingest``) and the slab
 # cache (``--ingestCache``): no RunConfig field, read from the flags given
 _INGEST_FLAGS = ("ingest", "ingestCache")
-# the gang's flags (``--master`` and its rank, ``--mesh``): no RunConfig
-# field, read from the flags given; beside ``--fleet`` (the fleet's
-# tenant mesh axis) they are not ported yet
-_GANG_FLAGS = ("mesh", "master", "processId", "numProcesses")
+# the gang's flags (``--master`` and its rank, ``--mesh``, ``--fp``): no
+# RunConfig field, read from the flags given; beside ``--fleet``,
+# ``--mesh`` and ``--fp`` get the JAX CLI's refusals and the rendezvous
+# flags (``_FLEET_UNPORTED``) are not ported yet
+_GANG_FLAGS = ("mesh", "fp", "master", "processId", "numProcesses")
+_FLEET_UNPORTED = ("master", "processId", "numProcesses")
 # the serving loop's flags (``--serve``): no RunConfig field, read from
 # the flags given (``cfg._given``), as the JAX CLI reads its extras
 _SERVE_FLAGS = ("serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
@@ -280,7 +284,7 @@ def parse_args(argv: list[str]):
         else:
             setattr(cfg, field, val)
     if "fleet" in given:
-        unported += [key for key in given if key in _GANG_FLAGS]
+        unported += [key for key in given if key in _FLEET_UNPORTED]
     cfg._given = given
     return cfg, unported
 
@@ -531,19 +535,40 @@ def _block_pipeline(cfg: RunConfig, block_size: int) -> Optional[bool]:
     return None if bp == "auto" else bp == "on"
 
 
-def _objective(cfg: RunConfig):
+def _fp_flag(cfg: RunConfig) -> int:
+    """``--fp`` as an int >= 1 (1 when absent), with the JAX CLI's
+    messages (cocoa_tpu/cli.py:1050-1058)."""
+    raw = getattr(cfg, "_given", {}).get("fp")
+    try:
+        fp = int(raw) if raw else 1
+    except ValueError:
+        raise ValueError(f"--fp must be an integer, got {raw!r}") from None
+    if fp < 1:
+        raise ValueError(f"--fp must be >= 1, got {fp}")
+    return fp
+
+
+def _objective(cfg: RunConfig, fp: int = 1):
     """(objective, l2, the slab cache or None) with the JAX CLI's checks
-    and messages (cocoa_tpu/cli.py:1101-1105,1119-1160,1664-1681)."""
+    and messages (cocoa_tpu/cli.py:1101-1105,1119-1160,1664-1681); with
+    ``--fp`` > 1 also its refusals of the lasso, of ``--ingestCache``,
+    of ``--ingest=stream`` and of the sparse layout, taken here, before
+    the gang forms, so that each gives its own words in one process."""
     objective = (cfg.objective or "svm").lower()
     if objective not in ("svm", "lasso"):
         raise ValueError(f"--objective must be svm|lasso, got {objective!r}")
-    cache = _ingest_cache(cfg, objective)
+    cache = _ingest_cache(cfg, objective, fp)
     if objective == "svm":
+        if fp > 1 and cfg.layout == "sparse":
+            raise ValueError(FP_SPARSE)
         return objective, 0.0, cache
     if cfg.hot_cols is not None:
         raise ValueError("--hotCols does not apply to --objective=lasso "
                          "(column shards already partition the feature "
                          "axis)")
+    if fp > 1:
+        raise ValueError("--objective=lasso already shards the feature "
+                         "axis over workers; --fp does not apply")
     if cfg.test_file:
         raise ValueError("--testFile does not apply to --objective=lasso "
                          "(no classification error to report)")
@@ -557,7 +582,7 @@ def _objective(cfg: RunConfig):
     return objective, l2, cache
 
 
-def _ingest_cache(cfg: RunConfig, objective: str):
+def _ingest_cache(cfg: RunConfig, objective: str, fp: int = 1):
     """``--ingestCache=DIR`` armed (its directory made) and ``--ingest``
     checked, with the JAX CLI's rules and messages (cocoa_tpu/cli.py:
     1119-1160): the cache is the SVM rows' alone, and ``--ingest`` takes
@@ -572,6 +597,12 @@ def _ingest_cache(cfg: RunConfig, objective: str):
                              "--objective=lasso (the column shards "
                              "transpose the row slabs per run — nothing "
                              "shard-keyed to cache); drop the flag")
+        if fp > 1:
+            raise ValueError("--ingestCache does not support "
+                             "feature-parallel (fp) meshes (the fp column "
+                             "split re-buckets rows per device grid — the "
+                             "shard artifacts are geometry-free by "
+                             "contract); drop --fp or the cache flag")
         try:
             cache = SlabCache(str(given["ingestCache"]))
         except OSError as e:
@@ -579,7 +610,7 @@ def _ingest_cache(cfg: RunConfig, objective: str):
                              f"{e}") from None
     ingest_lib.resolve_ingest_mode(given.get("ingest"), None,
                                    objective=objective,
-                                   cached=cache is not None)
+                                   cached=cache is not None, fp=fp > 1)
     return cache
 
 
@@ -742,7 +773,7 @@ def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
 
 
 def _layout_knobs(cfg: RunConfig, n: int, total_nnz: int, hist, k: int,
-                  dtype):
+                  dtype, fp: bool = False):
     """``--layout``, ``--hotCols`` and ``--evalDense`` resolved from the
     training file's counts alone (n, its nonzeros, its column histogram),
     with the JAX CLI's rules and messages (cocoa_tpu/cli.py:1216-1242
@@ -750,9 +781,9 @@ def _layout_knobs(cfg: RunConfig, n: int, total_nnz: int, hist, k: int,
     streamed and the cached builds.  The hot panel is on the sparse
     layout only; the twin's ``auto`` is decided by :func:`eval_dense_fits`.
     Returns (layout, panel width, 0 for the plain stream layout; eval
-    twin)."""
+    twin).  A feature-parallel gang (``fp``) is dense only."""
     layout = resolve_layout_stats(n, cfg.num_features, total_nnz,
-                                  cfg.layout)
+                                  cfg.layout, fp)
     if cfg.hot_cols is not None and layout != "sparse":
         raise ValueError("--hotCols (the hot/cold column split) only "
                          "applies to the sparse layout")
@@ -910,7 +941,7 @@ def _ingest_svm(cfg: RunConfig, k: int, dtype, device, mesh, mode: str,
         ds = shard_dataset(data, k=k, layout=cfg.layout, dtype=dtype,
                            device=device, hot_cols=hot_n,
                            eval_dense=eval_dense, part=part, cache=handle,
-                           counts=counts)
+                           counts=counts, cols=feature_part(mesh))
         ds.mesh = mesh
         status = "off"
         if handle is not None:
@@ -950,7 +981,7 @@ def _ingest_svm(cfg: RunConfig, k: int, dtype, device, mesh, mode: str,
         n, counts, max_row_nnz = (data.n, hybrid.column_counts(data),
                                   int(data.max_nnz))
         layout, hot_n, eval_dense = _layout_knobs(
-            cfg, n, int(data.indptr[-1]), counts, k, dtype)
+            cfg, n, int(data.indptr[-1]), counts, k, dtype, has_fp(mesh))
         ds = cold(handle, cfg.train_file, hot_n, eval_dense, t_load, data,
                   counts)
         del data
@@ -1065,7 +1096,8 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         _check_choices(cfg)
         block_size = _block_size(cfg)
         block_pipeline = _block_pipeline(cfg, block_size)
-        objective, l2, ingest_cache = _objective(cfg)
+        fp = _fp_flag(cfg)
+        objective, l2, ingest_cache = _objective(cfg, fp)
         ladder = _ladder(cfg)
         _scan_chunk(cfg)
         device_loop = _device_loop(cfg)
@@ -1083,7 +1115,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
     try:
-        mesh = _join_gang(cfg, gang, device, device_loop)
+        mesh = _join_gang(cfg, gang, device, device_loop, fp)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         distributed.shutdown()
@@ -1102,11 +1134,14 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
 
 
 def _elastic_spec(cfg: RunConfig) -> tuple:
-    """(workers, shrink mode: auto | now) from ``--elastic=N[,shrink]
+    """(workers, shrink mode: auto | now | off) from ``--elastic=N[,shrink]
     [,devices=D]`` (or ``shrink`` with ``--numProcesses``), with the JAX
     CLI's rules and messages (cocoa_tpu/cli.py:767-816).  ``devices=D``
     above 1 names several cards in one worker process, which the port
-    does not run: its workers own one device each."""
+    does not run: its workers own one device each.  With ``--fp`` > 1
+    the JAX CLI's rules (cocoa_tpu/cli.py:818-837): ``shrink`` is
+    refused, and the gang restarts at its size only (``off``) with JAX's
+    note; a port worker being one rank, N must be K x F."""
     given = cfg._given
     shrink, n_workers, devices = "auto", None, 1
     for part in str(given["elastic"]).split(","):
@@ -1150,6 +1185,25 @@ def _elastic_spec(cfg: RunConfig) -> tuple:
             raise ValueError("--numProcesses must be an integer") from None
     if n_workers < 1:
         raise ValueError("--elastic needs at least 1 worker")
+    fp = _fp_flag(cfg)
+    if fp > 1:
+        # the fp axis pins w's column split to the gang's grid: a resized
+        # gang cannot restore the old checkpoints' placement
+        if shrink == "now":
+            raise ValueError(
+                "--elastic=shrink does not support feature-parallel (fp) "
+                "meshes: w's column split is pinned to the device grid, so "
+                "a reformed gang cannot resume the checkpoints; drop --fp "
+                "or use --elastic=N")
+        if n_workers != cfg.num_splits * fp:
+            raise ValueError(
+                f"--elastic={n_workers} with --fp={fp}: a port worker is "
+                f"one rank, so the gang needs numSplits x fp = "
+                f"{cfg.num_splits * fp} workers")
+        shrink = "off"
+        print("note: --elastic with --fp keeps same-size restarts only (an "
+              "fp gang cannot shrink; see docs/DESIGN.md §13)",
+              file=sys.stderr)
     return n_workers, shrink
 
 
@@ -1271,15 +1325,19 @@ def _gang_args(cfg: RunConfig):
     return given.get("master"), proc_id, n_procs
 
 
-def _join_gang(cfg: RunConfig, gang, device, device_loop: bool):
+def _join_gang(cfg: RunConfig, gang, device, device_loop: bool,
+               fp: int = 1):
     """Join the gang when ``--master`` names a rendezvous (parallel/
-    distributed.py) and build its mesh over every rank; then ``--mesh``
-    with the JAX CLI's rules and message (cocoa_tpu/cli.py:1042-1100),
-    its devices the gang's ranks (1 in one process).  Returns the mesh,
-    None in one process (the JAX package's ``--mesh=1`` path)."""
-    mesh = None
-    if distributed.maybe_initialize(*gang):
-        mesh = make_mesh(None, device)
+    distributed.py); then ``--mesh`` and ``--fp`` with the JAX CLI's rules
+    and messages (cocoa_tpu/cli.py:1042-1100), its devices the gang's
+    ranks (1 in one process), every rank a position of the mesh: the
+    (dp,) mesh over every rank, or with ``--fp=F`` the (K, F) mesh over
+    K x F ranks, which the JAX CLI asks for (its shard multiplexing is
+    dp-only).  Returns the mesh, None in one process (the JAX package's
+    ``--mesh=1`` path)."""
+    joined = distributed.maybe_initialize(*gang)
+    world = distributed.world_size()
+    k = cfg.num_splits
     raw = getattr(cfg, "_given", {}).get("mesh")
     if raw is not None:
         try:
@@ -1287,13 +1345,23 @@ def _join_gang(cfg: RunConfig, gang, device, device_loop: bool):
         except ValueError:
             raise ValueError(f"--mesh must be an integer, got {raw!r}") \
                 from None
-        world = 1 if mesh is None else mesh.size
-        k = cfg.num_splits
-        if size != world or (size > 1 and k % size != 0):
+        if size * fp != world or (size > 1 and k % size != 0):
             raise ValueError(
-                f"--mesh={size} (x fp=1) needs a divisor of numSplits={k} "
-                f"and mesh x fp devices (have {world}); use --mesh=1 for "
-                f"the single-chip path")
+                f"--mesh={size} (x fp={fp}) needs a divisor of "
+                f"numSplits={k} and mesh x fp devices (have {world}); use "
+                f"--mesh=1 for the single-chip path")
+        if fp > 1 and size == 1 and k > 1:
+            raise ValueError(
+                f"--fp={fp} needs a device mesh and is incompatible with "
+                f"the --mesh=1 single-chip path; drop --mesh or pass "
+                f"--mesh={k}")
+    else:
+        size = world // fp
+    if fp > 1 and size != k:
+        raise ValueError(
+            f"--fp={fp} requires a {k}x{fp}-device mesh (numSplits x fp; "
+            f"shard multiplexing is dp-only; have {world} devices)")
+    mesh = make_mesh(size, device, fp=fp) if joined else None
     if (device_loop and mesh is not None and mesh.device.type == "cuda"
             and not mesh.capturable):
         from cocoa_torch.solvers.base import GLOO_DEVICE_LOOP
@@ -1544,7 +1612,9 @@ def _fleet_ladder(cfg: RunConfig):
     1893-1937): a fleet takes its gap targets from the manifest, so
     ``--sigma=auto`` and ``--accel=on`` need no ``--gapTarget``; device
     sampling, the adaptive Theta and the sigma' trial are refused; accel
-    is off unless ``on``, and does not combine with the anneal."""
+    is off unless ``on``, and does not combine with the anneal.  As there,
+    ``--mesh`` and ``--fp`` are refused (the fleet's multi-card direction
+    is the tenant mesh axis, parallel/mesh.py ``make_fleet_mesh``)."""
     if cfg.loss not in losses.LOSSES:
         raise ValueError(f"--loss must be one of {losses.LOSSES}; use "
                          f"--objective=lasso for the L1 family")
@@ -1571,6 +1641,17 @@ def _fleet_ladder(cfg: RunConfig):
         raise ValueError("--theta=adaptive requires an accelerated "
                          "gap-targeted run (--accel=auto|on with --gapTarget, "
                          "not --sigmaSchedule=trial)")
+    given = getattr(cfg, "_given", {})
+    if given.get("mesh") and str(given["mesh"]) != "1":
+        raise ValueError("--mesh does not combine with --fleet in v1: fleet "
+                         "lanes ride the tenant vmap on one chip; the "
+                         "multi-chip direction is the tenant mesh axis "
+                         "(parallel/mesh.make_fleet_mesh, docs/DESIGN.md "
+                         "§16)")
+    if given.get("fp") and str(given["fp"]) != "1":
+        raise ValueError("--fp does not combine with --fleet (feature "
+                         "sharding splits one model's columns; fleet lanes "
+                         "are whole independent models)")
     if cfg.sampling == "device":
         raise ValueError("--sampling=device does not combine with --fleet "
                          "(the fleet loop host-samples its stacked index "

@@ -31,7 +31,7 @@ def shard_columns(data: LibsvmData, k: int,
                   dtype: torch.dtype = torch.float32, device=None,
                   layout: str = "auto",
                   max_col_nnz: Optional[int] = None,
-                  part: Optional[tuple] = None):
+                  part: Optional[tuple] = None, fp: bool = False):
     """Partition A's d columns into K balanced contiguous blocks on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Returns
     ``(ds, b)``: the transposed-role dataset (shard "row" j is column
@@ -49,7 +49,11 @@ def shard_columns(data: LibsvmData, k: int,
     Host arrays are built in float64 and cast once.  ``part=(rank,
     world)`` builds only that rank's column shards, as
     :func:`cocoa_torch.data.sharding.shard_dataset` builds its rows: the
-    layout and padded width still from the whole design."""
+    layout and padded width still from the whole design.
+
+    ``fp`` (a feature-parallel gang, which the CLI refuses beside the
+    lasso) takes the JAX package's rules (cocoa_tpu/data/columns.py:
+    87-93): ``auto`` resolves to dense and ``sparse`` raises."""
     if layout not in ("auto", "dense", "sparse"):
         raise ValueError(f"layout must be auto|dense|sparse, got {layout!r}")
     device = resolve_device(device)
@@ -72,6 +76,11 @@ def shard_columns(data: LibsvmData, k: int,
         layout = ("sparse" if density < 0.10 and widest * 2 < n
                   and (max_col_nnz is None or widest <= max_col_nnz)
                   else "dense")
+        if fp:
+            layout = "dense"
+    if layout == "sparse" and fp:
+        raise ValueError(
+            "sparse column shards cannot combine with an fp mesh")
     if layout == "sparse" and max_col_nnz is not None \
             and widest > max_col_nnz:
         raise ValueError(

@@ -474,15 +474,21 @@ def load_cached_dataset(handle, stats, k: int, *, layout: str,
 
 
 def resolve_ingest_mode(spec, mesh=None, *, objective: str = "svm",
-                        cached: bool = False) -> str:
+                        cached: bool = False, fp: bool = False) -> str:
     """``--ingest=stream|whole|auto`` -> the mode a run uses, with the JAX
     package's rule and messages: ``auto`` streams SVM runs on a gang of
     more than one rank (``mesh``, parallel/mesh.py), and every SVM run
     once a cache is armed (the streamed build is what consults and fills
     the cache shard by shard); a single uncached process and the lasso's
-    column shards keep ``whole``.  ``stream`` with the lasso raises.  (The
-    JAX package's refusals for a feature-parallel mesh wait for ``--fp``,
-    which the port does not have.)"""
+    column shards keep ``whole``.  ``stream`` with the lasso raises.  A
+    feature-parallel gang (``--fp``) keeps ``whole``, and ``stream``
+    raises there: the column split has no per-rank byte range to stream
+    (cocoa_tpu/data/ingest.py:706-717); ``fp`` says so before the mesh
+    exists."""
+    from cocoa_torch.parallel.mesh import has_fp
+
+    fp = fp or has_fp(mesh)
+
     spec_s = ("auto" if spec is None else str(spec)).strip().lower()
     if spec_s not in ("auto", "stream", "whole"):
         raise ValueError(f"--ingest must be stream|whole|auto, "
@@ -492,8 +498,13 @@ def resolve_ingest_mode(spec, mesh=None, *, objective: str = "svm",
             raise ValueError(
                 "--ingest=stream does not apply to --objective=lasso "
                 "(column shards re-bucket every row; use --ingest=whole)")
+        if fp:
+            raise ValueError(
+                "--ingest=stream does not support feature-parallel (fp) "
+                "meshes (no per-device byte range to stream); use "
+                "--ingest=whole")
         return "stream"
-    if spec_s == "whole":
+    if spec_s == "whole" or fp:
         return "whole"
     if objective == "svm" and mesh is not None and mesh.size > 1:
         return "stream"

@@ -25,6 +25,12 @@ build, while ``n``, ``k`` and ``all_counts`` stay the whole dataset's
 package the row count is not rounded up to a TPU tile, so padded shapes
 may differ from it; the unpadded contents do not.
 
+On a feature-parallel gang (``--fp=F``, ``cols=(f, F)``) the layout is
+dense only, d is padded to ``pad_features`` (a multiple of lcm(F, 8)) and
+a rank keeps the column block [f*d_pad/F, (f+1)*d_pad/F) of its shards'
+rows; ``sq_norms`` are still the whole rows' and ``num_features`` is
+d_pad, w's whole length (``col_lo``/``col_hi`` name the block).
+
 Each shard is built on the host by :func:`_build_shard_slabs` and copied
 to the device by :func:`assemble`; the whole-file build here, the
 streamed one and the slab cache (data/ingest.py, data/slab_cache.py) all
@@ -43,21 +49,33 @@ from cocoa_torch.data.libsvm import LibsvmData
 from cocoa_torch.device import resolve_device
 
 
-def resolve_layout_stats(n: int, d: int, nnz: int, layout: str) -> str:
+# the JAX package's refusal of a sparse layout on an fp mesh
+# (cocoa_tpu/data/sharding.py:452)
+FP_SPARSE = ("feature-axis (fp) sharding requires layout='dense'; the "
+             "padded-CSR layout cannot column-partition")
+
+
+def resolve_layout_stats(n: int, d: int, nnz: int, layout: str,
+                         fp: bool = False) -> str:
     """The one place the ``layout="auto"`` rule lives, from the dataset's
     counts alone (streamed ingest resolves before any shard is parsed):
-    sparse below 10% density (rcv1-like), dense otherwise."""
+    sparse below 10% density (rcv1-like), dense otherwise; dense on a
+    feature-parallel gang (``fp``), which refuses a sparse layout."""
     if layout not in ("auto", "dense", "sparse"):
         raise ValueError(f"layout must be auto|dense|sparse, got {layout!r}")
+    if fp:
+        if layout == "sparse":
+            raise ValueError(FP_SPARSE)
+        return "dense"
     if layout != "auto":
         return layout
     return "sparse" if nnz / max(1, n * d) < 0.10 else "dense"
 
 
-def resolve_layout(data: LibsvmData, layout: str) -> str:
+def resolve_layout(data: LibsvmData, layout: str, fp: bool = False) -> str:
     """``layout="auto"`` against a parsed dataset."""
     return resolve_layout_stats(data.n, data.num_features,
-                                int(data.indptr[-1]), layout)
+                                int(data.indptr[-1]), layout, fp)
 
 
 # the dense eval twin's device-memory budget under ``--evalDense=auto``
@@ -123,6 +141,17 @@ class ShardedDataset:
     shard_lo: int = 0
     all_counts: Optional[np.ndarray] = None
     mesh: Optional[object] = None
+    # a feature-parallel rank: its column block [col_lo, col_hi) of the
+    # num_features (= d_pad) columns
+    col_lo: int = 0
+    col_hi: Optional[int] = None
+
+    @property
+    def w_len(self) -> int:
+        """The length of this rank's w: its column block on an fp gang,
+        else d."""
+        return (self.num_features if self.col_hi is None
+                else self.col_hi - self.col_lo)
 
     @property
     def k(self) -> int:
@@ -235,25 +264,34 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _densify_rows(piece, lo, hi, n_shard, d, np_dtype, row_nnz):
+def _densify_rows(piece, lo, hi, n_shard, d, np_dtype, row_nnz,
+                  cols=None):
     """Rows [lo, hi) of the CSR ``piece`` as a zero-padded (n_shard, d)
     dense slab (a repeated column keeps its last value): the dense layout
-    and the eval twin."""
+    and the eval twin.  ``cols=(c0, c1)`` keeps the column block
+    [c0, c1) only, an (n_shard, c1 - c0) slab."""
     a, b = piece.indptr[lo], piece.indptr[hi]
+    rows = np.repeat(np.arange(hi - lo), row_nnz[lo:hi])
+    idx, vals = piece.indices[a:b], piece.values[a:b]
+    if cols is not None:
+        keep = (idx >= cols[0]) & (idx < cols[1])
+        rows, idx, vals = rows[keep], idx[keep] - cols[0], vals[keep]
+        d = cols[1] - cols[0]
     X = np.zeros((n_shard, d), np_dtype)
-    X[np.repeat(np.arange(hi - lo), row_nnz[lo:hi]),
-      piece.indices[a:b]] = piece.values[a:b]
+    X[rows, idx] = vals
     return X
 
 
 def _build_shard_slabs(piece, lo, hi, n_shard, layout, dtype, d, width,
                        row_nnz, row_sq, *, rank=None, n_hot=0,
-                       eval_dense=False) -> dict:
+                       eval_dense=False, cols=None) -> dict:
     """One shard's host arrays (rows [lo, hi) of the CSR ``piece``) in the
     run's ``dtype``: labels, mask and sq_norms, then the dense ``X``, the
     padded CSR, or (``n_hot`` > 0) the hot panel and the cold residual,
     and the eval twin.  ``row_nnz`` and ``row_sq`` (the exact float64
-    sums of squares) index ``piece`` as ``lo`` and ``hi`` do.  Every
+    sums of squares) index ``piece`` as ``lo`` and ``hi`` do.  ``cols``
+    (an fp rank's column block, dense only) keeps those columns of ``X``;
+    ``sq_norms`` stay the whole rows'.  Every
     build (whole file, streamed, cached) makes its shards here, so equal
     rows give equal bits."""
     np_dtype = _build_np(dtype)
@@ -267,7 +305,7 @@ def _build_shard_slabs(piece, lo, hi, n_shard, layout, dtype, d, width,
     out = dict(labels=labels, mask=mask, sq_norms=sq)
     if layout == "dense":
         out["X"] = _densify_rows(piece, lo, hi, n_shard, d, np_dtype,
-                                 row_nnz)
+                                 row_nnz, cols)
     elif n_hot:
         from cocoa_torch.data import hybrid
 
@@ -294,11 +332,14 @@ def _build_shard_slabs(piece, lo, hi, n_shard, layout, dtype, d, width,
 def assemble(slabs, *, layout: str, n: int, d: int, k: int,
              sizes: np.ndarray, dtype: torch.dtype, device,
              part: Optional[tuple], hot_ids=None, n_hot: int = 0,
-             residual_max_nnz: int = 0) -> ShardedDataset:
+             residual_max_nnz: int = 0,
+             cols: Optional[tuple] = None) -> ShardedDataset:
     """A rank's :class:`ShardedDataset` from ``slabs``, an iterable of
     ``(global shard id, slab dict)`` over its shards (in any order): each
     slab is copied once into its row of the (m, ...) tensors on
-    ``device`` and then dropped, so the host holds one slab at a time."""
+    ``device`` and then dropped, so the host holds one slab at a time.
+    ``cols`` is an fp rank's column block [lo, hi) of the ``d``
+    columns."""
     lo_s, hi_s = part_range(k, part)
     fields: dict = {}
     for s, slab in slabs:
@@ -318,7 +359,8 @@ def assemble(slabs, *, layout: str, n: int, d: int, k: int,
         layout=layout, n=n, num_features=d,
         counts=sizes[lo_s:hi_s].astype(np.int64), **fields,
         residual_max_nnz=int(residual_max_nnz),
-        **gang_fields(k, lo_s, hi_s, sizes, part))
+        **gang_fields(k, lo_s, hi_s, sizes, part),
+        **({} if cols is None else dict(col_lo=cols[0], col_hi=cols[1])))
 
 
 def cached_or_built(view, s: int, build):
@@ -339,7 +381,8 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
                   dtype: torch.dtype = torch.float32, device=None,
                   hot_cols: int = 0, eval_dense: bool = False,
                   part: Optional[tuple] = None,
-                  cache=None, counts=None) -> ShardedDataset:
+                  cache=None, counts=None,
+                  cols: Optional[tuple] = None) -> ShardedDataset:
     """Partition ``data`` into K balanced contiguous shards on ``device``
     (``cuda`` unless ``"cpu"`` is asked for; raises without CUDA), one
     shard at a time through :func:`_build_shard_slabs`, so ``sq_norms``
@@ -363,10 +406,26 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
 
     ``cache`` (a ``slab_cache.FileCacheHandle``, ``--ingestCache``)
     serves each shard from its artifact where one is valid and publishes
-    each shard built, with the hybrid residual's width beside them."""
+    each shard built, with the hybrid residual's width beside them.
+
+    ``cols=(f, F)`` builds fp slice f of F (``--fp``; parallel/mesh.py
+    ``feature_part``): dense only (``auto`` resolves to dense, sparse
+    raises the JAX package's message), d padded to
+    ``mesh.pad_features``, the rank's column block of every row kept;
+    the cache does not serve it (the JAX CLI refuses ``--ingestCache``
+    beside ``--fp``)."""
     device = resolve_device(device)
     n, d = data.n, data.num_features
-    layout = resolve_layout(data, layout)
+    layout = resolve_layout(data, layout, fp=cols is not None)
+    block = None
+    if cols is not None:
+        from cocoa_torch.parallel import mesh as mesh_lib
+
+        if hot_cols or eval_dense or cache is not None:
+            raise ValueError("a feature-parallel build is dense only, "
+                             "without a slab cache")
+        d = mesh_lib.padded_width(d, cols[1])
+        block = mesh_lib.column_block(d, cols)
     if eval_dense and layout != "sparse":
         raise ValueError("eval_dense only applies to the sparse layout "
                          "(the dense layout's eval is already a matvec)")
@@ -400,8 +459,9 @@ def shard_dataset(data: LibsvmData, k: int, layout: str = "auto",
         dtype=dtype, eval_dense=eval_dense)
     slabs = ((s, cached_or_built(view, s, lambda s=s: _build_shard_slabs(
         data, offsets[s], offsets[s + 1], n_shard, layout, dtype, d, width,
-        row_nnz, row_sq, rank=rank, n_hot=n_hot, eval_dense=eval_dense)))
+        row_nnz, row_sq, rank=rank, n_hot=n_hot, eval_dense=eval_dense,
+        cols=block)))
         for s in range(lo_s, hi_s))
     return assemble(slabs, layout=layout, n=n, d=d, k=k, sizes=sizes,
                     dtype=dtype, device=device, part=part, hot_ids=hot_ids,
-                    n_hot=n_hot, residual_max_nnz=resid_max)
+                    n_hot=n_hot, residual_max_nnz=resid_max, cols=block)

@@ -53,7 +53,7 @@ def synth_dense(n: int, d: int, *, seed: int = 0,
 
 def synth_dense_sharded(n: int, d: int, k: int, *, seed: int = 0,
                         flip: float = 0.02, dtype=torch.float32,
-                        device=None) -> ShardedDataset:
+                        device=None, mesh=None) -> ShardedDataset:
     """Epsilon-like dense data made on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for) in the (K, n_shard, d) layout of
     ``shard_dataset``; nothing of it exists on the host.  Same
@@ -63,10 +63,26 @@ def synth_dense_sharded(n: int, d: int, k: int, *, seed: int = 0,
     mask 0.  The draws are this port's own (``torch.Generator`` streams
     seeded from ``seed`` and the shard number), not those of JAX's
     ``jax.random``, so the two packages' arrays differ.  Deterministic in
-    (n, d, k, seed, flip, dtype, device type)."""
+    (n, d, k, seed, flip, dtype, device type).
+
+    ``mesh`` (a gang's, parallel/mesh.py) builds only this rank's shards,
+    rows [lo, hi) of the whole build; on a feature-parallel gang d is
+    padded to ``pad_features`` (a multiple of lcm(F, 8)) and the rank
+    keeps its column block of each row, the labels and ``sq_norms`` those
+    of the whole rows (the JAX package's ``synth_dense_sharded`` on an fp
+    mesh, cocoa_tpu/data/synth.py:182)."""
+    from cocoa_torch.data.sharding import gang_fields, part_range
+    from cocoa_torch.parallel import mesh as mesh_lib
+
     device = resolve_device(device)
     sizes = split_sizes(n, k)
     n_shard = int(sizes.max())
+    part = mesh_lib.local_part(mesh)
+    lo_s, hi_s = part_range(k, part)
+    d_pad, c0, c1 = d, 0, d
+    if mesh_lib.has_fp(mesh):
+        d_pad = mesh_lib.pad_features(d, mesh)
+        c0, c1 = mesh_lib.column_block(d_pad, mesh_lib.feature_part(mesh))
 
     def gen(stream: int) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(
@@ -74,24 +90,31 @@ def synth_dense_sharded(n: int, d: int, k: int, *, seed: int = 0,
 
     w_star = torch.randn(d, generator=gen(0), device=device,
                          dtype=dtype) / np.sqrt(d)
-    X = torch.empty(k, n_shard, d, dtype=dtype, device=device)
-    labels = torch.zeros(k, n_shard, dtype=dtype, device=device)
+    X = torch.zeros(hi_s - lo_s, n_shard, c1 - c0, dtype=dtype,
+                    device=device)
+    labels = torch.zeros(hi_s - lo_s, n_shard, dtype=dtype, device=device)
     mask = torch.zeros_like(labels)
     sq = torch.zeros_like(labels)
-    for s, m in enumerate(sizes.tolist()):
+    for s in range(lo_s, hi_s):
+        m = int(sizes[s])
         g = gen(1 + s)
         xs = torch.randn(n_shard, d, generator=g, device=device, dtype=dtype)
         xs /= torch.linalg.vector_norm(xs, dim=1, keepdim=True)
         xs[m:] = 0
         y = torch.where(xs[:m] @ w_star >= 0, 1.0, -1.0).to(dtype)
         flips = torch.rand(m, generator=g, device=device) < flip
-        labels[s, :m] = torch.where(flips, -y, y)
-        mask[s, :m] = 1
-        sq[s] = (xs * xs).sum(-1)
-        X[s] = xs
-    return ShardedDataset(
-        layout="dense", n=n, num_features=d, counts=sizes.astype(np.int64),
-        labels=labels, mask=mask, sq_norms=sq, X=X)
+        labels[s - lo_s, :m] = torch.where(flips, -y, y)
+        mask[s - lo_s, :m] = 1
+        sq[s - lo_s] = (xs * xs).sum(-1)
+        # the pad columns [d, d_pad) stay zero
+        X[s - lo_s, :, :max(0, min(c1, d) - c0)] = xs[:, c0:min(c1, d)]
+    ds = ShardedDataset(
+        layout="dense", n=n, num_features=d_pad,
+        counts=sizes[lo_s:hi_s].astype(np.int64), labels=labels, mask=mask,
+        sq_norms=sq, X=X, **gang_fields(k, lo_s, hi_s, sizes, part),
+        **({} if c1 - c0 == d_pad else dict(col_lo=c0, col_hi=c1)))
+    ds.mesh = mesh
+    return ds
 
 
 def synth_lasso_columns(n: int, d: int, k: int, *, seed: int = 0,

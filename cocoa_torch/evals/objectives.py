@@ -15,6 +15,10 @@ SGD and DistGD baselines) there is no dual objective and no gap.
 :func:`classification_error` give the end-of-run summary as the JAX CLI's
 ``finish`` does: each device sum fetched on its own and combined on the
 host in float64.
+
+On a feature-parallel gang (``--fp``) w is this rank's column block: the
+margins and w.w are summed over the fp peers first (``fp_sum``), in one
+call an eval, and the per-row sums then cross the dp positions only.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.ops import losses
 from cocoa_torch.ops.rows import eval_margins
-from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.parallel.fanout import all_reduce_sum, fp_sum
 
 
 def eval_metrics(w, alpha, shard_arrays, lam, n, test_shard_arrays=None,
@@ -37,17 +41,30 @@ def eval_metrics(w, alpha, shard_arrays, lam, n, test_shard_arrays=None,
     ``alpha``.  In a gang (``mesh``) the shard sums -- the loss sum, the
     dual sum and the test errors -- cross the ranks packed in ONE
     all-reduce; w.w and every other term of the replicated w are this
-    rank's own, never summed across ranks."""
+    rank's own, never summed across ranks.  On an fp gang w.w, the
+    margins and the test margins are first summed over the fp peers in
+    one call."""
     w_norm_sq = w @ w
     mask = shard_arrays["mask"]
-    z = shard_arrays["labels"] * eval_margins(w, shard_arrays)
+    margins = eval_margins(w, shard_arrays)
+    test_margins = (None if test_shard_arrays is None
+                    else eval_margins(w, test_shard_arrays))
+    if mesh is not None and mesh.fp > 1:
+        parts = [w_norm_sq.reshape(1), margins.reshape(-1)]
+        if test_margins is not None:
+            parts.append(test_margins.reshape(-1))
+        flat = fp_sum(torch.cat(parts), mesh)
+        w_norm_sq = flat[0]
+        margins = flat[1:1 + margins.numel()].view_as(margins)
+        if test_margins is not None:
+            test_margins = flat[1 + margins.numel():].view_as(test_margins)
+    z = shard_arrays["labels"] * margins
     sums = [(losses.primal(loss, z, smoothing=smoothing) * mask).sum()]
     if alpha is not None:
         sums.append((losses.dual_term(loss, alpha, smoothing=smoothing)
                      * mask).sum())
     if test_shard_arrays is not None:
-        wrong = (eval_margins(w, test_shard_arrays)
-                 * test_shard_arrays["labels"]) <= 0.0
+        wrong = (test_margins * test_shard_arrays["labels"]) <= 0.0
         sums.append((wrong.to(w.dtype) * test_shard_arrays["mask"]).sum())
     if mesh is not None:
         sums = list(all_reduce_sum(torch.stack(sums), mesh))
@@ -103,13 +120,20 @@ def _shard_sum(per_row, mask, mesh=None) -> float:
     return float(total.to(per_row.dtype))
 
 
-def _summary_margins(w, shards):
+def _summary_margins(w, shards, mesh=None):
     """x.w of every row, the products summed unrounded in
-    :func:`_sum_dtype` and rounded once to w's dtype."""
+    :func:`_sum_dtype` and rounded once to w's dtype (on an fp gang the
+    column blocks' sums added over the peers first)."""
     acc = _sum_dtype(w.dtype)
     wide = {name: t.to(acc) if t.is_floating_point() else t
             for name, t in shards.items()}
-    return eval_margins(w.to(acc), wide).to(w.dtype)
+    return fp_sum(eval_margins(w.to(acc), wide), mesh).to(w.dtype)
+
+
+def _w_norm_sq(w, mesh=None) -> float:
+    """w.w on the host; on an fp gang the column blocks' sums added over
+    the peers."""
+    return float(fp_sum(w @ w, mesh))
 
 
 def primal_objective(ds: ShardedDataset, w, lam, loss: str = "hinge",
@@ -118,10 +142,10 @@ def primal_objective(ds: ShardedDataset, w, lam, loss: str = "hinge",
     on the host in float64 (cocoa_tpu/evals/objectives.py
     ``primal_objective``)."""
     shards = ds.shard_arrays()
-    z = shards["labels"] * _summary_margins(w, shards)
+    z = shards["labels"] * _summary_margins(w, shards, ds.mesh)
     loss_sum = _shard_sum(losses.primal(loss, z, smoothing=smoothing),
                           shards["mask"], ds.mesh)
-    return loss_sum / ds.n + 0.5 * lam * float(w @ w)
+    return loss_sum / ds.n + 0.5 * lam * _w_norm_sq(w, ds.mesh)
 
 
 def dual_objective(ds: ShardedDataset, w, alpha, lam, loss: str = "hinge",
@@ -131,12 +155,12 @@ def dual_objective(ds: ShardedDataset, w, alpha, lam, loss: str = "hinge",
     ``dual_objective``); ``alpha`` (K, n_shard)."""
     dual_sum = _shard_sum(losses.dual_term(loss, alpha, smoothing=smoothing),
                           ds.shard_arrays()["mask"], ds.mesh)
-    return -0.5 * lam * float(w @ w) + dual_sum / ds.n
+    return -0.5 * lam * _w_norm_sq(w, ds.mesh) + dual_sum / ds.n
 
 
 def classification_error(ds: ShardedDataset, w) -> float:
     """The share of rows with y * (x.w) <= 0: the device's count over n on
     the host (cocoa_tpu/evals/objectives.py ``classification_error``)."""
     shards = ds.shard_arrays()
-    wrong = (_summary_margins(w, shards) * shards["labels"]) <= 0.0
+    wrong = (_summary_margins(w, shards, ds.mesh) * shards["labels"]) <= 0.0
     return _shard_sum(wrong.to(w.dtype), shards["mask"], ds.mesh) / ds.n

@@ -19,6 +19,13 @@ Modes:
   and the dw coefficient is the raw coordinate delta (divisor 1).
 
 Sampled indices arrive precomputed as ``idxs`` (K, H).
+
+On a feature-parallel gang (``--fp``) each rank holds a column block of
+the rows and of w, and the loops take ``fp_sum``
+(parallel/fanout.py ``fp_reducer``): every d-contraction they form (a
+step's margin dots, the block round's Gram and margin base) is summed
+over the rank's fp peers before the scalar step reads it, so the F peers
+take the same alpha steps and each advances its own columns of dw.
 """
 
 from __future__ import annotations
@@ -86,14 +93,15 @@ def _scalar(v, dtype, device) -> torch.Tensor:
 def local_sdca(w_init: torch.Tensor, alpha: torch.Tensor, shards: dict,
                idxs: torch.Tensor, lam: float, n: int, mode: str = "cocoa",
                sigma=1.0, loss: str = "hinge",
-               smoothing: float = 1.0, lam_n=None):
+               smoothing: float = 1.0, lam_n=None, fp_sum=None):
     """H sequential SDCA steps on each of the K shards, in the reference's
     operation order.  ``w_init`` (d,), or (K, d) one w per shard row (a
     fleet's tenants, each expanded to its K shards), ``alpha``
     (K, n_shard), ``idxs`` (K, H).  ``lam_n`` and ``sigma`` may be
     tensors of shape (K,), a value per shard row (see
     :func:`_coef_staging`), in place of lam*n and a float sigma'.
-    Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
+    ``fp_sum`` sums a step's margin dots over the fp peers, both in one
+    call.  Returns (delta_alpha (K, n_shard), delta_w (K, d))."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     losses.validate(loss, smoothing)
@@ -115,8 +123,13 @@ def local_sdca(w_init: torch.Tensor, alpha: torch.Tensor, shards: dict,
         margin = row_dot(row, w)
         qii = _gather(sq_norms, idx)
         if mode in ("plus", "prox"):
-            margin = margin + sigma_c * row_dot(row, dw)
+            extra = row_dot(row, dw)
+            if fp_sum is not None:
+                margin, extra = fp_sum(torch.stack([margin, extra]))
+            margin = margin + sigma_c * extra
             qii = qii * sigma_c
+        elif fp_sum is not None:
+            margin = fp_sum(margin)
         new_a = losses.alpha_step(loss, a, y * margin, qii, lam_n,
                                   smoothing=smoothing)
         coef = coef_of(y, new_a - a)
@@ -149,13 +162,14 @@ def local_sdca_fast(margins0: torch.Tensor, alpha: torch.Tensor,
                     shards: dict, idxs: torch.Tensor, lam: float, n: int,
                     dw_init: torch.Tensor, mode: str = "cocoa",
                     sigma=1.0, loss: str = "hinge",
-                    smoothing: float = 1.0, lam_n=None):
+                    smoothing: float = 1.0, lam_n=None, fp_sum=None):
     """Fast-math counterpart of :func:`local_sdca`, over all K shards:
     margin = margins0[idx] + sig_eff * x.dw, with ``margins0`` = X.w0
     (K, n_shard) computed once per round.  Equal in real arithmetic,
     rounded in another order.  ``dw_init`` (K, d) zeros is advanced in
-    place; ``lam_n`` and ``sigma`` as in :func:`local_sdca`.  Returns
-    (delta_alpha, delta_w)."""
+    place; ``lam_n`` and ``sigma`` as in :func:`local_sdca`.  On an fp
+    gang ``margins0`` is the whole rows' and ``fp_sum`` sums each step's
+    x.dw over the fp peers.  Returns (delta_alpha, delta_w)."""
     losses.validate(loss, smoothing)
     sig_eff, qii_factor = mode_factors(mode, sigma)
     labels, sq_norms = shards["labels"], shards["sq_norms"]
@@ -173,7 +187,10 @@ def local_sdca_fast(margins0: torch.Tensor, alpha: torch.Tensor,
         a = _gather(a_vec, idx)
         margin = _gather(margins0, idx)
         if mode != "frozen":
-            margin = margin + sig_c * row_dot(row, dw)
+            part = row_dot(row, dw)
+            if fp_sum is not None:
+                part = fp_sum(part)
+            margin = margin + sig_c * part
         qii = _gather(sq_norms, idx) * qf
         new_a = losses.alpha_step(loss, a, y * margin, qii, lam_n,
                                   smoothing=smoothing)
@@ -366,13 +383,24 @@ def _block_alpha_add(a_vec: torch.Tensor, bidx: torch.Tensor,
     a_vec.scatter_(1, bidx, a_vec.gather(1, bidx) + total)
 
 
+def _fp_block_sums(fp_sum, mbase: torch.Tensor, gram):
+    """A block's partial margin base (K, B) and Gram (K, B, B) (None in
+    frozen mode) summed over the fp peers, packed into one call."""
+    if gram is None:
+        return fp_sum(mbase), None
+    flat = fp_sum(torch.cat([mbase.reshape(-1), gram.reshape(-1)]))
+    return (flat[:mbase.numel()].view_as(mbase),
+            flat[mbase.numel():].view_as(gram))
+
+
 def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
                              shards: dict, idxs_kh: torch.Tensor, lam: float,
                              n: int, mode: str = "cocoa", sigma: float = 1.0,
                              loss: str = "hinge", smoothing: float = 1.0,
                              block: int = 128, route: str = "split",
                              plain: bool = False,
-                             pipeline: Optional[bool] = None):
+                             pipeline: Optional[bool] = None,
+                             fp_sum=None):
     """The block-coordinate round for all K shards on one device
     (counterpart of cocoa_tpu/ops/local_sdca.py
     ``local_sdca_block_batched``), the ``--blockSize`` path.  Only the
@@ -405,10 +433,20 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
     are plain tensor ops; every branch adds its alpha deltas once
     per block, in an order fixed by the block (:func:`_block_alpha_add`).
     ``plain`` calls the kernels' plain versions on every device (the
-    solvers' rule for 2-byte dtypes, which the kernels refuse).  Returns
-    (delta_alpha (K, n_shard), delta_w (K, d))."""
+    solvers' rule for 2-byte dtypes, which the kernels refuse).
+
+    ``fp_sum`` (a feature-parallel gang; the split route only, since the
+    fused and sparse kernels form their products from whole rows) sums
+    each block's partial margin base and Gram over the fp peers in one
+    call, :func:`_fp_block_sums`; the chain then runs on the whole
+    products, the same on every peer, and each peer applies coef . X_B to
+    its own columns.  Returns (delta_alpha (K, n_shard), delta_w (K,
+    d))."""
     if route not in BLOCK_ROUTES:
         raise ValueError(f"route must be one of {BLOCK_ROUTES}, got {route!r}")
+    if fp_sum is not None and route != "split":
+        raise ValueError(f"a feature-parallel block round takes the split "
+                         f"route, got {route!r}")
     if route == "sparse_gram" and "sp_indices" not in shards:
         raise ValueError("the sparse_gram route needs the padded-CSR "
                          "(sparse) layout")
@@ -498,6 +536,8 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
             else:
                 mbase = torch.matmul(xb, (w + sig_eff * dw)[:, :, None])[..., 0]
                 gram = torch.matmul(xb, xb.transpose(1, 2))
+        if fp_sum is not None:
+            mbase, gram = _fp_block_sums(fp_sum, mbase, gram)
         scal = torch.stack([mbase, yb, qb, a_vec.gather(1, bidx), zeros,
                             live], dim=1)
         if tiles is not None:

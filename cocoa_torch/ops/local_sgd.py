@@ -23,10 +23,11 @@ from cocoa_torch.ops.rows import get_row, row_axpy, row_dot
 
 def local_sgd(w_init: torch.Tensor, shards: dict, idxs: torch.Tensor,
               lam: float, t_global, local: bool, loss: str = "hinge",
-              smoothing: float = 1.0) -> torch.Tensor:
+              smoothing: float = 1.0, fp_sum=None) -> torch.Tensor:
     """H SGD steps on each of the K shards from the shared ``w_init``
     (d,); ``idxs`` (K, H), ``t_global`` = (t-1)*H*K (SGD.scala:53).
-    Returns each shard's dw (K, d)."""
+    On a feature-parallel gang ``fp_sum`` sums each step's margin over
+    the fp peers (ops/local_sdca.py).  Returns each shard's dw (K, d)."""
     losses.validate(loss, smoothing)
     labels = shards["labels"]
     k, d = idxs.shape[0], w_init.shape[0]
@@ -42,8 +43,10 @@ def local_sgd(w_init: torch.Tensor, shards: dict, idxs: torch.Tensor,
         idx = idxs[:, i]
         row = get_row(shards, idx)
         y = labels.gather(1, idx[:, None])[:, 0]
-        g = losses.grad_factor(loss, y * row_dot(row, w),
-                               smoothing=smoothing)
+        z = row_dot(row, w)
+        if fp_sum is not None:
+            z = fp_sum(z)
+        g = losses.grad_factor(loss, y * z, smoothing=smoothing)
         if local:
             w = w * (1.0 - eta * lam_c)
             row_axpy(row, y * eta * g, w)

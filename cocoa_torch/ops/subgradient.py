@@ -26,15 +26,19 @@ from cocoa_torch.ops.rows import _scatter_add, nonzero_slots, shard_margins
 
 def subgradient_pass(w: torch.Tensor, shards: dict, lam: float,
                      loss: str = "hinge", smoothing: float = 1.0,
-                     slots=None) -> torch.Tensor:
+                     slots=None, fp_sum=None) -> torch.Tensor:
     """Each shard's dw (K, d): sum_i y_i*g(z_i)*x_i - lam*w.  Padded rows
     have label 0, so they add nothing.  On the sparse layout the scatter
     runs over ``slots`` (ops/rows.py ``nonzero_slots``, which reads the
     values on the host: a caller that captures the pass makes it once,
-    outside the capture; None makes it here)."""
+    outside the capture; None makes it here).  On a feature-parallel
+    gang ``fp_sum`` sums the margins over the fp peers."""
     losses.validate(loss, smoothing)
     labels = shards["labels"]
-    coef = labels * losses.grad_factor(loss, labels * shard_margins(w, shards),
+    margins = shard_margins(w, shards)
+    if fp_sum is not None:
+        margins = fp_sum(margins)
+    coef = labels * losses.grad_factor(loss, labels * margins,
                                        smoothing=smoothing)
     if "X" in shards:
         return torch.matmul(coef[:, None, :], shards["X"])[:, 0] - lam * w

@@ -116,6 +116,11 @@ def initialized() -> bool:
             and torch.distributed.is_initialized())
 
 
+def world_size() -> int:
+    """The gang's size, 1 without a gang."""
+    return torch.distributed.get_world_size() if initialized() else 1
+
+
 def rank_device(rank: int, device) -> torch.device:
     """Rank r's device: ``cuda:(r % cards)`` on CUDA, the CPU when the
     caller asks for it."""
@@ -147,18 +152,21 @@ def host_allgather_bytes(payload: bytes, group=None) -> list:
     return out
 
 
-def host_gather_shards(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def host_gather_shards(x: torch.Tensor, axis: int = 0,
+                       every: int = 1) -> torch.Tensor:
     """Every rank's block of shards, concatenated in rank order along
     ``axis`` (the shard axis), on the host: the checkpoint's whole alpha
     from each rank's (m, n_shard), over the gloo host group (gloo gathers
-    host tensors only).  Single-process: ``x`` on the host."""
+    host tensors only).  ``every`` = F on a feature-parallel gang, whose
+    F ranks of a dp position hold the same shards: the blocks of ranks
+    0, F, 2F, ... only.  Single-process: ``x`` on the host."""
     x = x.detach().cpu().contiguous()
     if not initialized():
         return x
     parts = [torch.empty_like(x)
              for _ in range(torch.distributed.get_world_size())]
     torch.distributed.all_gather(parts, x)
-    return torch.cat(parts, dim=axis)
+    return torch.cat(parts[::every], dim=axis)
 
 
 def post_device(device: torch.device) -> list:

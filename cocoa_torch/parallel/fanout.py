@@ -12,6 +12,12 @@ their launches (cocoa_torch/kernels.py ``count_launches``), so a call
 inside a captured CUDA graph counts at each replay; the counts are the
 port's form of tests/test_comm_contract.py (one all-reduce a round, one
 an eval).  With a mesh of one rank the call is still made on the group.
+
+On a (dp, fp) mesh (``--fp``) the two reducers run over the dp group, the
+ranks of one fp slice, so that each shard's sum counts once, and
+:func:`fp_sum` sums a d-contraction's partial dots over the fp group, the
+F ranks that hold one dp position's column blocks; with F = 1 the dp
+group is the whole world and there is no fp sum.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ def shards_per_device(mesh, k: int) -> int:
     (the local path IS the all-shards-on-one-device case)."""
     if mesh is None:
         return 1
-    d = mesh.size
+    d = mesh.dp_size
     if k % d != 0:
         raise ValueError(
             f"{k} shards cannot multiplex evenly onto the {d}-device dp "
@@ -41,33 +47,65 @@ def shards_per_device(mesh, k: int) -> int:
     return k // d
 
 
-def _all_reduce(x: torch.Tensor, mesh, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     out = x.clone()
-    torch.distributed.all_reduce(out, op=op, group=mesh.device_group)
+    torch.distributed.all_reduce(out, op=op, group=group)
     return out
 
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` summed over the gang's ranks (a new tensor, on x's device),
-    or ``x`` itself without a mesh."""
+    """``x`` summed over the gang's dp positions (a new tensor, on x's
+    device), or ``x`` itself without a mesh."""
     if mesh is None:
         return x
     all_reduce_sum.calls += 1
-    return _all_reduce(x, mesh, torch.distributed.ReduceOp.SUM)
+    return _all_reduce(x, torch.distributed.ReduceOp.SUM, mesh.dp_group)
 
 
 def all_reduce_max(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x``'s elementwise maximum over the gang's ranks, or ``x`` itself
+    """``x``'s elementwise maximum over the gang's dp positions, or ``x`` itself
     without a mesh: the lasso certificate's max |a_j.r| over the column
     shards (cocoa_tpu/solvers/prox_cocoa.py:78)."""
     if mesh is None:
         return x
     all_reduce_max.calls += 1
-    return _all_reduce(x, mesh, torch.distributed.ReduceOp.MAX)
+    return _all_reduce(x, torch.distributed.ReduceOp.MAX, mesh.dp_group)
+
+
+def fp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, a d-contraction over this rank's column block, summed over
+    its fp peers (a new tensor): the whole contraction, the same on the
+    F ranks.  ``x`` itself without an fp axis."""
+    if mesh is None or mesh.fp == 1:
+        return x
+    fp_sum.calls += 1
+    return _all_reduce(x, torch.distributed.ReduceOp.SUM, mesh.fp_group)
+
+
+def fp_reducer(mesh) -> Optional[Callable]:
+    """The ops' ``fp_sum`` hook for ``mesh``: :func:`fp_sum` bound to it
+    on an fp mesh, None (nothing to reduce) otherwise."""
+    if mesh is None or mesh.fp == 1:
+        return None
+    return lambda x: fp_sum(x, mesh)
+
+
+def fp_gather(w: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole w (d_pad,) from every rank's column block, on the host,
+    in fp-slice order: gathered over the host group (gloo gathers host
+    tensors only), the blocks of dp position 0.  ``w`` on the host
+    without an fp axis."""
+    w = w.detach().cpu().contiguous()
+    if mesh is None or mesh.fp == 1:
+        return w
+    parts = [torch.empty_like(w) for _ in range(mesh.size)]
+    torch.distributed.all_gather(parts, w)
+    return torch.cat(parts[:mesh.fp])
 
 
 kernels.count_launches(all_reduce_sum, "calls")
 kernels.count_launches(all_reduce_max, "calls")
+kernels.count_launches(fp_sum, "calls")
 
 
 def lane_fanout(per_lane: Callable, lane_exec: str = "vmap",

@@ -38,6 +38,7 @@ from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.parallel import distributed
+from cocoa_torch.parallel.fanout import fp_gather
 from cocoa_torch.telemetry import events as _events
 from cocoa_torch.telemetry import tracing as _tracing
 from cocoa_torch.utils import prng
@@ -78,7 +79,8 @@ def fit_padding(a: torch.Tensor, size: int):
 
 def restore_w(w_init, ds: ShardedDataset) -> torch.Tensor:
     """w (or ProxCoCoA+'s residual) from a restored ``w_init``, its zero
-    padding fitted (:func:`fit_padding`)."""
+    padding fitted (:func:`fit_padding`); a feature-parallel rank keeps
+    its column block of the whole w, which every checkpoint holds."""
     w = _owned(w_init, ds)
     out = fit_padding(w, ds.num_features) if w.ndim == 1 else None
     if out is None or w.shape[0] < ds.num_features:
@@ -86,6 +88,8 @@ def restore_w(w_init, ds: ShardedDataset) -> torch.Tensor:
             f"w_init has shape {tuple(w.shape)} but the dataset has "
             f"{ds.num_features} features — was the checkpoint written with "
             f"different data?")
+    if ds.col_hi is not None:
+        out = out[ds.col_lo:ds.col_hi].clone()
     return out
 
 
@@ -501,17 +505,20 @@ def _save_args(debug: DebugParams, name: str, round_t: int, state: tuple,
                n_iterate: int, accel, traj: Trajectory, mesh=None):
     """The arguments of :func:`checkpoint.save` for ``state`` at
     ``round_t`` (see :func:`save_checkpoint`), a gang's alpha and bank
-    gathered over the host group."""
+    gathered over the host group, and on a feature-parallel gang the
+    whole w from its column blocks."""
     rest = state[n_iterate:]
     hist = rest[0] if accel is not None else None
     sched = rest[-1] if len(rest) > (accel is not None) else None
     alpha = state[1] if n_iterate > 1 else None
+    w = state[0]
     if mesh is not None:
         alpha = (None if alpha is None
-                 else distributed.host_gather_shards(alpha, 0))
+                 else distributed.host_gather_shards(alpha, 0, mesh.fp))
         hist = (None if hist is None
-                else distributed.host_gather_shards(hist, 1))
-    return ((debug.chkpt_dir, name, round_t, state[0], alpha),
+                else distributed.host_gather_shards(hist, 1, mesh.fp))
+        w = fp_gather(w, mesh) if mesh.fp > 1 else w
+    return ((debug.chkpt_dir, name, round_t, w, alpha),
             dict(seed=debug.seed, sched=sched, hist=hist,
                  gap=_last_gap(traj)))
 

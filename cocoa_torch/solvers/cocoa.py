@@ -35,11 +35,13 @@ from cocoa_torch.telemetry.events import get_bus
 from cocoa_torch.ops.block_chain import CHAIN_MAX_B, fused_fits
 from cocoa_torch.ops.dense_sdca import dense_sdca_round, \
     dense_sdca_round_plain
-from cocoa_torch.ops.local_sdca import local_sdca, local_sdca_block_batched
+from cocoa_torch.ops.local_sdca import local_sdca, \
+    local_sdca_block_batched, local_sdca_fast
 from cocoa_torch.ops.rows import nonzero_slots, row_lengths, shards_axpy
 from cocoa_torch.ops.sparse_sdca import sparse_sdca_round, \
     sparse_sdca_round_plain
-from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.parallel.fanout import all_reduce_sum, fp_reducer, fp_sum
+from cocoa_torch.parallel.mesh import has_fp
 from cocoa_torch.solvers import base
 
 # ``--blockSize=auto`` at float32: the block size the JAX package ranks
@@ -68,7 +70,8 @@ def _alg_config(params: Params, k: int, plus: Optional[bool], mode=None):
     return "cocoa", params.beta / k, sig
 
 
-def fast_round_route(layout: str, device, dtype: torch.dtype) -> str:
+def fast_round_route(layout: str, device, dtype: torch.dtype,
+                     fp: bool = False) -> str:
     """Which inner loop runs a ``--math=fast`` round (the rule that stands
     in for the TPU auto-select at cocoa_tpu/solvers/cocoa.py:540-589):
     the wrappers' own device rule, :func:`cocoa_torch.kernels.runs_plain`,
@@ -81,16 +84,22 @@ def fast_round_route(layout: str, device, dtype: torch.dtype) -> str:
       layout and the CUDA dense SDCA kernel on the dense one.
 
     The dtype alone decides, before any launch: the kernels themselves
-    refuse 2-byte dtypes.
+    refuse 2-byte dtypes.  A feature-parallel gang (``fp``) takes
+    ``"plain"`` on every device, the fast-math loop with each step's x.dw
+    summed over the fp peers, as the JAX package keeps its Pallas kernels
+    off an fp mesh (cocoa_tpu/solvers/cocoa.py:576-586): B1 and B2 read
+    a whole row against a whole w.  This is the fp route itself, not a
+    fallback from a kernel.
     """
     if layout not in ("dense", "sparse"):
         raise ValueError(f"layout must be dense or sparse, got {layout!r}")
-    if kernels.runs_plain(device) or not kernels.takes_dtype(dtype):
+    if fp or kernels.runs_plain(device) or not kernels.takes_dtype(dtype):
         return "plain"
     return "kernel"
 
 
-def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
+def block_route(layout: str, b: int, dtype: torch.dtype,
+                fp: bool = False) -> str:
     """Which branch runs a ``--blockSize=b`` round (the card's rule, in
     place of the TPU's VMEM fit gates at cocoa_tpu/ops/local_sdca.py:510-521
     and pallas_chain.py ``fused_fits``):
@@ -106,10 +115,18 @@ def block_route(layout: str, b: int, dtype: torch.dtype) -> str:
     column of A, n entries long (dense) or its nonzeros (padded CSC).
     The route depends on shapes only: a CPU tensor, and a 2-byte dtype
     on any device, takes the same branch with the kernels' plain versions
-    (``local_sdca_block_batched(plain=True)`` for the dtype)."""
+    (``local_sdca_block_batched(plain=True)`` for the dtype).
+
+    A feature-parallel gang (``fp``, dense only) takes ``"split"``: each
+    rank forms the partial Gram and margin base from its columns, one fp
+    all-reduce a block sums them, the chain runs on B3, and each rank
+    applies coef . X_B to its columns; the fused kernel forms the Gram
+    from whole rows and is never taken.  A failure of B3 raises."""
     if b < 1 or b > CHAIN_MAX_B:
         raise ValueError(f"--blockSize must be in 1..{CHAIN_MAX_B} on this "
                          f"port, got {b}")
+    if fp:
+        return "split"
     if layout == "sparse":
         return "sparse_gram"
     return "fused" if fused_fits(b, dtype.itemsize) else "split"
@@ -149,6 +166,8 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
     common = dict(mode=mode, sigma=sigma, loss=params.loss,
                   smoothing=params.smoothing)
     mesh = ds.mesh
+    fp = has_fp(mesh)
+    fp_kw = dict(fp_sum=fp_reducer(mesh)) if fp else {}
 
     def reduce(dw):
         # the local shards' sum in the device, then the gang's one
@@ -159,13 +178,13 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
         def round_fn(state, idxs_kh, t):
             w, alpha = state
             da, dw = local_sdca(w, alpha, shards, idxs_kh, params.lam,
-                                params.n, **common)
+                                params.n, **common, **fp_kw)
             # CoCoA.scala:47-48,101
             return w + scaling * reduce(dw), alpha + scaling * da
         return round_fn
 
     if block_size:
-        route = block_route(ds.layout, block_size, ds.dtype)
+        route = block_route(ds.layout, block_size, ds.dtype, fp)
         if route == "sparse_gram":
             # per-row nnz bounds the kernels' loops; once per run
             shards = {**shards, "sp_row_len": row_lengths(ds.sp_values)}
@@ -177,12 +196,22 @@ def _sdca_round_parts(params: Params, mode: str, scaling: float,
             da, dw = local_sdca_block_batched(
                 w, alpha, shards, idxs_kh, params.lam, params.n,
                 block=block_size, route=route, plain=plain,
-                pipeline=block_pipeline, **common)
+                pipeline=block_pipeline, **common, **fp_kw)
             return w + scaling * reduce(dw), alpha + scaling * da
         return round_fn
 
-    route = fast_round_route(ds.layout, ds.device, ds.dtype)
-    if ds.layout == "sparse":
+    route = fast_round_route(ds.layout, ds.device, ds.dtype, fp)
+    if fp:
+        def inner(w, alpha, idxs_kh):
+            # the whole rows' margins X.w0 once a round, then the
+            # fast-math loop with each step's x.dw summed over the peers
+            dw = torch.zeros(alpha.shape[0], w.shape[0], dtype=w.dtype,
+                             device=w.device)
+            da, dw = local_sdca_fast(
+                fp_sum(ds.X @ w, mesh), alpha, shards, idxs_kh, params.lam,
+                params.n, dw, **common, **fp_kw)
+            return dw, alpha + da
+    elif ds.layout == "sparse":
         # per-row nnz bounds the kernel's loops; once per run, not per round
         kw = dict(row_len=row_lengths(ds.sp_values)) \
             if route == "kernel" else {}
@@ -340,7 +369,8 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
     theta_hs = base.theta_ladder(full_h, accel and theta == "adaptive")
     if len(theta_hs) > 1 and (block_size > 0 or (
             math == "fast"
-            and fast_round_route(ds.layout, ds.device, ds.dtype) == "kernel")):
+            and fast_round_route(ds.layout, ds.device, ds.dtype,
+                                 has_fp(ds.mesh)) == "kernel")):
         raise ValueError(
             "--theta=adaptive slices the sequential (C, K, H) "
             "index tables and is not available on the Pallas/"
@@ -353,7 +383,7 @@ def run_sdca_family(ds: ShardedDataset, params: Params, debug: DebugParams,
                                    block_pipeline=block_pipeline)
                  for bp in branch_params] for lv in levels]
 
-    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    w = (torch.zeros(ds.w_len, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
     alpha = (torch.zeros((ds.m, ds.n_shard), dtype=ds.dtype, device=ds.device)
              if alpha_init is None else base.align_alpha(alpha_init, ds))

@@ -19,7 +19,7 @@ from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.rows import nonzero_slots
 from cocoa_torch.ops.subgradient import subgradient_pass
-from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.parallel.fanout import all_reduce_sum, fp_reducer
 from cocoa_torch.solvers import base
 
 
@@ -38,6 +38,8 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
     shards = ds.shard_arrays()
     # the sparse pass scatters only the nonzero slots, in slot order
     slots = nonzero_slots(shards)
+    fp_sum = fp_reducer(ds.mesh)
+    fp_kw = {} if fp_sum is None else dict(fp_sum=fp_sum)
     if not quiet:
         print(f"\nRunning DistGD on {params.n} data examples, "
               f"distributed over {k} workers")
@@ -48,10 +50,15 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
         dw_sum = all_reduce_sum(
             subgradient_pass(w, shards, params.lam, loss=params.loss,
                              smoothing=params.smoothing,
-                             slots=slots).sum(0), ds.mesh)
+                             slots=slots, **fp_kw).sum(0), ds.mesh)
         t_c = t.to(w.dtype)
         eta = 1.0 / (params.beta * t_c)
-        return (w + dw_sum * (eta / torch.linalg.vector_norm(dw_sum)),)
+        if fp_sum is None:
+            norm = torch.linalg.vector_norm(dw_sum)
+        else:
+            # |dw| over the whole d: the column blocks' squares summed
+            norm = torch.sqrt(fp_sum(dw_sum @ dw_sum))
+        return (w + dw_sum * (eta / norm),)
 
     test = None if test_ds is None else test_ds.shard_arrays()
 
@@ -62,7 +69,7 @@ def run_dist_gd(ds: ShardedDataset, params: Params, debug: DebugParams,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
             smoothing=params.smoothing, mesh=ds.mesh)
 
-    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    w = (torch.zeros(ds.w_len, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
     (w,), traj = base.drive("Dist SGD", params, debug, (w,),
                             base.per_round(round_fn), metrics, None,

@@ -22,7 +22,7 @@ from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops.local_sgd import local_sgd
-from cocoa_torch.parallel.fanout import all_reduce_sum
+from cocoa_torch.parallel.fanout import all_reduce_sum, fp_reducer
 from cocoa_torch.solvers import base
 
 
@@ -42,6 +42,8 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
     k, h, lam = ds.k, params.local_iters, params.lam
     scaling = params.beta / k if local else params.beta / (k * h)
     shards = ds.shard_arrays()
+    fp_sum = fp_reducer(ds.mesh)
+    fp_kw = {} if fp_sum is None else dict(fp_sum=fp_sum)
     if not quiet:
         print(f"\nRunning SGD (with local updates = {local}) on {params.n} "
               f"data examples, distributed over {k} workers")
@@ -53,7 +55,7 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
         if not local:
             w = w * (1.0 - eta * lam)
         dw = local_sgd(w, shards, idxs_kh, lam, (t_c - 1.0) * h * k, local,
-                       loss=params.loss, smoothing=params.smoothing)
+                       loss=params.loss, smoothing=params.smoothing, **fp_kw)
         step = scaling if local else eta * scaling
         return (w + all_reduce_sum(dw.sum(0), ds.mesh) * step,)
 
@@ -66,7 +68,7 @@ def run_sgd(ds: ShardedDataset, params: Params, debug: DebugParams,
             test_n=0 if test_ds is None else test_ds.n, loss=params.loss,
             smoothing=params.smoothing, mesh=ds.mesh)
 
-    w = (torch.zeros(ds.num_features, dtype=ds.dtype, device=ds.device)
+    w = (torch.zeros(ds.w_len, dtype=ds.dtype, device=ds.device)
          if w_init is None else base.restore_w(w_init, ds))
     sampler = base.make_sampler(rng, debug.seed, h, ds.counts, sampling,
                                 params.num_rounds, lane0=ds.shard_lo)

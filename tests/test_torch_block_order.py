@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_torch.data import shard_dataset  # noqa: E402
 from cocoa_torch.data.synth import synth_dense, synth_sparse  # noqa: E402

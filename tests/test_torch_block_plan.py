@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_torch import kernels  # noqa: E402
 from cocoa_torch.ops import block_chain as bc  # noqa: E402

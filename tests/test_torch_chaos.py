@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from _faults import (Fault, FaultPlan, checkpoint_at_least,  # noqa: E402
                      sigkill, sigstop, truncate_newest_checkpoint)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -133,7 +134,10 @@ def test_cli_unported_flags_exit_2(flag, capsys):
     # CLI's exit code and message; --elastic is ported: refused with a
     # timeout of 0 (no gang starts), and --stallTimeout without it;
     # --overlapComm is ported: accepted, and the supervisor it is given to
-    # refuses the timeout of 0; --staleRounds=1 is refused by its own check
+    # refuses the timeout of 0; --staleRounds=1 is refused by its own check;
+    # --fp is ported: one process is one device, so --fp=2 asks for the
+    # 4 x 2 gang in the JAX CLI's words (the JAX CLI, on its 8 virtual
+    # devices, runs it)
     extra = {"ingest": ["--objective=lasso"],
              "ingestCache": ["--objective=lasso"],
              "elastic": ["--stallTimeout=0", "--chkptDir=ck"],
@@ -149,6 +153,10 @@ def test_cli_unported_flags_exit_2(flag, capsys):
         # exit code and message
         assert jax_cli.main(DEMO_ARGV + [flag] + extra) == 2
         assert err == capsys.readouterr().err and err.startswith("error: ")
+    elif name == "fp":
+        assert err == ("error: --fp=2 requires a 4x2-device mesh (numSplits "
+                       "x fp; shard multiplexing is dp-only; have 1 "
+                       "devices)\n")
     else:
         assert f"error: --{name} is not yet ported to cocoa_torch " \
             f"(ROADMAP Queue A)" in err

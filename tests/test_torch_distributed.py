@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_tpu.parallel import make_mesh as jax_make_mesh  # noqa: E402
 from cocoa_tpu.parallel.distributed import \

@@ -27,6 +27,7 @@ import types
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_tpu import cli as jax_cli  # noqa: E402
 from cocoa_tpu import elastic as jax_elastic  # noqa: E402
@@ -467,6 +468,10 @@ SPECS = [
      "--processId=0", "--numProcesses=2", "--lambda=.01", "--mesh=2"],
     ["--elastic=2", "--chkptDir=CK", "--events=EV", "--metrics=M",
      "--trace"],
+    # --fp: shrink refused, same-size restarts with a note (N = K x F)
+    ["--elastic=8,shrink", "--fp=2", "--chkptDir=CK"],
+    ["--elastic=8", "--fp=2", "--chkptDir=CK"],
+    ["--elastic=8", "--fp=x", "--chkptDir=CK"],
 ]
 
 

@@ -5,9 +5,8 @@ JAX CLI's hardening tables (tests/test_cli_flags.py
 exit code from the port, and a float64 manifest through both with the
 same per-tenant lines and ``--trajOut`` rows.
 
-Flags the port does not support yet (``--mesh``, ``--fp``) keep the
-port's own refusal beside ``--fleet`` (ROADMAP Queue A); ``--elastic``,
-``--staleRounds`` and ``--overlapComm`` get the JAX CLI's.
+``--mesh``, ``--fp``, ``--elastic``, ``--staleRounds`` and
+``--overlapComm`` beside ``--fleet`` get the JAX CLI's refusals.
 
 The JAX fleet stages lambda*n and 1/n in float32 even at
 ``--dtype=float64`` (cocoa_tpu/solvers/fleet.py:162-175), so its float64
@@ -25,6 +24,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_tpu import cli as jax_cli  # noqa: E402
 from cocoa_tpu.data import fleet as jax_fleet  # noqa: E402
@@ -88,7 +88,8 @@ HARDENING = [
     (["--staleRounds=1"], "host-exchange"),
     (["--overlapComm=on"], "no per-round exchange"),
 ]
-# the JAX CLI's rows whose flag the port does not support yet
+# the JAX CLI's rows for the gang's flags (ported since; kept as their
+# own cases)
 UNPORTED = [["--mesh=4"], ["--fp=2"]]
 
 
@@ -105,12 +106,14 @@ def test_fleet_hardening_matches_jax_cli(manifest, tmp_path, extra, needle):
 @pytest.mark.parametrize("extra", UNPORTED, ids=[e[0] for e in UNPORTED])
 def test_fleet_unported_flags_keep_the_port_refusal(manifest, extra,
                                                     capsys):
+    """``--mesh`` and ``--fp`` are ported: beside ``--fleet`` they get the
+    JAX CLI's refusals ("tenant mesh axis", "independent models")."""
     assert jax_cli.main(_base(manifest) + extra) == 2
-    capsys.readouterr()
+    want = capsys.readouterr().err
     assert cli.main(_base(manifest) + extra + ["--device=cpu"]) == 2
-    name = extra[0][2:].split("=")[0]
-    assert f"error: --{name} is not yet ported to cocoa_torch " \
-        f"(ROADMAP Queue A)" in capsys.readouterr().err
+    assert capsys.readouterr().err == want
+    assert ("tenant mesh axis" if extra[0].startswith("--mesh")
+            else "independent models") in want
 
 
 def test_fleet_lanes_needs_fleet_and_manifest_shapes(tmp_path):

@@ -6,6 +6,7 @@ after the capture's pause."""
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import profile_round  # noqa: E402
 

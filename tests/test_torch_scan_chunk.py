@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from test_torch_gap_target import _ECHO, assert_same_console  # noqa: E402
 from cocoa_tpu import cli as jax_cli  # noqa: E402

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_tpu.telemetry import aggregate as jax_aggregate  # noqa: E402
 from cocoa_torch import checkpoint, serving  # noqa: E402

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from conftest import DEMO_NUM_FEATURES, SMALL_TEST, SMALL_TRAIN  # noqa: E402
 from cocoa_tpu import checkpoint as jax_ckpt  # noqa: E402
@@ -722,7 +723,8 @@ def test_unported_flags_still_refused_beside_serve(capsys):
         assert cli.main(["--serve", f"--{flag}=1", "--device=cpu"]) == 2
         assert f"--{flag} is not yet ported" in capsys.readouterr().err
     assert not set(cli._SERVE_FLAGS) & set(cli._NOT_PORTED)
-    assert len(cli._NOT_PORTED) == 1
+    # --fp, the last, is ported
+    assert len(cli._NOT_PORTED) == 0
     # --elastic, --overlapComm and --staleRounds are ported: beside --serve
     # they get the JAX CLI's line (the staleRounds > 0 refusal comes first)
     for extra, head in ((["--elastic=1"], "--elastic does not combine"),

@@ -37,6 +37,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from cocoa_tpu import cli as jax_cli  # noqa: E402
 from cocoa_tpu.solvers import cocoa as jax_cocoa  # noqa: E402
@@ -728,14 +729,14 @@ def test_cli_flag_misuse_matches_jax(extra, tmp_path, capsys):
 
 
 def test_cli_accepts_the_seven_flags(tmp_path, capsys):
-    """The seven flags are no longer refused; the rest of the JAX CLI's
-    unported flags still are, by name."""
+    """The seven flags are no longer refused; ``--fp``, the JAX CLI's last
+    flag to be ported, asks one process for the gang it needs."""
     assert not {"events", "metrics", "trace", "flightRecorder",
                 "eventsMaxMB", "metricsInterval", "profile"} & \
         set(cli._NOT_PORTED)
     assert cli.main(DEMO + ["--numRounds=2", "--debugIter=2",
                             "--device=cpu", "--fp=2"]) == 2
-    assert "--fp is not yet ported" in capsys.readouterr().err
+    assert "--fp=2 requires a 4x2-device mesh" in capsys.readouterr().err
     rc = cli.main(DEMO + ["--numRounds=4", "--debugIter=2", "--device=cpu",
                           f"--events={tmp_path}/e.jsonl", "--trace",
                           "--flightRecorder", "--eventsMaxMB=1",
