@@ -2,6 +2,9 @@
 """On-card smoke test of the PyTorch/CUDA port (``cocoa_torch``).
 
     python3 chip_smoke.py            # from the repository root, one GPU
+    python3 chip_smoke.py --phases=25,17   # phase 1, the phases listed
+                                           # and those whose results they
+                                           # read (PHASE_NEEDS)
 
 Phases, each printed as it runs (one line per kernel-vs-plain case on
 stderr); any failed check exits non-zero:
@@ -357,15 +360,29 @@ stderr); any failed check exits non-zero:
    ``chain_block_batched_plain``, the run within 1e-3 of the solo split
    round; (c) ms per round of both beside the solo runs, the per-step fp
    all-reduce timed alone (1 float, and a block's 128 + 128 x 128), and
-   the phase's seconds.
+   the phase's seconds;
+25. static analysis and the runtime sanitizers (cocoa_torch/analysis/):
+   (a) ``python -m cocoa_torch.analysis --report=...`` in a child, exit
+   0, the report valid, its findings counted; (b) every kernel function
+   at the plans of the main paths' shapes in both dtypes
+   (analysis/kernel_budget.py ``card_report``): registers, static shared
+   memory, spill bytes and most threads a block by ``cudaFuncGetAttributes``,
+   blocks an SM at the plan's dynamic bytes, static + dynamic within the
+   opt-in and at least one block an SM; (c) the rcv1-like command of
+   phase 4 chunked and captured, with --deviceLoop and with
+   --blockSize=128 (B5, B3, B6), each unarmed, armed, armed, unarmed
+   after a warm-up, armed under sanitizer(strict="all") with CUDA's sync
+   debug mode at "error": zero unintended reads, the intended fetches the
+   trajectories count, one capture per (branch, c) used and one per
+   branch in the device loop, every run bit for bit, ms a round of each.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
 included; phase 18's serving runs no kernel of the table; phase 20's,
 21's, 22's, 23's and 24's processes count their own, printed with it), its error
-against the plain version and its times; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
+against the plain version and its times, when every phase ran; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
 """
 
@@ -392,6 +409,7 @@ import numpy as np
 import torch
 
 from cocoa_torch import checkpoint, cli, kernels
+from cocoa_torch.analysis import kernel_budget, sanitize
 from cocoa_torch.config import DebugParams, Params, RunConfig
 from cocoa_torch.data import hybrid, load_libsvm, shard_dataset
 from cocoa_torch.data import ingest as ingest_lib
@@ -7028,7 +7046,182 @@ def phase_fp(card):
     return out
 
 
-def main() -> int:
+# --- phase 25: static analysis and the runtime sanitizers --------------------
+
+# (c)'s rcv1-like runs: the phase-4 command, chunked and captured, with
+# --deviceLoop, and through the block round (B5, B3, B6)
+SANITIZED = (("chunked", ()), ("device loop", ("--deviceLoop",)),
+             ("block", ("--blockSize=128",)))
+
+
+def captures_of(res) -> dict:
+    """The graphs a run's trajectories name, as the capture watch names
+    them: ``chunk/<branch>/<c>`` for each (branch, c) a ChunkRunner
+    captured, ``device_loop/<branch>`` for each branch the device loop
+    did; sorted lists by kind."""
+    out = {"chunk": [], "device_loop": []}
+    for r in res:
+        for key in r.trajectory.graphs:
+            if len(key) == 3:
+                out["device_loop"].append(
+                    f"device_loop/{base.branch_name(key[0])}")
+            else:
+                out["chunk"].append(
+                    f"chunk/{base.branch_name(key[0])}/{key[1]}")
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def sanitized_run(label, argv):
+    """The command once to warm up, then unarmed, armed, armed, unarmed,
+    armed meaning under sanitizer(strict="all") (each drive loop's region with
+    CUDA's sync debug mode at "error" and the read guard).  Each armed run:
+    zero unintended reads, the intended fetches its trajectories count,
+    one capture per (branch, c) it used (one per branch in the device
+    loop) and no build; every run's w, alpha and records bit for bit with
+    the first's.  Returns its figures (ms a round, unarmed and armed, from
+    the two runs of each)."""
+    run_cli(argv)
+    first = None
+    fig = dict(ms_unarmed=[], ms_armed=[])
+    for armed in (False, True, True, False):
+        reset_counts()
+        if not armed:
+            _, res = run_cli(argv)
+            torch.cuda.synchronize()
+        else:
+            with sanitize.sanitizer(strict="all") as stats:
+                _, res = run_cli(argv)
+            torch.cuda.synchronize()
+            check(stats.unintended == 0,
+                  f"(c) {label}: {stats.unintended} unintended reads")
+            fetches = sum(r.trajectory.fetches for r in res)
+            check(stats.intended_fetches == fetches,
+                  f"(c) {label}: {stats.intended_fetches} intended "
+                  f"fetches, the trajectories count {fetches}")
+            names = sorted(c.name for c in stats.compiles)
+            want = captures_of(res)
+            got = {kind: [n for n in names if n.startswith(kind + "/")]
+                   for kind in want}
+            check(got == want and len(names) == sum(map(len, want.values())),
+                  f"(c) {label}: captures {names}, the runs used {want}")
+            fig.update(fetches=fetches, intended=stats.intended_fetches,
+                       captures=names, launched=counts())
+        check(first is None or same_bits(res, first),
+              f"(c) {label}: the runs differ in their bits")
+        first = first or res
+        fig["ms_armed" if armed else "ms_unarmed"].append(
+            [run_ms(r.trajectory) for r in res])
+    return fig
+
+
+def run_ms(traj) -> float:
+    """ms a round to the last eval, its wall time (the device loop's is
+    its last fetch), the first chunk's capture included."""
+    last = traj.records[-1]
+    return last.wall_time / last.round * 1e3
+
+
+def phase_analysis(rcv1_argv, card):
+    """(a) ``python -m cocoa_torch.analysis`` in a child; (b) every
+    kernel's attributes and occupancy at its plans (analysis/
+    kernel_budget.py ``card_report``); (c) the sanitized rcv1-like runs
+    (:func:`sanitized_run`), each in turns."""
+    from cocoa_torch.telemetry import schema as tele_schema
+
+    out = {}
+    # (a) the static analysis, as a user runs it
+    report = OUT / "chip_smoke_analysis.jsonl"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cocoa_torch.analysis",
+                          f"--report={report}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lint_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"(a) python -m cocoa_torch.analysis exited {res.returncode}: "
+          f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    errs = tele_schema.check_file(str(report))
+    check(errs == [], f"(a) the report's schema: {errs[:5]}")
+    with open(report) as f:
+        head = json.loads(f.readline())["analysis_manifest"]
+    buckets = {b: sum(c[b] for c in head["counts"].values())
+               for b in ("new", "baselined", "suppressed")}
+    out["a"] = dict(seconds=lint_s, files=head["files_scanned"],
+                    counts=head["counts"], **buckets)
+    print(f"phase 25 (a): python -m cocoa_torch.analysis exit 0 in "
+          f"{lint_s:.1f} s, {head['files_scanned']} files, findings: "
+          f"{buckets['new']} new, {buckets['baselined']} baselined, "
+          f"{buckets['suppressed']} allowed inline; the report valid")
+    # (b) each kernel at its plans: registers, shared memory, spills
+    rows, failures = kernel_budget.card_report("cuda")
+    check(not failures, "(b) " + "; ".join(failures))
+    out["b"] = rows
+    print(f"phase 25 (b): {len(rows)} kernel plans within the opt-in "
+          f"{rows[0]['optin']} B, each at least one block an SM (tag, "
+          f"shape, kernel: threads, dynamic + static B, registers, spill "
+          f"B, blocks an SM):")
+    for r in rows:
+        print(f"  {r['tag']} {r['label']} {r['kernel']}: {r['threads']}, "
+              f"{r['dyn']} + {r['static']}, {r['regs']}, {r['spill']}, "
+              f"{r['blocks_per_sm']}")
+    # (c) the sanitized runs
+    out["c"] = {}
+    for label, extra in SANITIZED:
+        fig = sanitized_run(label, list(rcv1_argv) + list(extra))
+        out["c"][label] = fig
+        print(f"phase 25 (c): rcv1-like {label} under sanitizer(strict="
+              f"\"all\"), sync debug mode \"error\": 0 unintended reads, "
+              f"{fig['intended']} intended fetches ({fig['fetches']} by the "
+              f"trajectories), captures {fig['captures']}, bit for bit with "
+              f"the unarmed runs; ms a round to the last eval, captures "
+              f"included (CoCoA+, CoCoA), in turns unarmed "
+              + "; ".join(", ".join(f"{v:.4f}" for v in ms)
+                          for ms in fig["ms_unarmed"])
+              + " against armed " + "; ".join(
+                  ", ".join(f"{v:.4f}" for v in ms)
+                  for ms in fig["ms_armed"])
+              + "; launches " + ", ".join(
+                  f"{k} {v}" for k, v in fig["launched"].items() if v)
+              + f"; card {card}")
+    return out
+
+
+# every phase; a phase that reads an earlier phase's results runs it too
+ALL_PHASES = frozenset(range(1, 26))
+PHASE_NEEDS = {6: {3, 4}, 8: {6}, 10: {4, 6}, 11: {9}}
+
+
+def parse_phases(argv):
+    """The phases to run: every phase with no argument, else those of
+    ``--phases=LIST`` (a comma list) with phase 1 (the build) and the
+    phases their results need (:data:`PHASE_NEEDS`); None for anything
+    else."""
+    if not argv:
+        return ALL_PHASES
+    if len(argv) != 1 or not argv[0].startswith("--phases="):
+        return None
+    try:
+        want = {int(x) for x in argv[0].split("=", 1)[1].split(",")}
+    except ValueError:
+        return None
+    if not want <= ALL_PHASES:
+        return None
+    want.add(1)
+    todo = list(want)
+    while todo:
+        for dep in PHASE_NEEDS.get(todo.pop(), ()):
+            if dep not in want:
+                want.add(dep)
+                todo.append(dep)
+    return frozenset(want)
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    if phases is None:
+        print(f"usage: python3 chip_smoke.py [--phases=LIST] (a comma list "
+              f"of phases 1-{max(ALL_PHASES)}; every phase by default)",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
@@ -7050,7 +7243,7 @@ def main() -> int:
             ln.strip() for ln in log.splitlines()
             if "registers" in ln or "stack frame" in ln))
 
-    # --- phase 2: kernel vs plain on the card
+    # the data and commands the later phases share, made whichever run
     demo = load_libsvm(str(DEMO_TRAIN), 9947)
     t0 = time.perf_counter()
     rcv1 = synth_sparse(*RCV1_SHAPE, nnz_mean=75, seed=0)
@@ -7059,72 +7252,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     demo_h = max(1, int(0.1 * demo.n / 4))
     rcv1_h = max(1, int(0.1 * rcv1.n / 8))
-    wide = synth_sparse(*WIDE_SHAPE[:2], nnz_mean=WIDE_SHAPE[2], seed=2)
-    worst_b1, plans2 = phase_kernel_vs_plain({
-        "demo": (demo, 4, demo_h, 1e-3),
-        "rcv1-like": (rcv1, 8, rcv1_h, 1e-4),
-        "wide rows": (wide, 4, 50, 1e-3),
-    })
-    streamed = {plan[0] for plan, width in plans2 if plan[2] < width}
-    check(streamed == {True, False},
-          f"B1's rows wider than a slot were not held with dw in both "
-          f"placements ({streamed})")
-    ms, global_ms, plain_ms, bound_ms, bound_by, n_bytes, nnz = \
-        phase_timing(rcv1, 8, rcv1_h, 1e-4)
-    demo_ms = phase_timing(demo, 4, demo_h, 1e-3)
-    b1_stages = {
-        name: stage_timing(shard_dataset(data, k, layout="sparse",
-                                         dtype=torch.float32, device="cuda"),
-                           k, h, lam)
-        for name, data, k, h, lam in (("rcv1-like", rcv1, 8, rcv1_h, 1e-4),
-                                      ("demo", demo, 4, demo_h, 1e-3))}
-    print(f"phase 2: B1 held at {len(plans2)} plans (dw_in_smem, stages, "
-          f"slot, hot_in_regs) by row width: "
-          + ", ".join(f"{p} W={w}" for p, w in sorted(plans2)))
-    print(f"phase 2: all cases agree (max_abs_err {worst_b1:.3e}); rcv1-like "
-          f"f32 plus/hinge round: kernel {ms:.4f} ms (dw in global memory "
-          f"{global_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {nnz} nonzeros in "
-          f"the distinct sampled rows); demo round: kernel {demo_ms[0]:.4f} ms (dw in "
-          f"global memory {demo_ms[1]:.4f} ms), plain {demo_ms[2]:.2f} ms, "
-          f"bound {demo_ms[3]:.5f} ms")
-    for name, t in b1_stages.items():
-        print_stage_timing(f"B1 {name} f32 plus/hinge by plan, frozen last",
-                           t, rcv1_h if name == "rcv1-like" else demo_h)
-
-    # --- phase 3: the demo through the CLI, kernel and plain
     demo_argv = [f"--trainFile={DEMO_TRAIN}", f"--testFile={DEMO_TEST}",
                  "--numFeatures=9947", "--numSplits=4", "--numRounds=100",
                  "--localIterFrac=0.1", "--lambda=.001", "--math=fast",
                  "--dtype=float32"]
-    sp.sparse_sdca_round.launches = 0
-    out, res = run_cli(demo_argv)
-    launches = sp.sparse_sdca_round.launches
-    demo_seq = res
-    (OUT / "chip_smoke_demo.log").write_text(out)
-    check(launches == 200, f"demo: {launches} launches for 200 rounds")
-    check_run(res, "demo")
-    check(res[0].trajectory.records[-1].gap < 1e-2,
-          "demo CoCoA+ gap did not reach 1e-2")
-    def plain_round(*args, row_len=None, **kw):
-        return sp.sparse_sdca_round_plain(*args, **kw)
-
-    with mock.patch.object(cocoa_mod, "sparse_sdca_round", plain_round):
-        _, res_plain = run_cli(demo_argv)
-    for r, p in zip(res, res_plain):
-        for a, b in zip(r.trajectory.records, p.trajectory.records):
-            rel = abs(a.gap - b.gap) / abs(b.gap)
-            check(rel <= 1e-3, f"demo {r.algorithm} round {a.round}: kernel "
-                               f"gap {a.gap} vs plain {b.gap} (rel {rel:.2e})")
-    print(f"phase 3: demo ok, {launches} launches for 200 rounds, gaps "
-          f"within rel 1e-3 of the plain run")
-    bf16 = phase_bf16(demo)
-    print("phase 3: bfloat16 demo, --math=fast, 20 rounds, through the "
-          "plain versions (no kernel launched; B1 called at bf16 refuses): "
-          + "; ".join(f"{label} (round:primal/gap) " + ", ".join(ln)
-                      for label, ln in bf16.items()))
-
-    # --- phase 4: the main path, rcv1-like at full width
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "rcv1_like.svm")
     write_libsvm(rcv1, path)
@@ -7132,540 +7263,676 @@ def main() -> int:
                  "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
                  "--math=fast", "--dtype=float32", "--numRounds=200",
                  "--debugIter=25"]
-    events = []
+    f32, f64 = torch.float32, torch.float64
+    worst = {}
+    eps = lasso_ds = tall = None
 
-    def timed_round(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = sp.sparse_sdca_round(*args, **kw)
-        stop.record()
-        events.append((start, stop))
-        return out
+    # --- phase 2: kernel vs plain on the card
+    if 2 in phases:
+        wide = synth_sparse(*WIDE_SHAPE[:2], nnz_mean=WIDE_SHAPE[2], seed=2)
+        worst_b1, plans2 = phase_kernel_vs_plain({
+            "demo": (demo, 4, demo_h, 1e-3),
+            "rcv1-like": (rcv1, 8, rcv1_h, 1e-4),
+            "wide rows": (wide, 4, 50, 1e-3),
+        })
+        streamed = {plan[0] for plan, width in plans2 if plan[2] < width}
+        check(streamed == {True, False},
+              f"B1's rows wider than a slot were not held with dw in both "
+              f"placements ({streamed})")
+        ms, global_ms, plain_ms, bound_ms, bound_by, n_bytes, nnz = \
+            phase_timing(rcv1, 8, rcv1_h, 1e-4)
+        demo_ms = phase_timing(demo, 4, demo_h, 1e-3)
+        b1_stages = {
+            name: stage_timing(shard_dataset(data, k, layout="sparse",
+                                             dtype=torch.float32,
+                                             device="cuda"), k, h, lam)
+            for name, data, k, h, lam in (("rcv1-like", rcv1, 8, rcv1_h, 1e-4),
+                                          ("demo", demo, 4, demo_h, 1e-3))}
+        print(f"phase 2: B1 held at {len(plans2)} plans (dw_in_smem, stages, "
+              f"slot, hot_in_regs) by row width: "
+              + ", ".join(f"{p} W={w}" for p, w in sorted(plans2)))
+        print(f"phase 2: all cases agree (max_abs_err {worst_b1:.3e}); "
+              f"rcv1-like f32 plus/hinge round: kernel {ms:.4f} ms (dw in "
+              f"global memory "
+              f"{global_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} B, {nnz} nonzeros in "
+              f"the distinct sampled rows); demo round: kernel "
+              f"{demo_ms[0]:.4f} ms (dw in global memory "
+              f"{demo_ms[1]:.4f} ms), plain {demo_ms[2]:.2f} ms, "
+              f"bound {demo_ms[3]:.5f} ms")
+        for name, t in b1_stages.items():
+            print_stage_timing(
+                f"B1 {name} f32 plus/hinge by plan, frozen last", t,
+                rcv1_h if name == "rcv1-like" else demo_h)
 
-    sp.sparse_sdca_round.launches = 0
-    prng.draw_tables.launches = 0
-    t0 = time.perf_counter()
-    out, res = run_cli(rcv1_argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    main_launches = sp.sparse_sdca_round.launches
-    main_draws = prng.draw_tables.launches
-    (OUT / "chip_smoke_rcv1.log").write_text(out)
-    check(main_launches == 400,
-          f"rcv1-like: {main_launches} launches for 400 rounds")
-    check(main_draws == 2 * 200 // 25,
-          f"rcv1-like: {main_draws} draw-table launches for 16 chunks")
-    check_run(res, "rcv1-like")
-    rcv1_seq = res
-    for r in res:
-        per_round = r.trajectory.records[-1].wall_time / 200 * 1e3
-        print(f"  rcv1-like {r.algorithm}: {per_round:.3f} ms per round "
-              f"wall clock (evals and the first chunk's capture included); "
-              f"graphs captured (branch, rounds): seconds "
-              + ", ".join(f"{key}: {sec:.3f}" for key, sec in
-                          r.trajectory.graphs.items()))
-    # the same command with eager chunks, CUDA events around each wrapper
-    # call: the kernel's time on this path (events cannot sit in a graph)
-    with mock.patch.object(cocoa_mod, "sparse_sdca_round", timed_round):
-        _, res_eager = run_cli(rcv1_argv, capture=False)
-    torch.cuda.synchronize()
-    path_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
-    check(len(events) == 400, f"rcv1-like eager: {len(events)} launches")
-    print(f"phase 4: rcv1-like ok in {wall:.1f} s (load included), "
-          f"{main_launches} launches for 400 rounds, {main_draws} of the "
-          f"draw kernel; {path_ms:.4f} ms per launch on this path (eager "
-          f"chunks, CUDA events around each wrapper call, its alpha copy "
-          f"included); phase 2 at this shape: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms per round; eager chunks "
-          + ", ".join(f"{r.algorithm} "
-                      f"{r.trajectory.records[-1].wall_time / 200 * 1e3:.3f}"
-                      for r in res_eager)
-          + " ms per round")
+    # --- phase 3: the demo through the CLI, kernel and plain
+    if 3 in phases:
+        sp.sparse_sdca_round.launches = 0
+        out, res = run_cli(demo_argv)
+        launches = sp.sparse_sdca_round.launches
+        demo_seq = res
+        (OUT / "chip_smoke_demo.log").write_text(out)
+        check(launches == 200, f"demo: {launches} launches for 200 rounds")
+        check_run(res, "demo")
+        check(res[0].trajectory.records[-1].gap < 1e-2,
+              "demo CoCoA+ gap did not reach 1e-2")
+        def plain_round(*args, row_len=None, **kw):
+            return sp.sparse_sdca_round_plain(*args, **kw)
+
+        with mock.patch.object(cocoa_mod, "sparse_sdca_round", plain_round):
+            _, res_plain = run_cli(demo_argv)
+        for r, p in zip(res, res_plain):
+            for a, b in zip(r.trajectory.records, p.trajectory.records):
+                rel = abs(a.gap - b.gap) / abs(b.gap)
+                check(rel <= 1e-3,
+                      f"demo {r.algorithm} round {a.round}: kernel gap "
+                      f"{a.gap} vs plain {b.gap} (rel {rel:.2e})")
+        print(f"phase 3: demo ok, {launches} launches for 200 rounds, gaps "
+              f"within rel 1e-3 of the plain run")
+        bf16 = phase_bf16(demo)
+        print("phase 3: bfloat16 demo, --math=fast, 20 rounds, through the "
+              "plain versions (no kernel launched; B1 called at bf16 "
+              "refuses): "
+              + "; ".join(f"{label} (round:primal/gap) " + ", ".join(ln)
+                          for label, ln in bf16.items()))
+
+    # --- phase 4: the main path, rcv1-like at full width
+    if 4 in phases:
+        events = []
+
+        def timed_round(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = sp.sparse_sdca_round(*args, **kw)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        sp.sparse_sdca_round.launches = 0
+        prng.draw_tables.launches = 0
+        t0 = time.perf_counter()
+        out, res = run_cli(rcv1_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        main_launches = sp.sparse_sdca_round.launches
+        main_draws = prng.draw_tables.launches
+        (OUT / "chip_smoke_rcv1.log").write_text(out)
+        check(main_launches == 400,
+              f"rcv1-like: {main_launches} launches for 400 rounds")
+        check(main_draws == 2 * 200 // 25,
+              f"rcv1-like: {main_draws} draw-table launches for 16 chunks")
+        check_run(res, "rcv1-like")
+        rcv1_seq = res
+        for r in res:
+            per_round = r.trajectory.records[-1].wall_time / 200 * 1e3
+            print(f"  rcv1-like {r.algorithm}: {per_round:.3f} ms per round "
+                  f"wall clock (evals and the first chunk's capture "
+                  f"included); "
+                  f"graphs captured (branch, rounds): seconds "
+                  + ", ".join(f"{key}: {sec:.3f}" for key, sec in
+                              r.trajectory.graphs.items()))
+        # the same command with eager chunks, CUDA events around each wrapper
+        # call: the kernel's time on this path (events cannot sit in a graph)
+        with mock.patch.object(cocoa_mod, "sparse_sdca_round", timed_round):
+            _, res_eager = run_cli(rcv1_argv, capture=False)
+        torch.cuda.synchronize()
+        path_ms = sum(a.elapsed_time(b) for a, b in events) / len(events)
+        check(len(events) == 400, f"rcv1-like eager: {len(events)} launches")
+        print(f"phase 4: rcv1-like ok in {wall:.1f} s (load included), "
+              f"{main_launches} launches for 400 rounds, {main_draws} of the "
+              f"draw kernel; {path_ms:.4f} ms per launch on this path (eager "
+              f"chunks, CUDA events around each wrapper call, its alpha copy "
+              f"included); phase 2 at this shape: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms per round; eager chunks "
+              + ", ".join(
+                  f"{r.algorithm} "
+                  f"{r.trajectory.records[-1].wall_time / 200 * 1e3:.3f}"
+                  for r in res_eager)
+              + " ms per round")
+
+    if phases & {5, 6, 7, 8, 13, 14, 16}:
+        t0 = time.perf_counter()
+        eps = synth_dense_sharded(*EPS_SHAPE, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"phase 5: epsilon-like data {eps.n} x {eps.num_features} "
+              f"made on the card in {time.perf_counter() - t0:.1f} s")
 
     # --- phase 5: the block kernels against their plain versions
-    t0 = time.perf_counter()
-    eps = synth_dense_sharded(*EPS_SHAPE, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"phase 5: epsilon-like data {eps.n} x {eps.num_features} made on "
-          f"the card in {time.perf_counter() - t0:.1f} s")
-    worst = {}
-    plans5 = phase_block_sparse("demo", demo, 4, demo_h, 1e-3, worst)
-    plans5 |= phase_block_sparse("rcv1-like", rcv1, 8, rcv1_h, 1e-4, worst)
-    held, chains = phase_block_dense(eps, 1e-3, worst)
-    plans5 |= chains
-    timing = phase_block_timing(rcv1, eps, held[torch.float32], {})
-    print("phase 5: all block cases agree (max_abs_err " + ", ".join(
-        f"{n} {e:.3e}" for n, e in sorted(worst.items())) + ")")
-    for name, t in sorted(timing.items()):
-        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        wrapped = (f" (wrapper calls {t['wrapper_ms']:.4f} ms)"
-                   if "wrapper_ms" in t else "")
-        print(f"  {name}: kernel {t['ms']:.4f} ms{wrapped}, plain "
-              f"{t['plain_ms']:.3f} ms, library {lib} ms, bound "
-              f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
-    print("  plans held against the plain versions (kernel, dtype, B or W, "
-          "plan): " + ", ".join(str(p) for p in sorted(plans5)))
-    b3, b5 = timing["B3"], timing["B5"]
-    print("  B3 at the split shapes: " + "; ".join(
-        f"8 x {b} {b3[f'split{b}_ms']:.4f} ms at plan {b3[f'split{b}_plan']}"
-        f", bound {b3[f'split{b}_bound'][0]:.5f} ms"
-        for b in (2 * BLOCK, 4 * BLOCK)) + "; rcv1-like block by plan "
-        + ", ".join(f"stages={st} {plan[:2]} {ms:.4f}"
-                    for st, (plan, ms) in b3["stages_ms"].items())
-        + f" ms, frozen mode {b3['frozen_ms']:.4f} ms")
-    print(f"  B5: rcv1-like block nonzeros {b5['nnz']:.0f}, auto plan "
-          f"(T, slots, bytes) {b5['plan']}; by rows_per_cta " + ", ".join(
-              f"{r}: {ms:.4f}" for r, ms in b5["rows_ms"].items())
-          + f" ms; float64 {b5['f64_ms']:.4f} ms; the hybrid residual "
-          f"{b5['residual_ms']:.4f} ms")
-    b6 = timing["B6"]
-    print(f"  B6: auto plan (slices, cols, chunk, bytes) {tuple(b6['plan'])}; "
-          f"by plan " + ", ".join(
-              f"slices={s} {plan[:3]} {ms:.5f}"
-              for s, (plan, ms) in b6["slices_ms"].items())
-          + f" ms; float64 {b6['f64_ms']:.5f} ms; the hybrid residual "
-          f"({b6['residual_nnz']:.0f} entries) {b6['residual_ms']:.5f} ms; "
-          f"a hot column in every row {b6['hot_ms']:.5f} ms; the longest "
-          f"chain of one column in a shard as drawn {b6['chain']}")
-    b4 = timing["B4"]
-    print(f"  B4 (epsilon-like 8 x 128 x 2000): auto plan (cluster, width) "
-          f"{b4['plan']} {b4['ms']:.4f} ms; by cluster size " + ", ".join(
-              f"{c}: {t:.4f}" for c, t in b4["cluster_ms"].items())
-          + f" ms; frozen mode (no Gram) {b4['frozen_ms']:.4f} ms; the Gram "
-          f"alone as torch.bmm in full float32 {b4['bmm_ms']:.4f} ms; "
-          f"cluster sizes held against the plain version: " + "; ".join(
-              f"{str(dt)[6:]} {cs}" for dt, cs in held.items()))
+    if 5 in phases:
+        plans5 = phase_block_sparse("demo", demo, 4, demo_h, 1e-3, worst)
+        plans5 |= phase_block_sparse("rcv1-like", rcv1, 8, rcv1_h, 1e-4, worst)
+        held, chains = phase_block_dense(eps, 1e-3, worst)
+        plans5 |= chains
+        timing = phase_block_timing(rcv1, eps, held[torch.float32], {})
+        print("phase 5: all block cases agree (max_abs_err " + ", ".join(
+            f"{n} {e:.3e}" for n, e in sorted(worst.items())) + ")")
+        for name, t in sorted(timing.items()):
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f}")
+            wrapped = (f" (wrapper calls {t['wrapper_ms']:.4f} ms)"
+                       if "wrapper_ms" in t else "")
+            print(f"  {name}: kernel {t['ms']:.4f} ms{wrapped}, plain "
+                  f"{t['plain_ms']:.3f} ms, library {lib} ms, bound "
+                  f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
+        print("  plans held against the plain versions (kernel, dtype, B or "
+              "W, plan): " + ", ".join(str(p) for p in sorted(plans5)))
+        b3, b5 = timing["B3"], timing["B5"]
+        print("  B3 at the split shapes: " + "; ".join(
+            f"8 x {b} {b3[f'split{b}_ms']:.4f} ms at plan "
+            f"{b3[f'split{b}_plan']}"
+            f", bound {b3[f'split{b}_bound'][0]:.5f} ms"
+            for b in (2 * BLOCK, 4 * BLOCK)) + "; rcv1-like block by plan "
+            + ", ".join(f"stages={st} {plan[:2]} {ms:.4f}"
+                        for st, (plan, ms) in b3["stages_ms"].items())
+            + f" ms, frozen mode {b3['frozen_ms']:.4f} ms")
+        print(f"  B5: rcv1-like block nonzeros {b5['nnz']:.0f}, auto plan "
+              f"(T, slots, bytes) {b5['plan']}; by rows_per_cta " + ", ".join(
+                  f"{r}: {ms:.4f}" for r, ms in b5["rows_ms"].items())
+              + f" ms; float64 {b5['f64_ms']:.4f} ms; the hybrid residual "
+              f"{b5['residual_ms']:.4f} ms")
+        b6 = timing["B6"]
+        print(f"  B6: auto plan (slices, cols, chunk, bytes) "
+              f"{tuple(b6['plan'])}; "
+              f"by plan " + ", ".join(
+                  f"slices={s} {plan[:3]} {ms:.5f}"
+                  for s, (plan, ms) in b6["slices_ms"].items())
+              + f" ms; float64 {b6['f64_ms']:.5f} ms; the hybrid residual "
+              f"({b6['residual_nnz']:.0f} entries) "
+              f"{b6['residual_ms']:.5f} ms; "
+              f"a hot column in every row {b6['hot_ms']:.5f} ms; the longest "
+              f"chain of one column in a shard as drawn {b6['chain']}")
+        b4 = timing["B4"]
+        print(f"  B4 (epsilon-like 8 x 128 x 2000): auto plan (cluster, "
+              f"width) "
+              f"{b4['plan']} {b4['ms']:.4f} ms; by cluster size " + ", ".join(
+                  f"{c}: {t:.4f}" for c, t in b4["cluster_ms"].items())
+              + f" ms; frozen mode (no Gram) {b4['frozen_ms']:.4f} ms; the "
+              f"Gram "
+              f"alone as torch.bmm in full float32 {b4['bmm_ms']:.4f} ms; "
+              f"cluster sizes held against the plain version: " + "; ".join(
+                  f"{str(dt)[6:]} {cs}" for dt, cs in held.items()))
 
     # --- phase 6: the block path through its entry points
-    launched, per_round, eps_fused = phase_block_path(
-        [("demo", demo_argv, demo_seq, demo_h),
-         ("rcv1-like", rcv1_argv, rcv1_seq, rcv1_h)], eps)
-    seq_ms = [r.trajectory.records[-1].wall_time / 200 * 1e3
-              for r in rcv1_seq]
-    print(f"phase 6: rcv1-like ms per round, block path vs sequential "
-          f"(evals included): CoCoA+ {per_round['rcv1-like'][0]:.3f} vs "
-          f"{seq_ms[0]:.3f}, CoCoA {per_round['rcv1-like'][1]:.3f} vs "
-          f"{seq_ms[1]:.3f}")
+    if 6 in phases:
+        launched, per_round, eps_fused = phase_block_path(
+            [("demo", demo_argv, demo_seq, demo_h),
+             ("rcv1-like", rcv1_argv, rcv1_seq, rcv1_h)], eps)
+        seq_ms = [r.trajectory.records[-1].wall_time / 200 * 1e3
+                  for r in rcv1_seq]
+        print(f"phase 6: rcv1-like ms per round, block path vs sequential "
+              f"(evals included): CoCoA+ {per_round['rcv1-like'][0]:.3f} vs "
+              f"{seq_ms[0]:.3f}, CoCoA {per_round['rcv1-like'][1]:.3f} vs "
+              f"{seq_ms[1]:.3f}")
 
-    # --- phase 7: B2 and B1's prox mode against their plain versions
-    t0 = time.perf_counter()
     ln, ld, lk = LASSO_SHAPE
-    lasso_ds, lasso_b, lam_max = synth_lasso_columns(ln, ld, lk, seed=0,
-                                                     device="cuda")
-    tall, tall_b, tall_max = synth_lasso_columns(*TALL_LASSO_SHAPE, seed=1,
-                                                 device="cuda")
     eps_h = EPS_SHAPE[0] // EPS_SHAPE[2] // 10
     lasso_h = ld // lk // 10
-    f32, f64 = torch.float32, torch.float64
-    demo_dense = {dt: shard_dataset(demo, 4, layout="dense", dtype=dt,
-                                    device="cuda") for dt in (f32, f64)}
-    demo_cols = {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
-                                   layout="sparse")[0] for dt in (f32, f64)}
-    torch.cuda.synchronize()
-    print(f"phase 7: lasso designs {ln} x {ld} and "
-          f"{TALL_LASSO_SHAPE[0]} x {TALL_LASSO_SHAPE[1]} and the demo's "
-          f"dense and column shards made on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-    dual = [(mode, sigma, loss, 1.0) for mode, sigma in MODES
-            for loss in LOSSES]
-    prox = [("prox", None, "lasso", l2) for l2 in PROX_L2]
-    worst7 = {}
-    eps_sets = {f32: eps, f64: as_dtype(eps, f64)}
-    plans = phase_dense_kernel({
-        "demo dense": (demo_dense, demo_h, 1e-3, demo.n, dual),
-        "epsilon-like": (eps_sets, eps_h, 1e-3, eps.n, dual),
-        "epsilon-like short": (eps_sets, 2, 1e-3, eps.n, dual),
-        "epsilon-like odd": (eps_sets, 13, 1e-3, eps.n, dual),
-        "lasso design": ({f32: lasso_ds, f64: as_dtype(lasso_ds, f64)},
-                         lasso_h, 0.3 * lam_max, 1, prox),
-        "tall lasso design": ({f32: tall, f64: as_dtype(tall, f64)}, 40,
-                              0.3 * tall_max, 1, prox),
-        "demo dense columns": (
-            {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
-                               layout="dense")[0] for dt in (f32, f64)},
-            max(1, int(0.1 * demo.num_features / 4)), 0.1, 1, prox),
-    }, worst7)
-    del eps_sets
-    check(any(h < s for (_, s, _), h in plans.values()),
-          "no B2 case with fewer steps than ring slots")
-    check(any(s > 1 and h % s for (_, s, _), h in plans.values()),
-          "no B2 case whose steps are not a multiple of the ring's depth")
-    streamed = {key[1] for key, ((_, _, chunk), _) in plans.items()
-                if key[0] == "tall lasso design"
-                and chunk < TALL_LASSO_SHAPE[0]}
-    check(streamed == {"float32", "float64"},
-          f"the tall lasso design's rows were not streamed in chunks in "
-          f"both dtypes ({streamed})")
-    prox_plans = phase_sparse_prox(
-        demo_cols, max(1, int(0.1 * demo.num_features / 4)), 0.1, worst7)
-    b2 = {"epsilon-like": dense_timing(eps, eps_h, 1e-3, eps.n, "plus",
-                                       "hinge", 1.0, 20),
-          "lasso design": dense_timing(lasso_ds, lasso_h, 0.3 * lam_max, 1,
-                                       "prox", "lasso", 0.0, 50),
-          "demo dense": dense_timing(demo_dense[f32], demo_h, 1e-3, demo.n,
-                                     "plus", "hinge", 1.0, 50),
-          "demo dense f64": dense_timing(demo_dense[f64], demo_h, 1e-3,
-                                         demo.n, "plus", "hinge", 1.0, 50),
-          "tall lasso design": dense_timing(tall, 40, 0.3 * tall_max, 1,
-                                            "prox", "lasso", 0.0, 20)}
-    print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
-          f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
-          f"launches, and every plan timed, agree bit for bit; B1 prox "
-          f"plans: " + ", ".join(f"{p} W={w}" for p, w in sorted(prox_plans)))
-    print("  B2 plans (state_in_smem, stages, chunk) by shape, dtype, state "
-          "asked into shared memory, stages asked: " + "; ".join(
-              f"{name} {dt} {smem} {asked}: {plan} H={h}"
-              for (name, dt, smem, asked), (plan, h) in plans.items()
-              if asked is None))
-    for name, t in b2.items():
-        print(f"  B2 {name}: " + "; ".join(
-            f"{plan} {t['plans'][plan]} {ms:.4f} ms "
-            f"({ms * 1e3 / t['h']:.3f} us per step)"
-            for plan, ms in t["times"].items())
-            + f", plain {t['plain_ms']:.2f} ms, bound {t['bound'][0]:.5f} ms "
-            f"({t['bound'][1]}: {t['n_bytes']} B, {t['rows']} distinct "
-            f"sampled rows)")
+    if phases & {7, 9, 11, 12, 13, 14, 15, 16}:
+        t0 = time.perf_counter()
+        lasso_ds, lasso_b, lam_max = synth_lasso_columns(ln, ld, lk, seed=0,
+                                                         device="cuda")
+        tall, tall_b, tall_max = synth_lasso_columns(*TALL_LASSO_SHAPE,
+                                                     seed=1, device="cuda")
+        demo_dense = {dt: shard_dataset(demo, 4, layout="dense", dtype=dt,
+                                        device="cuda") for dt in (f32, f64)}
+        demo_cols = {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
+                                       layout="sparse")[0]
+                     for dt in (f32, f64)}
+        torch.cuda.synchronize()
+        print(f"phase 7: lasso designs {ln} x {ld} and "
+              f"{TALL_LASSO_SHAPE[0]} x {TALL_LASSO_SHAPE[1]} and the "
+              f"demo's dense and column shards made on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # --- phase 7: B2 and B1's prox mode against their plain versions
+    if 7 in phases:
+        dual = [(mode, sigma, loss, 1.0) for mode, sigma in MODES
+                for loss in LOSSES]
+        prox = [("prox", None, "lasso", l2) for l2 in PROX_L2]
+        worst7 = {}
+        eps_sets = {f32: eps, f64: as_dtype(eps, f64)}
+        plans = phase_dense_kernel({
+            "demo dense": (demo_dense, demo_h, 1e-3, demo.n, dual),
+            "epsilon-like": (eps_sets, eps_h, 1e-3, eps.n, dual),
+            "epsilon-like short": (eps_sets, 2, 1e-3, eps.n, dual),
+            "epsilon-like odd": (eps_sets, 13, 1e-3, eps.n, dual),
+            "lasso design": ({f32: lasso_ds, f64: as_dtype(lasso_ds, f64)},
+                             lasso_h, 0.3 * lam_max, 1, prox),
+            "tall lasso design": ({f32: tall, f64: as_dtype(tall, f64)}, 40,
+                                  0.3 * tall_max, 1, prox),
+            "demo dense columns": (
+                {dt: shard_columns(demo, 4, dtype=dt, device="cuda",
+                                   layout="dense")[0] for dt in (f32, f64)},
+                max(1, int(0.1 * demo.num_features / 4)), 0.1, 1, prox),
+        }, worst7)
+        del eps_sets
+        check(any(h < s for (_, s, _), h in plans.values()),
+              "no B2 case with fewer steps than ring slots")
+        check(any(s > 1 and h % s for (_, s, _), h in plans.values()),
+              "no B2 case whose steps are not a multiple of the ring's depth")
+        streamed = {key[1] for key, ((_, _, chunk), _) in plans.items()
+                    if key[0] == "tall lasso design"
+                    and chunk < TALL_LASSO_SHAPE[0]}
+        check(streamed == {"float32", "float64"},
+              f"the tall lasso design's rows were not streamed in chunks in "
+              f"both dtypes ({streamed})")
+        prox_plans = phase_sparse_prox(
+            demo_cols, max(1, int(0.1 * demo.num_features / 4)), 0.1, worst7)
+        b2 = {"epsilon-like": dense_timing(eps, eps_h, 1e-3, eps.n, "plus",
+                                           "hinge", 1.0, 20),
+              "lasso design": dense_timing(lasso_ds, lasso_h, 0.3 * lam_max, 1,
+                                           "prox", "lasso", 0.0, 50),
+              "demo dense": dense_timing(demo_dense[f32], demo_h, 1e-3, demo.n,
+                                         "plus", "hinge", 1.0, 50),
+              "demo dense f64": dense_timing(demo_dense[f64], demo_h, 1e-3,
+                                             demo.n, "plus", "hinge", 1.0, 50),
+              "tall lasso design": dense_timing(tall, 40, 0.3 * tall_max, 1,
+                                                "prox", "lasso", 0.0, 20)}
+        print(f"phase 7: all B2 and B1-prox cases agree (max_abs_err B2 "
+              f"{worst7['B2']:.3e}, B1 prox {worst7['B1']:.3e}); two B2 "
+              f"launches, and every plan timed, agree bit for bit; B1 prox "
+              f"plans: " + ", ".join(f"{p} W={w}"
+                                     for p, w in sorted(prox_plans)))
+        print("  B2 plans (state_in_smem, stages, chunk) by shape, dtype, "
+              "state "
+              "asked into shared memory, stages asked: " + "; ".join(
+                  f"{name} {dt} {smem} {asked}: {plan} H={h}"
+                  for (name, dt, smem, asked), (plan, h) in plans.items()
+                  if asked is None))
+        for name, t in b2.items():
+            print(f"  B2 {name}: " + "; ".join(
+                f"{plan} {t['plans'][plan]} {ms:.4f} ms "
+                f"({ms * 1e3 / t['h']:.3f} us per step)"
+                for plan, ms in t["times"].items())
+                + f", plain {t['plain_ms']:.2f} ms, bound "
+                f"{t['bound'][0]:.5f} ms "
+                f"({t['bound'][1]}: {t['n_bytes']} B, {t['rows']} distinct "
+                f"sampled rows)")
 
     # --- phase 8: the dense sequential path, epsilon-like at full width
-    launched8, per_round8 = phase_dense_path(eps, eps_fused)
+    if 8 in phases:
+        launched8, per_round8 = phase_dense_path(eps, eps_fused)
 
     # --- phase 9: the new entry points: the menu and the lasso objective
-    launched9, _, results9 = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
-    launched_lasso, _, lasso_runs = phase_lasso_design(lasso_ds, lasso_b,
-                                                       lam_max)
-    launched9.update(launched_lasso)
+    if 9 in phases:
+        launched9, _, results9 = phase_entry_points(DEMO_TRAIN, DEMO_TEST)
+        launched_lasso, _, lasso_runs = phase_lasso_design(lasso_ds, lasso_b,
+                                                           lam_max)
+        launched9.update(launched_lasso)
+
+    if phases & {10, 13, 14, 15}:
+        rcv1_w, rcv1_split = hybrid.resolve_hot_cols("auto", rcv1, 8, f32)
+        demo_w, _ = hybrid.resolve_hot_cols("auto", demo, 4, f32)
 
     # --- phase 10: the hybrid hot/cold layout (--hotCols)
-    t0 = time.perf_counter()
-    rcv1_w, rcv1_split = hybrid.resolve_hot_cols("auto", rcv1, 8, f32)
-    demo_w, _ = hybrid.resolve_hot_cols("auto", demo, 4, f32)
+    if 10 in phases:
+        t0 = time.perf_counter()
 
-    def hybrid_sets(data, k, width):
-        return {dt: shard_dataset(data, k, layout="sparse", dtype=dt,
-                                  device="cuda", hot_cols=width)
-                for dt in (f32, f64)}
+        def hybrid_sets(data, k, width):
+            return {dt: shard_dataset(data, k, layout="sparse", dtype=dt,
+                                      device="cuda", hot_cols=width)
+                    for dt in (f32, f64)}
 
-    rcv1_hyb = hybrid_sets(rcv1, 8, rcv1_w)
-    demo_hyb = hybrid_sets(demo, 4, demo_w)
-    demo_full = {dt: column0_panel(ds) for dt, ds in
-                 hybrid_sets(demo, 4, demo.num_features).items()}
-    torch.cuda.synchronize()
-    print(f"phase 10: rcv1-like panel {rcv1_w} columns "
-          f"({rcv1_split['coverage'] * 100:.1f}% of the nonzeros, "
-          f"{rcv1_hyb[f32].X_hot.numel() * 4 / 1e6:.0f} MB in float32), "
-          f"residual width {rcv1_hyb[f32].sp_indices.shape[-1]} (mean nnz "
-          f"{rcv1_split['residual_mean_nnz']:.1f}); demo panel {demo_w} "
-          f"columns, residual width {demo_hyb[f32].sp_indices.shape[-1]}; "
-          f"made on the card in {time.perf_counter() - t0:.1f} s")
-    hyb_plans = phase_hybrid_kernel({
-        "rcv1-like hybrid": (rcv1_hyb, rcv1_h, 1e-4, rcv1.n, dual),
-        "demo hybrid": (demo_hyb, demo_h, 1e-3, demo.n, dual + prox),
-        "demo all columns hot, column 0": (
-            demo_full, demo_h, 1e-3, demo.n,
-            [("plus", None, "hinge", 1.0), ("cocoa", None, "logistic", 1.0)]),
-    }, worst)
-    check({plan[3] for plan, _ in hyb_plans} == {True, False},
-          "B1h was not held with its panel lanes both in registers and "
-          "in memory")
-    phase_block_sparse("rcv1-like hybrid", rcv1, 8, rcv1_h, 1e-4, worst,
-                       hot_cols=rcv1_w)
-    ht = hybrid_timing(rcv1, rcv1_hyb[f32], 8, rcv1_h, 1e-4)
-    b1h_stages = {"rcv1-like hybrid": stage_timing(rcv1_hyb[f32], 8, rcv1_h,
-                                                   1e-4),
-                  "demo hybrid": stage_timing(demo_hyb[f32], 4, demo_h,
-                                              1e-3)}
-    del rcv1_hyb, demo_hyb, demo_full
-    print(f"phase 10: all B1h cases agree (max_abs_err {worst['B1h']:.3e}), "
-          f"B5/B3/B6 on the residual too; rcv1-like f32 plus/hinge round: "
-          f"B1h {ht['ms']:.4f} ms (state in global memory "
-          f"{ht['global_ms']:.4f} ms), unsplit B1 {ht['unsplit_ms']:.4f} ms "
-          f"on the same draws (in turns), plain {ht['plain_ms']:.2f} ms, "
-          f"bound {ht['bound'][0]:.5f} ms ({ht['bound'][1]}: "
-          f"{ht['n_bytes']} B, {ht['rows']} distinct sampled rows)")
-    print(f"  B1h plans (dw_in_smem, stages, slot, hot_in_regs) held: "
-          + ", ".join(f"{p} W={w}" for p, w in sorted(hyb_plans)))
-    for name, t in b1h_stages.items():
-        print_stage_timing(f"B1h {name} f32 plus/hinge by plan, frozen last",
-                           t, rcv1_h if name.startswith("rcv1") else demo_h)
-    launched10, per_round10 = phase_hybrid_path(rcv1_argv, rcv1_seq, rcv1_w,
-                                                DEMO_TRAIN, DEMO_TEST)
-    hyb_seq = per_round10["rcv1-like hybrid sequential"]
-    hyb_block = per_round10["rcv1-like hybrid block"]
-    print(f"phase 10: rcv1-like ms per round, hybrid vs unsplit (evals "
-          f"included): sequential CoCoA+ {hyb_seq[0]:.3f} vs {seq_ms[0]:.3f}, "
-          f"CoCoA {hyb_seq[1]:.3f} vs {seq_ms[1]:.3f}; block CoCoA+ "
-          f"{hyb_block[0]:.3f} vs {per_round['rcv1-like'][0]:.3f}, CoCoA "
-          f"{hyb_block[1]:.3f} vs {per_round['rcv1-like'][1]:.3f}")
+        rcv1_hyb = hybrid_sets(rcv1, 8, rcv1_w)
+        demo_hyb = hybrid_sets(demo, 4, demo_w)
+        demo_full = {dt: column0_panel(ds) for dt, ds in
+                     hybrid_sets(demo, 4, demo.num_features).items()}
+        torch.cuda.synchronize()
+        print(f"phase 10: rcv1-like panel {rcv1_w} columns "
+              f"({rcv1_split['coverage'] * 100:.1f}% of the nonzeros, "
+              f"{rcv1_hyb[f32].X_hot.numel() * 4 / 1e6:.0f} MB in float32), "
+              f"residual width {rcv1_hyb[f32].sp_indices.shape[-1]} (mean nnz "
+              f"{rcv1_split['residual_mean_nnz']:.1f}); demo panel {demo_w} "
+              f"columns, residual width {demo_hyb[f32].sp_indices.shape[-1]}; "
+              f"made on the card in {time.perf_counter() - t0:.1f} s")
+        hyb_plans = phase_hybrid_kernel({
+            "rcv1-like hybrid": (rcv1_hyb, rcv1_h, 1e-4, rcv1.n, dual),
+            "demo hybrid": (demo_hyb, demo_h, 1e-3, demo.n, dual + prox),
+            "demo all columns hot, column 0": (
+                demo_full, demo_h, 1e-3, demo.n,
+                [("plus", None, "hinge", 1.0),
+                 ("cocoa", None, "logistic", 1.0)]),
+        }, worst)
+        check({plan[3] for plan, _ in hyb_plans} == {True, False},
+              "B1h was not held with its panel lanes both in registers and "
+              "in memory")
+        phase_block_sparse("rcv1-like hybrid", rcv1, 8, rcv1_h, 1e-4, worst,
+                           hot_cols=rcv1_w)
+        ht = hybrid_timing(rcv1, rcv1_hyb[f32], 8, rcv1_h, 1e-4)
+        b1h_stages = {"rcv1-like hybrid": stage_timing(rcv1_hyb[f32], 8,
+                                                       rcv1_h, 1e-4),
+                      "demo hybrid": stage_timing(demo_hyb[f32], 4, demo_h,
+                                                  1e-3)}
+        del rcv1_hyb, demo_hyb, demo_full
+        print(f"phase 10: all B1h cases agree (max_abs_err "
+              f"{worst['B1h']:.3e}), "
+              f"B5/B3/B6 on the residual too; rcv1-like f32 plus/hinge round: "
+              f"B1h {ht['ms']:.4f} ms (state in global memory "
+              f"{ht['global_ms']:.4f} ms), unsplit B1 "
+              f"{ht['unsplit_ms']:.4f} ms "
+              f"on the same draws (in turns), plain {ht['plain_ms']:.2f} ms, "
+              f"bound {ht['bound'][0]:.5f} ms ({ht['bound'][1]}: "
+              f"{ht['n_bytes']} B, {ht['rows']} distinct sampled rows)")
+        print(f"  B1h plans (dw_in_smem, stages, slot, hot_in_regs) held: "
+              + ", ".join(f"{p} W={w}" for p, w in sorted(hyb_plans)))
+        for name, t in b1h_stages.items():
+            print_stage_timing(
+                f"B1h {name} f32 plus/hinge by plan, frozen last", t,
+                rcv1_h if name.startswith("rcv1") else demo_h)
+        launched10, per_round10 = phase_hybrid_path(
+            rcv1_argv, rcv1_seq, rcv1_w, DEMO_TRAIN, DEMO_TEST)
+        hyb_seq = per_round10["rcv1-like hybrid sequential"]
+        hyb_block = per_round10["rcv1-like hybrid block"]
+        print(f"phase 10: rcv1-like ms per round, hybrid vs unsplit (evals "
+              f"included): sequential CoCoA+ {hyb_seq[0]:.3f} vs "
+              f"{seq_ms[0]:.3f}, "
+              f"CoCoA {hyb_seq[1]:.3f} vs {seq_ms[1]:.3f}; block CoCoA+ "
+              f"{hyb_block[0]:.3f} vs {per_round['rcv1-like'][0]:.3f}, CoCoA "
+              f"{hyb_block[1]:.3f} vs {per_round['rcv1-like'][1]:.3f}")
 
     # --- phase 11: ProxCoCoA+ through the block round
-    t0 = time.perf_counter()
-    designs11 = {
-        "lasso design": (lasso_ds, 0.3 * lam_max),
-        "tall lasso design": (tall, 0.3 * tall_max),
-        "demo dense columns": (shard_columns(
-            demo, 4, dtype=f32, device="cuda", layout="dense")[0], 0.1)}
-    plans11 = phase_prox_block_kernels(designs11, demo_cols, worst)
-    wide_b5 = phase_wide_gram(worst)
-    prox_ms = prox_block_timing(designs11, demo_cols)
-    print(f"phase 11: B3, B4, B5 and B6 in mode prox/lasso at l2 "
-          f"{PROX_L2} agree with their plain versions (max_abs_err "
-          + ", ".join(f"{n} {worst[n]:.3e}" for n in ("B3", "B4", "B5",
-                                                      "B6"))
-          + f"; phases 5, 10 and 11) in {time.perf_counter() - t0:.1f} s; "
-          f"two launches of each bit for bit; plans held (kernel, dtype, "
-          f"B, n or W, plan): " + ", ".join(str(p) for p in sorted(plans11)))
-    print("  B5 at wide rows (K=2 x 128, CUDA-graph replay; plan (T, "
-          "slots, chunk, cap, bytes), passes, ms): " + "; ".join(
-              f"{dt} W={w} {tuple(plan)} {passes} {ms:.4f}"
-              for (dt, w), (plan, passes, ms) in wide_b5.items())
-          + "; the widest of each dtype bit for bit across two launches")
-    print("  prox/lasso block kernels, float32, ms per launch (B4 by CUDA "
-          "events around wrapper calls, B3, B5, B6 by CUDA-graph replay): "
-          + "; ".join(f"{name} {ms:.4f}" for name, ms in prox_ms.items()))
-    launched11, _ = phase_prox_block_path(
-        DEMO_TRAIN, {lay: results9[f"demo lasso {lay}"]
-                     for lay in ("dense", "sparse")},
-        (lasso_ds, lasso_b, lam_max), lasso_runs, (tall, tall_b, tall_max))
-    del tall, designs11
+    if 11 in phases:
+        t0 = time.perf_counter()
+        designs11 = {
+            "lasso design": (lasso_ds, 0.3 * lam_max),
+            "tall lasso design": (tall, 0.3 * tall_max),
+            "demo dense columns": (shard_columns(
+                demo, 4, dtype=f32, device="cuda", layout="dense")[0], 0.1)}
+        plans11 = phase_prox_block_kernels(designs11, demo_cols, worst)
+        wide_b5 = phase_wide_gram(worst)
+        prox_ms = prox_block_timing(designs11, demo_cols)
+        print(f"phase 11: B3, B4, B5 and B6 in mode prox/lasso at l2 "
+              f"{PROX_L2} agree with their plain versions (max_abs_err "
+              + ", ".join(f"{n} {worst[n]:.3e}" for n in ("B3", "B4", "B5",
+                                                          "B6"))
+              + f"; phases 5, 10 and 11) in {time.perf_counter() - t0:.1f} s; "
+              f"two launches of each bit for bit; plans held (kernel, dtype, "
+              f"B, n or W, plan): "
+              + ", ".join(str(p) for p in sorted(plans11)))
+        print("  B5 at wide rows (K=2 x 128, CUDA-graph replay; plan (T, "
+              "slots, chunk, cap, bytes), passes, ms): " + "; ".join(
+                  f"{dt} W={w} {tuple(plan)} {passes} {ms:.4f}"
+                  for (dt, w), (plan, passes, ms) in wide_b5.items())
+              + "; the widest of each dtype bit for bit across two launches")
+        print("  prox/lasso block kernels, float32, ms per launch (B4 by CUDA "
+              "events around wrapper calls, B3, B5, B6 by CUDA-graph replay): "
+              + "; ".join(f"{name} {ms:.4f}" for name, ms in prox_ms.items()))
+        launched11, _ = phase_prox_block_path(
+            DEMO_TRAIN, {lay: results9[f"demo lasso {lay}"]
+                         for lay in ("dense", "sparse")},
+            (lasso_ds, lasso_b, lam_max), lasso_runs, (tall, tall_b, tall_max))
+        del designs11
+    tall = None
 
     # --- phase 12: the gap-targeted driver ladder
-    t0 = time.perf_counter()
-    launched12 = phase_ladder(rcv1, (lasso_ds, lasso_b, lam_max), card)
-    print(f"phase 12: all cases ok in {time.perf_counter() - t0:.1f} s")
+    if 12 in phases:
+        t0 = time.perf_counter()
+        launched12 = phase_ladder(rcv1, (lasso_ds, lasso_b, lam_max), card)
+        print(f"phase 12: all cases ok in {time.perf_counter() - t0:.1f} s")
 
     # --- phase 13: the captured round loop, the tables made on the card
-    t0 = time.perf_counter()
-    draw_timing = phase_draw_tables()
-    captured13 = phase_captured(rcv1, rcv1_w, eps,
-                                (lasso_ds, lasso_b, lam_max))
-    retimed = phase_retime(rcv1, demo_argv)
-    busy = phase_busy(rcv1, rcv1_w)
-    print(f"phase 13: all cases ok in {time.perf_counter() - t0:.1f} s; "
-          f"busy shares (device ms / wall ms per round, profiler on): "
-          + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
-                      for label, b in busy.items())
-          + f"; card {card}")
-    (OUT / "chip_smoke_phase13.json").write_text(json.dumps({
-        "card": card, "draw": draw_timing, "captured": captured13,
-        "retimed": retimed, "busy": busy}, default=str))
+    if 13 in phases:
+        t0 = time.perf_counter()
+        draw_timing = phase_draw_tables()
+        captured13 = phase_captured(rcv1, rcv1_w, eps,
+                                    (lasso_ds, lasso_b, lam_max))
+        retimed = phase_retime(rcv1, demo_argv)
+        busy = phase_busy(rcv1, rcv1_w)
+        print(f"phase 13: all cases ok in {time.perf_counter() - t0:.1f} s; "
+              f"busy shares (device ms / wall ms per round, profiler on): "
+              + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
+                          for label, b in busy.items())
+              + f"; card {card}")
+        (OUT / "chip_smoke_phase13.json").write_text(json.dumps({
+            "card": card, "draw": draw_timing, "captured": captured13,
+            "retimed": retimed, "busy": busy}, default=str))
 
     # --- phase 14: the device-resident run (--deviceLoop)
-    t0 = time.perf_counter()
-    loop14 = phase_device_loop(rcv1, rcv1_w, eps,
-                               (lasso_ds, lasso_b, lam_max), card)
-    print(f"phase 14: all cases ok in {time.perf_counter() - t0:.1f} s; "
-          f"busy shares (device ms / wall ms per round, profiler on): "
-          + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
-                      for label, b in loop14["busy"].items()))
-    (OUT / "chip_smoke_phase14.json").write_text(json.dumps(
-        {"card": card, **loop14}, default=str))
+    if 14 in phases:
+        t0 = time.perf_counter()
+        loop14 = phase_device_loop(rcv1, rcv1_w, eps,
+                                   (lasso_ds, lasso_b, lam_max), card)
+        print(f"phase 14: all cases ok in {time.perf_counter() - t0:.1f} s; "
+              f"busy shares (device ms / wall ms per round, profiler on): "
+              + ", ".join(f"{label} {b['busy'] * 100:.1f} %"
+                          for label, b in loop14["busy"].items()))
+        (OUT / "chip_smoke_phase14.json").write_text(json.dumps(
+            {"card": card, **loop14}, default=str))
 
     # --- phase 15: checkpoints and --resume
-    t0 = time.perf_counter()
-    resume15 = phase_resume(rcv1, rcv1_w, (lasso_ds, lasso_b, lam_max), card)
-    print(f"phase 15: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase15.json").write_text(json.dumps(resume15,
-                                                            default=str))
+    if 15 in phases:
+        t0 = time.perf_counter()
+        resume15 = phase_resume(rcv1, rcv1_w, (lasso_ds, lasso_b, lam_max),
+                                card)
+        print(f"phase 15: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase15.json").write_text(json.dumps(resume15,
+                                                                default=str))
 
     # --- phase 16: --blockPipeline, --evalDense, the parser, DistGD, -m
-    t0 = time.perf_counter()
-    surface16 = phase_surface(rcv1, demo, eps, (lasso_ds, lasso_b, lam_max),
-                              card)
-    del eps, lasso_ds
-    print(f"phase 16: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase16.json").write_text(json.dumps(surface16,
-                                                            default=str))
+    if 16 in phases:
+        t0 = time.perf_counter()
+        surface16 = phase_surface(rcv1, demo, eps,
+                                  (lasso_ds, lasso_b, lam_max), card)
+        print(f"phase 16: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase16.json").write_text(json.dumps(surface16,
+                                                                default=str))
+    eps = lasso_ds = None    # the later phases need neither
 
     # --- phase 17: telemetry on the card
-    t0 = time.perf_counter()
-    telemetry17 = phase_telemetry(path, card)
-    print(f"phase 17: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase17.json").write_text(json.dumps(telemetry17,
-                                                            default=str))
+    if 17 in phases:
+        t0 = time.perf_counter()
+        telemetry17 = phase_telemetry(path, card)
+        print(f"phase 17: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase17.json").write_text(json.dumps(telemetry17,
+                                                                default=str))
 
     # --- phase 18: serving on the card
-    t0 = time.perf_counter()
-    serving18 = phase_serving(path, rcv1, card)
-    print(f"phase 18: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase18.json").write_text(json.dumps(serving18,
-                                                            default=str))
+    if 18 in phases:
+        t0 = time.perf_counter()
+        serving18 = phase_serving(path, rcv1, card)
+        print(f"phase 18: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase18.json").write_text(json.dumps(serving18,
+                                                                default=str))
 
     # --- phase 19: fleet training on the card
-    t0 = time.perf_counter()
-    fleet19 = phase_fleet_training(rcv1, card)
-    print(f"phase 19: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase19.json").write_text(json.dumps(fleet19,
-                                                            default=str))
+    if 19 in phases:
+        t0 = time.perf_counter()
+        fleet19 = phase_fleet_training(rcv1, card)
+        print(f"phase 19: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase19.json").write_text(json.dumps(fleet19,
+                                                                default=str))
 
     # --- phase 20: the gang on the card
-    t0 = time.perf_counter()
-    gang20 = phase_gang(path, demo_argv, card)
-    print(f"phase 20: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase20.json").write_text(json.dumps(gang20,
-                                                            default=str))
+    if 20 in phases:
+        t0 = time.perf_counter()
+        gang20 = phase_gang(path, demo_argv, card)
+        print(f"phase 20: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase20.json").write_text(json.dumps(gang20,
+                                                                default=str))
 
     # --- phase 21: streamed ingest and the slab cache
-    t0 = time.perf_counter()
-    ingest21 = phase_ingest(path, card)
-    print(f"phase 21: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase21.json").write_text(json.dumps(ingest21,
-                                                            default=str))
+    if 21 in phases:
+        t0 = time.perf_counter()
+        ingest21 = phase_ingest(path, card)
+        print(f"phase 21: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase21.json").write_text(json.dumps(ingest21,
+                                                                default=str))
 
     # --- phase 22: the elastic supervisor
-    t0 = time.perf_counter()
-    elastic22 = phase_elastic(path, card)
-    print(f"phase 22: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase22.json").write_text(json.dumps(elastic22,
-                                                            default=str))
+    if 22 in phases:
+        t0 = time.perf_counter()
+        elastic22 = phase_elastic(path, card)
+        print(f"phase 22: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase22.json").write_text(json.dumps(elastic22,
+                                                                default=str))
 
     # --- phase 23: overlapped exchanges and bounded staleness
-    t0 = time.perf_counter()
-    overlap23 = phase_overlap(path, card)
-    tmp.cleanup()
-    print(f"phase 23: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase23.json").write_text(json.dumps(overlap23,
-                                                            default=str))
+    if 23 in phases:
+        t0 = time.perf_counter()
+        overlap23 = phase_overlap(path, card)
+        print(f"phase 23: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase23.json").write_text(json.dumps(overlap23,
+                                                                default=str))
 
     # --- phase 24: feature-parallel gangs
-    t0 = time.perf_counter()
-    fp24 = phase_fp(card)
-    print(f"phase 24: all cases ok in {time.perf_counter() - t0:.1f} s")
-    (OUT / "chip_smoke_phase24.json").write_text(json.dumps(fp24,
-                                                            default=str))
+    if 24 in phases:
+        t0 = time.perf_counter()
+        fp24 = phase_fp(card)
+        print(f"phase 24: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase24.json").write_text(json.dumps(fp24,
+                                                                default=str))
 
-    block_launches = {name: sum(c[name] for c in (*launched.values(),
-                                                  *launched10.values(),
-                                                  *launched11.values(),
-                                                  *launched12.values()))
-                      for name in ("B3", "B4", "B5", "B6")}
-    for name, n in block_launches.items():
-        check(n > 0, f"{name} never launched on the block path")
-    seq_launches = {name: sum(c[name] for c in (*launched8.values(),
-                                                *launched9.values(),
-                                                *launched12.values()))
-                    for name in ("B1", "B2")}
-    ladder_launches = {name: sum(c[name] for c in launched12.values())
-                       for name in ("B1", "B2", "B3", "B5", "B6")}
-    for name, n in ladder_launches.items():
-        check(n > 0, f"{name} never launched from a gap-targeted run")
-    check(seq_launches["B2"] > 0, "B2 never launched on the main paths")
-    hyb_launches = sum(c["B1h"] for c in launched10.values())
-    check(hyb_launches > 0, "B1h never launched on the hybrid main path")
-    sources = {"B3": ("chain_block_batched", "block_chain",
-                      "cocoa_tpu/ops/pallas_chain.py:190"),
-               "B4": ("fused_block", "block_chain",
-                      "cocoa_tpu/ops/pallas_chain.py:452"),
-               "B5": ("sparse_block_gram", "sparse_block",
-                      "cocoa_tpu/ops/pallas_sparse.py:773"),
-               "B6": ("sparse_block_apply", "sparse_block",
-                      "cocoa_tpu/ops/pallas_sparse.py:909")}
-    eps_b2 = b2["epsilon-like"]
-    rows = [{
-        "name": "sparse_sdca_round", "route": "cuda",
-        "source": "cocoa_torch/csrc/sparse_sdca.cu",
-        "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
-        "launches": main_launches + seq_launches["B1"],
-        "max_abs_err": max(worst_b1, worst7["B1"]),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
-        "name": "sparse_sdca_hybrid", "route": "cuda",
-        "source": "cocoa_torch/csrc/sparse_sdca.cu",
-        "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
-        "launches": hyb_launches, "max_abs_err": worst["B1h"],
-        "ms": ht["ms"], "plain_ms": ht["plain_ms"],
-        "bound_ms": ht["bound"][0], "bound_by": ht["bound"][1],
-        "library_ms": None}, {
-        "name": "dense_sdca_round", "route": "cuda",
-        "source": "cocoa_torch/csrc/dense_sdca.cu",
-        "replaces": "cocoa_tpu/ops/pallas_sdca.py:328",
-        "launches": seq_launches["B2"], "max_abs_err": worst7["B2"],
-        "ms": eps_b2["ms"], "plain_ms": eps_b2["plain_ms"],
-        "bound_ms": eps_b2["bound"][0], "bound_by": eps_b2["bound"][1],
-        "library_ms": None}]
-    for name, (fn, src, tpu) in sources.items():
-        t = timing[name]
+    # --- phase 25: static analysis and the runtime sanitizers
+    if 25 in phases:
+        t0 = time.perf_counter()
+        analysis25 = phase_analysis(rcv1_argv, card)
+        print(f"phase 25: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase25.json").write_text(json.dumps(analysis25,
+                                                                default=str))
+    tmp.cleanup()
+
+    # --- the kernels' line, once every phase ran
+    if phases == ALL_PHASES:
+        block_launches = {name: sum(c[name] for c in (*launched.values(),
+                                                      *launched10.values(),
+                                                      *launched11.values(),
+                                                      *launched12.values()))
+                          for name in ("B3", "B4", "B5", "B6")}
+        for name, n in block_launches.items():
+            check(n > 0, f"{name} never launched on the block path")
+        seq_launches = {name: sum(c[name] for c in (*launched8.values(),
+                                                    *launched9.values(),
+                                                    *launched12.values()))
+                        for name in ("B1", "B2")}
+        ladder_launches = {name: sum(c[name] for c in launched12.values())
+                           for name in ("B1", "B2", "B3", "B5", "B6")}
+        for name, n in ladder_launches.items():
+            check(n > 0, f"{name} never launched from a gap-targeted run")
+        check(seq_launches["B2"] > 0, "B2 never launched on the main paths")
+        hyb_launches = sum(c["B1h"] for c in launched10.values())
+        check(hyb_launches > 0, "B1h never launched on the hybrid main path")
+        sources = {"B3": ("chain_block_batched", "block_chain",
+                          "cocoa_tpu/ops/pallas_chain.py:190"),
+                   "B4": ("fused_block", "block_chain",
+                          "cocoa_tpu/ops/pallas_chain.py:452"),
+                   "B5": ("sparse_block_gram", "sparse_block",
+                          "cocoa_tpu/ops/pallas_sparse.py:773"),
+                   "B6": ("sparse_block_apply", "sparse_block",
+                          "cocoa_tpu/ops/pallas_sparse.py:909")}
+        eps_b2 = b2["epsilon-like"]
+        rows = [{
+            "name": "sparse_sdca_round", "route": "cuda",
+            "source": "cocoa_torch/csrc/sparse_sdca.cu",
+            "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
+            "launches": main_launches + seq_launches["B1"],
+            "max_abs_err": max(worst_b1, worst7["B1"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, {
+            "name": "sparse_sdca_hybrid", "route": "cuda",
+            "source": "cocoa_torch/csrc/sparse_sdca.cu",
+            "replaces": "cocoa_tpu/ops/pallas_sparse.py:311",
+            "launches": hyb_launches, "max_abs_err": worst["B1h"],
+            "ms": ht["ms"], "plain_ms": ht["plain_ms"],
+            "bound_ms": ht["bound"][0], "bound_by": ht["bound"][1],
+            "library_ms": None}, {
+            "name": "dense_sdca_round", "route": "cuda",
+            "source": "cocoa_torch/csrc/dense_sdca.cu",
+            "replaces": "cocoa_tpu/ops/pallas_sdca.py:328",
+            "launches": seq_launches["B2"], "max_abs_err": worst7["B2"],
+            "ms": eps_b2["ms"], "plain_ms": eps_b2["plain_ms"],
+            "bound_ms": eps_b2["bound"][0], "bound_by": eps_b2["bound"][1],
+            "library_ms": None}]
+        for name, (fn, src, tpu) in sources.items():
+            t = timing[name]
+            rows.append({
+                "name": fn, "route": "cuda",
+                "source": f"cocoa_torch/csrc/{src}.cu",
+                "replaces": tpu, "launches": block_launches[name],
+                "max_abs_err": worst[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+        draw = draw_timing["rcv1-like"]["reference"]
+        draw_launches = main_draws + sum(c["draws"] for c in
+                                         captured13.values())
+        check(draw_launches > 0,
+              "the draw kernel never launched on a main path")
         rows.append({
-            "name": fn, "route": "cuda", "source": f"cocoa_torch/csrc/{src}.cu",
-            "replaces": tpu, "launches": block_launches[name],
-            "max_abs_err": worst[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
-    draw = draw_timing["rcv1-like"]["reference"]
-    draw_launches = main_draws + sum(c["draws"] for c in
-                                     captured13.values())
-    check(draw_launches > 0, "the draw kernel never launched on a main path")
-    rows.append({
-        "name": "draw_tables", "route": "cuda",
-        "source": "cocoa_torch/csrc/draw_tables.cu",
-        "replaces": "cocoa_tpu/solvers/base.py:1571 (XLA, not a Pallas "
-                    "kernel)",
-        "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
-        "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
-        "bound_by": draw["bound"][1], "library_ms": None})
-    # the device loop's runs (phase 14), the resumed runs (phase 15) and
-    # phase 16's runs are main-path runs of these slices
-    for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
-                                "D")):
-        row["launches"] += loop14["launched"][name] + \
-            resume15["launched"][name] + surface16["launched"][name] + \
-            telemetry17["launched"][name]
-    # phase 20's processes count their own launches, job by job
-    gang_counts = [job for rank in gang20["counts"].values()
-                   for job in rank.values()] + list(
-        gang20["nccl_counts"].values())
-    launched20 = {name: sum(j[name] for j in gang_counts)
-                  for name in ("B1", "B3", "B5", "B6", "D")}
-    for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
-                                "D")):
-        row["launches"] += launched20.get(name, 0) + \
-            ingest21["launched"].get(name, 0) + \
-            elastic22["launched"].get(name, 0) + \
-            overlap23["launched"].get(name, 0) + \
-            fp24["launched"].get(name, 0)
-        if name == "B3":
-            row["max_abs_err"] = max(row["max_abs_err"],
-                                     fp24["max_abs_err"])
-    print("phase 24 launches (the fp gangs' ranks), in the counts below: "
-          + ", ".join(f"{name} {v}" for name, v in fp24["launched"].items()))
-    print("phase 23 launches ((a)'s runs and (b)'s gang workers), in the "
-          "counts below: " + ", ".join(
-              f"{name} {v}" for name, v in overlap23["launched"].items()))
-    print("phase 22 launches (the supervised workers that finished), in "
-          "the counts below: " + ", ".join(
-              f"{name} {v}" for name, v in elastic22["launched"].items()))
-    print("phase 21 launches (in-process runs and the gang's children), in "
-          "the counts below: " + ", ".join(
-              f"{name} {v}" for name, v in ingest21["launched"].items()))
-    print(f"phase 20 launches (the gang's and the NCCL child's processes), "
-          f"in the counts below: " + ", ".join(
-              f"{name} {v}" for name, v in launched20.items()))
-    print(f"phase 14 device-loop launches, in the counts below: " + ", ".join(
-        f"{name} {v}" for name, v in loop14["launched"].items()))
-    print(f"phase 15 launches (in-process runs), in the counts below: "
-          + ", ".join(f"{name} {v}"
-                      for name, v in resume15["launched"].items()))
-    print(f"phase 16 launches (in-process runs), in the counts below: "
-          + ", ".join(f"{name} {v}"
-                      for name, v in surface16["launched"].items()))
-    print(f"phase 17 launches (in-process runs), in the counts below: "
-          + ", ".join(f"{name} {v}"
-                      for name, v in telemetry17["launched"].items()))
-    print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
-          f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
-          f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "
-          f"9 and 12); phase 12 alone: " + ", ".join(
-              f"{name} {n}" for name, n in ladder_launches.items())
-          + "; B3-B6 " + ", ".join(
-              f"{name} {n} (phase 11: "
-              f"{sum(c[name] for c in launched11.values())})"
-              for name, n in block_launches.items())
-          + f"; the draw kernel {draw_launches} (phase 4 {main_draws}, "
-          f"phase 13 captured runs {draw_launches - main_draws})")
+            "name": "draw_tables", "route": "cuda",
+            "source": "cocoa_torch/csrc/draw_tables.cu",
+            "replaces": "cocoa_tpu/solvers/base.py:1571 (XLA, not a Pallas "
+                        "kernel)",
+            "launches": draw_launches, "max_abs_err": 0.0, "ms": draw["ms"],
+            "plain_ms": draw["plain_ms"], "bound_ms": draw["bound"][0],
+            "bound_by": draw["bound"][1], "library_ms": None})
+        # the device loop's runs (phase 14), the resumed runs (phase 15) and
+        # phase 16's runs are main-path runs of these slices
+        for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
+                                    "D")):
+            row["launches"] += loop14["launched"][name] + \
+                resume15["launched"][name] + surface16["launched"][name] + \
+                telemetry17["launched"][name]
+        # phase 20's processes count their own launches, job by job
+        gang_counts = [job for rank in gang20["counts"].values()
+                       for job in rank.values()] + list(
+            gang20["nccl_counts"].values())
+        launched20 = {name: sum(j[name] for j in gang_counts)
+                      for name in ("B1", "B3", "B5", "B6", "D")}
+        for row, name in zip(rows, ("B1", "B1h", "B2", "B3", "B4", "B5", "B6",
+                                    "D")):
+            row["launches"] += launched20.get(name, 0) + \
+                ingest21["launched"].get(name, 0) + \
+                elastic22["launched"].get(name, 0) + \
+                overlap23["launched"].get(name, 0) + \
+                fp24["launched"].get(name, 0)
+            if name == "B3":
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         fp24["max_abs_err"])
+        print("phase 24 launches (the fp gangs' ranks), in the counts below: "
+              + ", ".join(f"{name} {v}"
+                          for name, v in fp24["launched"].items()))
+        print("phase 23 launches ((a)'s runs and (b)'s gang workers), in the "
+              "counts below: " + ", ".join(
+                  f"{name} {v}" for name, v in overlap23["launched"].items()))
+        print("phase 22 launches (the supervised workers that finished), in "
+              "the counts below: " + ", ".join(
+                  f"{name} {v}" for name, v in elastic22["launched"].items()))
+        print("phase 21 launches (in-process runs and the gang's children), "
+              "in the counts below: " + ", ".join(
+                  f"{name} {v}" for name, v in ingest21["launched"].items()))
+        print(f"phase 20 launches (the gang's and the NCCL child's "
+              f"processes), in the counts below: " + ", ".join(
+                  f"{name} {v}" for name, v in launched20.items()))
+        print(f"phase 14 device-loop launches, in the counts below: "
+              + ", ".join(f"{name} {v}"
+                          for name, v in loop14["launched"].items()))
+        print(f"phase 15 launches (in-process runs), in the counts below: "
+              + ", ".join(f"{name} {v}"
+                          for name, v in resume15["launched"].items()))
+        print(f"phase 16 launches (in-process runs), in the counts below: "
+              + ", ".join(f"{name} {v}"
+                          for name, v in surface16["launched"].items()))
+        print(f"phase 17 launches (in-process runs), in the counts below: "
+              + ", ".join(f"{name} {v}"
+                          for name, v in telemetry17["launched"].items()))
+        print(f"main-path launches: B1 {rows[0]['launches']} (phase 4 "
+              f"{main_launches}, phases 9 and 12 {seq_launches['B1']}), B1h "
+              f"{hyb_launches} (phase 10), B2 {seq_launches['B2']} (phases 8, "
+              f"9 and 12); phase 12 alone: " + ", ".join(
+                  f"{name} {n}" for name, n in ladder_launches.items())
+              + "; B3-B6 " + ", ".join(
+                  f"{name} {n} (phase 11: "
+                  f"{sum(c[name] for c in launched11.values())})"
+                  for name, n in block_launches.items())
+              + f"; the draw kernel {draw_launches} (phase 4 {main_draws}, "
+              f"phase 13 captured runs {draw_launches - main_draws})")
     # the card once more, near the end of the output
+    ran = ("all phases" if phases == ALL_PHASES else "phases "
+           + ",".join(str(n) for n in sorted(phases)))
     print(f"card (nvidia-smi name, power.limit): {card}; kernels built in "
-          f"{build_s:.1f} s; all phases in {time.perf_counter() - start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+          f"{build_s:.1f} s; {ran} in {time.perf_counter() - start:.1f} s")
+    if phases == ALL_PHASES:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -656,6 +656,30 @@ extern "C" int fused_block_clusters(int itemsize, int b, int cluster,
                        : fused_clusters<float>(b, cluster, frozen, out);
 }
 
+// The kernels, for SDCA_KERNEL_INFO (analysis/kernel_budget.py looks them
+// up by name).
+namespace {
+const sdca::KernelEntry kKernels[] = {
+    {"chain_kernel<float,4>", (const void*)&chain_kernel<float, 4>},
+    {"chain_kernel<float,8>", (const void*)&chain_kernel<float, 8>},
+    {"chain_kernel<float,16>", (const void*)&chain_kernel<float, 16>},
+    {"chain_kernel<float,32>", (const void*)&chain_kernel<float, 32>},
+    {"chain_kernel<double,4>", (const void*)&chain_kernel<double, 4>},
+    {"chain_kernel<double,8>", (const void*)&chain_kernel<double, 8>},
+    {"chain_kernel<double,16>", (const void*)&chain_kernel<double, 16>},
+    {"chain_kernel<double,32>", (const void*)&chain_kernel<double, 32>},
+    {"fused_kernel<float,4>", (const void*)&fused_kernel<float, 4>},
+    {"fused_kernel<float,8>", (const void*)&fused_kernel<float, 8>},
+    {"fused_kernel<float,16>", (const void*)&fused_kernel<float, 16>},
+    {"fused_kernel<float,32>", (const void*)&fused_kernel<float, 32>},
+    {"fused_kernel<double,4>", (const void*)&fused_kernel<double, 4>},
+    {"fused_kernel<double,8>", (const void*)&fused_kernel<double, 8>},
+    {"fused_kernel<double,16>", (const void*)&fused_kernel<double, 16>},
+    {"fused_kernel<double,32>", (const void*)&fused_kernel<double, 32>},
+};
+}  // namespace
+SDCA_KERNEL_INFO(kKernels)
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -339,6 +339,30 @@ extern "C" int dense_sdca_round_f64(
                         frozen, state_in_smem, stages, chunk, stream);
 }
 
+// The kernels, for SDCA_KERNEL_INFO (analysis/kernel_budget.py looks them
+// up by name).
+namespace {
+const sdca::KernelEntry kKernels[] = {
+    {"dense_sdca_round_kernel<float,smem,whole>",
+     (const void*)&dense_sdca_round_kernel<float, true, false>},
+    {"dense_sdca_round_kernel<float,smem,chunked>",
+     (const void*)&dense_sdca_round_kernel<float, true, true>},
+    {"dense_sdca_round_kernel<float,global,whole>",
+     (const void*)&dense_sdca_round_kernel<float, false, false>},
+    {"dense_sdca_round_kernel<float,global,chunked>",
+     (const void*)&dense_sdca_round_kernel<float, false, true>},
+    {"dense_sdca_round_kernel<double,smem,whole>",
+     (const void*)&dense_sdca_round_kernel<double, true, false>},
+    {"dense_sdca_round_kernel<double,smem,chunked>",
+     (const void*)&dense_sdca_round_kernel<double, true, true>},
+    {"dense_sdca_round_kernel<double,global,whole>",
+     (const void*)&dense_sdca_round_kernel<double, false, false>},
+    {"dense_sdca_round_kernel<double,global,chunked>",
+     (const void*)&dense_sdca_round_kernel<double, false, true>},
+};
+}  // namespace
+SDCA_KERNEL_INFO(kKernels)
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

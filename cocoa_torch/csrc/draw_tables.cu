@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "sdca_common.cuh"
+
 namespace {
 
 constexpr uint64_t kMult = 0x5DEECE66DULL;
@@ -179,6 +181,17 @@ extern "C" int draw_tables(int mode, const long long* counts,
   }
   return (int)cudaGetLastError();
 }
+
+// The kernels, for SDCA_KERNEL_INFO (analysis/kernel_budget.py looks them
+// up by name).
+namespace {
+const sdca::KernelEntry kKernels[] = {
+    {"reference_kernel", (const void*)&reference_kernel},
+    {"hash_kernel", (const void*)&hash_kernel},
+    {"permuted_kernel", (const void*)&permuted_kernel},
+};
+}  // namespace
+SDCA_KERNEL_INFO(kKernels)
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -2,7 +2,8 @@
 // the single-coordinate alpha step (cocoa_tpu/ops/losses.py alpha_step,
 // same constants: _EPS 1e-12, _U_MAX 35, 10 Newton iterations), with the
 // lasso prox rule of ProxCoCoA+.  One copy of the loss rules, included by
-// sparse_sdca.cu, dense_sdca.cu, block_chain.cu and sparse_block.cu.
+// sparse_sdca.cu, dense_sdca.cu, block_chain.cu and sparse_block.cu; the
+// kernel table of SDCA_KERNEL_INFO by draw_tables.cu too.
 
 #pragma once
 
@@ -101,4 +102,58 @@ inline int smem_optin() {
   return bytes;
 }
 
+// One kernel of a library's table: its name and its function.
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+};
+
+// out[0..5] = the kernel's registers a thread, static shared memory,
+// local (spill) bytes a thread, most threads a block, blocks an SM can
+// hold at ``threads`` threads and ``dyn`` bytes of dynamic shared memory
+// (opted in first, as its launch does), and the dynamic shared memory it
+// may then take.  Returns the CUDA error code.
+inline int kernel_info(const KernelEntry* table, int n, int i, int threads,
+                       long long dyn, long long* out) {
+  if (i < 0 || i >= n || threads < 1 || dyn < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, table[i].fn);
+  if (err != cudaSuccess) return (int)err;
+  if (dyn > 48 * 1024) {
+    err = cudaFuncSetAttribute(table[i].fn,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncGetAttributes(&a, table[i].fn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, table[i].fn, threads, (size_t)dyn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (long long)a.sharedSizeBytes;
+  out[2] = (long long)a.localSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = blocks;
+  out[5] = a.maxDynamicSharedSizeBytes;
+  return (int)cudaSuccess;
+}
+
 }  // namespace sdca
+
+// The read-only entry points of a library's kernel table ``TABLE`` (an
+// array of sdca::KernelEntry): their count, the name of kernel i, and
+// sdca::kernel_info of kernel i (analysis/kernel_budget.py).
+#define SDCA_KERNEL_INFO(TABLE)                                             \
+  extern "C" int kernel_count() {                                           \
+    return (int)(sizeof(TABLE) / sizeof(TABLE[0]));                         \
+  }                                                                         \
+  extern "C" const char* kernel_name(int i) {                               \
+    return i >= 0 && i < kernel_count() ? TABLE[i].name : "";               \
+  }                                                                         \
+  extern "C" int kernel_info(int i, int threads, long long dyn,             \
+                             long long* out) {                              \
+    return sdca::kernel_info(TABLE, kernel_count(), i, threads, dyn, out);  \
+  }

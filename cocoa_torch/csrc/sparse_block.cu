@@ -809,6 +809,32 @@ GRAM_ENTRY(sparse_block_gram_f64, double)
 APPLY_ENTRY(sparse_block_apply_f32, float)
 APPLY_ENTRY(sparse_block_apply_f64, double)
 
+// The kernels, for SDCA_KERNEL_INFO (analysis/kernel_budget.py looks them
+// up by name).
+namespace {
+const sdca::KernelEntry kKernels[] = {
+    {"gram_kernel<float,1>", (const void*)&gram_kernel<float, 1>},
+    {"gram_kernel<float,2>", (const void*)&gram_kernel<float, 2>},
+    {"gram_kernel<float,4>", (const void*)&gram_kernel<float, 4>},
+    {"gram_kernel<float,8>", (const void*)&gram_kernel<float, 8>},
+    {"gram_kernel<double,1>", (const void*)&gram_kernel<double, 1>},
+    {"gram_kernel<double,2>", (const void*)&gram_kernel<double, 2>},
+    {"gram_kernel<double,4>", (const void*)&gram_kernel<double, 4>},
+    {"gram_kernel<double,8>", (const void*)&gram_kernel<double, 8>},
+    {"gram_pass_kernel<float,1>", (const void*)&gram_pass_kernel<float, 1>},
+    {"gram_pass_kernel<float,2>", (const void*)&gram_pass_kernel<float, 2>},
+    {"gram_pass_kernel<float,4>", (const void*)&gram_pass_kernel<float, 4>},
+    {"gram_pass_kernel<float,8>", (const void*)&gram_pass_kernel<float, 8>},
+    {"gram_pass_kernel<double,1>", (const void*)&gram_pass_kernel<double, 1>},
+    {"gram_pass_kernel<double,2>", (const void*)&gram_pass_kernel<double, 2>},
+    {"gram_pass_kernel<double,4>", (const void*)&gram_pass_kernel<double, 4>},
+    {"gram_pass_kernel<double,8>", (const void*)&gram_pass_kernel<double, 8>},
+    {"apply_kernel<float>", (const void*)&apply_kernel<float>},
+    {"apply_kernel<double>", (const void*)&apply_kernel<double>},
+};
+}  // namespace
+SDCA_KERNEL_INFO(kKernels)
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

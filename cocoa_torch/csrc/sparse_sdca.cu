@@ -790,6 +790,38 @@ extern "C" int sparse_sdca_hybrid_f64(
       slot, hot_in_regs, stream);
 }
 
+// The kernels, for SDCA_KERNEL_INFO (analysis/kernel_budget.py looks them
+// up by name).
+namespace {
+const sdca::KernelEntry kKernels[] = {
+    {"sparse_sdca_round_kernel<float,smem>",
+     (const void*)&sparse_sdca_round_kernel<float, true>},
+    {"sparse_sdca_round_kernel<float,global>",
+     (const void*)&sparse_sdca_round_kernel<float, false>},
+    {"sparse_sdca_round_kernel<double,smem>",
+     (const void*)&sparse_sdca_round_kernel<double, true>},
+    {"sparse_sdca_round_kernel<double,global>",
+     (const void*)&sparse_sdca_round_kernel<double, false>},
+    {"sparse_sdca_hybrid_kernel<float,smem,regs>",
+     (const void*)&sparse_sdca_hybrid_kernel<float, true, true>},
+    {"sparse_sdca_hybrid_kernel<float,smem,memory>",
+     (const void*)&sparse_sdca_hybrid_kernel<float, true, false>},
+    {"sparse_sdca_hybrid_kernel<float,global,regs>",
+     (const void*)&sparse_sdca_hybrid_kernel<float, false, true>},
+    {"sparse_sdca_hybrid_kernel<float,global,memory>",
+     (const void*)&sparse_sdca_hybrid_kernel<float, false, false>},
+    {"sparse_sdca_hybrid_kernel<double,smem,regs>",
+     (const void*)&sparse_sdca_hybrid_kernel<double, true, true>},
+    {"sparse_sdca_hybrid_kernel<double,smem,memory>",
+     (const void*)&sparse_sdca_hybrid_kernel<double, true, false>},
+    {"sparse_sdca_hybrid_kernel<double,global,regs>",
+     (const void*)&sparse_sdca_hybrid_kernel<double, false, true>},
+    {"sparse_sdca_hybrid_kernel<double,global,memory>",
+     (const void*)&sparse_sdca_hybrid_kernel<double, false, false>},
+};
+}  // namespace
+SDCA_KERNEL_INFO(kKernels)
+
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -18,9 +18,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
+
+from cocoa_torch.analysis import sanitize
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
@@ -52,14 +55,16 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> str:
-    """Compile kernel ``name`` unless its library exists.  Returns nvcc's
-    output ("" when the library was already built)."""
+    """Compile kernel ``name`` unless its library exists, reporting the
+    build to the capture watch as ``nvcc/<name>`` (analysis/sanitize.py).
+    Returns nvcc's output ("" when the library was already built)."""
     out = library_path(name)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    start = time.perf_counter()
     res = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -67,6 +72,7 @@ def build(name: str) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed to build {name}:\n{res.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    sanitize.record_compile(f"nvcc/{name}", time.perf_counter() - start)
     return res.stdout
 
 

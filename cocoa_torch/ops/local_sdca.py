@@ -230,10 +230,13 @@ def dense_rows(shards: dict, bidx: torch.Tensor, d: int,
     vals = shards["sp_values"][ks, bidx]
     tile = (torch.zeros(*bidx.shape, d, dtype=vals.dtype, device=vals.device)
             if out is None else out.zero_())
+    # torchlint: allow=scatter-order -- a row's columns are distinct; its
+    # padded slots add an exact 0 at column 0
     tile.scatter_add_(2, shards["sp_indices"][ks, bidx].long(), vals)
     if "X_hot" in shards:
         cols = shards["hot_cols"].long()[:, None, :].expand(
             *bidx.shape, -1)
+        # torchlint: allow=scatter-order -- distinct hot columns
         tile.scatter_add_(2, cols, gather_rows(shards["X_hot"], bidx))
     return tile
 
@@ -547,6 +550,7 @@ def local_sdca_block_batched(w: torch.Tensor, alpha: torch.Tensor,
         with fp32_matmul():
             dw = dw + torch.matmul(coefs[:, None, :], xb)[:, 0]
     if hybrid:
-        # panel padding lanes carry value 0 at column 0: they add 0
+        # torchlint: allow=scatter-order -- distinct hot columns; panel
+        # padding lanes carry value 0 at column 0: they add 0
         dw.scatter_add_(1, hot_cols, dw_hot)
     return a_vec - alpha, dw

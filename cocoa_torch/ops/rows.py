@@ -65,8 +65,11 @@ def row_axpy(row: Row, coef: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """vec_k += coef_k * x_k, in place (``vec`` is loop-local state)."""
     if row.dense is not None:
         return vec.add_(coef[:, None] * row.dense)
+    # torchlint: allow=scatter-order -- a row's columns are distinct; its
+    # padded slots add an exact 0 at column 0
     vec.scatter_add_(1, row.idx, coef[:, None] * row.val)
     if row.hot is not None:
+        # torchlint: allow=scatter-order -- distinct hot columns
         vec.scatter_add_(1, row.hot_cols, coef[:, None] * row.hot)
     return vec
 
@@ -184,7 +187,11 @@ def _scatter_add(vec: torch.Tensor, cols: torch.Tensor,
     CPU (a serial loop, where ``index_put`` with ``accumulate`` splits
     large scatters over threads that race)."""
     if vec.device.type == "cuda":
+        # torchlint: allow=scatter-order -- the ordered fold: on the card
+        # index_put with accumulate sorts the indices and sums each run in
+        # slot order (deterministic)
         return vec.index_put((cols,), vals, accumulate=True)
+    # torchlint: allow=scatter-order -- the CPU's index_add is a serial loop
     return vec.index_add(0, cols, vals)
 
 

@@ -277,6 +277,8 @@ def sparse_block_gram_plain(w, dw, gidx, gvals, cnts, sig_eff, frozen):
     mb = (vals * coord).sum(-1)
     if frozen:
         return None, mb
+    # torchlint: allow=scatter-order -- a row's columns are distinct; its
+    # padded slots add an exact 0 at column 0
     xrow = torch.zeros(k, b, w.shape[0], dtype=w.dtype, device=w.device) \
         .scatter_add_(2, cols, vals)
     picks = xrow.gather(2, cols.reshape(k, 1, b * width)

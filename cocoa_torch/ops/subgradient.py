@@ -52,6 +52,7 @@ def subgradient_pass(w: torch.Tensor, shards: dict, lam: float,
     if "X_hot" in shards:
         # the hybrid panel as one product per shard, added at the hot
         # column ids (disjoint from the residual's)
+        # torchlint: allow=scatter-order -- distinct hot columns
         dw.scatter_add_(1, shards["hot_cols"].long(),
                         torch.matmul(coef[:, None, :], shards["X_hot"])[:, 0])
     return dw - lam * w

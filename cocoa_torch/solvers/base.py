@@ -21,7 +21,13 @@ fetch, and the events of the ladder (``round_eval``, ``sigma_backoff``,
 ``momentum_restart``, ``theta_stage``, ``divergence``).  None of it sits
 inside a captured graph's body or reads the card: the device loop's
 events are decoded from each super-block's fetched rows
-(:class:`~cocoa_torch.telemetry.events.DeviceTap`)."""
+(:class:`~cocoa_torch.telemetry.events.DeviceTap`).
+
+The sanitizers (analysis/sanitize.py) watch both loops: each capture is
+reported to the capture watch (:func:`~cocoa_torch.analysis.sanitize.
+record_compile`), the regions from a chunk's dispatch to its fetch are
+marked with ``device_loop_guard``, and the deliberate reads go through
+``intended_fetch``; unarmed, a region costs one thread-local check."""
 
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from cocoa_torch import checkpoint, kernels
+from cocoa_torch.analysis import sanitize as _sanitize
 from cocoa_torch.config import DebugParams, Params
 from cocoa_torch.data.sharding import ShardedDataset
 from cocoa_torch.evals import objectives
@@ -177,8 +184,9 @@ class IndexSampler:
         sizes go to that device once, at the first call."""
         counts = self._counts_on.get(t0.device)
         if counts is None:
-            counts = torch.as_tensor(self.counts, dtype=torch.int64).to(
-                t0.device)
+            with _sanitize.allow_transfers():  # the sizes' one upload
+                counts = torch.as_tensor(self.counts, dtype=torch.int64).to(
+                    t0.device)
             self._counts_on[t0.device] = counts
         return prng.draw_tables(self.mode, self.seed, self.h, counts, t0, c,
                                 self.lane0)
@@ -662,16 +670,19 @@ class ChunkRunner:
         self.t0.fill_(t)
         host = None
         if self.sampler is not None and not self.draws:
-            host = self.sampler.chunk_indices(t, c)
-            if self.capture:
-                buf = self.host_tabs.get(c)
-                if buf is None:
-                    buf = torch.empty(host.shape, dtype=host.dtype,
-                                      device=self.device)
-                    self.host_tabs[c] = buf
-                host = buf.copy_(host)
-            else:
-                host = host.to(self.device)
+            # the host's tables, made and staged on the device: host work,
+            # outside the transfer guard's contract
+            with _sanitize.allow_transfers():
+                host = self.sampler.chunk_indices(t, c)
+                if self.capture:
+                    buf = self.host_tabs.get(c)
+                    if buf is None:
+                        buf = torch.empty(host.shape, dtype=host.dtype,
+                                          device=self.device)
+                        self.host_tabs[c] = buf
+                    host = buf.copy_(host)
+                else:
+                    host = host.to(self.device)
         if not self.capture:
             return self._chunk(key, c, host, iterate)
         if self.static is None:
@@ -714,6 +725,8 @@ class ChunkRunner:
             graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.seconds[(key, c)] = time.perf_counter() - start
+        _sanitize.record_compile(f"chunk/{branch_name(key)}/{c}",
+                                 self.seconds[(key, c)])
         delta = [b - a for a, b in zip(before, kernels.launch_counts())]
         kernels.add_launches([-n for n in delta])
         return graph, delta
@@ -735,6 +748,16 @@ def gang_capture(capture: Optional[bool], device, mesh) -> Optional[bool]:
             or torch.device(device).type != "cuda"):
         return capture
     return False
+
+
+def branch_name(key) -> str:
+    """A branch key as the capture watch names it: ``main`` for a run
+    without a schedule, else the key's fields joined by ``-``."""
+    if key is None:
+        return "main"
+    if isinstance(key, tuple):
+        return "-".join(str(x) for x in key)
+    return str(key)
 
 
 def _end_failed_capture(graph) -> None:
@@ -1100,8 +1123,10 @@ class DeviceLoopRunner:
         time the run changes branch (``traj.fetches``)."""
         v, c = self.v, self.c
         if v.tabs is not None:
-            host = self.sampler.chunk_indices(start, b * c)
-            v.tabs[:b].copy_(host.reshape(b, c, *host.shape[1:]))
+            # the host's tables, made and staged (as in ChunkRunner)
+            with _sanitize.allow_transfers():
+                host = self.sampler.chunk_indices(start, b * c)
+                v.tabs[:b].copy_(host.reshape(b, c, *host.shape[1:]))
         v.t0.fill_(start)
         for buf in (v.i, v.runs, v.done_tgt, v.done_stall):
             buf.zero_()
@@ -1133,15 +1158,19 @@ class DeviceLoopRunner:
         if not self.cuda:
             for j in range(n):
                 self._step(k, v)
-                if not bool(v.live):
+                with _sanitize.allow_transfers():
+                    live = bool(v.live)
+                if not live:
                     return j + 1
             return n
         finished = []
         for j in range(n):
             if j >= self.ahead:
                 # wait for step j - ahead, then read the live word it wrote
-                finished[j - self.ahead].synchronize()
-                if not bool(self.flag[0]):
+                with _sanitize.allow_transfers():
+                    finished[j - self.ahead].synchronize()
+                    live = bool(self.flag[0])
+                if not live:
                     return j
             graph = self.graphs.get(k)
             if graph is not None:
@@ -1164,7 +1193,9 @@ class DeviceLoopRunner:
         if v.sched is not None:
             parts.append(v.sched)
         parts.append(v.rows.reshape(-1))
-        out = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
+        with _sanitize.intended_fetch("device_loop_fetch"):
+            out = torch.cat([p.to(torch.float64)
+                             for p in parts]).cpu().numpy()
         nk = len(self.keys)
         runs = out[3:3 + nk].astype(np.int64)
         p = 3 + nk
@@ -1192,8 +1223,10 @@ class DeviceLoopRunner:
                 raise
             graph.capture_end()
         current.wait_stream(self.stream)
-        self.seconds[(self.keys[k], self.c, "device loop")] = \
-            time.perf_counter() - start
+        seconds = time.perf_counter() - start
+        self.seconds[(self.keys[k], self.c, "device loop")] = seconds
+        _sanitize.record_compile(f"device_loop/{branch_name(self.keys[k])}",
+                                 seconds)
         after = kernels.launch_counts()
         self.deltas[k] = [b - a for a, b in zip(before, after)]
         kernels.add_launches([a - b for a, b in zip(before, after)])
@@ -1255,7 +1288,8 @@ def _fetch_metrics(traj: Trajectory, m: torch.Tensor):
     """An eval's (primal, gap or None, test_error or None) from the
     device's (3,) metrics: one fetch (``traj.fetches``)."""
     traj.fetches += 1
-    return objectives.fetch_metrics(m)
+    with _sanitize.intended_fetch("eval_fetch"):
+        return objectives.fetch_metrics(m)
 
 
 def _run_chunk(runner: ChunkRunner, schedule: Optional[Schedule],
@@ -1343,7 +1377,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
         if ckpt_on:
             end = min(end, ((t - 1) // ci + 1) * ci)
         with _tracing.span("local_solve", algorithm=name, round=end, t0=t,
-                           rounds=end - t + 1):
+                           rounds=end - t + 1), \
+                _sanitize.device_loop_guard(device):
             state = _run_chunk(runner, schedule, n_iterate, t, end - t + 1,
                                state)
         t = end + 1
@@ -1352,7 +1387,8 @@ def drive(name: str, params: Params, debug: DebugParams, state: tuple,
                 save_checkpoint(debug, name, end, state, n_iterate, accel,
                                 traj, mesh)
             continue
-        with _tracing.span("eval", algorithm=name, round=end):
+        with _tracing.span("eval", algorithm=name, round=end), \
+                _sanitize.device_loop_guard(device):
             primal, gap, test_err = _fetch_metrics(traj, metrics(state))
         anneal_on = gap_target is not None and divergence_guard and anneal
         hit = gap_target is not None and gap is not None and gap <= gap_target
@@ -1505,12 +1541,14 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     head_end = min(total, ((t - 1) // c + 1) * c)
     if (t - 1) % c != 0 and head_end >= t:
         with _tracing.span("local_solve", algorithm=name, round=head_end,
-                           t0=t, rounds=head_end - t + 1):
+                           t0=t, rounds=head_end - t + 1), \
+                _sanitize.device_loop_guard(device):
             state = _run_chunk(chunks, schedule, n_iterate, t,
                                head_end - t + 1, state)
         t = head_end + 1
         if head_end % c == 0:
-            with _tracing.span("eval", algorithm=name, round=head_end):
+            with _tracing.span("eval", algorithm=name, round=head_end), \
+                    _sanitize.device_loop_guard(device):
                 primal, gap, test_err = _fetch_metrics(traj, metrics(state))
             sigma_val = stage = stall_v = None
             backed = False
@@ -1569,7 +1607,8 @@ def drive_device(name: str, params: Params, debug: DebugParams,
             # finest local-solve timing the device loop can report)
             with _tracing.span("local_solve", algorithm=name, t0=start,
                                round=start - 1 + b * c, rounds=b * c,
-                               cadence=c):
+                               cadence=c), \
+                    _sanitize.device_loop_guard(device):
                 rows, _, stop_stall = loop.block(start, b, traj)
             tap.start_round = start
             new = _decode_rows(traj, name, rows, start, c,
@@ -1596,7 +1635,7 @@ def drive_device(name: str, params: Params, debug: DebugParams,
     rem = total - (t - 1)
     if rem > 0 and not hit_target() and traj.stopped is None:
         with _tracing.span("local_solve", algorithm=name, round=total, t0=t,
-                           rounds=rem):
+                           rounds=rem), _sanitize.device_loop_guard(device):
             state = _run_chunk(chunks, schedule, n_iterate, t, rem, state)
         maybe_ckpt(total, lambda: state)
     # every write has landed when the run returns: a caller may read the
@@ -1895,7 +1934,9 @@ class FleetRunner:
             for _ in range(self.n_chunks):
                 self._step()
                 self.steps += 1
-                if not bool(self.live):
+                with _sanitize.allow_transfers():
+                    live = bool(self.live)
+                if not live:
                     break
             return
         graph = None
@@ -1903,8 +1944,10 @@ class FleetRunner:
         for j in range(self.n_chunks):
             if j >= self.AHEAD:
                 # wait for step j - AHEAD, then read the live word it wrote
-                finished[j - self.AHEAD].synchronize()
-                if not bool(self.flag[0]):
+                with _sanitize.allow_transfers():
+                    finished[j - self.AHEAD].synchronize()
+                    live = bool(self.flag[0])
+                if not live:
                     break
             if graph is None:
                 self._step()
@@ -1938,6 +1981,7 @@ class FleetRunner:
             graph.capture_end()
         current.wait_stream(stream)
         self.graphs[self.key] = time.perf_counter() - start
+        _sanitize.record_compile("fleet", self.graphs[self.key])
         return graph
 
     def fetch(self):
@@ -1989,7 +2033,8 @@ def drive_fleet_on_device(name: str, state: tuple, step_fn: Callable,
     with _tracing.span("local_solve", algorithm=name, t0=start_round,
                        round=start_round - 1 + n_chunks * c,
                        rounds=n_chunks * c, cadence=c,
-                       tenants=int(state[0].shape[0])):
+                       tenants=int(state[0].shape[0])), \
+            _sanitize.device_loop_guard(dev):
         runner.run()
         out = runner.fetch()
     return (runner, *out)

@@ -39,10 +39,12 @@ EVENT_TYPES = (
     "restart",          # sigma=auto trial rerun, or an elastic gang restart
     "divergence",       # the stall watch bailed the run out
     "run_end",          # final summary (primal, gap, stopped reason)
-    "compile",          # one finished XLA compile (the JAX package's
-                        # sanitizer bridge; the port emits none)
-    "host_transfer",    # one sanctioned device→host fetch (host_fetch;
-                        # the serving batcher's one fetch a batch)
+    "compile",          # one CUDA graph capture or nvcc build
+                        # (analysis/sanitize.py record_compile; the JAX
+                        # package's are XLA compiles)
+    "host_transfer",    # one sanctioned device→host fetch
+                        # (analysis/sanitize.py intended_fetch: an eval's,
+                        # a super-block's, the fleet's, a serving batch's)
     "momentum_restart", # --accel: a gap rise reset the outer momentum
     "theta_stage",      # --accel: the Θ local-accuracy ladder stepped up
     "ingest",           # one loaded LIBSVM file (data/ingest.IngestReport:
@@ -195,9 +197,10 @@ class EventBus:
                   max_bytes=None, metrics_interval_s=0.0):
         """Attach sinks; either may be None.  The metrics path attaches a
         :class:`cocoa_torch.telemetry.metrics.MetricsWriter` subscriber
-        (``metrics_interval_s`` is its write-debounce window).  The JAX
-        package also installs its compile→event bridge here; the port
-        compiles no XLA and has none.
+        (``metrics_interval_s`` is its write-debounce window).  The
+        capture watch's compile→event bridge is installed here too
+        (analysis/sanitize.py ``install_compile_events``), so every run
+        with a sink counts its captures and nvcc builds.
 
         ``max_bytes`` (``--eventsMaxMB``): size cap on the JSONL sink —
         when an append pushes the file past it, the full file atomically
@@ -205,6 +208,9 @@ class EventBus:
         fresh file opens with a typed ``events_rotate`` event, so a
         long serving/elastic run holds at most ~2× the cap on disk
         instead of growing without bound."""
+        from cocoa_torch.analysis import sanitize
+
+        sanitize.install_compile_events(self)
         with self._lock:
             self.jsonl_path = jsonl_path or None
             if max_bytes is not None:
@@ -348,15 +354,14 @@ def get_bus() -> EventBus:
 
 def host_fetch(t, label: str) -> np.ndarray:
     """``t`` copied to the host as a numpy array, a deliberate read of
-    the device, with a ``host_transfer`` event labelled ``label`` when the
-    bus is active (the counterpart of the JAX package's
-    ``intended_fetch``, cocoa_tpu/analysis/sanitize.py).  The copy waits
-    for the work queued before it."""
-    out = t.detach().cpu().numpy()
-    bus = get_bus()
-    if bus.active():
-        bus.emit("host_transfer", label=label)
-    return out
+    the device through analysis/sanitize.py ``intended_fetch``: counted,
+    with a ``host_transfer`` event labelled ``label`` when the bus is
+    active, and open inside a guarded region.  The copy waits for the
+    work queued before it."""
+    from cocoa_torch.analysis import sanitize
+
+    with sanitize.intended_fetch(label):
+        return t.detach().cpu().numpy()
 
 
 # --- run manifest -----------------------------------------------------------

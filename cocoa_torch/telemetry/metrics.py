@@ -1,9 +1,10 @@
 """Prometheus-style textfile metrics, refreshed on every bus event (the
-port's copy of cocoa_tpu/telemetry/metrics.py, every family; the port
-compiles no XLA, so ``compiles_total`` stays 0, its ``host_transfer``
-events come from the serving batcher's one fetch a batch
-(events.py ``host_fetch``), and only a later supervisor writes the
-``gang`` family).
+port's copy of cocoa_tpu/telemetry/metrics.py, every family; the port's
+``compile`` events are its CUDA graph captures and nvcc builds, its
+``host_transfer`` events its sanctioned fetches — an eval's, a
+super-block's, the fleet's, a serving batch's — both from
+analysis/sanitize.py, and only a later supervisor writes the ``gang``
+family).
 
 The contract (docs/DESIGN.md §Observability): a single plain-text file in
 the Prometheus exposition format, rewritten ATOMICALLY (temp + rename, the
@@ -22,10 +23,10 @@ otherwise one opaque device dispatch:
   momentum restarts (the extrapolation reset to the certified iterate)
 - ``cocoa_theta_stage``         gauge   — --accel Θ local-accuracy ladder
   stage currently in effect (inner-step count rises with it)
-- ``cocoa_compiles_total``      counter — finished XLA compiles (the
-  analysis/sanitize.py bridge).  The sanitizer invariant made
-  observable: after warmup this must flatline — growth mid-run means a
-  shape or config is silently retracing every super-block
+- ``cocoa_compiles_total``      counter — CUDA graph captures and nvcc
+  builds (the analysis/sanitize.py bridge).  The sanitizer invariant
+  made observable: after warmup this must flatline — growth mid-run
+  means a chunk length or branch is silently captured anew
 - ``cocoa_host_transfers_total``counter — sanctioned device→host fetch
   points (``intended_fetch``).  The drive loop's contract is ~1 per
   super-block; per-ROUND growth means a host sync leaked into the loop

@@ -226,6 +226,7 @@ def _feistel_perm(i: torch.Tensor, cnt: int, rk: torch.Tensor) -> torch.Tensor:
         return (left << hb) | right
 
     y = enc(i)
+    # torchlint: allow=host-sync -- the host's tables: CPU tensors, no device
     while bool((y >= cnt).any()):
         y = torch.where(y >= cnt, enc(y), y)
     return y
@@ -240,14 +241,15 @@ def permuted_tables(seed: int, ts, h: int, n_locals,
     n_locals = _check_sizes(n_locals)
     ts = torch.as_tensor(ts, dtype=torch.int64)
     c = int(ts.shape[0])
-    if (int(ts[-1]) + 1) * h >= (1 << 31):
+    last = int(ts[-1])  # torchlint: allow=host-sync -- a CPU tensor
+    if (last + 1) * h >= (1 << 31):
         raise ValueError(
             f"rng=permuted overflows int32 global-step arithmetic at round "
-            f"{int(ts[-1])} with H={h}; lower localIterFrac or numRounds")
+            f"{last} with H={h}; lower localIterFrac or numRounds")
     g = (ts[0] - 1) * h + torch.arange(c * h, dtype=torch.int64)
     outs = []
     for s in range(n_locals.shape[0]):
-        cnt = int(n_locals[s])
+        cnt = int(n_locals[s])  # torchlint: allow=host-sync -- numpy sizes
         e = g // cnt
         pos = g % cnt
         rk = _mix32(_mul32(e, _P3) ^ (((lane0 + s + 1) * _P1) & _M32)
@@ -293,6 +295,8 @@ def draw_tables(mode: str, seed: int, h: int, counts: torch.Tensor,
         raise ValueError(f"draw_tables needs c >= 1 and h >= 1, got c={c}, "
                          f"h={h}")
     if kernels.runs_plain(t0.device):
+        # torchlint: allow=host-sync -- the plain version on CPU tensors:
+        # the host's tables themselves; on the card the kernel reads t0
         return host_tables(mode, seed, h, counts.numpy(), int(t0), c,
                            lane0)
     kernels.require_cuda(t0, "draw_tables")

@@ -184,7 +184,8 @@ def test_port_imports_no_jax():
     probe_ingest_memory.py and the gang worker of the supervisor's tests
     (tests/torch_elastic_worker.py, one round run of its toy mode and one
     of its real-math mode, and the fault plans of tests/_faults.py) import
-    without pulling in jax or cocoa_tpu."""
+    without pulling in jax or cocoa_tpu; so does a run of the port's
+    static analysis (``python -m cocoa_torch.analysis --no-budget``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cocoa_torch\n"
@@ -203,6 +204,9 @@ def test_port_imports_no_jax():
         "'--device=cpu']) == 0\n"
         "assert {'cocoa_torch.parallel.distributed', "
         "'cocoa_torch.parallel.mesh'} <= set(sys.modules)\n"
+        "from cocoa_torch.analysis.__main__ import main as lint_main\n"
+        "assert lint_main(['--no-budget']) == 0\n"
+        "assert 'cocoa_torch.analysis.rules' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cocoa_tpu')]\n"
         "assert not bad, bad\n"
