@@ -374,7 +374,18 @@ stderr); any failed check exits non-zero:
    after a warm-up, armed under sanitizer(strict="all") with CUDA's sync
    debug mode at "error": zero unintended reads, the intended fetches the
    trajectories count, one capture per (branch, c) used and one per
-   branch in the device loop, every run bit for bit, ms a round of each.
+   branch in the device loop, every run bit for bit, ms a round of each;
+26. the fleet across a gang's processes (``--fleet`` with ``--master``;
+   plain torch, no kernel of the table): (a) phase 19 (a)'s 256 tenants
+   through ``python -m cocoa_torch.cli`` solo, then as two ranks sharing
+   the card over gloo, each a child with one torch thread running the
+   whole fleet: every rank's tenant lines equal the solo run's, rank 0's
+   ``--trajOut`` rows equal the solo run's (models/s apart) and rank 1
+   writes none, every certified tenant's round and gap in each rank's
+   events bit for bit with the solo run's; (b) rank 0's ``<events>`` and
+   rank 1's ``<events>.p1``, each schema-valid from ``run_start`` (its
+   process index) to ``run_end``, and the metrics textfile from rank 0
+   alone; (c) models/s of the solo run and of each rank.
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
@@ -7186,7 +7197,154 @@ def phase_analysis(rcv1_argv, card):
 
 
 # every phase; a phase that reads an earlier phase's results runs it too
-ALL_PHASES = frozenset(range(1, 26))
+# --- phase 26: the fleet across a gang's processes ------------------------
+
+FLEET_GANG_RANKS = 2
+FLEET_GANG_TIMEOUT = 300   # s for the solo run or the gang, then killed
+_FLEET_LINE = re.compile(r"^  \S+: lambda=\S+ gap=\S+ .*$", re.M)
+_FLEET_SUMMARY = re.compile(r"^fleet: (\d+)/(\d+) tenants certified, "
+                            r"(\d+) rounds, ([\d.]+)s, ([\d.]+) models/s",
+                            re.M)
+
+
+def fleet_gang_run(label, out, err, rc):
+    """One fleet process's (tenant lines, certified, rounds, loop seconds,
+    models/s), its log in OUT; fails unless it exited 0 with a summary."""
+    (OUT / f"chip_smoke_fleet_gang_{label}.log").write_text(out + err)
+    check(rc == 0, f"phase 26 {label} exited {rc}: {err[-2000:]}")
+    m = _FLEET_SUMMARY.search(out)
+    check(m is not None, f"phase 26 {label}: no fleet summary line")
+    return (_FLEET_LINE.findall(out), int(m.group(1)), int(m.group(3)),
+            float(m.group(4)), float(m.group(5)))
+
+
+def certified_events(label, path, rank=None):
+    """(tenant, round, gap) of each ``tenant_certified`` event of the
+    stream at ``path``, after its schema and its ends are checked (and,
+    for a rank's stream, the rank in its manifest)."""
+    from cocoa_torch.telemetry import schema as tele_schema
+
+    errs = tele_schema.check_file(path)
+    check(errs == [], f"phase 26 {label}: schema violations {errs[:5]}")
+    evs = read_events(path)
+    check(evs[0]["event"] == "run_start" and evs[-1]["event"] == "run_end",
+          f"phase 26 {label}: the stream runs {evs[0]['event']} .. "
+          f"{evs[-1]['event']}")
+    if rank is not None:
+        man = evs[0]["manifest"]
+        check((man.get("process_count"), man.get("process_index"))
+              == (FLEET_GANG_RANKS, rank),
+              f"phase 26 {label}: run_start process "
+              f"{man.get('process_index')} of {man.get('process_count')}")
+    return [(e["tenant"], e["t"], e["gap"]) for e in evs
+            if e["event"] == "tenant_certified"]
+
+
+def traj_rows(path):
+    """The ``--trajOut`` rows of a fleet, models/s apart."""
+    with open(path) as f:
+        rows = [json.loads(ln) for ln in f]
+    for row in rows:
+        row.pop("models_per_second", None)
+    return rows
+
+
+def phase_fleet_gang(card):
+    """(a)-(c) of phase 26: phase 19 (a)'s fleet through the CLI solo, then
+    on a gang of two ranks sharing the card.  Returns a summary."""
+    from cocoa_torch.data.fleet import synth_fleet_specs, \
+        write_fleet_manifest
+
+    c = FLEET_README
+    with tempfile.TemporaryDirectory() as tmp:
+        man = os.path.join(tmp, "fleet.jsonl")
+        write_fleet_manifest(man, synth_fleet_specs(
+            c["tenants"], n=c["n"], d=c["d"], gap_target=c["gap"]))
+        base = [sys.executable, "-m", "cocoa_torch.cli", f"--fleet={man}",
+                f"--numSplits={c['k']}", f"--numRounds={c['rounds']}",
+                f"--debugIter={c['debug_iter']}",
+                f"--localIterFrac={c['frac']}"]
+        if FLEET_DEVICE != "cuda":
+            base.append(f"--device={FLEET_DEVICE}")
+        env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
+               "GLOO_SOCKET_IFNAME": "lo"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            base + [f"--events={tmp}/solo.jsonl", f"--trajOut={tmp}/solo"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=FLEET_GANG_TIMEOUT)
+        solo_s = time.perf_counter() - t0
+        solo = fleet_gang_run("solo", proc.stdout, proc.stderr,
+                              proc.returncode)
+        check(solo[1] == c["tenants"] and len(solo[0]) == c["tenants"],
+              f"(a) solo: {solo[1]}/{c['tenants']} certified")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            base + gang_flags(port, r, FLEET_GANG_RANKS)
+            + [f"--events={tmp}/ev.jsonl", f"--metrics={tmp}/m{r}.prom",
+               f"--trajOut={tmp}/g{r}"], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(FLEET_GANG_RANKS)]
+        outs = []
+        try:
+            deadline = time.time() + FLEET_GANG_TIMEOUT
+            for p in procs:
+                o, e = p.communicate(timeout=max(1.0, deadline - time.time()))
+                outs.append((o, e, p.returncode))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        gang_s = time.perf_counter() - t0
+        ranks = [fleet_gang_run(f"rank{r}", *o) for r, o in enumerate(outs)]
+        # (a) every rank prints the solo run's lines; the same graph on
+        # the same draws on the same card
+        for r, got in enumerate(ranks):
+            check(got[0] == solo[0] and got[1:3] == solo[1:3],
+                  f"(a) rank {r}'s tenant lines differ from the solo run's: "
+                  f"{[a for a, b in zip(got[0], solo[0]) if a != b][:3]}")
+        solo_rows = traj_rows(f"{tmp}/solo.fleet.jsonl")
+        check(traj_rows(f"{tmp}/g0.fleet.jsonl") == solo_rows,
+              "(a) rank 0's --trajOut rows differ from the solo run's")
+        check(not os.path.exists(f"{tmp}/g1.fleet.jsonl"),
+              "(a) rank 1 wrote --trajOut")
+        # (b) the streams by rank, the metrics from rank 0 alone
+        want = certified_events("solo", f"{tmp}/solo.jsonl")
+        for r in range(FLEET_GANG_RANKS):
+            path = f"{tmp}/ev.jsonl" + (f".p{r}" if r else "")
+            got = certified_events(f"rank {r}", path, r)
+            check(got == want and len(got) == c["tenants"],
+                  f"(a) rank {r}'s certified rounds and gaps differ from "
+                  f"the solo run's")
+        with open(f"{tmp}/m0.prom") as f:
+            check(f"cocoa_tenants_certified_total {c['tenants']}\n"
+                  in f.read(), "(b) rank 0's metrics lack the fleet gauges")
+        check(not os.path.exists(f"{tmp}/m1.prom"),
+              "(b) rank 1 wrote the metrics textfile")
+    out = {"solo_models_per_s": solo[4], "solo_loop_s": solo[3],
+           "solo_process_s": solo_s, "gang_process_s": gang_s,
+           "rank_models_per_s": [r[4] for r in ranks],
+           "rank_loop_s": [r[3] for r in ranks], "rounds": solo[2],
+           "certified": solo[1]}
+    print(f"phase 26 (a)-(b): {c['tenants']} tenants (n={c['n']}, "
+          f"d={c['d']}, K={c['k']}) solo and on {FLEET_GANG_RANKS} ranks "
+          f"sharing the card: every rank's {c['tenants']} tenant lines, "
+          f"rank 0's --trajOut rows and every rank's certified rounds and "
+          f"gaps bit for bit with the solo run's ({solo[1]} certified in "
+          f"{solo[2]} rounds); <events> and <events>.p1 valid, the metrics "
+          f"from rank 0 alone")
+    print(f"phase 26 (c): models/s solo {solo[4]:.1f} (loop {solo[3]:.2f} "
+          f"s, process {solo_s:.1f} s); ranks "
+          + ", ".join(f"{r[4]:.1f} (loop {r[3]:.2f} s)" for r in ranks)
+          + f", the gang's processes {gang_s:.1f} s; rank/solo "
+          + ", ".join(f"{r[4] / max(solo[4], 1e-9):.2f}" for r in ranks)
+          + f"; card {card}")
+    return out
+
+
+ALL_PHASES = frozenset(range(1, 27))
 PHASE_NEEDS = {6: {3, 4}, 8: {6}, 10: {4, 6}, 11: {9}}
 
 
@@ -7790,6 +7948,13 @@ def main(argv=None) -> int:
         print(f"phase 25: all cases ok in {time.perf_counter() - t0:.1f} s")
         (OUT / "chip_smoke_phase25.json").write_text(json.dumps(analysis25,
                                                                 default=str))
+
+    # --- phase 26: the fleet across a gang's processes
+    if 26 in phases:
+        t0 = time.perf_counter()
+        fleet26 = phase_fleet_gang(card)
+        print(f"phase 26: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase26.json").write_text(json.dumps(fleet26))
     tmp.cleanup()
 
     # --- the kernels' line, once every phase ran

@@ -133,7 +133,11 @@ models/s line, and ``--trajOut``'s ``P.fleet.jsonl``.  ``--fleetLanes``
 picks batched lanes (``vmap``) or a loop of the solo round's code over
 them (``map``, each lane its solo run bit for bit); ``--sigma=auto``
 anneals each tenant's sigma', ``--accel=on`` runs each tenant's secant
-jumps.  The flags that mean nothing there exit 2 with the JAX CLI's
+jumps.  With ``--master``, ``--processId`` and ``--numProcesses`` each
+rank of the gang runs the whole fleet on its own device, as each process
+of the JAX CLI does: rank r writes ``<events>.p<r>`` (rank 0
+``<events>``), rank 0 alone the metrics textfile and ``--trajOut``'s
+file.  The flags that mean nothing there exit 2 with the JAX CLI's
 messages.  Flags of the JAX CLI that this port does not support yet exit
 2 with ``error: --X is not yet ported to cocoa_torch (ROADMAP Queue
 A)``.
@@ -206,11 +210,10 @@ _ELASTIC_FLAGS = ("elastic", "stallTimeout")
 # cache (``--ingestCache``): no RunConfig field, read from the flags given
 _INGEST_FLAGS = ("ingest", "ingestCache")
 # the gang's flags (``--master`` and its rank, ``--mesh``, ``--fp``): no
-# RunConfig field, read from the flags given; beside ``--fleet``,
-# ``--mesh`` and ``--fp`` get the JAX CLI's refusals and the rendezvous
-# flags (``_FLEET_UNPORTED``) are not ported yet
+# RunConfig field, read from the flags given; beside ``--fleet`` the
+# rendezvous flags join the gang (each rank runs the whole fleet), and
+# ``--mesh`` and ``--fp`` get the JAX CLI's refusals
 _GANG_FLAGS = ("mesh", "fp", "master", "processId", "numProcesses")
-_FLEET_UNPORTED = ("master", "processId", "numProcesses")
 # the serving loop's flags (``--serve``): no RunConfig field, read from
 # the flags given (``cfg._given``), as the JAX CLI reads its extras
 _SERVE_FLAGS = ("serve", "serveBatch", "serveSlaMs", "serveMaxNnz",
@@ -283,8 +286,6 @@ def parse_args(argv: list[str]):
                     else float(val))
         else:
             setattr(cfg, field, val)
-    if "fleet" in given:
-        unported += [key for key in given if key in _FLEET_UNPORTED]
     cfg._given = given
     return cfg, unported
 
@@ -549,11 +550,12 @@ def _fp_flag(cfg: RunConfig) -> int:
 
 
 def _objective(cfg: RunConfig, fp: int = 1):
-    """(objective, l2, the slab cache or None) with the JAX CLI's checks
-    and messages (cocoa_tpu/cli.py:1101-1105,1119-1160,1664-1681); with
-    ``--fp`` > 1 also its refusals of the lasso, of ``--ingestCache``,
-    of ``--ingest=stream`` and of the sparse layout, taken here, before
-    the gang forms, so that each gives its own words in one process."""
+    """(objective, the slab cache or None) with the checks and messages
+    that the JAX CLI makes before it loads the data (cocoa_tpu/cli.py:
+    1101-1105,1119-1160,1189-1195); with ``--fp`` > 1 also its refusals
+    of ``--ingestCache``, of ``--ingest=stream`` and of the sparse layout,
+    taken here, before the gang forms, so that each gives its own words
+    in one process."""
     objective = (cfg.objective or "svm").lower()
     if objective not in ("svm", "lasso"):
         raise ValueError(f"--objective must be svm|lasso, got {objective!r}")
@@ -561,11 +563,17 @@ def _objective(cfg: RunConfig, fp: int = 1):
     if objective == "svm":
         if fp > 1 and cfg.layout == "sparse":
             raise ValueError(FP_SPARSE)
-        return objective, 0.0, cache
-    if cfg.hot_cols is not None:
+    elif cfg.hot_cols is not None:
         raise ValueError("--hotCols does not apply to --objective=lasso "
                          "(column shards already partition the feature "
                          "axis)")
+    return objective, cache
+
+
+def _lasso_flags(cfg: RunConfig, fp: int = 1) -> float:
+    """The lasso's l2 after the checks that the JAX CLI makes once the
+    data is loaded (cocoa_tpu/cli.py:1664-1681): ``--fp`` (refused here,
+    before the gang forms), ``--testFile`` and ``--l2``."""
     if fp > 1:
         raise ValueError("--objective=lasso already shards the feature "
                          "axis over workers; --fp does not apply")
@@ -579,7 +587,7 @@ def _objective(cfg: RunConfig, fp: int = 1):
     if l2 < 0.0:
         raise ValueError(f"--l2 is the elastic-net weight, needs >= 0, "
                          f"got {l2}")
-    return objective, l2, cache
+    return l2
 
 
 def _ingest_cache(cfg: RunConfig, objective: str, fp: int = 1):
@@ -675,11 +683,21 @@ def _restore(cfg: RunConfig, algorithm: str, resume: bool) -> dict:
     return out
 
 
+def _anneal_engages(cfg: RunConfig) -> bool:
+    """Whether the sigma' anneal can act: sigma' auto, or a fixed sigma'
+    below the safe K * gamma."""
+    return (cfg.sigma == "auto"
+            or (isinstance(cfg.sigma, float)
+                and 0 < cfg.sigma < cfg.num_splits * cfg.gamma))
+
+
 def _ladder(cfg: RunConfig) -> dict:
-    """The driver ladder's flags resolved, with the JAX CLI's checks and
-    messages (cocoa_tpu/cli.py:650-735, 1569-1577, 1645-1657): the
-    keywords of ``run_cocoa`` (gap_target, divergence_guard,
-    sigma_schedule, warm_start, accel, theta)."""
+    """The ladder's flags resolved, with the checks and messages
+    that the JAX CLI makes before anything else of the run
+    (cocoa_tpu/cli.py:650-735): the keywords of ``run_cocoa``
+    sigma_schedule, warm_start, accel and theta.  The gap target and the
+    guard come later, in the JAX CLI's order (:func:`_gap_target`,
+    :func:`_divergence_guard`)."""
     gap = cfg.gap_target
     if cfg.sigma == "auto" and not gap:
         raise ValueError("--sigma=auto requires --gapTarget (the σ′ fallback "
@@ -692,10 +710,7 @@ def _ladder(cfg: RunConfig) -> dict:
     if schedule == "trial" and cfg.sigma != "auto":
         raise ValueError("--sigmaSchedule=trial is the --sigma=auto A/B "
                          "control and needs --sigma=auto")
-    anneal_engages = (cfg.sigma == "auto"
-                      or (isinstance(cfg.sigma, float)
-                          and 0 < cfg.sigma < cfg.num_splits * cfg.gamma))
-    if schedule == "anneal" and anneal_engages and not gap:
+    if schedule == "anneal" and _anneal_engages(cfg) and not gap:
         raise ValueError("--sigmaSchedule=anneal requires --gapTarget (the "
                          "in-loop backoff triggers on the stall watch, which "
                          "runs on the gap-target path)")
@@ -737,6 +752,14 @@ def _ladder(cfg: RunConfig) -> dict:
         if cfg.debug_iter <= 0:
             raise ValueError("--warmStart requires --debugIter > 0 (the "
                              "in-loop handoff lands on the eval cadence)")
+    return dict(sigma_schedule=schedule, warm_start=warm, accel=accel,
+                theta=theta)
+
+
+def _gap_target(cfg: RunConfig) -> Optional[float]:
+    """``--gapTarget`` as a float (None without it), with the JAX CLI's
+    checks and messages (cocoa_tpu/cli.py:1569-1577)."""
+    gap = cfg.gap_target
     try:
         gap_target = float(gap) if gap else None
     except ValueError:
@@ -747,17 +770,22 @@ def _ladder(cfg: RunConfig) -> dict:
                          "--dtype=bfloat16 (the gap is below bf16 "
                          "resolution); use --dtype=float32 or drop "
                          "--gapTarget")
+    return gap_target
+
+
+def _divergence_guard(cfg: RunConfig) -> str:
+    """``--divergenceGuard`` (auto | on | off), with the JAX CLI's checks
+    and messages (cocoa_tpu/cli.py:1645-1657)."""
     guard = (cfg.divergence_guard or "auto").lower()
     if guard not in ("auto", "on", "off"):
         raise ValueError(f"--divergenceGuard must be auto|on|off, got "
                          f"{cfg.divergence_guard!r}")
     if guard == "off" and (cfg.sigma == "auto"
-                           or (schedule == "anneal" and anneal_engages)):
+                           or (cfg.sigma_schedule == "anneal"
+                               and _anneal_engages(cfg))):
         raise ValueError("--sigma=auto / --sigmaSchedule=anneal require the "
                          "divergence guard; drop --divergenceGuard=off")
-    return dict(gap_target=gap_target, divergence_guard=guard,
-                sigma_schedule=schedule, warm_start=warm, accel=accel,
-                theta=theta)
+    return guard
 
 
 def _finish(cfg: RunConfig, traj: Trajectory, run_meta: dict, *summary):
@@ -1093,24 +1121,33 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
     if serve_flag is not None:
         return _serve(cfg, tel, device, serve_flag), []
     try:
-        _check_choices(cfg)
-        block_size = _block_size(cfg)
-        block_pipeline = _block_pipeline(cfg, block_size)
-        fp = _fp_flag(cfg)
-        objective, l2, ingest_cache = _objective(cfg, fp)
-        ladder = _ladder(cfg)
-        _scan_chunk(cfg)
-        device_loop = _device_loop(cfg)
-        # (dir, start, stop) with the JAX CLI's messages
+        # the checks in the JAX CLI's order, so that an argv with two
+        # faults names the one JAX names, though the port makes them all
+        # before it loads the data; first --profile's (dir, start, stop)
         # (cocoa_tpu/cli.py:610-624)
         profile = (profiling.parse_profile_flag(cfg.profile) if cfg.profile
                    else (None, None, None))
-        if given.get("elastic"):
+        _check_choices(cfg)
+        ladder = _ladder(cfg)
+        # the supervisor leaves the rank flags and --resume to its workers
+        supervise = bool(given.get("elastic"))
+        if not supervise:
+            gang = _gang_args(cfg)
+            distributed.gang_spec(*gang)   # checked here, joined last
+        fp = _fp_flag(cfg)
+        objective, ingest_cache = _objective(cfg, fp)
+        ladder["gap_target"] = _gap_target(cfg)
+        _scan_chunk(cfg)
+        device_loop = _device_loop(cfg)
+        resume = not supervise and _resume(cfg)
+        block_size = _block_size(cfg)
+        block_pipeline = _block_pipeline(cfg, block_size)
+        ladder["divergence_guard"] = _divergence_guard(cfg)
+        l2 = _lasso_flags(cfg, fp) if objective == "lasso" else 0.0
+        if supervise:
             # this process becomes the gang's supervisor, before any
             # device, shard or rendezvous
             return _elastic(cfg, tel, argv), []
-        resume = _resume(cfg)
-        gang = _gang_args(cfg)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
@@ -1606,15 +1643,12 @@ def _fleet_checks(cfg: RunConfig) -> Optional[str]:
     return lanes
 
 
-def _fleet_ladder(cfg: RunConfig):
-    """(drive mode, gap target) of a fleet run, after the JAX CLI's checks
-    of the ladder's flags that a fleet reaches (cocoa_tpu/cli.py:633-716,
-    1893-1937): a fleet takes its gap targets from the manifest, so
-    ``--sigma=auto`` and ``--accel=on`` need no ``--gapTarget``; device
-    sampling, the adaptive Theta and the sigma' trial are refused; accel
-    is off unless ``on``, and does not combine with the anneal.  As there,
-    ``--mesh`` and ``--fp`` are refused (the fleet's multi-card direction
-    is the tenant mesh axis, parallel/mesh.py ``make_fleet_mesh``)."""
+def _fleet_ladder(cfg: RunConfig) -> tuple:
+    """(accel, theta) of a fleet run after the JAX CLI's checks of the
+    ladder's flags that it makes before it joins a gang
+    (cocoa_tpu/cli.py:633-716): a fleet takes its gap targets from the
+    manifest, so ``--sigma=auto`` and ``--accel=on`` need no
+    ``--gapTarget``."""
     if cfg.loss not in losses.LOSSES:
         raise ValueError(f"--loss must be one of {losses.LOSSES}; use "
                          f"--objective=lasso for the L1 family")
@@ -1641,7 +1675,20 @@ def _fleet_ladder(cfg: RunConfig):
         raise ValueError("--theta=adaptive requires an accelerated "
                          "gap-targeted run (--accel=auto|on with --gapTarget, "
                          "not --sigmaSchedule=trial)")
+    return accel, theta
+
+
+def _fleet_mode(cfg: RunConfig, accel: str, theta: str) -> tuple:
+    """(drive mode, gap target) of a fleet run after the JAX CLI's checks
+    that ``_run_fleet_cli`` makes once the gang is joined
+    (cocoa_tpu/cli.py:1893-1937; a port rank makes them before it
+    joins, so that a refusal leaves no peer waiting): device sampling,
+    the adaptive Theta and the sigma' trial are refused; accel is off
+    unless ``on``, and does not combine with the anneal.  ``--mesh`` and
+    ``--fp`` are refused (the fleet's multi-card direction is the tenant
+    mesh axis, parallel/mesh.py ``make_fleet_mesh``)."""
     given = getattr(cfg, "_given", {})
+    schedule = cfg.sigma_schedule
     if given.get("mesh") and str(given["mesh"]) != "1":
         raise ValueError("--mesh does not combine with --fleet in v1: fleet "
                          "lanes ride the tenant vmap on one chip; the "
@@ -1675,8 +1722,7 @@ def _fleet_ladder(cfg: RunConfig):
             raise ValueError(f"--gapTarget must be a float, got "
                              f"{cfg.gap_target!r}") from None
     anneal = (cfg.sigma == "auto"
-              or (schedule == "anneal" and isinstance(cfg.sigma, float)
-                  and 0 < cfg.sigma < cfg.num_splits * cfg.gamma))
+              or (schedule == "anneal" and _anneal_engages(cfg)))
     if accel == "on" and anneal:
         raise ValueError("--accel does not combine with --sigma=auto/"
                          "--sigmaSchedule=anneal on --fleet (fleet accel "
@@ -1687,25 +1733,71 @@ def _fleet_ladder(cfg: RunConfig):
 
 def _fleet(cfg: RunConfig, tel: _Telemetry, device, lanes: str) -> int:
     """The ``--fleet`` run (cocoa_tpu/cli.py ``_run_fleet_cli``): the
-    remaining checks, the flag echo, then under the run's telemetry the
-    manifest loaded and stacked (data/fleet.py), the one loop over every
-    tenant (solvers/fleet.py), a line per tenant and the models/s line,
-    and ``--trajOut``'s ``P.fleet.jsonl``."""
-    from cocoa_torch.data.fleet import build_fleet, load_fleet_manifest
-    from cocoa_torch.solvers.fleet import run_cocoa_fleet
-
+    remaining checks, in the JAX CLI's order; with ``--master`` the gang
+    joined, as the JAX CLI joins its coordinator (cocoa_tpu/cli.py:
+    957-973), each rank running the whole fleet on its own device
+    (``rank_device``, the rule of ``make_mesh``); then :func:`_run_fleet`.
+    A joined rank meets its peers at one host-group barrier before it
+    leaves."""
     try:
         _check_choices(cfg)
-        drive_mode, gap_target = _fleet_ladder(cfg)
+        accel, theta = _fleet_ladder(cfg)
+        gang = _gang_args(cfg)
+        joins = distributed.gang_spec(*gang) is not None
+        drive_mode, gap_target = _fleet_mode(cfg, accel, theta)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if not joins:
+        return _run_fleet(cfg, tel, device, lanes, drive_mode, gap_target)
+    try:
+        distributed.maybe_initialize(*gang)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        distributed.shutdown()
+        return 2
+    try:
+        # no dp mesh and no device group: the fleet has no collective, so
+        # FleetRunner captures its graph on every rank, even where the
+        # ranks share one card over gloo (unlike --deviceLoop's
+        # GLOO_DEVICE_LOOP refusal)
+        rank = torch.distributed.get_rank()
+        device = distributed.rank_device(rank, device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        code = _run_fleet(cfg, tel, device, lanes, drive_mode, gap_target,
+                          rank)
+    except BaseException:
+        distributed.shutdown()
+        raise
+    # rank 0's process hosts the rendezvous store: no rank leaves before
+    # every rank is done with it
+    torch.distributed.barrier()
+    distributed.shutdown()
+    return code
+
+
+def _run_fleet(cfg: RunConfig, tel: _Telemetry, device, lanes: str,
+               drive_mode: str, gap_target, rank: int = 0) -> int:
+    """The fleet once its flags are checked and the gang (if any) is
+    joined: the flag echo, then under the telemetry of process ``rank``
+    the manifest loaded and stacked (data/fleet.py), the one loop over
+    every tenant (solvers/fleet.py), a line per tenant and the models/s
+    line, and ``--trajOut``'s ``P.fleet.jsonl``, which rank 0 alone
+    writes (every rank's rows are alike)."""
+    from cocoa_torch.data.fleet import build_fleet, load_fleet_manifest
+    from cocoa_torch.solvers.fleet import run_cocoa_fleet
+
+    world = distributed.world_size()
     quiet = _quiet(cfg)
     if not quiet:
         _echo(cfg)
+        if distributed.initialized():
+            print(f"gang: rank {rank} of {world} on {device}; each rank "
+                  f"runs the whole fleet (no collective)")
     cfg_manifest = _manifest_config(cfg)
     manifest_path = cfg._given["fleet"]
-    with _telemetry(cfg, tel) as bus:
+    with _telemetry(cfg, tel, rank) as bus:
         try:
             specs = load_fleet_manifest(manifest_path)
             fleet = build_fleet(specs, k=cfg.num_splits,
@@ -1729,6 +1821,8 @@ def _fleet(cfg: RunConfig, tel: _Telemetry, device, lanes: str) -> int:
         if bus.active():
             manifest = tele_events.run_manifest(
                 cfg_manifest, dataset=manifest_path, device=device)
+            if distributed.initialized():
+                manifest.update(process_count=world, process_index=rank)
             manifest["fleet"] = {"tenants": fleet.t, "k": fleet.k,
                                  "n_shard": fleet.n_shard,
                                  "d": fleet.num_features,
@@ -1763,7 +1857,7 @@ def _fleet(cfg: RunConfig, tel: _Telemetry, device, lanes: str) -> int:
               f"{result.rounds_run} rounds, {result.wall_s:.2f}s, "
               f"{result.models_per_second:.1f} models/s "
               f"(drive_mode={drive_mode}, lanes={lanes})")
-    if cfg.traj_out:
+    if cfg.traj_out and rank == 0:
         import json
 
         with open(f"{cfg.traj_out}.fleet.jsonl", "w") as f:

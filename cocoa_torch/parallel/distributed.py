@@ -73,16 +73,14 @@ def parse_master(master: Optional[str]) -> Optional[str]:
     return m if ":" in m else None
 
 
-def maybe_initialize(
+def gang_spec(
     master: Optional[str],
     process_id: Optional[int] = None,
     num_processes: Optional[int] = None,
-    timeout_s: float = TIMEOUT_S,
-) -> bool:
-    """Join this process to the gang if --master names a coordinator:
-    ``torch.distributed`` with the gloo world group, rendezvous at
-    ``tcp://<coordinator>``.  Returns True iff distributed mode was
-    initialized.
+) -> Optional[tuple]:
+    """(coordinator, rank, world) of the gang that --master names, None
+    in local mode, with the checks and messages of :func:`maybe_initialize`
+    and without joining anything.
 
     ``process_id`` / ``num_processes`` fall back to COCOA_PROCESS_ID /
     COCOA_NUM_PROCESSES.  Unlike a TPU pod, nothing on a GPU host tells a
@@ -90,7 +88,7 @@ def maybe_initialize(
     raises."""
     coordinator = parse_master(master)
     if coordinator is None:
-        return False
+        return None
     if process_id is None and os.environ.get("COCOA_PROCESS_ID"):
         process_id = int(os.environ["COCOA_PROCESS_ID"])
     if num_processes is None and os.environ.get("COCOA_NUM_PROCESSES"):
@@ -104,6 +102,23 @@ def maybe_initialize(
         raise ValueError(
             f"--processId={process_id} must lie in [0, --numProcesses="
             f"{num_processes})")
+    return coordinator, process_id, num_processes
+
+
+def maybe_initialize(
+    master: Optional[str],
+    process_id: Optional[int] = None,
+    num_processes: Optional[int] = None,
+    timeout_s: float = TIMEOUT_S,
+) -> bool:
+    """Join this process to the gang if --master names a coordinator
+    (:func:`gang_spec`): ``torch.distributed`` with the gloo world group,
+    rendezvous at ``tcp://<coordinator>``.  Returns True iff distributed
+    mode was initialized."""
+    spec = gang_spec(master, process_id, num_processes)
+    if spec is None:
+        return False
+    coordinator, process_id, num_processes = spec
     torch.distributed.init_process_group(
         "gloo", init_method=f"tcp://{coordinator}", rank=process_id,
         world_size=num_processes,

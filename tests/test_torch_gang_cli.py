@@ -11,9 +11,6 @@ import json
 import os
 import re
 import shutil
-import socket
-import subprocess
-import sys
 from unittest import mock
 
 import numpy as np
@@ -22,13 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
+import torch_gang_cli  # noqa: E402
+
 from conftest import DEMO_NUM_FEATURES, SMALL_TEST, SMALL_TRAIN  # noqa: E402
 from cocoa_tpu import cli as jax_cli  # noqa: E402
 from cocoa_torch import checkpoint, cli  # noqa: E402
 from cocoa_torch.parallel.mesh import Mesh  # noqa: E402
 from cocoa_torch.telemetry import schema  # noqa: E402
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-9
 ATOL = 1e-12
 DEMO = [f"--trainFile={SMALL_TRAIN}", f"--testFile={SMALL_TEST}",
@@ -50,35 +48,11 @@ def _same_numbers(got, want):
                                [float(v) for _, v in want], rtol=RTOL)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def gang(argvs, timeout=240):
     """Run one port CLI a rank, ``argvs[r]`` rank r's flags (the gang's
     own are added); returns [(rc, stdout, stderr)], every child killed on
     any failure."""
-    port, world = _free_port(), len(argvs)
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "cocoa_torch.cli", *argv, "--device=cpu",
-         f"--master=127.0.0.1:{port}", f"--processId={r}",
-         f"--numProcesses={world}"], cwd=REPO, text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        env=dict(os.environ, OMP_NUM_THREADS="1"))
-        for r, argv in enumerate(argvs)]
-    out = []
-    try:
-        for p in procs:
-            o, e = p.communicate(timeout=timeout)
-            out.append((p.returncode, o, e))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return out
+    return torch_gang_cli.gang(argvs, timeout)
 
 
 @pytest.fixture(scope="module")
