@@ -385,13 +385,25 @@ stderr); any failed check exits non-zero:
    events bit for bit with the solo run's; (b) rank 0's ``<events>`` and
    rank 1's ``<events>.p1``, each schema-valid from ``run_start`` (its
    process index) to ``run_end``, and the metrics textfile from rank 0
-   alone; (c) models/s of the solo run and of each rank.
+   alone; (c) models/s of the solo run and of each rank;
+27. one command drives every card (parallel/launch.py; ``--mesh`` without
+   ``--master``, ``--elastic=N,devices=D``): (a) ``--mesh=2`` on the
+   rcv1-like file as one command, two ranks sharing the card over gloo,
+   every rank's records bit for bit with phase 20 (a)'s hand-launched
+   gang, ms a round and the seconds from the command to the first
+   round's line against that gang's, and ``--blockSize=128`` bit for bit
+   with phase 20 (b)'s (B5, B3, B6 on every rank); (b) the same command without
+   ``--mesh``: one process, equal to phase 20's solo run; (c) rank 1
+   SIGKILLed once rank 0 printed its first round: the launcher exits 137
+   within 15 s naming rank 1, and no rank outlives it; (d)
+   ``--elastic=1,devices=2`` to its end, bit for bit with (a).
 
 The line before the last lists every kernel with its launches on the main
 paths (a replayed graph's launches counted at each replay; phase 14's
 device-loop runs and phase 15's, 16's and 17's in-process runs
 included; phase 18's serving runs no kernel of the table; phase 20's,
-21's, 22's, 23's and 24's processes count their own, printed with it), its error
+21's, 22's, 23's, 24's and 27's processes count their own, printed with
+it), its error
 against the plain version and its times, when every phase ran; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing a result.
@@ -5347,6 +5359,52 @@ def gang_flags(port: int, rank: int, world: int) -> list:
             f"--numProcesses={world}"]
 
 
+class Timed:
+    """A child whose stdout lines are read on a thread, each with the
+    seconds since the child was started."""
+
+    def __init__(self, argv, env):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        self.lines, self.err = [], ""
+        self.first = threading.Event()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        self.err_reader = threading.Thread(target=self._read_err,
+                                           daemon=True)
+        self.err_reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0, line))
+            if line.startswith("Iteration:"):
+                self.first.set()
+        self.first.set()
+
+    def _read_err(self):
+        self.err = self.proc.stderr.read()
+
+    def first_round_s(self):
+        return next((t for t, ln in self.lines
+                     if ln.startswith("Iteration:")), None)
+
+    def out(self):
+        return "".join(ln for _, ln in self.lines)
+
+    def wait(self, timeout=GANG_TIMEOUT):
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.reader.join(10)
+            self.err_reader.join(10)
+        return self.proc.returncode, time.perf_counter() - self.t0
+
+
 def spawn_gang(label, specs, env_extra=None, child=GANG_CHILD,
                phase=20) -> list:
     """One ``child`` (GANG_CHILD unless another is given) per spec, all
@@ -5355,21 +5413,19 @@ def spawn_gang(label, specs, env_extra=None, child=GANG_CHILD,
     rendezvous holds no port)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT), "GLOO_SOCKET_IFNAME": "lo",
            **(env_extra or {})}
-    procs = [subprocess.Popen([sys.executable, "-c", child,
-                               json.dumps(s)], cwd=ROOT, env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    procs = [Timed([sys.executable, "-c", child, json.dumps(s)], env)
              for s in specs]
     outs = []
     try:
         deadline = time.time() + GANG_TIMEOUT
         for p in procs:
-            o, e = p.communicate(timeout=max(1.0, deadline - time.time()))
-            outs.append((p.returncode, o, e))
+            rc, _ = p.wait(timeout=max(1.0, deadline - time.time()))
+            outs.append((rc, p.out(), p.err))
     finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
     parsed = []
     for rank, (rc, o, e) in enumerate(outs):
         (OUT / f"chip_smoke_gang_{label}_{rank}.log").write_text(o + e)
@@ -5383,6 +5439,7 @@ def spawn_gang(label, specs, env_extra=None, child=GANG_CHILD,
             check(job["rc"] == 0, f"phase {phase} {label} rank {rank} "
                                   f"{job['tag']}: exit {job['rc']}")
         res["stdout"] = o
+        res["first_round_s"] = procs[rank].first_round_s()
         parsed.append(res)
     return parsed
 
@@ -5598,7 +5655,15 @@ def phase_gang(path, demo_argv, card):
             0]["ms_round"]}
     ar = {"gloo 2 ranks": [r["all_reduce"]["ms"] for r in ranks],
           "nccl 1 rank": nccl["all_reduce"]["ms"]}
-    out.update(ms_round=ms, all_reduce_ms=ar, ckpt_err=errs,
+    # the records phase 27's launched gangs are held to, bit for bit
+    records = {"seq": [a["records"] for a in job_of(ranks[0], "seq")["algs"]],
+               "block": [a["records"]
+                         for a in job_of(ranks[0], "block")["algs"]],
+               "solo": [[[x.round, x.primal, x.gap, x.test_error]
+                         for x in r.trajectory.records
+                         if x.round <= GANG_ROUNDS] for r in solo]}
+    out.update(ms_round=ms, all_reduce_ms=ar, ckpt_err=errs, records=records,
+               first_round_s=[r["first_round_s"] for r in ranks],
                seconds={"solo": solo_s, "gang": gang_s, "nccl": nccl_s},
                counts={f"rank{r}": {j["tag"]: j["counts"]
                                     for j in res["jobs"]}
@@ -7344,8 +7409,261 @@ def phase_fleet_gang(card):
     return out
 
 
-ALL_PHASES = frozenset(range(1, 27))
-PHASE_NEEDS = {6: {3, 4}, 8: {6}, 10: {4, 6}, 11: {9}}
+# --- phase 27: one command drives every card ---------------------------------
+
+LAUNCH_EXIT_S = 15.0     # (c): the launcher's exit after a rank's SIGKILL
+LAUNCH_KILL_ROUNDS = 100_000   # (c)'s run, far past the kill
+
+# A rank of phase 27's launched gangs (module chip_launch_rank, on the
+# ranks' PYTHONPATH): the CLI's own run on the flags the launcher or the
+# supervisor gave it; it leaves its kernels' launch counts and its
+# trajectories in $LAUNCH_OUT/<$LAUNCH_TAG>-r<rank>.json and exits with the
+# CLI's code.
+LAUNCH_RANK = r"""
+import json, os, sys
+import torch
+from cocoa_torch import cli
+from cocoa_torch.ops import block_chain as bc
+from cocoa_torch.ops import sparse_block as sb
+from cocoa_torch.ops import sparse_sdca as sp
+from cocoa_torch.utils import prng
+
+COUNTED = {"B1": (sp.sparse_sdca_round, "launches"),
+           "B3": (bc.chain_block_batched, "launches"),
+           "B5": (sb.sparse_block_gram, "launches"),
+           "B6": (sb.sparse_block_apply, "launches"),
+           "D": (prng.draw_tables, "launches")}
+argv = sys.argv[1:]
+for fn, attr in COUNTED.values():
+    setattr(fn, attr, 0)
+rc, results = cli.run(argv)
+torch.cuda.synchronize()
+flags = dict(a.lstrip("-").partition("=")[::2] for a in argv)
+algs = []
+for r in results:
+    recs = r.trajectory.records
+    a, b = recs[0], recs[-1]
+    algs.append({"algorithm": r.algorithm,
+                 "records": [[x.round, x.primal, x.gap, x.test_error]
+                             for x in recs],
+                 "ms_round": (b.wall_time - a.wall_time)
+                 / max(1, b.round - a.round) * 1e3})
+out = {"rc": rc, "rank": int(flags["processId"]), "algs": algs,
+       "counts": {k: getattr(fn, attr) for k, (fn, attr) in COUNTED.items()}}
+with open(os.path.join(os.environ["LAUNCH_OUT"], os.environ["LAUNCH_TAG"]
+                       + f"-r{out['rank']}.json"), "w") as f:
+    json.dump(out, f)
+sys.exit(rc)
+"""
+
+# One command of phase 27: ``cli.main`` on the user's flags, its launcher's
+# and supervisor's ranks made chip_launch_rank (the CLI's run, counted).
+LAUNCH_COMMAND = r"""
+import functools, sys
+from cocoa_torch import cli, elastic
+from cocoa_torch.parallel import launch
+
+launch.run_gang = functools.partial(launch.run_gang,
+                                    module="chip_launch_rank")
+elastic.supervise = functools.partial(elastic.supervise,
+                                      module="chip_launch_rank")
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def children_of(pid):
+    """{rank: pid} of the live children of ``pid`` that carry a
+    ``--processId``, from /proc."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) != pid:
+                    continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read().decode().split("\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        for a in argv:
+            if a.startswith("--processId="):
+                out[int(a[12:])] = int(entry)
+    return out
+
+
+def alive(pid) -> bool:
+    """Whether ``pid`` is a live process (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def launch_reports(out_dir, tag, ranks) -> list:
+    """The rank reports of one launched gang, in rank order."""
+    got = []
+    for r in range(ranks):
+        path = Path(out_dir) / f"{tag}-r{r}.json"
+        check(path.exists(), f"phase 27 {tag}: rank {r} left no report")
+        got.append(json.loads(path.read_text()))
+        check(got[-1]["rc"] == 0, f"phase 27 {tag}: rank {r} exit "
+                                  f"{got[-1]['rc']}")
+    return got
+
+
+def printed_records(text) -> list:
+    """The eval lines a run printed, as [round, primal, gap, test error]
+    an eval, an algorithm a list."""
+    algs, cur = [], None
+    for line in text.splitlines():
+        if line.startswith("Running "):
+            cur = []
+            algs.append(cur)
+        elif line.startswith("Iteration: "):
+            cur.append([int(line.split()[1]), None, None, None])
+        elif cur and line.startswith("primal objective: "):
+            cur[-1][1] = float(line.split(": ")[1])
+        elif cur and line.startswith("primal-dual gap: "):
+            cur[-1][2] = float(line.split(": ")[1])
+        elif cur and line.startswith("test error: "):
+            cur[-1][3] = float(line.split(": ")[1])
+    return algs
+
+
+def records_of_ranks(label, reports, want) -> None:
+    """Every rank's records bit for bit with ``want`` (an algorithm's
+    records a list)."""
+    for rep in reports:
+        got = [a["records"] for a in rep["algs"]]
+        check(got == want, f"phase 27 {label} rank {rep['rank']}: records "
+                           f"differ from phase 20's ({got[0][:2]} vs "
+                           f"{want[0][:2]})")
+
+
+def phase_launch(path, gang20, card):
+    """Phase 27: one command drives every card (parallel/launch.py).
+    (a) ``--mesh=2`` on the rcv1-like file (K=8, 100 rounds, float32,
+    --math=fast), one command: two ranks share the card over gloo, bit for
+    bit with phase 20 (a)'s hand-launched gang, timed against it (ms a
+    round, the seconds from the command to the first round's line); with
+    ``--blockSize=128`` bit for bit with phase 20 (b)'s.  (b) The same
+    command without ``--mesh``: one process (one card, the inferred mesh
+    1), equal to phase 20's solo run.  (c) Rank 1 SIGKILLed once rank 0
+    printed its first round: the launcher exits non-zero within
+    LAUNCH_EXIT_S naming rank 1, no rank left alive.  (d)
+    ``--elastic=1,devices=2`` to its end, equal to (a).  Returns a
+    summary."""
+    rcv1 = [f"--trainFile={path}", f"--numFeatures={RCV1_SHAPE[1]}",
+            "--numSplits=8", "--localIterFrac=0.1", "--lambda=1e-4",
+            "--math=fast", "--dtype=float32", f"--debugIter={GANG_EVAL}"]
+    seq = rcv1 + [f"--numRounds={GANG_ROUNDS}"]
+    evals = GANG_ROUNDS // GANG_EVAL
+    h = int(0.1 * RCV1_SHAPE[0] / 8)
+    blocks = -(-h // 128)
+    want = gang20["records"]
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        (Path(tmp) / "chip_launch_rank.py").write_text(LAUNCH_RANK)
+        env = {**os.environ, "PYTHONPATH": f"{ROOT}{os.pathsep}{tmp}",
+               "GLOO_SOCKET_IFNAME": "lo", "LAUNCH_OUT": tmp}
+
+        def command(tag, argv):
+            return Timed([sys.executable, "-c", LAUNCH_COMMAND, *argv],
+                         {**env, "LAUNCH_TAG": tag})
+
+        # (a) the one command, alone on the card
+        a = command("a", seq + ["--mesh=2"])
+        rc_a, wall_a = a.wait()
+        check(rc_a == 0, f"phase 27 (a): exit {rc_a}: {a.err[-3000:]}")
+        ranks_a = launch_reports(tmp, "a", 2)
+        records_of_ranks("(a)", ranks_a, want["seq"])
+        check(printed_records(a.out()) == want["seq"],
+              "phase 27 (a): the printed lines differ from phase 20's")
+        check("gang: rank 0 of 2 on cuda:0, device group gloo; chunks eager"
+              in a.out(), "phase 27 (a): the gang line")
+        for rep in ranks_a:
+            c = rep["counts"]
+            check(c["B1"] == 2 * GANG_ROUNDS and c["D"] == 2 * evals,
+                  f"phase 27 (a) rank {rep['rank']}: counts {c}")
+
+        # (a) at --blockSize=128, (b), (c) and (d), started together
+        blk = command("block", seq + ["--mesh=2", "--blockSize=128"])
+        solo = command("solo", seq)
+        kill = command("kill", rcv1 + [f"--numRounds={LAUNCH_KILL_ROUNDS}",
+                                       "--mesh=2"])
+        sup = command("elastic", seq + ["--mesh=2", "--elastic=1,devices=2"])
+        kill.first.wait(GANG_TIMEOUT)
+        pids = children_of(kill.proc.pid)
+        check(sorted(pids) == [0, 1], f"phase 27 (c): the launcher's ranks "
+                                      f"{pids}")
+        t0 = time.perf_counter()
+        os.kill(pids[1], signal.SIGKILL)
+        rc_c, _ = kill.wait(timeout=LAUNCH_EXIT_S + 10)
+        exit_s = time.perf_counter() - t0
+        orphans = [r for r, pid in pids.items() if alive(pid)]
+        for p in pids.values():
+            if alive(p):
+                os.kill(p, signal.SIGKILL)
+        rc_b, _ = solo.wait()
+        rc_blk, _ = blk.wait()
+        rc_d, wall_d = sup.wait()
+        check(rc_c == 128 + 9 and exit_s <= LAUNCH_EXIT_S,
+              f"phase 27 (c): the launcher exited {rc_c} after {exit_s:.1f} "
+              f"s: {kill.err[-2000:]}")
+        check("launch: rank 1 of 2 failed (exit -9)" in kill.err,
+              f"phase 27 (c): the launcher did not name rank 1: "
+              f"{kill.err[-2000:]}")
+        check(not orphans, f"phase 27 (c): ranks {orphans} outlived the "
+                           f"launcher")
+        check(rc_blk == 0, f"phase 27 (a) block: exit {rc_blk}: "
+                           f"{blk.err[-3000:]}")
+        ranks_blk = launch_reports(tmp, "block", 2)
+        records_of_ranks("(a) block", ranks_blk, want["block"])
+        for rep in ranks_blk:
+            c = rep["counts"]
+            check(all(c[n] == 2 * GANG_ROUNDS * blocks
+                      for n in ("B3", "B5", "B6")),
+                  f"phase 27 (a) block rank {rep['rank']}: counts {c}")
+        check(rc_b == 0, f"phase 27 (b): exit {rc_b}: {solo.err[-3000:]}")
+        check("gang:" not in solo.out() and not list(
+            Path(tmp).glob("solo-r*.json")),
+            "phase 27 (b): the run without --mesh launched a gang")
+        check(printed_records(solo.out()) == want["solo"],
+              "phase 27 (b): the printed lines differ from phase 20's solo "
+              "run")
+        check(rc_d == 0, f"phase 27 (d): exit {rc_d}: {sup.err[-3000:]}")
+        ranks_d = launch_reports(tmp, "elastic", 2)
+        records_of_ranks("(d)", ranks_d, want["seq"])
+    launched = {name: sum(rep["counts"][name]
+                          for rep in (*ranks_a, *ranks_blk, *ranks_d))
+                for name in ("B1", "B3", "B5", "B6", "D")}
+    ms = [rep["algs"][0]["ms_round"] for rep in ranks_a]
+    hand_ms = gang20["ms_round"]["gang gloo (uncaptured)"]
+    first, hand_first = a.first_round_s(), gang20["first_round_s"]
+    out = {"card": card, "ms_round": ms, "hand_ms_round": hand_ms,
+           "first_round_s": first, "hand_first_round_s": hand_first,
+           "wall_s": {"launched": wall_a, "elastic": wall_d},
+           "kill_exit_s": exit_s, "launched": launched}
+    print(f"phase 27 (a): --mesh=2 as one command, rcv1-like K=8 "
+          f"{GANG_ROUNDS} rounds on 2 ranks sharing the card over gloo: "
+          f"every rank bit for bit with phase 20 (a)'s hand-launched gang; "
+          f"--blockSize=128 bit for bit with phase 20 (b)'s; ms a round "
+          f"(CoCoA+) " + "/".join(f"{v:.4f}" for v in ms)
+          + f" (phase 20's gang {hand_ms:.4f}); s from the command to the "
+          f"first round's line {first:.2f} (phase 20's ranks "
+          + "/".join(f"{v:.2f}" for v in hand_first)
+          + f"); card {card}")
+    print(f"phase 27 (b)-(d): without --mesh one process, equal to phase "
+          f"20's solo run; rank 1 SIGKILLed, the launcher exited "
+          f"{rc_c} in {exit_s:.2f} s naming it, no rank left; "
+          f"--elastic=1,devices=2 bit for bit with (a) in {wall_d:.1f} s; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    return out
+
+
+ALL_PHASES = frozenset(range(1, 28))
+PHASE_NEEDS = {6: {3, 4}, 8: {6}, 10: {4, 6}, 11: {9}, 27: {20}}
 
 
 def parse_phases(argv):
@@ -7955,6 +8273,13 @@ def main(argv=None) -> int:
         fleet26 = phase_fleet_gang(card)
         print(f"phase 26: all cases ok in {time.perf_counter() - t0:.1f} s")
         (OUT / "chip_smoke_phase26.json").write_text(json.dumps(fleet26))
+
+    # --- phase 27: one command drives every card
+    if 27 in phases:
+        t0 = time.perf_counter()
+        launch27 = phase_launch(path, gang20, card)
+        print(f"phase 27: all cases ok in {time.perf_counter() - t0:.1f} s")
+        (OUT / "chip_smoke_phase27.json").write_text(json.dumps(launch27))
     tmp.cleanup()
 
     # --- the kernels' line, once every phase ran
@@ -8049,10 +8374,14 @@ def main(argv=None) -> int:
                 ingest21["launched"].get(name, 0) + \
                 elastic22["launched"].get(name, 0) + \
                 overlap23["launched"].get(name, 0) + \
-                fp24["launched"].get(name, 0)
+                fp24["launched"].get(name, 0) + \
+                launch27["launched"].get(name, 0)
             if name == "B3":
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          fp24["max_abs_err"])
+        print("phase 27 launches (the launched gangs' ranks), in the counts "
+              "below: " + ", ".join(
+                  f"{name} {v}" for name, v in launch27["launched"].items()))
         print("phase 24 launches (the fp gangs' ranks), in the counts below: "
               + ", ".join(f"{name} {v}"
                           for name, v in fp24["launched"].items()))

@@ -18,7 +18,8 @@
         [--events=P [--eventsMaxMB=<int>] [--flightRecorder=auto|on|off]]
         [--metrics=P [--metricsInterval=<s>]] [--trace]
         [--profile=DIR[,START,STOP]]
-        [--elastic=N[,shrink][,devices=1] [--stallTimeout=<s>]]
+        [--mesh=D] [--fp=F] [--elastic=N[,shrink][,devices=D]
+        [--stallTimeout=<s>]]
 
     python -m cocoa_torch.cli --serve[=PORT] --chkptDir=D --numFeatures=N
         [--serveBatch=64,256,1024] [--serveSlaMs=50] [--serveMaxNnz=<n>]
@@ -109,14 +110,24 @@ processes (``--serveRoute``), ``--traceSample`` and the ``--statusPort``
 ops plane; any training flag beside it exits 2 with the JAX CLI's
 message.
 
+``--master=host:port --processId=r --numProcesses=P`` joins a gang of P
+ranks of this CLI (parallel/), each holding K/P shards on
+``cuda:(r % cards)``.  Without ``--master`` the mesh is this host's, by
+the JAX CLI's rule: ``--mesh=D`` (``--fp=F``), or else the largest
+divisor of K whose mesh x fp fits the host's cards (1 on the CPU); when
+mesh x fp is more than one, the process becomes the launcher of that
+many local ranks, one a card, every flag checked first
+(parallel/launch.py).
+
 ``--elastic=N`` (or ``N,shrink``, or ``shrink`` with ``--numProcesses``)
 turns the process into the supervisor of a gang of N workers of this
-CLI (cocoa_torch/elastic.py): it resolves no device and joins no gang,
-relaunches the gang from the latest checkpoint when a worker dies,
-reforms it at fewer workers after its restart budget (at the first
-loss with ``shrink``), and with ``--stallTimeout=<s>`` also restarts a
-gang whose checkpoints and metrics stop moving; its events join
-``--events``, its gauges ``<metrics>.gang``.
+CLI (cocoa_torch/elastic.py), each of ``devices=D`` cards as D ranks: it
+resolves no device and joins no gang, relaunches the gang from the
+latest checkpoint when a worker dies, reforms it at fewer workers after
+its restart budget (at the first loss with ``shrink``), and with
+``--stallTimeout=<s>`` also restarts a gang whose checkpoints and
+metrics stop moving; its events join ``--events``, its gauges
+``<metrics>.gang``.
 
 ``--overlapComm[=auto|on|off]`` writes the device loop's checkpoints on
 a thread while the next super-block runs (a single process with
@@ -167,7 +178,7 @@ from cocoa_torch.data.slab_cache import SlabCache
 from cocoa_torch.device import resolve_device
 from cocoa_torch.evals import objectives
 from cocoa_torch.ops import losses
-from cocoa_torch.parallel import distributed
+from cocoa_torch.parallel import distributed, launch
 from cocoa_torch.parallel.mesh import feature_part, has_fp, local_part, \
     make_mesh
 from cocoa_torch.solvers import run_cocoa
@@ -1131,10 +1142,15 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         ladder = _ladder(cfg)
         # the supervisor leaves the rank flags and --resume to its workers
         supervise = bool(given.get("elastic"))
+        spec = None
         if not supervise:
             gang = _gang_args(cfg)
-            distributed.gang_spec(*gang)   # checked here, joined last
+            spec = distributed.gang_spec(*gang)   # checked here, joined last
         fp = _fp_flag(cfg)
+        # without --master the mesh is this host's, by the JAX CLI's rule
+        # at its point in the order; a gang's is checked as it joins
+        ranks, note = ((1, None) if supervise or spec is not None
+                       else _local_mesh(cfg, fp, device))
         objective, ingest_cache = _objective(cfg, fp)
         ladder["gap_target"] = _gap_target(cfg)
         _scan_chunk(cfg)
@@ -1148,11 +1164,18 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
             # this process becomes the gang's supervisor, before any
             # device, shard or rendezvous
             return _elastic(cfg, tel, argv), []
+        if ranks > 1:
+            # this process becomes the local gang's launcher, every flag
+            # checked and before any shard or rendezvous
+            return _launch(argv, ranks, fp, note, device, device_loop), []
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2, []
+    if spec is not None:
+        note = os.environ.get(launch.MESH_NOTE_ENV) or None
     try:
-        mesh = _join_gang(cfg, gang, device, device_loop, fp)
+        mesh = (None if spec is None
+                else _join_gang(cfg, gang, device, device_loop, fp))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         distributed.shutdown()
@@ -1161,7 +1184,7 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
         return _train(cfg, tel, mesh, device if mesh is None
                       else mesh.device, capture, block_size, block_pipeline,
                       objective, l2, ladder, device_loop, resume, profile,
-                      ingest_cache)
+                      ingest_cache, note)
     finally:
         if mesh is not None:
             distributed.shutdown()
@@ -1171,14 +1194,14 @@ def run(argv: list[str], capture=None) -> tuple[int, list[RunResult]]:
 
 
 def _elastic_spec(cfg: RunConfig) -> tuple:
-    """(workers, shrink mode: auto | now | off) from ``--elastic=N[,shrink]
-    [,devices=D]`` (or ``shrink`` with ``--numProcesses``), with the JAX
-    CLI's rules and messages (cocoa_tpu/cli.py:767-816).  ``devices=D``
-    above 1 names several cards in one worker process, which the port
-    does not run: its workers own one device each.  With ``--fp`` > 1
-    the JAX CLI's rules (cocoa_tpu/cli.py:818-837): ``shrink`` is
-    refused, and the gang restarts at its size only (``off``) with JAX's
-    note; a port worker being one rank, N must be K x F."""
+    """(workers, shrink mode: auto | now | off, devices a worker) from
+    ``--elastic=N[,shrink][,devices=D]`` (or ``shrink`` with
+    ``--numProcesses``), with the JAX CLI's rules and messages
+    (cocoa_tpu/cli.py:767-816).  A JAX worker that owns D devices is D
+    port ranks, one a card (elastic.py).  With ``--fp`` > 1 the JAX
+    CLI's rules (cocoa_tpu/cli.py:818-837): ``shrink`` is refused, and
+    the gang restarts at its size only (``off``) with JAX's note; the
+    N x D ranks must be K x F."""
     given = cfg._given
     shrink, n_workers, devices = "auto", None, 1
     for part in str(given["elastic"]).split(","):
@@ -1194,13 +1217,6 @@ def _elastic_spec(cfg: RunConfig) -> tuple:
             if devices < 1:
                 raise ValueError(f"--elastic devices= takes a positive "
                                  f"per-worker device count, got {part!r}")
-            if devices > 1:
-                raise ValueError(f"--elastic {part}: a port worker drives "
-                                 f"one card (one rank a device); several "
-                                 f"cards in one process are not run "
-                                 f"(ROADMAP, configurations the port does "
-                                 f"not run) — use devices=1 and one worker "
-                                 f"a card")
         elif part:
             try:
                 n_workers = int(part)
@@ -1232,16 +1248,20 @@ def _elastic_spec(cfg: RunConfig) -> tuple:
                 "meshes: w's column split is pinned to the device grid, so "
                 "a reformed gang cannot resume the checkpoints; drop --fp "
                 "or use --elastic=N")
-        if n_workers != cfg.num_splits * fp:
+        if n_workers * devices != cfg.num_splits * fp:
+            spec, what, unit = ((n_workers, "one rank", "workers")
+                                if devices == 1 else
+                                (f"{n_workers},devices={devices}",
+                                 f"{devices} ranks (one a device)", "ranks"))
             raise ValueError(
-                f"--elastic={n_workers} with --fp={fp}: a port worker is "
-                f"one rank, so the gang needs numSplits x fp = "
-                f"{cfg.num_splits * fp} workers")
+                f"--elastic={spec} with --fp={fp}: a port worker is {what}, "
+                f"so the gang needs numSplits x fp = "
+                f"{cfg.num_splits * fp} {unit}")
         shrink = "off"
         print("note: --elastic with --fp keeps same-size restarts only (an "
               "fp gang cannot shrink; see docs/DESIGN.md §13)",
               file=sys.stderr)
-    return n_workers, shrink
+    return n_workers, shrink, devices
 
 
 def _stall_timeout(cfg: RunConfig, tel: _Telemetry) -> Optional[float]:
@@ -1315,7 +1335,7 @@ def _elastic(cfg: RunConfig, tel: _Telemetry, argv: list) -> int:
         raise ValueError("--trainFile is required")
     if cfg.num_features <= 0:
         raise ValueError("--numFeatures must be positive")
-    n_workers, shrink = _elastic_spec(cfg)
+    n_workers, shrink, devices = _elastic_spec(cfg)
     if not cfg.chkpt_dir:
         print("warning: --elastic without --chkptDir restarts from round 1 "
               "on failure (no checkpoints to resume from)", file=sys.stderr)
@@ -1338,7 +1358,7 @@ def _elastic(cfg: RunConfig, tel: _Telemetry, argv: list) -> int:
             elastic.strip_elastic_flags(argv), n_workers,
             resume=bool(cfg.chkpt_dir), progress_token=_progress_token(cfg),
             stall_timeout_s=stall, num_splits=cfg.num_splits,
-            shrink=shrink, devices_per_worker=1)
+            shrink=shrink, devices_per_worker=devices)
     finally:
         if gang_writer is not None:
             gang_writer.flush()
@@ -1362,45 +1382,98 @@ def _gang_args(cfg: RunConfig):
     return given.get("master"), proc_id, n_procs
 
 
-def _join_gang(cfg: RunConfig, gang, device, device_loop: bool,
-               fp: int = 1):
-    """Join the gang when ``--master`` names a rendezvous (parallel/
-    distributed.py); then ``--mesh`` and ``--fp`` with the JAX CLI's rules
-    and messages (cocoa_tpu/cli.py:1042-1100), its devices the gang's
-    ranks (1 in one process), every rank a position of the mesh: the
-    (dp,) mesh over every rank, or with ``--fp=F`` the (K, F) mesh over
-    K x F ranks, which the JAX CLI asks for (its shard multiplexing is
-    dp-only).  Returns the mesh, None in one process (the JAX package's
-    ``--mesh=1`` path)."""
-    joined = distributed.maybe_initialize(*gang)
-    world = distributed.world_size()
+def _local_devices(device) -> int:
+    """The devices a run without ``--master`` may span, as the JAX CLI
+    counts ``jax.devices()``: this host's cards on CUDA, 1 on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _mesh_size(cfg: RunConfig, fp: int, devices: int, gang: bool) -> int:
+    """The dp size of the mesh by the JAX CLI's rules and messages
+    (cocoa_tpu/cli.py:1042-1100), over ``devices``: a ``--master``
+    gang's ranks (``gang``), whose mesh x fp must be the gang, or this
+    host's (:func:`_local_devices`).  Without ``--mesh`` a gang's mesh is
+    its ranks over fp, a local one the largest divisor of K whose mesh x
+    fp fits the devices.  An explicit local ``--mesh`` is not refused for
+    spanning more devices than there are: its ranks share the cards over
+    gloo, as a ``--master`` gang's can."""
     k = cfg.num_splits
-    raw = getattr(cfg, "_given", {}).get("mesh")
+    raw = cfg._given.get("mesh")
     if raw is not None:
         try:
             size = int(raw)
         except ValueError:
             raise ValueError(f"--mesh must be an integer, got {raw!r}") \
                 from None
-        if size * fp != world or (size > 1 and k % size != 0):
+        if (gang and size * fp != devices) or (size > 1 and k % size != 0):
             raise ValueError(
                 f"--mesh={size} (x fp={fp}) needs a divisor of "
-                f"numSplits={k} and mesh x fp devices (have {world}); use "
-                f"--mesh=1 for the single-chip path")
+                f"numSplits={k} and mesh x fp devices (have {devices}); "
+                f"use --mesh=1 for the single-chip path")
         if fp > 1 and size == 1 and k > 1:
             raise ValueError(
                 f"--fp={fp} needs a device mesh and is incompatible with "
                 f"the --mesh=1 single-chip path; drop --mesh or pass "
                 f"--mesh={k}")
+    elif gang:
+        size = devices // fp
     else:
-        size = world // fp
-    if fp > 1 and size != k:
+        size = max((d for d in range(1, min(k, devices // fp) + 1)
+                    if k % d == 0), default=1)
+    if fp > 1 and (size != k or (raw is None and size * fp > devices)):
         raise ValueError(
             f"--fp={fp} requires a {k}x{fp}-device mesh (numSplits x fp; "
-            f"shard multiplexing is dp-only; have {world} devices)")
-    mesh = make_mesh(size, device, fp=fp) if joined else None
-    if (device_loop and mesh is not None and mesh.device.type == "cuda"
-            and not mesh.capturable):
+            f"shard multiplexing is dp-only; have {devices} devices)")
+    return size
+
+
+def _local_mesh(cfg: RunConfig, fp: int, device) -> tuple:
+    """(ranks, note) of a run without ``--master``: mesh x fp ranks
+    (:func:`_mesh_size` over this host's devices), one a device, and,
+    when an inferred mesh leaves devices idle, the JAX CLI's note (None
+    under ``--quiet``).  One rank is this process's run (the JAX
+    package's ``--mesh=1`` path)."""
+    devices = _local_devices(device)
+    size = _mesh_size(cfg, fp, devices, gang=False)
+    note = None
+    if "mesh" not in cfg._given and not _quiet(cfg) and size * fp < devices:
+        note = (f"note: inferred mesh uses {size} of {devices} devices "
+                f"(largest divisor of numSplits={cfg.num_splits} that "
+                f"fits); a numSplits divisible by {devices} would use "
+                f"every device")
+    return max(size, 1) * fp, note
+
+
+def _launch(argv: list, ranks: int, fp: int, note, device,
+            device_loop: bool) -> int:
+    """A run without ``--master`` over ``ranks`` > 1 devices: this
+    process launches the local gang (parallel/launch.py), one rank a
+    card, and touches no card itself.  Ranks beyond the cards share
+    them over gloo, which a captured ``--deviceLoop`` cannot run."""
+    cards = _local_devices(device)
+    if device.type == "cuda" and ranks > cards:
+        if device_loop:
+            from cocoa_torch.solvers.base import GLOO_DEVICE_LOOP
+
+            raise ValueError(GLOO_DEVICE_LOOP)
+        print(f"note: --mesh={ranks // fp} x fp={fp} puts {ranks} ranks on "
+              f"{cards} card(s): ranks share a card over gloo",
+              file=sys.stderr)
+    return launch.run_gang(argv, ranks, note)
+
+
+def _join_gang(cfg: RunConfig, gang, device, device_loop: bool,
+               fp: int = 1):
+    """Join the gang that ``--master`` names (parallel/distributed.py);
+    then ``--mesh`` and ``--fp`` with the JAX CLI's rules and messages
+    (cocoa_tpu/cli.py:1042-1100), its devices the gang's ranks, every
+    rank a position of the mesh: the (dp,) mesh over every rank, or with
+    ``--fp=F`` the (K, F) mesh over K x F ranks, which the JAX CLI asks
+    for (its shard multiplexing is dp-only).  Returns the mesh."""
+    distributed.maybe_initialize(*gang)
+    size = _mesh_size(cfg, fp, distributed.world_size(), gang=True)
+    mesh = make_mesh(size, device, fp=fp)
+    if device_loop and mesh.device.type == "cuda" and not mesh.capturable:
         from cocoa_torch.solvers.base import GLOO_DEVICE_LOOP
 
         raise ValueError(GLOO_DEVICE_LOOP)
@@ -1423,12 +1496,16 @@ def _gang_line(mesh, capture) -> str:
 def _train(cfg: RunConfig, tel: _Telemetry, mesh, device, capture,
            block_size: int, block_pipeline: Optional[bool], objective: str,
            l2: float, ladder: dict, device_loop: bool, resume: bool,
-           profile, ingest_cache=None) -> tuple[int, list[RunResult]]:
+           profile, ingest_cache=None,
+           note: Optional[str] = None) -> tuple[int, list[RunResult]]:
     """The training run once the flags are checked and the gang (if any)
-    is joined: the echo, the telemetry, then the lasso or the SVM menu."""
+    is joined: the echo (with the inferred mesh's ``note``, where the
+    JAX CLI prints it), the telemetry, then the lasso or the SVM menu."""
     quiet = _quiet(cfg)
     if not quiet:
         _echo(cfg)
+        if note:
+            print(note)
         if mesh is not None:
             print(_gang_line(mesh, capture))
     cfg_manifest = _manifest_config(cfg)

@@ -32,6 +32,14 @@ Where the port departs from it:
   signal (a negative return code) ranks before an exit code, and rank
   order decides within each class; JAX takes the first failure in rank
   order.  The flight recorder then names the worker that was killed.
+- **Workers of several devices.**  A JAX worker owns its
+  ``devices_per_worker`` devices in one process; a port worker of D
+  devices is D ranks, one a card (rank r on ``cuda:(r % cards)``), so
+  the supervisor spawns N x D ranks and worker w is ranks [w·D, (w+1)·D).
+  A rank's death is its worker's: the ``elastic:`` line names the worker
+  and the rank (with D = 1 it is JAX's line), the flight recorder dumps
+  the rank's stream under the worker's index, and the gang's size in
+  the events and spans counts workers.
 - **The workers' environment.**  The port runs uninstalled from its
   checkout, so each worker gets the directory holding ``cocoa_torch``
   at the head of ``PYTHONPATH`` (``python -m cocoa_torch.cli`` from
@@ -159,7 +167,8 @@ def supervise(
     auto|now|off.
 
     ``worker_argv`` is the user's flag list without the flags the
-    supervisor owns (:func:`strip_elastic_flags`).  Worker 0 inherits
+    supervisor owns (:func:`strip_elastic_flags`).  Each worker is
+    ``devices_per_worker`` ranks (module docstring).  Rank 0 inherits
     stdout and stderr; the others are silenced unless
     ``quiet_tail=False``.  A shrunk generation drops any ``--mesh``."""
     python = python or sys.executable
@@ -188,10 +197,11 @@ def supervise(
         # dump (gangs spawned so far); on_generation keeps JAX's 0-based
         with _tracing.span("gang_generation", generation=gen + 1,
                            gang_size=n_cur):
+            ranks = n_cur * devices_per_worker
             procs = [
-                _spawn(argv_cur, i, n_cur, port, python, module,
+                _spawn(argv_cur, i, ranks, port, python, module,
                        quiet_tail, resume)
-                for i in range(n_cur)
+                for i in range(ranks)
             ]
             if on_generation is not None:
                 on_generation(gen, procs)
@@ -252,14 +262,14 @@ def supervise(
         # events streamed to its per-process JSONL: leave the
         # `.flightrec` beside it, scoped to its pid; a stall has no single
         # victim, so worker 0's stream stands for the gang
+        victim = 0 if failed_idx is None else failed_idx
         if _tele.get_bus().jsonl_path:
             victim_pid = (getattr(procs[failed_idx], "pid", None)
                           if failed_idx is not None else None)
             _recorder.dump_victim(
-                _tele.get_bus().jsonl_path,
-                failed_idx if failed_idx is not None else 0,
+                _tele.get_bus().jsonl_path, victim // devices_per_worker,
                 reason, exit_code=failed, generation=gen,
-                victim_pid=victim_pid)
+                victim_pid=victim_pid, stream_index=victim)
 
         old_n = n_cur
         can_shrink = (num_splits is not None and shrink != "off"
@@ -306,8 +316,10 @@ def supervise(
             backoff_s=backoff)
         if on_restart is not None:
             on_restart(gen, reason, old_n, n_cur, backoff)
+        who = ("worker" if devices_per_worker == 1 else
+               f"worker {victim // devices_per_worker} (rank {victim})")
         what = (f"gang made no progress for {stall_timeout_s:g}s"
-                if stalled else f"worker died (exit {failed})")
+                if stalled else f"{who} died (exit {failed})")
         if n_cur != old_n:
             print(f"elastic: {what}; reforming the gang at {n_cur} of "
                   f"{old_n} workers ({num_splits} shards re-divided over "

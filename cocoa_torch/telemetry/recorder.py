@@ -219,7 +219,8 @@ def _tail_events(stream_path: str, last_n: int, pid=None) -> list:
 
 def dump_victim(events_path: str, victim_index: int, reason: str,
                 exit_code=None, generation=None, victim_pid=None,
-                last_n: int = DEFAULT_CAPACITY) -> Optional[str]:
+                last_n: int = DEFAULT_CAPACITY,
+                stream_index: Optional[int] = None) -> Optional[str]:
     """Supervisor-side dump for a worker that died without the chance to
     dump itself (SIGKILL, OOM): read the tail of the victim's
     per-process stream (``worker_stream_path``) and write
@@ -234,12 +235,18 @@ def dump_victim(events_path: str, victim_index: int, reason: str,
     (killed before its first event) so the dump still carries the
     stream's last-known state, labeled accordingly.
 
+    ``stream_index`` is the process whose stream is read when it is not
+    the worker ``victim_index`` (a port worker of several devices is
+    several ranks, each with its stream; cocoa_torch/elastic.py).
+
     Returns the dump path, or None when the victim left no stream (the
     run was launched without ``--events`` — nothing to explain from).
     Never raises (supervisor teardown must proceed regardless).
     """
     try:
-        stream = worker_stream_path(events_path, victim_index)
+        stream = worker_stream_path(
+            events_path,
+            victim_index if stream_index is None else stream_index)
         scoped = victim_pid is not None
         records = _tail_events(stream, last_n,
                                pid=victim_pid if scoped else None)

@@ -2,8 +2,11 @@
 in the JAX CLI's order, so both CLIs print the same line and exit 2, though
 the JAX CLI makes some of its checks only after it has loaded the training
 file (the lasso's ``--testFile``, ``--l2``, the guard, ``--blockSize``)
-and the port makes them all before.  The gang's ``--mesh`` and ``--fp``
-geometry is the exception (ROADMAP, "Which error a bad argv names")."""
+and the port makes them all before.  Without ``--master`` the port
+resolves ``--mesh`` and ``--fp`` at the JAX CLI's point, over the JAX
+CLI's device count (8 virtual CPUs, given to the port as its host's); a
+``--master`` gang's geometry is the exception, checked as it joins
+(ROADMAP, "Which error a bad argv names")."""
 
 import io
 from contextlib import redirect_stderr, redirect_stdout
@@ -52,6 +55,9 @@ PAIRS = {
     # --blockSize before the lasso's --l2
     "blockSize-l2": (["--objective=lasso", "--l2=-1", "--blockSize=-2",
                       "--math=fast"], "--blockSize must be >= 0"),
+    # the mesh before the objective's checks (no --master: the host's)
+    "mesh-hotCols": (["--mesh=3", *LASSO_HOT],
+                     "--mesh=3 (x fp=1) needs a divisor of numSplits=4"),
 }
 
 
@@ -64,8 +70,9 @@ def _run(main, argv):
 
 
 @pytest.mark.parametrize("name", list(PAIRS))
-def test_two_faults_name_the_jax_fault(name):
+def test_two_faults_name_the_jax_fault(name, monkeypatch):
     flags, words = PAIRS[name]
+    monkeypatch.setattr(cli, "_local_devices", lambda device: 8)
     rc_j, err_j = _run(jax_cli.main, DEMO + flags)
     rc_p, err_p = _run(cli.main, DEMO + flags + ["--device=cpu"])
     assert rc_j == rc_p == 2

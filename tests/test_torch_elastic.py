@@ -13,9 +13,10 @@ must be equal.  Both CLIs then run with a spy on ``supervise``
 ``--stallTimeout`` spec: the same exit code, stderr lines and
 supervisor keywords, and the same ``progress_token`` on the same
 directories.  The port's own rules: a death by a signal names the
-victim before an exit code seen in the same poll, ``devices=D`` above 1
-is refused, and the supervisor branch never reaches ``torch.cuda`` or
-the rendezvous.
+victim before an exit code seen in the same poll, a worker of
+``devices=D`` is D ranks (each package's spawns compared worker by
+worker), and the supervisor branch never reaches ``torch.cuda`` or the
+rendezvous.
 """
 
 import json
@@ -111,14 +112,19 @@ def run_both(monkeypatch, capsys, tmp_path, fates, n, seed_events=(),
     results = {}
     for name, (mod, events, metrics, tracing) in PACKAGES.items():
         spawned, log, sleeps, state = [], [], [], {}
+        # a port worker of D devices is D ranks: its spawns are recorded
+        # worker by worker, each rank given its worker's fate
+        d = kw.get("devices_per_worker", 1) if name == "port" else 1
 
         def spawn(worker_argv, i, n_, port, python, module, quiet_tail,
                   resume):
             if i == 0:
                 state["gen"] = state.get("gen", -1) + 1
-            spawned.append((list(worker_argv), i, n_, python, module,
-                            quiet_tail, resume, type(port).__name__))
-            return Proc(fates(state["gen"], i, n_, state), log)
+            if i % d == 0:
+                spawned.append((list(worker_argv), i // d, n_ // d, python,
+                                module, quiet_tail, resume,
+                                type(port).__name__))
+            return Proc(fates(state["gen"], i // d, n_ // d, state), log)
 
         def sleep(s):
             if s > 0:
@@ -524,17 +530,21 @@ def test_cli_specs_match_jax(monkeypatch, capsys, tmp_path, spec):
 
 
 def test_cli_refuses_several_devices_a_worker(monkeypatch, capsys):
-    """``devices=D`` above 1: JAX shrinks by D devices a worker; the port
-    runs one card a worker and refuses it."""
+    """``devices=D`` above 1 is no longer refused: both CLIs hand the
+    supervisor N workers of D devices (JAX's each a process of D
+    devices, the port's each D ranks, one a card), with the same stderr
+    and keywords."""
     calls = _spy(monkeypatch, "cocoa_torch.elastic.supervise")
     assert cli.main(BASE + ["--elastic=2,shrink,devices=4",
-                            "--device=cpu"]) == 2
+                            "--device=cpu"]) == 0
     err = capsys.readouterr().err
-    assert err.startswith("error: --elastic devices=4: a port worker "
-                          "drives one card") and not calls
+    port = dict(calls)
     calls = _spy(monkeypatch, "cocoa_tpu.elastic.supervise")
     assert jax_cli.main(BASE + ["--elastic=2,shrink,devices=4"]) == 0
-    assert calls["devices_per_worker"] == 4
+    assert capsys.readouterr().err == err
+    assert calls["devices_per_worker"] == port["devices_per_worker"] == 4
+    assert calls["n"] == port["n"] == 2
+    assert calls["shrink"] == port["shrink"] == "now"
 
 
 def test_cli_supervisor_touches_no_device(monkeypatch, capsys, tmp_path):

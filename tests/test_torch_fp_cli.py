@@ -200,9 +200,9 @@ def test_mesh_1_beside_fp_is_refused_in_a_gang(runs, capsys):
 
 # --- the refusals, in one process ----------------------------------------
 
-# each flag set with the JAX CLI's words; the JAX CLI's device count (8
-# virtual CPUs) is the port's gang size (1 without --master) in the
-# messages that name it
+# each flag set with the JAX CLI's words; the port, without --master,
+# counts the JAX CLI's devices (8 virtual CPUs) as its host's, so that
+# both CLIs resolve the same mesh at the same point of their checks
 REFUSALS = [
     (["--fp=x"], "must be an integer"),
     (["--fp=0"], "must be >= 1"),
@@ -217,20 +217,17 @@ REFUSALS = [
 
 @pytest.mark.parametrize("extra,needle", REFUSALS,
                          ids=[" ".join(e) for e, _ in REFUSALS])
-def test_fp_refusals_match_the_jax_cli(extra, needle, tmp_path, capsys):
+def test_fp_refusals_match_the_jax_cli(extra, needle, tmp_path, capsys,
+                                      monkeypatch):
     extra = [a.replace("CACHE", str(tmp_path / "cache")) for a in extra]
     argv = DEMO + extra
     rc_j, out_j, err_j = _jax(argv, capsys)
     assert rc_j == 2 and needle in err_j and "Running" not in out_j
-    if "--mesh=2" in extra:
-        # a gang of one rank: its --mesh=2 is the mesh error, so ask
-        # the port the JAX CLI's question without it
-        argv = [a for a in argv if a != "--mesh=2"]
+    monkeypatch.setattr(cli, "_local_devices", lambda device: 8)
     rc = cli.main(argv + ["--device=cpu"])
     out, err = capsys.readouterr()
     assert rc == 2 and "Running" not in out
-    assert err == err_j.replace("(have 8)", "(have 1)").replace(
-        "have 8 devices", "have 1 devices")
+    assert err == err_j
 
 
 def test_fp_without_a_gang_names_the_mesh_it_needs(capsys):

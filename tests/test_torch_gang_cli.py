@@ -186,9 +186,10 @@ def test_refusals_match_jax(flags, capsys):
 
 @pytest.mark.parametrize("mesh", ["3", "2"])
 def test_mesh_refusal_names_the_port_devices(mesh, capsys):
-    """``--mesh`` that does not divide K, or that is not the gang's size
-    (one process here), exits 2 with the JAX CLI's sentence and the
-    port's device count."""
+    """``--mesh`` that does not divide K (without ``--master``: this
+    host's one CPU device), or that is not the gang's size (a
+    ``--master`` gang of one rank, its rendezvous stubbed), exits 2 with
+    the JAX CLI's sentence and the port's device count."""
     argv = DEMO + [f"--mesh={mesh}"]
     if mesh == "3":
         assert jax_cli.main(argv) == 2
@@ -197,7 +198,11 @@ def test_mesh_refusal_names_the_port_devices(mesh, capsys):
         want = ("error: --mesh=2 (x fp=1) needs a divisor of numSplits=4 "
                 "and mesh x fp devices (have 1); use --mesh=1 for the "
                 "single-chip path")
-    assert cli.main(argv + ["--device=cpu"]) == 2
+        argv += ["--master=127.0.0.1:1", "--processId=0",
+                 "--numProcesses=1"]
+    with mock.patch.object(cli.distributed, "maybe_initialize",
+                           return_value=True):
+        assert cli.main(argv + ["--device=cpu"]) == 2
     assert _err_lines(capsys) == [want]
 
 
